@@ -1,0 +1,37 @@
+"""gfedntm_tpu_torch — the PyTorch + CUDA port of ``gfedntm_tpu``.
+
+The package mirrors the JAX package's layout (``data/``, ``models/``,
+``ops/``, ``train/``, ``federated/``) so each module's counterpart is found
+under the same path. It imports ``torch``, ``numpy`` and the standard library
+only — never ``jax`` or anything of ``gfedntm_tpu``.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``; with
+no CUDA device they raise rather than quietly take the CPU (see
+:func:`gfedntm_tpu_torch.device.resolve_device`). The fused ProdLDA decode +
+reconstruction loss runs hand-written CUDA kernels on the GPU
+(:mod:`gfedntm_tpu_torch.ops.fused_decoder`), built with ``nvcc`` at first use.
+
+Attribute access is lazy: importing the package loads no submodule.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "AVITM": "gfedntm_tpu_torch.models.avitm",
+    "FederatedTrainer": "gfedntm_tpu_torch.federated.trainer",
+    "FederatedResult": "gfedntm_tpu_torch.federated.trainer",
+    "BowDataset": "gfedntm_tpu_torch.data.datasets",
+    "generate_synthetic_corpus": "gfedntm_tpu_torch.data.synthetic",
+    "resolve_device": "gfedntm_tpu_torch.device",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'gfedntm_tpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)

@@ -1,0 +1,243 @@
+"""AVITM trainer: ProdLDA / NeuralLDA with the reference's public API.
+
+Counterpart of ``gfedntm_tpu/models/avitm.py:41-447`` (itself the
+reference's ``avitm.py:20-640``): the constructor's validation, ``fit``'s
+train-only path with its NaN abort, and ``get_doc_topic_distribution`` /
+``get_topic_word_matrix`` / ``get_topic_word_distribution`` /
+``get_topics``. Validation-based early stopping, ``save``/``load``, bf16
+compute and the CTM subclass are later slices.
+
+Schedules come from ``np.random.default_rng(seed)`` exactly as in the JAX
+package, so both train on the same batches; the reparameterization noise and
+dropout come from a ``torch.Generator`` on the model's device, seeded with
+``seed + 1``.
+
+``fused_decoder="auto"`` (and ``True``) runs prodLDA's decode + loss through
+the fused kernels: the CUDA kernels on the GPU, their plain versions on the
+CPU. A kernel that fails to build or launch raises. ``False`` is the user's
+explicit choice of the unfused decode; LDA always takes it.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from gfedntm_tpu_torch.data.datasets import (
+    BowDataset,
+    full_batch_indices,
+    make_epoch_schedule,
+)
+from gfedntm_tpu_torch.device import resolve_device
+from gfedntm_tpu_torch.models.networks import DecoderNetwork
+from gfedntm_tpu_torch.train.optimizers import build_optimizer
+from gfedntm_tpu_torch.train.steps import grad_step
+
+_ACTIVATIONS = (
+    "softplus", "relu", "sigmoid", "swish", "tanh", "leakyrelu", "rrelu",
+    "elu", "selu",
+)
+_SOLVERS = ("adagrad", "adam", "sgd", "adadelta", "rmsprop")
+
+
+def _require(ok: bool, message: str) -> None:
+    if not ok:
+        raise ValueError(message)
+
+
+class AVITM:
+    """Autoencoding Variational Inference for Topic Models.
+
+    Constructor arguments mirror the JAX package's (``avitm.py:58-82``) plus
+    ``device`` (``None`` -> the GPU; ``"cpu"`` must be asked for).
+    ``num_data_loader_workers`` is accepted for config compatibility and
+    ignored.
+    """
+
+    family = "avitm"
+
+    def __init__(
+        self,
+        logger=None,
+        input_size: int = 1000,
+        n_components: int = 10,
+        model_type: str = "prodLDA",
+        hidden_sizes: tuple[int, ...] = (100, 100),
+        activation: str = "softplus",
+        dropout: float = 0.2,
+        learn_priors: bool = True,
+        batch_size: int = 64,
+        lr: float = 2e-3,
+        momentum: float = 0.99,
+        solver: str = "adam",
+        num_epochs: int = 100,
+        reduce_on_plateau: bool = False,
+        topic_prior_mean: float = 0.0,
+        topic_prior_variance: float | None = None,
+        num_samples: int = 10,
+        num_data_loader_workers: int = 0,
+        verbose: bool = False,
+        seed: int = 0,
+        fused_decoder: bool | str = "auto",
+        compute_dtype: str = "float32",
+        device: str | torch.device | None = None,
+    ):
+        _require(isinstance(input_size, int) and input_size > 0,
+                 "input_size must by type int > 0.")
+        _require(isinstance(n_components, int) and n_components > 0,
+                 "n_components must by type int > 0.")
+        _require(model_type.lower() in ("lda", "prodlda"),
+                 "model must be 'LDA' or 'prodLDA'.")
+        _require(isinstance(hidden_sizes, tuple), "hidden_sizes must be type tuple.")
+        _require(activation in _ACTIVATIONS, f"activation must be one of {_ACTIVATIONS}")
+        _require(dropout >= 0, "dropout must be >= 0.")
+        _require(isinstance(learn_priors, bool), "learn_priors must be boolean.")
+        _require(isinstance(batch_size, int) and batch_size > 0,
+                 "batch_size must be int > 0.")
+        _require(lr > 0, "lr must be > 0.")
+        _require(isinstance(momentum, float) and 0 < momentum <= 1,
+                 "momentum must be 0 < float <= 1.")
+        _require(solver in _SOLVERS,
+                 "solver must be 'adam', 'adadelta', 'sgd', 'rmsprop' or 'adagrad'")
+        _require(isinstance(topic_prior_mean, float),
+                 "topic_prior_mean must be type float")
+        _require(fused_decoder in ("auto", True, False),
+                 "fused_decoder must be 'auto', True or False")
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r}: the port computes in float32 only"
+            )
+
+        self.logger = logger or logging.getLogger(self.__class__.__name__)
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.n_components = n_components
+        self.model_type = model_type
+        self.hidden_sizes = tuple(hidden_sizes)
+        self.activation = activation
+        self.dropout = dropout
+        self.learn_priors = learn_priors
+        self.batch_size = batch_size
+        self.lr = lr
+        self.momentum = momentum
+        self.solver = solver
+        self.num_epochs = num_epochs
+        self.reduce_on_plateau = reduce_on_plateau
+        self.topic_prior_mean = topic_prior_mean
+        self.topic_prior_variance = topic_prior_variance
+        self.num_samples = num_samples
+        self.num_data_loader_workers = num_data_loader_workers
+        self.verbose = verbose
+        self.seed = seed
+        self.compute_dtype = compute_dtype
+        self.fused_decoder = fused_decoder in ("auto", True) and model_type.lower() == "prodlda"
+
+        self.epoch_losses: list[float] = []
+        self.train_data: BowDataset | None = None
+        self.nn_epoch: int | None = None
+        self.best_components: np.ndarray | None = None
+
+        init_gen = torch.Generator().manual_seed(seed)
+        self.model = DecoderNetwork(
+            input_size=input_size, n_components=n_components,
+            model_type=model_type, hidden_sizes=self.hidden_sizes,
+            activation=activation, dropout=dropout, learn_priors=learn_priors,
+            topic_prior_mean=topic_prior_mean,
+            topic_prior_variance=topic_prior_variance, generator=init_gen,
+        ).to(self.device)
+        self.optimizer = self.build_optimizer(self.model)
+        self._np_rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def build_optimizer(self, model: DecoderNetwork) -> torch.optim.Optimizer:
+        """A fresh optimizer of this configuration over ``model``'s params."""
+        return build_optimizer(model.parameters(), self.solver, self.lr, self.momentum)
+
+    # ---- training ----------------------------------------------------------
+    def fit(self, train_dataset: BowDataset, n_samples: int = 20) -> None:
+        """Train for ``num_epochs`` (``avitm.py:323-443``, train-only path).
+        ``best_components`` tracks beta after every epoch; a NaN epoch loss
+        aborts the run."""
+        self.train_data = train_dataset
+        scheduler = None
+        if self.reduce_on_plateau:
+            scheduler = torch.optim.lr_scheduler.ReduceLROnPlateau(
+                self.optimizer, patience=10
+            )
+        x_all = torch.as_tensor(train_dataset.X, device=self.device)
+        n_train = len(train_dataset)
+        self.epoch_losses = []
+        for epoch in range(self.num_epochs):
+            self.nn_epoch = epoch
+            sched = make_epoch_schedule(n_train, self.batch_size, self._np_rng)
+            indices = torch.as_tensor(sched.indices, device=self.device, dtype=torch.long)
+            masks = torch.as_tensor(sched.mask, device=self.device, dtype=torch.float32)
+            losses = [
+                grad_step(self.model, self.optimizer, x_all[indices[i]], masks[i],
+                          self.fused_decoder, generator=self.generator)
+                for i in range(sched.steps_per_epoch)
+            ]
+            train_loss = float(torch.stack(losses).sum()) / n_train
+            self.epoch_losses.append(train_loss)
+            self.best_components = self.model.beta.detach().cpu().numpy()
+            # NaN abort in the train-only path too (intended reference
+            # semantics: a NaN run is garbage either way).
+            if np.isnan(train_loss):
+                break
+            if scheduler is not None:
+                scheduler.step(train_loss)
+            if self.verbose:
+                self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f",
+                                 epoch + 1, self.num_epochs, train_loss)
+        self.training_doc_topic_distributions = self.get_doc_topic_distribution(
+            train_dataset, n_samples
+        )
+
+    # ---- inference ---------------------------------------------------------
+    @torch.no_grad()
+    def get_doc_topic_distribution(
+        self, dataset: BowDataset, n_samples: int = 20
+    ) -> np.ndarray:
+        """Theta averaged over ``n_samples`` reparameterization draws
+        (``avitm.py:470-523``), with running BatchNorm stats and no dropout."""
+        x_all = torch.as_tensor(dataset.X, device=self.device)
+        idx, _ = full_batch_indices(len(dataset), self.batch_size)
+        thetas = []
+        for step_idx in torch.as_tensor(idx, device=self.device, dtype=torch.long):
+            x = x_all[step_idx]
+            draws = [self.model.get_theta(x, generator=self.generator)
+                     for _ in range(n_samples)]
+            thetas.append(torch.stack(draws).mean(0))
+        return torch.cat(thetas).cpu().numpy()[: len(dataset)]
+
+    def get_topic_word_matrix(self) -> np.ndarray:
+        """Unnormalized beta for prodLDA; softmax-BN beta for LDA
+        (``decoder_network.py:121-132``)."""
+        beta = self.model.beta.detach().cpu().numpy()
+        if self.model_type.lower() == "lda":
+            bn = self.model.beta_batchnorm
+            normed = (beta - bn.running_mean.cpu().numpy()) / np.sqrt(
+                bn.running_var.cpu().numpy() + 1e-5
+            )
+            e = np.exp(normed - normed.max(axis=1, keepdims=True))
+            return e / e.sum(axis=1, keepdims=True)
+        return beta
+
+    def get_topic_word_distribution(self) -> np.ndarray:
+        """Row-softmax of the topic-word matrix (``avitm.py:539-551``)."""
+        mat = self.get_topic_word_matrix()
+        e = np.exp(mat - mat.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    def get_topics(self, k: int = 10) -> list[list[str]]:
+        """Top-k words per topic from ``best_components`` (``avitm.py:553-580``)."""
+        _require(k <= self.input_size, "k must be <= input size.")
+        component_dists = self.best_components
+        idx2token = self.train_data.idx2token if self.train_data else {}
+        topics_list = []
+        for i in range(self.n_components):
+            idxs = np.argsort(-component_dists[i])[:k]
+            topics_list.append([idx2token.get(int(j), str(int(j))) for j in idxs])
+        return topics_list

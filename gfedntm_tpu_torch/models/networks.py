@@ -1,0 +1,216 @@
+"""AVITM networks (ProdLDA / NeuralLDA) as ``nn.Module``s.
+
+Counterpart of ``gfedntm_tpu/models/networks.py`` for ``inference_type="bow"``
+(the contextual and combined CTM encoders are a later slice):
+
+- :class:`InferenceNetwork` <- ``InferenceNetwork`` (``networks.py:51-79``),
+  itself the reference's ``inference_network.py:7-85``;
+- :class:`DecoderNetwork`   <- ``DecoderNetwork`` (``networks.py:156-360``).
+
+Parameter and buffer names are the reference's torch state-dict keys
+(``inf_net.input_layer.weight``, ``inf_net.hiddens.l_0.0.weight``,
+``inf_net.f_mu_batchnorm.running_mean``, ``beta``,
+``beta_batchnorm.running_var``, ...). Train/eval follows the module's own
+``training`` flag. Randomness (the reparameterization draw and dropout) comes
+from the ``generator`` argument; ``noise=`` injects a fixed reparameterization
+eps instead, as the JAX network's ``noise=`` does.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from gfedntm_tpu_torch.models.activations import Activation
+from gfedntm_tpu_torch.models.initializers import init_linear_, xavier_uniform_2d_
+from gfedntm_tpu_torch.models.layers import MaskedBatchNorm, dropout
+
+
+class TopicModelOutput(NamedTuple):
+    """Forward outputs (the reference forward's tuple plus ``theta``)."""
+
+    prior_mean: torch.Tensor
+    prior_variance: torch.Tensor
+    posterior_mean: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance: torch.Tensor
+    word_dist: torch.Tensor | None
+    theta: torch.Tensor
+
+
+class InferenceNetwork(nn.Module):
+    """BoW encoder MLP with affine-free masked-BatchNorm mu / log-var heads."""
+
+    def __init__(
+        self,
+        input_size: int,
+        output_size: int,
+        hidden_sizes: tuple[int, ...],
+        activation: str = "softplus",
+        dropout: float = 0.2,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.dropout = dropout
+        self.input_layer = nn.Linear(input_size, hidden_sizes[0])
+        self.activation = Activation(activation)
+        self.hiddens = nn.Sequential(OrderedDict(
+            (f"l_{i}", nn.Sequential(nn.Linear(h_in, h_out), Activation(activation)))
+            for i, (h_in, h_out) in enumerate(zip(hidden_sizes[:-1], hidden_sizes[1:]))
+        ))
+        self.f_mu = nn.Linear(hidden_sizes[-1], output_size)
+        self.f_mu_batchnorm = MaskedBatchNorm(output_size)
+        self.f_sigma = nn.Linear(hidden_sizes[-1], output_size)
+        self.f_sigma_batchnorm = MaskedBatchNorm(output_size)
+        if generator is not None:
+            for layer in self.modules():
+                if isinstance(layer, nn.Linear):
+                    init_linear_(layer, generator)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = self.activation(self.input_layer(x))
+        x = self.hiddens(x)
+        x = dropout(x, self.dropout, self.training, generator)
+        mu = self.f_mu_batchnorm(self.f_mu(x), mask)
+        log_sigma = self.f_sigma_batchnorm(self.f_sigma(x), mask)
+        return mu, log_sigma
+
+
+class DecoderNetwork(nn.Module):
+    """VAE topic model: encoder -> logistic-normal reparam -> theta -> decode.
+
+    ``model_type="prodLDA"`` decodes ``softmax(BN(theta @ beta))`` with the
+    unnormalized beta as the topic-word matrix; ``"LDA"`` decodes
+    ``theta @ softmax(BN(beta))`` (reference ``decoder_network.py:121-132``).
+    Priors follow the Laplace approximation of Dirichlet(alpha=1): mean 0,
+    variance 1 - 1/K, learnable when ``learn_priors``.
+
+    ``generator`` (a CPU ``torch.Generator``) draws the initial weights;
+    move the module to its device afterwards.
+    """
+
+    def __init__(
+        self,
+        input_size: int,
+        n_components: int = 10,
+        model_type: str = "prodLDA",
+        hidden_sizes: tuple[int, ...] = (100, 100),
+        activation: str = "softplus",
+        dropout: float = 0.2,
+        learn_priors: bool = True,
+        topic_prior_mean: float = 0.0,
+        topic_prior_variance: float | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if model_type.lower() not in ("prodlda", "lda"):
+            raise ValueError("model_type must be 'prodLDA' or 'LDA'")
+        self.model_type = model_type
+        self.dropout = dropout
+        self.inf_net = InferenceNetwork(
+            input_size, n_components, tuple(hidden_sizes), activation, dropout,
+            generator=generator,
+        )
+        k = n_components
+        prior_var = 1.0 - 1.0 / k if topic_prior_variance is None else float(topic_prior_variance)
+        prior_mean_t = torch.full((k,), float(topic_prior_mean))
+        prior_var_t = torch.full((k,), prior_var)
+        if learn_priors:
+            self.prior_mean = nn.Parameter(prior_mean_t)
+            self.prior_variance = nn.Parameter(prior_var_t)
+        else:
+            # Not in the state dict: the JAX package keeps them as constants.
+            self.register_buffer("prior_mean", prior_mean_t, persistent=False)
+            self.register_buffer("prior_variance", prior_var_t, persistent=False)
+        self.beta = nn.Parameter(torch.empty(k, input_size))
+        if generator is None:
+            nn.init.xavier_uniform_(self.beta)
+        else:
+            xavier_uniform_2d_(self.beta, generator)
+        self.beta_batchnorm = MaskedBatchNorm(input_size)
+
+    @property
+    def is_prodlda(self) -> bool:
+        return self.model_type.lower() == "prodlda"
+
+    def _encode(self, x, mask, generator):
+        mu, log_sigma = self.inf_net(x, mask, generator)
+        # Keeps exp(logvar) inside float32 range for degenerate inputs (e.g.
+        # all-masked batches, whose BatchNorm rescales by 1/sqrt(eps));
+        # |logvar| < 80 is vacuous for any real posterior.
+        return mu, torch.clamp(log_sigma, -80.0, 80.0)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> TopicModelOutput:
+        out = self.encode_theta(x, mask=mask, noise=noise, generator=generator)
+        if self.is_prodlda:
+            word_dist = torch.softmax(
+                self.beta_batchnorm(out.theta @ self.beta, mask), dim=1
+            )
+        else:
+            # BN over beta's topic axis; no sample mask applies.
+            beta_sm = torch.softmax(self.beta_batchnorm(self.beta), dim=1)
+            word_dist = out.theta @ beta_sm
+        return out._replace(word_dist=word_dist)
+
+    def encode_theta(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> TopicModelOutput:
+        """Encoder + reparameterization + theta-dropout without the decode,
+        for callers that fuse the decode + loss into the kernels. The
+        ``beta_batchnorm`` running stats are left untouched (the fused
+        caller updates them from the kernel's batch statistics)."""
+        mu, log_sigma = self._encode(x, mask, generator)
+        std = torch.exp(0.5 * log_sigma)
+        eps = noise if noise is not None else torch.randn(
+            std.shape, generator=generator, device=std.device, dtype=std.dtype
+        )
+        theta = torch.softmax(mu + eps * std, dim=1)
+        theta = dropout(theta, self.dropout, self.training, generator)
+        return TopicModelOutput(
+            prior_mean=self.prior_mean,
+            prior_variance=self.prior_variance,
+            posterior_mean=mu,
+            posterior_variance=torch.exp(log_sigma),
+            posterior_log_variance=log_sigma,
+            word_dist=None,
+            theta=theta,
+        )
+
+    def get_theta(
+        self,
+        x: torch.Tensor,
+        noise: torch.Tensor | float | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Sample theta with running BatchNorm stats and no dropout
+        (reference ``decoder_network.py:137-147``). ``noise=0.0`` gives the
+        deterministic posterior-mean theta ``softmax(mu)``."""
+        was_training = self.training
+        self.eval()
+        try:
+            mu, log_sigma = self._encode(x, None, generator)
+        finally:
+            self.train(was_training)
+        std = torch.exp(0.5 * log_sigma)
+        eps = noise if noise is not None else torch.randn(
+            std.shape, generator=generator, device=std.device, dtype=std.dtype
+        )
+        return torch.softmax(mu + eps * std, dim=1)

@@ -1,0 +1,314 @@
+"""Fused ProdLDA decode + reconstruction loss: CUDA kernels and their plain
+PyTorch versions.
+
+Counterpart of ``gfedntm_tpu/ops/fused_decoder.py``. Per batch::
+
+    z  = theta @ beta                       # [B, V]
+    n  = batchnorm(z, affine=False)         # masked per-column batch stats
+    p  = softmax(n, axis=V)
+    rl = -sum(x_bow * log(p + 1e-10), axis=V)
+
+without any [B, V] intermediate in device memory. Three hand-written CUDA
+kernels (``csrc/fused_decoder.cu``) replace the JAX package's three Pallas
+TPU kernels:
+
+==========  ===========================  ==================================
+wrapper     CUDA kernel                  TPU kernel replaced
+==========  ===========================  ==================================
+``stats``   ``stats_kernel`` + merge     ``_stats_kernel`` (:189-260)
+``loss``    ``loss_kernel`` + sum        ``_loss_kernel`` (:266-317)
+``grads``   ``grads_kernel`` + sum       ``_grads_kernel`` (:612-676)
+==========  ===========================  ==================================
+
+Each wrapper takes unpadded contiguous float32 tensors. On a CUDA tensor it
+launches its kernel (and counts the launch in :data:`LAUNCHES`) or raises;
+on a CPU tensor it runs its plain version (``stats_reference``,
+``loss_reference``, ``grads_reference``), which repeats the kernel's
+arithmetic. There is no fallback from the kernel to the plain version.
+:class:`ProdLDAReconLoss` is the ``torch.autograd.Function`` around them
+(forward: stats then loss; backward: grads), and
+:func:`prodlda_recon_loss_reference` is the unfused oracle of the whole.
+
+The source's header states each kernel's bound on an H100 and what the
+simple first design leaves for later.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gfedntm_tpu_torch.ops import _build
+
+#: Kernel launches per wrapper since the last reset — the proof that a run
+#: went through the CUDA kernels. Plain ints; set them to 0 to reset.
+LAUNCHES = {"stats": 0, "loss": 0, "grads": 0}
+
+_NEG_INF = -1e30
+_PLAN_KIND = {"stats": 0, "loss": 1, "grads": 2}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the on-card comparison)
+# ---------------------------------------------------------------------------
+def stats_reference(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
+    """K1's arithmetic: ``(mean [V], var [V], m [B], s [B])``. Training uses
+    the masked batch mean and biased variance; eval echoes the running
+    stats. ``m``/``s`` are the softmax max and denominator over valid
+    (mask > 0) rows; a fully-masked row keeps the (-1e30, 0) sentinel."""
+    z = theta @ beta
+    mk = mask[:, None]
+    if training:
+        cnt = torch.clamp_min(mask.sum(), 1.0)
+        mean = (z * mk).sum(0) / cnt
+        dev = (z - mean) * mk
+        var = (dev * dev).sum(0) / cnt
+    else:
+        mean, var = run_mean.clone(), run_var.clone()
+    n = (z - mean) * torch.rsqrt(var + eps)
+    valid = mk > 0
+    n = torch.where(valid, n, torch.full_like(n, _NEG_INF))
+    m = n.max(dim=1).values
+    safe_m = torch.clamp_min(m, 0.5 * _NEG_INF)
+    e = torch.where(valid, torch.exp(n - safe_m[:, None]), torch.zeros_like(n))
+    return mean, var, m, e.sum(1)
+
+
+def _softmax_rows(theta, beta, mean, var, m, s, eps):
+    """Recompute n and p from saved stats; fully-masked rows are forced
+    finite (their loss rows are zeroed by the caller's sample mask)."""
+    n = (theta @ beta - mean) * torch.rsqrt(var + eps)
+    row_ok = s > 1e-20
+    safe_m = torch.where(row_ok, m, torch.zeros_like(m))
+    safe_s = torch.where(row_ok, s, torch.ones_like(s))
+    p = torch.exp(torch.clamp_max(n - safe_m[:, None], 0.0)) / safe_s[:, None]
+    return n, p, row_ok
+
+
+def loss_reference(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
+    """K2's arithmetic: ``(loss [B], rd [B])`` with
+    ``loss = -sum_v x log(p + floor)`` (0 on fully-masked rows) and the
+    softmax-backward row-dot ``rd = sum_v x p/(p + floor)``."""
+    _, p, row_ok = _softmax_rows(theta, beta, mean, var, m, s, eps)
+    contrib = torch.where(row_ok[:, None], x * torch.log(p + floor), torch.zeros_like(p))
+    return -contrib.sum(1), (x * (p / (p + floor))).sum(1)
+
+
+def grads_reference(theta, beta, x, mean, var, m, s, rd, g, mask, training,
+                    eps=1e-5, floor=1e-10):
+    """K3's arithmetic: ``(g_theta [B, K], g_beta [K, V])`` for the row
+    cotangent ``g`` (already multiplied by the row mask), with the
+    closed-form batch-norm backward of the JAX package's ``_bwd``."""
+    n, p, _ = _softmax_rows(theta, beta, mean, var, m, s, eps)
+    inv_std = torch.rsqrt(var + eps)
+    xr = x * (p / (p + floor))
+    gn = g[:, None] * (p * rd[:, None] - xr)
+    if training:
+        mk = mask[:, None]
+        cnt = torch.clamp_min(mask.sum(), 1.0)
+        sum_gn = (gn * mk).sum(0)
+        sum_gnn = (gn * n * mk).sum(0)
+        gz = inv_std * (gn - mk * (sum_gn / cnt) - n * mk * (sum_gnn / cnt))
+    else:
+        gz = gn * inv_std
+    return gz @ beta.T, theta.T @ gz
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+def _check_inputs(name, theta, beta, **others):
+    """Shapes, dtype, device and contiguity the kernels take."""
+    if theta.dim() != 2 or beta.dim() != 2 or theta.shape[1] != beta.shape[0]:
+        raise ValueError(
+            f"{name}: theta [B, K] and beta [K, V] expected, got "
+            f"{tuple(theta.shape)} and {tuple(beta.shape)}"
+        )
+    b, k = theta.shape
+    v = beta.shape[1]
+    if min(b, k, v) < 1:
+        raise ValueError(f"{name}: empty input (B={b}, K={k}, V={v})")
+    want = {"x": (b, v), "mask": (b,), "run_mean": (v,), "run_var": (v,),
+            "mean": (v,), "var": (v,), "m": (b,), "s": (b,), "rd": (b,), "g": (b,)}
+    for arg, t in {"theta": theta, "beta": beta, **others}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.device != theta.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, theta on {theta.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if arg in want and tuple(t.shape) != want[arg]:
+            raise ValueError(f"{name}: {arg} must be {want[arg]}, got {tuple(t.shape)}")
+    return b, k, v
+
+
+def _plan(lib, kind, b, k, v):
+    grid = ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    limit = ctypes.c_longlong(0)
+    _raise_on(lib.fd_plan(_PLAN_KIND[kind], b, k, v, ctypes.byref(grid),
+                          ctypes.byref(smem), ctypes.byref(limit)), f"{kind} plan")
+    if grid.value == 0:
+        raise ValueError(
+            f"fused decoder {kind} kernel: B={b}, K={k} needs {smem.value} bytes "
+            f"of shared memory per block, more than the card's {limit.value}; "
+            "use a smaller batch"
+        )
+    return grid.value
+
+
+def _raise_on(code, what):
+    if code != 0:
+        raise RuntimeError(f"fused decoder {what}: CUDA error {code}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _empty(like, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _on_cuda(t):
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"fused decoder: unsupported device {t.device}")
+
+
+def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
+    """K1 (+ the merge of its per-block softmax partials)."""
+    if not _on_cuda(theta):
+        return stats_reference(theta, beta, mask, run_mean, run_var, training, eps)
+    b, k, v = _check_inputs("stats", theta, beta, mask=mask, run_mean=run_mean,
+                            run_var=run_var)
+    lib = _build.load()
+    with torch.cuda.device(theta.device):
+        grid = _plan(lib, "stats", b, k, v)
+        mean, var, m, s = (_empty(theta, n) for n in (v, v, b, b))
+        m_part, s_part = _empty(theta, grid, b), _empty(theta, grid, b)
+        _raise_on(lib.fd_stats(
+            _ptr(theta), _ptr(beta), _ptr(mask), _ptr(run_mean), _ptr(run_var),
+            _ptr(mean), _ptr(var), _ptr(m_part), _ptr(s_part), _ptr(m), _ptr(s),
+            b, k, v, int(bool(training)), eps, grid, _stream(),
+        ), "stats launch")
+    LAUNCHES["stats"] += 1
+    return mean, var, m, s
+
+
+def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
+    """K2 (+ the ordered sum of its per-block partials)."""
+    if not _on_cuda(theta):
+        return loss_reference(theta, beta, x, mean, var, m, s, eps, floor)
+    b, k, v = _check_inputs("loss", theta, beta, x=x, mean=mean, var=var, m=m, s=s)
+    lib = _build.load()
+    with torch.cuda.device(theta.device):
+        grid = _plan(lib, "loss", b, k, v)
+        rl, rd = _empty(theta, b), _empty(theta, b)
+        loss_part, rd_part = _empty(theta, grid, b), _empty(theta, grid, b)
+        _raise_on(lib.fd_loss(
+            _ptr(theta), _ptr(beta), _ptr(x), _ptr(mean), _ptr(var), _ptr(m), _ptr(s),
+            _ptr(loss_part), _ptr(rd_part), _ptr(rl), _ptr(rd),
+            b, k, v, eps, floor, grid, _stream(),
+        ), "loss launch")
+    LAUNCHES["loss"] += 1
+    return rl, rd
+
+
+def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
+          floor=1e-10):
+    """K3 (+ the ordered sum of its per-block g_theta partials)."""
+    if not _on_cuda(theta):
+        return grads_reference(theta, beta, x, mean, var, m, s, rd, g, mask,
+                               training, eps, floor)
+    b, k, v = _check_inputs("grads", theta, beta, x=x, mean=mean, var=var, m=m,
+                            s=s, rd=rd, g=g, mask=mask)
+    lib = _build.load()
+    with torch.cuda.device(theta.device):
+        grid = _plan(lib, "grads", b, k, v)
+        g_theta, g_beta = _empty(theta, b, k), _empty(theta, k, v)
+        gth_part = _empty(theta, grid, b, k)
+        _raise_on(lib.fd_grads(
+            _ptr(theta), _ptr(beta), _ptr(x), _ptr(mean), _ptr(var), _ptr(m), _ptr(s),
+            _ptr(rd), _ptr(g), _ptr(mask), _ptr(gth_part), _ptr(g_theta), _ptr(g_beta),
+            b, k, v, int(bool(training)), eps, floor, grid, _stream(),
+        ), "grads launch")
+    LAUNCHES["grads"] += 1
+    return g_theta, g_beta
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+class ProdLDAReconLoss(torch.autograd.Function):
+    """``(rl [B], batch_mean [V], batch_var [V])`` with gradients to theta
+    and beta only; the statistics outputs carry none (they feed the
+    BatchNorm running-stat update)."""
+
+    @staticmethod
+    def forward(ctx, theta, beta, x, run_mean, run_var, mask, training, eps, floor):
+        mean, var, m, s = stats(theta, beta, mask, run_mean, run_var, training, eps)
+        rl, rd = loss(theta, beta, x, mean, var, m, s, eps, floor)
+        ctx.save_for_backward(theta, beta, x, mask, mean, var, m, s, rd)
+        ctx.training, ctx.eps, ctx.floor = training, eps, floor
+        ctx.mark_non_differentiable(mean, var)
+        return rl, mean, var
+
+    @staticmethod
+    def backward(ctx, g_rl, _g_mean, _g_var):
+        theta, beta, x, mask, mean, var, m, s, rd = ctx.saved_tensors
+        g = (g_rl * mask).contiguous()
+        g_theta, g_beta = grads(theta, beta, x, mean, var, m, s, rd, g, mask,
+                                ctx.training, ctx.eps, ctx.floor)
+        return g_theta, g_beta, None, None, None, None, None, None, None
+
+
+def prodlda_recon_loss(theta, beta, x_bow, run_mean, run_var, mask=None,
+                       training=True, eps=1e-5, floor=1e-10,
+                       storage_dtype="float32"):
+    """Fused ``-sum(x * log(softmax(batchnorm(theta @ beta)) + floor))``.
+
+    Returns ``(rl [B], batch_mean [V], batch_var [V])``; in eval the stats
+    echo ``run_mean``/``run_var``. Rows with ``mask == 0`` are excluded from
+    the batch statistics; their rl rows are finite and meaningless (callers
+    zero them with their sample mask)."""
+    if storage_dtype != "float32":
+        raise NotImplementedError(
+            f"storage_dtype={storage_dtype!r}: the CUDA kernels take float32 only"
+        )
+    if mask is None:
+        mask = torch.ones(theta.shape[0], device=theta.device)
+    mask = mask.to(torch.float32).contiguous()
+    return ProdLDAReconLoss.apply(
+        theta, beta, x_bow, run_mean, run_var, mask, bool(training), float(eps),
+        float(floor),
+    )
+
+
+def prodlda_recon_loss_reference(theta, beta, x_bow, run_mean, run_var, mask=None,
+                                 training=True, eps=1e-5, floor=1e-10):
+    """Unfused composition with identical semantics — the oracle of the
+    whole (gradients by autograd through plain ops)."""
+    z = theta @ beta
+    if training:
+        if mask is None:
+            mean = z.mean(0)
+            var = torch.square(z - mean).mean(0)
+        else:
+            mk = mask.to(torch.float32)[:, None]
+            cnt = torch.clamp_min(mk.sum(), 1.0)
+            mean = (z * mk).sum(0) / cnt
+            var = (torch.square(z - mean) * mk).sum(0) / cnt
+    else:
+        mean, var = run_mean, run_var
+    p = torch.softmax((z - mean) * torch.rsqrt(var + eps), dim=-1)
+    rl = -torch.sum(x_bow * torch.log(p + floor), dim=1)
+    return rl, mean, var

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where a steady federated ProdLDA step of the PyTorch port spends its time
+on the GPU.
+
+    python3 -m gfedntm_tpu_torch.profile_step [--out build/port_profile.json]
+
+Runs the configuration of ``chip_smoke.py``'s main path (V=100,000, K=50,
+H=(100, 100), B=256, 2 clients): a warm fit; the steady wall time per
+global step without the profiler (a 24-step fit minus an 8-step fit, as
+``chip_smoke.py`` measures it); then a 24-step fit under ``torch.profiler``.
+Prints the device time per step by group — the fused decoder's kernels,
+GEMMs, optimizer, gather, other — with the fit's host-to-device corpus upload
+apart as set-up, the device busy share (device time per step over the
+steady wall time per step) and the top device events. Needs a CUDA device; exits 2 without one. Run it from the repository root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("fused_decoder", ("stats_kernel", "loss_kernel", "grads_kernel",
+                       "merge_softmax_kernel", "sum_partials_kernel")),
+    ("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere_", "splitk", "dot_kernel")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("gather", ("index", "gather")),
+    ("upload (set-up)", ("memcpy htod",)),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default="build/port_profile.json")
+    args = parser.parse_args(argv)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_step: CUDA is not available", file=sys.stderr)
+        return 2
+    from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer, generate_synthetic_corpus
+
+    V, K, B, C = 100_000, 50, 256, 2
+    corpus = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=1024, n_nodes=C,
+                                       materialize_docs=False, seed=0)
+    datasets = [BowDataset(X=n.bow) for n in corpus.nodes]
+
+    def fit(num_epochs):
+        template = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100),
+                         batch_size=B, num_epochs=num_epochs)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = FederatedTrainer(template, n_clients=C).fit(datasets)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    fit(2)
+    secs8 = min(fit(2)[1], fit(2)[1])
+    secs24 = min(fit(6)[1], fit(6)[1])
+    steady_ms = (secs24 - secs8) / 16 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result, _ = fit(6)
+    steps = result.losses.shape[0]
+
+    by_group: dict[str, float] = {}
+    kernels = []
+    for evt in prof.key_averages():
+        # Host ops and annotated ranges (e.g. "Optimizer.step#Adam.step")
+        # repeat the time of the kernels they contain.
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False) or "#" in evt.key):
+            continue
+        dev_us = float(getattr(evt, "self_device_time_total", 0.0)
+                       or getattr(evt, "self_cuda_time_total", 0.0))
+        group = group_of(evt.key)
+        by_group[group] = by_group.get(group, 0.0) + dev_us
+        kernels.append((dev_us, evt.count, evt.key))
+    step_us = sum(us for g, us in by_group.items() if g != "upload (set-up)")
+    kernels.sort(reverse=True)
+    report = {
+        "device": torch.cuda.get_device_name(0),
+        "steps": steps,
+        "steady_wall_ms_per_step": steady_ms,
+        "device_ms_per_step": step_us / steps / 1e3,
+        "device_busy_share": step_us / steps / 1e3 / steady_ms,
+        "ms_per_step_by_group": {g: us / steps / 1e3 for g, us in sorted(by_group.items())},
+        "top_device_events": [
+            {"name": name[:120], "ms_per_step": us / steps / 1e3, "calls": count}
+            for us, count, name in kernels[:15]
+        ],
+    }
+    print(f"profile: {torch.cuda.get_device_name(0)}; {steps} global steps of {C} "
+          f"clients: steady wall {steady_ms:.3f} ms/step (unprofiled), device "
+          f"{report['device_ms_per_step']:.3f} ms/step without set-up, busy share "
+          f"{report['device_busy_share']:.3f}")
+    for g, ms in report["ms_per_step_by_group"].items():
+        print(f"profile: group {g}: {ms:.4f} ms/step")
+    for row in report["top_device_events"]:
+        print(f"profile: {row['ms_per_step']:.4f} ms/step x{row['calls']} {row['name']}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=2))
+    if step_us <= 0:
+        print("profile_step: the profiler recorded no device time", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

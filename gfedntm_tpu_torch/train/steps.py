@@ -1,0 +1,68 @@
+"""One training step: forward, loss, backward, optimizer update.
+
+Counterpart of ``gfedntm_tpu/train/steps.py:142-320``: ``batch_loss`` is
+``_batch_loss`` (the unfused decode), ``fused_batch_loss`` is
+``_fused_batch_loss`` (the decode + reconstruction loss through the fused
+kernels, with the decoder BatchNorm's running stats updated from the
+kernels' batch statistics) and ``grad_step`` is ``grad_step``. PyTorch runs
+eagerly, so there is no epoch program: callers loop over steps.
+
+``noise=`` passes a fixed reparameterization eps through to the network, as
+the JAX network's ``noise=`` does; ``generator`` draws it (and dropout)
+otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gfedntm_tpu_torch.models.losses import avitm_loss, gaussian_kl
+from gfedntm_tpu_torch.models.networks import DecoderNetwork
+from gfedntm_tpu_torch.ops.fused_decoder import prodlda_recon_loss
+
+
+def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
+    """Forward + reference loss on one (padded, masked) batch. Masked rows
+    contribute exact zeros; the network clamps log-variance, so every row's
+    loss term is finite."""
+    out = model(x, mask=mask, noise=noise, generator=generator)
+    return avitm_loss(
+        x, out.word_dist, out.prior_mean, out.prior_variance,
+        out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
+        sample_mask=mask,
+    )
+
+
+def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
+    """Training loss through the fused decode + reconstruction kernels: the
+    [B, V] word distribution never exists. The decoder BatchNorm's running
+    stats are updated from the kernels' batch statistics with
+    MaskedBatchNorm's semantics (momentum 0.1, unbiased running variance)."""
+    out = model.encode_theta(x, mask=mask, noise=noise, generator=generator)
+    m = mask.to(torch.float32)
+    bn = model.beta_batchnorm
+    rl, b_mean, b_var = prodlda_recon_loss(
+        out.theta, model.beta, x, bn.running_mean, bn.running_var, m, True,
+    )
+    kl = gaussian_kl(
+        out.prior_mean, out.prior_variance, out.posterior_mean,
+        out.posterior_variance, out.posterior_log_variance,
+    )
+    bn.update_running_stats(b_mean, b_var, torch.clamp_min(m.sum(), 1.0))
+    return torch.sum((kl + rl) * m)
+
+
+def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
+              fused: bool, noise=None, generator=None) -> torch.Tensor:
+    """One forward/backward/optimizer update in training mode; returns the
+    batch loss (detached, on the model's device). ``fused`` selects the
+    fused kernels for prodLDA; LDA always takes the unfused decode."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    if fused and model.is_prodlda:
+        loss = fused_batch_loss(model, x, mask, noise, generator)
+    else:
+        loss = batch_loss(model, x, mask, noise, generator)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()

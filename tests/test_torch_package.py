@@ -1,0 +1,152 @@
+"""The PyTorch port stands alone: no JAX at import, no JAX package imports,
+no silent CPU fallback, and a kernel build that fails loudly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import gfedntm_tpu_torch
+from gfedntm_tpu_torch import AVITM, FederatedTrainer
+from gfedntm_tpu_torch.ops import _build
+from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "gfedntm_tpu_torch"
+FORBIDDEN = {"jax", "flax", "optax", "gfedntm_tpu"}
+
+
+def port_modules():
+    return sorted(
+        "gfedntm_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py"
+    )
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & FORBIDDEN, f"{path} imports {sorted(roots & FORBIDDEN)}"
+
+
+def test_lazy_package_exports():
+    assert gfedntm_tpu_torch.AVITM is AVITM
+    with pytest.raises(AttributeError):
+        gfedntm_tpu_torch.no_such_name  # noqa: B018
+
+
+def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AVITM(input_size=20, n_components=3)
+    template = AVITM(input_size=20, n_components=3, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FederatedTrainer(template, n_clients=2)
+    FederatedTrainer(template, n_clients=2, device="cpu")
+
+
+def test_resolve_device_pins_full_float32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert gfedntm_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    with pytest.raises(ValueError):
+        gfedntm_tpu_torch.resolve_device("meta")
+
+
+def test_constructor_validation():
+    with pytest.raises(ValueError, match="model must be"):
+        AVITM(input_size=20, model_type="NMF", device="cpu")
+    with pytest.raises(NotImplementedError):
+        AVITM(input_size=20, compute_dtype="bfloat16", device="cpu")
+
+
+def test_wrappers_refuse_other_devices():
+    theta = torch.empty(4, 3, device="meta")
+    beta = torch.empty(3, 10, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd.stats(theta, beta, torch.empty(4, device="meta"),
+                 torch.empty(10, device="meta"), torch.empty(10, device="meta"), True)
+
+
+def test_bf16_storage_raises():
+    theta = torch.softmax(torch.randn(4, 3), 1)
+    with pytest.raises(NotImplementedError):
+        fd.prodlda_recon_loss(theta, torch.randn(3, 10), torch.ones(4, 10),
+                              torch.zeros(10), torch.ones(10),
+                              storage_dtype="bfloat16")
+
+
+def _fake_nvcc(tmp_path, body):
+    script = tmp_path / "nvcc"
+    script.write_text("#!/bin/sh\n" + body)
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_raises_with_nvcc_output(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "LIBRARY", tmp_path / "build" / "lib.so")
+    fake = _fake_nvcc(tmp_path, "echo 'error: no sm_90a here' >&2\nexit 3\n")
+    monkeypatch.setattr(_build, "nvcc", lambda: fake)
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build()
+    assert not _build.LIBRARY.exists()
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_build_compiles_when_stale_and_skips_when_fresh(tmp_path, monkeypatch):
+    lib = tmp_path / "build" / "lib.so"
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "LIBRARY", lib)
+    # The fake compiler writes its -o target and logs each call.
+    calls = tmp_path / "calls"
+    fake = _fake_nvcc(
+        tmp_path,
+        f'echo call >> {calls}\nwhile [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\necho "ptxas info: Used 1 registers"\n',
+    )
+    monkeypatch.setattr(_build, "nvcc", lambda: fake)
+    assert _build.build() == lib
+    assert lib.read_text() == "built\n" and "registers" in _build.build_log
+    _build.build()
+    assert calls.read_text().count("call") == 1
+    os.utime(lib, (0, 0))  # older than the source: rebuild
+    _build.build()
+    assert calls.read_text().count("call") == 2
+
+
+def test_nvcc_lookup_fails_clearly(tmp_path, monkeypatch):
+    monkeypatch.setattr("shutil.which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
