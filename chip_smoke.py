@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Four phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -17,7 +17,20 @@ device or no port next to this script):
    (``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
    ``get_topics``) at V=100,000, K=50, H=(100, 100), B=256, 2 clients,
    2 epochs (8 global steps), with the launch counters reset just before
-   ``fit`` and read just after.
+   ``fit`` and read just after;
+4. sharded — V-sharded (model-parallel) training in spawned ranks
+   (``gfedntm_tpu_torch.parallel``): NCCL with one GPU per rank when there
+   are enough GPUs, else gloo with every rank on ``cuda:0`` (the line says
+   which). (a) K5 ``prodlda_recon_loss_vsharded`` at B=256, K=50, V=100,000
+   over mp=2 and at B=64, V=3002 over mp=2 and dp=2 x mp=2, training and
+   eval, masked rows and an all-masked batch, held against the full-V
+   kernels and its plain version; (b) ``fit_sharded`` at V=100,000, K=50,
+   H=(100, 100), B=256, 2,048 documents, 2 epochs (16 steps), dp=1 x mp=2,
+   with each rank's launch counters reset just before and read just after,
+   against an unsharded ``AVITM.fit`` on the card (first-step gradients,
+   step losses, and beta against the spread that reduction order alone
+   gives: an unsharded fit through the unfused decode); (c) per-rank op time
+   and steady ms per step of the sharded fit.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -43,6 +56,9 @@ _PEAKS = (
     ("H100", 3.35e12, 67e12),
 )
 RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain: |err| <= ATOL + RTOL * max|plain|
+# Gradients that are zero in exact arithmetic (BatchNorm removes a bias; the
+# batch mean of the normalized mu is zero): both sides see rounding noise.
+DEGENERATE = ("inf_net.f_mu.bias", "inf_net.f_sigma.bias", "prior_mean")
 
 
 class SmokeFailure(Exception):
@@ -130,6 +146,18 @@ def compare(name, got, want, case):
     return worst
 
 
+def kernel_work(b, k, v) -> dict:
+    """Per kernel: (bytes, each input read once and each output written
+    once; FLOPs)."""
+    f4 = 4.0
+    bk, kv, bv = b * k, k * v, b * v
+    return {
+        "stats": (f4 * (bk + kv + b + 2 * v + 2 * b), 2.0 * b * k * v),
+        "loss": (f4 * (bk + kv + bv + 2 * v + 2 * b + 2 * b), 2.0 * b * k * v),
+        "grads": (f4 * (bk + kv + bv + 2 * v + 5 * b + bk + kv), 6.0 * b * k * v),
+    }
+
+
 def kernel_phase(card: str) -> dict:
     import torch
 
@@ -182,13 +210,7 @@ def kernel_phase(card: str) -> dict:
     lo_args = (t["theta"], t["beta"], t["x"], mean, var, m, s)
     rd = fd.loss_reference(*lo_args)[1]
     gr_args = lo_args + (rd, t["g"], t["mask"], True)
-    f4 = 4.0
-    bk, kv, bv = b * k, k * v, b * v
-    work = {  # (bytes: each input read once, each output written once; FLOPs)
-        "stats": (f4 * (bk + kv + b + 2 * v + 2 * b), 2.0 * b * k * v),
-        "loss": (f4 * (bk + kv + bv + 2 * v + 2 * b + 2 * b), 2.0 * b * k * v),
-        "grads": (f4 * (bk + kv + bv + 2 * v + 5 * b + bk + kv), 6.0 * b * k * v),
-    }
+    work = kernel_work(b, k, v)
     fns = {
         "stats": (lambda: fd.stats(*st_args), lambda: fd.stats_reference(*st_args)),
         "loss": (lambda: fd.loss(*lo_args), lambda: fd.loss_reference(*lo_args)),
@@ -296,6 +318,244 @@ def main_path_phase(rows: dict) -> None:
           f"first 8-step fit {secs * 1e3:.1f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: V-sharded training in spawned ranks
+# ---------------------------------------------------------------------------
+def split_input_layer(model, parts: int) -> None:
+    """Make ``model``'s encoder input layer sum its ``parts`` column blocks,
+    each one contiguous GEMM, in block order, and then add the bias: the
+    reduction order that V-sharding over ``parts`` ranks gives the encoder,
+    without sharding."""
+    import types
+
+    import torch.nn.functional as F
+
+    layer = model.model.inf_net.input_layer
+    v = layer.weight.shape[1]
+    cuts = [i * v // parts for i in range(parts + 1)]
+
+    def forward(self, x):
+        blocks = [F.linear(x[:, a:b].contiguous(), self.weight[:, a:b].contiguous())
+                  for a, b in zip(cuts[:-1], cuts[1:])]
+        out = blocks[0]
+        for block in blocks[1:]:
+            out = out + block
+        return out + self.bias
+
+    layer.forward = types.MethodType(forward, layer)
+
+
+def sharded_op_phase() -> tuple[float, dict, str]:
+    """(a): K5 against the full-V kernels and its plain version. Returns the
+    worst |K5 - full kernel|, rank 0's op times and the backend."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    layouts = {  # (dp, mp): [(B, V, mask kind, training, timing reps)]
+        (1, 2): [(256, 100_000, "partial", True, 10), (256, 100_000, "partial", False, 0),
+                 (64, 3002, "partial", True, 0), (64, 3002, "partial", False, 0),
+                 (64, 3002, "all", True, 0), (64, 3002, "all", False, 0)],
+        (2, 2): [(64, 3002, "partial", True, 0), (64, 3002, "partial", False, 0),
+                 (64, 3002, "all", True, 0), (64, 3002, "all", False, 0)],
+    }
+    worst, times, outputs = 0.0, {}, "rl,mean,var,g_theta,g_beta"
+    for (dp, mp), specs in layouts.items():
+        backend, devices = gpu_layout(dp * mp)
+        cases, full = [], []
+        for i, (b, v, mask_kind, training, reps) in enumerate(specs):
+            t = make_inputs(b, 50, v, seed=100 + i, mask_kind=mask_kind)
+            cases.append({**{k: t[k].cpu().numpy() for k in (
+                "theta", "beta", "x", "run_mean", "run_var", "mask", "g")},
+                "training": training, "reps": reps})
+            th = t["theta"].clone().requires_grad_(True)
+            be = t["beta"].clone().requires_grad_(True)
+            rl, mean, var = fd.prodlda_recon_loss(th, be, t["x"], t["run_mean"],
+                                                  t["run_var"], t["mask"], training)
+            (rl * t["g"]).sum().backward()
+            _, _, m, s = fd.stats(t["theta"], t["beta"], t["mask"], t["run_mean"],
+                                  t["run_var"], training)
+            full.append(((rl, mean, var, th.grad, be.grad), (m, s)))
+        t0 = time.perf_counter()
+        res = run_ranks(programs.vsharded_op, dp * mp, backend, devices, 600,
+                        args=(dp, mp, cases))
+        print(f"sharded op: {backend}, dp={dp} x mp={mp} on {devices}, "
+              f"{len(specs)} cases in {time.perf_counter() - t0:.1f} s", flush=True)
+        for i, (b, v, mask_kind, training, reps) in enumerate(specs):
+            case = (f"K5 dp={dp} mp={mp} B={b} V={v} mask={mask_kind} "
+                    f"{'train' if training else 'eval'}")
+            per_rank = [r[i] for r in res]
+
+            def cuda(path, names):
+                return [torch.from_numpy(programs.assemble(per_rank, dp, mp, n, path)).cuda()
+                        for n in names.split(",")]
+
+            kern = cuda("kernel", outputs)
+            worst = max(worst, compare(outputs, kern, full[i][0], case + " vs full-V kernel"))
+            compare(outputs, kern, cuda("plain", outputs), case + " vs plain")
+            if "m" in per_rank[0]:
+                compare("m,l", cuda(None, "m,l"), full[i][1], case + " merged softmax")
+            for d in range(dp):
+                for m in range(1, mp):
+                    for name in ("rl", "g_theta"):
+                        check(np.array_equal(per_rank[d * mp + m]["kernel"][name],
+                                             per_rank[d * mp]["kernel"][name]),
+                              f"{case}: {name} differs across model ranks")
+            if reps:
+                times = {"backend": backend, "per_rank": [r["ms"] for r in per_rank]}
+            print(f"sharded op ok: {case}", flush=True)
+    return worst, times, backend
+
+
+def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
+    """(a) through (d): the op checks, then ``fit_sharded`` at full width
+    against an unsharded ``AVITM.fit``, its timing, and the ``vsharded``
+    row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, BowDataset, generate_synthetic_corpus
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    worst, op_times, op_backend = sharded_op_phase()
+
+    V, K, B, N, mp = 100_000, 50, 256, 2048, 2
+    corpus = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=N, n_nodes=1,
+                                       materialize_docs=False, seed=0)
+    X = corpus.nodes[0].bow
+    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+              num_epochs=2, dropout=0.0, seed=0)
+    backend, devices = gpu_layout(mp)
+    t0 = time.perf_counter()
+    res = run_ranks(programs.fit, mp, backend, devices, 900,
+                    args=(1, mp, kw, X, None, 1, (1, 1, 3, 3)))
+    print(f"sharded fit: {backend}, dp=1 x mp={mp} on {devices}, {N} docs, V={V}, "
+          f"ranks done in {time.perf_counter() - t0:.1f} s; launches per rank "
+          f"{[r['launches'] for r in res]}; epoch losses {res[0]['epoch_losses']}", flush=True)
+    for rank, r in enumerate(res):
+        for name in ("stats", "loss", "grads", "vsharded"):
+            check(r["launches"][name] == 16,
+                  f"rank {rank}: {name} launched {r['launches'][name]} times, want 16")
+        check(len(r["step_losses"]) == 16 and bool(np.isfinite(r["step_losses"]).all()),
+              f"rank {rank}: step losses {r['step_losses']}")
+        for key, val in r["state"].items():
+            check(np.array_equal(val, res[0]["state"][key]),
+                  f"{key} differs between rank 0 and rank {rank} after the fit")
+    topics = res[0]["topics"]
+    check(len(topics) == K and all(len(t) == 10 for t in topics),
+          "get_topics did not return 50 lists of 10")
+    print(f"sharded fit: topic 0 {topics[0]}", flush=True)
+
+    # The same first step and fit unsharded on the card: same seed, schedule
+    # and noise.
+    ref = AVITM(**kw)
+    ref_loss, ref_grads = programs.step_gradients(AVITM(**kw), X)
+    loss1, grads1 = res[0]["first_step"]
+    scale = max(float(np.abs(g).max()) for g in ref_grads.values())
+    worst_grad = 0.0
+    for name, g_ref in ref_grads.items():
+        err = float(np.abs(grads1[name] - g_ref).max())
+        if name in DEGENERATE:  # zero in exact arithmetic: rounding noise
+            bound = 1e-5 * scale
+            check(float(np.abs(grads1[name]).max()) <= bound, f"first-step grad {name} "
+                  f"{float(np.abs(grads1[name]).max()):.3e} > {bound:.3e}")
+            continue
+        tol = 1e-3 * float(np.abs(g_ref).max())
+        check(err <= tol, f"first-step grad {name}: max |err| {err:.3e} > {tol:.3e}")
+        worst_grad = max(worst_grad, err / float(np.abs(g_ref).max()))
+    check(abs(loss1 - ref_loss) <= 1e-3 * abs(ref_loss),
+          f"first-step loss {loss1} vs unsharded {ref_loss}")
+    ref.fit(BowDataset(X=X), n_samples=1)
+    # Witnesses without sharding, for beta after 16 Adam steps: the same
+    # unsharded fit with the encoder input layer summed over its mp column
+    # blocks (the reduction order sharding gives the encoder), and through
+    # the unfused decode (other reduction orders in the decoder).
+    split = AVITM(**kw)
+    split_input_layer(split, mp)
+    unfused = AVITM(**kw, fused_decoder=False)
+    for model in (split, unfused):
+        model.fit(BowDataset(X=X), n_samples=1)
+    steps_ref = np.asarray(ref.step_losses)
+
+    def step_err(losses):
+        return float(np.max(np.abs(np.asarray(losses) - steps_ref) / np.abs(steps_ref)))
+
+    def spread(beta, beta_ref):
+        diff = np.abs(beta - beta_ref)
+        return float(diff.max()), float((diff > beta_tol).mean())
+
+    betas = {"plain": ref.model.beta.detach().cpu().numpy(), "sharded": res[0]["state"]["beta"],
+             "split": split.model.beta.detach().cpu().numpy(),
+             "unfused": unfused.model.beta.detach().cpu().numpy()}
+    beta_tol = 1e-3 * float(np.abs(betas["plain"]).max())
+    pairs = {(a, b): spread(betas[a], betas[b]) for a, b in (
+        ("sharded", "plain"), ("split", "plain"), ("unfused", "plain"), ("sharded", "split"))}
+    lr = ref.lr
+    max_limit = max(4.0 * lr, 1.5 * pairs["split", "plain"][0])
+    frac_limit = 1.5 * pairs["split", "plain"][1] + 1e-4
+    print(f"sharded vs unsharded: first step: every gradient within 1e-3 * its max|grad| "
+          f"(worst {worst_grad:.3e} relative), {', '.join(DEGENERATE)} within 1e-5 * "
+          f"{scale:.3e}; fit: max relative step-loss error {step_err(res[0]['step_losses']):.3e} "
+          f"(limit 1e-3); witnesses: split encoder {step_err(split.step_losses):.3e}, unfused "
+          f"decode {step_err(unfused.step_losses):.3e}", flush=True)
+    print(f"beta after 16 Adam steps (lr {lr:g}), max |diff| and fraction of entries beyond "
+          f"1e-3 * max|beta| = {beta_tol:.3e}: " + "; ".join(
+              f"{a} vs {b} {m:.3e} ({m / lr:.2f} lr), {f:.5f}" for (a, b), (m, f) in pairs.items())
+          + f"; limits for sharded vs plain: max <= max(4 lr, 1.5 x split) = {max_limit:.3e}, "
+          f"fraction <= 1.5 x split + 1e-4 = {frac_limit:.5f}; sharded vs split fraction <= "
+          f"split vs plain", flush=True)
+    check(step_err(res[0]["step_losses"]) <= 1e-3,
+          f"step losses differ from the unsharded fit by {step_err(res[0]['step_losses']):.3e}")
+    check(pairs["sharded", "plain"][0] <= max_limit,
+          f"sharded beta max |diff| {pairs['sharded', 'plain'][0]:.3e} > {max_limit:.3e}")
+    check(pairs["sharded", "plain"][1] <= frac_limit,
+          f"sharded beta: {pairs['sharded', 'plain'][1]:.5f} of entries beyond {beta_tol:.3e}, "
+          f"limit {frac_limit:.5f}")
+    check(pairs["sharded", "split"][1] <= pairs["split", "plain"][1],
+          f"sharded beta is further from the split-encoder fit ({pairs['sharded', 'split'][1]:.5f}"
+          f") than that is from the plain fit ({pairs['split', 'plain'][1]:.5f})")
+
+    sec = res[0]["fit_seconds"]  # 8, 8, 24, 24 steps
+    ms_step = (min(sec[2:]) - min(sec[:2])) / 16 * 1e3
+    check(ms_step > 0, f"sharded steady-state step time {ms_step:.3f} ms is not positive")
+    print(f"sharded fit ({backend}, {devices}): steady {ms_step:.3f} ms per step, "
+          f"{B / ms_step * 1e3:.1f} docs/s (B={B}, mp={mp}); 8-step fits "
+          f"{sec[0] * 1e3:.1f}/{sec[1] * 1e3:.1f} ms, 24-step fits {sec[2] * 1e3:.1f}/"
+          f"{sec[3] * 1e3:.1f} ms", flush=True)
+
+    # (d) The vsharded row: rank 0's op times at mp=2; the bound is one
+    # rank's K1-K3 on V/mp plus the bytes its collectives move.
+    bw, flops_peak, peak_key = peaks(card)
+    work = kernel_work(B, K, V // mp)
+    coll_bytes = 4.0 * (mp * 2 * B + mp * 2 * B + mp * B * K)
+    nbytes = sum(w[0] for w in work.values()) + coll_bytes
+    nflops = sum(w[1] for w in work.values())
+    t_bytes, t_flops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+    rank0 = op_times["per_rank"][0]
+    rows["vsharded"] = {
+        "name": "vsharded", "route": "cuda",
+        "source": "gfedntm_tpu_torch/ops/fused_decoder.py",
+        "replaces": "gfedntm_tpu/ops/fused_decoder.py:824",
+        "launches": res[0]["launches"]["vsharded"], "max_abs_err": worst,
+        "ms": min(rank0["kernel"]), "plain_ms": min(rank0["plain"]),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+    }
+    notes["vsharded"] = (
+        f"per rank at B={B} K={K} V={V} mp={mp}, forward + backward, backend "
+        f"{op_backend}; ms per rank {[r['kernel'] for r in op_times['per_rank']]} plain_ms "
+        f"{[r['plain'] for r in op_times['per_rank']]}; bound {rows['vsharded']['bound_by']} "
+        f"({peak_key} peaks: {nbytes / 1e6:.1f} MB incl. {coll_bytes / 1e3:.1f} kB of "
+        f"collectives -> {t_bytes:.4f} ms, {nflops / 1e9:.2f} GFLOP -> {t_flops:.4f} ms); "
+        f"max |err| vs the full-V kernels, tol {ATOL:g} + {RTOL:g}*max|plain|"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -325,6 +585,7 @@ def main() -> int:
                 print(f"build: {line.strip()}", flush=True)
         rows, notes = kernel_phase(card)
         main_path_phase(rows)
+        sharded_fit_phase(card, rows, notes)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

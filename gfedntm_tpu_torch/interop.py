@@ -11,6 +11,8 @@ port's modules carry the reference's torch state-dict keys
   ``num_batches_tracked`` int32 in JAX and int64 in torch.
 
 It takes and returns numpy arrays on the Flax side, so it needs no JAX.
+``parallel.sharded.shard_state_dict`` slices a bridged state dict into one
+rank's V shard, so a V-sharded run starts from the JAX package's weights.
 """
 
 from __future__ import annotations

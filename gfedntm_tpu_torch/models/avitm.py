@@ -135,6 +135,7 @@ class AVITM:
         self.fused_decoder = fused_decoder in ("auto", True) and model_type.lower() == "prodlda"
 
         self.epoch_losses: list[float] = []
+        self.step_losses: list[float] = []  # every step's summed batch loss
         self.train_data: BowDataset | None = None
         self.nn_epoch: int | None = None
         self.best_components: np.ndarray | None = None
@@ -158,30 +159,39 @@ class AVITM:
     # ---- training ----------------------------------------------------------
     def fit(self, train_dataset: BowDataset, n_samples: int = 20) -> None:
         """Train for ``num_epochs`` (``avitm.py:323-443``, train-only path).
-        ``best_components`` tracks beta after every epoch; a NaN epoch loss
-        aborts the run."""
+        ``best_components`` is beta after the last epoch run; a NaN epoch
+        loss aborts the run."""
+        x_all = torch.as_tensor(train_dataset.X, device=self.device)
+        self._run_epochs(self.model, self.optimizer, train_dataset, x_all)
+        self._finish_fit(train_dataset, n_samples)
+
+    def _run_epochs(self, net, optimizer, train_dataset: BowDataset, x: torch.Tensor,
+                    vshard=None) -> None:
+        """The epoch loop of :meth:`fit` on ``net`` and its ``optimizer``:
+        every epoch's numpy schedule, its steps (``x`` holds the corpus on
+        the device), the epoch and step losses, the NaN abort and the plateau
+        scheduler. ``vshard`` (a ``DpMpGroups``) runs it on a rank-local V
+        shard of the network and of ``x``
+        (:func:`~gfedntm_tpu_torch.parallel.sharded.fit_sharded`)."""
         self.train_data = train_dataset
         scheduler = None
         if self.reduce_on_plateau:
-            scheduler = torch.optim.lr_scheduler.ReduceLROnPlateau(
-                self.optimizer, patience=10
-            )
-        x_all = torch.as_tensor(train_dataset.X, device=self.device)
+            scheduler = torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, patience=10)
         n_train = len(train_dataset)
-        self.epoch_losses = []
+        self.epoch_losses, self.step_losses = [], []
         for epoch in range(self.num_epochs):
             self.nn_epoch = epoch
             sched = make_epoch_schedule(n_train, self.batch_size, self._np_rng)
             indices = torch.as_tensor(sched.indices, device=self.device, dtype=torch.long)
             masks = torch.as_tensor(sched.mask, device=self.device, dtype=torch.float32)
-            losses = [
-                grad_step(self.model, self.optimizer, x_all[indices[i]], masks[i],
-                          self.fused_decoder, generator=self.generator)
+            losses = torch.stack([
+                grad_step(net, optimizer, x[indices[i]], masks[i], self.fused_decoder,
+                          generator=self.generator, vshard=vshard)
                 for i in range(sched.steps_per_epoch)
-            ]
-            train_loss = float(torch.stack(losses).sum()) / n_train
+            ])
+            train_loss = float(losses.sum()) / n_train
             self.epoch_losses.append(train_loss)
-            self.best_components = self.model.beta.detach().cpu().numpy()
+            self.step_losses.extend(losses.cpu().tolist())
             # NaN abort in the train-only path too (intended reference
             # semantics: a NaN run is garbage either way).
             if np.isnan(train_loss):
@@ -191,6 +201,11 @@ class AVITM:
             if self.verbose:
                 self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f",
                                  epoch + 1, self.num_epochs, train_loss)
+
+    def _finish_fit(self, train_dataset: BowDataset, n_samples: int) -> None:
+        """``best_components`` and the training documents' topic mixtures
+        from the trained (full) network."""
+        self.best_components = self.model.beta.detach().cpu().numpy()
         self.training_doc_topic_distributions = self.get_doc_topic_distribution(
             train_dataset, n_samples
         )

@@ -31,6 +31,12 @@ arithmetic. There is no fallback from the kernel to the plain version.
 
 The source's header states each kernel's bound on an H100 and what the
 simple first design leaves for later.
+
+:func:`prodlda_recon_loss_vsharded` (K5) is the same loss with beta, x and
+the running statistics split on V over a model group of ranks
+(``torch.distributed``): K1-K3 run on each rank's shard, and only [B]-sized
+softmax partials, the [B] loss and row-dot partials and the [B, K] g_theta
+partial cross ranks (:mod:`gfedntm_tpu_torch.parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ import ctypes
 import torch
 
 from gfedntm_tpu_torch.ops import _build
+from gfedntm_tpu_torch.parallel.collectives import merge_softmax, sum_in_rank_order
 
 #: Kernel launches per wrapper since the last reset — the proof that a run
 #: went through the CUDA kernels. Plain ints; set them to 0 to reset.
-LAUNCHES = {"stats": 0, "loss": 0, "grads": 0}
+#: ``vsharded`` counts forwards of K5's kernel branch (each launches K1 and
+#: K2 on the rank's shard, and its backward K3).
+LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0}
 
 _NEG_INF = -1e30
 _PLAN_KIND = {"stats": 0, "loss": 1, "grads": 2}
@@ -312,3 +321,150 @@ def prodlda_recon_loss_reference(theta, beta, x_bow, run_mean, run_var, mask=Non
     p = torch.softmax((z - mean) * torch.rsqrt(var + eps), dim=-1)
     rl = -torch.sum(x_bow * torch.log(p + floor), dim=1)
     return rl, mean, var
+
+
+# ---------------------------------------------------------------------------
+# K5: the loss with beta and x split on V over a model group
+# ---------------------------------------------------------------------------
+class VShardedReconLoss(torch.autograd.Function):
+    """Rows-replicated branch of K5 (``_vsharded_replicated_fwd``,
+    ``gfedntm_tpu/ops/fused_decoder.py:878-909``, and the rows-replicated
+    half of ``_vsharded_vjp_bwd``, ``:1057-1081``). Every rank of the model
+    group holds the same rows.
+
+    Forward: K1 on the local shard, the online-softmax merge of its
+    ``(m, s)`` over the model group, K2 with the merged ``(m, l)``, and the
+    loss and row-dot partials summed over the model group. Backward: K3 with
+    the full row-dot gives the local g_beta and a g_theta partial, which is
+    summed over the model group here, so everything upstream of theta sees
+    the whole gradient on every rank. (The JAX backward's ``x axis_size``
+    and its local-partial return are ``shard_map`` transpose conventions;
+    autograd has neither.) ``plain`` runs the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, theta, beta, x, run_mean, run_var, mask, groups, training, eps,
+                floor, plain):
+        st, lo = (stats_reference, loss_reference) if plain else (stats, loss)
+        group = groups.model_group
+        mean, var, m_loc, s_loc = st(theta, beta, mask, run_mean, run_var, training, eps)
+        m, l = merge_softmax(m_loc, s_loc, group)
+        rl, rd = sum_in_rank_order(torch.stack(lo(theta, beta, x, mean, var, m, l, eps,
+                                                  floor)), group)
+        if not plain and _on_cuda(theta):
+            LAUNCHES["vsharded"] += 1
+        ctx.save_for_backward(theta, beta, x, mask, mean, var, m, l, rd)
+        ctx.groups, ctx.training, ctx.eps, ctx.floor, ctx.plain = (
+            groups, training, eps, floor, plain)
+        ctx.mark_non_differentiable(mean, var)
+        return rl, mean, var
+
+    @staticmethod
+    def backward(ctx, g_rl, _g_mean, _g_var):
+        theta, beta, x, mask, mean, var, m, l, rd = ctx.saved_tensors
+        gr = grads_reference if ctx.plain else grads
+        g = (g_rl * mask).contiguous()
+        g_theta, g_beta = gr(theta, beta, x, mean, var, m, l, rd, g, mask, ctx.training,
+                             ctx.eps, ctx.floor)
+        g_theta = sum_in_rank_order(g_theta, ctx.groups.model_group)
+        return g_theta, g_beta, None, None, None, None, None, None, None, None, None
+
+
+class VShardedRowsReconLoss(torch.autograd.Function):
+    """Rows-sharded training branch of K5 in plain tensor ops, as the JAX
+    package computes it outside any Pallas kernel
+    (``_vsharded_data_sharded_fwd``, ``:912-953``, and ``:1020-1055``). Rows
+    are split over the data group and V over the model group.
+
+    Forward: the masked column sums, sums of squares and row count are summed
+    over the data group (mean by the rank-K shortcut, variance as
+    E[z^2] - mean^2, as in the JAX package); the softmax partials merge over
+    the model group; the loss partials sum over the model group.
+
+    Backward, spelled out: the row-dot is summed over the model group; the
+    count and the BatchNorm corrections ``sum_gn``, ``sum_gnn`` over the
+    data group; g_theta over the model group. g_beta is this data rank's
+    partial: a data-parallel trainer sums it over the data group with every
+    other gradient."""
+
+    @staticmethod
+    def forward(ctx, theta, beta, x, mask, groups, eps, floor):
+        mk = mask[:, None]
+        cnt = torch.clamp_min(sum_in_rank_order(mask.sum(), groups.data_group), 1.0)
+        z = theta @ beta
+        colsum, colsumsq = sum_in_rank_order(
+            torch.stack([(mk * theta).sum(0) @ beta, (z * z * mk).sum(0)]),
+            groups.data_group)
+        mean = colsum / cnt
+        var = torch.clamp_min(colsumsq / cnt - mean * mean, 0.0)
+        _, _, m_loc, s_loc = stats_reference(theta, beta, mask, mean, var, False, eps)
+        m, l = merge_softmax(m_loc, s_loc, groups.model_group)
+        rl, rd = sum_in_rank_order(
+            torch.stack(loss_reference(theta, beta, x, mean, var, m, l, eps, floor)),
+            groups.model_group)
+        ctx.save_for_backward(theta, beta, x, mask, mean, var, m, l, rd, cnt)
+        ctx.groups, ctx.eps, ctx.floor = groups, eps, floor
+        ctx.mark_non_differentiable(mean, var)
+        return rl, mean, var
+
+    @staticmethod
+    def backward(ctx, g_rl, _g_mean, _g_var):
+        theta, beta, x, mask, mean, var, m, l, rd, cnt = ctx.saved_tensors
+        groups = ctx.groups
+        n, p, _ = _softmax_rows(theta, beta, mean, var, m, l, ctx.eps)
+        mk = mask[:, None]
+        gn = (g_rl * mask)[:, None] * (p * rd[:, None] - x * (p / (p + ctx.floor)))
+        sum_gn, sum_gnn = sum_in_rank_order(
+            torch.stack([(gn * mk).sum(0), (gn * n * mk).sum(0)]), groups.data_group)
+        gz = torch.rsqrt(var + ctx.eps) * (gn - mk * (sum_gn / cnt) - n * mk * (sum_gnn / cnt))
+        g_theta = sum_in_rank_order(gz @ beta.T, groups.model_group)
+        return g_theta, theta.T @ gz, None, None, None, None, None
+
+
+def _vsharded(theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
+              training, eps, floor, storage_dtype, plain):
+    if storage_dtype != "float32":
+        raise NotImplementedError(
+            f"storage_dtype={storage_dtype!r}: the CUDA kernels take float32 only"
+        )
+    if mask is None:
+        mask = torch.ones(theta.shape[0], device=theta.device)
+    mask = mask.to(torch.float32).contiguous()
+    if training and groups.data_group is not None:
+        return VShardedRowsReconLoss.apply(theta, beta_local, x_local, mask, groups,
+                                           float(eps), float(floor))
+    return VShardedReconLoss.apply(
+        theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
+        bool(training), float(eps), float(floor), plain,
+    )
+
+
+def prodlda_recon_loss_vsharded(theta, beta_local, x_local, run_mean_local,
+                                run_var_local, mask=None, *, groups, training=True,
+                                eps=1e-5, floor=1e-10, storage_dtype="float32"):
+    """K5: the full-V fused loss with beta, x and the running statistics split
+    on V over ``groups.model_group`` (``gfedntm_tpu/ops/fused_decoder.py:824``).
+
+    ``groups`` is a :class:`~gfedntm_tpu_torch.parallel.mesh.DpMpGroups`.
+    ``theta`` [B_local, K] and ``mask`` [B_local] are this rank's rows
+    (all rows unless ``groups.data_group`` splits them); ``beta_local``
+    [K, V_local], ``x_local`` [B_local, V_local] and the running statistics
+    [V_local] are its columns. Returns ``(rl [B_local], mean [V_local],
+    var [V_local])``: rl is the full-V loss, equal on every rank of the model
+    group; the statistics are the shard's (eval: the running ones).
+
+    Rows replicated over the model group (no data group, or eval): K1-K3 on
+    the shard (:class:`VShardedReconLoss`). Rows split over a data group in
+    training: plain tensor ops (:class:`VShardedRowsReconLoss`)."""
+    return _vsharded(theta, beta_local, x_local, run_mean_local, run_var_local, mask,
+                     groups, training, eps, floor, storage_dtype, plain=False)
+
+
+def prodlda_recon_loss_vsharded_reference(theta, beta_local, x_local, run_mean_local,
+                                          run_var_local, mask=None, *, groups,
+                                          training=True, eps=1e-5, floor=1e-10,
+                                          storage_dtype="float32"):
+    """K5's plain version: the same composition on ``stats_reference``,
+    ``loss_reference`` and ``grads_reference``, on any device (the on-card
+    comparison calls it on CUDA tensors)."""
+    return _vsharded(theta, beta_local, x_local, run_mean_local, run_var_local, mask,
+                     groups, training, eps, floor, storage_dtype, plain=True)

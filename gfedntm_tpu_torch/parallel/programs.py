@@ -1,0 +1,268 @@
+"""Rank programs for :func:`~gfedntm_tpu_torch.parallel.launch.run_ranks`.
+
+Each is ``fn(rank, device, *args)``, importable by a freshly spawned
+interpreter (this module imports torch, numpy and the port only), and
+returns numpy arrays and plain Python values, which pickle back to the
+caller. ``chip_smoke.py`` and the multi-process tests drive V-sharded
+training through them:
+
+- :func:`collective_probe` — one ``all_reduce`` of ones (optionally after a
+  rank stalls), to check a group forms and to exercise timeouts;
+- :func:`describe_layout` — where the rank sits in a ``dp x mp`` layout and
+  who shares its groups;
+- :func:`vsharded_op` — K5 and its plain version on this rank's shard of
+  full inputs, forward and backward, and optionally their times;
+- :func:`fit` — ``fit_sharded`` of an AVITM, with its first step's
+  gradients (:func:`step_gradients`), launch counts, the gathered model's
+  state and topics, and optionally timed refits;
+- :func:`profile_steps` — steady V-sharded training steps, timed and then
+  traced with ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gfedntm_tpu_torch.data.datasets import BowDataset, make_epoch_schedule
+from gfedntm_tpu_torch.models.avitm import AVITM
+from gfedntm_tpu_torch.ops import fused_decoder as fd
+from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, merge_softmax
+from gfedntm_tpu_torch.parallel.mesh import DpMpGroups, make_dp_mp_groups
+from gfedntm_tpu_torch.parallel.sharded import fit_sharded, gather_state_dict, local_network
+from gfedntm_tpu_torch.train.steps import fused_batch_loss, grad_step
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def assemble(per_rank: list, dp: int, mp: int, name: str, path: str | None = "kernel"):
+    """The full-size array of one :func:`vsharded_op` output from every
+    rank's local one (``per_rank[r][path][name]``, or ``per_rank[r][name]``
+    when ``path`` is ``None``): rows concatenate over data ranks, columns
+    over model ranks, and g_beta's per-data-rank partials add up."""
+    def part(r):
+        return per_rank[r][path][name] if path else per_rank[r][name]
+
+    if name in ("rl", "g_theta", "m", "l"):
+        return np.concatenate([part(d * mp) for d in range(dp)])
+    if name in ("mean", "var"):
+        return np.concatenate([part(m) for m in range(mp)])
+    return sum(np.concatenate([part(d * mp + m) for m in range(mp)], axis=1)
+               for d in range(dp))
+
+
+def collective_probe(rank, device, stall_rank: int = -1, stall_s: float = 0.0) -> float:
+    """The world size, as the SUM of every rank's 1 (``stall_rank`` first
+    sleeps ``stall_s`` seconds)."""
+    if rank == stall_rank:
+        time.sleep(stall_s)
+    one = torch.ones(1, device=device)
+    dist.all_reduce(one)
+    return float(one)
+
+
+def describe_layout(rank, device, dp: int, mp: int, vocab_size: int) -> dict:
+    """This rank's (d, m), V slice, and the world ranks of its model and data
+    groups (gathered over each group)."""
+    groups = make_dp_mp_groups(dp, mp)
+    me = torch.tensor(float(rank), device=device)
+    cols = groups.v_slice(vocab_size)
+    return {
+        "data_rank": groups.data_rank, "model_rank": groups.model_rank,
+        "v_slice": (cols.start, cols.stop),
+        "model_members": _np(gather_by_sum(me, groups.model_group)).astype(int).tolist(),
+        "data_members": _np(gather_by_sum(me, groups.data_group)).astype(int).tolist(),
+    }
+
+
+def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
+    """For each case (full numpy ``theta, beta, x, run_mean, run_var, mask``,
+    a row cotangent ``g``, ``training`` and optionally ``reps``): this rank's
+    shard through ``prodlda_recon_loss_vsharded`` ("kernel") and its plain
+    version ("plain"), forward outputs and the gradients of ``sum(rl * g)``;
+    the merged softmax statistics ``m``, ``l`` of K1's shard partials (rows
+    replicated over the model group only); and, with ``reps``, each one's
+    forward + backward time in ms over ``reps`` calls, timed plain, kernel,
+    kernel, plain."""
+    groups = make_dp_mp_groups(dp, mp)
+    out = []
+    for case in cases:
+        rows = groups.row_slice(case["theta"].shape[0])
+        cols = groups.v_slice(case["beta"].shape[1])
+
+        def put(name, *index):
+            return torch.from_numpy(np.ascontiguousarray(case[name][index])).to(device)
+
+        t = dict(theta=put("theta", rows), beta=put("beta", slice(None), cols),
+                 x=put("x", rows, cols), run_mean=put("run_mean", cols),
+                 run_var=put("run_var", cols), mask=put("mask", rows), g=put("g", rows))
+        training = bool(case["training"])
+
+        def run(fn, keep):
+            theta = t["theta"].clone().requires_grad_(True)
+            beta = t["beta"].clone().requires_grad_(True)
+            rl, mean, var = fn(theta, beta, t["x"], t["run_mean"], t["run_var"], t["mask"],
+                               groups=groups, training=training)
+            (rl * t["g"]).sum().backward()
+            if keep:
+                return {"rl": _np(rl), "mean": _np(mean), "var": _np(var),
+                        "g_theta": _np(theta.grad), "g_beta": _np(beta.grad)}
+            return None
+
+        res = {"kernel": run(fd.prodlda_recon_loss_vsharded, True),
+               "plain": run(fd.prodlda_recon_loss_vsharded_reference, True)}
+        if not (training and groups.data_group is not None):
+            _, _, m_loc, s_loc = fd.stats(t["theta"], t["beta"], t["mask"], t["run_mean"],
+                                          t["run_var"], training)
+            m, l = merge_softmax(m_loc, s_loc, groups.model_group)
+            res["m"], res["l"] = _np(m), _np(l)
+        reps = int(case.get("reps", 0))
+        if reps:
+            times = {"kernel": [], "plain": []}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                fn = (fd.prodlda_recon_loss_vsharded if name == "kernel"
+                      else fd.prodlda_recon_loss_vsharded_reference)
+                run(fn, False)  # warm
+                dist.barrier()
+                _sync(device)
+                start = time.perf_counter()
+                for _ in range(reps):
+                    run(fn, False)
+                _sync(device)
+                times[name].append((time.perf_counter() - start) / reps * 1e3)
+            res["ms"] = times
+        out.append(res)
+    return out
+
+
+def step_gradients(model: AVITM, X: np.ndarray,
+                   groups: DpMpGroups | None = None) -> tuple[float, dict]:
+    """Loss and every parameter's gradient of the fused training loss on the
+    first batch of ``model``'s next epoch schedule: unsharded, or (``groups``)
+    on the rank-local network, gathered to full shapes. The one-step parity
+    check of the whole network: Adam would hide a gradient that is wrong by
+    a constant factor, such as the model group's size."""
+    sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
+    x = X[sched.indices[0]]
+    net, vshard = model.model, None
+    if groups is not None:
+        net = local_network(model.model, groups)
+        x = x[:, groups.v_slice(X.shape[1])]
+        vshard = groups if groups.mp > 1 else None
+    net.train()
+    mask = torch.as_tensor(sched.mask[0], dtype=torch.float32, device=model.device)
+    loss = fused_batch_loss(net, torch.as_tensor(np.ascontiguousarray(x), device=model.device),
+                            mask, generator=model.generator, vshard=vshard)
+    loss.backward()
+    grads = {name: p.grad for name, p in net.named_parameters()}
+    if groups is not None:
+        grads = gather_state_dict(grads, groups)
+    return float(loss.detach()), {name: _np(g) for name, g in grads.items()}
+
+
+def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
+        init_state: dict | None = None, n_samples: int = 3,
+        timing_epochs: tuple = ()) -> dict:
+    """``fit_sharded`` of ``AVITM(device=device, **avitm_kw)`` on ``X`` (from
+    ``init_state``, a full numpy state dict, when given), with the launch
+    counters set to 0 just before and read just after. Returns the first
+    step's loss and gradients on an identical model (``first_step``), the
+    launch counts, epoch and step losses, the gathered model's state dict, the
+    rank-local network's shapes, ``get_topics(10)`` and the training
+    documents' topic mixtures (``n_samples`` draws); then, for each entry of
+    ``timing_epochs``, the seconds of a fresh ``fit_sharded`` of that many
+    epochs, started and ended on a barrier."""
+    groups = make_dp_mp_groups(dp, mp)
+    data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
+
+    def build(**over):
+        model = AVITM(device=device, **{**avitm_kw, **over})
+        if init_state is not None:
+            model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                                         for k, v in init_state.items()})
+        return model
+
+    first_step = step_gradients(build(), X, groups)
+    model = build()
+    for key in fd.LAUNCHES:
+        fd.LAUNCHES[key] = 0
+    net = fit_sharded(model, data, groups, n_samples=n_samples, device=device)
+    result = {
+        "first_step": first_step,
+        "launches": dict(fd.LAUNCHES),
+        "epoch_losses": list(model.epoch_losses),
+        "step_losses": list(model.step_losses),
+        "state": {k: _np(v) for k, v in model.model.state_dict().items()},
+        "local_shapes": {k: tuple(v.shape) for k, v in net.state_dict().items()},
+        "topics": model.get_topics(10),
+        "theta": model.training_doc_topic_distributions,
+    }
+    seconds = []
+    for epochs in timing_epochs:
+        timed = build(num_epochs=epochs)
+        dist.barrier()
+        _sync(device)
+        start = time.perf_counter()
+        fit_sharded(timed, data, groups, n_samples=n_samples, device=device)
+        _sync(device)
+        dist.barrier()
+        seconds.append(time.perf_counter() - start)
+    result["fit_seconds"] = seconds
+    return result
+
+
+def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
+                  steps: int) -> dict:
+    """``steps`` V-sharded training steps (``fit_sharded``'s step, on
+    batches of ``X`` already on the device): the unprofiled wall ms per step
+    between barriers, then the device ms per step by kernel group and the
+    top device events of the same steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfedntm_tpu_torch.profile_step import GROUPS, device_times
+
+    groups = make_dp_mp_groups(1, mp)
+    model = AVITM(device=device, **avitm_kw)
+    net = local_network(model.model, groups)
+    optimizer = model.build_optimizer(net)
+    cols = groups.v_slice(X.shape[1])
+    x_local = torch.as_tensor(np.ascontiguousarray(X[:, cols]), device=device)
+    sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
+    batches = [x_local[torch.as_tensor(i, device=device, dtype=torch.long)]
+               for i in sched.indices]
+    mask = torch.ones(model.batch_size, device=device)
+
+    def run():
+        for i in range(steps):
+            grad_step(net, optimizer, batches[i % len(batches)], mask, True,
+                      generator=model.generator, vshard=groups)
+        _sync(device)
+
+    run()  # warm
+    dist.barrier()
+    start = time.perf_counter()
+    run()
+    dist.barrier()
+    wall_ms = (time.perf_counter() - start) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    # No upload happens in these steps: host-device copies are gloo's
+    # staging of the collectives.
+    by_group, top = device_times(prof, steps, GROUPS[:-1] + (("collective copies",
+                                                              ("memcpy",)),))
+    device_ms = sum(by_group.values())
+    return {
+        "rank": rank, "steps": steps, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
+        "ms_per_step_by_group": by_group, "top_device_events": top,
+    }

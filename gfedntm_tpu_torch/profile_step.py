@@ -3,6 +3,7 @@
 on the GPU.
 
     python3 -m gfedntm_tpu_torch.profile_step [--out build/port_profile.json]
+    python3 -m gfedntm_tpu_torch.profile_step --sharded-mp 2
 
 Runs the configuration of ``chip_smoke.py``'s main path (V=100,000, K=50,
 H=(100, 100), B=256, 2 clients): a warm fit; the steady wall time per
@@ -12,6 +13,12 @@ Prints the device time per step by group — the fused decoder's kernels,
 GEMMs, optimizer, gather, other — with the fit's host-to-device corpus upload
 apart as set-up, the device busy share (device time per step over the
 steady wall time per step) and the top device events. Needs a CUDA device; exits 2 without one. Run it from the repository root.
+
+``--sharded-mp N`` profiles the V-sharded path instead: one model (V=100,000,
+K=50, H=(100, 100), B=256, 2,048 synthetic documents) split over N spawned
+ranks (``gfedntm_tpu_torch.parallel.programs.profile_steps``), NCCL with one
+GPU per rank when there are N GPUs, else gloo with every rank on ``cuda:0``;
+each rank reports its own steady wall ms per step and device ms by group.
 """
 
 from __future__ import annotations
@@ -32,20 +39,81 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
+def device_times(prof, steps: int, groups=GROUPS):
+    """A ``torch.profiler`` run's device ms per step by group (``groups``,
+    as :data:`GROUPS`) and its 15 longest device events."""
+    from torch.autograd import DeviceType
+
+    by_group: dict[str, float] = {}
+    events = []
+    for evt in prof.key_averages():
+        # Host ops and annotated ranges (e.g. "Optimizer.step#Adam.step")
+        # repeat the time of the kernels they contain.
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False) or "#" in evt.key):
+            continue
+        ms = float(getattr(evt, "self_device_time_total", 0.0)
+                   or getattr(evt, "self_cuda_time_total", 0.0)) / steps / 1e3
+        group = group_of(evt.key, groups)
+        by_group[group] = by_group.get(group, 0.0) + ms
+        events.append((ms, evt.count, evt.key))
+    events.sort(reverse=True)
+    return dict(sorted(by_group.items())), [
+        {"name": name[:120], "ms_per_step": ms, "calls": count}
+        for ms, count, name in events[:15]
+    ]
+
+
+def sharded(mp: int, out: Path) -> int:
+    """The V-sharded step over ``mp`` ranks; see the module docstring."""
+    import torch
+
+    from gfedntm_tpu_torch import generate_synthetic_corpus
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    V, K, B = 100_000, 50, 256
+    X = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=2048, n_nodes=1,
+                                  materialize_docs=False, seed=0).nodes[0].bow
+    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+              dropout=0.0, seed=0)
+    backend, devices = gpu_layout(mp)
+    reports = run_ranks(programs.profile_steps, mp, backend, devices, 900,
+                        args=(mp, kw, X, 24))
+    print(f"profile: {torch.cuda.get_device_name(0)}; V-sharded step, mp={mp}, {backend} "
+          f"on {devices}, B={B}")
+    for rep in reports:
+        print(f"profile: rank {rep['rank']}: steady wall {rep['wall_ms_per_step']:.3f} "
+              f"ms/step (unprofiled), device {rep['device_ms_per_step']:.3f} ms/step, "
+              f"busy share {rep['device_busy_share']:.3f}")
+        for g, ms in rep["ms_per_step_by_group"].items():
+            print(f"profile: rank {rep['rank']}: group {g}: {ms:.4f} ms/step")
+    for row in reports[0]["top_device_events"]:
+        print(f"profile: rank 0: {row['ms_per_step']:.4f} ms/step x{row['calls']} {row['name']}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"device": torch.cuda.get_device_name(0), "backend": backend,
+                               "devices": devices, "ranks": reports}, indent=2))
+    if min(rep["device_ms_per_step"] for rep in reports) <= 0:
+        print("profile_step: the profiler recorded no device time", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/port_profile.json")
+    parser.add_argument("--sharded-mp", type=int, default=0,
+                        help="profile the V-sharded path over this many ranks")
     args = parser.parse_args(argv)
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -53,6 +121,8 @@ def main(argv=None) -> int:
         return 2
     from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer, generate_synthetic_corpus
 
+    if args.sharded_mp:
+        return sharded(args.sharded_mp, Path(args.out))
     V, K, B, C = 100_000, 50, 256, 2
     corpus = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=1024, n_nodes=C,
                                        materialize_docs=False, seed=0)
@@ -75,32 +145,16 @@ def main(argv=None) -> int:
         result, _ = fit(6)
     steps = result.losses.shape[0]
 
-    by_group: dict[str, float] = {}
-    kernels = []
-    for evt in prof.key_averages():
-        # Host ops and annotated ranges (e.g. "Optimizer.step#Adam.step")
-        # repeat the time of the kernels they contain.
-        if (evt.device_type != DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False) or "#" in evt.key):
-            continue
-        dev_us = float(getattr(evt, "self_device_time_total", 0.0)
-                       or getattr(evt, "self_cuda_time_total", 0.0))
-        group = group_of(evt.key)
-        by_group[group] = by_group.get(group, 0.0) + dev_us
-        kernels.append((dev_us, evt.count, evt.key))
-    step_us = sum(us for g, us in by_group.items() if g != "upload (set-up)")
-    kernels.sort(reverse=True)
+    by_group, top = device_times(prof, steps)
+    step_ms = sum(ms for g, ms in by_group.items() if g != "upload (set-up)")
     report = {
         "device": torch.cuda.get_device_name(0),
         "steps": steps,
         "steady_wall_ms_per_step": steady_ms,
-        "device_ms_per_step": step_us / steps / 1e3,
-        "device_busy_share": step_us / steps / 1e3 / steady_ms,
-        "ms_per_step_by_group": {g: us / steps / 1e3 for g, us in sorted(by_group.items())},
-        "top_device_events": [
-            {"name": name[:120], "ms_per_step": us / steps / 1e3, "calls": count}
-            for us, count, name in kernels[:15]
-        ],
+        "device_ms_per_step": step_ms,
+        "device_busy_share": step_ms / steady_ms,
+        "ms_per_step_by_group": by_group,
+        "top_device_events": top,
     }
     print(f"profile: {torch.cuda.get_device_name(0)}; {steps} global steps of {C} "
           f"clients: steady wall {steady_ms:.3f} ms/step (unprofiled), device "
@@ -113,7 +167,7 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=2))
-    if step_us <= 0:
+    if step_ms <= 0:
         print("profile_step: the profiler recorded no device time", file=sys.stderr)
         return 1
     return 0

@@ -10,6 +10,12 @@ eagerly, so there is no epoch program: callers loop over steps.
 ``noise=`` passes a fixed reparameterization eps through to the network, as
 the JAX network's ``noise=`` does; ``generator`` draws it (and dropout)
 otherwise.
+
+``vshard=groups`` (a :class:`~gfedntm_tpu_torch.parallel.mesh.DpMpGroups`)
+runs the step on a rank-local V-sharded network
+(:func:`~gfedntm_tpu_torch.parallel.sharded.local_network`): the fused loss
+goes through K5, ``prodlda_recon_loss_vsharded`` (``train/steps.py:186-220``),
+on the rank's columns of x.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ import torch
 
 from gfedntm_tpu_torch.models.losses import avitm_loss, gaussian_kl
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
-from gfedntm_tpu_torch.ops.fused_decoder import prodlda_recon_loss
+from gfedntm_tpu_torch.ops.fused_decoder import (
+    prodlda_recon_loss,
+    prodlda_recon_loss_vsharded,
+)
 
 
 def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
@@ -33,17 +42,25 @@ def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
     )
 
 
-def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
+def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
+                     vshard=None):
     """Training loss through the fused decode + reconstruction kernels: the
     [B, V] word distribution never exists. The decoder BatchNorm's running
     stats are updated from the kernels' batch statistics with
-    MaskedBatchNorm's semantics (momentum 0.1, unbiased running variance)."""
+    MaskedBatchNorm's semantics (momentum 0.1, unbiased running variance);
+    under ``vshard`` each rank updates its own columns'."""
     out = model.encode_theta(x, mask=mask, noise=noise, generator=generator)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
-    rl, b_mean, b_var = prodlda_recon_loss(
-        out.theta, model.beta, x, bn.running_mean, bn.running_var, m, True,
-    )
+    if vshard is None:
+        rl, b_mean, b_var = prodlda_recon_loss(
+            out.theta, model.beta, x, bn.running_mean, bn.running_var, m, True,
+        )
+    else:
+        rl, b_mean, b_var = prodlda_recon_loss_vsharded(
+            out.theta, model.beta, x, bn.running_mean, bn.running_var, m,
+            groups=vshard, training=True,
+        )
     kl = gaussian_kl(
         out.prior_mean, out.prior_variance, out.posterior_mean,
         out.posterior_variance, out.posterior_log_variance,
@@ -53,14 +70,17 @@ def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None)
 
 
 def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
-              fused: bool, noise=None, generator=None) -> torch.Tensor:
+              fused: bool, noise=None, generator=None, vshard=None) -> torch.Tensor:
     """One forward/backward/optimizer update in training mode; returns the
     batch loss (detached, on the model's device). ``fused`` selects the
-    fused kernels for prodLDA; LDA always takes the unfused decode."""
+    fused kernels for prodLDA; LDA always takes the unfused decode. A
+    ``vshard`` step needs the fused prodLDA loss."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
+    if vshard is not None and not (fused and model.is_prodlda):
+        raise NotImplementedError("a V-sharded step runs the fused prodLDA loss only")
     if fused and model.is_prodlda:
-        loss = fused_batch_loss(model, x, mask, noise, generator)
+        loss = fused_batch_loss(model, x, mask, noise, generator, vshard)
     else:
         loss = batch_loss(model, x, mask, noise, generator)
     loss.backward()

@@ -13,6 +13,8 @@ import torch
 
 from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer, generate_synthetic_corpus
 from gfedntm_tpu_torch.ops import fused_decoder as fd
+from gfedntm_tpu_torch.parallel import programs
+from gfedntm_tpu_torch.parallel.launch import run_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -80,7 +82,31 @@ def test_federated_fit_runs_through_the_kernels(cuda):
     before = dict(fd.LAUNCHES)
     result = trainer.fit(datasets)
     assert {k: fd.LAUNCHES[k] - before[k] for k in before} == {
-        "stats": 12, "loss": 12, "grads": 12}
+        "stats": 12, "loss": 12, "grads": 12, "vsharded": 0}
     assert np.isfinite(result.losses).all()
     for key, value in result.client_params[0].items():
         assert torch.equal(value, result.client_params[1][key]), key
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_vsharded_op_matches_full_kernels(cuda, training):
+    """K5 over mp=2 gloo ranks on the first card against the single-device
+    kernels on the full tensors."""
+    b, v = 64, 3002
+    t = inputs(b, 8, v, cuda)
+    g = torch.linspace(0.1, 2.0, b, device=cuda) * t["mask"]
+    theta = t["theta"].clone().requires_grad_(True)
+    beta = t["beta"].clone().requires_grad_(True)
+    rl, mean, var = fd.prodlda_recon_loss(theta, beta, t["x"], t["run_mean"], t["run_var"],
+                                          t["mask"], training)
+    (rl * g).sum().backward()
+    case = {**{n: a.cpu().numpy() for n, a in t.items()}, "g": g.cpu().numpy(),
+            "training": training}
+    res = run_ranks(programs.vsharded_op, 2, "gloo", ["cuda:0", "cuda:0"], 300,
+                    args=(1, 2, [case]))
+    ranks = [r[0]["kernel"] for r in res]
+    got = [torch.from_numpy(a).to(cuda) for a in (
+        ranks[0]["rl"], np.concatenate([r["mean"] for r in ranks]),
+        np.concatenate([r["var"] for r in ranks]), ranks[0]["g_theta"],
+        np.concatenate([r["g_beta"] for r in ranks], axis=1))]
+    close(got, (rl, mean, var, theta.grad, beta.grad))

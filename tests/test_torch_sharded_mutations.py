@@ -1,0 +1,135 @@
+"""The first-step gradient parity of ``fit_sharded``'s network catches the
+faults the V-sharded path invites.
+
+Each case breaks one convention inside two spawned gloo ranks (dp=1, mp=2)
+and computes the fused training loss and every parameter's gradient on the
+first batch (``programs.step_gradients``), gathered to full shapes; the
+unbroken run is the control. The parity thresholds are those of
+``tests/test_torch_sharded_fit.py::test_first_step_gradients_match_unsharded``:
+loss within 1e-6 relative of the unsharded network's, each gradient within
+5e-4 x its max|grad|, gradients that are zero in exact arithmetic within
+1e-5 x the largest gradient. This module imports only torch, numpy and the
+port, so the ranks can import its rank program.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed.nn.functional as dist_fn
+import torch.nn.functional as F
+
+from gfedntm_tpu_torch.models.avitm import AVITM
+from gfedntm_tpu_torch.ops import fused_decoder as fd
+from gfedntm_tpu_torch.parallel import programs, sharded
+from gfedntm_tpu_torch.parallel.collectives import gather_by_sum
+from gfedntm_tpu_torch.parallel.launch import run_ranks
+from gfedntm_tpu_torch.parallel.mesh import make_dp_mp_groups
+
+V, K, H, B, DOCS, MP = 96, 4, (16, 16), 8, 32, 2
+KW = dict(input_size=V, n_components=K, hidden_sizes=H, batch_size=B, num_epochs=1,
+          dropout=0.0, seed=0, fused_decoder=True)
+DEGENERATE = ("inf_net.f_mu.bias", "inf_net.f_sigma.bias", "prior_mean")
+TIMEOUT_S = 240
+
+
+def _all_reduced_grad(t, group):
+    """The naive sum: ``torch.distributed.nn``'s all_reduce, whose backward
+    all-reduces the gradient too."""
+    return dist_fn.all_reduce(t, group=group)
+
+
+def _bias_before_sum(self, x_local):
+    return sharded.sum_forward_identity_backward(F.linear(x_local, self.weight, self.bias),
+                                                 self.group)
+
+
+def _g_theta_unsummed(real):
+    """K5's sums with the backward's [B, K] g_theta sum skipped (the forward
+    sums a [2, B] stack of the loss and row-dot partials)."""
+    def patched(t, group):
+        return real(t, group) if t.shape[0] == 2 else t
+    return patched
+
+
+def _merge_unrescaled(m_loc, s_loc, group):
+    """The softmax merge without the ``exp(m_i - m)`` rescale of each shard's
+    denominator."""
+    parts = gather_by_sum(torch.stack([m_loc, s_loc]), group)
+    return parts[:, 0].amax(dim=0).contiguous(), parts[:, 1].sum(dim=0).contiguous()
+
+
+MUTATIONS = {  # name: [(object, attribute, replacement)]
+    "none": [],
+    "input_sum_all_reduces_grad": [(sharded, "sum_forward_identity_backward",
+                                    _all_reduced_grad)],
+    "bias_added_on_every_rank": [(sharded.VShardedLinear, "forward", _bias_before_sum)],
+    "g_theta_unsummed": [(fd, "sum_in_rank_order", _g_theta_unsummed(fd.sum_in_rank_order))],
+    "softmax_merge_unrescaled": [(fd, "merge_softmax", _merge_unrescaled)],
+}
+
+
+@contextlib.contextmanager
+def mutated(name):
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in MUTATIONS[name]]
+    for obj, attr, value in MUTATIONS[name]:
+        setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+
+
+def first_steps_under_mutations(rank, device, X):
+    """Rank program: ``{mutation: (loss, full gradients)}`` of the first
+    step of an identically seeded model, each under its mutation."""
+    groups = make_dp_mp_groups(1, MP)
+    out = {}
+    for name in MUTATIONS:
+        with mutated(name):
+            out[name] = programs.step_gradients(AVITM(device=device, **KW), X, groups)
+    return out
+
+
+def parity_failures(step, ref) -> set:
+    """The names (``"loss"`` or a parameter) that fail the parity check."""
+    (loss, grads), (ref_loss, ref_grads) = step, ref
+    failed = set() if loss == pytest.approx(ref_loss, rel=1e-6) else {"loss"}
+    scale = max(float(np.abs(g).max()) for g in ref_grads.values())
+    for name, want in ref_grads.items():
+        if name in DEGENERATE:
+            bad = float(np.abs(grads[name]).max()) > 1e-5 * scale
+        else:
+            bad = float(np.abs(grads[name] - want).max()) >= 5e-4 * float(np.abs(want).max())
+        if bad:
+            failed.add(name)
+    return failed
+
+
+@pytest.fixture(scope="module")
+def steps():
+    X = np.random.default_rng(0).integers(0, 3, size=(DOCS, V)).astype(np.float32)
+    ref = programs.step_gradients(AVITM(device="cpu", **KW), X)
+    ranks = run_ranks(first_steps_under_mutations, MP, "gloo", ["cpu"] * MP, TIMEOUT_S,
+                      args=(X,))
+    return ref, ranks
+
+
+def test_the_unbroken_ranks_pass_the_parity_check(steps):
+    ref, ranks = steps
+    for r in ranks:
+        assert parity_failures(r["none"], ref) == set()
+
+
+@pytest.mark.parametrize("mutation, caught_by", [
+    ("input_sum_all_reduces_grad", {"inf_net.input_layer.weight"}),
+    ("bias_added_on_every_rank", {"loss"}),
+    ("g_theta_unsummed", {"inf_net.input_layer.weight", "inf_net.f_mu.weight"}),
+    ("softmax_merge_unrescaled", {"loss"}),
+])
+def test_each_mutation_fails_the_parity_check(steps, mutation, caught_by):
+    ref, ranks = steps
+    for r in ranks:
+        assert caught_by <= parity_failures(r[mutation], ref), mutation
