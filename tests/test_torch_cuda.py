@@ -7,6 +7,8 @@ Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| per output (both
 float32; the plain version's products run through cuBLAS in another order).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -58,6 +60,85 @@ def test_kernels_match_plain_versions(cuda, b, v, training):
     gr = lo + (rd, torch.linspace(0.1, 2.0, b, device=cuda) * t["mask"], t["mask"], training)
     close(fd.grads(*gr), fd.grads_reference(*gr))
     torch.cuda.synchronize()
+
+
+def grads_case(b, k, v, device, mask_kind="partial", seed=0):
+    """K3's inputs: the plain statistics, row-dot and row cotangent of a
+    random batch (``mask_kind``: "partial", or "all" rows masked)."""
+    t = inputs(b, k, v, device, seed)
+    if mask_kind == "all":
+        t["mask"].zero_()
+    mean, var, m, s = fd.stats_reference(t["theta"], t["beta"], t["mask"], t["run_mean"],
+                                         t["run_var"], True)
+    rd = fd.loss_reference(t["theta"], t["beta"], t["x"], mean, var, m, s)[1]
+    g = torch.linspace(0.1, 2.0, b, device=device) * t["mask"]
+    return t, (t["theta"], t["beta"], t["x"], mean, var, m, s, rd, g, t["mask"])
+
+
+@pytest.mark.parametrize("k", [8, 50])
+@pytest.mark.parametrize("b", [1, 17, 256, 320])
+@pytest.mark.parametrize("v_mod", [0, 1, 2, 3])
+def test_grads_kernels_match_plain_version(cuda, b, k, v_mod):
+    """K3 in both ring variants (bulk copies at V % 4 == 0, else 4-byte
+    cp.async), both tile widths (B=320, K=50 takes 16 columns), ragged B and
+    K, several tiles per block; training and eval."""
+    v = 20_000 + v_mod
+    _, args = grads_case(b, k, v, cuda, seed=b + k + v_mod)
+    for training in (True, False):
+        close(fd.grads(*args, training), fd.grads_reference(*args, training))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_grads_kernels_all_masked_batch(cuda, training):
+    _, args = grads_case(64, 50, 3001, cuda, mask_kind="all")
+    got = fd.grads(*args, training)
+    close(got, fd.grads_reference(*args, training))
+    assert all(float(t.abs().max()) == 0.0 for t in got)
+
+
+@pytest.mark.parametrize("v", [100_000, 99_999])
+def test_grads_kernels_are_bitwise_repeatable(cuda, v):
+    _, args = grads_case(256, 50, v, cuda)
+    first = fd.grads(*args, True)
+    second = fd.grads(*args, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _old_grads_smem_floats(b, k):
+    """Shared memory, in floats, of the CUDA-core K3 this kernel replaced
+    (4-row and 4-topic padding, 32-column strips): every (B, K) it fitted
+    must still be accepted."""
+    bp, kp = -(-b // 4) * 4, -(-k // 4) * 4
+    return 2 * bp * kp + kp * 33 + 2 * bp * 32 + 5 * b + 4 * 32 + 2 * 8 * 32 + 1
+
+
+def test_grads_kernels_accept_every_batch_the_old_kernel_took(cuda):
+    from gfedntm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    grid, smem, limit = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
+    assert lib.fd_plan(2, 1, 1, 1, ctypes.byref(grid), ctypes.byref(smem),
+                       ctypes.byref(limit)) == 0
+    limit = limit.value // 4
+    for k in (1, 8, 9, 25, 50, 64, 100, 241, 500, 1000):
+        b_max = max(b for b in range(1, 2000) if _old_grads_smem_floats(b, k) <= limit)
+        for b in (1, b_max // 2, b_max):
+            assert fd._plan(lib, "grads", b, k, 100_000) > 0, (b, k)
+    assert fd._plan(lib, "grads", 320, 50, 100_000) > 0
+    refused = next(b for b in range(320, 2000)
+                   if _grads_refused(lib, b, 50))
+    _, args = grads_case(refused, 50, 300, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.grads(*args, True)
+
+
+def _grads_refused(lib, b, k):
+    try:
+        fd._plan(lib, "grads", b, k, 300)
+    except ValueError:
+        return True
+    return False
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
