@@ -492,6 +492,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
 // Start loading columns v0..v0+VT (those below V) of beta's K rows, x's B
 // rows, mean and var into one ring stage. kBulk: one bulk copy per row,
 // spread over the block's threads, all completing on `bar` (thread 0 posts
@@ -605,16 +609,24 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
+  if (first < last) {
+    load_tile<VT, kBulk>(b_ring, x_ring, mv_ring, &bar[0], beta, x, mean, var, B, K, V,
+                         first * VT);
+    if (!kBulk) cp_async_commit();
+  }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
     const int st = it & 1;
     const int v0 = tile * VT;
-    load_tile<VT, kBulk>(b_ring + st * L.b_stage, x_ring + st * L.x_stage,
-                         mv_ring + st * 2 * VT, &bar[st], beta, x, mean, var, B, K, V, v0);
+    if (tile + 1 < last) {
+      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
+                           mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
+                           K, V, v0 + VT);
+    }
     if (kBulk) {
       mbar_wait(&bar[st], (it >> 1) & 1);
     } else {
-      cp_async_commit();
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      cp_async_commit();  // possibly empty: one group per tile
+      cp_async_wait_prior();
     }
     __syncthreads();
     float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
