@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``gfedntm_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
 
 Four phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
-   ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a;
+   ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
+   registers and spills per kernel and, from ``cuobjdump -sass``, the
+   tensor-core instructions (HMMA/HGMMA) in each ``grads_kernel``
+   instantiation, which must not be 0;
 2. kernels — run K1 (stats), K2 (loss) and K3 (grads) at the slice's shapes
-   (B=256, K=50, V=100,000) and at B=64 / B=200 with V=3001, in training and
-   eval, with masked rows, an all-zero document row and an all-masked batch,
-   and hold each against its plain PyTorch version on the card; time both;
-   check the autograd function against the unfused oracle on a small input;
+   (B=256, K=50, V=100,000), at B=320 (K3's 16-column tiles), at V=99,999
+   (K3's 4-byte cp.async ring at full width) and at B=64 / B=200 with
+   V=3001, in training and eval, with masked rows, an all-zero document row
+   and an all-masked batch, and hold each against its plain PyTorch version
+   on the card; time both; check the autograd function against the unfused
+   oracle on a small input;
 3. main path — federated ProdLDA through the user entry points
    (``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
    ``get_topics``) at V=100,000, K=50, H=(100, 100), B=256, 2 clients,
@@ -29,8 +35,11 @@ device or no port next to this script):
    with each rank's launch counters reset just before and read just after,
    against an unsharded ``AVITM.fit`` on the card (first-step gradients,
    step losses, and beta against the spread that reduction order alone
-   gives: an unsharded fit through the unfused decode); (c) per-rank op time
-   and steady ms per step of the sharded fit.
+   gives: an unsharded fit through the unfused decode); (c) teacher-forced
+   steps: at steps 1, 4, 8 and 16 of the unsharded split-encoder fit, that
+   fit's state, batch and noise go through both the mp=2 ranks and an
+   unsharded model, and each leaf's worst gradient error is printed;
+   (d) per-rank op time and steady ms per step of the sharded fit.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -41,20 +50,27 @@ count, max error and its tolerance, kernel, plain and bound ms); a
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-# Published peaks by card (NVIDIA data sheets; dense, no sparsity): memory
-# bytes/s and FP32 FLOP/s on the CUDA cores. Keys are matched against the
-# nvidia-smi name; the SXM part is the default.
+# Published peaks by card (NVIDIA data sheets; dense, no sparsity: half the
+# sheets' sparse tensor-core figures): memory bytes/s, FP32 FLOP/s on the
+# CUDA cores, and TF32 FLOP/s on the tensor cores. Keys are matched against
+# the nvidia-smi name; the SXM part is the default.
 _PEAKS = (
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100", 3.35e12, 67e12, 495e12),
 )
+# An FP32-accurate product on the tensor cores is three TF32 products
+# (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi).
+TF32_PASSES = 3
 RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain: |err| <= ATOL + RTOL * max|plain|
 # Gradients that are zero in exact arithmetic (BatchNorm removes a bias; the
 # batch mean of the normalized mu is zero): both sides see rounding noise.
@@ -78,11 +94,29 @@ def card_line() -> str:
     return (out.stdout.strip().splitlines() or [f"nvidia-smi failed: {out.stderr.strip()}"])[0]
 
 
-def peaks(name: str) -> tuple[float, float, str]:
-    for key, bw, flops in _PEAKS:
+def peaks(name: str) -> tuple[float, float, float, str]:
+    """(bytes/s, FP32 FLOP/s, TF32 FLOP/s, matched key) of the card."""
+    for key, bw, simt, tf32 in _PEAKS:
         if key in name:
-            return bw, flops, key
-    return _PEAKS[-1][1], _PEAKS[-1][2], "H100 (assumed)"
+            return bw, simt, tf32, key
+    return (*_PEAKS[-1][1:], "H100 (assumed)")
+
+
+def kernel_bound(nbytes: float, nflops: float, card: str) -> dict:
+    """The least time the card could take for a function that moves
+    ``nbytes`` and does ``nflops`` FP32-accurate FLOPs: the larger of the
+    bytes over the memory rate and the FLOPs as 3xTF32 over the tensor
+    cores' dense TF32 rate; and, for the record, the FP32 SIMT bound
+    (FLOPs over the CUDA cores' FP32 rate instead)."""
+    bw, simt, tf32, key = peaks(card)
+    t_bytes = nbytes / bw * 1e3
+    t_ops = TF32_PASSES * nflops / tf32 * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes, "ops_ms": t_ops,
+        "simt_bound_ms": max(t_bytes, nflops / simt * 1e3), "peaks": key,
+    }
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -98,6 +132,58 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: what the build made
+# ---------------------------------------------------------------------------
+def _kernel_name(mangled: str) -> str:
+    """``grads_kernel<32, bulk>`` from a mangled name (``stats_kernel`` etc.
+    as they are)."""
+    found = re.search(r"((?:stats|loss|grads|merge_softmax|sum_partials)_kernel)"
+                      r"(?:ILi(\d+)ELb([01])E)?", mangled)
+    if not found:
+        return mangled
+    name, width, bulk = found.groups()
+    return f"{name}<{width}, {'bulk' if bulk == '1' else 'cp.async'}>" if width else name
+
+
+def build_report(lib: Path, build_log: str) -> list[str]:
+    """ptxas' registers and spills per kernel (when this process built the
+    library), then the tensor-core instructions (HMMA, HGMMA) that
+    ``cuobjdump -sass`` finds in each ``grads_kernel`` instantiation. Fails
+    when one has none, or when there is no cuobjdump to look."""
+    lines, current = [], None
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            current = _kernel_name(entry.group(1))
+        elif current and ("registers" in line or "spill" in line):
+            lines.append(f"ptxas {current}: {line.strip().removeprefix('ptxas info    : ')}")
+    if not build_log:
+        lines.append("ptxas: library up to date, not rebuilt in this process")
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    check(Path(tool).exists(), f"cuobjdump not found ({tool}): cannot count tensor-core "
+          "instructions in grads_kernel")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=False)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()}")
+    counts, current = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            current = name if name.startswith("grads_kernel") else None
+            if current:
+                counts[current] = 0
+        elif current and re.search(r"\bH(G)?MMA\b", line):
+            counts[current] += 1
+    check(len(counts) == 4, f"cuobjdump found grads_kernel instantiations {sorted(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"{name}: no HMMA/HGMMA instruction in its SASS")
+    lines.append("tensor-core instructions (HMMA/HGMMA in cuobjdump -sass): " + ", ".join(
+        f"{name} {n}" for name, n in sorted(counts.items())))
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +244,24 @@ def kernel_work(b, k, v) -> dict:
     }
 
 
+def vsharded_work(b, k, v, mp) -> tuple[float, float, float]:
+    """K5 per rank: (bytes, FLOPs, the collectives' share of the bytes) —
+    one rank's K1 + K2 + K3 on V/mp, plus what its collectives move (the
+    softmax merge and the loss/row-dot sum, [mp, 2, B] each, and the g_theta
+    sum, [mp, B, K])."""
+    work = kernel_work(b, k, v // mp)
+    coll = 4.0 * (mp * 2 * b + mp * 2 * b + mp * b * k)
+    return (sum(w[0] for w in work.values()) + coll, sum(w[1] for w in work.values()), coll)
+
+
 def kernel_phase(card: str) -> dict:
     import torch
 
     from gfedntm_tpu_torch.ops import fused_decoder as fd
 
-    bw, flops_peak, peak_key = peaks(card)
     cases = [
         (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
+        (320, 50, 100_000, "partial", True), (256, 50, 99_999, "partial", True),
         (64, 50, 3001, "partial", True), (64, 50, 3001, "partial", False),
         (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
         (200, 50, 3001, "partial", True), (200, 50, 3001, "none", False),
@@ -229,23 +325,32 @@ def kernel_phase(card: str) -> dict:
         k2 = time_ms(kernel_fn)
         p2 = time_ms(plain_fn)
         nbytes, nflops = work[name]
-        t_bytes, t_flops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+        bound = kernel_bound(nbytes, nflops, card)
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "gfedntm_tpu_torch/ops/csrc/fused_decoder.cu",
             "replaces": replaces[name], "launches": 0,
             "max_abs_err": worst[name],
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": None,
         }
         notes[name] = (
             f"tol {ATOL:g} + {RTOL:g}*max|plain| per output; ms {k1:.4f}/{k2:.4f} "
-            f"plain_ms {p1:.4f}/{p2:.4f}; bound {rows[name]['bound_by']} ({peak_key} "
-            f"peaks: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nflops / 1e9:.2f} GFLOP "
-            f"-> {t_flops:.4f} ms)"
+            f"plain_ms {p1:.4f}/{p2:.4f}; bound {bound['bound_by']} ({bound['peaks']} peaks: "
+            f"{nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP "
+            f"as 3xTF32 -> {bound['ops_ms']:.4f} ms); FP32 SIMT bound "
+            f"{bound['simt_bound_ms']:.4f} ms"
         )
+    # K3's 4-byte cp.async ring at full width (V % 4 != 0), timed the same way.
+    t = make_inputs(b, k, v - 1, seed=0, mask_kind="partial")
+    st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True)
+    mean, var, m, s = fd.stats_reference(*st_args)
+    lo_args = (t["theta"], t["beta"], t["x"], mean, var, m, s)
+    gr_args = lo_args + (fd.loss_reference(*lo_args)[1], t["g"], t["mask"], True)
+    unaligned = [time_ms(lambda: fd.grads(*gr_args)) for _ in range(2)]
+    notes["grads"] += (f"; at V={v - 1} (4-byte cp.async ring) ms "
+                       f"{unaligned[0]:.4f}/{unaligned[1]:.4f}")
     return rows, notes
 
 
@@ -410,6 +515,46 @@ def sharded_op_phase() -> tuple[float, dict, str]:
     return worst, times, backend
 
 
+def forced_phase(kw: dict, X, mp: int, split_losses: list) -> None:
+    """(c) Teacher-forced steps: at steps 1, 4, 8 and 16 of the unsharded
+    split-encoder fit, its state, that step's batch and its noise go through
+    the mp ranks and an unsharded model. Prints each step's worst relative
+    gradient error over the leaves (error over the leaf's max|grad|) and the
+    cancelling leaves' error over the largest gradient; fails past 1e-3 and
+    1e-5 of those. ``split_losses``: the split-encoder fit's step losses,
+    which the trajectory's replay must repeat."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    witness = AVITM(**kw)
+    split_input_layer(witness, mp)
+    records, losses = programs.trajectory(witness, X, (0, 3, 7, 15))
+    backend, devices = gpu_layout(mp)
+    sharded = run_ranks(programs.forced_steps, mp, backend, devices, 600,
+                        args=(1, mp, kw, X, records))[0]
+    parts = []
+    for rec, (loss, grads) in zip(records, sharded):
+        ref_loss, ref = programs.step_gradients(AVITM(**kw), X, state=rec["state"],
+                                                step=rec["step"], noise=rec["noise"])
+        scale = max(float(np.abs(g).max()) for g in ref.values())
+        rel = {n: float(np.abs(grads[n] - g).max()) / float(np.abs(g).max())
+               for n, g in ref.items() if n not in DEGENERATE}
+        cancel = max(float(np.abs(grads[n] - ref[n]).max()) for n in DEGENERATE) / scale
+        leaf = max(rel, key=rel.get)
+        parts.append(f"step {rec['step'] + 1}: loss {abs(loss - ref_loss) / abs(ref_loss):.2e}, "
+                     f"worst leaf {leaf} {rel[leaf]:.3e}, cancelling leaves {cancel:.2e}")
+        check(rel[leaf] <= 1e-3, f"forced step {rec['step'] + 1}: {leaf} gradient differs by "
+              f"{rel[leaf]:.3e} of its max|grad| (limit 1e-3)")
+        check(cancel <= 1e-5, f"forced step {rec['step'] + 1}: {', '.join(DEGENERATE)} differ "
+              f"by {cancel:.3e} of the largest gradient (limit 1e-5)")
+    print(f"sharded vs unsharded, teacher-forced from the split-encoder fit's trajectory "
+          f"(its replay's step losses equal its fit's: {losses == list(split_losses)[:16]}): "
+          + "; ".join(parts), flush=True)
+
+
 def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
     """(a) through (d): the op checks, then ``fit_sharded`` at full width
     against an unsharded ``AVITM.fit``, its timing, and the ``vsharded``
@@ -519,6 +664,8 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
           f"sharded beta is further from the split-encoder fit ({pairs['sharded', 'split'][1]:.5f}"
           f") than that is from the plain fit ({pairs['split', 'plain'][1]:.5f})")
 
+    forced_phase(kw, X, mp, split.step_losses)
+
     sec = res[0]["fit_seconds"]  # 8, 8, 24, 24 steps
     ms_step = (min(sec[2:]) - min(sec[:2])) / 16 * 1e3
     check(ms_step > 0, f"sharded steady-state step time {ms_step:.3f} ms is not positive")
@@ -527,14 +674,10 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
           f"{sec[0] * 1e3:.1f}/{sec[1] * 1e3:.1f} ms, 24-step fits {sec[2] * 1e3:.1f}/"
           f"{sec[3] * 1e3:.1f} ms", flush=True)
 
-    # (d) The vsharded row: rank 0's op times at mp=2; the bound is one
+    # (e) The vsharded row: rank 0's op times at mp=2; the bound is one
     # rank's K1-K3 on V/mp plus the bytes its collectives move.
-    bw, flops_peak, peak_key = peaks(card)
-    work = kernel_work(B, K, V // mp)
-    coll_bytes = 4.0 * (mp * 2 * B + mp * 2 * B + mp * B * K)
-    nbytes = sum(w[0] for w in work.values()) + coll_bytes
-    nflops = sum(w[1] for w in work.values())
-    t_bytes, t_flops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+    nbytes, nflops, coll_bytes = vsharded_work(B, K, V, mp)
+    bound = kernel_bound(nbytes, nflops, card)
     rank0 = op_times["per_rank"][0]
     rows["vsharded"] = {
         "name": "vsharded", "route": "cuda",
@@ -542,21 +685,25 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
         "replaces": "gfedntm_tpu/ops/fused_decoder.py:824",
         "launches": res[0]["launches"]["vsharded"], "max_abs_err": worst,
         "ms": min(rank0["kernel"]), "plain_ms": min(rank0["plain"]),
-        "bound_ms": max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
     }
     notes["vsharded"] = (
         f"per rank at B={B} K={K} V={V} mp={mp}, forward + backward, backend "
         f"{op_backend}; ms per rank {[r['kernel'] for r in op_times['per_rank']]} plain_ms "
-        f"{[r['plain'] for r in op_times['per_rank']]}; bound {rows['vsharded']['bound_by']} "
-        f"({peak_key} peaks: {nbytes / 1e6:.1f} MB incl. {coll_bytes / 1e3:.1f} kB of "
-        f"collectives -> {t_bytes:.4f} ms, {nflops / 1e9:.2f} GFLOP -> {t_flops:.4f} ms); "
+        f"{[r['plain'] for r in op_times['per_rank']]}; bound {bound['bound_by']} "
+        f"({bound['peaks']} peaks: {nbytes / 1e6:.1f} MB incl. {coll_bytes / 1e3:.1f} kB of "
+        f"collectives -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP as 3xTF32 -> "
+        f"{bound['ops_ms']:.4f} ms); FP32 SIMT bound {bound['simt_bound_ms']:.4f} ms; "
         f"max |err| vs the full-V kernels, tol {ATOL:g} + {RTOL:g}*max|plain|"
     )
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError as err:
@@ -580,12 +727,12 @@ def main() -> int:
         t0 = time.perf_counter()
         lib = _build.build()
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
-        for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"build: {line.strip()}", flush=True)
+        for line in build_report(lib, _build.build_log):
+            print(f"build: {line}", flush=True)
         rows, notes = kernel_phase(card)
-        main_path_phase(rows)
-        sharded_fit_phase(card, rows, notes)
+        if not kernels_only:
+            main_path_phase(rows)
+            sharded_fit_phase(card, rows, notes)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -593,6 +740,8 @@ def main() -> int:
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
               f"bound_ms {row['bound_ms']:.4f}; {notes[name]}", flush=True)
+    if kernels_only:
+        return 0
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -602,4 +751,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

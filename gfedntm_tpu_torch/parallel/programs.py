@@ -15,6 +15,9 @@ training through them:
 - :func:`fit` — ``fit_sharded`` of an AVITM, with its first step's
   gradients (:func:`step_gradients`), launch counts, the gathered model's
   state and topics, and optionally timed refits;
+- :func:`forced_steps` — the sharded gradients at given points of another
+  fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
+  noise);
 - :func:`profile_steps` — steady V-sharded training steps, timed and then
   traced with ``torch.profiler``.
 """
@@ -145,29 +148,90 @@ def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
     return out
 
 
-def step_gradients(model: AVITM, X: np.ndarray,
-                   groups: DpMpGroups | None = None) -> tuple[float, dict]:
+def _batch(model: AVITM, n_docs: int, step: int) -> tuple[np.ndarray, np.ndarray]:
+    """Row indices and mask of global step ``step`` of ``model``'s epoch
+    schedules, drawn from its numpy generator (a fresh model: the schedule
+    its ``fit`` runs)."""
+    for _ in range(step // -(-n_docs // model.batch_size) + 1):
+        sched = make_epoch_schedule(n_docs, model.batch_size, model._np_rng)
+    i = step % sched.steps_per_epoch
+    return sched.indices[i], sched.mask[i]
+
+
+def step_gradients(model: AVITM, X: np.ndarray, groups: DpMpGroups | None = None,
+                   state: dict | None = None, step: int = 0,
+                   noise: np.ndarray | None = None) -> tuple[float, dict]:
     """Loss and every parameter's gradient of the fused training loss on the
-    first batch of ``model``'s next epoch schedule: unsharded, or (``groups``)
-    on the rank-local network, gathered to full shapes. The one-step parity
-    check of the whole network: Adam would hide a gradient that is wrong by
-    a constant factor, such as the model group's size."""
-    sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
-    x = X[sched.indices[0]]
+    batch of global step ``step`` of a fresh ``model``'s schedule: unsharded,
+    or (``groups``) on the rank-local network, gathered to full shapes.
+    ``state`` (a full numpy state dict) replaces the model's own first, and
+    ``noise`` [B, K] the reparameterization draw from its generator, so the
+    step can be taken from any point of another fit's trajectory. The
+    one-step parity check of the whole network: Adam would hide a gradient
+    that is wrong by a constant factor, such as the model group's size."""
+    if state is not None:
+        model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                                     for k, v in state.items()})
+    indices, mask = _batch(model, len(X), step)
+    x = X[indices]
     net, vshard = model.model, None
     if groups is not None:
         net = local_network(model.model, groups)
         x = x[:, groups.v_slice(X.shape[1])]
         vshard = groups if groups.mp > 1 else None
     net.train()
-    mask = torch.as_tensor(sched.mask[0], dtype=torch.float32, device=model.device)
+    mask = torch.as_tensor(mask, dtype=torch.float32, device=model.device)
+    eps = None if noise is None else torch.as_tensor(noise, device=model.device)
     loss = fused_batch_loss(net, torch.as_tensor(np.ascontiguousarray(x), device=model.device),
-                            mask, generator=model.generator, vshard=vshard)
+                            mask, noise=eps, generator=model.generator, vshard=vshard)
     loss.backward()
     grads = {name: p.grad for name, p in net.named_parameters()}
     if groups is not None:
         grads = gather_state_dict(grads, groups)
     return float(loss.detach()), {name: _np(g) for name, g in grads.items()}
+
+
+def trajectory(model: AVITM, X: np.ndarray, steps) -> tuple[list, list]:
+    """Train a fresh ``model`` (dropout 0) on ``X`` step by step as its
+    ``fit`` does — the same schedules, ``grad_step`` calls and generator
+    draws — for ``max(steps) + 1`` global steps. Before each step in
+    ``steps`` it records that step's index, the full state dict and the
+    reparameterization noise the step then uses (drawn from the model's
+    generator exactly as the network draws it). Returns the records and
+    every step's loss, to hold against ``model.fit``'s ``step_losses``."""
+    if model.dropout != 0:
+        raise ValueError("trajectory: the recorded noise is the step's only draw with dropout 0")
+    steps = sorted(set(steps))
+    x_all = torch.as_tensor(X, device=model.device)
+    records, losses, step = [], [], 0
+    while step <= steps[-1]:
+        sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
+        for i in range(sched.steps_per_epoch):
+            if step > steps[-1]:
+                break
+            idx = torch.as_tensor(sched.indices[i], device=model.device, dtype=torch.long)
+            mask = torch.as_tensor(sched.mask[i], device=model.device, dtype=torch.float32)
+            noise = None
+            if step in steps:
+                noise = torch.randn((len(sched.indices[i]), model.n_components),
+                                    generator=model.generator, device=model.device)
+                records.append({"step": step, "noise": _np(noise).copy(), "state": {
+                    k: _np(v).copy() for k, v in model.model.state_dict().items()}})
+            losses.append(float(grad_step(model.model, model.optimizer, x_all[idx], mask,
+                                          model.fused_decoder, noise=noise,
+                                          generator=model.generator)))
+            step += 1
+    return records, losses
+
+
+def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
+                 records: list) -> list:
+    """For each :func:`trajectory` record: the loss and gathered gradients of
+    :func:`step_gradients` on this rank's V shard from the record's state,
+    batch and noise (a fresh model per record)."""
+    groups = make_dp_mp_groups(dp, mp)
+    return [step_gradients(AVITM(device=device, **avitm_kw), X, groups, state=r["state"],
+                           step=r["step"], noise=r["noise"]) for r in records]
 
 
 def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
