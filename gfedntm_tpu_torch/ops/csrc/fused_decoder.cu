@@ -382,7 +382,9 @@ template <> struct GradsTile<16> { static constexpr int kPx = 24, kPb = 16, kMax
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
 
 // K3's shared memory at tile width vt, as offsets in floats: theta [B, Pth]
-// (Pth = Kp + 4, 4 mod 8, so theta's A fragments load without conflicts),
+// (Pth = Kp where that is 8 or 24 mod 32, so theta^T's fragments in g_beta
+// load without bank conflicts; else Kp + 4, which does that for z = theta
+// beta instead),
 // the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
 // [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
 // five row vectors (m, 1/s, rd, g, mask); two [kK3Warps, vt] column reductions, the two BN column
@@ -398,7 +400,7 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   const int px = vt == 32 ? GradsTile<32>::kPx : GradsTile<16>::kPx;
   const int pb = vt == 32 ? GradsTile<32>::kPb : GradsTile<16>::kPb;
   L.Kp = round_up(K, 8);
-  L.Pth = L.Kp + 4;
+  L.Pth = L.Kp % 16 == 8 ? L.Kp : L.Kp + 4;
   L.Pg = L.Kp;
   L.th = 0;
   L.gth = L.th + up4((size_t)B * L.Pth);
