@@ -37,29 +37,34 @@
 // TFLOP/s dense TF32 on the tensor cores, so 165 TFLOP/s for an FP32-accurate
 // 3xTF32 product) at B=256, K=50, V=100,000: K1 moves ~21 MB (6 us) and does
 // 2BKV = 2.56 GFLOP (38 us on the CUDA cores); K2 moves ~123 MB (37 us) for
-// the same 2.56 GFLOP; K1 and K2 are bound by FP32 operations on the CUDA
-// cores, and their simple design feeds each FMA from shared memory and is
-// far from that bound.
+// the same 2.56 GFLOP. On the CUDA cores, where they run, K1 and K2 are bound
+// by FP32 operations, and their simple design feeds each FMA from shared
+// memory and is far from that bound. (With tensor cores the card could do
+// K1 in 16 us, bound by 3xTF32 operations, and K2 in 37 us, bound by bytes.)
 //
-// K3 moves ~143 MB (43 us) and does 3 x 2.56 GFLOP, which take 46 us as
-// 3xTF32 on the tensor cores (115 us as FP32 FMAs): its bound is those
-// operations. Its design: a block owns a contiguous range of V columns and
-// all B rows (so the BatchNorm column sums stay exact inside the block) and
-// walks it in tiles of VT = 32 columns (16 where the shared memory of 32
-// does not fit: B > 384, or large B*K). All three products run on the tensor
-// cores through mma.sync m16n8k8 TF32 with the 3xTF32 split (a = a_hi + a_lo,
-// D += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, FP32 accumulation), which keeps
-// FP32 accuracy: z = theta beta_tile per 16-row tile of each warp, with
-// n, p and gn computed on the accumulator fragments; gz is staged once in
-// shared memory, in place of the tile's x; g_beta = theta^T gz is written
-// straight to its columns; g_theta += gz beta_tile^T accumulates in shared
-// memory across the block's tiles. The beta and x tiles of tile t+1 are in
-// flight while tile t computes, in a two-stage ring: Hopper bulk copies
-// (cp.async.bulk, one per tile row, completing on an mbarrier) where rows are
-// 16-byte aligned, else 4-byte cp.async. Occupancy is one block of 8 warps
-// per SM at the main path's shapes (226 KB of shared memory); the tensor
-// cores and the ring, not more warps, are what the design leans on. The
-// [grid, B, K] g_theta partials are folded in block order, as above.
+// K3 replaces _grads_kernel (:612). It moves ~143 MB (43 us) and does
+// 3 x 2.56 GFLOP, which take 46 us as 3xTF32 on the tensor cores (115 us as
+// FP32 FMAs): its bound is those operations. Its design: a block of 16 warps
+// owns a contiguous range of V columns and all B rows (so the BatchNorm
+// column sums stay exact inside the block) and walks it in tiles of VT = 32
+// columns (16 when B > 256 or the 32-wide layout does not fit). All three
+// products run on the tensor cores through mma.sync m16n8k8 TF32 with the
+// 3xTF32 split (a = a_hi + a_lo, each rounded to TF32; D += a_lo*b_hi +
+// a_hi*b_lo + a_hi*b_hi, FP32 accumulation), which keeps FP32 accuracy:
+// z = theta beta_tile per 16-row tile of each warp, with n, p and gn
+// computed on the accumulator fragments; gz is staged once in shared memory,
+// in place of the tile's x; then half the warps accumulate g_theta +=
+// gz beta_tile^T in shared memory across the block's tiles while the other
+// half write g_beta = theta^T gz straight to its columns. The beta, x, mean
+// and var rows of tile t+1 are in flight while tile t computes, in a
+// two-stage ring: Hopper bulk copies (cp.async.bulk, one per row, completing
+// on an mbarrier) where rows are 16-byte aligned, else 4-byte cp.async.
+// Occupancy is one block per SM (228.6 KB of shared memory at B=256, K=50,
+// at most 128 registers a thread); four warps per scheduler and independent
+// mma chains hide the mma latency. Every TF32 operand is split with five
+// integer and FP32 instructions before its mma, so the warps issue several
+// instructions per mma. The [grid, B, K] g_theta partials are folded in
+// block order, as above.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -382,9 +387,7 @@ template <> struct GradsTile<16> { static constexpr int kPx = 24, kPb = 16, kMax
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
 
 // K3's shared memory at tile width vt, as offsets in floats: theta [B, Pth]
-// (Pth = Kp where that is 8 or 24 mod 32, so theta^T's fragments in g_beta
-// load without bank conflicts; else Kp + 4, which does that for z = theta
-// beta instead),
+// (Pth = Kp + 4, 4 mod 8, so theta's A fragments load without conflicts),
 // the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
 // [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
 // five row vectors (m, 1/s, rd, g, mask); two [kK3Warps, vt] column reductions, the two BN column
@@ -400,7 +403,7 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   const int px = vt == 32 ? GradsTile<32>::kPx : GradsTile<16>::kPx;
   const int pb = vt == 32 ? GradsTile<32>::kPb : GradsTile<16>::kPb;
   L.Kp = round_up(K, 8);
-  L.Pth = L.Kp % 16 == 8 ? L.Kp : L.Kp + 4;
+  L.Pth = L.Kp + 4;
   L.Pg = L.Kp;
   L.th = 0;
   L.gth = L.th + up4((size_t)B * L.Pth);
