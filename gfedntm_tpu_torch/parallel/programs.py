@@ -14,7 +14,7 @@ training through them:
   full inputs, forward and backward, and optionally their times;
 - :func:`fit` — ``fit_sharded`` of an AVITM, with its first step's
   gradients (:func:`step_gradients`), launch counts, the gathered model's
-  state and topics, and optionally timed refits;
+  state and topics, and optionally its steady ms per step;
 - :func:`forced_steps` — the sharded gradients at given points of another
   fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
   noise);
@@ -236,16 +236,16 @@ def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
 
 def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         init_state: dict | None = None, n_samples: int = 3,
-        timing_epochs: tuple = ()) -> dict:
+        timing_steps: int = 0) -> dict:
     """``fit_sharded`` of ``AVITM(device=device, **avitm_kw)`` on ``X`` (from
     ``init_state``, a full numpy state dict, when given), with the launch
     counters set to 0 just before and read just after. Returns the first
     step's loss and gradients on an identical model (``first_step``), the
     launch counts, epoch and step losses, the gathered model's state dict, the
     rank-local network's shapes, ``get_topics(10)`` and the training
-    documents' topic mixtures (``n_samples`` draws); then, for each entry of
-    ``timing_epochs``, the seconds of a fresh ``fit_sharded`` of that many
-    epochs, started and ended on a barrier."""
+    documents' topic mixtures (``n_samples`` draws); then, with
+    ``timing_steps``, the steady wall ms per step of ``fit_sharded``'s step
+    (:func:`_step_loop`)."""
     groups = make_dp_mp_groups(dp, mp)
     data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
 
@@ -271,32 +271,19 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         "topics": model.get_topics(10),
         "theta": model.training_doc_topic_distributions,
     }
-    seconds = []
-    for epochs in timing_epochs:
-        timed = build(num_epochs=epochs)
-        dist.barrier()
-        _sync(device)
-        start = time.perf_counter()
-        fit_sharded(timed, data, groups, n_samples=n_samples, device=device)
-        _sync(device)
-        dist.barrier()
-        seconds.append(time.perf_counter() - start)
-    result["fit_seconds"] = seconds
+    if timing_steps:
+        result["step_ms"] = _step_loop(build(), X, groups)[1](timing_steps)
     return result
 
 
-def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
-                  steps: int) -> dict:
-    """``steps`` V-sharded training steps (``fit_sharded``'s step, on
-    batches of ``X`` already on the device): the unprofiled wall ms per step
-    between barriers, then the device ms per step by kernel group and the
-    top device events of the same steps under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from gfedntm_tpu_torch.profile_step import GROUPS, device_times
-
-    groups = make_dp_mp_groups(1, mp)
-    model = AVITM(device=device, **avitm_kw)
+def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
+    """``fit_sharded``'s training step on this rank's V shard of ``model``,
+    on the first epoch's batches of ``X`` already on the device (repeated):
+    ``run(steps)`` takes ``steps`` of them and syncs the device;
+    ``wall_ms(steps)`` warms up with ``run(steps)``, then times ``run(steps)``
+    between barriers and returns the wall ms per step. Set-up (copies of the
+    network, the corpus upload, the state gather) is outside both."""
+    device = model.device
     net = local_network(model.model, groups)
     optimizer = model.build_optimizer(net)
     cols = groups.v_slice(X.shape[1])
@@ -305,21 +292,39 @@ def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
     batches = [x_local[torch.as_tensor(i, device=device, dtype=torch.long)]
                for i in sched.indices]
     mask = torch.ones(model.batch_size, device=device)
+    vshard = groups if groups.mp > 1 else None
 
-    def run():
+    def run(steps):
         for i in range(steps):
             grad_step(net, optimizer, batches[i % len(batches)], mask, True,
-                      generator=model.generator, vshard=groups)
+                      generator=model.generator, vshard=vshard)
         _sync(device)
 
-    run()  # warm
-    dist.barrier()
-    start = time.perf_counter()
-    run()
-    dist.barrier()
-    wall_ms = (time.perf_counter() - start) / steps * 1e3
+    def wall_ms(steps):
+        run(steps)  # warm
+        dist.barrier()
+        start = time.perf_counter()
+        run(steps)
+        dist.barrier()
+        return (time.perf_counter() - start) / steps * 1e3
+
+    return run, wall_ms
+
+
+def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
+                  steps: int) -> dict:
+    """``steps`` V-sharded training steps (:func:`_step_loop`): the
+    unprofiled wall ms per step between barriers, then the device ms per
+    step by kernel group and the top device events of the same steps under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfedntm_tpu_torch.profile_step import GROUPS, device_times
+
+    run, step_ms = _step_loop(AVITM(device=device, **avitm_kw), X, make_dp_mp_groups(1, mp))
+    wall_ms = step_ms(steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        run(steps)
     # No upload happens in these steps: host-device copies are gloo's
     # staging of the collectives.
     by_group, top = device_times(prof, steps, GROUPS[:-1] + (("collective copies",
