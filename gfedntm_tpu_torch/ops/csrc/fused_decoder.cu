@@ -62,9 +62,9 @@
 // Occupancy is one block per SM (228.6 KB of shared memory at B=256, K=50,
 // at most 128 registers a thread); four warps per scheduler and independent
 // mma chains hide the mma latency. Every TF32 operand is split with five
-// integer and FP32 instructions before its mma, so the warps issue several
-// instructions per mma. The [grid, B, K] g_theta partials are folded in
-// block order, as above.
+// integer and FP32 instructions before its mma, so each mma costs several
+// instructions besides itself. The [grid, B, K] g_theta partials are folded
+// in block order, as above.
 
 #include <cuda_runtime.h>
 #include <math.h>
