@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
+    python3 chip_smoke.py --kernels-only --against DIR  # and K3 bitwise vs DIR's build
 
 Four phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
    ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
-   registers and spills per kernel and, from ``cuobjdump -sass``, the
-   tensor-core instructions (HMMA/HGMMA) in each ``grads_kernel``
-   instantiation, which must not be 0;
+   registers and spills per kernel (a spill in a tensor-core kernel fails)
+   and, from ``cuobjdump -sass``, the tensor-core instructions (HMMA/HGMMA)
+   in each ``stats_kernel``, ``loss_kernel`` and ``grads_kernel``
+   instantiation, none of which may have 0;
 2. kernels — run K1 (stats), K2 (loss) and K3 (grads) at the slice's shapes
-   (B=256, K=50, V=100,000), at B=320 (K3's 16-column tiles), at V=99,999
-   (K3's 4-byte cp.async ring at full width) and at B=64 / B=200 with
-   V=3001, in training and eval, with masked rows, an all-zero document row
-   and an all-masked batch, and hold each against its plain PyTorch version
-   on the card; time both; check the autograd function against the unfused
-   oracle on a small input;
+   (B=256, K=50, V=100,000), at B=320 (16-column tiles), at V=99,999 (the
+   4-byte cp.async ring at full width), at B=64 / B=200 with V=3001 and at
+   B=1100, K=8 (K1 and K2 on their CUDA-core route; K3 refuses that batch),
+   in training and eval, with masked rows, an all-zero document row and an
+   all-masked batch, and hold each against its plain PyTorch version on the
+   card; print each case's routes; time kernel and plain version on both
+   ring variants; print each kernel's and each plain version's error against
+   a float64 plain run at the slice's shapes; check the autograd function
+   against the unfused oracle on a small input. ``--against DIR`` also
+   builds the fused decoder source of the checkout in DIR and requires its
+   K3 outputs to be bitwise equal to this build's in every case;
 3. main path — federated ProdLDA through the user entry points
    (``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
    ``get_topics``) at V=100,000, K=50, H=(100, 100), B=256, 2 clients,
@@ -138,34 +145,61 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # Phase 1: what the build made
 # ---------------------------------------------------------------------------
 def _kernel_name(mangled: str) -> str:
-    """``grads_kernel<32, bulk>`` from a mangled name (``stats_kernel`` etc.
-    as they are)."""
-    found = re.search(r"((?:stats|loss|grads|merge_softmax|sum_partials)_kernel)"
-                      r"(?:ILi(\d+)ELb([01])E)?", mangled)
+    """``stats_kernel<32, bulk>`` etc. from a mangled name (the CUDA-core
+    ``simt_stats_kernel`` and the fold kernels as they are)."""
+    found = re.search(r"((?:simt_)?(?:stats|loss)_kernel|grads_kernel|merge_softmax_kernel|"
+                      r"sum_partials_kernel)(?:ILi(\d+)ELb([01])E)?", mangled)
     if not found:
         return mangled
     name, width, bulk = found.groups()
     return f"{name}<{width}, {'bulk' if bulk == '1' else 'cp.async'}>" if width else name
 
 
-def build_report(lib: Path, build_log: str) -> list[str]:
-    """ptxas' registers and spills per kernel (when this process built the
-    library), then the tensor-core instructions (HMMA, HGMMA) that
-    ``cuobjdump -sass`` finds in each ``grads_kernel`` instantiation. Fails
-    when one has none, or when there is no cuobjdump to look."""
-    lines, current = [], None
+TENSOR_CORE_FAMILIES = ("stats_kernel", "loss_kernel", "grads_kernel")
+
+
+def check_tensor_core_counts(counts: dict) -> None:
+    """Every instantiation of each tensor-core kernel family has at least one
+    HMMA/HGMMA instruction, and each family has an instantiation."""
+    for family in TENSOR_CORE_FAMILIES:
+        check(any(name.startswith(family + "<") for name in counts),
+              f"cuobjdump found no {family} instantiation among {sorted(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"{name}: no HMMA/HGMMA instruction in its SASS")
+
+
+def ptxas_report(build_log: str) -> tuple[list[str], dict]:
+    """ptxas' register and spill lines per kernel, and the spilled bytes
+    (stores + loads) per kernel."""
+    lines, spills, current = [], {}, None
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             current = _kernel_name(entry.group(1))
         elif current and ("registers" in line or "spill" in line):
             lines.append(f"ptxas {current}: {line.strip().removeprefix('ptxas info    : ')}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                spills[current] = spills.get(current, 0) + int(spill[1]) + int(spill[2])
+    return lines, spills
+
+
+def build_report(lib: Path, build_log: str) -> list[str]:
+    """ptxas' registers and spills per kernel (when this process built the
+    library; a tensor-core kernel that spills fails), then the tensor-core
+    instructions (HMMA, HGMMA) that ``cuobjdump -sass`` finds in each
+    instantiation of K1, K2 and K3 (:func:`check_tensor_core_counts`).
+    Fails when there is no cuobjdump to look."""
+    lines, spills = ptxas_report(build_log)
     if not build_log:
         lines.append("ptxas: library up to date, not rebuilt in this process")
+    for name, nbytes in spills.items():
+        check(nbytes == 0 or not name.startswith(TENSOR_CORE_FAMILIES),
+              f"{name}: ptxas reports {nbytes} bytes of spill stores and loads")
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     check(Path(tool).exists(), f"cuobjdump not found ({tool}): cannot count tensor-core "
-          "instructions in grads_kernel")
+          "instructions")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=False)
     check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()}")
@@ -173,14 +207,12 @@ def build_report(lib: Path, build_log: str) -> list[str]:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             name = _kernel_name(line.split("Function :")[1].strip())
-            current = name if name.startswith("grads_kernel") else None
+            current = name if name.startswith(TENSOR_CORE_FAMILIES) else None
             if current:
                 counts[current] = 0
         elif current and re.search(r"\bH(G)?MMA\b", line):
             counts[current] += 1
-    check(len(counts) == 4, f"cuobjdump found grads_kernel instantiations {sorted(counts)}")
-    for name, n in counts.items():
-        check(n > 0, f"{name}: no HMMA/HGMMA instruction in its SASS")
+    check_tensor_core_counts(counts)
     lines.append("tensor-core instructions (HMMA/HGMMA in cuobjdump -sass): " + ", ".join(
         f"{name} {n}" for name, n in sorted(counts.items())))
     return lines
@@ -254,22 +286,73 @@ def vsharded_work(b, k, v, mp) -> tuple[float, float, float]:
     return (sum(w[0] for w in work.values()) + coll, sum(w[1] for w in work.values()), coll)
 
 
-def kernel_phase(card: str) -> dict:
+ROUTE_NAMES = {32: "tensor cores, 32-column tiles", 16: "tensor cores, 16-column tiles",
+               0: "CUDA cores", -1: "refused"}
+
+
+def against_library(root: Path):
+    """The fused decoder built from the checkout at ``root`` (another commit,
+    to compare two builds on one card), loaded beside this one."""
+    import ctypes
+
+    from gfedntm_tpu_torch.ops import _build
+
+    source = root / "gfedntm_tpu_torch" / "ops" / "csrc" / "fused_decoder.cu"
+    check(source.exists(), f"--against {root}: no {source}")
+    library = _build.build(source, _build.BUILD_DIR.parent / "against" / "libfused_decoder.so")
+    return _build.declare(ctypes.CDLL(str(library)))
+
+
+def accuracy_line(st_args, lo_args, gr_args) -> str:
+    """Each kernel's and each plain version's max |error| against the plain
+    version run in float64 on the same float32 inputs (K2 and K3 take the
+    float32 plain statistics, as the comparison above does)."""
     import torch
 
     from gfedntm_tpu_torch.ops import fused_decoder as fd
 
+    def f64(args):
+        return tuple(a.double() if torch.is_tensor(a) else a for a in args)
+
+    parts = []
+    for name, labels, kernel, plain, args in (
+        ("stats", "mean,var,m,s", fd.stats, fd.stats_reference, st_args),
+        ("loss", "loss,rd", fd.loss, fd.loss_reference, lo_args),
+        ("grads", "g_theta,g_beta", fd.grads, fd.grads_reference, gr_args),
+    ):
+        got, ref, exact = kernel(*args), plain(*args), plain(*f64(args))
+        torch.cuda.synchronize()
+        for label, a, b, e in zip(labels.split(","), got, ref, exact):
+            keep = e.abs() < 1e29  # softmax-max sentinels, compared exactly elsewhere
+            scale = float(e[keep].abs().max())
+            errs = [float((x.double() - e)[keep].abs().max()) for x in (a, b)]
+            parts.append(f"{name} {label} {errs[0]:.3e} / {errs[1]:.3e} (max|x| {scale:.3e})")
+    return "; ".join(parts)
+
+
+def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
+    import torch
+
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    lib = _build.load()
+    other = against_library(against) if against else None
     cases = [
         (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
         (320, 50, 100_000, "partial", True), (256, 50, 99_999, "partial", True),
         (64, 50, 3001, "partial", True), (64, 50, 3001, "partial", False),
         (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
         (200, 50, 3001, "partial", True), (200, 50, 3001, "none", False),
+        (1100, 8, 3001, "partial", True),
     ]
     worst = {"stats": 0.0, "loss": 0.0, "grads": 0.0}
+    seen = {"stats": set(), "loss": set()}
+    bitwise = 0
     for i, (b, k, v, mask_kind, training) in enumerate(cases):
         t = make_inputs(b, k, v, seed=i, mask_kind=mask_kind)
         case = f"B={b} K={k} V={v} mask={mask_kind} {'train' if training else 'eval'}"
+        routes = {name: fd._route(lib, name, b, k) for name in worst}
         st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], training)
         ref_stats = fd.stats_reference(*st_args)
         worst["stats"] = max(worst["stats"], compare(
@@ -279,10 +362,27 @@ def kernel_phase(card: str) -> dict:
         ref_loss = fd.loss_reference(*lo_args)
         worst["loss"] = max(worst["loss"], compare(
             "loss,rd", fd.loss(*lo_args), ref_loss, case))
-        gr_args = lo_args + (ref_loss[1], t["g"], t["mask"], training)
-        worst["grads"] = max(worst["grads"], compare(
-            "g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case))
-        print(f"kernels ok: {case}", flush=True)
+        for name in seen:
+            seen[name].add(routes[name])
+        if routes["grads"] >= 0:
+            gr_args = lo_args + (ref_loss[1], t["g"], t["mask"], training)
+            got = fd.grads(*gr_args)
+            worst["grads"] = max(worst["grads"], compare(
+                "g_theta,g_beta", got, fd.grads_reference(*gr_args), case))
+            if other is not None:
+                theirs = fd._launch_grads(other, *gr_args, 1e-5, 1e-10)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, theirs)),
+                      f"{case}: K3 differs from the build of {against}")
+                bitwise += 1
+        print(f"kernels ok: {case}; routes: " + ", ".join(
+            f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()), flush=True)
+    for name, routes in seen.items():
+        check({32, 16, 0} <= routes, f"{name}: the smoke cases took only the routes "
+              f"{sorted(routes)}")
+    if other is not None:
+        print(f"kernels ok: K3 bitwise equal to the build of {against} in {bitwise} cases",
+              flush=True)
 
     # The autograd function against the unfused oracle (gradients by
     # autograd through plain ops), on a small input.
@@ -298,59 +398,59 @@ def kernel_phase(card: str) -> dict:
     compare("rl,mean,var,g_theta,g_beta", outs[0], outs[1], "autograd vs oracle")
     print("kernels ok: autograd function vs unfused oracle", flush=True)
 
-    # Timing at the slice's shapes (training, as the main path runs them).
-    b, k, v = 256, 50, 100_000
-    t = make_inputs(b, k, v, seed=0, mask_kind="partial")
-    st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True)
-    mean, var, m, s = fd.stats_reference(*st_args)
-    lo_args = (t["theta"], t["beta"], t["x"], mean, var, m, s)
-    rd = fd.loss_reference(*lo_args)[1]
-    gr_args = lo_args + (rd, t["g"], t["mask"], True)
-    work = kernel_work(b, k, v)
-    fns = {
-        "stats": (lambda: fd.stats(*st_args), lambda: fd.stats_reference(*st_args)),
-        "loss": (lambda: fd.loss(*lo_args), lambda: fd.loss_reference(*lo_args)),
-        "grads": (lambda: fd.grads(*gr_args), lambda: fd.grads_reference(*gr_args)),
-    }
+    # Timing at the slice's shapes (training, as the main path runs them):
+    # V=100,000 takes the bulk-copy ring, V=99,999 the 4-byte cp.async ring.
+    b, k = 256, 50
     replaces = {
         "stats": "gfedntm_tpu/ops/fused_decoder.py:189",
         "loss": "gfedntm_tpu/ops/fused_decoder.py:266",
         "grads": "gfedntm_tpu/ops/fused_decoder.py:612",
     }
     rows, notes = {}, {}
-    for name, (kernel_fn, plain_fn) in fns.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns.
-        p1 = time_ms(plain_fn)
-        k1 = time_ms(kernel_fn)
-        k2 = time_ms(kernel_fn)
-        p2 = time_ms(plain_fn)
-        nbytes, nflops = work[name]
-        bound = kernel_bound(nbytes, nflops, card)
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": "gfedntm_tpu_torch/ops/csrc/fused_decoder.cu",
-            "replaces": replaces[name], "launches": 0,
-            "max_abs_err": worst[name],
-            "ms": min(k1, k2), "plain_ms": min(p1, p2),
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None,
+    for v in (100_000, 99_999):
+        t = make_inputs(b, k, v, seed=0, mask_kind="partial")
+        st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True)
+        mean, var, m, s = fd.stats_reference(*st_args)
+        lo_args = (t["theta"], t["beta"], t["x"], mean, var, m, s)
+        gr_args = lo_args + (fd.loss_reference(*lo_args)[1], t["g"], t["mask"], True)
+        fns = {
+            "stats": (lambda: fd.stats(*st_args), lambda: fd.stats_reference(*st_args)),
+            "loss": (lambda: fd.loss(*lo_args), lambda: fd.loss_reference(*lo_args)),
+            "grads": (lambda: fd.grads(*gr_args), lambda: fd.grads_reference(*gr_args)),
         }
-        notes[name] = (
-            f"tol {ATOL:g} + {RTOL:g}*max|plain| per output; ms {k1:.4f}/{k2:.4f} "
-            f"plain_ms {p1:.4f}/{p2:.4f}; bound {bound['bound_by']} ({bound['peaks']} peaks: "
-            f"{nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP "
-            f"as 3xTF32 -> {bound['ops_ms']:.4f} ms); FP32 SIMT bound "
-            f"{bound['simt_bound_ms']:.4f} ms"
-        )
-    # K3's 4-byte cp.async ring at full width (V % 4 != 0), timed the same way.
-    t = make_inputs(b, k, v - 1, seed=0, mask_kind="partial")
-    st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True)
-    mean, var, m, s = fd.stats_reference(*st_args)
-    lo_args = (t["theta"], t["beta"], t["x"], mean, var, m, s)
-    gr_args = lo_args + (fd.loss_reference(*lo_args)[1], t["g"], t["mask"], True)
-    unaligned = [time_ms(lambda: fd.grads(*gr_args)) for _ in range(2)]
-    notes["grads"] += (f"; at V={v - 1} (4-byte cp.async ring) ms "
-                       f"{unaligned[0]:.4f}/{unaligned[1]:.4f}")
+        if v != 100_000:
+            for name, (kernel_fn, _) in fns.items():
+                ms = [time_ms(kernel_fn) for _ in range(2)]
+                notes[name] += f"; at V={v} (4-byte cp.async ring) ms {ms[0]:.4f}/{ms[1]:.4f}"
+            continue
+        work = kernel_work(b, k, v)
+        for name, (kernel_fn, plain_fn) in fns.items():
+            # plain, kernel, kernel, plain: compare within one call, in turns.
+            p1 = time_ms(plain_fn)
+            k1 = time_ms(kernel_fn)
+            k2 = time_ms(kernel_fn)
+            p2 = time_ms(plain_fn)
+            nbytes, nflops = work[name]
+            bound = kernel_bound(nbytes, nflops, card)
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "gfedntm_tpu_torch/ops/csrc/fused_decoder.cu",
+                "replaces": replaces[name], "launches": 0,
+                "max_abs_err": worst[name],
+                "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": None,
+            }
+            notes[name] = (
+                f"tol {ATOL:g} + {RTOL:g}*max|plain| per output; ms {k1:.4f}/{k2:.4f} "
+                f"plain_ms {p1:.4f}/{p2:.4f}; bound {bound['bound_by']} ({bound['peaks']} "
+                f"peaks: {nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, "
+                f"{nflops / 1e9:.2f} GFLOP as 3xTF32 -> {bound['ops_ms']:.4f} ms); FP32 SIMT "
+                f"bound {bound['simt_bound_ms']:.4f} ms"
+            )
+        print(f"accuracy at B={b} K={k} V={v} train, max |err| against the plain version in "
+              f"float64 (kernel / float32 plain): {accuracy_line(st_args, lo_args, gr_args)}",
+              flush=True)
     return rows, notes
 
 
@@ -698,9 +798,13 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
 
 
 def main(argv: list[str]) -> int:
-    kernels_only = argv == ["--kernels-only"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+    kernels_only = "--kernels-only" in argv
+    rest = [a for a in argv if a != "--kernels-only"]
+    against = None
+    if rest[:1] == ["--against"] and len(rest) == 2:
+        against = Path(rest[1]).resolve()
+    elif rest:
+        print("usage: chip_smoke.py [--kernels-only] [--against DIR]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -727,7 +831,7 @@ def main(argv: list[str]) -> int:
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
         for line in build_report(lib, _build.build_log):
             print(f"build: {line}", flush=True)
-        rows, notes = kernel_phase(card)
+        rows, notes = kernel_phase(card, against)
         if not kernels_only:
             main_path_phase(rows)
             sharded_fit_phase(card, rows, notes)

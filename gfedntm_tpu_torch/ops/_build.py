@@ -49,30 +49,53 @@ def nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the library if it is missing or older than the source."""
+def build(source: Path | None = None, library: Path | None = None) -> Path:
+    """Compile ``source`` (default :data:`SOURCE`) into ``library`` (default
+    :data:`LIBRARY`) if that is missing or older than the source. Another
+    checkout's source, to compare two builds on one card, goes to a library
+    of its own."""
     global build_log
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    source, library = source or SOURCE, library or LIBRARY
+    if library.exists() and library.stat().st_mtime >= source.stat().st_mtime:
+        return library
+    library.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=library.parent)
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {SOURCE}:\n"
+                f"nvcc failed (exit {proc.returncode}) building {source}:\n"
                 f"{proc.stderr}{proc.stdout}"
             )
-        os.replace(tmp, LIBRARY)
+        os.replace(tmp, library)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     build_log = proc.stderr + proc.stdout
-    return LIBRARY
+    return library
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's C signature on a loaded library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fd_plan.argtypes = [
+        i, i, i, i, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.fd_stats.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
+    lib.fd_loss.argtypes = [p] * 11 + [i, i, i, f, f, i, p]
+    lib.fd_grads.argtypes = [p] * 13 + [i, i, i, i, f, f, i, p]
+    entries = [lib.fd_plan, lib.fd_stats, lib.fd_loss, lib.fd_grads]
+    if hasattr(lib, "fd_route"):  # not in builds that had one route per kernel
+        lib.fd_route.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        entries.append(lib.fd_route)
+    for fn in entries:
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -80,16 +103,5 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.fd_plan.argtypes = [
-                i, i, i, i, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-            ]
-            lib.fd_stats.argtypes = [p] * 11 + [i, i, i, i, f, i, p]
-            lib.fd_loss.argtypes = [p] * 11 + [i, i, i, f, f, i, p]
-            lib.fd_grads.argtypes = [p] * 13 + [i, i, i, i, f, f, i, p]
-            for fn in (lib.fd_plan, lib.fd_stats, lib.fd_loss, lib.fd_grads):
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = declare(ctypes.CDLL(str(build())))
         return _lib

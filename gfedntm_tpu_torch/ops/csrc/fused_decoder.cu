@@ -21,50 +21,58 @@
 //      correction gz = inv_std*(gn - mask*sum(gn*mask)/cnt - n*mask*sum(gn*n*mask)/cnt)
 //      (eval: gz = gn*inv_std); g_beta = theta^T gz and g_theta = gz beta^T.
 //
-// Design of K1 and K2. Each block owns a contiguous range of V columns and
-// walks it in strips of 32 columns (one warp lane per column). theta [B,K]
-// and the strip of beta sit in shared memory; because a block holds all B
-// rows of each of its columns, the column batch statistics are exact inside
-// the block. The per-row reductions over V (softmax max/denominator, loss,
-// rd) are carried across the block's strips in shared memory and written as
-// [grid, B] partials, which a small kernel folds in a fixed order: the TPU
-// carried them across its sequential grid, and CUDA blocks run in no order.
-// No atomics, so results are deterministic for a given card. Their products
-// are FP32 FMAs on the CUDA cores, summed in a fixed order. Ragged edges in
-// B, K and V are masked here; inputs are unpadded and contiguous.
+// All three share one design. A block of 16 warps owns a contiguous range of
+// V columns and all B rows, so the masked column statistics stay exact inside
+// the block, and walks it in tiles of VT = 32 columns (16 when B > 256 or the
+// 32-wide layout does not fit). z = theta beta_tile comes from one tile
+// product (tile_product), the same for K1, K2 and K3 and summed in the same
+// k order: mma.sync m16n8k8 TF32 on the tensor cores with the 3xTF32 split
+// (a = a_hi + a_lo, each rounded to TF32; D += a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi, FP32 accumulation), which keeps FP32 accuracy, per 16-row tile
+// of each warp. The beta rows of tile t+1 (and x, mean and var where the
+// kernel reads them) are in flight while tile t computes, in a two-stage ring:
+// Hopper bulk copies (cp.async.bulk, one per row, completing on an mbarrier)
+// where rows are 16-byte aligned, else 4-byte cp.async. Per-row reductions
+// over V (K1's softmax max and denominator, K2's loss and row-dot) live in the
+// registers of the four lanes that hold the row's accumulator fragments and
+// are written as [grid, B] partials, which a small kernel folds in block
+// order: the TPU carried them across its sequential grid, and CUDA blocks run
+// in no order. No atomics, so results are deterministic for a given card.
 //
-// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores; 495
-// TFLOP/s dense TF32 on the tensor cores, so 165 TFLOP/s for an FP32-accurate
-// 3xTF32 product) at B=256, K=50, V=100,000: K1 moves ~21 MB (6 us) and does
-// 2BKV = 2.56 GFLOP (38 us on the CUDA cores); K2 moves ~123 MB (37 us) for
-// the same 2.56 GFLOP. On the CUDA cores, where they run, K1 and K2 are bound
-// by FP32 operations, and their simple design feeds each FMA from shared
-// memory and is far from that bound. (With tensor cores the card could do
-// K1 in 16 us, bound by 3xTF32 operations, and K2 in 37 us, bound by bytes.)
+// K1 and K2 (replacing _stats_kernel :189 and _loss_kernel :266). Bounds on
+// an H100 SXM (3.35 TB/s; 495 TFLOP/s dense TF32 on the tensor cores, so 165
+// TFLOP/s for an FP32-accurate 3xTF32 product; 67 TFLOP/s FP32 on the CUDA
+// cores) at B=256, K=50, V=100,000: K1 moves ~21 MB (6 us) and does
+// 2BKV = 2.56 GFLOP, 16 us as 3xTF32: its bound is 0.0155 ms, by operations.
+// The tile product puts those operations on the tensor cores, and the
+// column statistics stay in registers: a column's sum is reduced over the
+// eight row groups of a warp by shuffles and over the warps through shared
+// memory (twice: the mean, then the centred variance), and the row softmax
+// is updated once per tile with two shuffles. K2 moves ~123 MB (37 us) for
+// the same 2.56 GFLOP: its bound is 0.0368 ms, by bytes, 102 MB of it x. Its
+// x rows come through the ring beside beta, so the next tile's x streams in
+// while the current tile's product and loss epilogue run.
+//
+// Batches past the tensor-core layouts (more than 1,024 rows, or theta and
+// the ring past the card's shared memory) take the CUDA-core K1 and K2 of
+// the first port (simt_stats_kernel, simt_loss_kernel), chosen by shape alone
+// in fd_stats and fd_loss: 32-column strips, one lane per column, theta and
+// the strip in shared memory, FP32 FMAs. Every batch those kernels took is
+// still accepted, and the tensor-core layouts take every batch K3 takes.
 //
 // K3 replaces _grads_kernel (:612). It moves ~143 MB (43 us) and does
 // 3 x 2.56 GFLOP, which take 46 us as 3xTF32 on the tensor cores (115 us as
-// FP32 FMAs): its bound is those operations. Its design: a block of 16 warps
-// owns a contiguous range of V columns and all B rows (so the BatchNorm
-// column sums stay exact inside the block) and walks it in tiles of VT = 32
-// columns (16 when B > 256 or the 32-wide layout does not fit). All three
-// products run on the tensor cores through mma.sync m16n8k8 TF32 with the
-// 3xTF32 split (a = a_hi + a_lo, each rounded to TF32; D += a_lo*b_hi +
-// a_hi*b_lo + a_hi*b_hi, FP32 accumulation), which keeps FP32 accuracy:
-// z = theta beta_tile per 16-row tile of each warp, with n, p and gn
-// computed on the accumulator fragments; gz is staged once in shared memory,
-// in place of the tile's x; then half the warps accumulate g_theta +=
-// gz beta_tile^T in shared memory across the block's tiles while the other
-// half write g_beta = theta^T gz straight to its columns. The beta, x, mean
-// and var rows of tile t+1 are in flight while tile t computes, in a
-// two-stage ring: Hopper bulk copies (cp.async.bulk, one per row, completing
-// on an mbarrier) where rows are 16-byte aligned, else 4-byte cp.async.
-// Occupancy is one block per SM (228.6 KB of shared memory at B=256, K=50,
-// at most 128 registers a thread); four warps per scheduler and independent
-// mma chains hide the mma latency. Every TF32 operand is split with five
-// integer and FP32 instructions before its mma, so each mma costs several
-// instructions besides itself. The [grid, B, K] g_theta partials are folded
-// in block order, as above.
+// FP32 FMAs): its bound is those operations. After the tile product it
+// computes n, p and gn on the accumulator fragments; gz is staged once in
+// shared memory, in place of the tile's x; then half the warps accumulate
+// g_theta += gz beta_tile^T in shared memory across the block's tiles while
+// the other half write g_beta = theta^T gz straight to its columns. Occupancy
+// is one block per SM (228.6 KB of shared memory at B=256, K=50, at most 128
+// registers a thread); four warps per scheduler and independent mma chains
+// hide the mma latency. Every TF32 operand is split with five integer and
+// FP32 instructions before its mma, so each mma costs several instructions
+// besides itself. The [grid, B, K] g_theta partials are folded in block
+// order, as above.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,12 +81,12 @@
 
 namespace {
 
-constexpr int kStrip = 32;          // columns per strip: one lane per column
+constexpr int kStrip = 32;          // CUDA-core K1/K2: columns per strip, one lane per column
 constexpr int kPitch = kStrip + 1;  // padded pitch of the beta strip rows
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowTile = 4;         // rows per thread in the strip product
-constexpr int kTopicTile = 4;       // topics per thread in g_beta / g_theta
+constexpr int kTopicTile = 4;       // topic padding of the CUDA-core layouts
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -97,6 +105,10 @@ __device__ inline float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// CUDA-core K1 and K2, for the batches the tensor-core layouts do not take.
+// ---------------------------------------------------------------------------
 
 // theta [B, K] -> shared [Bp, Kp], zero-padded.
 __device__ void load_theta(float* th_s, const float* __restrict__ theta, int B, int K,
@@ -129,8 +141,8 @@ __device__ inline void strip_product(float (&acc)[kRowTile], const float* th_s,
   }
 }
 
-// Shared memory of K1 and K2, in floats.
-size_t smem_floats(int kind, int B, int K) {
+// Shared memory of the CUDA-core K1 and K2, in floats.
+size_t simt_smem_floats(int kind, int B, int K) {
   const size_t Bp = round_up(B, kRowTile), Kp = round_up(K, kTopicTile);
   switch (kind) {
     case kStats:  // theta, beta strip, z strip, mask/m/s rows, reduce, mean/istd, cnt
@@ -142,16 +154,13 @@ size_t smem_floats(int kind, int B, int K) {
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// K1: batch-norm statistics + per-row online-softmax partials.
-// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-             const float* __restrict__ mask, const float* __restrict__ run_mean,
-             const float* __restrict__ run_var, float* __restrict__ mean_out,
-             float* __restrict__ var_out, float* __restrict__ m_part,
-             float* __restrict__ s_part, int B, int K, int V, int training, float eps,
-             int strips_per_block) {
+simt_stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+                  const float* __restrict__ mask, const float* __restrict__ run_mean,
+                  const float* __restrict__ run_var, float* __restrict__ mean_out,
+                  float* __restrict__ var_out, float* __restrict__ m_part,
+                  float* __restrict__ s_part, int B, int K, int V, int training, float eps,
+                  int strips_per_block) {
   extern __shared__ float smem[];
   const int Bp = round_up(B, kRowTile), Kp = round_up(K, kTopicTile);
   const int n_strips = (V + kStrip - 1) / kStrip;
@@ -260,43 +269,13 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   }
 }
 
-// Folds the blocks' (max, denominator) partials in block order.
-__global__ void merge_softmax_kernel(const float* __restrict__ m_part,
-                                     const float* __restrict__ s_part, int grid, int B,
-                                     float* __restrict__ m_out, float* __restrict__ s_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= B) return;
-  float m = kNegInf;
-  for (int g = 0; g < grid; ++g) m = fmaxf(m, m_part[(size_t)g * B + r]);
-  const float safe = fmaxf(m, 0.5f * kNegInf);
-  float s = 0.f;
-  for (int g = 0; g < grid; ++g) {
-    s += s_part[(size_t)g * B + r] * expf(fminf(m_part[(size_t)g * B + r] - safe, 0.f));
-  }
-  m_out[r] = m;
-  s_out[r] = s;
-}
-
-// out[i] = sum_g part[g, i], in block order.
-__global__ void sum_partials_kernel(const float* __restrict__ part, int grid, int n,
-                                    float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t = 0.f;
-  for (int g = 0; g < grid; ++g) t += part[(size_t)g * n + i];
-  out[i] = t;
-}
-
-// ---------------------------------------------------------------------------
-// K2: row loss and row-dot partials.
-// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-            const float* __restrict__ x, const float* __restrict__ mean,
-            const float* __restrict__ var, const float* __restrict__ m,
-            const float* __restrict__ s, float* __restrict__ loss_part,
-            float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
-            int strips_per_block) {
+simt_loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+                 const float* __restrict__ x, const float* __restrict__ mean,
+                 const float* __restrict__ var, const float* __restrict__ m,
+                 const float* __restrict__ s, float* __restrict__ loss_part,
+                 float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
+                 int strips_per_block) {
   extern __shared__ float smem[];
   const int Bp = round_up(B, kRowTile), Kp = round_up(K, kTopicTile);
   const int n_strips = (V + kStrip - 1) / kStrip;
@@ -367,57 +346,65 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 }
 
 // ---------------------------------------------------------------------------
-// K3: backward — g_beta for the block's columns, g_theta partials, on the
-// tensor cores (3xTF32 mma.sync), its tiles loaded through a two-stage ring.
+// Partials folded in block order.
 // ---------------------------------------------------------------------------
-constexpr int kK3Threads = 512;  // 16 warps: four per scheduler hide the mma latency
-constexpr int kK3Warps = kK3Threads / 32;
-constexpr int kHalf = kK3Warps / 2;
-constexpr int kChunk = 4;  // g_theta n-tiles in flight per warp
 
-// Per tile width: the x/gz and beta tiles' row pitches in floats (x: 8 or
-// 24 mod 32, so the gz fragments of g_beta = theta^T gz load without bank
-// conflicts; rows stay 16-byte aligned for the bulk copies) and the most
-// 16-row tiles a warp holds (n is kept in registers between the two passes
-// of the BatchNorm correction, so this caps B at kMaxMt * 16 * kK3Warps).
-template <int VT> struct GradsTile;
-template <> struct GradsTile<32> { static constexpr int kPx = 40, kPb = 40, kMaxMt = 1; };
-template <> struct GradsTile<16> { static constexpr int kPx = 24, kPb = 16, kMaxMt = 4; };
+// The blocks' (max, denominator) partials.
+__global__ void merge_softmax_kernel(const float* __restrict__ m_part,
+                                     const float* __restrict__ s_part, int grid, int B,
+                                     float* __restrict__ m_out, float* __restrict__ s_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= B) return;
+  float m = kNegInf;
+  for (int g = 0; g < grid; ++g) m = fmaxf(m, m_part[(size_t)g * B + r]);
+  const float safe = fmaxf(m, 0.5f * kNegInf);
+  float s = 0.f;
+  for (int g = 0; g < grid; ++g) {
+    s += s_part[(size_t)g * B + r] * expf(fminf(m_part[(size_t)g * B + r] - safe, 0.f));
+  }
+  m_out[r] = m;
+  s_out[r] = s;
+}
+
+// out[i] = sum_g part[g, i].
+__global__ void sum_partials_kernel(const float* __restrict__ part, int grid, int n,
+                                    float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = 0.f;
+  for (int g = 0; g < grid; ++g) t += part[(size_t)g * n + i];
+  out[i] = t;
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core machinery of K1-K3: 3xTF32 mma.sync, the copy ring, the
+// tile product.
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 512;  // 16 warps: four per scheduler hide the mma latency
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kHalf = kTcWarps / 2;
+constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
+
+// Per tile width: the x and beta tiles' row pitches in floats (x: 8 or 24
+// mod 32, so fragments of x, gn and gz load without bank conflicts; rows stay
+// 16-byte aligned for the bulk copies) and the most 16-row tiles a warp holds
+// (a warp keeps its tiles' fragments in registers across a tile's passes, so
+// this caps B at kMaxMt * 16 * kTcWarps).
+template <int VT> struct Tile;
+template <> struct Tile<32> { static constexpr int kPx = 40, kPb = 40, kMaxMt = 1; };
+template <> struct Tile<16> { static constexpr int kPx = 24, kPb = 16, kMaxMt = 4; };
+
+__host__ __device__ constexpr int tile_px(int vt) {
+  return vt == 32 ? Tile<32>::kPx : Tile<16>::kPx;
+}
+__host__ __device__ constexpr int tile_pb(int vt) {
+  return vt == 32 ? Tile<32>::kPb : Tile<16>::kPb;
+}
+__host__ __device__ constexpr int tile_rows(int vt) {
+  return (vt == 32 ? Tile<32>::kMaxMt : Tile<16>::kMaxMt) * 16 * kTcWarps;
+}
 
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
-
-// K3's shared memory at tile width vt, as offsets in floats: theta [B, Pth]
-// (Pth = Kp + 4, 4 mod 8, so theta's A fragments load without conflicts),
-// the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
-// [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
-// five row vectors (m, 1/s, rd, g, mask); two [kK3Warps, vt] column reductions, the two BN column
-// sums and the count; two mbarriers. Rows past B are never stored: fragments
-// read them as 0.
-struct GradsLayout {
-  int Kp, Pth, Pg;
-  size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, bar, floats;
-};
-
-__host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
-  GradsLayout L;
-  const int px = vt == 32 ? GradsTile<32>::kPx : GradsTile<16>::kPx;
-  const int pb = vt == 32 ? GradsTile<32>::kPb : GradsTile<16>::kPb;
-  L.Kp = round_up(K, 8);
-  L.Pth = L.Kp + 4;
-  L.Pg = L.Kp;
-  L.th = 0;
-  L.gth = L.th + up4((size_t)B * L.Pth);
-  L.x = L.gth + up4((size_t)B * L.Pg);
-  L.x_stage = up4((size_t)B * px);
-  L.b = L.x + 2 * L.x_stage;
-  L.b_stage = (size_t)L.Kp * pb;
-  L.mv = L.b + 2 * L.b_stage;
-  L.rows = L.mv + 4 * (size_t)vt;
-  L.cols = L.rows + up4(5 * (size_t)B);
-  L.bar = L.cols + (size_t)(2 * kK3Warps + 2) * vt + 4;
-  L.floats = L.bar + 4;
-  return L;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -426,7 +413,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // cvt.rna.tf32.f32 of a finite float: round to nearest (ties away from zero)
 // at the 10-bit TF32 mantissa and clear the 13 bits below it. ptxas expands
 // the PTX instruction into these two integer operations plus a guard that
-// passes inf and NaN through unrounded; the kernel's operands are finite.
+// passes inf and NaN through unrounded; the kernels' operands are finite.
 __device__ __forceinline__ uint32_t tf32_rna(float a) {
   return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
 }
@@ -453,6 +440,54 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, al, bh);
   mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
+}
+
+// The A fragment (rows r_lo and r_hi = r_lo + 8, columns k0 + tig and
+// k0 + tig + 4) of theta [rows, pitch] in shared memory, split here; rows
+// past B read 0.
+struct ThetaFrag {
+  const float* th;
+  int pitch, r_lo, r_hi, tig;
+  bool ok_lo, ok_hi;
+  __device__ __forceinline__ void operator()(int k0, uint32_t (&ah)[4], uint32_t (&al)[4]) const {
+    split_tf32(ok_lo ? th[r_lo * pitch + k0 + tig] : 0.f, ah[0], al[0]);
+    split_tf32(ok_hi ? th[r_hi * pitch + k0 + tig] : 0.f, ah[1], al[1]);
+    split_tf32(ok_lo ? th[r_lo * pitch + k0 + tig + 4] : 0.f, ah[2], al[2]);
+    split_tf32(ok_hi ? th[r_hi * pitch + k0 + tig + 4] : 0.f, ah[3], al[3]);
+  }
+};
+
+// The B fragment of n-tile nt (rows k0 + tig and k0 + tig + 4, column
+// nt * 8 + grp) of a beta tile [Kp, pitch] in shared memory, split here.
+struct BetaFrag {
+  const float* bs;
+  int pitch, grp, tig;
+  __device__ __forceinline__ void operator()(int k0, int nt, uint32_t (&bh)[2],
+                                             uint32_t (&bl)[2]) const {
+    split_tf32(bs[(k0 + tig) * pitch + nt * 8 + grp], bh[0], bl[0]);
+    split_tf32(bs[(k0 + tig + 4) * pitch + nt * 8 + grp], bh[1], bl[1]);
+  }
+};
+
+// z = theta beta_tile for one warp's 16-row tile: acc[nt] is the m16n8
+// accumulator fragment of columns nt*8 .. nt*8+7 (rows grp and grp + 8,
+// columns 2*tig and 2*tig + 1). K1, K2 and K3 all sum k0 = 0, 8, .. < Kp in
+// this order, each k-step as mma_3xtf32, so they take the same z.
+template <int kNt, typename AFrag, typename BFrag>
+__device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const AFrag& a_frag,
+                                             const BFrag& b_frag) {
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int k0 = 0; k0 < Kp; k0 += 8) {
+    uint32_t ah[4], al[4];
+    a_frag(k0, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      uint32_t bh[2], bl[2];
+      b_frag(k0, nt, bh, bl);
+      mma_3xtf32(acc[nt], ah, al, bh, bl);
+    }
+  }
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -501,45 +536,51 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// Start loading columns v0..v0+VT (those below V) of beta's K rows, x's B
-// rows, mean and var into one ring stage. kBulk: one bulk copy per row,
-// spread over the block's threads, all completing on `bar` (thread 0 posts
-// the stage's byte count); else 4-byte cp.async by every thread (the caller
-// commits the group).
+__device__ __forceinline__ void init_ring_barriers(uint64_t* bar) {
+  mbar_init(&bar[0], 1);
+  mbar_init(&bar[1], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Start loading columns v0..v0+VT (those below V) of beta's K rows, the first
+// nx rows of x, and (n_mv = 2) mean and var into one ring stage. kBulk: one
+// bulk copy per row, spread over the block's threads, all completing on
+// `bar` (thread 0 posts the stage's byte count); else 4-byte cp.async by
+// every thread (the caller commits the group).
 template <int VT, bool kBulk>
 __device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst, uint64_t* bar,
                           const float* __restrict__ beta, const float* __restrict__ x,
-                          const float* __restrict__ mean, const float* __restrict__ var, int B,
-                          int K, int V, int v0) {
-  constexpr int Pb = GradsTile<VT>::kPb, Px = GradsTile<VT>::kPx;
+                          const float* __restrict__ mean, const float* __restrict__ var, int nx,
+                          int K, int V, int v0, int n_mv) {
+  constexpr int Pb = Tile<VT>::kPb, Px = Tile<VT>::kPx;
   const int ncols = min(VT, V - v0);
-  const int rows = K + B + 2;
+  const int rows = K + nx + n_mv;
   if (kBulk) {
     if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(rows * ncols * 4));
     // The stage was last read and written by the generic proxy.
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    for (int i = threadIdx.x; i < rows; i += kK3Threads) {
+    for (int i = threadIdx.x; i < rows; i += kTcThreads) {
       if (i < K) {
         bulk_copy(b_dst + i * Pb, beta + (size_t)i * V + v0, ncols * 4, bar);
-      } else if (i < K + B) {
+      } else if (i < K + nx) {
         const int r = i - K;
         bulk_copy(x_dst + r * Px, x + (size_t)r * V + v0, ncols * 4, bar);
       } else {
-        const int j = i - K - B;
+        const int j = i - K - nx;
         bulk_copy(mv_dst + j * VT, (j ? var : mean) + v0, ncols * 4, bar);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < rows * VT; i += kK3Threads) {
+    for (int i = threadIdx.x; i < rows * VT; i += kTcThreads) {
       const int row = i / VT, c = i - row * VT;
       if (c < ncols) {
         if (row < K) {
           cp_async4(b_dst + row * Pb + c, beta + (size_t)row * V + v0 + c);
-        } else if (row < K + B) {
+        } else if (row < K + nx) {
           const int r = row - K;
           cp_async4(x_dst + r * Px + c, x + (size_t)r * V + v0 + c);
         } else {
-          const int j = row - K - B;
+          const int j = row - K - nx;
           cp_async4(mv_dst + j * VT + c, (j ? var : mean) + v0 + c);
         }
       }
@@ -547,8 +588,451 @@ __device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst, uint64_t* b
   }
 }
 
+// Wait for ring stage `st` of the it-th tile (the caller syncs the block).
+template <bool kBulk>
+__device__ __forceinline__ void wait_tile(uint64_t* bar, int st, int it) {
+  if (kBulk) {
+    mbar_wait(&bar[st], (it >> 1) & 1);
+  } else {
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait_prior();
+  }
+}
+
+// K1 and K2's shared memory at tile width vt, as offsets in floats: theta
+// [B, Pth] (Pth = Kp + 4, 4 mod 8, so its A fragments load without
+// conflicts); two ring stages of x [B, Px] (K2 only), beta [Kp, Pb] (rows
+// K..Kp-1 stay zero) and mean/var [2, vt]; K1's column reductions
+// [kTcWarps, vt], mean and inv_std [vt] and the row count; two mbarriers.
+struct FwdLayout {
+  int Kp, Pth;
+  size_t th, x, x_stage, b, b_stage, mv, cols, bar, floats;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K) {
+  FwdLayout L;
+  L.Kp = round_up(K, 8);
+  L.Pth = L.Kp + 4;
+  L.th = 0;
+  L.x = L.th + up4((size_t)B * L.Pth);
+  L.x_stage = kind == kLoss ? up4((size_t)B * tile_px(vt)) : 0;
+  L.b = L.x + 2 * L.x_stage;
+  L.b_stage = (size_t)L.Kp * tile_pb(vt);
+  L.mv = L.b + 2 * L.b_stage;
+  L.cols = L.mv + 4 * (size_t)vt;
+  L.bar = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
+  L.floats = L.bar + 4;
+  return L;
+}
+
+// theta [B, K] -> shared [B, Pth], columns K..Kp-1 zero.
+__device__ void load_theta_tc(float* th_s, const float* __restrict__ theta, int B, int K,
+                              int Kp, int Pth) {
+  for (int i = threadIdx.x; i < B * Kp; i += kTcThreads) {
+    const int r = i / Kp, k = i - r * Kp;
+    th_s[r * Pth + k] = k < K ? theta[(size_t)r * K + k] : 0.f;
+  }
+}
+
+__device__ void zero_smem(float* p, size_t n) {
+  for (size_t i = threadIdx.x; i < n; i += kTcThreads) p[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K1: batch-norm statistics + per-row online-softmax partials.
+// ---------------------------------------------------------------------------
 template <int VT, bool kBulk>
-__global__ void __launch_bounds__(kK3Threads, 1)
+__global__ void __launch_bounds__(kTcThreads, 1)
+stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+             const float* __restrict__ mask, const float* __restrict__ run_mean,
+             const float* __restrict__ run_var, float* __restrict__ mean_out,
+             float* __restrict__ var_out, float* __restrict__ m_part,
+             float* __restrict__ s_part, int B, int K, int V, int training, float eps,
+             int tiles_per_block) {
+  using T = Tile<VT>;
+  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Pb = T::kPb;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
+  const FwdLayout L = fwd_layout(kStats, VT, B, K);
+  const int Kp = L.Kp, Pth = L.Pth;
+  float* th_s = sm + L.th;
+  float* b_ring = sm + L.b;
+  float* mv_ring = sm + L.mv;
+  float* red_s = sm + L.cols;  // [kTcWarps][VT]
+  float* mean_s = red_s + kTcWarps * VT;
+  float* istd_s = mean_s + VT;
+  float* cnt_s = istd_s + VT;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
+  const int n_tiles = (V + VT - 1) / VT;
+  const int mt_count = (B + 15) / 16;
+  const int n_mv = training ? 0 : 2;
+
+  load_theta_tc(th_s, theta, B, K, Kp, Pth);
+  zero_smem(b_ring, 2 * L.b_stage);
+  zero_smem(mv_ring, 4 * VT);
+  // This lane's rows (grp and grp + 8 of each of its 16-row tiles): the
+  // mask and the running softmax max and denominator.
+  float mk[kMt][2], m_run[kMt][2], s_run[kMt][2];
+#pragma unroll
+  for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+      mk[q][h] = r < B ? mask[r] : 0.f;
+      m_run[q][h] = kNegInf;
+      s_run[q][h] = 0.f;
+    }
+  }
+  if (warp == 0) {
+    float c = 0.f;
+    for (int r = lane; r < B; r += 32) c += mask[r];
+    c = warp_sum(c);
+    if (lane == 0) cnt_s[0] = fmaxf(c, 1.f);
+  }
+  if (kBulk && tid == 0) init_ring_barriers(bar);
+  __syncthreads();
+  const float cnt = cnt_s[0];
+
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(first + tiles_per_block, n_tiles);
+  if (first < last) {
+    load_tile<VT, kBulk>(b_ring, nullptr, mv_ring, &bar[0], beta, nullptr, run_mean, run_var,
+                         0, K, V, first * VT, n_mv);
+    if (!kBulk) cp_async_commit();
+  }
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const int st = it & 1;
+    const int v0 = tile * VT;
+    if (tile + 1 < last) {
+      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, nullptr, mv_ring + (st ^ 1) * 2 * VT,
+                           &bar[st ^ 1], beta, nullptr, run_mean, run_var, 0, K, V, v0 + VT,
+                           n_mv);
+    }
+    wait_tile<kBulk>(bar, st, it);
+    __syncthreads();
+    const float* bs = b_ring + st * L.b_stage;
+    const float* mvs = mv_ring + st * 2 * VT;
+
+    float acc[kMt][kNt][4];
+#pragma unroll
+    for (int q = 0; q < kMt; ++q) {
+      const int mt = warp + q * kTcWarps;
+      if (mt < mt_count) {
+        const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
+        tile_product(acc[q], Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, r_lo < B, r_hi < B},
+                     BetaFrag{bs, Pb, grp, tig});
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
+      }
+    }
+
+    // This lane's columns (nt * 8 + 2 * tig + e): mean and inv_std.
+    float mu[kNt][2] = {}, istd[kNt][2] = {};
+    if (training) {
+      // Masked column sums over the warp's rows (butterfly over the 8 row
+      // groups), then over the warps in order: first the mean, then the
+      // centred sum of squares (biased variance).
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = 0.f;
+#pragma unroll
+            for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float zv = acc[q][nt][2 * h + e];
+                const float d = pass ? (zv - mu[nt][e]) * mk[q][h] : zv * mk[q][h];
+                v += pass ? d * d : d;
+              }
+            }
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFullMask, v, o);
+            if (grp == 0) red_s[warp * VT + nt * 8 + 2 * tig + e] = v;
+          }
+        }
+        __syncthreads();
+        if (tid < VT) {
+          float t = 0.f;
+          for (int w = 0; w < kTcWarps; ++w) t += red_s[w * VT + tid];
+          if (pass == 0) {
+            mean_s[tid] = t / cnt;
+          } else {
+            const float var = t / cnt;
+            istd_s[tid] = rsqrtf(var + eps);
+            if (v0 + tid < V) {
+              mean_out[v0 + tid] = mean_s[tid];
+              var_out[v0 + tid] = var;
+            }
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = nt * 8 + 2 * tig + e;
+            if (pass == 0) {
+              mu[nt][e] = mean_s[c];
+            } else {
+              istd[nt][e] = istd_s[c];
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * 8 + 2 * tig + e;
+          const bool ok = v0 + c < V;
+          mu[nt][e] = ok ? mvs[c] : 0.f;
+          istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
+        }
+      }
+      if (tid < VT && v0 + tid < V) {
+        mean_out[v0 + tid] = mvs[tid];
+        var_out[v0 + tid] = mvs[VT + tid];
+      }
+    }
+
+    // The online softmax over this tile's valid columns, per row: the four
+    // lanes holding the row reduce their values with two shuffles.
+#pragma unroll
+    for (int q = 0; q < kMt; ++q) {
+      if (warp + q * kTcWarps < mt_count) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool row_ok = mk[q][h] > 0.f;
+          float n[kNt][2];
+          bool valid[kNt][2];
+          float m_tile = kNegInf;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              valid[nt][e] = row_ok && v0 + nt * 8 + 2 * tig + e < V;
+              n[nt][e] = valid[nt][e] ? (acc[q][nt][2 * h + e] - mu[nt][e]) * istd[nt][e]
+                                      : kNegInf;
+              m_tile = fmaxf(m_tile, n[nt][e]);
+            }
+          }
+          m_tile = fmaxf(m_tile, __shfl_xor_sync(kFullMask, m_tile, 1));
+          m_tile = fmaxf(m_tile, __shfl_xor_sync(kFullMask, m_tile, 2));
+          const float m_new = fmaxf(m_run[q][h], m_tile);
+          // Guard fully-masked rows: exp(-1e30 - -1e30) would be 1.
+          const float safe = fmaxf(m_new, 0.5f * kNegInf);
+          float e_sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (valid[nt][e]) e_sum += expf(n[nt][e] - safe);
+            }
+          }
+          e_sum += __shfl_xor_sync(kFullMask, e_sum, 1);
+          e_sum += __shfl_xor_sync(kFullMask, e_sum, 2);
+          s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) + e_sum;
+          m_run[q][h] = m_new;
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the load of tile + 2
+  }
+#pragma unroll
+  for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+      if (tig == 0 && r < B) {
+        m_part[(size_t)blockIdx.x * B + r] = m_run[q][h];
+        s_part[(size_t)blockIdx.x * B + r] = s_run[q][h];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: row loss and row-dot partials.
+// ---------------------------------------------------------------------------
+template <int VT, bool kBulk>
+__global__ void __launch_bounds__(kTcThreads, 1)
+loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+            const float* __restrict__ x, const float* __restrict__ mean,
+            const float* __restrict__ var, const float* __restrict__ m,
+            const float* __restrict__ s, float* __restrict__ loss_part,
+            float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
+            int tiles_per_block) {
+  using T = Tile<VT>;
+  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx, Pb = T::kPb;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
+  const FwdLayout L = fwd_layout(kLoss, VT, B, K);
+  const int Kp = L.Kp, Pth = L.Pth;
+  float* th_s = sm + L.th;
+  float* x_ring = sm + L.x;
+  float* b_ring = sm + L.b;
+  float* mv_ring = sm + L.mv;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int mt_count = (B + 15) / 16;
+
+  load_theta_tc(th_s, theta, B, K, Kp, Pth);
+  zero_smem(x_ring, 2 * L.x_stage);
+  zero_smem(b_ring, 2 * L.b_stage);
+  zero_smem(mv_ring, 4 * VT);
+  // This lane's rows: the softmax max and denominator (fully-masked rows
+  // have the (-1e30, 0) sentinel: forced finite, and their loss left out),
+  // and the row's loss and row-dot, accumulated across the block's tiles.
+  float sm_r[kMt][2], sl_r[kMt][2], loss_r[kMt][2], rd_r[kMt][2];
+  bool ok_r[kMt][2];
+#pragma unroll
+  for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+      const bool ok = r < B && s[r] > 1e-20f;
+      sm_r[q][h] = ok ? m[r] : 0.f;
+      sl_r[q][h] = ok ? s[r] : 1.f;
+      ok_r[q][h] = ok;
+      loss_r[q][h] = 0.f;
+      rd_r[q][h] = 0.f;
+    }
+  }
+  if (kBulk && tid == 0) init_ring_barriers(bar);
+  __syncthreads();
+
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(first + tiles_per_block, n_tiles);
+  if (first < last) {
+    load_tile<VT, kBulk>(b_ring, x_ring, mv_ring, &bar[0], beta, x, mean, var, B, K, V,
+                         first * VT, 2);
+    if (!kBulk) cp_async_commit();
+  }
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const int st = it & 1;
+    const int v0 = tile * VT;
+    if (tile + 1 < last) {
+      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
+                           mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
+                           K, V, v0 + VT, 2);
+    }
+    wait_tile<kBulk>(bar, st, it);
+    __syncthreads();
+    const float* xs = x_ring + st * L.x_stage;
+    const float* bs = b_ring + st * L.b_stage;
+    const float* mvs = mv_ring + st * 2 * VT;
+
+    float mu[kNt][2], istd[kNt][2];
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * tig + e;
+        const bool ok = v0 + c < V;
+        mu[nt][e] = ok ? mvs[c] : 0.f;
+        istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < kMt; ++q) {
+      const int mt = warp + q * kTcWarps;
+      if (mt < mt_count) {
+        const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
+        float acc[kNt][4];
+        tile_product(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, r_lo < B, r_hi < B},
+                     BetaFrag{bs, Pb, grp, tig});
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = h ? r_hi : r_lo;
+          if (r < B) {
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              const int c = nt * 8 + 2 * tig;
+              const float2 xv = *reinterpret_cast<const float2*>(xs + r * Px + c);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (v0 + c + e < V) {
+                  const float xe = e ? xv.y : xv.x;
+                  const float n = (acc[nt][2 * h + e] - mu[nt][e]) * istd[nt][e];
+                  const float p = expf(fminf(n - sm_r[q][h], 0.f)) / sl_r[q][h];
+                  if (ok_r[q][h]) loss_r[q][h] += xe * logf(p + floor_);
+                  rd_r[q][h] += xe * (p / (p + floor_));
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the load of tile + 2
+  }
+#pragma unroll
+  for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lv = loss_r[q][h], rv = rd_r[q][h];
+      lv += __shfl_xor_sync(kFullMask, lv, 1);
+      rv += __shfl_xor_sync(kFullMask, rv, 1);
+      lv += __shfl_xor_sync(kFullMask, lv, 2);
+      rv += __shfl_xor_sync(kFullMask, rv, 2);
+      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+      if (tig == 0 && r < B) {
+        loss_part[(size_t)blockIdx.x * B + r] = -lv;
+        rd_part[(size_t)blockIdx.x * B + r] = rv;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: backward — g_beta for the block's columns, g_theta partials.
+// ---------------------------------------------------------------------------
+
+// K3's shared memory at tile width vt, as offsets in floats: theta [B, Pth]
+// (Pth = Kp + 4, 4 mod 8, so theta's A fragments load without conflicts),
+// the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
+// [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
+// five row vectors (m, 1/s, rd, g, mask); two [kTcWarps, vt] column reductions, the two BN column
+// sums and the count; two mbarriers. Rows past B are never stored: fragments
+// read them as 0.
+struct GradsLayout {
+  int Kp, Pth, Pg;
+  size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, bar, floats;
+};
+
+__host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
+  GradsLayout L;
+  L.Kp = round_up(K, 8);
+  L.Pth = L.Kp + 4;
+  L.Pg = L.Kp;
+  L.th = 0;
+  L.gth = L.th + up4((size_t)B * L.Pth);
+  L.x = L.gth + up4((size_t)B * L.Pg);
+  L.x_stage = up4((size_t)B * tile_px(vt));
+  L.b = L.x + 2 * L.x_stage;
+  L.b_stage = (size_t)L.Kp * tile_pb(vt);
+  L.mv = L.b + 2 * L.b_stage;
+  L.rows = L.mv + 4 * (size_t)vt;
+  L.cols = L.rows + up4(5 * (size_t)B);
+  L.bar = L.cols + (size_t)(2 * kTcWarps + 2) * vt + 4;
+  L.floats = L.bar + 4;
+  return L;
+}
+
+template <int VT, bool kBulk>
+__global__ void __launch_bounds__(kTcThreads, 1)
 grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
              const float* __restrict__ x, const float* __restrict__ mean,
              const float* __restrict__ var, const float* __restrict__ m,
@@ -556,11 +1040,11 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
              const float* __restrict__ g, const float* __restrict__ mask,
              float* __restrict__ gth_part, float* __restrict__ g_beta, int B, int K, int V,
              int training, float eps, float floor_, int tiles_per_block) {
-  using T = GradsTile<VT>;
+  using T = Tile<VT>;
   constexpr int kNt = VT / 8;  // 8-column mma tiles per tile
   constexpr int Px = T::kPx, Pb = T::kPb;
-  extern __shared__ __align__(128) unsigned char k3_smem[];
-  float* const sm = reinterpret_cast<float*>(k3_smem);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
   const GradsLayout L = grads_layout(VT, B, K);
   const int Kp = L.Kp, Pth = L.Pth, Pg = L.Pg;
   float* th_s = sm + L.th;
@@ -573,8 +1057,8 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   float* rd_s = isl_s + B;
   float* g_s = rd_s + B;
   float* mk_s = g_s + B;
-  float* red_s = sm + L.cols;               // [2][kK3Warps][VT]
-  float* ab_s = red_s + 2 * kK3Warps * VT;  // [2][VT]: sum(gn*mk)/cnt, sum(gn*n*mk)/cnt
+  float* red_s = sm + L.cols;               // [2][kTcWarps][VT]
+  float* ab_s = red_s + 2 * kTcWarps * VT;  // [2][VT]: sum(gn*mk)/cnt, sum(gn*n*mk)/cnt
   float* cnt_s = ab_s + 2 * VT;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
 
@@ -583,15 +1067,15 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   const int n_tiles = (V + VT - 1) / VT;
   const int mt_count = (B + 15) / 16;
 
-  for (int i = tid; i < B * Kp; i += kK3Threads) {
+  for (int i = tid; i < B * Kp; i += kTcThreads) {
     const int r = i / Kp, k = i - r * Kp;
     th_s[r * Pth + k] = k < K ? theta[(size_t)r * K + k] : 0.f;
     gth_s[r * Pg + k] = 0.f;
   }
-  for (size_t i = tid; i < 2 * L.x_stage; i += kK3Threads) x_ring[i] = 0.f;
-  for (size_t i = tid; i < 2 * L.b_stage; i += kK3Threads) b_ring[i] = 0.f;
-  for (int i = tid; i < 4 * VT; i += kK3Threads) mv_ring[i] = 0.f;
-  for (int r = tid; r < B; r += kK3Threads) {
+  for (size_t i = tid; i < 2 * L.x_stage; i += kTcThreads) x_ring[i] = 0.f;
+  for (size_t i = tid; i < 2 * L.b_stage; i += kTcThreads) b_ring[i] = 0.f;
+  for (int i = tid; i < 4 * VT; i += kTcThreads) mv_ring[i] = 0.f;
+  for (int r = tid; r < B; r += kTcThreads) {
     const bool ok = s[r] > 1e-20f;
     sm_s[r] = ok ? m[r] : 0.f;
     isl_s[r] = 1.f / (ok ? s[r] : 1.f);
@@ -603,11 +1087,7 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     float c = 0.f;
     for (int r = 0; r < B; ++r) c += mask[r];
     cnt_s[0] = fmaxf(c, 1.f);
-    if (kBulk) {
-      mbar_init(&bar[0], 1);
-      mbar_init(&bar[1], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
+    if (kBulk) init_ring_barriers(bar);
   }
   __syncthreads();
   const float cnt = cnt_s[0];
@@ -616,7 +1096,7 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   const int last = min(first + tiles_per_block, n_tiles);
   if (first < last) {
     load_tile<VT, kBulk>(b_ring, x_ring, mv_ring, &bar[0], beta, x, mean, var, B, K, V,
-                         first * VT);
+                         first * VT, 2);
     if (!kBulk) cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
@@ -625,14 +1105,9 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     if (tile + 1 < last) {
       load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
                            mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
-                           K, V, v0 + VT);
+                           K, V, v0 + VT, 2);
     }
-    if (kBulk) {
-      mbar_wait(&bar[st], (it >> 1) & 1);
-    } else {
-      cp_async_commit();  // possibly empty: one group per tile
-      cp_async_wait_prior();
-    }
+    wait_tile<kBulk>(bar, st, it);
     __syncthreads();
     float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
     const float* bs = b_ring + st * L.b_stage;
@@ -651,35 +1126,21 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       }
     }
 
-    // Pass 1: z = theta beta_tile on the tensor cores; n and gn on the
-    // accumulator fragments; gn replaces x in shared memory, n stays here.
+    // Pass 1: z from the tile product; n and gn on the accumulator
+    // fragments; gn replaces x in shared memory, n stays here.
     float nv[T::kMaxMt][kNt][4];
     float s1[kNt][2], s2[kNt][2];
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt) s1[nt][0] = s1[nt][1] = s2[nt][0] = s2[nt][1] = 0.f;
 #pragma unroll
     for (int q = 0; q < T::kMaxMt; ++q) {
-      const int mt = warp + q * kK3Warps;
+      const int mt = warp + q * kTcWarps;
       if (mt < mt_count) {
         const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
         const bool ok_lo = r_lo < B, ok_hi = r_hi < B;
         float acc[kNt][4];
-#pragma unroll
-        for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-        for (int k0 = 0; k0 < Kp; k0 += 8) {
-          uint32_t ah[4], al[4];
-          split_tf32(ok_lo ? th_s[r_lo * Pth + k0 + tig] : 0.f, ah[0], al[0]);
-          split_tf32(ok_hi ? th_s[r_hi * Pth + k0 + tig] : 0.f, ah[1], al[1]);
-          split_tf32(ok_lo ? th_s[r_lo * Pth + k0 + tig + 4] : 0.f, ah[2], al[2]);
-          split_tf32(ok_hi ? th_s[r_hi * Pth + k0 + tig + 4] : 0.f, ah[3], al[3]);
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt) {
-            uint32_t bh[2], bl[2];
-            split_tf32(bs[(k0 + tig) * Pb + nt * 8 + grp], bh[0], bl[0]);
-            split_tf32(bs[(k0 + tig + 4) * Pb + nt * 8 + grp], bh[1], bl[1]);
-            mma_3xtf32(acc[nt], ah, al, bh, bl);
-          }
-        }
+        tile_product(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, ok_lo, ok_hi},
+                     BetaFrag{bs, Pb, grp, tig});
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = h ? r_hi : r_lo;
@@ -729,16 +1190,16 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
           }
           if (grp == 0) {
             red_s[warp * VT + nt * 8 + 2 * tig + e] = v1;
-            red_s[(kK3Warps + warp) * VT + nt * 8 + 2 * tig + e] = v2;
+            red_s[(kTcWarps + warp) * VT + nt * 8 + 2 * tig + e] = v2;
           }
         }
       }
       __syncthreads();
       if (tid < VT) {
         float t1 = 0.f, t2 = 0.f;
-        for (int w = 0; w < kK3Warps; ++w) {
+        for (int w = 0; w < kTcWarps; ++w) {
           t1 += red_s[w * VT + tid];
-          t2 += red_s[(kK3Warps + w) * VT + tid];
+          t2 += red_s[(kTcWarps + w) * VT + tid];
         }
         ab_s[tid] = t1 / cnt;
         ab_s[VT + tid] = t2 / cnt;
@@ -749,7 +1210,7 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     // Pass 2: gz = inv_std * (gn - mk*a - n*mk*b), 0 past V; gz replaces gn.
 #pragma unroll
     for (int q = 0; q < T::kMaxMt; ++q) {
-      const int mt = warp + q * kK3Warps;
+      const int mt = warp + q * kTcWarps;
       if (mt < mt_count) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -888,11 +1349,15 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     }
     __syncthreads();  // the stage is free for the load of tile + 2
   }
-  for (int i = tid; i < B * K; i += kK3Threads) {
+  for (int i = tid; i < B * K; i += kTcThreads) {
     const int r = i / K, k = i - r * K;
     gth_part[(size_t)blockIdx.x * B * K + i] = gth_s[r * Pg + k];
   }
 }
+
+// ---------------------------------------------------------------------------
+// Host side: layouts, grids, launches.
+// ---------------------------------------------------------------------------
 
 // Grid for a kernel: as many resident blocks as the card holds, each with a
 // whole number of tiles of `cols` columns, and no block without a tile.
@@ -918,27 +1383,6 @@ cudaError_t plan(KernelT kernel, int threads, size_t smem, int V, int cols, int*
   return cudaSuccess;
 }
 
-template <typename KernelT>
-cudaError_t plan_kind(int kind, KernelT kernel, int B, int K, int V, int* grid, int* spb,
-                      size_t* smem) {
-  *smem = smem_floats(kind, B, K) * sizeof(float);
-  return plan(kernel, kThreads, *smem, V, kStrip, grid, spb);
-}
-
-// K3's tile width at (B, K) under a per-block shared-memory limit: 32 when
-// that layout fits and B fits the warps' registers, else 16; 0 when neither
-// fits. *smem is the chosen layout's bytes (the 16-wide one's on refusal).
-int grads_vt(int B, int K, size_t limit, size_t* smem) {
-  const int widths[2] = {32, 16};
-  const int max_rows[2] = {GradsTile<32>::kMaxMt * 16 * kK3Warps,
-                           GradsTile<16>::kMaxMt * 16 * kK3Warps};
-  for (int i = 0; i < 2; ++i) {
-    *smem = grads_layout(widths[i], B, K).floats * sizeof(float);
-    if (*smem <= limit && B <= max_rows[i]) return widths[i];
-  }
-  return 0;
-}
-
 cudaError_t smem_limit(size_t* limit) {
   int dev = 0, value = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -948,41 +1392,69 @@ cudaError_t smem_limit(size_t* limit) {
   return err;
 }
 
-// K3's grid (the 16-byte-aligned variant's occupancy stands for both) and
-// tile width; *vt is 0 when it does not fit.
-cudaError_t plan_grads(int B, int K, int V, int* grid, int* tpb, size_t* smem, int* vt) {
+// The tensor-core tile width of a kernel at (B, K) under a per-block
+// shared-memory limit: 32 when that layout fits and B fits the warps'
+// registers, else 16; 0 when neither fits. *smem is the chosen layout's bytes
+// (the 16-wide one's when neither fits).
+int tc_vt(int kind, int B, int K, size_t limit, size_t* smem) {
+  const int widths[2] = {32, 16};
+  for (int vt : widths) {
+    *smem = (kind == kGrads ? grads_layout(vt, B, K).floats : fwd_layout(kind, vt, B, K).floats) *
+            sizeof(float);
+    if (*smem <= limit && B <= tile_rows(vt)) return vt;
+  }
+  return 0;
+}
+
+// A kernel's route at (B, K): the tensor-core tile width (32 or 16), 0 for
+// the CUDA-core K1/K2, -1 when nothing fits; with its shared memory.
+int route_of(int kind, int B, int K, size_t limit, size_t* smem) {
+  const int vt = tc_vt(kind, B, K, limit, smem);
+  if (vt || kind == kGrads) return vt ? vt : -1;
+  *smem = simt_smem_floats(kind, B, K) * sizeof(float);
+  return *smem <= limit ? 0 : -1;
+}
+
+// Grid of the route's kernel (the 16-byte-aligned variant's occupancy stands
+// for both ring variants); *grid is 0 when nothing fits.
+cudaError_t plan_route(int kind, int B, int K, int V, int* grid, int* tpb, size_t* smem,
+                       int* route) {
   size_t limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  *vt = grads_vt(B, K, limit, smem);
+  *route = route_of(kind, B, K, limit, smem);
   *grid = 0;
-  if (*vt == 32) return plan(grads_kernel<32, true>, kK3Threads, *smem, V, 32, grid, tpb);
-  if (*vt == 16) return plan(grads_kernel<16, true>, kK3Threads, *smem, V, 16, grid, tpb);
+  switch (*route) {
+    case 32:
+      if (kind == kStats) return plan(stats_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+      if (kind == kLoss) return plan(loss_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+      return plan(grads_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+    case 16:
+      if (kind == kStats) return plan(stats_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+      if (kind == kLoss) return plan(loss_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+      return plan(grads_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+    case 0:
+      if (kind == kStats) return plan(simt_stats_kernel, kThreads, *smem, V, kStrip, grid, tpb);
+      return plan(simt_loss_kernel, kThreads, *smem, V, kStrip, grid, tpb);
+  }
   return cudaSuccess;
 }
 
-cudaError_t plan_any(int kind, int B, int K, int V, int* grid, int* spb, size_t* smem) {
-  switch (kind) {
-    case kStats: return plan_kind(kind, stats_kernel, B, K, V, grid, spb, smem);
-    case kLoss: return plan_kind(kind, loss_kernel, B, K, V, grid, spb, smem);
-  }
-  return cudaErrorInvalidValue;
+template <typename KernelT, typename... Args>
+cudaError_t launch(KernelT kernel, int grid, int threads, size_t smem, cudaStream_t st,
+                   Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
-template <int VT, bool kBulk>
-cudaError_t launch_grads(const void* theta, const void* beta, const void* x, const void* mean,
-                         const void* var, const void* m, const void* s, const void* rd,
-                         const void* g, const void* mask, void* gth_part, void* g_beta, int B,
-                         int K, int V, int training, float eps, float floor_, int grid, int tpb,
-                         size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(grads_kernel<VT, kBulk>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  grads_kernel<VT, kBulk><<<grid, kK3Threads, smem, st>>>(
-      (const float*)theta, (const float*)beta, (const float*)x, (const float*)mean,
-      (const float*)var, (const float*)m, (const float*)s, (const float*)rd, (const float*)g,
-      (const float*)mask, (float*)gth_part, (float*)g_beta, B, K, V, training, eps, floor_, tpb);
-  return cudaGetLastError();
+// The bulk-copy ring variant when every row the ring loads starts on 16
+// bytes (V % 4 == 0 and aligned base pointers), else the 4-byte cp.async one.
+bool bulk_ok(int V, const void* a, const void* b, const void* c, const void* d) {
+  return V % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+         (uintptr_t)c % 16 == 0 && (uintptr_t)d % 16 == 0;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -1000,37 +1472,49 @@ int fd_plan(int kind, int B, int K, int V, int* grid, long long* smem_bytes,
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
   *smem_limit_out = (long long)limit;
-  *grid = 0;
-  int tpb = 0;
-  if (kind == kGrads) {
-    int vt = 0;
-    err = plan_grads(B, K, V, grid, &tpb, &smem, &vt);
-    *smem_bytes = (long long)smem;
-    return (int)err;
-  }
-  smem = smem_floats(kind, B, K) * sizeof(float);
+  int tpb = 0, route = 0;
+  err = plan_route(kind, B, K, V, grid, &tpb, &smem, &route);
   *smem_bytes = (long long)smem;
-  if (smem > limit) return (int)cudaSuccess;
-  return (int)plan_any(kind, B, K, V, grid, &tpb, &smem);
+  return (int)err;
+}
+
+// A kernel's route at (B, K), by shape alone: 32 or 16 for the tensor-core
+// tile width, 0 for the CUDA-core K1 or K2, -1 when nothing fits.
+int fd_route(int kind, int B, int K, int* route) {
+  size_t limit = 0, smem = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  *route = route_of(kind, B, K, limit, &smem);
+  return (int)cudaSuccess;
 }
 
 int fd_stats(const void* theta, const void* beta, const void* mask, const void* run_mean,
              const void* run_var, void* mean, void* var, void* m_part, void* s_part, void* m,
              void* s, int B, int K, int V, int training, float eps, int grid, void* stream) {
-  int g = 0, spb = 0;
+  int g = 0, tpb = 0, route = 0;
   size_t smem = 0;
-  cudaError_t err = plan_any(kStats, B, K, V, &g, &spb, &smem);
+  cudaError_t err = plan_route(kStats, B, K, V, &g, &tpb, &smem, &route);
   if (err != cudaSuccess) return (int)err;
-  if (g != grid) return (int)cudaErrorInvalidValue;
+  if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  stats_kernel<<<grid, kThreads, smem, st>>>(
-      (const float*)theta, (const float*)beta, (const float*)mask, (const float*)run_mean,
-      (const float*)run_var, (float*)mean, (float*)var, (float*)m_part, (float*)s_part, B, K,
-      V, training, eps, spb);
-  err = cudaGetLastError();
+  const bool bulk = bulk_ok(V, beta, run_mean, run_var, beta);
+  const float *th = (const float*)theta, *be = (const float*)beta, *mk = (const float*)mask,
+              *rm = (const float*)run_mean, *rv = (const float*)run_var;
+  float *mo = (float*)mean, *vo = (float*)var, *mp = (float*)m_part, *sp = (float*)s_part;
+  auto go = [&](auto kernel, int threads) {
+    return launch(kernel, grid, threads, smem, st, th, be, mk, rm, rv, mo, vo, mp, sp, B, K, V,
+                  training, eps, tpb);
+  };
+  if (route == 32) {
+    err = bulk ? go(stats_kernel<32, true>, kTcThreads) : go(stats_kernel<32, false>, kTcThreads);
+  } else if (route == 16) {
+    err = bulk ? go(stats_kernel<16, true>, kTcThreads) : go(stats_kernel<16, false>, kTcThreads);
+  } else {
+    err = go(simt_stats_kernel, kThreads);
+  }
   if (err != cudaSuccess) return (int)err;
-  merge_softmax_kernel<<<blocks_for(B), kThreads, 0, st>>>(
-      (const float*)m_part, (const float*)s_part, grid, B, (float*)m, (float*)s);
+  merge_softmax_kernel<<<blocks_for(B), kThreads, 0, st>>>(mp, sp, grid, B, (float*)m,
+                                                           (float*)s);
   return (int)cudaGetLastError();
 }
 
@@ -1038,58 +1522,61 @@ int fd_loss(const void* theta, const void* beta, const void* x, const void* mean
             const void* var, const void* m, const void* s, void* loss_part, void* rd_part,
             void* loss, void* rd, int B, int K, int V, float eps, float floor_, int grid,
             void* stream) {
-  int g = 0, spb = 0;
+  int g = 0, tpb = 0, route = 0;
   size_t smem = 0;
-  cudaError_t err = plan_any(kLoss, B, K, V, &g, &spb, &smem);
+  cudaError_t err = plan_route(kLoss, B, K, V, &g, &tpb, &smem, &route);
   if (err != cudaSuccess) return (int)err;
-  if (g != grid) return (int)cudaErrorInvalidValue;
+  if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  loss_kernel<<<grid, kThreads, smem, st>>>(
-      (const float*)theta, (const float*)beta, (const float*)x, (const float*)mean,
-      (const float*)var, (const float*)m, (const float*)s, (float*)loss_part, (float*)rd_part,
-      B, K, V, eps, floor_, spb);
-  err = cudaGetLastError();
+  const bool bulk = bulk_ok(V, beta, x, mean, var);
+  const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
+              *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
+              *ss = (const float*)s;
+  float *lp = (float*)loss_part, *rp = (float*)rd_part;
+  auto go = [&](auto kernel, int threads) {
+    return launch(kernel, grid, threads, smem, st, th, be, xx, mu, va, mm, ss, lp, rp, B, K, V,
+                  eps, floor_, tpb);
+  };
+  if (route == 32) {
+    err = bulk ? go(loss_kernel<32, true>, kTcThreads) : go(loss_kernel<32, false>, kTcThreads);
+  } else if (route == 16) {
+    err = bulk ? go(loss_kernel<16, true>, kTcThreads) : go(loss_kernel<16, false>, kTcThreads);
+  } else {
+    err = go(simt_loss_kernel, kThreads);
+  }
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>((const float*)loss_part, grid, B,
-                                                          (float*)loss);
-  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>((const float*)rd_part, grid, B,
-                                                          (float*)rd);
+  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>(lp, grid, B, (float*)loss);
+  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>(rp, grid, B, (float*)rd);
   return (int)cudaGetLastError();
 }
 
-// K3: the bulk-copy variant when every row of beta, x, mean and var starts
-// on 16 bytes (V % 4 == 0 and aligned base pointers), else the 4-byte
-// cp.async one.
 int fd_grads(const void* theta, const void* beta, const void* x, const void* mean,
              const void* var, const void* m, const void* s, const void* rd, const void* g,
              const void* mask, void* gth_part, void* g_theta, void* g_beta, int B, int K,
              int V, int training, float eps, float floor_, int grid, void* stream) {
-  int gr = 0, tpb = 0, vt = 0;
+  int gr = 0, tpb = 0, route = 0;
   size_t smem = 0;
-  cudaError_t err = plan_grads(B, K, V, &gr, &tpb, &smem, &vt);
+  cudaError_t err = plan_route(kGrads, B, K, V, &gr, &tpb, &smem, &route);
   if (err != cudaSuccess) return (int)err;
-  if (vt == 0 || gr != grid) return (int)cudaErrorInvalidValue;
+  if (route < 0 || gr != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool bulk = V % 4 == 0 && (uintptr_t)beta % 16 == 0 && (uintptr_t)x % 16 == 0 &&
-                    (uintptr_t)mean % 16 == 0 && (uintptr_t)var % 16 == 0;
-  if (vt == 32) {
-    err = bulk ? launch_grads<32, true>(theta, beta, x, mean, var, m, s, rd, g, mask, gth_part,
-                                        g_beta, B, K, V, training, eps, floor_, grid, tpb,
-                                        smem, st)
-               : launch_grads<32, false>(theta, beta, x, mean, var, m, s, rd, g, mask,
-                                         gth_part, g_beta, B, K, V, training, eps, floor_,
-                                         grid, tpb, smem, st);
+  const bool bulk = bulk_ok(V, beta, x, mean, var);
+  const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
+              *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
+              *ss = (const float*)s, *rr = (const float*)rd, *gg = (const float*)g,
+              *mk = (const float*)mask;
+  float *gp = (float*)gth_part, *gb = (float*)g_beta;
+  auto go = [&](auto kernel) {
+    return launch(kernel, grid, kTcThreads, smem, st, th, be, xx, mu, va, mm, ss, rr, gg, mk,
+                  gp, gb, B, K, V, training, eps, floor_, tpb);
+  };
+  if (route == 32) {
+    err = bulk ? go(grads_kernel<32, true>) : go(grads_kernel<32, false>);
   } else {
-    err = bulk ? launch_grads<16, true>(theta, beta, x, mean, var, m, s, rd, g, mask, gth_part,
-                                        g_beta, B, K, V, training, eps, floor_, grid, tpb,
-                                        smem, st)
-               : launch_grads<16, false>(theta, beta, x, mean, var, m, s, rd, g, mask,
-                                         gth_part, g_beta, B, K, V, training, eps, floor_,
-                                         grid, tpb, smem, st);
+    err = bulk ? go(grads_kernel<16, true>) : go(grads_kernel<16, false>);
   }
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<blocks_for(B * K), kThreads, 0, st>>>((const float*)gth_part, grid,
-                                                              B * K, (float*)g_theta);
+  sum_partials_kernel<<<blocks_for(B * K), kThreads, 0, st>>>(gp, grid, B * K, (float*)g_theta);
   return (int)cudaGetLastError();
 }
 

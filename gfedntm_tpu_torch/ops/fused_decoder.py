@@ -193,13 +193,27 @@ def _on_cuda(t):
     raise ValueError(f"fused decoder: unsupported device {t.device}")
 
 
+def _route(lib, kind, b, k):
+    """A kernel's route at (B, K), chosen by shape alone: 32 or 16 (the
+    tensor-core tile width), 0 (the CUDA-core K1 or K2, for batches past the
+    tensor-core layouts), -1 (nothing fits)."""
+    route = ctypes.c_int(0)
+    _raise_on(lib.fd_route(_PLAN_KIND[kind], b, k, ctypes.byref(route)), f"{kind} route")
+    return route.value
+
+
 def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
     """K1 (+ the merge of its per-block softmax partials)."""
     if not _on_cuda(theta):
         return stats_reference(theta, beta, mask, run_mean, run_var, training, eps)
+    out = _launch_stats(_build.load(), theta, beta, mask, run_mean, run_var, training, eps)
+    LAUNCHES["stats"] += 1
+    return out
+
+
+def _launch_stats(lib, theta, beta, mask, run_mean, run_var, training, eps):
     b, k, v = _check_inputs("stats", theta, beta, mask=mask, run_mean=run_mean,
                             run_var=run_var)
-    lib = _build.load()
     with torch.cuda.device(theta.device):
         grid = _plan(lib, "stats", b, k, v)
         mean, var, m, s = (_empty(theta, n) for n in (v, v, b, b))
@@ -209,7 +223,6 @@ def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
             _ptr(mean), _ptr(var), _ptr(m_part), _ptr(s_part), _ptr(m), _ptr(s),
             b, k, v, int(bool(training)), eps, grid, _stream(),
         ), "stats launch")
-    LAUNCHES["stats"] += 1
     return mean, var, m, s
 
 
@@ -217,8 +230,13 @@ def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
     """K2 (+ the ordered sum of its per-block partials)."""
     if not _on_cuda(theta):
         return loss_reference(theta, beta, x, mean, var, m, s, eps, floor)
+    out = _launch_loss(_build.load(), theta, beta, x, mean, var, m, s, eps, floor)
+    LAUNCHES["loss"] += 1
+    return out
+
+
+def _launch_loss(lib, theta, beta, x, mean, var, m, s, eps, floor):
     b, k, v = _check_inputs("loss", theta, beta, x=x, mean=mean, var=var, m=m, s=s)
-    lib = _build.load()
     with torch.cuda.device(theta.device):
         grid = _plan(lib, "loss", b, k, v)
         rl, rd = _empty(theta, b), _empty(theta, b)
@@ -228,7 +246,6 @@ def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
             _ptr(loss_part), _ptr(rd_part), _ptr(rl), _ptr(rd),
             b, k, v, eps, floor, grid, _stream(),
         ), "loss launch")
-    LAUNCHES["loss"] += 1
     return rl, rd
 
 
@@ -238,9 +255,18 @@ def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
     if not _on_cuda(theta):
         return grads_reference(theta, beta, x, mean, var, m, s, rd, g, mask,
                                training, eps, floor)
+    out = _launch_grads(_build.load(), theta, beta, x, mean, var, m, s, rd, g, mask,
+                        training, eps, floor)
+    LAUNCHES["grads"] += 1
+    return out
+
+
+def _launch_grads(lib, theta, beta, x, mean, var, m, s, rd, g, mask, training, eps,
+                  floor):
+    """K3 through the library ``lib`` (``_build.load()``, or another build of
+    the source to compare with), uncounted."""
     b, k, v = _check_inputs("grads", theta, beta, x=x, mean=mean, var=var, m=m,
                             s=s, rd=rd, g=g, mask=mask)
-    lib = _build.load()
     with torch.cuda.device(theta.device):
         grid = _plan(lib, "grads", b, k, v)
         g_theta, g_beta = _empty(theta, b, k), _empty(theta, k, v)
@@ -250,7 +276,6 @@ def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
             _ptr(rd), _ptr(g), _ptr(mask), _ptr(gth_part), _ptr(g_theta), _ptr(g_beta),
             b, k, v, int(bool(training)), eps, floor, grid, _stream(),
         ), "grads launch")
-    LAUNCHES["grads"] += 1
     return g_theta, g_beta
 
 

@@ -1,7 +1,8 @@
 """The port on the GPU: the CUDA kernels against their plain versions, and a
 small federated fit through them. Marked ``cuda``; each test skips where no
 CUDA device is present (run them on a GPU machine with
-``python -m pytest tests/test_torch_cuda.py -q``).
+``python -m pytest tests/test_torch_cuda.py -q --noconftest``; K1 and K2
+alone with ``-k "stats or loss"``, K3 alone with ``-k grads``).
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| per output (both
 float32; the plain version's products run through cuBLAS in another order).
@@ -139,6 +140,116 @@ def _grads_refused(lib, b, k):
     except ValueError:
         return True
     return False
+
+
+def close_stats(got, want):
+    """``close`` with the softmax-max sentinels (-1e30, fully-masked rows)
+    exact and left out of the scale."""
+    for a, b in zip(got, want):
+        sentinel = b.abs() >= 1e29
+        assert torch.equal(a[sentinel], b[sentinel])
+        if (~sentinel).any():
+            close([a[~sentinel]], [b[~sentinel]])
+
+
+def check_stats_and_loss(t, training):
+    """K1 and K2 against their plain versions; K2 takes the plain statistics."""
+    st = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], training)
+    want = fd.stats_reference(*st)
+    got = fd.stats(*st)
+    close_stats(got, want)
+    lo = (t["theta"], t["beta"], t["x"]) + tuple(want)
+    got_loss = fd.loss(*lo)
+    close(got_loss, fd.loss_reference(*lo))
+    torch.cuda.synchronize()
+    return got, got_loss
+
+
+@pytest.mark.parametrize("k", [8, 50])
+@pytest.mark.parametrize("b", [1, 17, 256, 320])
+@pytest.mark.parametrize("v_mod", [0, 1, 2, 3])
+def test_stats_and_loss_kernels_match_plain_versions(cuda, b, k, v_mod):
+    """K1 and K2 in both ring variants (bulk copies at V % 4 == 0, else
+    4-byte cp.async), both tile widths (B=320 takes 16 columns), ragged B and
+    K, several tiles per block; training and eval."""
+    t = inputs(b, k, 20_000 + v_mod, cuda, seed=b + k + v_mod)
+    for training in (True, False):
+        check_stats_and_loss(t, training)
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_stats_and_loss_kernels_all_masked_batch(cuda, training):
+    t = inputs(64, 50, 3001, cuda)
+    t["mask"].zero_()
+    (mean, var, m, s), (rl, rd) = check_stats_and_loss(t, training)
+    assert bool((m == -1e30).all()) and bool((s == 0).all())
+    assert bool((rl == 0).all()) and bool(torch.isfinite(rd).all())
+
+
+@pytest.mark.parametrize("v", [100_000, 99_999])
+def test_stats_and_loss_kernels_are_bitwise_repeatable(cuda, v):
+    t = inputs(256, 50, v, cuda)
+    st = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True)
+    first, second = fd.stats(*st), fd.stats(*st)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    lo = (t["theta"], t["beta"], t["x"]) + tuple(first)
+    assert all(torch.equal(a, b) for a, b in zip(fd.loss(*lo), fd.loss(*lo)))
+
+
+def _old_fwd_smem_floats(kind, b, k):
+    """Shared memory, in floats, of the CUDA-core K1 and K2 of the first port
+    (4-row and 4-topic padding, 32-column strips), which still take the
+    batches the tensor-core layouts do not: every (B, K) they fitted must
+    still be accepted."""
+    bp, kp = -(-b // 4) * 4, -(-k // 4) * 4
+    if kind == "stats":
+        return bp * kp + kp * 33 + bp * 32 + 3 * b + 8 * 32 + 2 * 32 + 1
+    return bp * kp + kp * 33 + 5 * b + 2 * 32
+
+
+TOPICS = (1, 8, 9, 25, 50, 64, 100, 241, 500, 1000)
+
+
+def test_stats_and_loss_kernels_accept_every_batch_the_old_kernels_took(cuda):
+    from gfedntm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    grid, smem, limit = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
+    assert lib.fd_plan(0, 1, 1, 1, ctypes.byref(grid), ctypes.byref(smem),
+                       ctypes.byref(limit)) == 0
+    limit = limit.value // 4
+    for kind in ("stats", "loss"):
+        for k in TOPICS:
+            b_max = max(b for b in range(1, 8000) if _old_fwd_smem_floats(kind, b, k) <= limit)
+            for b in (1, b_max // 2, b_max):
+                assert fd._route(lib, kind, b, k) >= 0, (kind, b, k)
+                assert fd._plan(lib, kind, b, k, 100_000) > 0, (kind, b, k)
+
+
+def test_stats_and_loss_tensor_core_routes_cover_every_batch_k3_takes(cuda):
+    from gfedntm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for k in TOPICS:
+        for b in range(1, 1100):
+            if fd._route(lib, "grads", b, k) < 0:
+                continue
+            for kind in ("stats", "loss"):
+                assert fd._route(lib, kind, b, k) in (16, 32), (kind, b, k)
+
+
+@pytest.mark.parametrize("kind,k", [("stats", 8), ("loss", 8), ("loss", 50)])
+def test_stats_and_loss_kernels_on_the_cuda_core_route(cuda, kind, k):
+    """The first batch past the tensor-core layouts takes the CUDA-core
+    kernel, chosen by shape alone, and matches the plain version."""
+    from gfedntm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    b = next(b for b in range(1, 8000) if fd._route(lib, kind, b, k) == 0)
+    assert fd._route(lib, kind, b - 1, k) in (16, 32)
+    t = inputs(b, k, 3001, cuda)
+    for training in (True, False):
+        check_stats_and_loss(t, training)
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
