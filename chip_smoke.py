@@ -148,7 +148,7 @@ def _kernel_name(mangled: str) -> str:
     """``stats_kernel<32, bulk>`` etc. from a mangled name (the CUDA-core
     ``simt_stats_kernel`` and the fold kernels as they are)."""
     found = re.search(r"((?:simt_)?(?:stats|loss)_kernel|grads_kernel|merge_softmax_kernel|"
-                      r"sum_partials_kernel)(?:ILi(\d+)ELb([01])E)?", mangled)
+                      r"fold_rows_kernel|sum_partials_kernel)(?:ILi(\d+)ELb([01])E)?", mangled)
     if not found:
         return mangled
     name, width, bulk = found.groups()

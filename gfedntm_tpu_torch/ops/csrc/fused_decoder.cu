@@ -35,30 +35,40 @@
 // where rows are 16-byte aligned, else 4-byte cp.async. Per-row reductions
 // over V (K1's softmax max and denominator, K2's loss and row-dot) live in the
 // registers of the four lanes that hold the row's accumulator fragments and
-// are written as [grid, B] partials, which a small kernel folds in block
+// are written as [grid, B] partials, which a small kernel folds in a fixed
 // order: the TPU carried them across its sequential grid, and CUDA blocks run
 // in no order. No atomics, so results are deterministic for a given card.
 //
-// K1 and K2 (replacing _stats_kernel :189 and _loss_kernel :266). Bounds on
+// K1 and K2 replace _stats_kernel (:189) and _loss_kernel (:266). Bounds on
 // an H100 SXM (3.35 TB/s; 495 TFLOP/s dense TF32 on the tensor cores, so 165
 // TFLOP/s for an FP32-accurate 3xTF32 product; 67 TFLOP/s FP32 on the CUDA
 // cores) at B=256, K=50, V=100,000: K1 moves ~21 MB (6 us) and does
 // 2BKV = 2.56 GFLOP, 16 us as 3xTF32: its bound is 0.0155 ms, by operations.
-// The tile product puts those operations on the tensor cores, and the
-// column statistics stay in registers: a column's sum is reduced over the
-// eight row groups of a warp by shuffles and over the warps through shared
-// memory (twice: the mean, then the centred variance), and the row softmax
-// is updated once per tile with two shuffles. K2 moves ~123 MB (37 us) for
-// the same 2.56 GFLOP: its bound is 0.0368 ms, by bytes, 102 MB of it x. Its
-// x rows come through the ring beside beta, so the next tile's x streams in
-// while the current tile's product and loss epilogue run.
+// The tile product puts those operations on the tensor cores. Since theta is
+// the same for every tile, its TF32 halves are split once per block and kept
+// in shared memory, and in the 32-wide layout the block splits each beta
+// tile once (hi in place, lo beside it) rather than each warp splitting it
+// again, so the product's operands cost shared-memory loads, not splitting
+// instructions. The column statistics stay in registers: a column's sum is
+// reduced over the eight row groups of a warp by shuffles and over the warps
+// through shared memory (twice: the mean, then the centred variance). Each of
+// the four lanes holding a row keeps its own online-softmax (m, s) across the
+// block's tiles, and the four merge once, at the end, with two shuffles. K2
+// moves ~123 MB (37 us) for the same 2.56 GFLOP: its bound is 0.0368 ms, by
+// bytes, 102 MB of it x. Its x rows come through the ring beside beta, so the
+// next tile's x streams in while the current tile's product and loss epilogue
+// run; the epilogue takes 1/s per row and the hardware's fast reciprocal and
+// log2 for p/(p + floor) and log(p + floor). The partials are folded by a warp
+// per row, which hides the latency of the [grid, B] loads.
 //
 // Batches past the tensor-core layouts (more than 1,024 rows, or theta and
 // the ring past the card's shared memory) take the CUDA-core K1 and K2 of
 // the first port (simt_stats_kernel, simt_loss_kernel), chosen by shape alone
 // in fd_stats and fd_loss: 32-column strips, one lane per column, theta and
 // the strip in shared memory, FP32 FMAs. Every batch those kernels took is
-// still accepted, and the tensor-core layouts take every batch K3 takes.
+// still accepted, and the tensor-core layouts take every batch K3 takes (the
+// 16-wide layout leaves beta's split to each warp so that it fits wherever
+// K3's does).
 //
 // K3 replaces _grads_kernel (:612). It moves ~143 MB (43 us) and does
 // 3 x 2.56 GFLOP, which take 46 us as 3xTF32 on the tensor cores (115 us as
@@ -72,7 +82,7 @@
 // hide the mma latency. Every TF32 operand is split with five integer and
 // FP32 instructions before its mma, so each mma costs several instructions
 // besides itself. The [grid, B, K] g_theta partials are folded in block
-// order, as above.
+// order by a thread per element.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -349,24 +359,49 @@ simt_loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta
 // Partials folded in block order.
 // ---------------------------------------------------------------------------
 
-// The blocks' (max, denominator) partials.
+// K1 and K2's [grid, B] partials are folded by a warp per row: lane l takes
+// blocks l, l + 32, ... in order, then the lanes combine by a butterfly, so
+// the order is fixed and the latency is that of grid / 32 loads.
+
+// The blocks' (max, denominator) partials of row r.
 __global__ void merge_softmax_kernel(const float* __restrict__ m_part,
                                      const float* __restrict__ s_part, int grid, int B,
                                      float* __restrict__ m_out, float* __restrict__ s_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= B) return;
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (r >= B) return;  // the whole warp
   float m = kNegInf;
-  for (int g = 0; g < grid; ++g) m = fmaxf(m, m_part[(size_t)g * B + r]);
+  for (int g = lane; g < grid; g += 32) m = fmaxf(m, m_part[(size_t)g * B + r]);
+  m = warp_max(m);
   const float safe = fmaxf(m, 0.5f * kNegInf);
   float s = 0.f;
-  for (int g = 0; g < grid; ++g) {
+  for (int g = lane; g < grid; g += 32) {
     s += s_part[(size_t)g * B + r] * expf(fminf(m_part[(size_t)g * B + r] - safe, 0.f));
   }
-  m_out[r] = m;
-  s_out[r] = s;
+  s = warp_sum(s);
+  if (lane == 0) {
+    m_out[r] = m;
+    s_out[r] = s;
+  }
 }
 
-// out[i] = sum_g part[g, i].
+// a_out[r] = sum_g a_part[g, r] for the first B warps, b likewise for the
+// next B.
+__global__ void fold_rows_kernel(const float* __restrict__ a_part,
+                                 const float* __restrict__ b_part, int grid, int B,
+                                 float* __restrict__ a_out, float* __restrict__ b_out) {
+  int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= 2 * B) return;  // the whole warp
+  const float* part = r < B ? a_part : b_part;
+  float* out = r < B ? a_out : b_out;
+  r = r < B ? r : r - B;
+  float t = 0.f;
+  for (int g = lane; g < grid; g += 32) t += part[(size_t)g * B + r];
+  t = warp_sum(t);
+  if (lane == 0) out[r] = t;
+}
+
+// out[i] = sum_g part[g, i], in block order (K3's g_theta).
 __global__ void sum_partials_kernel(const float* __restrict__ part, int grid, int n,
                                     float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -390,15 +425,29 @@ constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
 // 16-byte aligned for the bulk copies) and the most 16-row tiles a warp holds
 // (a warp keeps its tiles' fragments in registers across a tile's passes, so
 // this caps B at kMaxMt * 16 * kTcWarps).
+//
+// kSplitB: K1 and K2 split each beta tile into its TF32 halves once per block
+// (hi in place, lo beside it) in the 32-wide layout; the 16-wide one, for
+// batches past 256 rows, leaves that to each warp, as K3 does, so that it
+// fits wherever K3's layout fits.
 template <int VT> struct Tile;
-template <> struct Tile<32> { static constexpr int kPx = 40, kPb = 40, kMaxMt = 1; };
-template <> struct Tile<16> { static constexpr int kPx = 24, kPb = 16, kMaxMt = 4; };
+template <> struct Tile<32> {
+  static constexpr int kPx = 40, kPb = 40, kMaxMt = 1;
+  static constexpr bool kSplitB = true;
+};
+template <> struct Tile<16> {
+  static constexpr int kPx = 24, kPb = 16, kMaxMt = 4;
+  static constexpr bool kSplitB = false;
+};
 
 __host__ __device__ constexpr int tile_px(int vt) {
   return vt == 32 ? Tile<32>::kPx : Tile<16>::kPx;
 }
 __host__ __device__ constexpr int tile_pb(int vt) {
   return vt == 32 ? Tile<32>::kPb : Tile<16>::kPb;
+}
+__host__ __device__ constexpr bool tile_split_b(int vt) {
+  return vt == 32 ? Tile<32>::kSplitB : Tile<16>::kSplitB;
 }
 __host__ __device__ constexpr int tile_rows(int vt) {
   return (vt == 32 ? Tile<32>::kMaxMt : Tile<16>::kMaxMt) * 16 * kTcWarps;
@@ -469,6 +518,40 @@ struct BetaFrag {
   }
 };
 
+// The same A fragment from theta's TF32 halves, split once per block.
+struct ThetaHalves {
+  const uint32_t* hi;
+  const uint32_t* lo;
+  int pitch, r_lo, r_hi, tig;
+  bool ok_lo, ok_hi;
+  __device__ __forceinline__ void operator()(int k0, uint32_t (&ah)[4], uint32_t (&al)[4]) const {
+    const int a = r_lo * pitch + k0 + tig, b = r_hi * pitch + k0 + tig;
+    ah[0] = ok_lo ? hi[a] : 0u;
+    al[0] = ok_lo ? lo[a] : 0u;
+    ah[1] = ok_hi ? hi[b] : 0u;
+    al[1] = ok_hi ? lo[b] : 0u;
+    ah[2] = ok_lo ? hi[a + 4] : 0u;
+    al[2] = ok_lo ? lo[a + 4] : 0u;
+    ah[3] = ok_hi ? hi[b + 4] : 0u;
+    al[3] = ok_hi ? lo[b + 4] : 0u;
+  }
+};
+
+// The same B fragment from a beta tile's TF32 halves, split once per block.
+struct BetaHalves {
+  const uint32_t* hi;
+  const uint32_t* lo;
+  int pitch, grp, tig;
+  __device__ __forceinline__ void operator()(int k0, int nt, uint32_t (&bh)[2],
+                                             uint32_t (&bl)[2]) const {
+    const int i = (k0 + tig) * pitch + nt * 8 + grp;
+    bh[0] = hi[i];
+    bl[0] = lo[i];
+    bh[1] = hi[i + 4 * pitch];
+    bl[1] = lo[i + 4 * pitch];
+  }
+};
+
 // z = theta beta_tile for one warp's 16-row tile: acc[nt] is the m16n8
 // accumulator fragment of columns nt*8 .. nt*8+7 (rows grp and grp + 8,
 // columns 2*tig and 2*tig + 1). K1, K2 and K3 all sum k0 = 0, 8, .. < Kp in
@@ -536,6 +619,10 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// The ring: tile it of a block goes to stage it % kStages while the next
+// tile loads into the other stage; an mbarrier per stage.
+constexpr int kStages = 2;
+
 __device__ __forceinline__ void init_ring_barriers(uint64_t* bar) {
   mbar_init(&bar[0], 1);
   mbar_init(&bar[1], 1);
@@ -588,49 +675,85 @@ __device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst, uint64_t* b
   }
 }
 
-// Wait for ring stage `st` of the it-th tile (the caller syncs the block).
+// Wait for the it-th tile of the block (the caller syncs the block).
 template <bool kBulk>
-__device__ __forceinline__ void wait_tile(uint64_t* bar, int st, int it) {
+__device__ __forceinline__ void wait_tile(uint64_t* bar, int it) {
   if (kBulk) {
-    mbar_wait(&bar[st], (it >> 1) & 1);
+    mbar_wait(&bar[it % kStages], (it / kStages) & 1);
   } else {
     cp_async_commit();  // possibly empty: one group per tile
     cp_async_wait_prior();
   }
 }
 
-// K1 and K2's shared memory at tile width vt, as offsets in floats: theta
-// [B, Pth] (Pth = Kp + 4, 4 mod 8, so its A fragments load without
-// conflicts); two ring stages of x [B, Px] (K2 only), beta [Kp, Pb] (rows
-// K..Kp-1 stay zero) and mean/var [2, vt]; K1's column reductions
-// [kTcWarps, vt], mean and inv_std [vt] and the row count; two mbarriers.
+// K1 and K2's shared memory at tile width vt, as offsets in floats: theta's
+// TF32 halves hi and lo [B, Pth] each (Pth = Kp + 4, 4 mod 8, so the A
+// fragments load without conflicts); the ring's stages of x [B, Px] (K2
+// only), beta [Kp, Pb] (rows K..Kp-1 stay zero) and mean/var [2, vt]; the lo
+// half of the current beta tile [Kp, Pb] (kSplitB); K1's column reductions
+// [kTcWarps, vt], mean and inv_std [vt] and the row count; the mbarriers.
 struct FwdLayout {
   int Kp, Pth;
-  size_t th, x, x_stage, b, b_stage, mv, cols, bar, floats;
+  size_t th_hi, th_lo, x, x_stage, b, b_stage, b_lo, mv, cols, bar, floats;
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K) {
   FwdLayout L;
   L.Kp = round_up(K, 8);
   L.Pth = L.Kp + 4;
-  L.th = 0;
-  L.x = L.th + up4((size_t)B * L.Pth);
+  L.th_hi = 0;
+  L.th_lo = L.th_hi + up4((size_t)B * L.Pth);
+  L.x = L.th_lo + up4((size_t)B * L.Pth);
   L.x_stage = kind == kLoss ? up4((size_t)B * tile_px(vt)) : 0;
-  L.b = L.x + 2 * L.x_stage;
+  L.b = L.x + kStages * L.x_stage;
   L.b_stage = (size_t)L.Kp * tile_pb(vt);
-  L.mv = L.b + 2 * L.b_stage;
-  L.cols = L.mv + 4 * (size_t)vt;
+  L.b_lo = L.b + kStages * L.b_stage;
+  L.mv = L.b_lo + (tile_split_b(vt) ? L.b_stage : 0);
+  L.cols = L.mv + kStages * 2 * (size_t)vt;
   L.bar = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
-  L.floats = L.bar + 4;
+  L.floats = L.bar + 2 * kStages;
   return L;
 }
 
-// theta [B, K] -> shared [B, Pth], columns K..Kp-1 zero.
-__device__ void load_theta_tc(float* th_s, const float* __restrict__ theta, int B, int K,
-                              int Kp, int Pth) {
+// theta [B, K] -> its TF32 halves in shared [B, Pth], columns K..Kp-1 zero.
+__device__ void load_theta_halves(uint32_t* hi, uint32_t* lo, const float* __restrict__ theta,
+                                  int B, int K, int Kp, int Pth) {
   for (int i = threadIdx.x; i < B * Kp; i += kTcThreads) {
     const int r = i / Kp, k = i - r * Kp;
-    th_s[r * Pth + k] = k < K ? theta[(size_t)r * K + k] : 0.f;
+    split_tf32(k < K ? theta[(size_t)r * K + k] : 0.f, hi[r * Pth + k], lo[r * Pth + k]);
+  }
+}
+
+// The current ring stage's beta tile [Kp, Pb] -> its TF32 halves, hi in
+// place and lo into b_lo, once for the whole block (the caller syncs before
+// and after).
+template <int VT>
+__device__ void split_beta_tile(float* bs, uint32_t* b_lo, int Kp) {
+  constexpr int Pb = Tile<VT>::kPb;
+  for (int i = threadIdx.x; i < Kp * VT; i += kTcThreads) {
+    const int k = i / VT, j = k * Pb + (i - k * VT);
+    uint32_t hi, lo;
+    split_tf32(bs[j], hi, lo);
+    bs[j] = __uint_as_float(hi);
+    b_lo[j] = lo;
+  }
+}
+
+// K1 and K2's z for one warp's 16-row tile: A fragments from theta's halves;
+// B fragments from the beta tile's halves where the layout split it
+// (kSplitB), else split here from the FP32 tile.
+template <int VT>
+__device__ __forceinline__ void fwd_tile_product(float (&acc)[VT / 8][4], const uint32_t* th_hi,
+                                                 const uint32_t* th_lo, int Pth, int Kp,
+                                                 const float* bs, const uint32_t* b_lo,
+                                                 int r_lo, int B, int grp, int tig) {
+  constexpr int Pb = Tile<VT>::kPb;
+  const ThetaHalves a{th_hi, th_lo, Pth, r_lo, r_lo + 8, tig, r_lo < B, r_lo + 8 < B};
+  if constexpr (Tile<VT>::kSplitB) {
+    tile_product(acc, Kp, a,
+                 BetaHalves{reinterpret_cast<const uint32_t*>(bs), b_lo, Pb, grp, tig});
+  } else {
+    tile_product(acc, Kp, a, BetaFrag{bs, Pb, grp, tig});
   }
 }
 
@@ -650,12 +773,14 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
              float* __restrict__ s_part, int B, int K, int V, int training, float eps,
              int tiles_per_block) {
   using T = Tile<VT>;
-  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Pb = T::kPb;
+  constexpr int kNt = VT / 8, kMt = T::kMaxMt;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   float* const sm = reinterpret_cast<float*>(tc_smem);
   const FwdLayout L = fwd_layout(kStats, VT, B, K);
   const int Kp = L.Kp, Pth = L.Pth;
-  float* th_s = sm + L.th;
+  uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
+  uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
+  uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
   float* b_ring = sm + L.b;
   float* mv_ring = sm + L.mv;
   float* red_s = sm + L.cols;  // [kTcWarps][VT]
@@ -669,10 +794,11 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   const int n_tiles = (V + VT - 1) / VT;
   const int mt_count = (B + 15) / 16;
   const int n_mv = training ? 0 : 2;
+  constexpr int S = kStages;
 
-  load_theta_tc(th_s, theta, B, K, Kp, Pth);
-  zero_smem(b_ring, 2 * L.b_stage);
-  zero_smem(mv_ring, 4 * VT);
+  load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
+  zero_smem(b_ring, S * L.b_stage);
+  zero_smem(mv_ring, S * 2 * VT);
   // This lane's rows (grp and grp + 8 of each of its 16-row tiles): the
   // mask and the running softmax max and denominator.
   float mk[kMt][2], m_run[kMt][2], s_run[kMt][2];
@@ -698,32 +824,38 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
-  if (first < last) {
-    load_tile<VT, kBulk>(b_ring, nullptr, mv_ring, &bar[0], beta, nullptr, run_mean, run_var,
-                         0, K, V, first * VT, n_mv);
+  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+  auto load = [&](int it) {
+    if (first + it < last) {
+      const int st = it % S;
+      load_tile<VT, kBulk>(b_ring + st * L.b_stage, nullptr, mv_ring + st * 2 * VT, &bar[st],
+                           beta, nullptr, run_mean, run_var, 0, K, V, (first + it) * VT, n_mv);
+    }
+  };
+  for (int it = 0; it < S - 1; ++it) {
+    load(it);
     if (!kBulk) cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
-    const int st = it & 1;
+    const int st = it % S;
     const int v0 = tile * VT;
-    if (tile + 1 < last) {
-      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, nullptr, mv_ring + (st ^ 1) * 2 * VT,
-                           &bar[st ^ 1], beta, nullptr, run_mean, run_var, 0, K, V, v0 + VT,
-                           n_mv);
-    }
-    wait_tile<kBulk>(bar, st, it);
+    load(it + S - 1);
+    wait_tile<kBulk>(bar, it);
     __syncthreads();
-    const float* bs = b_ring + st * L.b_stage;
+    float* bs = b_ring + st * L.b_stage;
     const float* mvs = mv_ring + st * 2 * VT;
+    if (T::kSplitB) {
+      split_beta_tile<VT>(bs, b_lo, Kp);
+      __syncthreads();
+    }
 
     float acc[kMt][kNt][4];
 #pragma unroll
     for (int q = 0; q < kMt; ++q) {
       const int mt = warp + q * kTcWarps;
       if (mt < mt_count) {
-        const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
-        tile_product(acc[q], Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, r_lo < B, r_hi < B},
-                     BetaFrag{bs, Pb, grp, tig});
+        fwd_tile_product<VT>(acc[q], th_hi, th_lo, Pth, Kp, bs, b_lo, mt * 16 + grp, B, grp,
+                             tig);
       } else {
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt) acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
@@ -803,8 +935,8 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       }
     }
 
-    // The online softmax over this tile's valid columns, per row: the four
-    // lanes holding the row reduce their values with two shuffles.
+    // The online softmax over this tile's valid columns, per row and lane:
+    // each of the four lanes holding a row keeps its own running (m, s).
 #pragma unroll
     for (int q = 0; q < kMt; ++q) {
       if (warp + q * kTcWarps < mt_count) {
@@ -824,8 +956,6 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
               m_tile = fmaxf(m_tile, n[nt][e]);
             }
           }
-          m_tile = fmaxf(m_tile, __shfl_xor_sync(kFullMask, m_tile, 1));
-          m_tile = fmaxf(m_tile, __shfl_xor_sync(kFullMask, m_tile, 2));
           const float m_new = fmaxf(m_run[q][h], m_tile);
           // Guard fully-masked rows: exp(-1e30 - -1e30) would be 1.
           const float safe = fmaxf(m_new, 0.5f * kNegInf);
@@ -837,19 +967,29 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
               if (valid[nt][e]) e_sum += expf(n[nt][e] - safe);
             }
           }
-          e_sum += __shfl_xor_sync(kFullMask, e_sum, 1);
-          e_sum += __shfl_xor_sync(kFullMask, e_sum, 2);
           s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) + e_sum;
           m_run[q][h] = m_new;
         }
       }
     }
-    __syncthreads();  // the stage is free for the load of tile + 2
+    __syncthreads();  // the stage is free for the load of tile + S
   }
+  // The four lanes of each row merge their (m, s) by a butterfly, then write
+  // the block's partial.
 #pragma unroll
   for (int q = 0; q < kMt; ++q) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float m_o = __shfl_xor_sync(kFullMask, m_run[q][h], o);
+        const float s_o = __shfl_xor_sync(kFullMask, s_run[q][h], o);
+        const float m_new = fmaxf(m_run[q][h], m_o);
+        const float safe = fmaxf(m_new, 0.5f * kNegInf);
+        s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) +
+                      s_o * expf(fminf(m_o - safe, 0.f));
+        m_run[q][h] = m_new;
+      }
       const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
       if (tig == 0 && r < B) {
         m_part[(size_t)blockIdx.x * B + r] = m_run[q][h];
@@ -871,12 +1011,14 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
             float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
             int tiles_per_block) {
   using T = Tile<VT>;
-  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx, Pb = T::kPb;
+  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   float* const sm = reinterpret_cast<float*>(tc_smem);
   const FwdLayout L = fwd_layout(kLoss, VT, B, K);
   const int Kp = L.Kp, Pth = L.Pth;
-  float* th_s = sm + L.th;
+  uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
+  uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
+  uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
   float* x_ring = sm + L.x;
   float* b_ring = sm + L.b;
   float* mv_ring = sm + L.mv;
@@ -887,14 +1029,16 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   const int n_tiles = (V + VT - 1) / VT;
   const int mt_count = (B + 15) / 16;
 
-  load_theta_tc(th_s, theta, B, K, Kp, Pth);
-  zero_smem(x_ring, 2 * L.x_stage);
-  zero_smem(b_ring, 2 * L.b_stage);
-  zero_smem(mv_ring, 4 * VT);
-  // This lane's rows: the softmax max and denominator (fully-masked rows
+  constexpr int S = kStages;
+
+  load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
+  zero_smem(x_ring, S * L.x_stage);
+  zero_smem(b_ring, S * L.b_stage);
+  zero_smem(mv_ring, S * 2 * VT);
+  // This lane's rows: the softmax max and 1 / denominator (fully-masked rows
   // have the (-1e30, 0) sentinel: forced finite, and their loss left out),
   // and the row's loss and row-dot, accumulated across the block's tiles.
-  float sm_r[kMt][2], sl_r[kMt][2], loss_r[kMt][2], rd_r[kMt][2];
+  float sm_r[kMt][2], isl_r[kMt][2], loss_r[kMt][2], rd_r[kMt][2];
   bool ok_r[kMt][2];
 #pragma unroll
   for (int q = 0; q < kMt; ++q) {
@@ -903,7 +1047,7 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
       const bool ok = r < B && s[r] > 1e-20f;
       sm_r[q][h] = ok ? m[r] : 0.f;
-      sl_r[q][h] = ok ? s[r] : 1.f;
+      isl_r[q][h] = 1.f / (ok ? s[r] : 1.f);
       ok_r[q][h] = ok;
       loss_r[q][h] = 0.f;
       rd_r[q][h] = 0.f;
@@ -914,24 +1058,32 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
-  if (first < last) {
-    load_tile<VT, kBulk>(b_ring, x_ring, mv_ring, &bar[0], beta, x, mean, var, B, K, V,
-                         first * VT, 2);
+  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+  auto load = [&](int it) {
+    if (first + it < last) {
+      const int st = it % S;
+      load_tile<VT, kBulk>(b_ring + st * L.b_stage, x_ring + st * L.x_stage,
+                           mv_ring + st * 2 * VT, &bar[st], beta, x, mean, var, B, K, V,
+                           (first + it) * VT, 2);
+    }
+  };
+  for (int it = 0; it < S - 1; ++it) {
+    load(it);
     if (!kBulk) cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
-    const int st = it & 1;
+    const int st = it % S;
     const int v0 = tile * VT;
-    if (tile + 1 < last) {
-      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
-                           mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
-                           K, V, v0 + VT, 2);
-    }
-    wait_tile<kBulk>(bar, st, it);
+    load(it + S - 1);
+    wait_tile<kBulk>(bar, it);
     __syncthreads();
     const float* xs = x_ring + st * L.x_stage;
-    const float* bs = b_ring + st * L.b_stage;
+    float* bs = b_ring + st * L.b_stage;
     const float* mvs = mv_ring + st * 2 * VT;
+    if (T::kSplitB) {
+      split_beta_tile<VT>(bs, b_lo, Kp);
+      __syncthreads();
+    }
 
     float mu[kNt][2], istd[kNt][2];
 #pragma unroll
@@ -951,8 +1103,7 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       if (mt < mt_count) {
         const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
         float acc[kNt][4];
-        tile_product(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, r_lo < B, r_hi < B},
-                     BetaFrag{bs, Pb, grp, tig});
+        fwd_tile_product<VT>(acc, th_hi, th_lo, Pth, Kp, bs, b_lo, r_lo, B, grp, tig);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = h ? r_hi : r_lo;
@@ -966,9 +1117,9 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
                 if (v0 + c + e < V) {
                   const float xe = e ? xv.y : xv.x;
                   const float n = (acc[nt][2 * h + e] - mu[nt][e]) * istd[nt][e];
-                  const float p = expf(fminf(n - sm_r[q][h], 0.f)) / sl_r[q][h];
-                  if (ok_r[q][h]) loss_r[q][h] += xe * logf(p + floor_);
-                  rd_r[q][h] += xe * (p / (p + floor_));
+                  const float p = expf(fminf(n - sm_r[q][h], 0.f)) * isl_r[q][h];
+                  if (ok_r[q][h]) loss_r[q][h] += xe * __logf(p + floor_);
+                  rd_r[q][h] += xe * __fdividef(p, p + floor_);
                 }
               }
             }
@@ -976,7 +1127,7 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
         }
       }
     }
-    __syncthreads();  // the stage is free for the load of tile + 2
+    __syncthreads();  // the stage is free for the load of tile + S
   }
 #pragma unroll
   for (int q = 0; q < kMt; ++q) {
@@ -1107,7 +1258,7 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
                            mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
                            K, V, v0 + VT, 2);
     }
-    wait_tile<kBulk>(bar, st, it);
+    wait_tile<kBulk>(bar, it);
     __syncthreads();
     float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
     const float* bs = b_ring + st * L.b_stage;
@@ -1513,8 +1664,8 @@ int fd_stats(const void* theta, const void* beta, const void* mask, const void* 
     err = go(simt_stats_kernel, kThreads);
   }
   if (err != cudaSuccess) return (int)err;
-  merge_softmax_kernel<<<blocks_for(B), kThreads, 0, st>>>(mp, sp, grid, B, (float*)m,
-                                                           (float*)s);
+  merge_softmax_kernel<<<blocks_for(32 * B), kThreads, 0, st>>>(mp, sp, grid, B, (float*)m,
+                                                                (float*)s);
   return (int)cudaGetLastError();
 }
 
@@ -1545,8 +1696,8 @@ int fd_loss(const void* theta, const void* beta, const void* x, const void* mean
     err = go(simt_loss_kernel, kThreads);
   }
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>(lp, grid, B, (float*)loss);
-  sum_partials_kernel<<<blocks_for(B), kThreads, 0, st>>>(rp, grid, B, (float*)rd);
+  fold_rows_kernel<<<blocks_for(64 * B), kThreads, 0, st>>>(lp, rp, grid, B, (float*)loss,
+                                                             (float*)rd);
   return (int)cudaGetLastError();
 }
 

@@ -29,8 +29,11 @@ arithmetic. There is no fallback from the kernel to the plain version.
 (forward: stats then loss; backward: grads), and
 :func:`prodlda_recon_loss_reference` is the unfused oracle of the whole.
 
-The source's header states each kernel's bound on an H100 and what the
-simple first design leaves for later.
+All three run their products on the tensor cores (3xTF32 ``mma.sync``, one
+tile product shared by K1-K3); batches past the tensor-core layouts take
+CUDA-core K1 and K2, chosen by shape alone (:func:`_route`). The source's
+header states each kernel's bound on an H100 and what its design does about
+it.
 
 :func:`prodlda_recon_loss_vsharded` (K5) is the same loss with beta, x and
 the running statistics split on V over a model group of ranks
@@ -206,14 +209,9 @@ def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
     """K1 (+ the merge of its per-block softmax partials)."""
     if not _on_cuda(theta):
         return stats_reference(theta, beta, mask, run_mean, run_var, training, eps)
-    out = _launch_stats(_build.load(), theta, beta, mask, run_mean, run_var, training, eps)
-    LAUNCHES["stats"] += 1
-    return out
-
-
-def _launch_stats(lib, theta, beta, mask, run_mean, run_var, training, eps):
     b, k, v = _check_inputs("stats", theta, beta, mask=mask, run_mean=run_mean,
                             run_var=run_var)
+    lib = _build.load()
     with torch.cuda.device(theta.device):
         grid = _plan(lib, "stats", b, k, v)
         mean, var, m, s = (_empty(theta, n) for n in (v, v, b, b))
@@ -223,6 +221,7 @@ def _launch_stats(lib, theta, beta, mask, run_mean, run_var, training, eps):
             _ptr(mean), _ptr(var), _ptr(m_part), _ptr(s_part), _ptr(m), _ptr(s),
             b, k, v, int(bool(training)), eps, grid, _stream(),
         ), "stats launch")
+    LAUNCHES["stats"] += 1
     return mean, var, m, s
 
 
@@ -230,13 +229,8 @@ def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
     """K2 (+ the ordered sum of its per-block partials)."""
     if not _on_cuda(theta):
         return loss_reference(theta, beta, x, mean, var, m, s, eps, floor)
-    out = _launch_loss(_build.load(), theta, beta, x, mean, var, m, s, eps, floor)
-    LAUNCHES["loss"] += 1
-    return out
-
-
-def _launch_loss(lib, theta, beta, x, mean, var, m, s, eps, floor):
     b, k, v = _check_inputs("loss", theta, beta, x=x, mean=mean, var=var, m=m, s=s)
+    lib = _build.load()
     with torch.cuda.device(theta.device):
         grid = _plan(lib, "loss", b, k, v)
         rl, rd = _empty(theta, b), _empty(theta, b)
@@ -246,6 +240,7 @@ def _launch_loss(lib, theta, beta, x, mean, var, m, s, eps, floor):
             _ptr(loss_part), _ptr(rd_part), _ptr(rl), _ptr(rd),
             b, k, v, eps, floor, grid, _stream(),
         ), "loss launch")
+    LAUNCHES["loss"] += 1
     return rl, rd
 
 

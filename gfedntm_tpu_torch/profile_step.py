@@ -31,7 +31,7 @@ from pathlib import Path
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("fused_decoder", ("stats_kernel", "loss_kernel", "grads_kernel",
-                       "merge_softmax_kernel", "sum_partials_kernel")),
+                       "merge_softmax_kernel", "fold_rows_kernel", "sum_partials_kernel")),
     ("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere_", "splitk", "dot_kernel")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     ("gather", ("index", "gather")),
