@@ -145,14 +145,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # Phase 1: what the build made
 # ---------------------------------------------------------------------------
 def _kernel_name(mangled: str) -> str:
-    """``stats_kernel<32, bulk>`` etc. from a mangled name (the CUDA-core
+    """``stats_kernel<32, 16B>`` etc. from a mangled name (the CUDA-core
     ``simt_stats_kernel`` and the fold kernels as they are)."""
     found = re.search(r"((?:simt_)?(?:stats|loss)_kernel|grads_kernel|merge_softmax_kernel|"
                       r"fold_rows_kernel|sum_partials_kernel)(?:ILi(\d+)ELb([01])E)?", mangled)
     if not found:
         return mangled
-    name, width, bulk = found.groups()
-    return f"{name}<{width}, {'bulk' if bulk == '1' else 'cp.async'}>" if width else name
+    name, width, vec16 = found.groups()
+    return f"{name}<{width}, {'16B' if vec16 == '1' else '4B'}>" if width else name
 
 
 TENSOR_CORE_FAMILIES = ("stats_kernel", "loss_kernel", "grads_kernel")
@@ -399,7 +399,7 @@ def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
     print("kernels ok: autograd function vs unfused oracle", flush=True)
 
     # Timing at the slice's shapes (training, as the main path runs them):
-    # V=100,000 takes the bulk-copy ring, V=99,999 the 4-byte cp.async ring.
+    # V=100,000 takes the 16-byte cp.async ring, V=99,999 the 4-byte one.
     b, k = 256, 50
     replaces = {
         "stats": "gfedntm_tpu/ops/fused_decoder.py:189",

@@ -30,13 +30,14 @@
 // (a = a_hi + a_lo, each rounded to TF32; D += a_lo*b_hi + a_hi*b_lo +
 // a_hi*b_hi, FP32 accumulation), which keeps FP32 accuracy, per 16-row tile
 // of each warp. The beta rows of tile t+1 (and x, mean and var where the
-// kernel reads them) are in flight while tile t computes, in a two-stage ring:
-// Hopper bulk copies (cp.async.bulk, one per row, completing on an mbarrier)
-// where rows are 16-byte aligned, else 4-byte cp.async. Per-row reductions
-// over V (K1's softmax max and denominator, K2's loss and row-dot) live in the
-// registers of the four lanes that hold the row's accumulator fragments and
-// are written as [grid, B] partials, which a small kernel folds in a fixed
-// order: the TPU carried them across its sequential grid, and CUDA blocks run
+// kernel reads them) are in flight while tile t computes, in a two-stage ring
+// of cp.async copies spread over the block's threads: 16 bytes each where
+// rows are 16-byte aligned, else 4 bytes (on the card, 16-byte copies beat
+// one Hopper bulk copy per 128-byte row in all three kernels). Per-row
+// reductions over V (K1's softmax max and denominator, K2's loss and
+// row-dot) live in the registers of the four lanes that hold the row's
+// accumulator fragments and are written as [grid, B] partials, which a
+// small kernel folds in a fixed order: the TPU carried them across its sequential grid, and CUDA blocks run
 // in no order. No atomics, so results are deterministic for a given card.
 //
 // K1 and K2 replace _stats_kernel (:189) and _loss_kernel (:266). Bounds on
@@ -422,7 +423,7 @@ constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
 
 // Per tile width: the x and beta tiles' row pitches in floats (x: 8 or 24
 // mod 32, so fragments of x, gn and gz load without bank conflicts; rows stay
-// 16-byte aligned for the bulk copies) and the most 16-row tiles a warp holds
+// 16-byte aligned for the 16-byte copies) and the most 16-row tiles a warp holds
 // (a warp keeps its tiles' fragments in registers across a tile's passes, so
 // this caps B at kMaxMt * 16 * kTcWarps).
 //
@@ -573,37 +574,9 @@ __device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -620,70 +593,52 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 }
 
 // The ring: tile it of a block goes to stage it % kStages while the next
-// tile loads into the other stage; an mbarrier per stage.
+// tile loads into the other stage.
 constexpr int kStages = 2;
 
-__device__ __forceinline__ void init_ring_barriers(uint64_t* bar) {
-  mbar_init(&bar[0], 1);
-  mbar_init(&bar[1], 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
 // Start loading columns v0..v0+VT (those below V) of beta's K rows, the first
-// nx rows of x, and (n_mv = 2) mean and var into one ring stage. kBulk: one
-// bulk copy per row, spread over the block's threads, all completing on
-// `bar` (thread 0 posts the stage's byte count); else 4-byte cp.async by
-// every thread (the caller commits the group).
-template <int VT, bool kBulk>
-__device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst, uint64_t* bar,
+// nx rows of x, and (n_mv = 2) mean and var into one ring stage, by every
+// thread of the block: 16-byte cp.async when every row starts on 16 bytes
+// (kVec16: V % 4 == 0, so ncols is a multiple of 4 too), else 4-byte. The
+// caller commits the group.
+template <int VT, bool kVec16>
+__device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst,
                           const float* __restrict__ beta, const float* __restrict__ x,
                           const float* __restrict__ mean, const float* __restrict__ var, int nx,
                           int K, int V, int v0, int n_mv) {
-  constexpr int Pb = Tile<VT>::kPb, Px = Tile<VT>::kPx;
+  constexpr int Pb = Tile<VT>::kPb, Px = Tile<VT>::kPx, kW = kVec16 ? 4 : 1;
   const int ncols = min(VT, V - v0);
   const int rows = K + nx + n_mv;
-  if (kBulk) {
-    if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(rows * ncols * 4));
-    // The stage was last read and written by the generic proxy.
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    for (int i = threadIdx.x; i < rows; i += kTcThreads) {
-      if (i < K) {
-        bulk_copy(b_dst + i * Pb, beta + (size_t)i * V + v0, ncols * 4, bar);
-      } else if (i < K + nx) {
-        const int r = i - K;
-        bulk_copy(x_dst + r * Px, x + (size_t)r * V + v0, ncols * 4, bar);
+  for (int i = threadIdx.x; i < rows * (VT / kW); i += kTcThreads) {
+    const int row = i / (VT / kW), c = (i - row * (VT / kW)) * kW;
+    if (c < ncols) {
+      float* dst;
+      const float* src;
+      if (row < K) {
+        dst = b_dst + row * Pb + c;
+        src = beta + (size_t)row * V + v0 + c;
+      } else if (row < K + nx) {
+        const int r = row - K;
+        dst = x_dst + r * Px + c;
+        src = x + (size_t)r * V + v0 + c;
       } else {
-        const int j = i - K - nx;
-        bulk_copy(mv_dst + j * VT, (j ? var : mean) + v0, ncols * 4, bar);
+        const int j = row - K - nx;
+        dst = mv_dst + j * VT + c;
+        src = (j ? var : mean) + v0 + c;
       }
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * VT; i += kTcThreads) {
-      const int row = i / VT, c = i - row * VT;
-      if (c < ncols) {
-        if (row < K) {
-          cp_async4(b_dst + row * Pb + c, beta + (size_t)row * V + v0 + c);
-        } else if (row < K + nx) {
-          const int r = row - K;
-          cp_async4(x_dst + r * Px + c, x + (size_t)r * V + v0 + c);
-        } else {
-          const int j = row - K - nx;
-          cp_async4(mv_dst + j * VT + c, (j ? var : mean) + v0 + c);
-        }
+      if (kVec16) {
+        cp_async16(dst, src);
+      } else {
+        cp_async4(dst, src);
       }
     }
   }
 }
 
-// Wait for the it-th tile of the block (the caller syncs the block).
-template <bool kBulk>
-__device__ __forceinline__ void wait_tile(uint64_t* bar, int it) {
-  if (kBulk) {
-    mbar_wait(&bar[it % kStages], (it / kStages) & 1);
-  } else {
-    cp_async_commit();  // possibly empty: one group per tile
-    cp_async_wait_prior();
-  }
+// Wait for the oldest tile in flight (the caller syncs the block).
+__device__ __forceinline__ void wait_tile() {
+  cp_async_commit();  // possibly empty: one group per tile
+  cp_async_wait_prior();
 }
 
 // K1 and K2's shared memory at tile width vt, as offsets in floats: theta's
@@ -691,10 +646,10 @@ __device__ __forceinline__ void wait_tile(uint64_t* bar, int it) {
 // fragments load without conflicts); the ring's stages of x [B, Px] (K2
 // only), beta [Kp, Pb] (rows K..Kp-1 stay zero) and mean/var [2, vt]; the lo
 // half of the current beta tile [Kp, Pb] (kSplitB); K1's column reductions
-// [kTcWarps, vt], mean and inv_std [vt] and the row count; the mbarriers.
+// [kTcWarps, vt], mean and inv_std [vt] and the row count.
 struct FwdLayout {
   int Kp, Pth;
-  size_t th_hi, th_lo, x, x_stage, b, b_stage, b_lo, mv, cols, bar, floats;
+  size_t th_hi, th_lo, x, x_stage, b, b_stage, b_lo, mv, cols, floats;
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K) {
@@ -710,8 +665,7 @@ __host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K) 
   L.b_lo = L.b + kStages * L.b_stage;
   L.mv = L.b_lo + (tile_split_b(vt) ? L.b_stage : 0);
   L.cols = L.mv + kStages * 2 * (size_t)vt;
-  L.bar = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
-  L.floats = L.bar + 2 * kStages;
+  L.floats = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
   return L;
 }
 
@@ -764,7 +718,7 @@ __device__ void zero_smem(float* p, size_t n) {
 // ---------------------------------------------------------------------------
 // K1: batch-norm statistics + per-row online-softmax partials.
 // ---------------------------------------------------------------------------
-template <int VT, bool kBulk>
+template <int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
 stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
              const float* __restrict__ mask, const float* __restrict__ run_mean,
@@ -787,7 +741,6 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   float* mean_s = red_s + kTcWarps * VT;
   float* istd_s = mean_s + VT;
   float* cnt_s = istd_s + VT;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
@@ -818,7 +771,6 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     c = warp_sum(c);
     if (lane == 0) cnt_s[0] = fmaxf(c, 1.f);
   }
-  if (kBulk && tid == 0) init_ring_barriers(bar);
   __syncthreads();
   const float cnt = cnt_s[0];
 
@@ -828,19 +780,19 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   auto load = [&](int it) {
     if (first + it < last) {
       const int st = it % S;
-      load_tile<VT, kBulk>(b_ring + st * L.b_stage, nullptr, mv_ring + st * 2 * VT, &bar[st],
-                           beta, nullptr, run_mean, run_var, 0, K, V, (first + it) * VT, n_mv);
+      load_tile<VT, kVec16>(b_ring + st * L.b_stage, nullptr, mv_ring + st * 2 * VT, beta,
+                            nullptr, run_mean, run_var, 0, K, V, (first + it) * VT, n_mv);
     }
   };
   for (int it = 0; it < S - 1; ++it) {
     load(it);
-    if (!kBulk) cp_async_commit();
+    cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
     const int st = it % S;
     const int v0 = tile * VT;
     load(it + S - 1);
-    wait_tile<kBulk>(bar, it);
+    wait_tile();
     __syncthreads();
     float* bs = b_ring + st * L.b_stage;
     const float* mvs = mv_ring + st * 2 * VT;
@@ -858,7 +810,9 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
                              tig);
       } else {
 #pragma unroll
-        for (int nt = 0; nt < kNt; ++nt) acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
+        for (int nt = 0; nt < kNt; ++nt) {
+          acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
+        }
       }
     }
 
@@ -1002,7 +956,7 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 // ---------------------------------------------------------------------------
 // K2: row loss and row-dot partials.
 // ---------------------------------------------------------------------------
-template <int VT, bool kBulk>
+template <int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
 loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
             const float* __restrict__ x, const float* __restrict__ mean,
@@ -1022,7 +976,6 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   float* x_ring = sm + L.x;
   float* b_ring = sm + L.b;
   float* mv_ring = sm + L.mv;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tig = lane & 3;
@@ -1053,7 +1006,6 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       rd_r[q][h] = 0.f;
     }
   }
-  if (kBulk && tid == 0) init_ring_barriers(bar);
   __syncthreads();
 
   const int first = blockIdx.x * tiles_per_block;
@@ -1062,20 +1014,20 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   auto load = [&](int it) {
     if (first + it < last) {
       const int st = it % S;
-      load_tile<VT, kBulk>(b_ring + st * L.b_stage, x_ring + st * L.x_stage,
-                           mv_ring + st * 2 * VT, &bar[st], beta, x, mean, var, B, K, V,
-                           (first + it) * VT, 2);
+      load_tile<VT, kVec16>(b_ring + st * L.b_stage, x_ring + st * L.x_stage,
+                            mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V,
+                            (first + it) * VT, 2);
     }
   };
   for (int it = 0; it < S - 1; ++it) {
     load(it);
-    if (!kBulk) cp_async_commit();
+    cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
     const int st = it % S;
     const int v0 = tile * VT;
     load(it + S - 1);
-    wait_tile<kBulk>(bar, it);
+    wait_tile();
     __syncthreads();
     const float* xs = x_ring + st * L.x_stage;
     float* bs = b_ring + st * L.b_stage;
@@ -1156,11 +1108,11 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 // the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
 // [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
 // five row vectors (m, 1/s, rd, g, mask); two [kTcWarps, vt] column reductions, the two BN column
-// sums and the count; two mbarriers. Rows past B are never stored: fragments
+// sums and the count. Rows past B are never stored: fragments
 // read them as 0.
 struct GradsLayout {
   int Kp, Pth, Pg;
-  size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, bar, floats;
+  size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, floats;
 };
 
 __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
@@ -1177,12 +1129,11 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   L.mv = L.b + 2 * L.b_stage;
   L.rows = L.mv + 4 * (size_t)vt;
   L.cols = L.rows + up4(5 * (size_t)B);
-  L.bar = L.cols + (size_t)(2 * kTcWarps + 2) * vt + 4;
-  L.floats = L.bar + 4;
+  L.floats = L.cols + (size_t)(2 * kTcWarps + 2) * vt + 4;
   return L;
 }
 
-template <int VT, bool kBulk>
+template <int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
 grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
              const float* __restrict__ x, const float* __restrict__ mean,
@@ -1211,7 +1162,6 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   float* red_s = sm + L.cols;               // [2][kTcWarps][VT]
   float* ab_s = red_s + 2 * kTcWarps * VT;  // [2][VT]: sum(gn*mk)/cnt, sum(gn*n*mk)/cnt
   float* cnt_s = ab_s + 2 * VT;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
@@ -1238,7 +1188,6 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     float c = 0.f;
     for (int r = 0; r < B; ++r) c += mask[r];
     cnt_s[0] = fmaxf(c, 1.f);
-    if (kBulk) init_ring_barriers(bar);
   }
   __syncthreads();
   const float cnt = cnt_s[0];
@@ -1246,19 +1195,18 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
   if (first < last) {
-    load_tile<VT, kBulk>(b_ring, x_ring, mv_ring, &bar[0], beta, x, mean, var, B, K, V,
-                         first * VT, 2);
-    if (!kBulk) cp_async_commit();
+    load_tile<VT, kVec16>(b_ring, x_ring, mv_ring, beta, x, mean, var, B, K, V, first * VT, 2);
+    cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
     const int st = it & 1;
     const int v0 = tile * VT;
     if (tile + 1 < last) {
-      load_tile<VT, kBulk>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
-                           mv_ring + (st ^ 1) * 2 * VT, &bar[st ^ 1], beta, x, mean, var, B,
-                           K, V, v0 + VT, 2);
+      load_tile<VT, kVec16>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
+                            mv_ring + (st ^ 1) * 2 * VT, beta, x, mean, var, B, K, V, v0 + VT,
+                            2);
     }
-    wait_tile<kBulk>(bar, it);
+    wait_tile();
     __syncthreads();
     float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
     const float* bs = b_ring + st * L.b_stage;
@@ -1601,9 +1549,9 @@ cudaError_t launch(KernelT kernel, int grid, int threads, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
-// The bulk-copy ring variant when every row the ring loads starts on 16
+// The 16-byte-copy ring variant when every row the ring loads starts on 16
 // bytes (V % 4 == 0 and aligned base pointers), else the 4-byte cp.async one.
-bool bulk_ok(int V, const void* a, const void* b, const void* c, const void* d) {
+bool vec16_ok(int V, const void* a, const void* b, const void* c, const void* d) {
   return V % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
          (uintptr_t)c % 16 == 0 && (uintptr_t)d % 16 == 0;
 }
@@ -1648,7 +1596,7 @@ int fd_stats(const void* theta, const void* beta, const void* mask, const void* 
   if (err != cudaSuccess) return (int)err;
   if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool bulk = bulk_ok(V, beta, run_mean, run_var, beta);
+  const bool vec16 = vec16_ok(V, beta, run_mean, run_var, beta);
   const float *th = (const float*)theta, *be = (const float*)beta, *mk = (const float*)mask,
               *rm = (const float*)run_mean, *rv = (const float*)run_var;
   float *mo = (float*)mean, *vo = (float*)var, *mp = (float*)m_part, *sp = (float*)s_part;
@@ -1657,9 +1605,9 @@ int fd_stats(const void* theta, const void* beta, const void* mask, const void* 
                   training, eps, tpb);
   };
   if (route == 32) {
-    err = bulk ? go(stats_kernel<32, true>, kTcThreads) : go(stats_kernel<32, false>, kTcThreads);
+    err = vec16 ? go(stats_kernel<32, true>, kTcThreads) : go(stats_kernel<32, false>, kTcThreads);
   } else if (route == 16) {
-    err = bulk ? go(stats_kernel<16, true>, kTcThreads) : go(stats_kernel<16, false>, kTcThreads);
+    err = vec16 ? go(stats_kernel<16, true>, kTcThreads) : go(stats_kernel<16, false>, kTcThreads);
   } else {
     err = go(simt_stats_kernel, kThreads);
   }
@@ -1679,7 +1627,7 @@ int fd_loss(const void* theta, const void* beta, const void* x, const void* mean
   if (err != cudaSuccess) return (int)err;
   if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool bulk = bulk_ok(V, beta, x, mean, var);
+  const bool vec16 = vec16_ok(V, beta, x, mean, var);
   const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
               *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
               *ss = (const float*)s;
@@ -1689,9 +1637,9 @@ int fd_loss(const void* theta, const void* beta, const void* x, const void* mean
                   eps, floor_, tpb);
   };
   if (route == 32) {
-    err = bulk ? go(loss_kernel<32, true>, kTcThreads) : go(loss_kernel<32, false>, kTcThreads);
+    err = vec16 ? go(loss_kernel<32, true>, kTcThreads) : go(loss_kernel<32, false>, kTcThreads);
   } else if (route == 16) {
-    err = bulk ? go(loss_kernel<16, true>, kTcThreads) : go(loss_kernel<16, false>, kTcThreads);
+    err = vec16 ? go(loss_kernel<16, true>, kTcThreads) : go(loss_kernel<16, false>, kTcThreads);
   } else {
     err = go(simt_loss_kernel, kThreads);
   }
@@ -1711,7 +1659,7 @@ int fd_grads(const void* theta, const void* beta, const void* x, const void* mea
   if (err != cudaSuccess) return (int)err;
   if (route < 0 || gr != grid) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool bulk = bulk_ok(V, beta, x, mean, var);
+  const bool vec16 = vec16_ok(V, beta, x, mean, var);
   const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
               *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
               *ss = (const float*)s, *rr = (const float*)rd, *gg = (const float*)g,
@@ -1722,9 +1670,9 @@ int fd_grads(const void* theta, const void* beta, const void* x, const void* mea
                   gp, gb, B, K, V, training, eps, floor_, tpb);
   };
   if (route == 32) {
-    err = bulk ? go(grads_kernel<32, true>) : go(grads_kernel<32, false>);
+    err = vec16 ? go(grads_kernel<32, true>) : go(grads_kernel<32, false>);
   } else {
-    err = bulk ? go(grads_kernel<16, true>) : go(grads_kernel<16, false>);
+    err = vec16 ? go(grads_kernel<16, true>) : go(grads_kernel<16, false>);
   }
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<blocks_for(B * K), kThreads, 0, st>>>(gp, grid, B * K, (float*)g_theta);

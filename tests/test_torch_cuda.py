@@ -80,7 +80,7 @@ def grads_case(b, k, v, device, mask_kind="partial", seed=0):
 @pytest.mark.parametrize("b", [1, 17, 256, 320])
 @pytest.mark.parametrize("v_mod", [0, 1, 2, 3])
 def test_grads_kernels_match_plain_version(cuda, b, k, v_mod):
-    """K3 in both ring variants (bulk copies at V % 4 == 0, else 4-byte
+    """K3 in both ring variants (16-byte cp.async at V % 4 == 0, else 4-byte
     cp.async), both tile widths (B=320, K=50 takes 16 columns), ragged B and
     K, several tiles per block; training and eval."""
     v = 20_000 + v_mod
@@ -169,7 +169,7 @@ def check_stats_and_loss(t, training):
 @pytest.mark.parametrize("b", [1, 17, 256, 320])
 @pytest.mark.parametrize("v_mod", [0, 1, 2, 3])
 def test_stats_and_loss_kernels_match_plain_versions(cuda, b, k, v_mod):
-    """K1 and K2 in both ring variants (bulk copies at V % 4 == 0, else
+    """K1 and K2 in both ring variants (16-byte cp.async at V % 4 == 0, else
     4-byte cp.async), both tile widths (B=320 takes 16 columns), ragged B and
     K, several tiles per block; training and eval."""
     t = inputs(b, k, 20_000 + v_mod, cuda, seed=b + k + v_mod)

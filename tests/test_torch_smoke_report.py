@@ -11,11 +11,11 @@ import pytest
 
 MANGLED = {
     "_ZN12_GLOBAL__N_112stats_kernelILi32ELb1EEEvPKfS2_S2_S2_S2_PfS3_S3_S3_iiiifi":
-        "stats_kernel<32, bulk>",
+        "stats_kernel<32, 16B>",
     "_ZN12_GLOBAL__N_111loss_kernelILi16ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_iiiffi":
-        "loss_kernel<16, cp.async>",
+        "loss_kernel<16, 4B>",
     "_ZN12_GLOBAL__N_112grads_kernelILi16ELb1EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_S2_PfS3_iiiifffi":
-        "grads_kernel<16, bulk>",
+        "grads_kernel<16, 16B>",
     "_ZN12_GLOBAL__N_117simt_stats_kernelEPKfS1_S1_S1_S1_PfS2_S2_S2_iiiifi": "simt_stats_kernel",
     "_ZN12_GLOBAL__N_116simt_loss_kernelEPKfS1_S1_S1_S1_S1_S1_PfS2_iiiffi": "simt_loss_kernel",
     "_ZN12_GLOBAL__N_120merge_softmax_kernelEPKfS1_iiPfS2_": "merge_softmax_kernel",
@@ -24,7 +24,7 @@ MANGLED = {
 
 FULL = {f"{family}<{vt}, {ring}>": 96 for family in ("stats_kernel", "loss_kernel",
                                                        "grads_kernel")
-        for vt in (32, 16) for ring in ("bulk", "cp.async")}
+        for vt in (32, 16) for ring in ("16B", "4B")}
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_tensor_core_counts_pass_when_every_instantiation_has_mma(smoke):
 def test_tensor_core_counts_fail_on_a_zero_or_a_missing_family(smoke, broken):
     counts = dict(FULL)
     if broken == "zero":
-        counts["loss_kernel<16, cp.async>"] = 0
+        counts["loss_kernel<16, 4B>"] = 0
     else:
         family = broken.removeprefix("no_") + "_kernel"
         counts = {n: c for n, c in counts.items() if not n.startswith(family)}
@@ -71,8 +71,8 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
         "ptxas info    : Used 40 registers",
     ])
     lines, spills = smoke.ptxas_report(log)
-    assert spills == {"stats_kernel<32, bulk>": 20, "simt_stats_kernel": 0}
-    assert lines[0].startswith("ptxas stats_kernel<32, bulk>: ")
+    assert spills == {"stats_kernel<32, 16B>": 20, "simt_stats_kernel": 0}
+    assert lines[0].startswith("ptxas stats_kernel<32, 16B>: ")
     assert lines[-1] == "ptxas simt_stats_kernel: Used 40 registers"
 
 
