@@ -8,7 +8,9 @@ state; then every shared floating state-dict entry — parameters and
 BatchNorm buffers alike — is replaced in every client by the average across
 clients weighted by each client's sample count. Integer entries
 (``num_batches_tracked``) are not averaged, and optimizer state stays per
-client. Clients cycle their own epochs independently.
+client. Clients cycle their own epochs independently. The template's compute
+dtype rides along: a bf16-compute template trains bf16 networks whose shared
+state, float32 like the template's, is averaged as above.
 
 The JAX package runs this as one SPMD program over a client mesh; here it is
 a loop over C (model, optimizer) pairs on one GPU. Checkpoint/resume,
@@ -96,7 +98,7 @@ class FederatedTrainer:
         ]
         indices = [torch.as_tensor(s.indices, device=dev, dtype=torch.long) for s in schedules]
         masks = [torch.as_tensor(s.mask, device=dev, dtype=torch.float32) for s in schedules]
-        data = [torch.as_tensor(d.X, device=dev) for d in datasets]
+        data = [t._device_data(d.X) for d in datasets]
 
         # Identical initial state for every client: the template's network
         # and optimizer state (server.py:303-311 semantics).

@@ -4,8 +4,11 @@ Counterpart of ``gfedntm_tpu/models/avitm.py:41-447`` (itself the
 reference's ``avitm.py:20-640``): the constructor's validation, ``fit``'s
 train-only path with its NaN abort, and ``get_doc_topic_distribution`` /
 ``get_topic_word_matrix`` / ``get_topic_word_distribution`` /
-``get_topics``. Validation-based early stopping, ``save``/``load``, bf16
-compute and the CTM subclass are later slices.
+``get_topics``, and ``compute_dtype="bfloat16"``: the network computes in
+bf16 while its parameters, BatchNorm statistics and optimizer state stay
+float32, and the fused kernels read beta and x stored in bf16 (``:81``,
+``:124-134``). Validation-based early stopping, ``save``/``load`` and the
+CTM subclass are later slices.
 
 Schedules come from ``np.random.default_rng(seed)`` exactly as in the JAX
 package, so both train on the same batches; the reparameterization noise and
@@ -33,7 +36,7 @@ from gfedntm_tpu_torch.data.datasets import (
 from gfedntm_tpu_torch.device import resolve_device
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
 from gfedntm_tpu_torch.train.optimizers import build_optimizer
-from gfedntm_tpu_torch.train.steps import grad_step
+from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, grad_step
 
 _ACTIVATIONS = (
     "softplus", "relu", "sigmoid", "swish", "tanh", "leakyrelu", "rrelu",
@@ -105,10 +108,8 @@ class AVITM:
                  "topic_prior_mean must be type float")
         _require(fused_decoder in ("auto", True, False),
                  "fused_decoder must be 'auto', True or False")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the port computes in float32 only"
-            )
+        _require(compute_dtype in ("float32", "bfloat16"),
+                 "compute_dtype must be 'float32' or 'bfloat16'")
 
         self.logger = logger or logging.getLogger(self.__class__.__name__)
         self.device = resolve_device(device)
@@ -131,7 +132,10 @@ class AVITM:
         self.num_data_loader_workers = num_data_loader_workers
         self.verbose = verbose
         self.seed = seed
+        # bf16 storage holds BoW counts exactly only up to 256: the corpus is
+        # screened once, where it is staged (_device_data).
         self.compute_dtype = compute_dtype
+        self._bf16_bow_checked = False
         self.fused_decoder = fused_decoder in ("auto", True) and model_type.lower() == "prodlda"
 
         self.epoch_losses: list[float] = []
@@ -147,10 +151,24 @@ class AVITM:
             activation=activation, dropout=dropout, learn_priors=learn_priors,
             topic_prior_mean=topic_prior_mean,
             topic_prior_variance=topic_prior_variance, generator=init_gen,
+            compute_dtype=self._module_dtype(),
         ).to(self.device)
         self.optimizer = self.build_optimizer(self.model)
         self._np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def _module_dtype(self) -> torch.dtype:
+        """The network's compute dtype (its parameters stay float32)."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    def _device_data(self, X) -> torch.Tensor:
+        """The BoW matrix ``X`` on the model's device; under bf16 compute the
+        first corpus staged is screened for counts bf16 cannot hold
+        (``avitm.py:259-268``)."""
+        if self.compute_dtype == "bfloat16" and not self._bf16_bow_checked:
+            self._bf16_bow_checked = True
+            check_bf16_bow_counts(X, self.logger)
+        return torch.as_tensor(X, device=self.device)
 
     def build_optimizer(self, model: DecoderNetwork) -> torch.optim.Optimizer:
         """A fresh optimizer of this configuration over ``model``'s params."""
@@ -161,7 +179,7 @@ class AVITM:
         """Train for ``num_epochs`` (``avitm.py:323-443``, train-only path).
         ``best_components`` is beta after the last epoch run; a NaN epoch
         loss aborts the run."""
-        x_all = torch.as_tensor(train_dataset.X, device=self.device)
+        x_all = self._device_data(train_dataset.X)
         self._run_epochs(self.model, self.optimizer, train_dataset, x_all)
         self._finish_fit(train_dataset, n_samples)
 
@@ -217,7 +235,7 @@ class AVITM:
     ) -> np.ndarray:
         """Theta averaged over ``n_samples`` reparameterization draws
         (``avitm.py:470-523``), with running BatchNorm stats and no dropout."""
-        x_all = torch.as_tensor(dataset.X, device=self.device)
+        x_all = self._device_data(dataset.X)
         idx, _ = full_batch_indices(len(dataset), self.batch_size)
         thetas = []
         for step_idx in torch.as_tensor(idx, device=self.device, dtype=torch.long):
@@ -225,7 +243,9 @@ class AVITM:
             draws = [self.model.get_theta(x, generator=self.generator)
                      for _ in range(n_samples)]
             thetas.append(torch.stack(draws).mean(0))
-        return torch.cat(thetas).cpu().numpy()[: len(dataset)]
+        # A bf16 model's mixtures are bf16, as the JAX package's; numpy holds
+        # them as float32.
+        return torch.cat(thetas).float().cpu().numpy()[: len(dataset)]
 
     def get_topic_word_matrix(self) -> np.ndarray:
         """Unnormalized beta for prodLDA; softmax-BN beta for LDA

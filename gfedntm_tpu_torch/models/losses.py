@@ -6,6 +6,8 @@ the logistic-normal posterior and the (possibly learnable) prior, plus the
 multinomial reconstruction term ``-sum(x * log(word_dist + 1e-10))``
 (reference ``avitm.py:203-229``). Per-sample values are [batch];
 ``avitm_loss`` sums over the batch after the optional ``sample_mask``.
+A bf16 posterior (``compute_dtype="bfloat16"``) against the float32 priors
+gives a float32 KL, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,8 +29,12 @@ def gaussian_kl(
     var_division = torch.sum(posterior_variance / prior_variance, dim=-1)
     diff = prior_mean - posterior_mean
     diff_term = torch.sum((diff * diff) / prior_variance, dim=-1)
-    logvar_det_division = torch.sum(torch.log(prior_variance)) - torch.sum(
-        posterior_log_variance, dim=-1
+    # A 0-dim tensor does not take part in torch's type promotion, so the
+    # posterior sum is cast explicitly: a bf16 posterior against float32
+    # priors computes in float32, as jnp's promotion does.
+    post_log_det = torch.sum(posterior_log_variance, dim=-1)
+    logvar_det_division = torch.sum(torch.log(prior_variance)) - post_log_det.to(
+        torch.promote_types(post_log_det.dtype, prior_variance.dtype)
     )
     return 0.5 * (var_division + diff_term - n_components + logvar_det_division)
 

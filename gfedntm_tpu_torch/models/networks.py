@@ -14,6 +14,12 @@ Parameter and buffer names are the reference's torch state-dict keys
 ``training`` flag. Randomness (the reparameterization draw and dropout) comes
 from the ``generator`` argument; ``noise=`` injects a fixed reparameterization
 eps instead, as the JAX network's ``noise=`` does.
+
+``compute_dtype`` is the JAX networks' ``dtype``: under ``torch.bfloat16``
+the encoder's layers, activations, reparameterization draw, theta and the
+unfused decodes run in bf16 (``networks.py:58-76``, ``:276-330``) while the
+parameters and BatchNorm statistics stay float32, and the BatchNorms compute
+in float32.
 """
 
 from __future__ import annotations
@@ -26,7 +32,14 @@ from torch import nn
 
 from gfedntm_tpu_torch.models.activations import Activation
 from gfedntm_tpu_torch.models.initializers import init_linear_, xavier_uniform_2d_
-from gfedntm_tpu_torch.models.layers import MaskedBatchNorm, dropout
+from gfedntm_tpu_torch.models.layers import Linear, MaskedBatchNorm, dropout
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.dot`` computes
+    it (a theta made float32 by injected float32 noise, times a bf16 beta)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 class TopicModelOutput(NamedTuple):
@@ -52,18 +65,20 @@ class InferenceNetwork(nn.Module):
         activation: str = "softplus",
         dropout: float = 0.2,
         generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.dropout = dropout
-        self.input_layer = nn.Linear(input_size, hidden_sizes[0])
+        dt = compute_dtype
+        self.input_layer = Linear(input_size, hidden_sizes[0], dt)
         self.activation = Activation(activation)
         self.hiddens = nn.Sequential(OrderedDict(
-            (f"l_{i}", nn.Sequential(nn.Linear(h_in, h_out), Activation(activation)))
+            (f"l_{i}", nn.Sequential(Linear(h_in, h_out, dt), Activation(activation)))
             for i, (h_in, h_out) in enumerate(zip(hidden_sizes[:-1], hidden_sizes[1:]))
         ))
-        self.f_mu = nn.Linear(hidden_sizes[-1], output_size)
+        self.f_mu = Linear(hidden_sizes[-1], output_size, dt)
         self.f_mu_batchnorm = MaskedBatchNorm(output_size)
-        self.f_sigma = nn.Linear(hidden_sizes[-1], output_size)
+        self.f_sigma = Linear(hidden_sizes[-1], output_size, dt)
         self.f_sigma_batchnorm = MaskedBatchNorm(output_size)
         if generator is not None:
             for layer in self.modules():
@@ -109,15 +124,19 @@ class DecoderNetwork(nn.Module):
         topic_prior_mean: float = 0.0,
         topic_prior_variance: float | None = None,
         generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if model_type.lower() not in ("prodlda", "lda"):
             raise ValueError("model_type must be 'prodLDA' or 'LDA'")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         self.model_type = model_type
         self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.inf_net = InferenceNetwork(
             input_size, n_components, tuple(hidden_sizes), activation, dropout,
-            generator=generator,
+            generator=generator, compute_dtype=compute_dtype,
         )
         k = n_components
         prior_var = 1.0 - 1.0 / k if topic_prior_variance is None else float(topic_prior_variance)
@@ -156,14 +175,13 @@ class DecoderNetwork(nn.Module):
         generator: torch.Generator | None = None,
     ) -> TopicModelOutput:
         out = self.encode_theta(x, mask=mask, noise=noise, generator=generator)
+        beta = self.beta.to(self.compute_dtype)
         if self.is_prodlda:
-            word_dist = torch.softmax(
-                self.beta_batchnorm(out.theta @ self.beta, mask), dim=1
-            )
+            word_dist = torch.softmax(self.beta_batchnorm(_dot(out.theta, beta), mask), dim=1)
         else:
             # BN over beta's topic axis; no sample mask applies.
-            beta_sm = torch.softmax(self.beta_batchnorm(self.beta), dim=1)
-            word_dist = out.theta @ beta_sm
+            beta_sm = torch.softmax(self.beta_batchnorm(beta), dim=1)
+            word_dist = _dot(out.theta, beta_sm)
         return out._replace(word_dist=word_dist)
 
     def encode_theta(

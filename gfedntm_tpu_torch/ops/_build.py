@@ -93,6 +93,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "fd_route"):  # not in builds that had one route per kernel
         lib.fd_route.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
         entries.append(lib.fd_route)
+    if hasattr(lib, "fd_stats_bf16"):  # not in builds before bf16 storage
+        lib.fd_stats_bf16.argtypes = [p] * 11 + [i, i, i, i, i, f, i, p]
+        lib.fd_loss_bf16.argtypes = [p] * 11 + [i, i, i, i, f, f, i, p]
+        lib.fd_grads_bf16.argtypes = [p] * 13 + [i, i, i, i, i, f, f, i, p]
+        entries += [lib.fd_stats_bf16, lib.fd_loss_bf16, lib.fd_grads_bf16]
     for fn in entries:
         fn.restype = ctypes.c_int
     return lib

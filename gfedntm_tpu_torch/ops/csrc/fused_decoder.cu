@@ -84,7 +84,28 @@
 // FP32 instructions before its mma, so each mma costs several instructions
 // besides itself. The [grid, B, K] g_theta partials are folded in block
 // order by a thread per element.
+//
+// bf16 storage (compute_dtype="bfloat16"; the TPU kernels' bf16-storage
+// instantiation, _pad_core :459-481 and the upcasts at :219, :296, :643):
+// beta and x arrive as bf16 at a row pitch ld, a multiple of 8 values (the
+// wrapper's float32 -> bf16 cast writes them so). Every kernel takes the
+// storage type as a template parameter; theta, mean, var and all the math
+// stay float32, and the ring copies bf16 rows into shared memory 16 bytes
+// (8 values) a copy at every V. A bf16 value is exact in TF32 (8
+// significant bits of TF32's 11, the same exponent): its TF32 hi half is the
+// value itself and its lo half is zero. K1 and K2 read their bf16 beta tile
+// as it is and take two TF32 products per k-step (a_lo*b + a_hi*b) where
+// FP32 takes three; the product left out is exactly zero, so z is the 3xTF32
+// one bit for bit; K2 upcasts x where it reads it. K3 sits at the register
+// cap with the FP32 layout, and its bf16 variants spilled, so it keeps that
+// layout: its bf16 x and beta tiles land in the first half of FP32-sized
+// stages, the block upcasts them in place, and the rest is the FP32 kernel on
+// the rounded values. At B=256, K=50, V=100,000 K2 moves ~61 MB (bound
+// 0.0186 ms, bytes) and K1 ~11 MB for two TF32 products (0.0103 ms,
+// operations); K3's work on bf16 operands needs seven TF32 products (0.036
+// ms, operations), and it runs nine.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -102,6 +123,29 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 enum Kind { kStats = 0, kLoss = 1, kGrads = 2 };
+// fd_plan's and fd_route's kind carries this bit for the bf16 instantiations.
+constexpr int kBf16Kind = 4;
+
+using bf16 = __nv_bfloat16;
+template <typename TS> constexpr bool kIsBf16 = false;
+template <> constexpr bool kIsBf16<bf16> = true;
+
+// A stored element as float32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// Two adjacent stored elements (4-byte aligned) as float32.
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// A bf16 value's TF32 bit pattern: the value itself, exact.
+__device__ __forceinline__ uint32_t bf16_tf32(bf16 v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(v)) << 16;
+}
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -130,13 +174,15 @@ __device__ void load_theta(float* th_s, const float* __restrict__ theta, int B, 
   }
 }
 
-// beta[:, v0:v0+32] -> shared [Kp, kPitch], zero-padded past K and V.
-__device__ void load_beta_strip(float* b_s, const float* __restrict__ beta, int K, int Kp,
-                                int V, int v0) {
+// beta[:, v0:v0+32] (rows at pitch ld) -> shared [Kp, kPitch] in float32,
+// zero-padded past K and V.
+template <typename TS>
+__device__ void load_beta_strip(float* b_s, const TS* __restrict__ beta, int K, int Kp, int V,
+                                int ld, int v0) {
   for (int i = threadIdx.x; i < Kp * kStrip; i += kThreads) {
     const int k = i / kStrip, c = i - k * kStrip;
     const int v = v0 + c;
-    b_s[k * kPitch + c] = (k < K && v < V) ? beta[(size_t)k * V + v] : 0.f;
+    b_s[k * kPitch + c] = (k < K && v < V) ? to_f32(beta[(size_t)k * ld + v]) : 0.f;
   }
 }
 
@@ -165,13 +211,14 @@ size_t simt_smem_floats(int kind, int B, int K) {
   return 0;
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(kThreads)
-simt_stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+simt_stats_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
                   const float* __restrict__ mask, const float* __restrict__ run_mean,
                   const float* __restrict__ run_var, float* __restrict__ mean_out,
                   float* __restrict__ var_out, float* __restrict__ m_part,
-                  float* __restrict__ s_part, int B, int K, int V, int training, float eps,
-                  int strips_per_block) {
+                  float* __restrict__ s_part, int B, int K, int V, int ld, int training,
+                  float eps, int strips_per_block) {
   extern __shared__ float smem[];
   const int Bp = round_up(B, kRowTile), Kp = round_up(K, kTopicTile);
   const int n_strips = (V + kStrip - 1) / kStrip;
@@ -207,7 +254,7 @@ simt_stats_kernel(const float* __restrict__ theta, const float* __restrict__ bet
     const int v0 = strip * kStrip;
     const int col = v0 + lane;
     const bool col_ok = col < V;
-    load_beta_strip(b_s, beta, K, Kp, V, v0);
+    load_beta_strip(b_s, beta, K, Kp, V, ld, v0);
     __syncthreads();
     for (int rb = warp * kRowTile; rb < B; rb += kWarps * kRowTile) {
       float acc[kRowTile];
@@ -280,13 +327,14 @@ simt_stats_kernel(const float* __restrict__ theta, const float* __restrict__ bet
   }
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(kThreads)
-simt_loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-                 const float* __restrict__ x, const float* __restrict__ mean,
+simt_loss_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
+                 const TS* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ var, const float* __restrict__ m,
                  const float* __restrict__ s, float* __restrict__ loss_part,
-                 float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
-                 int strips_per_block) {
+                 float* __restrict__ rd_part, int B, int K, int V, int ld, float eps,
+                 float floor_, int strips_per_block) {
   extern __shared__ float smem[];
   const int Bp = round_up(B, kRowTile), Kp = round_up(K, kTopicTile);
   const int n_strips = (V + kStrip - 1) / kStrip;
@@ -318,7 +366,7 @@ simt_loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta
     const int v0 = strip * kStrip;
     const int col = v0 + lane;
     const bool col_ok = col < V;
-    load_beta_strip(b_s, beta, K, Kp, V, v0);
+    load_beta_strip(b_s, beta, K, Kp, V, ld, v0);
     if (tid < kStrip) {
       const int c = v0 + tid;
       mean_s[tid] = c < V ? mean[c] : 0.f;
@@ -333,7 +381,7 @@ simt_loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta
       for (int j = 0; j < kRowTile; ++j) {
         const int r = rb + j;
         if (r < B) {  // uniform across the warp
-          const float xv = col_ok ? x[(size_t)r * V + col] : 0.f;
+          const float xv = col_ok ? to_f32(x[(size_t)r * ld + col]) : 0.f;
           const float n = (acc[j] - mu) * istd;
           const float p = expf(fminf(n - sm_s[r], 0.f)) / sl_s[r];
           const float contrib =
@@ -420,38 +468,39 @@ constexpr int kTcThreads = 512;  // 16 warps: four per scheduler hide the mma la
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kHalf = kTcWarps / 2;
 constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
+constexpr int kUpcastPer = 4;  // bf16 K3: pairs each thread upcasts per barrier
 
-// Per tile width: the x and beta tiles' row pitches in floats (x: 8 or 24
-// mod 32, so fragments of x, gn and gz load without bank conflicts; rows stay
-// 16-byte aligned for the 16-byte copies) and the most 16-row tiles a warp holds
-// (a warp keeps its tiles' fragments in registers across a tile's passes, so
-// this caps B at kMaxMt * 16 * kTcWarps).
+// Per tile width and storage: the x and beta tiles' row pitches in stored
+// elements (x: 8 or 24 mod 32 floats, or 20 or 12 mod 32 words of bf16 pairs,
+// so fragments of x, gn and gz load without bank conflicts; beta's bf16 rows
+// likewise; rows stay 16-byte aligned for the 16-byte copies) and the most
+// 16-row tiles a warp holds (a warp keeps its tiles' fragments in registers
+// across a tile's passes, so this caps B at kMaxMt * 16 * kTcWarps). K3's
+// float32 gz tile of the bf16 kernels takes the float32 x pitch.
 //
-// kSplitB: K1 and K2 split each beta tile into its TF32 halves once per block
-// (hi in place, lo beside it) in the 32-wide layout; the 16-wide one, for
-// batches past 256 rows, leaves that to each warp, as K3 does, so that it
-// fits wherever K3's layout fits.
-template <int VT> struct Tile;
-template <> struct Tile<32> {
-  static constexpr int kPx = 40, kPb = 40, kMaxMt = 1;
-  static constexpr bool kSplitB = true;
-};
-template <> struct Tile<16> {
-  static constexpr int kPx = 24, kPb = 16, kMaxMt = 4;
-  static constexpr bool kSplitB = false;
+// split_b: K1 and K2 split each FP32 beta tile into its TF32 halves once per
+// block (hi in place, lo beside it) in the 32-wide layout; the 16-wide one,
+// for batches past 256 rows, leaves that to each warp, as K3 does, so that it
+// fits wherever K3's layout fits. A bf16 tile needs no split.
+__host__ __device__ constexpr int tile_px(int vt) { return vt == 32 ? 40 : 24; }
+__host__ __device__ constexpr int tile_pb(int vt, bool bf) {
+  return vt == 32 ? 40 : (bf ? 24 : 16);
+}
+__host__ __device__ constexpr bool tile_split_b(int vt, bool bf) { return vt == 32 && !bf; }
+__host__ __device__ constexpr int tile_rows(int vt) {
+  return (vt == 32 ? 1 : 4) * 16 * kTcWarps;
+}
+
+template <typename TS, int VT> struct Tile {
+  static constexpr bool kBf16 = kIsBf16<TS>;
+  static constexpr int kPx = tile_px(VT), kPb = tile_pb(VT, kBf16);
+  static constexpr int kMaxMt = VT == 32 ? 1 : 4;
+  static constexpr bool kSplitB = tile_split_b(VT, kBf16);
 };
 
-__host__ __device__ constexpr int tile_px(int vt) {
-  return vt == 32 ? Tile<32>::kPx : Tile<16>::kPx;
-}
-__host__ __device__ constexpr int tile_pb(int vt) {
-  return vt == 32 ? Tile<32>::kPb : Tile<16>::kPb;
-}
-__host__ __device__ constexpr bool tile_split_b(int vt) {
-  return vt == 32 ? Tile<32>::kSplitB : Tile<16>::kSplitB;
-}
-__host__ __device__ constexpr int tile_rows(int vt) {
-  return (vt == 32 ? Tile<32>::kMaxMt : Tile<16>::kMaxMt) * 16 * kTcWarps;
+// Floats that n stored elements of a tile take, rounded up to 16 bytes.
+__host__ __device__ inline size_t stored_floats(size_t n, bool bf) {
+  return ((bf ? (n + 1) / 2 : n) + 3) / 4 * 4;
 }
 
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
@@ -510,6 +559,7 @@ struct ThetaFrag {
 // The B fragment of n-tile nt (rows k0 + tig and k0 + tig + 4, column
 // nt * 8 + grp) of a beta tile [Kp, pitch] in shared memory, split here.
 struct BetaFrag {
+  static constexpr bool kExact = false;
   const float* bs;
   int pitch, grp, tig;
   __device__ __forceinline__ void operator()(int k0, int nt, uint32_t (&bh)[2],
@@ -540,6 +590,7 @@ struct ThetaHalves {
 
 // The same B fragment from a beta tile's TF32 halves, split once per block.
 struct BetaHalves {
+  static constexpr bool kExact = false;
   const uint32_t* hi;
   const uint32_t* lo;
   int pitch, grp, tig;
@@ -553,10 +604,48 @@ struct BetaHalves {
   }
 };
 
+// The same B fragment of a bf16 beta tile [Kp, pitch]: each value is its own
+// TF32 hi half, and its lo half is zero (kExact).
+struct BetaBf16 {
+  static constexpr bool kExact = true;
+  const bf16* bs;
+  int pitch, grp, tig;
+  __device__ __forceinline__ void operator()(int k0, int nt, uint32_t (&bh)[2],
+                                             uint32_t (&bl)[2]) const {
+    bh[0] = bf16_tf32(bs[(k0 + tig) * pitch + nt * 8 + grp]);
+    bh[1] = bf16_tf32(bs[(k0 + tig + 4) * pitch + nt * 8 + grp]);
+    bl[0] = bl[1] = 0u;
+  }
+};
+
+// The B-fragment reader of a stored beta tile that no layout split.
+__device__ __forceinline__ BetaFrag beta_frag(const float* bs, int pitch, int grp, int tig) {
+  return BetaFrag{bs, pitch, grp, tig};
+}
+__device__ __forceinline__ BetaBf16 beta_frag(const bf16* bs, int pitch, int grp, int tig) {
+  return BetaBf16{bs, pitch, grp, tig};
+}
+
+// D += a*b as 3xTF32, or, when b is exact in TF32 (its lo half zero), as
+// a_lo*b + a_hi*b: the product left out adds exactly zero, so the sum is
+// mma_3xtf32's bit for bit.
+template <bool kExact>
+__device__ __forceinline__ void mma_ab(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2]) {
+  if constexpr (kExact) {
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bh);
+  } else {
+    mma_3xtf32(d, ah, al, bh, bl);
+  }
+}
+
 // z = theta beta_tile for one warp's 16-row tile: acc[nt] is the m16n8
 // accumulator fragment of columns nt*8 .. nt*8+7 (rows grp and grp + 8,
 // columns 2*tig and 2*tig + 1). K1, K2 and K3 all sum k0 = 0, 8, .. < Kp in
-// this order, each k-step as mma_3xtf32, so they take the same z.
+// this order, each k-step as mma_3xtf32 (two of its products for a bf16
+// beta), so they take the same z.
 template <int kNt, typename AFrag, typename BFrag>
 __device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const AFrag& a_frag,
                                              const BFrag& b_frag) {
@@ -569,12 +658,12 @@ __device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const
     for (int nt = 0; nt < kNt; ++nt) {
       uint32_t bh[2], bl[2];
       b_frag(k0, nt, bh, bl);
-      mma_3xtf32(acc[nt], ah, al, bh, bl);
+      mma_ab<BFrag::kExact>(acc[nt], ah, al, bh, bl);
     }
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
@@ -597,39 +686,104 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 constexpr int kStages = 2;
 
 // Start loading columns v0..v0+VT (those below V) of beta's K rows, the first
-// nx rows of x, and (n_mv = 2) mean and var into one ring stage, by every
-// thread of the block: 16-byte cp.async when every row starts on 16 bytes
-// (kVec16: V % 4 == 0, so ncols is a multiple of 4 too), else 4-byte. The
-// caller commits the group.
-template <int VT, bool kVec16>
-__device__ void load_tile(float* b_dst, float* x_dst, float* mv_dst,
-                          const float* __restrict__ beta, const float* __restrict__ x,
-                          const float* __restrict__ mean, const float* __restrict__ var, int nx,
-                          int K, int V, int v0, int n_mv) {
-  constexpr int Pb = Tile<VT>::kPb, Px = Tile<VT>::kPx, kW = kVec16 ? 4 : 1;
+// nx rows of x (both at row pitch ld), and (n_mv = 2) mean and var into one
+// ring stage (beta rows at pitch Pb, x rows at Px, in stored elements), by
+// every thread of the block. FP32: 16-byte cp.async when every
+// row starts on 16 bytes (kVec16: V % 4 == 0, so ncols is a multiple of 4
+// too), else 4-byte. bf16: 8 values a 16-byte copy for beta and x (ld is a
+// multiple of 8), but the row's last values below V by plain loads, zero past
+// V, so nothing past V is read; 4-byte copies for mean and var. The caller
+// commits the group.
+template <typename TS, int VT, bool kVec16, int Pb = Tile<TS, VT>::kPb,
+          int Px = Tile<TS, VT>::kPx>
+__device__ void load_tile(TS* b_dst, TS* x_dst, float* mv_dst, const TS* __restrict__ beta,
+                          const TS* __restrict__ x, const float* __restrict__ mean,
+                          const float* __restrict__ var, int nx, int K, int V, int ld, int v0,
+                          int n_mv) {
   const int ncols = min(VT, V - v0);
-  const int rows = K + nx + n_mv;
-  for (int i = threadIdx.x; i < rows * (VT / kW); i += kTcThreads) {
-    const int row = i / (VT / kW), c = (i - row * (VT / kW)) * kW;
-    if (c < ncols) {
-      float* dst;
-      const float* src;
-      if (row < K) {
-        dst = b_dst + row * Pb + c;
-        src = beta + (size_t)row * V + v0 + c;
-      } else if (row < K + nx) {
-        const int r = row - K;
-        dst = x_dst + r * Px + c;
-        src = x + (size_t)r * V + v0 + c;
-      } else {
-        const int j = row - K - nx;
-        dst = mv_dst + j * VT + c;
-        src = (j ? var : mean) + v0 + c;
+  if constexpr (kIsBf16<TS>) {
+    static_assert(kVec16, "bf16 rows always take the 16-byte ring");
+    constexpr int kW = 8;
+    for (int i = threadIdx.x; i < (K + nx) * (VT / kW); i += kTcThreads) {
+      const int row = i / (VT / kW), c = (i - row * (VT / kW)) * kW;
+      if (c < ncols) {
+        bf16* dst;
+        const bf16* src;
+        if (row < K) {
+          dst = b_dst + row * Pb + c;
+          src = beta + (size_t)row * ld + v0 + c;
+        } else {
+          const int r = row - K;
+          dst = x_dst + r * Px + c;
+          src = x + (size_t)r * ld + v0 + c;
+        }
+        if (c + kW <= ncols) {
+          cp_async16(dst, src);
+        } else {  // the row's last values: nothing past V is read
+          for (int e = 0; e < kW; ++e) dst[e] = c + e < ncols ? src[e] : __float2bfloat16(0.f);
+        }
       }
-      if (kVec16) {
-        cp_async16(dst, src);
-      } else {
-        cp_async4(dst, src);
+    }
+    for (int i = threadIdx.x; i < n_mv * VT; i += kTcThreads) {
+      const int j = i / VT, c = i - j * VT;
+      if (c < ncols) cp_async4(mv_dst + j * VT + c, (j ? var : mean) + v0 + c);
+    }
+  } else {
+    constexpr int kW = kVec16 ? 4 : 1;
+    const int rows = K + nx + n_mv;
+    for (int i = threadIdx.x; i < rows * (VT / kW); i += kTcThreads) {
+      const int row = i / (VT / kW), c = (i - row * (VT / kW)) * kW;
+      if (c < ncols) {
+        float* dst;
+        const float* src;
+        if (row < K) {
+          dst = b_dst + row * Pb + c;
+          src = beta + (size_t)row * ld + v0 + c;
+        } else if (row < K + nx) {
+          const int r = row - K;
+          dst = x_dst + r * Px + c;
+          src = x + (size_t)r * ld + v0 + c;
+        } else {
+          const int j = row - K - nx;
+          dst = mv_dst + j * VT + c;
+          src = (j ? var : mean) + v0 + c;
+        }
+        if (kVec16) {
+          cp_async16(dst, src);
+        } else {
+          cp_async4(dst, src);
+        }
+      }
+    }
+  }
+}
+
+// The first `rows` rows of a bf16 tile (VT values each, at a pitch of P
+// elements) upcast in place into float32 at the same pitch, by the block;
+// columns from ncols on become 0 (the ring did not write them, and their
+// bytes may be any bf16, NaN included). A float32 row r covers bf16 rows 2r
+// and 2r + 1 (P >= VT), so rows go in descending groups of kPer pairs per
+// thread, each group's reads before a barrier and its writes after it: every
+// bf16 row a write covers was read in a higher group, or in the same group
+// for the lowest one. The caller syncs before the float32 tile is read.
+template <int VT, int P, int kPer>
+__device__ void upcast_in_place(float* tile, int rows, int ncols) {
+  constexpr int kPairs = VT / 2, kGroup = kPer * kTcThreads / kPairs;
+  const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(tile);
+  for (int r0 = (rows - 1) / kGroup * kGroup; r0 >= 0; r0 -= kGroup) {
+    float2 v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kTcThreads, r = r0 + i / kPairs, c = i % kPairs * 2;
+      v[j] = r < rows ? __bfloat1622float2(src[(r * P + c) / 2]) : make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kTcThreads, r = r0 + i / kPairs, c = i % kPairs * 2;
+      if (r < rows) {
+        *reinterpret_cast<float2*>(tile + r * P + c) =
+            make_float2(c < ncols ? v[j].x : 0.f, c + 1 < ncols ? v[j].y : 0.f);
       }
     }
   }
@@ -641,29 +795,30 @@ __device__ __forceinline__ void wait_tile() {
   cp_async_wait_prior();
 }
 
-// K1 and K2's shared memory at tile width vt, as offsets in floats: theta's
-// TF32 halves hi and lo [B, Pth] each (Pth = Kp + 4, 4 mod 8, so the A
-// fragments load without conflicts); the ring's stages of x [B, Px] (K2
-// only), beta [Kp, Pb] (rows K..Kp-1 stay zero) and mean/var [2, vt]; the lo
-// half of the current beta tile [Kp, Pb] (kSplitB); K1's column reductions
-// [kTcWarps, vt], mean and inv_std [vt] and the row count.
+// K1 and K2's shared memory at tile width vt and storage bf (bf16 or FP32),
+// as offsets in floats: theta's TF32 halves hi and lo [B, Pth] each (Pth =
+// Kp + 4, 4 mod 8, so the A fragments load without conflicts); the ring's
+// stages of x [B, Px] (K2 only) and beta [Kp, Pb] (rows K..Kp-1 stay zero),
+// stored, and mean/var [2, vt]; the lo half of the current beta tile [Kp, Pb]
+// (split_b); K1's column reductions [kTcWarps, vt], mean and inv_std [vt] and
+// the row count.
 struct FwdLayout {
   int Kp, Pth;
   size_t th_hi, th_lo, x, x_stage, b, b_stage, b_lo, mv, cols, floats;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K) {
+__host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K, bool bf) {
   FwdLayout L;
   L.Kp = round_up(K, 8);
   L.Pth = L.Kp + 4;
   L.th_hi = 0;
   L.th_lo = L.th_hi + up4((size_t)B * L.Pth);
   L.x = L.th_lo + up4((size_t)B * L.Pth);
-  L.x_stage = kind == kLoss ? up4((size_t)B * tile_px(vt)) : 0;
+  L.x_stage = kind == kLoss ? stored_floats((size_t)B * tile_px(vt), bf) : 0;
   L.b = L.x + kStages * L.x_stage;
-  L.b_stage = (size_t)L.Kp * tile_pb(vt);
+  L.b_stage = stored_floats((size_t)L.Kp * tile_pb(vt, bf), bf);
   L.b_lo = L.b + kStages * L.b_stage;
-  L.mv = L.b_lo + (tile_split_b(vt) ? L.b_stage : 0);
+  L.mv = L.b_lo + (tile_split_b(vt, bf) ? L.b_stage : 0);
   L.cols = L.mv + kStages * 2 * (size_t)vt;
   L.floats = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
   return L;
@@ -683,7 +838,7 @@ __device__ void load_theta_halves(uint32_t* hi, uint32_t* lo, const float* __res
 // and after).
 template <int VT>
 __device__ void split_beta_tile(float* bs, uint32_t* b_lo, int Kp) {
-  constexpr int Pb = Tile<VT>::kPb;
+  constexpr int Pb = Tile<float, VT>::kPb;
   for (int i = threadIdx.x; i < Kp * VT; i += kTcThreads) {
     const int k = i / VT, j = k * Pb + (i - k * VT);
     uint32_t hi, lo;
@@ -695,19 +850,20 @@ __device__ void split_beta_tile(float* bs, uint32_t* b_lo, int Kp) {
 
 // K1 and K2's z for one warp's 16-row tile: A fragments from theta's halves;
 // B fragments from the beta tile's halves where the layout split it
-// (kSplitB), else split here from the FP32 tile.
-template <int VT>
+// (kSplitB), else split here from the FP32 tile, or read as they are from a
+// bf16 tile.
+template <typename TS, int VT>
 __device__ __forceinline__ void fwd_tile_product(float (&acc)[VT / 8][4], const uint32_t* th_hi,
                                                  const uint32_t* th_lo, int Pth, int Kp,
-                                                 const float* bs, const uint32_t* b_lo,
+                                                 const TS* bs, const uint32_t* b_lo,
                                                  int r_lo, int B, int grp, int tig) {
-  constexpr int Pb = Tile<VT>::kPb;
+  using T = Tile<TS, VT>;
   const ThetaHalves a{th_hi, th_lo, Pth, r_lo, r_lo + 8, tig, r_lo < B, r_lo + 8 < B};
-  if constexpr (Tile<VT>::kSplitB) {
+  if constexpr (T::kSplitB) {
     tile_product(acc, Kp, a,
-                 BetaHalves{reinterpret_cast<const uint32_t*>(bs), b_lo, Pb, grp, tig});
+                 BetaHalves{reinterpret_cast<const uint32_t*>(bs), b_lo, T::kPb, grp, tig});
   } else {
-    tile_product(acc, Kp, a, BetaFrag{bs, Pb, grp, tig});
+    tile_product(acc, Kp, a, beta_frag(bs, T::kPb, grp, tig));
   }
 }
 
@@ -718,24 +874,24 @@ __device__ void zero_smem(float* p, size_t n) {
 // ---------------------------------------------------------------------------
 // K1: batch-norm statistics + per-row online-softmax partials.
 // ---------------------------------------------------------------------------
-template <int VT, bool kVec16>
+template <typename TS, int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
-stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+stats_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
              const float* __restrict__ mask, const float* __restrict__ run_mean,
              const float* __restrict__ run_var, float* __restrict__ mean_out,
              float* __restrict__ var_out, float* __restrict__ m_part,
-             float* __restrict__ s_part, int B, int K, int V, int training, float eps,
+             float* __restrict__ s_part, int B, int K, int V, int ld, int training, float eps,
              int tiles_per_block) {
-  using T = Tile<VT>;
+  using T = Tile<TS, VT>;
   constexpr int kNt = VT / 8, kMt = T::kMaxMt;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   float* const sm = reinterpret_cast<float*>(tc_smem);
-  const FwdLayout L = fwd_layout(kStats, VT, B, K);
+  const FwdLayout L = fwd_layout(kStats, VT, B, K, T::kBf16);
   const int Kp = L.Kp, Pth = L.Pth;
   uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
   uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
   uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
-  float* b_ring = sm + L.b;
+  float* b_ring = sm + L.b;  // kStages stages of L.b_stage floats, stored as TS
   float* mv_ring = sm + L.mv;
   float* red_s = sm + L.cols;  // [kTcWarps][VT]
   float* mean_s = red_s + kTcWarps * VT;
@@ -780,8 +936,9 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   auto load = [&](int it) {
     if (first + it < last) {
       const int st = it % S;
-      load_tile<VT, kVec16>(b_ring + st * L.b_stage, nullptr, mv_ring + st * 2 * VT, beta,
-                            nullptr, run_mean, run_var, 0, K, V, (first + it) * VT, n_mv);
+      load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage), nullptr,
+                                mv_ring + st * 2 * VT, beta, nullptr, run_mean, run_var, 0, K, V,
+                                ld, (first + it) * VT, n_mv);
     }
   };
   for (int it = 0; it < S - 1; ++it) {
@@ -794,9 +951,9 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     load(it + S - 1);
     wait_tile();
     __syncthreads();
-    float* bs = b_ring + st * L.b_stage;
+    TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
     const float* mvs = mv_ring + st * 2 * VT;
-    if (T::kSplitB) {
+    if constexpr (T::kSplitB) {
       split_beta_tile<VT>(bs, b_lo, Kp);
       __syncthreads();
     }
@@ -806,8 +963,8 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     for (int q = 0; q < kMt; ++q) {
       const int mt = warp + q * kTcWarps;
       if (mt < mt_count) {
-        fwd_tile_product<VT>(acc[q], th_hi, th_lo, Pth, Kp, bs, b_lo, mt * 16 + grp, B, grp,
-                             tig);
+        fwd_tile_product<TS, VT>(acc[q], th_hi, th_lo, Pth, Kp, bs, b_lo, mt * 16 + grp, B,
+                                 grp, tig);
       } else {
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt) {
@@ -956,25 +1113,25 @@ stats_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 // ---------------------------------------------------------------------------
 // K2: row loss and row-dot partials.
 // ---------------------------------------------------------------------------
-template <int VT, bool kVec16>
+template <typename TS, int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
-loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-            const float* __restrict__ x, const float* __restrict__ mean,
+loss_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
+            const TS* __restrict__ x, const float* __restrict__ mean,
             const float* __restrict__ var, const float* __restrict__ m,
             const float* __restrict__ s, float* __restrict__ loss_part,
-            float* __restrict__ rd_part, int B, int K, int V, float eps, float floor_,
+            float* __restrict__ rd_part, int B, int K, int V, int ld, float eps, float floor_,
             int tiles_per_block) {
-  using T = Tile<VT>;
+  using T = Tile<TS, VT>;
   constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   float* const sm = reinterpret_cast<float*>(tc_smem);
-  const FwdLayout L = fwd_layout(kLoss, VT, B, K);
+  const FwdLayout L = fwd_layout(kLoss, VT, B, K, T::kBf16);
   const int Kp = L.Kp, Pth = L.Pth;
   uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
   uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
   uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
-  float* x_ring = sm + L.x;
-  float* b_ring = sm + L.b;
+  float* x_ring = sm + L.x;  // kStages stages of L.x_stage floats, stored as TS
+  float* b_ring = sm + L.b;  // and of L.b_stage
   float* mv_ring = sm + L.mv;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1014,9 +1171,10 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
   auto load = [&](int it) {
     if (first + it < last) {
       const int st = it % S;
-      load_tile<VT, kVec16>(b_ring + st * L.b_stage, x_ring + st * L.x_stage,
-                            mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V,
-                            (first + it) * VT, 2);
+      load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
+                                reinterpret_cast<TS*>(x_ring + st * L.x_stage),
+                                mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
+                                (first + it) * VT, 2);
     }
   };
   for (int it = 0; it < S - 1; ++it) {
@@ -1029,10 +1187,10 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
     load(it + S - 1);
     wait_tile();
     __syncthreads();
-    const float* xs = x_ring + st * L.x_stage;
-    float* bs = b_ring + st * L.b_stage;
+    const TS* xs = reinterpret_cast<const TS*>(x_ring + st * L.x_stage);
+    TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
     const float* mvs = mv_ring + st * 2 * VT;
-    if (T::kSplitB) {
+    if constexpr (T::kSplitB) {
       split_beta_tile<VT>(bs, b_lo, Kp);
       __syncthreads();
     }
@@ -1055,7 +1213,7 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
       if (mt < mt_count) {
         const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
         float acc[kNt][4];
-        fwd_tile_product<VT>(acc, th_hi, th_lo, Pth, Kp, bs, b_lo, r_lo, B, grp, tig);
+        fwd_tile_product<TS, VT>(acc, th_hi, th_lo, Pth, Kp, bs, b_lo, r_lo, B, grp, tig);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = h ? r_hi : r_lo;
@@ -1063,7 +1221,7 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 #pragma unroll
             for (int nt = 0; nt < kNt; ++nt) {
               const int c = nt * 8 + 2 * tig;
-              const float2 xv = *reinterpret_cast<const float2*>(xs + r * Px + c);
+              const float2 xv = pair_f32(xs + r * Px + c);
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 if (v0 + c + e < V) {
@@ -1103,13 +1261,15 @@ loss_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 // K3: backward — g_beta for the block's columns, g_theta partials.
 // ---------------------------------------------------------------------------
 
-// K3's shared memory at tile width vt, as offsets in floats: theta [B, Pth]
-// (Pth = Kp + 4, 4 mod 8, so theta's A fragments load without conflicts),
-// the g_theta accumulator [B, Kp], two ring stages of x/gz [B, Px], beta
-// [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's mean and var [2, vt];
-// five row vectors (m, 1/s, rd, g, mask); two [kTcWarps, vt] column reductions, the two BN column
-// sums and the count. Rows past B are never stored: fragments
-// read them as 0.
+// K3's shared memory at tile width vt, as offsets in floats, for either
+// storage: theta [B, Pth] (Pth = Kp + 4, 4 mod 8, so theta's A fragments
+// load without conflicts), the g_theta accumulator [B, Kp], two ring stages
+// of x/gz [B, Px], beta [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's
+// mean and var [2, vt]; five row vectors (m, 1/s, rd, g, mask); two
+// [kTcWarps, vt] column reductions, the two BN column sums and the count.
+// Rows past B are never stored: fragments read them as 0. bf16 x and beta
+// arrive in the first half of their FP32 stages, at the FP32 pitches, and
+// are upcast in place.
 struct GradsLayout {
   int Kp, Pth, Pg;
   size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, floats;
@@ -1125,7 +1285,7 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   L.x = L.gth + up4((size_t)B * L.Pg);
   L.x_stage = up4((size_t)B * tile_px(vt));
   L.b = L.x + 2 * L.x_stage;
-  L.b_stage = (size_t)L.Kp * tile_pb(vt);
+  L.b_stage = (size_t)L.Kp * tile_pb(vt, false);
   L.mv = L.b + 2 * L.b_stage;
   L.rows = L.mv + 4 * (size_t)vt;
   L.cols = L.rows + up4(5 * (size_t)B);
@@ -1133,16 +1293,16 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   return L;
 }
 
-template <int VT, bool kVec16>
+template <typename TS, int VT, bool kVec16>
 __global__ void __launch_bounds__(kTcThreads, 1)
-grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-             const float* __restrict__ x, const float* __restrict__ mean,
+grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
+             const TS* __restrict__ x, const float* __restrict__ mean,
              const float* __restrict__ var, const float* __restrict__ m,
              const float* __restrict__ s, const float* __restrict__ rd,
              const float* __restrict__ g, const float* __restrict__ mask,
              float* __restrict__ gth_part, float* __restrict__ g_beta, int B, int K, int V,
-             int training, float eps, float floor_, int tiles_per_block) {
-  using T = Tile<VT>;
+             int ld, int training, float eps, float floor_, int tiles_per_block) {
+  using T = Tile<float, VT>;  // FP32 pitches: a bf16 tile is upcast in place
   constexpr int kNt = VT / 8;  // 8-column mma tiles per tile
   constexpr int Px = T::kPx, Pb = T::kPb;
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -1194,23 +1354,32 @@ grads_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
 
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
+  auto load = [&](int st, int v0) {
+    load_tile<TS, VT, kVec16, Pb, Px>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
+                                      reinterpret_cast<TS*>(x_ring + st * L.x_stage),
+                                      mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
+                                      v0, 2);
+  };
   if (first < last) {
-    load_tile<VT, kVec16>(b_ring, x_ring, mv_ring, beta, x, mean, var, B, K, V, first * VT, 2);
+    load(0, first * VT);
     cp_async_commit();
   }
   for (int tile = first, it = 0; tile < last; ++tile, ++it) {
     const int st = it & 1;
     const int v0 = tile * VT;
-    if (tile + 1 < last) {
-      load_tile<VT, kVec16>(b_ring + (st ^ 1) * L.b_stage, x_ring + (st ^ 1) * L.x_stage,
-                            mv_ring + (st ^ 1) * 2 * VT, beta, x, mean, var, B, K, V, v0 + VT,
-                            2);
-    }
+    if (tile + 1 < last) load(st ^ 1, v0 + VT);
     wait_tile();
     __syncthreads();
     float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
     const float* bs = b_ring + st * L.b_stage;
     const float* mvs = mv_ring + st * 2 * VT;
+    if constexpr (kIsBf16<TS>) {
+      // From here on this is the FP32 kernel, at its register count, on the
+      // bf16-rounded values.
+      upcast_in_place<VT, Px, kUpcastPer>(xs, B, V - v0);
+      upcast_in_place<VT, Pb, kUpcastPer>(b_ring + st * L.b_stage, K, V - v0);
+      __syncthreads();
+    }
 
     // This lane's columns: mean and inv_std (past V: 0 and 1).
     float mu[kNt][2], istd[kNt][2];
@@ -1491,52 +1660,64 @@ cudaError_t smem_limit(size_t* limit) {
   return err;
 }
 
-// The tensor-core tile width of a kernel at (B, K) under a per-block
-// shared-memory limit: 32 when that layout fits and B fits the warps'
-// registers, else 16; 0 when neither fits. *smem is the chosen layout's bytes
-// (the 16-wide one's when neither fits).
-int tc_vt(int kind, int B, int K, size_t limit, size_t* smem) {
+// The tensor-core tile width of a kernel at (B, K) and storage bf under a
+// per-block shared-memory limit: 32 when that layout fits and B fits the
+// warps' registers, else 16; 0 when neither fits. *smem is the chosen
+// layout's bytes (the 16-wide one's when neither fits).
+int tc_vt(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
   const int widths[2] = {32, 16};
   for (int vt : widths) {
-    *smem = (kind == kGrads ? grads_layout(vt, B, K).floats : fwd_layout(kind, vt, B, K).floats) *
+    *smem = (kind == kGrads ? grads_layout(vt, B, K).floats
+                            : fwd_layout(kind, vt, B, K, bf).floats) *
             sizeof(float);
     if (*smem <= limit && B <= tile_rows(vt)) return vt;
   }
   return 0;
 }
 
-// A kernel's route at (B, K): the tensor-core tile width (32 or 16), 0 for
-// the CUDA-core K1/K2, -1 when nothing fits; with its shared memory.
-int route_of(int kind, int B, int K, size_t limit, size_t* smem) {
-  const int vt = tc_vt(kind, B, K, limit, smem);
+// A kernel's route at (B, K) and storage bf: the tensor-core tile width (32
+// or 16), 0 for the CUDA-core K1/K2, -1 when nothing fits; with its shared
+// memory. The CUDA-core kernels upcast their strip into FP32 shared memory,
+// so their footprint does not depend on the storage.
+int route_of(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
+  const int vt = tc_vt(kind, bf, B, K, limit, smem);
   if (vt || kind == kGrads) return vt ? vt : -1;
   *smem = simt_smem_floats(kind, B, K) * sizeof(float);
   return *smem <= limit ? 0 : -1;
 }
 
-// Grid of the route's kernel (the 16-byte-aligned variant's occupancy stands
-// for both ring variants); *grid is 0 when nothing fits.
+// Grid of the route's kernel for storage TS (the 16-byte-aligned variant's
+// occupancy stands for both FP32 ring variants); *grid is 0 when nothing
+// fits.
+template <typename TS>
 cudaError_t plan_route(int kind, int B, int K, int V, int* grid, int* tpb, size_t* smem,
                        int* route) {
   size_t limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  *route = route_of(kind, B, K, limit, smem);
+  *route = route_of(kind, kIsBf16<TS>, B, K, limit, smem);
   *grid = 0;
   switch (*route) {
     case 32:
-      if (kind == kStats) return plan(stats_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
-      if (kind == kLoss) return plan(loss_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
-      return plan(grads_kernel<32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+      if (kind == kStats) return plan(stats_kernel<TS, 32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+      if (kind == kLoss) return plan(loss_kernel<TS, 32, true>, kTcThreads, *smem, V, 32, grid, tpb);
+      return plan(grads_kernel<TS, 32, true>, kTcThreads, *smem, V, 32, grid, tpb);
     case 16:
-      if (kind == kStats) return plan(stats_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
-      if (kind == kLoss) return plan(loss_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
-      return plan(grads_kernel<16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+      if (kind == kStats) return plan(stats_kernel<TS, 16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+      if (kind == kLoss) return plan(loss_kernel<TS, 16, true>, kTcThreads, *smem, V, 16, grid, tpb);
+      return plan(grads_kernel<TS, 16, true>, kTcThreads, *smem, V, 16, grid, tpb);
     case 0:
-      if (kind == kStats) return plan(simt_stats_kernel, kThreads, *smem, V, kStrip, grid, tpb);
-      return plan(simt_loss_kernel, kThreads, *smem, V, kStrip, grid, tpb);
+      if (kind == kStats) return plan(simt_stats_kernel<TS>, kThreads, *smem, V, kStrip, grid, tpb);
+      return plan(simt_loss_kernel<TS>, kThreads, *smem, V, kStrip, grid, tpb);
   }
   return cudaSuccess;
+}
+
+cudaError_t plan_kind(int kind, int B, int K, int V, int* grid, int* tpb, size_t* smem,
+                      int* route) {
+  return kind & kBf16Kind
+             ? plan_route<bf16>(kind & ~kBf16Kind, B, K, V, grid, tpb, smem, route)
+             : plan_route<float>(kind, B, K, V, grid, tpb, smem, route);
 }
 
 template <typename KernelT, typename... Args>
@@ -1556,15 +1737,115 @@ bool vec16_ok(int V, const void* a, const void* b, const void* c, const void* d)
          (uintptr_t)c % 16 == 0 && (uintptr_t)d % 16 == 0;
 }
 
+// bf16 beta and x take the 16-byte ring only: ld a multiple of 8 values (16
+// bytes), at least V, and 16-byte aligned rows.
+bool bf16_rows_ok(int V, int ld, const void* beta, const void* x) {
+  return ld >= V && ld % 8 == 0 && (uintptr_t)beta % 16 == 0 && (uintptr_t)x % 16 == 0;
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// K1 + the merge of its softmax partials, beta stored as TS at pitch ld.
+template <typename TS>
+cudaError_t run_stats(const float* th, const TS* be, const float* mk, const float* rm,
+                      const float* rv, float* mo, float* vo, float* mp, float* sp, float* m,
+                      float* s, int B, int K, int V, int ld, int training, float eps, int grid,
+                      cudaStream_t st) {
+  int g = 0, tpb = 0, route = 0;
+  size_t smem = 0;
+  cudaError_t err = plan_route<TS>(kStats, B, K, V, &g, &tpb, &smem, &route);
+  if (err != cudaSuccess) return err;
+  if (route < 0 || g != grid) return cudaErrorInvalidValue;
+  auto go = [&](auto kernel, int threads) {
+    return launch(kernel, grid, threads, smem, st, th, be, mk, rm, rv, mo, vo, mp, sp, B, K, V,
+                  ld, training, eps, tpb);
+  };
+  if (route == 0) {
+    err = go(simt_stats_kernel<TS>, kThreads);
+  } else if constexpr (kIsBf16<TS>) {
+    err = route == 32 ? go(stats_kernel<TS, 32, true>, kTcThreads)
+                      : go(stats_kernel<TS, 16, true>, kTcThreads);
+  } else if (vec16_ok(V, be, rm, rv, be)) {
+    err = route == 32 ? go(stats_kernel<TS, 32, true>, kTcThreads)
+                      : go(stats_kernel<TS, 16, true>, kTcThreads);
+  } else {
+    err = route == 32 ? go(stats_kernel<TS, 32, false>, kTcThreads)
+                      : go(stats_kernel<TS, 16, false>, kTcThreads);
+  }
+  if (err != cudaSuccess) return err;
+  merge_softmax_kernel<<<blocks_for(32 * B), kThreads, 0, st>>>(mp, sp, grid, B, m, s);
+  return cudaGetLastError();
+}
+
+// K2 + the ordered sum of its partials, beta and x stored as TS at pitch ld.
+template <typename TS>
+cudaError_t run_loss(const float* th, const TS* be, const TS* xx, const float* mu,
+                     const float* va, const float* mm, const float* ss, float* lp, float* rp,
+                     float* loss, float* rd, int B, int K, int V, int ld, float eps,
+                     float floor_, int grid, cudaStream_t st) {
+  int g = 0, tpb = 0, route = 0;
+  size_t smem = 0;
+  cudaError_t err = plan_route<TS>(kLoss, B, K, V, &g, &tpb, &smem, &route);
+  if (err != cudaSuccess) return err;
+  if (route < 0 || g != grid) return cudaErrorInvalidValue;
+  auto go = [&](auto kernel, int threads) {
+    return launch(kernel, grid, threads, smem, st, th, be, xx, mu, va, mm, ss, lp, rp, B, K, V,
+                  ld, eps, floor_, tpb);
+  };
+  if (route == 0) {
+    err = go(simt_loss_kernel<TS>, kThreads);
+  } else if constexpr (kIsBf16<TS>) {
+    err = route == 32 ? go(loss_kernel<TS, 32, true>, kTcThreads)
+                      : go(loss_kernel<TS, 16, true>, kTcThreads);
+  } else if (vec16_ok(V, be, xx, mu, va)) {
+    err = route == 32 ? go(loss_kernel<TS, 32, true>, kTcThreads)
+                      : go(loss_kernel<TS, 16, true>, kTcThreads);
+  } else {
+    err = route == 32 ? go(loss_kernel<TS, 32, false>, kTcThreads)
+                      : go(loss_kernel<TS, 16, false>, kTcThreads);
+  }
+  if (err != cudaSuccess) return err;
+  fold_rows_kernel<<<blocks_for(64 * B), kThreads, 0, st>>>(lp, rp, grid, B, loss, rd);
+  return cudaGetLastError();
+}
+
+// K3 + the ordered sum of its g_theta partials, beta and x stored as TS at
+// pitch ld.
+template <typename TS>
+cudaError_t run_grads(const float* th, const TS* be, const TS* xx, const float* mu,
+                      const float* va, const float* mm, const float* ss, const float* rr,
+                      const float* gg, const float* mk, float* gp, float* g_theta, float* gb,
+                      int B, int K, int V, int ld, int training, float eps, float floor_,
+                      int grid, cudaStream_t st) {
+  int gr = 0, tpb = 0, route = 0;
+  size_t smem = 0;
+  cudaError_t err = plan_route<TS>(kGrads, B, K, V, &gr, &tpb, &smem, &route);
+  if (err != cudaSuccess) return err;
+  if (route < 0 || gr != grid) return cudaErrorInvalidValue;
+  auto go = [&](auto kernel) {
+    return launch(kernel, grid, kTcThreads, smem, st, th, be, xx, mu, va, mm, ss, rr, gg, mk,
+                  gp, gb, B, K, V, ld, training, eps, floor_, tpb);
+  };
+  if constexpr (kIsBf16<TS>) {
+    err = route == 32 ? go(grads_kernel<TS, 32, true>) : go(grads_kernel<TS, 16, true>);
+  } else if (vec16_ok(V, be, xx, mu, va)) {
+    err = route == 32 ? go(grads_kernel<TS, 32, true>) : go(grads_kernel<TS, 16, true>);
+  } else {
+    err = route == 32 ? go(grads_kernel<TS, 32, false>) : go(grads_kernel<TS, 16, false>);
+  }
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<blocks_for(B * K), kThreads, 0, st>>>(gp, grid, B * K, g_theta);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // Shared memory each kernel needs at (B, K), the card's per-block limit and
-// the grid a launch will use. Returns a cudaError_t; *grid is 0 when the
-// kernel does not fit.
+// the grid a launch will use. kind: 0 stats, 1 loss, 2 grads, plus 4 for
+// bf16 storage. Returns a cudaError_t; *grid is 0 when the kernel does not
+// fit.
 int fd_plan(int kind, int B, int K, int V, int* grid, long long* smem_bytes,
             long long* smem_limit_out) {
   size_t limit = 0, smem = 0;
@@ -1572,111 +1853,87 @@ int fd_plan(int kind, int B, int K, int V, int* grid, long long* smem_bytes,
   if (err != cudaSuccess) return (int)err;
   *smem_limit_out = (long long)limit;
   int tpb = 0, route = 0;
-  err = plan_route(kind, B, K, V, grid, &tpb, &smem, &route);
+  err = plan_kind(kind, B, K, V, grid, &tpb, &smem, &route);
   *smem_bytes = (long long)smem;
   return (int)err;
 }
 
-// A kernel's route at (B, K), by shape alone: 32 or 16 for the tensor-core
-// tile width, 0 for the CUDA-core K1 or K2, -1 when nothing fits.
+// A kernel's route at (B, K), by shape alone (kind as in fd_plan): 32 or 16
+// for the tensor-core tile width, 0 for the CUDA-core K1 or K2, -1 when
+// nothing fits.
 int fd_route(int kind, int B, int K, int* route) {
   size_t limit = 0, smem = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  *route = route_of(kind, B, K, limit, &smem);
+  *route = route_of(kind & ~kBf16Kind, (kind & kBf16Kind) != 0, B, K, limit, &smem);
   return (int)cudaSuccess;
 }
 
 int fd_stats(const void* theta, const void* beta, const void* mask, const void* run_mean,
              const void* run_var, void* mean, void* var, void* m_part, void* s_part, void* m,
              void* s, int B, int K, int V, int training, float eps, int grid, void* stream) {
-  int g = 0, tpb = 0, route = 0;
-  size_t smem = 0;
-  cudaError_t err = plan_route(kStats, B, K, V, &g, &tpb, &smem, &route);
-  if (err != cudaSuccess) return (int)err;
-  if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool vec16 = vec16_ok(V, beta, run_mean, run_var, beta);
-  const float *th = (const float*)theta, *be = (const float*)beta, *mk = (const float*)mask,
-              *rm = (const float*)run_mean, *rv = (const float*)run_var;
-  float *mo = (float*)mean, *vo = (float*)var, *mp = (float*)m_part, *sp = (float*)s_part;
-  auto go = [&](auto kernel, int threads) {
-    return launch(kernel, grid, threads, smem, st, th, be, mk, rm, rv, mo, vo, mp, sp, B, K, V,
-                  training, eps, tpb);
-  };
-  if (route == 32) {
-    err = vec16 ? go(stats_kernel<32, true>, kTcThreads) : go(stats_kernel<32, false>, kTcThreads);
-  } else if (route == 16) {
-    err = vec16 ? go(stats_kernel<16, true>, kTcThreads) : go(stats_kernel<16, false>, kTcThreads);
-  } else {
-    err = go(simt_stats_kernel, kThreads);
-  }
-  if (err != cudaSuccess) return (int)err;
-  merge_softmax_kernel<<<blocks_for(32 * B), kThreads, 0, st>>>(mp, sp, grid, B, (float*)m,
-                                                                (float*)s);
-  return (int)cudaGetLastError();
+  return (int)run_stats<float>(
+      (const float*)theta, (const float*)beta, (const float*)mask, (const float*)run_mean,
+      (const float*)run_var, (float*)mean, (float*)var, (float*)m_part, (float*)s_part,
+      (float*)m, (float*)s, B, K, V, V, training, eps, grid, (cudaStream_t)stream);
 }
 
 int fd_loss(const void* theta, const void* beta, const void* x, const void* mean,
             const void* var, const void* m, const void* s, void* loss_part, void* rd_part,
             void* loss, void* rd, int B, int K, int V, float eps, float floor_, int grid,
             void* stream) {
-  int g = 0, tpb = 0, route = 0;
-  size_t smem = 0;
-  cudaError_t err = plan_route(kLoss, B, K, V, &g, &tpb, &smem, &route);
-  if (err != cudaSuccess) return (int)err;
-  if (route < 0 || g != grid) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool vec16 = vec16_ok(V, beta, x, mean, var);
-  const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
-              *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
-              *ss = (const float*)s;
-  float *lp = (float*)loss_part, *rp = (float*)rd_part;
-  auto go = [&](auto kernel, int threads) {
-    return launch(kernel, grid, threads, smem, st, th, be, xx, mu, va, mm, ss, lp, rp, B, K, V,
-                  eps, floor_, tpb);
-  };
-  if (route == 32) {
-    err = vec16 ? go(loss_kernel<32, true>, kTcThreads) : go(loss_kernel<32, false>, kTcThreads);
-  } else if (route == 16) {
-    err = vec16 ? go(loss_kernel<16, true>, kTcThreads) : go(loss_kernel<16, false>, kTcThreads);
-  } else {
-    err = go(simt_loss_kernel, kThreads);
-  }
-  if (err != cudaSuccess) return (int)err;
-  fold_rows_kernel<<<blocks_for(64 * B), kThreads, 0, st>>>(lp, rp, grid, B, (float*)loss,
-                                                             (float*)rd);
-  return (int)cudaGetLastError();
+  return (int)run_loss<float>(
+      (const float*)theta, (const float*)beta, (const float*)x, (const float*)mean,
+      (const float*)var, (const float*)m, (const float*)s, (float*)loss_part, (float*)rd_part,
+      (float*)loss, (float*)rd, B, K, V, V, eps, floor_, grid, (cudaStream_t)stream);
 }
 
 int fd_grads(const void* theta, const void* beta, const void* x, const void* mean,
              const void* var, const void* m, const void* s, const void* rd, const void* g,
              const void* mask, void* gth_part, void* g_theta, void* g_beta, int B, int K,
              int V, int training, float eps, float floor_, int grid, void* stream) {
-  int gr = 0, tpb = 0, route = 0;
-  size_t smem = 0;
-  cudaError_t err = plan_route(kGrads, B, K, V, &gr, &tpb, &smem, &route);
-  if (err != cudaSuccess) return (int)err;
-  if (route < 0 || gr != grid) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool vec16 = vec16_ok(V, beta, x, mean, var);
-  const float *th = (const float*)theta, *be = (const float*)beta, *xx = (const float*)x,
-              *mu = (const float*)mean, *va = (const float*)var, *mm = (const float*)m,
-              *ss = (const float*)s, *rr = (const float*)rd, *gg = (const float*)g,
-              *mk = (const float*)mask;
-  float *gp = (float*)gth_part, *gb = (float*)g_beta;
-  auto go = [&](auto kernel) {
-    return launch(kernel, grid, kTcThreads, smem, st, th, be, xx, mu, va, mm, ss, rr, gg, mk,
-                  gp, gb, B, K, V, training, eps, floor_, tpb);
-  };
-  if (route == 32) {
-    err = vec16 ? go(grads_kernel<32, true>) : go(grads_kernel<32, false>);
-  } else {
-    err = vec16 ? go(grads_kernel<16, true>) : go(grads_kernel<16, false>);
-  }
-  if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<blocks_for(B * K), kThreads, 0, st>>>(gp, grid, B * K, (float*)g_theta);
-  return (int)cudaGetLastError();
+  return (int)run_grads<float>(
+      (const float*)theta, (const float*)beta, (const float*)x, (const float*)mean,
+      (const float*)var, (const float*)m, (const float*)s, (const float*)rd, (const float*)g,
+      (const float*)mask, (float*)gth_part, (float*)g_theta, (float*)g_beta, B, K, V, V,
+      training, eps, floor_, grid, (cudaStream_t)stream);
+}
+
+// The bf16-storage launches: beta (and x) bf16 at row pitch ld (a multiple of
+// 8, 16-byte aligned rows), everything else as in the FP32 entries.
+int fd_stats_bf16(const void* theta, const void* beta, const void* mask, const void* run_mean,
+                  const void* run_var, void* mean, void* var, void* m_part, void* s_part,
+                  void* m, void* s, int B, int K, int V, int ld, int training, float eps,
+                  int grid, void* stream) {
+  if (!bf16_rows_ok(V, ld, beta, beta)) return (int)cudaErrorInvalidValue;
+  return (int)run_stats<bf16>(
+      (const float*)theta, (const bf16*)beta, (const float*)mask, (const float*)run_mean,
+      (const float*)run_var, (float*)mean, (float*)var, (float*)m_part, (float*)s_part,
+      (float*)m, (float*)s, B, K, V, ld, training, eps, grid, (cudaStream_t)stream);
+}
+
+int fd_loss_bf16(const void* theta, const void* beta, const void* x, const void* mean,
+                 const void* var, const void* m, const void* s, void* loss_part, void* rd_part,
+                 void* loss, void* rd, int B, int K, int V, int ld, float eps, float floor_,
+                 int grid, void* stream) {
+  if (!bf16_rows_ok(V, ld, beta, x)) return (int)cudaErrorInvalidValue;
+  return (int)run_loss<bf16>(
+      (const float*)theta, (const bf16*)beta, (const bf16*)x, (const float*)mean,
+      (const float*)var, (const float*)m, (const float*)s, (float*)loss_part, (float*)rd_part,
+      (float*)loss, (float*)rd, B, K, V, ld, eps, floor_, grid, (cudaStream_t)stream);
+}
+
+int fd_grads_bf16(const void* theta, const void* beta, const void* x, const void* mean,
+                  const void* var, const void* m, const void* s, const void* rd, const void* g,
+                  const void* mask, void* gth_part, void* g_theta, void* g_beta, int B, int K,
+                  int V, int ld, int training, float eps, float floor_, int grid,
+                  void* stream) {
+  if (!bf16_rows_ok(V, ld, beta, x)) return (int)cudaErrorInvalidValue;
+  return (int)run_grads<bf16>(
+      (const float*)theta, (const bf16*)beta, (const bf16*)x, (const float*)mean,
+      (const float*)var, (const float*)m, (const float*)s, (const float*)rd, (const float*)g,
+      (const float*)mask, (float*)gth_part, (float*)g_theta, (float*)g_beta, B, K, V, ld,
+      training, eps, floor_, grid, (cudaStream_t)stream);
 }
 
 }  // extern "C"

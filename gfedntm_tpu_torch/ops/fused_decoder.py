@@ -25,6 +25,16 @@ launches its kernel (and counts the launch in :data:`LAUNCHES`) or raises;
 on a CPU tensor it runs its plain version (``stats_reference``,
 ``loss_reference``, ``grads_reference``), which repeats the kernel's
 arithmetic. There is no fallback from the kernel to the plain version.
+
+``storage_dtype="bfloat16"`` (the JAX package's bf16 storage, ``_pad_core``
+:459-481) takes beta and x as bf16 and runs the kernels' bf16
+instantiations: all math stays float32, only beta and x are stored in bf16.
+:func:`store` writes them so, at a row pitch rounded up to 8 values (16
+bytes), once per step; the wrappers re-pitch any other bf16 layout
+themselves. The plain version of a bf16 kernel is the float32 one on
+``beta.to(bfloat16).float()`` and ``x.to(bfloat16).float()``. Any other
+storage name raises, as ``_storage_jnp`` (:320-327) does.
+
 :class:`ProdLDAReconLoss` is the ``torch.autograd.Function`` around them
 (forward: stats then loss; backward: grads), and
 :func:`prodlda_recon_loss_reference` is the unfused oracle of the whole.
@@ -54,11 +64,65 @@ from gfedntm_tpu_torch.parallel.collectives import merge_softmax, sum_in_rank_or
 #: Kernel launches per wrapper since the last reset — the proof that a run
 #: went through the CUDA kernels. Plain ints; set them to 0 to reset.
 #: ``vsharded`` counts forwards of K5's kernel branch (each launches K1 and
-#: K2 on the rank's shard, and its backward K3).
-LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0}
+#: K2 on the rank's shard, and its backward K3). The ``_bf16`` keys count the
+#: bf16-storage instantiations.
+LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
+            "stats_bf16": 0, "loss_bf16": 0, "grads_bf16": 0, "vsharded_bf16": 0}
 
 _NEG_INF = -1e30
 _PLAN_KIND = {"stats": 0, "loss": 1, "grads": 2}
+_BF16_KIND = 4  # fd_plan's and fd_route's kind bit for bf16 storage
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_PITCH = 8  # bf16 values in the kernels' 16-byte copies
+#: The profiler range of the bf16 cast and pad (``profile_step`` reads it).
+STORE_RANGE = "fused_decoder.store"
+
+
+def storage_torch_dtype(storage_dtype: str) -> torch.dtype:
+    """The torch dtype of a storage name (``_storage_jnp``, :320-327): only
+    ``"float32"`` and ``"bfloat16"``; any other name raises."""
+    try:
+        return _STORAGE[storage_dtype]
+    except KeyError:
+        raise ValueError(
+            f"storage_dtype must be 'float32' or 'bfloat16', got {storage_dtype!r}"
+        ) from None
+
+
+def _counter(name, storage_dtype):
+    return name if storage_dtype == "float32" else f"{name}_bf16"
+
+
+def _pitched(t: torch.Tensor) -> torch.Tensor:
+    """A [rows, n] bf16 view of ``t`` whose rows lie at a pitch of n rounded
+    up to 8 values, 16-byte aligned, in a zero-filled buffer: ``t`` itself
+    when it is laid out so, else a copy (which casts)."""
+    rows, n = t.shape
+    ld = -(-n // _PITCH) * _PITCH
+    if t.dtype == torch.bfloat16 and t.stride() == (ld, 1) and t.data_ptr() % 16 == 0:
+        return t
+    buf = torch.empty((rows, ld), dtype=torch.bfloat16, device=t.device)
+    buf[:, n:].zero_()
+    buf[:, :n].copy_(t)
+    return buf[:, :n]
+
+
+def store(t: torch.Tensor, storage_dtype: str) -> torch.Tensor:
+    """``beta`` or ``x`` as the kernels of ``storage_dtype`` read it: float32
+    as it is; bf16 rounded to nearest and written at the padded pitch
+    (:func:`_pitched`). The cast is a copy either way, so the padding costs
+    no extra pass."""
+    if storage_torch_dtype(storage_dtype) == torch.float32:
+        return t
+    with torch.profiler.record_function(STORE_RANGE):
+        return _pitched(t)
+
+
+def _upcast(t: torch.Tensor, storage_dtype: str) -> torch.Tensor:
+    """The float32 values a kernel of ``storage_dtype`` computes with."""
+    if storage_torch_dtype(storage_dtype) == torch.float32:
+        return t
+    return t.to(torch.bfloat16).float()
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +194,11 @@ def grads_reference(theta, beta, x, mean, var, m, s, rd, g, mask, training,
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
-def _check_inputs(name, theta, beta, **others):
-    """Shapes, dtype, device and contiguity the kernels take."""
+def _check_inputs(name, theta, beta, storage_dtype="float32", **others):
+    """Shapes, dtype, device and contiguity the kernels take: float32 and
+    contiguous, except beta and x under bf16 storage, which are bf16 in any
+    layout (the launch re-pitches them)."""
+    stored = storage_torch_dtype(storage_dtype)
     if theta.dim() != 2 or beta.dim() != 2 or theta.shape[1] != beta.shape[0]:
         raise ValueError(
             f"{name}: theta [B, K] and beta [K, V] expected, got "
@@ -144,22 +211,28 @@ def _check_inputs(name, theta, beta, **others):
     want = {"x": (b, v), "mask": (b,), "run_mean": (v,), "run_var": (v,),
             "mean": (v,), "var": (v,), "m": (b,), "s": (b,), "rd": (b,), "g": (b,)}
     for arg, t in {"theta": theta, "beta": beta, **others}.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        dtype = stored if arg in ("beta", "x") else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {str(dtype).removeprefix('torch.')}, "
+                            f"got {t.dtype}")
         if t.device != theta.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, theta on {theta.device}")
-        if not t.is_contiguous():
+        if dtype == torch.float32 and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if arg in want and tuple(t.shape) != want[arg]:
             raise ValueError(f"{name}: {arg} must be {want[arg]}, got {tuple(t.shape)}")
     return b, k, v
 
 
-def _plan(lib, kind, b, k, v):
+def _kind(kind, storage_dtype):
+    return _PLAN_KIND[kind] | (_BF16_KIND if storage_dtype == "bfloat16" else 0)
+
+
+def _plan(lib, kind, b, k, v, storage_dtype="float32"):
     grid = ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
     limit = ctypes.c_longlong(0)
-    _raise_on(lib.fd_plan(_PLAN_KIND[kind], b, k, v, ctypes.byref(grid),
+    _raise_on(lib.fd_plan(_kind(kind, storage_dtype), b, k, v, ctypes.byref(grid),
                           ctypes.byref(smem), ctypes.byref(limit)), f"{kind} plan")
     if grid.value == 0:
         raise ValueError(
@@ -196,80 +269,114 @@ def _on_cuda(t):
     raise ValueError(f"fused decoder: unsupported device {t.device}")
 
 
-def _route(lib, kind, b, k):
-    """A kernel's route at (B, K), chosen by shape alone: 32 or 16 (the
-    tensor-core tile width), 0 (the CUDA-core K1 or K2, for batches past the
-    tensor-core layouts), -1 (nothing fits)."""
+def _route(lib, kind, b, k, storage_dtype="float32"):
+    """A kernel's route at (B, K) and storage, chosen by shape alone: 32 or
+    16 (the tensor-core tile width), 0 (the CUDA-core K1 or K2, for batches
+    past the tensor-core layouts), -1 (nothing fits)."""
     route = ctypes.c_int(0)
-    _raise_on(lib.fd_route(_PLAN_KIND[kind], b, k, ctypes.byref(route)), f"{kind} route")
+    _raise_on(lib.fd_route(_kind(kind, storage_dtype), b, k, ctypes.byref(route)),
+              f"{kind} route")
     return route.value
 
 
-def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5):
+def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5,
+          storage_dtype="float32"):
     """K1 (+ the merge of its per-block softmax partials)."""
     if not _on_cuda(theta):
-        return stats_reference(theta, beta, mask, run_mean, run_var, training, eps)
-    b, k, v = _check_inputs("stats", theta, beta, mask=mask, run_mean=run_mean,
-                            run_var=run_var)
-    lib = _build.load()
-    with torch.cuda.device(theta.device):
-        grid = _plan(lib, "stats", b, k, v)
-        mean, var, m, s = (_empty(theta, n) for n in (v, v, b, b))
-        m_part, s_part = _empty(theta, grid, b), _empty(theta, grid, b)
-        _raise_on(lib.fd_stats(
-            _ptr(theta), _ptr(beta), _ptr(mask), _ptr(run_mean), _ptr(run_var),
-            _ptr(mean), _ptr(var), _ptr(m_part), _ptr(s_part), _ptr(m), _ptr(s),
-            b, k, v, int(bool(training)), eps, grid, _stream(),
-        ), "stats launch")
-    LAUNCHES["stats"] += 1
-    return mean, var, m, s
-
-
-def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10):
-    """K2 (+ the ordered sum of its per-block partials)."""
-    if not _on_cuda(theta):
-        return loss_reference(theta, beta, x, mean, var, m, s, eps, floor)
-    b, k, v = _check_inputs("loss", theta, beta, x=x, mean=mean, var=var, m=m, s=s)
-    lib = _build.load()
-    with torch.cuda.device(theta.device):
-        grid = _plan(lib, "loss", b, k, v)
-        rl, rd = _empty(theta, b), _empty(theta, b)
-        loss_part, rd_part = _empty(theta, grid, b), _empty(theta, grid, b)
-        _raise_on(lib.fd_loss(
-            _ptr(theta), _ptr(beta), _ptr(x), _ptr(mean), _ptr(var), _ptr(m), _ptr(s),
-            _ptr(loss_part), _ptr(rd_part), _ptr(rl), _ptr(rd),
-            b, k, v, eps, floor, grid, _stream(),
-        ), "loss launch")
-    LAUNCHES["loss"] += 1
-    return rl, rd
-
-
-def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
-          floor=1e-10):
-    """K3 (+ the ordered sum of its per-block g_theta partials)."""
-    if not _on_cuda(theta):
-        return grads_reference(theta, beta, x, mean, var, m, s, rd, g, mask,
-                               training, eps, floor)
-    out = _launch_grads(_build.load(), theta, beta, x, mean, var, m, s, rd, g, mask,
-                        training, eps, floor)
-    LAUNCHES["grads"] += 1
+        return stats_reference(theta, _upcast(beta, storage_dtype), mask, run_mean, run_var,
+                               training, eps)
+    out = _launch_stats(_build.load(), theta, beta, mask, run_mean, run_var, training, eps,
+                        storage_dtype)
+    LAUNCHES[_counter("stats", storage_dtype)] += 1
     return out
 
 
+def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10, storage_dtype="float32"):
+    """K2 (+ the ordered sum of its per-block partials)."""
+    if not _on_cuda(theta):
+        return loss_reference(theta, _upcast(beta, storage_dtype), _upcast(x, storage_dtype),
+                              mean, var, m, s, eps, floor)
+    out = _launch_loss(_build.load(), theta, beta, x, mean, var, m, s, eps, floor,
+                       storage_dtype)
+    LAUNCHES[_counter("loss", storage_dtype)] += 1
+    return out
+
+
+def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
+          floor=1e-10, storage_dtype="float32"):
+    """K3 (+ the ordered sum of its per-block g_theta partials)."""
+    if not _on_cuda(theta):
+        return grads_reference(theta, _upcast(beta, storage_dtype), _upcast(x, storage_dtype),
+                               mean, var, m, s, rd, g, mask, training, eps, floor)
+    out = _launch_grads(_build.load(), theta, beta, x, mean, var, m, s, rd, g, mask,
+                        training, eps, floor, storage_dtype)
+    LAUNCHES[_counter("grads", storage_dtype)] += 1
+    return out
+
+
+def _operands(beta, x, storage_dtype):
+    """beta and x as a launch passes them, and the extra C arguments: none
+    for float32; for bf16 the row pitch, which both take."""
+    if storage_dtype == "float32":
+        return beta, x, ()
+    beta = _pitched(beta)
+    return beta, None if x is None else _pitched(x), (beta.stride(0),)
+
+
+def _entry(lib, name, storage_dtype):
+    return getattr(lib, name if storage_dtype == "float32" else f"{name}_bf16")
+
+
+def _launch_stats(lib, theta, beta, mask, run_mean, run_var, training, eps,
+                  storage_dtype="float32"):
+    """K1 through the library ``lib``, uncounted."""
+    b, k, v = _check_inputs("stats", theta, beta, storage_dtype, mask=mask,
+                            run_mean=run_mean, run_var=run_var)
+    beta, _, pitch = _operands(beta, None, storage_dtype)
+    with torch.cuda.device(theta.device):
+        grid = _plan(lib, "stats", b, k, v, storage_dtype)
+        mean, var, m, s = (_empty(theta, n) for n in (v, v, b, b))
+        m_part, s_part = _empty(theta, grid, b), _empty(theta, grid, b)
+        _raise_on(_entry(lib, "fd_stats", storage_dtype)(
+            _ptr(theta), _ptr(beta), _ptr(mask), _ptr(run_mean), _ptr(run_var),
+            _ptr(mean), _ptr(var), _ptr(m_part), _ptr(s_part), _ptr(m), _ptr(s),
+            b, k, v, *pitch, int(bool(training)), eps, grid, _stream(),
+        ), "stats launch")
+    return mean, var, m, s
+
+
+def _launch_loss(lib, theta, beta, x, mean, var, m, s, eps, floor, storage_dtype="float32"):
+    """K2 through the library ``lib``, uncounted."""
+    b, k, v = _check_inputs("loss", theta, beta, storage_dtype, x=x, mean=mean, var=var,
+                            m=m, s=s)
+    beta, x, pitch = _operands(beta, x, storage_dtype)
+    with torch.cuda.device(theta.device):
+        grid = _plan(lib, "loss", b, k, v, storage_dtype)
+        rl, rd = _empty(theta, b), _empty(theta, b)
+        loss_part, rd_part = _empty(theta, grid, b), _empty(theta, grid, b)
+        _raise_on(_entry(lib, "fd_loss", storage_dtype)(
+            _ptr(theta), _ptr(beta), _ptr(x), _ptr(mean), _ptr(var), _ptr(m), _ptr(s),
+            _ptr(loss_part), _ptr(rd_part), _ptr(rl), _ptr(rd),
+            b, k, v, *pitch, eps, floor, grid, _stream(),
+        ), "loss launch")
+    return rl, rd
+
+
 def _launch_grads(lib, theta, beta, x, mean, var, m, s, rd, g, mask, training, eps,
-                  floor):
+                  floor, storage_dtype="float32"):
     """K3 through the library ``lib`` (``_build.load()``, or another build of
     the source to compare with), uncounted."""
-    b, k, v = _check_inputs("grads", theta, beta, x=x, mean=mean, var=var, m=m,
-                            s=s, rd=rd, g=g, mask=mask)
+    b, k, v = _check_inputs("grads", theta, beta, storage_dtype, x=x, mean=mean, var=var,
+                            m=m, s=s, rd=rd, g=g, mask=mask)
+    beta, x, pitch = _operands(beta, x, storage_dtype)
     with torch.cuda.device(theta.device):
-        grid = _plan(lib, "grads", b, k, v)
+        grid = _plan(lib, "grads", b, k, v, storage_dtype)
         g_theta, g_beta = _empty(theta, b, k), _empty(theta, k, v)
         gth_part = _empty(theta, grid, b, k)
-        _raise_on(lib.fd_grads(
+        _raise_on(_entry(lib, "fd_grads", storage_dtype)(
             _ptr(theta), _ptr(beta), _ptr(x), _ptr(mean), _ptr(var), _ptr(m), _ptr(s),
             _ptr(rd), _ptr(g), _ptr(mask), _ptr(gth_part), _ptr(g_theta), _ptr(g_beta),
-            b, k, v, int(bool(training)), eps, floor, grid, _stream(),
+            b, k, v, *pitch, int(bool(training)), eps, floor, grid, _stream(),
         ), "grads launch")
     return g_theta, g_beta
 
@@ -280,24 +387,40 @@ def _launch_grads(lib, theta, beta, x, mean, var, m, s, rd, g, mask, training, e
 class ProdLDAReconLoss(torch.autograd.Function):
     """``(rl [B], batch_mean [V], batch_var [V])`` with gradients to theta
     and beta only; the statistics outputs carry none (they feed the
-    BatchNorm running-stat update)."""
+    BatchNorm running-stat update). ``theta`` is float32; beta and x are
+    stored once per call (:func:`store`), and the backward reuses that
+    copy, as the JAX package's residuals keep the padded operands. g_beta
+    takes beta's dtype (``_bwd``, :809-814)."""
 
     @staticmethod
-    def forward(ctx, theta, beta, x, run_mean, run_var, mask, training, eps, floor):
-        mean, var, m, s = stats(theta, beta, mask, run_mean, run_var, training, eps)
-        rl, rd = loss(theta, beta, x, mean, var, m, s, eps, floor)
-        ctx.save_for_backward(theta, beta, x, mask, mean, var, m, s, rd)
+    def forward(ctx, theta, beta, x, run_mean, run_var, mask, training, eps, floor,
+                storage_dtype):
+        beta_s, x_s = store(beta, storage_dtype), store(x, storage_dtype)
+        mean, var, m, s = stats(theta, beta_s, mask, run_mean, run_var, training, eps,
+                                storage_dtype)
+        rl, rd = loss(theta, beta_s, x_s, mean, var, m, s, eps, floor, storage_dtype)
+        ctx.save_for_backward(theta, beta_s, x_s, mask, mean, var, m, s, rd)
         ctx.training, ctx.eps, ctx.floor = training, eps, floor
+        ctx.storage_dtype, ctx.beta_dtype = storage_dtype, beta.dtype
         ctx.mark_non_differentiable(mean, var)
         return rl, mean, var
 
     @staticmethod
     def backward(ctx, g_rl, _g_mean, _g_var):
-        theta, beta, x, mask, mean, var, m, s, rd = ctx.saved_tensors
+        theta, beta_s, x_s, mask, mean, var, m, s, rd = ctx.saved_tensors
         g = (g_rl * mask).contiguous()
-        g_theta, g_beta = grads(theta, beta, x, mean, var, m, s, rd, g, mask,
-                                ctx.training, ctx.eps, ctx.floor)
-        return g_theta, g_beta, None, None, None, None, None, None, None
+        g_theta, g_beta = grads(theta, beta_s, x_s, mean, var, m, s, rd, g, mask,
+                                ctx.training, ctx.eps, ctx.floor, ctx.storage_dtype)
+        return g_theta, g_beta.to(ctx.beta_dtype), None, None, None, None, None, None, None, None
+
+
+def _prepare(theta, mask, storage_dtype):
+    """theta in float32 (autograd casts its gradient back to theta's dtype,
+    as ``_bwd`` does) and the row mask, with the storage name checked."""
+    storage_torch_dtype(storage_dtype)
+    if mask is None:
+        mask = torch.ones(theta.shape[0], device=theta.device)
+    return theta.to(torch.float32), mask.to(torch.float32).contiguous()
 
 
 def prodlda_recon_loss(theta, beta, x_bow, run_mean, run_var, mask=None,
@@ -308,17 +431,13 @@ def prodlda_recon_loss(theta, beta, x_bow, run_mean, run_var, mask=None,
     Returns ``(rl [B], batch_mean [V], batch_var [V])``; in eval the stats
     echo ``run_mean``/``run_var``. Rows with ``mask == 0`` are excluded from
     the batch statistics; their rl rows are finite and meaningless (callers
-    zero them with their sample mask)."""
-    if storage_dtype != "float32":
-        raise NotImplementedError(
-            f"storage_dtype={storage_dtype!r}: the CUDA kernels take float32 only"
-        )
-    if mask is None:
-        mask = torch.ones(theta.shape[0], device=theta.device)
-    mask = mask.to(torch.float32).contiguous()
+    zero them with their sample mask). ``storage_dtype="bfloat16"`` stores
+    beta and x in bf16 for the kernels (float32 math); theta is taken in
+    float32 whatever its dtype, and its gradient comes back in that dtype."""
+    theta, mask = _prepare(theta, mask, storage_dtype)
     return ProdLDAReconLoss.apply(
         theta, beta, x_bow, run_mean, run_var, mask, bool(training), float(eps),
-        float(floor),
+        float(floor), storage_dtype,
     )
 
 
@@ -359,34 +478,48 @@ class VShardedReconLoss(torch.autograd.Function):
     summed over the model group here, so everything upstream of theta sees
     the whole gradient on every rank. (The JAX backward's ``x axis_size``
     and its local-partial return are ``shard_map`` transpose conventions;
-    autograd has neither.) ``plain`` runs the kernels' plain versions."""
+    autograd has neither.) ``plain`` runs the kernels' plain versions, on
+    the float32 values of the stored beta and x. The local beta and x are
+    stored once per call (:func:`store`), as in :class:`ProdLDAReconLoss`."""
 
     @staticmethod
     def forward(ctx, theta, beta, x, run_mean, run_var, mask, groups, training, eps,
-                floor, plain):
-        st, lo = (stats_reference, loss_reference) if plain else (stats, loss)
+                floor, storage_dtype, plain):
+        beta_s, x_s = store(beta, storage_dtype), store(x, storage_dtype)
         group = groups.model_group
-        mean, var, m_loc, s_loc = st(theta, beta, mask, run_mean, run_var, training, eps)
-        m, l = merge_softmax(m_loc, s_loc, group)
-        rl, rd = sum_in_rank_order(torch.stack(lo(theta, beta, x, mean, var, m, l, eps,
-                                                  floor)), group)
-        if not plain and _on_cuda(theta):
-            LAUNCHES["vsharded"] += 1
-        ctx.save_for_backward(theta, beta, x, mask, mean, var, m, l, rd)
+        if plain:
+            beta_f, x_f = beta_s.float(), x_s.float()
+            mean, var, m_loc, s_loc = stats_reference(theta, beta_f, mask, run_mean, run_var,
+                                                      training, eps)
+            m, l = merge_softmax(m_loc, s_loc, group)
+            parts = loss_reference(theta, beta_f, x_f, mean, var, m, l, eps, floor)
+        else:
+            mean, var, m_loc, s_loc = stats(theta, beta_s, mask, run_mean, run_var, training,
+                                            eps, storage_dtype)
+            m, l = merge_softmax(m_loc, s_loc, group)
+            parts = loss(theta, beta_s, x_s, mean, var, m, l, eps, floor, storage_dtype)
+            if _on_cuda(theta):
+                LAUNCHES[_counter("vsharded", storage_dtype)] += 1
+        rl, rd = sum_in_rank_order(torch.stack(parts), group)
+        ctx.save_for_backward(theta, beta_s, x_s, mask, mean, var, m, l, rd)
         ctx.groups, ctx.training, ctx.eps, ctx.floor, ctx.plain = (
             groups, training, eps, floor, plain)
+        ctx.storage_dtype, ctx.beta_dtype = storage_dtype, beta.dtype
         ctx.mark_non_differentiable(mean, var)
         return rl, mean, var
 
     @staticmethod
     def backward(ctx, g_rl, _g_mean, _g_var):
-        theta, beta, x, mask, mean, var, m, l, rd = ctx.saved_tensors
-        gr = grads_reference if ctx.plain else grads
+        theta, beta_s, x_s, mask, mean, var, m, l, rd = ctx.saved_tensors
         g = (g_rl * mask).contiguous()
-        g_theta, g_beta = gr(theta, beta, x, mean, var, m, l, rd, g, mask, ctx.training,
-                             ctx.eps, ctx.floor)
+        args = (mean, var, m, l, rd, g, mask, ctx.training, ctx.eps, ctx.floor)
+        if ctx.plain:
+            g_theta, g_beta = grads_reference(theta, beta_s.float(), x_s.float(), *args)
+        else:
+            g_theta, g_beta = grads(theta, beta_s, x_s, *args, ctx.storage_dtype)
         g_theta = sum_in_rank_order(g_theta, ctx.groups.model_group)
-        return g_theta, g_beta, None, None, None, None, None, None, None, None, None
+        return (g_theta, g_beta.to(ctx.beta_dtype), None, None, None, None, None, None, None,
+                None, None, None)
 
 
 class VShardedRowsReconLoss(torch.autograd.Function):
@@ -442,19 +575,15 @@ class VShardedRowsReconLoss(torch.autograd.Function):
 
 def _vsharded(theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
               training, eps, floor, storage_dtype, plain):
-    if storage_dtype != "float32":
-        raise NotImplementedError(
-            f"storage_dtype={storage_dtype!r}: the CUDA kernels take float32 only"
-        )
-    if mask is None:
-        mask = torch.ones(theta.shape[0], device=theta.device)
-    mask = mask.to(torch.float32).contiguous()
+    theta, mask = _prepare(theta, mask, storage_dtype)
     if training and groups.data_group is not None:
+        # Plain tensor ops in float32: the storage does not apply (nor does
+        # it in the JAX package's rows-sharded branch).
         return VShardedRowsReconLoss.apply(theta, beta_local, x_local, mask, groups,
                                            float(eps), float(floor))
     return VShardedReconLoss.apply(
         theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
-        bool(training), float(eps), float(floor), plain,
+        bool(training), float(eps), float(floor), storage_dtype, plain,
     )
 
 

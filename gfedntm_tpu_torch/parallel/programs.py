@@ -90,7 +90,8 @@ def describe_layout(rank, device, dp: int, mp: int, vocab_size: int) -> dict:
 
 def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
     """For each case (full numpy ``theta, beta, x, run_mean, run_var, mask``,
-    a row cotangent ``g``, ``training`` and optionally ``reps``): this rank's
+    a row cotangent ``g``, ``training``, optionally ``storage`` (a
+    ``storage_dtype``, default float32) and ``reps``): this rank's
     shard through ``prodlda_recon_loss_vsharded`` ("kernel") and its plain
     version ("plain"), forward outputs and the gradients of ``sum(rl * g)``;
     the merged softmax statistics ``m``, ``l`` of K1's shard partials (rows
@@ -110,12 +111,13 @@ def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
                  x=put("x", rows, cols), run_mean=put("run_mean", cols),
                  run_var=put("run_var", cols), mask=put("mask", rows), g=put("g", rows))
         training = bool(case["training"])
+        storage = case.get("storage", "float32")
 
         def run(fn, keep):
             theta = t["theta"].clone().requires_grad_(True)
             beta = t["beta"].clone().requires_grad_(True)
             rl, mean, var = fn(theta, beta, t["x"], t["run_mean"], t["run_var"], t["mask"],
-                               groups=groups, training=training)
+                               groups=groups, training=training, storage_dtype=storage)
             (rl * t["g"]).sum().backward()
             if keep:
                 return {"rl": _np(rl), "mean": _np(mean), "var": _np(var),
@@ -125,8 +127,9 @@ def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
         res = {"kernel": run(fd.prodlda_recon_loss_vsharded, True),
                "plain": run(fd.prodlda_recon_loss_vsharded_reference, True)}
         if not (training and groups.data_group is not None):
-            _, _, m_loc, s_loc = fd.stats(t["theta"], t["beta"], t["mask"], t["run_mean"],
-                                          t["run_var"], training)
+            _, _, m_loc, s_loc = fd.stats(t["theta"], fd.store(t["beta"], storage), t["mask"],
+                                          t["run_mean"], t["run_var"], training,
+                                          storage_dtype=storage)
             m, l = merge_softmax(m_loc, s_loc, groups.model_group)
             res["m"], res["l"] = _np(m), _np(l)
         reps = int(case.get("reps", 0))

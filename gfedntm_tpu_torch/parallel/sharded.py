@@ -18,6 +18,10 @@ model group: each rank draws the same schedule from the model's numpy
 generator and the same noise from its identically seeded torch generator,
 and every reduction that feeds replicated state is folded in rank order.
 
+A bf16-compute model (``compute_dtype="bfloat16"``) trains the same way:
+its input layer sums the ranks' partial products in float32 and rounds once
+(:class:`VShardedLinear`), and K5 reads the rank's beta and x in bf16.
+
 Later slices: the data-parallel half (dp > 1: the encoder's two BatchNorms
 need statistics synced over the data group, and every gradient a SUM over
 it), validation and early stopping, and CTM.
@@ -105,17 +109,30 @@ class VShardedLinear(nn.Module):
     group: ``h = sum_m x_m W_m^T + b``. The bias is added once, after the
     sum, and the sum's backward is the identity (everything after it is
     replicated on every rank of the group), so each rank's weight gradient
-    is ``dh^T x_m``."""
+    is ``dh^T x_m``.
 
-    def __init__(self, in_local: int, out_features: int, group):
+    Under a bf16 ``compute_dtype`` each rank's product takes the
+    bf16-rounded x and W in float32 (exact products, float32 sums), the
+    partials are summed in float32 and the sum is rounded to bf16 once
+    before the bf16 bias: the unsharded bf16 layer (:class:`Linear`)
+    rounds its float32-accumulated product once too, so the two differ
+    only in the order of the sum."""
+
+    def __init__(self, in_local: int, out_features: int, group,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_local))
         self.bias = nn.Parameter(torch.empty(out_features))
         self.group = group
+        self.compute_dtype = compute_dtype
 
     def forward(self, x_local: torch.Tensor) -> torch.Tensor:
-        return sum_forward_identity_backward(F.linear(x_local, self.weight),
-                                             self.group) + self.bias
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return sum_forward_identity_backward(F.linear(x_local, self.weight),
+                                                 self.group) + self.bias
+        part = F.linear(x_local.to(dt).float(), self.weight.to(dt).float())
+        return sum_forward_identity_backward(part, self.group).to(dt) + self.bias.to(dt)
 
 
 def local_network(network: nn.Module, groups: DpMpGroups) -> nn.Module:
@@ -127,7 +144,8 @@ def local_network(network: nn.Module, groups: DpMpGroups) -> nn.Module:
     local = copy.deepcopy(network)
     device = network.beta.device
     hidden = network.inf_net.input_layer.out_features
-    local.inf_net.input_layer = VShardedLinear(width, hidden, groups.model_group).to(device)
+    local.inf_net.input_layer = VShardedLinear(width, hidden, groups.model_group,
+                                               network.compute_dtype).to(device)
     local.beta = nn.Parameter(torch.empty(network.beta.shape[0], width, device=device))
     local.beta_batchnorm = MaskedBatchNorm(width).to(device)
     local.load_state_dict(shard_state_dict(network.state_dict(), groups))
@@ -180,7 +198,7 @@ def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
     optimizer.load_state_dict(_map_optimizer_state(
         model.optimizer.state_dict(), names, lambda t, dim: _columns(t, dim, cols)))
     # shard_data (:77-88): this rank's columns of the corpus only.
-    x_local = torch.as_tensor(np.ascontiguousarray(train_dataset.X[:, cols]), device=dev)
+    x_local = model._device_data(np.ascontiguousarray(train_dataset.X[:, cols]))
     model._run_epochs(net, optimizer, train_dataset, x_local, vshard=vshard)
 
     model.model.load_state_dict(gather_state_dict(net.state_dict(), groups))

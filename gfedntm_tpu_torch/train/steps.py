@@ -16,10 +16,16 @@ runs the step on a rank-local V-sharded network
 (:func:`~gfedntm_tpu_torch.parallel.sharded.local_network`): the fused loss
 goes through K5, ``prodlda_recon_loss_vsharded`` (``train/steps.py:186-220``),
 on the rank's columns of x.
+
+A bf16-compute network (``compute_dtype=torch.bfloat16``) stores beta and x
+in bf16 for the fused kernels (``_fused_batch_loss``, ``:176-180``);
+:func:`check_bf16_bow_counts` is the one-time screen of a corpus for counts
+bf16 cannot hold exactly.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gfedntm_tpu_torch.models.losses import avitm_loss, gaussian_kl
@@ -28,6 +34,33 @@ from gfedntm_tpu_torch.ops.fused_decoder import (
     prodlda_recon_loss,
     prodlda_recon_loss_vsharded,
 )
+
+
+#: bfloat16 has an 8-bit significand: integers are exactly representable
+#: only up to 2**8 = 256. BoW term counts above that are rounded when x rides
+#: the fused kernels' bf16 storage.
+BF16_EXACT_COUNT_MAX = 256.0
+
+
+def check_bf16_bow_counts(x_bow, logger=None) -> bool:
+    """Copy of ``gfedntm_tpu/train/steps.py:check_bf16_bow_counts``
+    (:35-58): True (and a loud warning through ``logger``) when ``x_bow``
+    holds counts that bf16 storage cannot represent exactly, i.e.
+    ``max > 256``. Called once per corpus, where the corpus is staged to the
+    device."""
+    x_max = float(np.max(x_bow)) if np.size(x_bow) else 0.0
+    if x_max <= BF16_EXACT_COUNT_MAX:
+        return False
+    if logger is not None:
+        logger.warning(
+            "compute_dtype='bfloat16' with BoW counts up to %.0f: bf16 "
+            "represents integers exactly only up to %.0f, so the most "
+            "frequent terms of long documents will be silently quantized "
+            "in the fused reconstruction loss. Use compute_dtype='float32'"
+            " (or cap counts in preprocessing) if exact counts matter.",
+            x_max, BF16_EXACT_COUNT_MAX,
+        )
+    return True
 
 
 def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
@@ -52,14 +85,16 @@ def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
     out = model.encode_theta(x, mask=mask, noise=noise, generator=generator)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
+    storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
     if vshard is None:
         rl, b_mean, b_var = prodlda_recon_loss(
             out.theta, model.beta, x, bn.running_mean, bn.running_var, m, True,
+            storage_dtype=storage,
         )
     else:
         rl, b_mean, b_var = prodlda_recon_loss_vsharded(
             out.theta, model.beta, x, bn.running_mean, bn.running_var, m,
-            groups=vshard, training=True,
+            groups=vshard, training=True, storage_dtype=storage,
         )
     kl = gaussian_kl(
         out.prior_mean, out.prior_variance, out.posterior_mean,

@@ -5,6 +5,9 @@ larger of the bytes it must move over the memory rate and its FP32-accurate
 FLOPs as three TF32 products (3xTF32) over the tensor cores' dense TF32
 rate. The FP32 SIMT bound (the FLOPs over the CUDA cores' FP32 rate) stays in
 the notes; a tensor-core kernel may run under it, never under the bound.
+With bf16 storage beta and x are read as 2 bytes a value, and a product
+with beta (exact in TF32) takes two TF32 products: K1 2, K2 2, K3 7 of its
+three GEMMs' 9.
 Figures: H100 SXM data sheet (3.35 TB/s, 67 TFLOP/s FP32, 495 TFLOP/s dense
 TF32). The script is imported by path; it imports torch only inside the
 functions that run on the card.
@@ -87,3 +90,39 @@ def test_peaks_follow_the_card_name(smoke):
     assert smoke.peaks("NVIDIA H100 NVL")[2] == 417.5e12
     assert smoke.peaks("NVIDIA H100 PCIe")[2] == 378e12
     assert smoke.peaks("something else")[3] == "H100 (assumed)"
+
+
+# bf16 storage, (B, K, V) = (256, 50, 100,000): {kernel: (bytes, bound ms, bound by)}
+PINNED_BF16 = {
+    "stats": (10_854_272, 0.0103434, "operations"),
+    "loss": (62_055_296, 0.0185240, "bytes"),
+    "grads": (82_107_520, 0.0362020, "operations"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_BF16))
+def test_bf16_kernel_work_and_bounds_are_pinned(smoke, name):
+    nbytes, bound_ms, by = PINNED_BF16[name]
+    work = smoke.kernel_work(256, 50, 100_000, "bfloat16")
+    assert work[name] == (nbytes, smoke.kernel_work(256, 50, 100_000)[name][1])
+    bound = smoke.kernel_bound(*work[name], H100, smoke.TF32_PRODUCTS["bfloat16"][name])
+    assert bound["bound_ms"] == pytest.approx(bound_ms, rel=1e-5)
+    assert bound["bound_by"] == by
+
+
+def test_bf16_storage_halves_the_stored_operands_bytes(smoke):
+    f32, bf16 = (smoke.kernel_work(17, 9, 3001, s) for s in ("float32", "bfloat16"))
+    kv, bv = 9 * 3001, 17 * 3001
+    assert f32["stats"][0] - bf16["stats"][0] == 2 * kv
+    assert f32["loss"][0] - bf16["loss"][0] == 2 * (kv + bv)
+    assert f32["grads"][0] - bf16["grads"][0] == 2 * (kv + bv)  # g_beta stays float32
+
+
+def test_k5_bf16_bound_per_rank(smoke):
+    nbytes, nflops, coll = smoke.vsharded_work(256, 50, 100_000, 2, "bfloat16")
+    assert (nbytes, nflops, coll) == (77_727_680, 6.4e9, 110_592)
+    assert smoke.vsharded_passes("bfloat16") == pytest.approx(2.2)
+    assert smoke.vsharded_passes("float32") == 3
+    bound = smoke.kernel_bound(nbytes, nflops, H100, smoke.vsharded_passes("bfloat16"))
+    assert bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(0.0284444, rel=1e-5)

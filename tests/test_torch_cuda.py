@@ -6,6 +6,10 @@ alone with ``-k "stats or loss"``, K3 alone with ``-k grads``).
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| per output (both
 float32; the plain version's products run through cuBLAS in another order).
+The bf16-storage kernels (``-k bf16``) are held to the same tolerance
+against the float32 plain versions on the bf16-rounded beta and x, and to
+bitwise equality with the float32 kernels on those rounded values where both
+take the same route.
 """
 
 import ctypes
@@ -274,7 +278,8 @@ def test_federated_fit_runs_through_the_kernels(cuda):
     before = dict(fd.LAUNCHES)
     result = trainer.fit(datasets)
     assert {k: fd.LAUNCHES[k] - before[k] for k in before} == {
-        "stats": 12, "loss": 12, "grads": 12, "vsharded": 0}
+        "stats": 12, "loss": 12, "grads": 12, "vsharded": 0,
+        "stats_bf16": 0, "loss_bf16": 0, "grads_bf16": 0, "vsharded_bf16": 0}
     assert np.isfinite(result.losses).all()
     for key, value in result.client_params[0].items():
         assert torch.equal(value, result.client_params[1][key]), key
@@ -302,3 +307,135 @@ def test_vsharded_op_matches_full_kernels(cuda, training):
         np.concatenate([r["var"] for r in ranks]), ranks[0]["g_theta"],
         np.concatenate([r["g_beta"] for r in ranks], axis=1))]
     close(got, (rl, mean, var, theta.grad, beta.grad))
+
+
+# ---------------------------------------------------------------------------
+# bf16 storage
+# ---------------------------------------------------------------------------
+BF = "bfloat16"
+
+
+def check_bf16(t, training, lib, kinds=("stats", "loss", "grads")):
+    """``kinds`` of K1, K2 and K3 on bf16 beta and x against the plain
+    versions on the rounded values (K2 and K3 take the plain statistics),
+    and bitwise against the FP32 kernels on those values where both take
+    the same route."""
+    b, k = t["theta"].shape
+    beta_r, x_r = t["beta"].to(torch.bfloat16).float(), t["x"].to(torch.bfloat16).float()
+    beta_b, x_b = t["beta"].to(torch.bfloat16), t["x"].to(torch.bfloat16)
+    st = (t["theta"], beta_r, t["mask"], t["run_mean"], t["run_var"], training)
+    want = fd.stats_reference(*st)
+    lo = (t["theta"], beta_r, x_r) + tuple(want)
+    rl, rd = fd.loss_reference(*lo)
+    rest = tuple(want) + (rd, torch.linspace(0.1, 2.0, b, device=rd.device) * t["mask"],
+                          t["mask"], training)
+    runs = {
+        "stats": (lambda: fd.stats(t["theta"], beta_b, *st[2:], storage_dtype=BF),
+                  lambda: fd.stats(*st), close_stats, want),
+        "loss": (lambda: fd.loss(t["theta"], beta_b, x_b, *want, storage_dtype=BF),
+                 lambda: fd.loss(*lo), close, (rl, rd)),
+        "grads": (lambda: fd.grads(t["theta"], beta_b, x_b, *rest, storage_dtype=BF),
+                  lambda: fd.grads(*lo[:3], *rest), close,
+                  fd.grads_reference(*lo[:3], *rest)),
+    }
+    got = {}
+    for name in kinds:
+        kernel, fp32, compare, plain = runs[name]
+        got[name] = kernel()
+        compare(got[name], plain)
+        if fd._route(lib, name, b, k, BF) == fd._route(lib, name, b, k):
+            assert all(torch.equal(a, c) for a, c in zip(got[name], fp32())), name
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.fixture
+def lib(cuda):
+    from gfedntm_tpu_torch.ops import _build
+
+    return _build.load()
+
+
+@pytest.mark.parametrize("k", [8, 50])
+@pytest.mark.parametrize("b", [1, 17, 256, 320])
+@pytest.mark.parametrize("v_mod", [0, 1, 3, 7])
+def test_bf16_kernels_match_plain_versions(cuda, lib, b, k, v_mod):
+    """K1-K3 on bf16 beta and x at ragged B and K, V % 8 from 0 to 7 (the
+    wrapper pads the pitch), both tile widths; training and eval."""
+    t = inputs(b, k, 20_000 + v_mod, cuda, seed=b + k + v_mod)
+    for training in (True, False):
+        check_bf16(t, training, lib)
+
+
+@pytest.mark.parametrize("kind", ["stats", "loss", "grads"])
+@pytest.mark.parametrize("k", [8, 50])
+def test_bf16_route_boundaries(cuda, lib, kind, k):
+    """Both sides of every bf16 route boundary of each kernel (32 -> 16
+    columns, then 16 -> CUDA cores, or refused for K3), chosen by shape."""
+    seen = []
+    prev = fd._route(lib, kind, 1, k, BF)
+    for b in range(2, 1200):
+        r = fd._route(lib, kind, b, k, BF)
+        if r != prev:
+            seen.append((b, prev, r))
+            prev = r
+    assert seen and seen[0][1:] == (32, 16), seen
+    for b, before, after in seen:
+        for bb, route in ((b - 1, before), (b, after)):
+            if route < 0:
+                with pytest.raises(ValueError, match="shared memory"):
+                    check_bf16(inputs(bb, k, 300, cuda), True, lib, (kind,))
+                continue
+            t = inputs(bb, k, 3001, cuda, seed=bb)
+            for training in (True, False):
+                check_bf16(t, training, lib, (kind,))
+
+
+def test_bf16_loss_tensor_cores_hold_batches_past_fp32(cuda, lib):
+    """Half-size x stages: bf16 K2 keeps the tensor cores at K=50 for
+    batches where FP32 K2 takes the CUDA cores."""
+    b = next(b for b in range(256, 1100) if fd._route(lib, "loss", b, 50) == 0)
+    assert fd._route(lib, "loss", b, 50, BF) == 16
+    check_bf16(inputs(b, 50, 3001, cuda), True, lib, ("loss",))
+
+
+@pytest.mark.parametrize("v", [100_000, 99_999])
+def test_bf16_kernels_at_the_main_path_shape(cuda, lib, v):
+    """B=256, K=50 at V=100,000 and V=99,999 (padded pitch): plain, bitwise
+    FP32 on the rounded values, repeatable, and the same outputs from a
+    pitched view as from a plain contiguous bf16 tensor."""
+    t = inputs(256, 50, v, cuda)
+    first = check_bf16(t, True, lib)
+    again = check_bf16(t, True, lib)
+    for name in first:
+        assert all(torch.equal(a, c) for a, c in zip(first[name], again[name])), name
+    pitched = fd.store(t["beta"], BF)
+    assert pitched.stride(0) % 8 == 0 and pitched.stride(0) >= v
+    got = fd.stats(t["theta"], pitched, t["mask"], t["run_mean"], t["run_var"], True,
+                   storage_dtype=BF)
+    assert all(torch.equal(a, c) for a, c in zip(got, first["stats"]))
+
+
+def test_bf16_wrappers_refuse_float32_operands(cuda):
+    t = inputs(16, 4, 300, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fd.stats(t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], True,
+                 storage_dtype=BF)
+
+
+def test_bf16_federated_fit_runs_through_the_bf16_kernels(cuda):
+    corpus = generate_synthetic_corpus(vocab_size=501, n_topics=6, n_docs=48, n_nodes=2,
+                                       nwords=(30, 60), seed=0, materialize_docs=False)
+    datasets = [BowDataset(X=n.bow) for n in corpus.nodes]
+    template = AVITM(input_size=501, n_components=6, hidden_sizes=(17, 13),
+                     batch_size=16, num_epochs=2, compute_dtype=BF)
+    trainer = FederatedTrainer(template, n_clients=2)
+    before = dict(fd.LAUNCHES)
+    result = trainer.fit(datasets)
+    assert {k: fd.LAUNCHES[k] - before[k] for k in before} == {
+        "stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
+        "stats_bf16": 12, "loss_bf16": 12, "grads_bf16": 12, "vsharded_bf16": 0}
+    assert np.isfinite(result.losses).all()
+    for key, value in result.client_params[0].items():
+        assert value.dtype == torch.float32
+        assert torch.equal(value, result.client_params[1][key]), key

@@ -86,8 +86,11 @@ def test_resolve_device_pins_full_float32(monkeypatch):
 def test_constructor_validation():
     with pytest.raises(ValueError, match="model must be"):
         AVITM(input_size=20, model_type="NMF", device="cpu")
-    with pytest.raises(NotImplementedError):
-        AVITM(input_size=20, compute_dtype="bfloat16", device="cpu")
+    model = AVITM(input_size=20, compute_dtype="bfloat16", device="cpu")
+    assert model.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        AVITM(input_size=20, compute_dtype="float16", device="cpu")
 
 
 def test_wrappers_refuse_other_devices():
@@ -99,11 +102,18 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_bf16_storage_raises():
+    """bf16 storage is accepted (the plain versions on the rounded beta and
+    x); an unknown storage name raises, as ``_storage_jnp`` does."""
     theta = torch.softmax(torch.randn(4, 3), 1)
-    with pytest.raises(NotImplementedError):
-        fd.prodlda_recon_loss(theta, torch.randn(3, 10), torch.ones(4, 10),
-                              torch.zeros(10), torch.ones(10),
-                              storage_dtype="bfloat16")
+    beta = torch.randn(3, 10)
+    rl, _, _ = fd.prodlda_recon_loss(theta, beta, torch.ones(4, 10), torch.zeros(10),
+                                     torch.ones(10), storage_dtype="bfloat16")
+    want, _, _ = fd.prodlda_recon_loss(theta, beta.to(torch.bfloat16).float(),
+                                       torch.ones(4, 10), torch.zeros(10), torch.ones(10))
+    assert torch.equal(rl, want)
+    with pytest.raises(ValueError, match="storage_dtype"):
+        fd.prodlda_recon_loss(theta, beta, torch.ones(4, 10), torch.zeros(10),
+                              torch.ones(10), storage_dtype="float16")
 
 
 def _fake_nvcc(tmp_path, body):

@@ -132,7 +132,9 @@ def test_local_network_holds_its_columns(runs, mp):
             if name in V_SHARDED:
                 want[V_SHARDED[name]] = V // mp
             assert shape == tuple(want), name
-        assert r["launches"] == {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0}
+        assert r["launches"] == {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
+                                 "stats_bf16": 0, "loss_bf16": 0, "grads_bf16": 0,
+                                 "vsharded_bf16": 0}
 
 
 @pytest.mark.parametrize("rank", range(4))

@@ -20,11 +20,25 @@ MANGLED = {
     "_ZN12_GLOBAL__N_116simt_loss_kernelEPKfS1_S1_S1_S1_S1_S1_PfS2_iiiffi": "simt_loss_kernel",
     "_ZN12_GLOBAL__N_120merge_softmax_kernelEPKfS1_iiPfS2_": "merge_softmax_kernel",
     "something_else": "something_else",
+    # Storage as the first template argument (float, __nv_bfloat16).
+    "_ZN12_GLOBAL__N_112stats_kernelIfLi32ELb1EEEvPKfPKT_S2_S2_S2_PfS6_S6_S6_iiiiifi":
+        "stats_kernel<32, 16B>",
+    "_ZN12_GLOBAL__N_111loss_kernelI13__nv_bfloat16Li16ELb1EEEvPKfPKT_S7_S2_S2_S2_S2_PfS8_"
+    "iiiiffi": "loss_kernel<bf16, 16, 16B>",
+    "_ZN12_GLOBAL__N_112grads_kernelIfLi16ELb0EEEvPKfPKT_S5_S2_S2_S2_S2_S2_S2_S2_PfS6_iiiiifffi":
+        "grads_kernel<16, 4B>",
+    "_ZN12_GLOBAL__N_117simt_stats_kernelIfEEvPKfPKT_S2_S2_S2_PfS6_S6_S6_iiiiifi":
+        "simt_stats_kernel",
+    "_ZN12_GLOBAL__N_116simt_loss_kernelI13__nv_bfloat16EEvPKfPKT_S7_S2_S2_S2_S2_PfS8_iiiiffi":
+        "simt_loss_kernel<bf16>",
 }
 
 FULL = {f"{family}<{vt}, {ring}>": 96 for family in ("stats_kernel", "loss_kernel",
                                                        "grads_kernel")
         for vt in (32, 16) for ring in ("16B", "4B")}
+FULL.update({f"{family}<bf16, {vt}, 16B>": 12 for family in ("stats_kernel", "loss_kernel",
+                                                               "grads_kernel")
+             for vt in (32, 16)})
 
 
 @pytest.fixture(scope="module")
@@ -45,11 +59,19 @@ def test_tensor_core_counts_pass_when_every_instantiation_has_mma(smoke):
     smoke.check_tensor_core_counts(FULL)
 
 
-@pytest.mark.parametrize("broken", ["zero", "no_stats", "no_loss", "no_grads"])
+@pytest.mark.parametrize("broken", ["zero", "no_stats", "no_loss", "no_grads", "zero_bf16",
+                                    "no_bf16_grads", "no_fp32_stats"])
 def test_tensor_core_counts_fail_on_a_zero_or_a_missing_family(smoke, broken):
     counts = dict(FULL)
     if broken == "zero":
         counts["loss_kernel<16, 4B>"] = 0
+    elif broken == "zero_bf16":
+        counts["stats_kernel<bf16, 32, 16B>"] = 0
+    elif broken == "no_bf16_grads":
+        counts = {n: c for n, c in counts.items() if not n.startswith("grads_kernel<bf16")}
+    elif broken == "no_fp32_stats":
+        counts = {n: c for n, c in counts.items()
+                  if not n.startswith("stats_kernel<") or "bf16" in n}
     else:
         family = broken.removeprefix("no_") + "_kernel"
         counts = {n: c for n, c in counts.items() if not n.startswith(family)}

@@ -231,9 +231,16 @@ def test_single_rank_collectives():
 
 
 def test_bf16_storage_raises():
+    """bf16 storage is accepted on one rank (the full-V bf16 loss); an
+    unknown storage name raises, as ``_storage_jnp`` does."""
     case = {k: torch.from_numpy(v) for k, v in make_case(0, "partial", True).items()
             if k != "training"}
-    with pytest.raises(NotImplementedError):
-        fd.prodlda_recon_loss_vsharded(
-            case["theta"], case["beta"], case["x"], case["run_mean"], case["run_var"],
-            case["mask"], groups=DpMpGroups(1, 1, 0), storage_dtype="bfloat16")
+    args = (case["theta"], case["beta"], case["x"], case["run_mean"], case["run_var"],
+            case["mask"])
+    got = fd.prodlda_recon_loss_vsharded(*args, groups=DpMpGroups(1, 1, 0),
+                                         storage_dtype="bfloat16")
+    want = fd.prodlda_recon_loss(*args, storage_dtype="bfloat16")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="storage_dtype"):
+        fd.prodlda_recon_loss_vsharded(*args, groups=DpMpGroups(1, 1, 0),
+                                       storage_dtype="float16")
