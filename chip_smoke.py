@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
     python3 chip_smoke.py --kernels-only --against DIR  # and K1-K3 bitwise vs DIR's build
 
-Four phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Five phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -59,7 +59,29 @@ device or no port next to this script):
    bf16 launches counted, against the unsharded bf16 fit (first-step
    gradients within 1e-2 of the largest gradient, each leaf's error over its
    own max|grad| printed; step losses within 1e-2 relative); K5 on bf16
-   storage is among (a)'s cases.
+   storage is among (a)'s cases;
+5. persistence and validation, at V=100,000, K=50, H=(100, 100), B=256
+   (checkpoints under ``build/chip_smoke``, removed afterwards): (a)
+   ``AVITM.fit`` of 1,024 documents with 256 validation documents and a
+   ``save_dir``, 3 epochs: finite validation losses, ``epoch_*.npz``/``.json``
+   on every improvement, and a fresh ``AVITM.load`` of each saved epoch
+   bitwise equal to the model as saved (state, topic-word matrix, eval loss
+   with injected noise); the validation epoch's ms beside the training
+   epoch's; (b) ``FederatedTrainer.fit`` of 2 clients x 1,024 documents, 8
+   steps, ``checkpoint_every=4``, interrupted by its segment callback at step
+   8 and resumed from step 4 in a fresh trainer, bitwise equal to the
+   uninterrupted run, in float32 and bf16, with the checkpoint's size and
+   write/restore ms; the uninterrupted float32 run bitwise equal to phase
+   3's plain one; (c) that run's metrics records, all valid, and
+   ``docs_per_s``; (d) ``fit_sharded`` with 256 validation documents at dp=1
+   x mp=2 as in phase 4, 2 epochs: per rank, eval-mode K1 and K2 launches
+   through K5 and K3's count left to the training steps; every validation
+   loss within 1e-4 of the unsharded unfused eval teacher-forced from the
+   same state, generator state and schedule; the same decisions on both
+   ranks; rank 0's checkpoints loading into an unsharded ``AVITM`` equal to
+   the gathered state. Then eval-mode K1 and K2 at one rank's shard
+   (B=256, K=50, V=50,000) against their plain versions, timed beside their
+   bounds (rows ``stats_eval`` and ``loss_eval``, launches from (d)).
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -629,7 +651,8 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
-def main_path_phase(rows: dict) -> None:
+def main_path_phase(rows: dict) -> tuple[list, object]:
+    """Phase 3; returns the client datasets and the float32 fit's result."""
     import numpy as np
     import torch
 
@@ -725,6 +748,7 @@ def main_path_phase(rows: dict) -> None:
               f"warm 8-step fit {secs8 * 1e3:.1f} ms, 24-step fit {secs24 * 1e3:.1f} ms; "
               f"first 8-step fit {(secs if dtype == 'float32' else secs16) * 1e3:.1f} ms",
               flush=True)
+    return datasets, result
 
 
 # ---------------------------------------------------------------------------
@@ -865,10 +889,10 @@ def forced_phase(kw: dict, X, mp: int, split_losses: list) -> None:
           + "; ".join(parts), flush=True)
 
 
-def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
+def sharded_fit_phase(card: str, rows: dict, notes: dict):
     """(a) through (d): the op checks, then ``fit_sharded`` at full width
     against an unsharded ``AVITM.fit``, its timing, and the ``vsharded``
-    row of the kernels line."""
+    row of the kernels line. Returns the fit's corpus and its settings."""
     import numpy as np
     import torch
 
@@ -1060,6 +1084,357 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict) -> None:
             f"{bound['simt_bound_ms']:.4f} ms; max |err| vs the full-V kernels, tol {ATOL:g} + "
             f"{RTOL:g}*max|plain|"
         )
+    return X, kw
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: validation, persistence and federated checkpoint/resume
+# ---------------------------------------------------------------------------
+#: Where phase 5 writes its checkpoints (inside the checkout; ``build/`` is
+#: ignored by git). Emptied before and after the phase.
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def eval_kernel_work(b, k, v, storage="float32") -> dict:
+    """K1 and K2 in eval mode: (bytes, FLOPs) as :func:`kernel_work` counts
+    them. K1's eval branch has no column-statistics pass: it reads the
+    running mean and variance and writes them out as its statistics, and
+    computes z = theta beta for the softmax only. K2 is the training kernel."""
+    f4, fs = 4.0, 2.0 if storage == "bfloat16" else 4.0
+    return {
+        "stats": (f4 * (b * k + b + 4 * v + 2 * b) + fs * k * v, 2.0 * b * k * v),
+        "loss": kernel_work(b, k, v, storage)["loss"],
+    }
+
+
+def saved_epochs(val_losses: list, patience: int, delta: float) -> list[int]:
+    """The epochs at which ``EarlyStopping`` saves, for these losses."""
+    from gfedntm_tpu_torch.train.early_stopping import EarlyStopping
+
+    saved, epoch = [], [0]
+    stopper = EarlyStopping(patience, delta, checkpoint_fn=lambda: saved.append(epoch[0]))
+    for epoch[0], value in enumerate(val_losses):
+        stopper(value)
+        if stopper.early_stop:
+            break
+    return saved
+
+
+def eval_kernel_rows(card: str, rows: dict, notes: dict) -> None:
+    """K1 and K2 in eval mode at one rank's shard of the sharded validation
+    (B=256, K=50, V=50,000) against their plain versions, with masked rows,
+    no masked row and all rows masked, then timed: plain, kernel, kernel,
+    plain. Adds the ``stats_eval`` and ``loss_eval`` rows (launches: the
+    sharded validation's, set by the caller)."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    b, k, v = 256, 50, 50_000
+    worst = {"stats": 0.0, "loss": 0.0}
+    for i, mask_kind in enumerate(("partial", "none", "all")):
+        t = make_inputs(b, k, v, seed=300 + i, mask_kind=mask_kind)
+        case = f"eval B={b} K={k} V={v} mask={mask_kind}"
+        st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], False)
+        ref = fd.stats_reference(*st_args)
+        worst["stats"] = max(worst["stats"], compare("mean,var,m,s", fd.stats(*st_args), ref,
+                                                     case))
+        lo_args = (t["theta"], t["beta"], t["x"], *ref)
+        worst["loss"] = max(worst["loss"], compare("loss,rd", fd.loss(*lo_args),
+                                                   fd.loss_reference(*lo_args), case))
+        print(f"eval kernels ok: {case}", flush=True)
+    t = make_inputs(b, k, v, seed=300, mask_kind="partial")
+    st_args = (t["theta"], t["beta"], t["mask"], t["run_mean"], t["run_var"], False)
+    lo_args = (t["theta"], t["beta"], t["x"], *fd.stats_reference(*st_args))
+    work = eval_kernel_work(b, k, v)
+    for name, kernel_fn, plain_fn in (
+            ("stats", lambda: fd.stats(*st_args), lambda: fd.stats_reference(*st_args)),
+            ("loss", lambda: fd.loss(*lo_args), lambda: fd.loss_reference(*lo_args))):
+        p1, k1, k2, p2 = (time_ms(fn) for fn in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+        nbytes, nflops = work[name]
+        bound = kernel_bound(nbytes, nflops, card)
+        rows[name + "_eval"] = {
+            "name": name + "_eval", "route": "cuda",
+            "source": "gfedntm_tpu_torch/ops/csrc/fused_decoder.cu",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst[name],
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+        }
+        notes[name + "_eval"] = (
+            f"eval mode (the sharded validation's route, K5 training=False) at one rank's "
+            f"shard B={b} K={k} V={v}; tol {ATOL:g} + {RTOL:g}*max|plain| per output; ms "
+            f"{k1:.4f}/{k2:.4f} plain_ms {p1:.4f}/{p2:.4f}; bound {bound['bound_by']} "
+            f"({bound['peaks']} peaks: {nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, "
+            f"{nflops / 1e9:.2f} GFLOP as 3xTF32 -> {bound['ops_ms']:.4f} ms)")
+
+
+def validation_fit_phase(datasets: list) -> None:
+    """(a) ``AVITM.fit`` with validation and ``save_dir``; a fresh model's
+    ``load`` of every saved epoch against the model as it was saved."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, BowDataset
+    from gfedntm_tpu_torch.data.datasets import make_epoch_schedule
+    from gfedntm_tpu_torch.train.steps import eval_epoch, grad_step
+
+    V, K, B = 100_000, 50, 256
+    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+              num_epochs=3)
+    train = datasets[0]
+    val = BowDataset(X=datasets[1].X[:256], idx2token=datasets[1].idx2token)
+    save_dir = SCRATCH / "avitm"
+    model = AVITM(**kw)
+    snapshots = {}
+    save = model.save
+
+    def save_and_snapshot(models_dir):
+        save(models_dir)
+        snapshots[model.nn_epoch] = {k: v.detach().clone()
+                                     for k, v in model.model.state_dict().items()}
+
+    model.save = save_and_snapshot
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(train, val, save_dir=str(save_dir), n_samples=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = model.validation_losses
+    want = saved_epochs(losses, 5, 0.0)
+    files = sorted(p.name for p in save_dir.iterdir())
+    print(f"validation fit: {len(train)} training and {len(val)} validation documents, "
+          f"{len(model.epoch_losses)} epochs in {secs:.3f} s; train losses {model.epoch_losses}; "
+          f"validation losses {losses}; saved epochs {want}: {files}", flush=True)
+    check(len(losses) == len(model.epoch_losses) == 3 and bool(np.isfinite(losses).all()),
+          f"validation losses {losses}")
+    check(files == sorted(f"epoch_{e}.{x}" for e in want for x in ("json", "npz")),
+          f"saved files {files}, want epochs {want}")
+    check(sorted(snapshots) == want, f"saves at epochs {sorted(snapshots)}, want {want}")
+
+    rng = np.random.default_rng(0)
+    x_val = model._device_data(val.X)
+    vsched = make_epoch_schedule(len(val), B, rng)
+    vidx = torch.as_tensor(vsched.indices, device=model.device, dtype=torch.long)
+    vmask = torch.as_tensor(vsched.mask, device=model.device, dtype=torch.float32)
+    noise = torch.as_tensor(rng.normal(size=(len(vidx), B, K)).astype(np.float32),
+                            device=model.device)
+    for epoch, state in snapshots.items():
+        fresh, saved = AVITM(**kw), AVITM(**kw)
+        fresh.load(str(save_dir), epoch)
+        saved.model.load_state_dict(state)
+        for key, value in state.items():
+            check(torch.equal(fresh.model.state_dict()[key], value),
+                  f"load(epoch {epoch}): {key} differs from the saved state")
+        check(np.array_equal(fresh.get_topic_word_matrix(), saved.get_topic_word_matrix()),
+              f"load(epoch {epoch}): topic-word matrix differs")
+        losses_fresh, losses_saved = (eval_epoch(m.model, x_val, vidx, vmask, noise=noise)
+                                      for m in (fresh, saved))
+        check(torch.equal(losses_fresh, losses_saved),
+              f"load(epoch {epoch}): eval loss {losses_fresh} != {losses_saved}")
+    print(f"validation fit: load of epochs {sorted(snapshots)} bitwise equal to the saved "
+          f"state, topic-word matrix and eval loss with injected noise "
+          f"({float(losses_saved.sum()):.6f})", flush=True)
+
+    x_train = model._device_data(train.X)
+    sched = make_epoch_schedule(len(train), B, rng)
+    idx = torch.as_tensor(sched.indices, device=model.device, dtype=torch.long)
+    mask = torch.as_tensor(sched.mask, device=model.device, dtype=torch.float32)
+
+    def train_epoch():
+        for i in range(len(idx)):
+            grad_step(model.model, model.optimizer, x_train[idx[i]], mask[i], True,
+                      generator=model.generator)
+
+    train_ms = time_ms(train_epoch, reps=5, warmup=1)
+    val_ms = time_ms(lambda: eval_epoch(model.model, x_val, vidx, vmask,
+                                        generator=model.generator), reps=5, warmup=1)
+    print(f"validation fit: validation epoch ({len(vidx)} step of B={B}, unfused eval decode) "
+          f"{val_ms:.3f} ms; training epoch ({len(idx)} steps) {train_ms:.3f} ms "
+          f"({train_ms / len(idx):.3f} ms per step)", flush=True)
+
+
+def resume_phase(datasets: list, result) -> None:
+    """(b) federated checkpoint/resume, bitwise, in float32 and bf16, with
+    the checkpoint's size and write/restore times; (c) the metrics run."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, FederatedTrainer
+    from gfedntm_tpu_torch.train import checkpoint as ckpt
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    V, K, B, C = 100_000, 50, 256, 2
+
+    def trainer(dtype):
+        return FederatedTrainer(AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100),
+                                      batch_size=B, num_epochs=2, compute_dtype=dtype),
+                                n_clients=C)
+
+    def same_run(a, b) -> list[str]:
+        bad = [] if np.array_equal(a.losses, b.losses) else ["losses"]
+        for c in range(C):
+            for tree in ("client_params", "client_batch_stats"):
+                bad += [f"client {c} {k}" for k, v in getattr(b, tree)[c].items()
+                        if not torch.equal(getattr(a, tree)[c][k], v)]
+        return bad
+
+    class Interrupt(Exception):
+        pass
+
+    def interrupt_at_8(step, params, batch_stats):
+        if step == 8:
+            raise Interrupt
+
+    times = {"save": [], "restore": []}
+    originals = {name: getattr(ckpt.CheckpointManager, name) for name in times}
+
+    def timed(name):
+        def run(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[name](self, *args, **kwargs)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for dtype in ("float32", "bfloat16"):
+        root = SCRATCH / f"federated_{dtype}"
+        logger = MetricsLogger(validate=True) if dtype == "float32" else None
+        full = trainer(dtype).fit(datasets, checkpoint_dir=str(root / "full"),
+                                  checkpoint_every=4, metrics=logger)
+        if dtype == "float32":
+            diff = same_run(full, result)
+            check(not diff, f"the checkpointed run with metrics differs from the main path's "
+                  f"plain run in {diff[:5]}")
+        for name in times:
+            setattr(ckpt.CheckpointManager, name, timed(name))
+            times[name].clear()
+        try:
+            try:
+                trainer(dtype).fit(datasets, checkpoint_dir=str(root / "run"),
+                                   checkpoint_every=4, segment_callback=interrupt_at_8)
+                check(False, "the segment callback did not interrupt the run")
+            except Interrupt:
+                pass
+            manager = ckpt.CheckpointManager(str(root / "run"))
+            check(manager.all_steps() == [4], f"checkpoints {manager.all_steps()}, want [4]")
+            size = (root / "run" / "step_4.pt").stat().st_size
+            resumed = trainer(dtype).fit(datasets, checkpoint_dir=str(root / "run"),
+                                         checkpoint_every=4, resume=True)
+        finally:
+            for name, original in originals.items():
+                setattr(ckpt.CheckpointManager, name, original)
+        diff = same_run(resumed, full)
+        print(f"federated resume {dtype}: interrupted by the segment callback at step 8, "
+              f"resumed from step 4 in a fresh trainer; losses and every client's state "
+              f"bitwise equal to the uninterrupted run: {not diff} {diff[:5]}; checkpoint "
+              f"{size / 1e6:.1f} MB ({C} clients' networks and Adam state), write ms "
+              f"{[round(t, 1) for t in times['save']]}, restore ms "
+              f"{[round(t, 1) for t in times['restore']]}", flush=True)
+        check(not diff, f"{dtype}: the resumed run differs from the uninterrupted one in "
+              f"{diff[:5]}")
+        if logger is not None:
+            print(metrics_report(logger), flush=True)
+
+
+def metrics_report(logger) -> str:
+    """(c) The line on a two-segment federated run's metrics: every record
+    valid, two ``federated_segment`` records, one step-time observation (the
+    first segment holds the warm-up) and a positive ``docs_per_s``; fails
+    otherwise."""
+    from gfedntm_tpu_torch.utils.observability import validate_record
+
+    for record in logger.records:
+        validate_record(record)
+    events = [r["event"] for r in logger.records]
+    snap = logger.registry.snapshot()
+    hist = snap.get("trainer_step_s", {"count": 0, "sum": 0.0})
+    docs = snap.get("docs_per_s", {}).get("value")
+    check(events.count("federated_segment") == 2 and hist["count"] == 1 and bool(docs),
+          f"metrics records {events}, registry {sorted(snap)}")
+    return (f"metrics: {len(events)} records, all valid ({', '.join(sorted(set(events)))}); "
+            f"docs_per_s {docs:.1f} over the second segment (the first holds the warm-up); "
+            f"trainer_step_s {hist['count']} observation, {hist['sum'] * 1e3:.3f} ms per step; "
+            f"federated_mesh_devices {snap['federated_mesh_devices']['value']:g}")
+
+
+def sharded_validation_phase(X, kw: dict) -> dict:
+    """(d) ``fit_sharded`` with validation at dp=1 x mp=2 in spawned ranks:
+    per-rank launch counts (eval-mode K1 and K2 through K5, K3 untouched by
+    the validation), each validation against the unsharded eval
+    teacher-forced from the same state, generator state and schedule, the
+    same early-stopping decisions on both ranks, and rank 0's checkpoints
+    against the gathered state. Returns rank 0's eval-mode launches."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, generate_synthetic_corpus
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    V, K, B, mp = kw["input_size"], kw["n_components"], kw["batch_size"], 2
+    Xv = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=256, n_nodes=1,
+                                   materialize_docs=False, seed=1).nodes[0].bow
+    save_dir = SCRATCH / "sharded"
+    backend, devices = gpu_layout(mp)
+    t0 = time.perf_counter()
+    res = run_ranks(programs.fit, mp, backend, devices, 900,
+                    args=(1, mp, kw, X, None, 1, 0, Xv, str(save_dir), 5, 0.0))
+    n_epochs = res[0]["last_epoch"] + 1
+    n_train, n_val = len(X) // B * n_epochs, len(Xv) // B * n_epochs
+    print(f"sharded validation: {backend}, dp=1 x mp={mp}, {len(X)} + {len(Xv)} docs, ranks "
+          f"done in {time.perf_counter() - t0:.1f} s; launches per rank "
+          f"{[r['launches'] for r in res]}; eval-mode {[r['eval_launches'] for r in res]}; "
+          f"validation losses {res[0]['validation_losses']}", flush=True)
+    for rank, r in enumerate(res):
+        got, ev = r["launches"], r["eval_launches"]
+        check(got["grads"] == n_train, f"rank {rank}: K3 launched {got['grads']} times, want "
+              f"{n_train} (the training steps alone)")
+        for name in ("stats", "loss", "vsharded"):
+            check(got[name] == n_train + n_val, f"rank {rank}: {name} launched {got[name]} "
+                  f"times, want {n_train} training + {n_val} validation")
+        check(ev["stats"] == ev["vsharded"] == n_val,
+              f"rank {rank}: eval-mode launches {ev}, want {n_val} of K1 and of K5")
+        check(r["validation_losses"] == res[0]["validation_losses"]
+              and r["last_epoch"] == res[0]["last_epoch"],
+              f"rank {rank} decided otherwise than rank 0")
+        check(bool(np.isfinite(r["validation_losses"]).all()), "non-finite validation loss")
+    errs = []
+    for record in res[0]["validations"]:
+        replay = programs.replay_validation(AVITM(**kw), Xv, record)
+        errs.append(abs(replay - record["val_loss"]) / abs(replay))
+    want = saved_epochs(res[0]["validation_losses"], 5, 0.0)
+    files = sorted(p.name for p in save_dir.iterdir())
+    check(files == sorted(f"epoch_{e}.{x}" for e in want for x in ("json", "npz")),
+          f"rank 0 saved {files}, want epochs {want}")
+    for epoch in want:
+        model = AVITM(**kw)
+        model.load(str(save_dir), epoch)
+        gathered = res[0]["validations"][epoch]["state"]
+        for key, value in model.model.state_dict().items():
+            check(np.array_equal(value.cpu().numpy(), gathered[key]),
+                  f"rank 0's epoch_{epoch}.npz: {key} differs from the gathered state")
+    print(f"sharded validation: K5 eval vs the unsharded unfused eval teacher-forced from the "
+          f"same state and noise, relative error per epoch {[f'{e:.2e}' for e in errs]} "
+          f"(limit 1e-4); both ranks stopped after epoch {res[0]['last_epoch']}; rank 0 saved "
+          f"epochs {want}, each loading into an unsharded AVITM equal to the gathered state",
+          flush=True)
+    check(max(errs) <= 1e-4, f"sharded validation loss differs by {max(errs):.3e}")
+    return res[0]["eval_launches"]
+
+
+def persistence_phase(card: str, rows: dict, notes: dict, datasets: list, result, X,
+                      kw: dict) -> None:
+    """Phase 5, (a) to (d), and the eval-mode rows of the kernels line."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    try:
+        validation_fit_phase(datasets)
+        resume_phase(datasets, result)
+        eval_launches = sharded_validation_phase(X, kw)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    eval_kernel_rows(card, rows, notes)
+    rows["stats_eval"]["launches"] = eval_launches["stats"]
+    rows["loss_eval"]["launches"] = eval_launches["vsharded"]  # one K2 per eval K5 forward
+    notes["vsharded"] += (f"; phase 5's sharded validation: {eval_launches['vsharded']} "
+                          f"eval-mode forwards per rank")
 
 
 def main(argv: list[str]) -> int:
@@ -1098,8 +1473,9 @@ def main(argv: list[str]) -> int:
             print(f"build: {line}", flush=True)
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
-            main_path_phase(rows)
-            sharded_fit_phase(card, rows, notes)
+            datasets, result = main_path_phase(rows)
+            X, kw = sharded_fit_phase(card, rows, notes)
+            persistence_phase(card, rows, notes, datasets, result, X, kw)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -13,13 +13,25 @@ dtype rides along: a bf16-compute template trains bf16 networks whose shared
 state, float32 like the template's, is averaged as above.
 
 The JAX package runs this as one SPMD program over a client mesh; here it is
-a loop over C (model, optimizer) pairs on one GPU. Checkpoint/resume,
-metrics and the segment callback are later slices.
+a loop over C (model, optimizer) pairs on one GPU.
+
+``fit`` runs in segments (``trainer.py:464-584``): ``checkpoint_every``
+steps each, or the whole run. After each segment it logs
+``federated_segment``, calls ``segment_callback`` and checkpoints into
+``checkpoint_dir`` (:class:`~gfedntm_tpu_torch.train.checkpoint.CheckpointManager`);
+``resume=True`` restores the latest checkpoint and continues from its
+absolute step. Every client's noise and dropout come from one stateful
+generator, drawn in a fixed order (step by step, client by client), so a
+checkpoint also holds that generator's state: with it, a resumed run
+repeats the uninterrupted one bit for bit, as the JAX package's
+absolute-step RNG folding makes its runs do. Segments do not change the
+draw order, so a run without checkpoints is the same with or without them.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,7 +41,9 @@ from gfedntm_tpu_torch.data.datasets import BowDataset, make_run_schedule
 from gfedntm_tpu_torch.device import resolve_device
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.params import SHARE_ALL, build_share_mask
+from gfedntm_tpu_torch.train.checkpoint import CheckpointManager
 from gfedntm_tpu_torch.train.steps import grad_step
+from gfedntm_tpu_torch.utils.observability import phase_timer
 
 
 @dataclass
@@ -79,8 +93,38 @@ class FederatedTrainer:
         self.share_mask = build_share_mask(
             template.model.state_dict().keys(), self.grads_to_share
         )
+        # Segment lengths already run: the first segment of a length pays
+        # the kernel build and allocator warm-up, as the JAX package's pays
+        # its compile, and stays out of the step-time histogram.
+        self._seen_lengths: set[int] = set()
 
-    def fit(self, datasets: list[BowDataset]) -> FederatedResult:
+    def fit(
+        self,
+        datasets: list[BowDataset],
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int | None = None,
+        resume: bool = False,
+        metrics=None,
+        segment_callback=None,
+    ) -> FederatedResult:
+        """Run the federated fit (see the class and module docstrings).
+
+        ``checkpoint_dir`` saves the run after every segment of
+        ``checkpoint_every`` steps and at its end; ``resume=True`` continues
+        from the latest checkpoint there. ``metrics`` (a
+        :class:`~gfedntm_tpu_torch.utils.observability.MetricsLogger`) gets
+        the JAX package's records: ``phase`` for the schedules, the corpus
+        staging and every segment (timed between device syncs), ``resume``,
+        ``federated_segment``, the ``trainer_step_s`` histogram, the
+        ``federated_mesh_devices`` and ``docs_per_s`` gauges and a registry
+        snapshot.
+
+        ``segment_callback(step, params, batch_stats)`` is called after each
+        segment with the absolute step and, per client, copies of the
+        network's parameters and buffers, ``[{name: tensor}, ...]`` as in
+        :attr:`FederatedResult.client_params`: copies, since the clients go
+        on training in place. (The JAX package passes its stacked
+        ``[C, ...]`` variable trees instead.)"""
         t = self.template
         C, B = self.n_clients, t.batch_size
         if len(datasets) != C:
@@ -92,13 +136,18 @@ class FederatedTrainer:
         total_steps = int(min(steps_per_epoch.max() * t.num_epochs, self.max_iters))
 
         dev = self.device
-        schedules = [
-            make_run_schedule(len(d), B, total_steps, seed=self.seed * 1000 + c)
-            for c, d in enumerate(datasets)
-        ]
-        indices = [torch.as_tensor(s.indices, device=dev, dtype=torch.long) for s in schedules]
-        masks = [torch.as_tensor(s.mask, device=dev, dtype=torch.float32) for s in schedules]
-        data = [t._device_data(d.X) for d in datasets]
+        with phase_timer(metrics, "build_schedules"):
+            schedules = [
+                make_run_schedule(len(d), B, total_steps, seed=self.seed * 1000 + c)
+                for c, d in enumerate(datasets)
+            ]
+        with phase_timer(metrics, "stage_data"):
+            indices = [torch.as_tensor(s.indices, device=dev, dtype=torch.long)
+                       for s in schedules]
+            masks = [torch.as_tensor(s.mask, device=dev, dtype=torch.float32)
+                     for s in schedules]
+            data = [t._device_data(d.X) for d in datasets]
+            self._sync(metrics)
 
         # Identical initial state for every client: the template's network
         # and optimizer state (server.py:303-311 semantics).
@@ -118,15 +167,81 @@ class FederatedTrainer:
 
         generator = torch.Generator(device=dev).manual_seed(self.seed + 17)
         losses = torch.zeros((total_steps, C), device=dev)
-        for step in range(total_steps):
-            for c in range(C):
-                losses[step, c] = grad_step(
-                    models[c], optimizers[c], data[c][indices[c][step]],
-                    masks[c][step], t.fused_decoder, generator=generator,
+        manager = None
+        start_step = 0
+        if checkpoint_dir is not None:
+            manager = CheckpointManager(checkpoint_dir)
+            if resume and manager.latest_step() is not None:
+                start_step = self._restore(manager, models, optimizers, generator, losses)
+                if metrics is not None:
+                    metrics.log("resume", step=start_step)
+
+        def checkpoint(step, force=False):
+            manager.save(step, {
+                "step": step,
+                "models": [m.state_dict() for m in models],
+                "optimizers": [o.state_dict() for o in optimizers],
+                "losses": losses[:step],
+                "generator": generator.get_state(),
+            }, force=force)
+
+        seg_len = checkpoint_every or total_steps
+        steady_s, steady_steps = 0.0, 0
+        step = start_step
+        while step < total_steps:
+            n = min(seg_len, total_steps - step)
+            self._sync(metrics)
+            t0 = time.perf_counter()
+            try:
+                for s in range(step, step + n):
+                    for c in range(C):
+                        losses[s, c] = grad_step(
+                            models[c], optimizers[c], data[c][indices[c][s]],
+                            masks[c][s], t.fused_decoder, generator=generator,
+                        )
+                    if exchange[s]:
+                        self._fedavg(models, weights, total_weight)
+                self._sync(metrics)
+            finally:
+                # Logged even when the segment raises, so a crashed run
+                # keeps its in-flight segment timing.
+                seg_s = time.perf_counter() - t0
+                if metrics is not None:
+                    metrics.log("phase", phase="program_segment", seconds=seg_s, steps=n)
+            if n in self._seen_lengths:
+                steady_s += seg_s
+                steady_steps += n
+                if metrics is not None:
+                    metrics.registry.histogram("trainer_step_s").observe(seg_s / n)
+            self._seen_lengths.add(n)
+            step += n
+            if metrics is not None:
+                metrics.log("federated_segment", step=step,
+                            mean_loss=float(losses[step - n:step].mean()))
+            if segment_callback is not None:
+                segment_callback(
+                    step,
+                    [{k: p.detach().clone() for k, p in m.named_parameters()} for m in models],
+                    [{k: b.clone() for k, b in m.named_buffers()} for m in models],
                 )
-            if exchange[step]:
-                self._fedavg(models, weights, total_weight)
+            if manager is not None and step < total_steps:
+                checkpoint(step)
+        if manager is not None:
+            # A run that resumed complete already has its final checkpoint.
+            if start_step < total_steps:
+                checkpoint(total_steps, force=True)
+            manager.close()
         losses_np = losses.cpu().numpy()
+
+        if metrics is not None:
+            reg = metrics.registry
+            reg.gauge("federated_mesh_devices").set(1.0)
+            if steady_steps > 0 and steady_s > 0:
+                docs_per_step = float(sum(s.mask.sum() for s in schedules)) / total_steps
+                docs_per_s = docs_per_step * steady_steps / steady_s
+                reg.gauge("docs_per_s").set(docs_per_s)
+                reg.gauge("docs_per_s_per_device").set(docs_per_s)
+            metrics.snapshot_registry(step=total_steps)
 
         epoch_losses: list[list[float]] = []
         for c in range(C):
@@ -149,6 +264,28 @@ class FederatedTrainer:
             n_samples=n_samples,
             epoch_losses=epoch_losses,
         )
+
+    def _sync(self, metrics) -> None:
+        """Wait for the device, when a metrics logger times the run."""
+        if metrics is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _restore(manager, models, optimizers, generator, losses) -> int:
+        """Load the latest checkpoint into the clients, the generator and the
+        first rows of ``losses``; returns its absolute step."""
+        state = manager.restore()
+        if len(state["models"]) != len(models):
+            raise ValueError(f"checkpoint holds {len(state['models'])} clients, "
+                             f"the run has {len(models)}")
+        for model, opt, m_state, o_state in zip(models, optimizers, state["models"],
+                                                state["optimizers"]):
+            model.load_state_dict(m_state)
+            opt.load_state_dict(o_state)
+        generator.set_state(state["generator"])
+        step = int(state["step"])
+        losses[:step] = state["losses"].to(losses.device)
+        return step
 
     @torch.no_grad()
     def _fedavg(self, models, weights, total_weight: float) -> None:

@@ -1,29 +1,39 @@
 """AVITM trainer: ProdLDA / NeuralLDA with the reference's public API.
 
-Counterpart of ``gfedntm_tpu/models/avitm.py:41-447`` (itself the
-reference's ``avitm.py:20-640``): the constructor's validation, ``fit``'s
-train-only path with its NaN abort, and ``get_doc_topic_distribution`` /
-``get_topic_word_matrix`` / ``get_topic_word_distribution`` /
-``get_topics``, and ``compute_dtype="bfloat16"``: the network computes in
-bf16 while its parameters, BatchNorm statistics and optimizer state stay
-float32, and the fused kernels read beta and x stored in bf16 (``:81``,
-``:124-134``). Validation-based early stopping, ``save``/``load`` and the
-CTM subclass are later slices.
+Counterpart of ``gfedntm_tpu/models/avitm.py:41-493`` (itself the
+reference's ``avitm.py:20-640``): the constructor's validation; ``fit`` with
+validation-based early stopping, the plateau scheduler on the monitored
+loss, checkpoints into ``save_dir`` and the NaN abort (``:275-395``);
+``get_doc_topic_distribution`` / ``get_predicted_topics`` /
+``get_topic_word_matrix`` / ``get_topic_word_distribution`` / ``get_topics``;
+``save`` / ``load`` in the JAX package's npz + JSON format (``:450-493``);
+and ``compute_dtype="bfloat16"``: the network computes in bf16 while its
+parameters, BatchNorm statistics and optimizer state stay float32, and the
+fused kernels read beta and x stored in bf16 (``:81``, ``:124-134``). The
+CTM subclass is a later slice.
 
 Schedules come from ``np.random.default_rng(seed)`` exactly as in the JAX
-package, so both train on the same batches; the reparameterization noise and
-dropout come from a ``torch.Generator`` on the model's device, seeded with
-``seed + 1``.
+package, so both train and validate on the same batches: each epoch draws
+its training schedule, then its validation schedule, from the one numpy
+generator. The reparameterization noise and dropout come from a
+``torch.Generator`` on the model's device, seeded with ``seed + 1``.
 
 ``fused_decoder="auto"`` (and ``True``) runs prodLDA's decode + loss through
 the fused kernels: the CUDA kernels on the GPU, their plain versions on the
 CPU. A kernel that fails to build or launch raises. ``False`` is the user's
-explicit choice of the unfused decode; LDA always takes it.
+explicit choice of the unfused decode; LDA always takes it. Validation
+always takes the unfused decode, as the JAX package's eval does.
+
+``save`` writes ``epoch_{nn_epoch}.npz`` (the variables under Flax names,
+through :mod:`gfedntm_tpu_torch.interop`) and ``epoch_{nn_epoch}.json`` (the
+config), so a model saved by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 
 import numpy as np
 import torch
@@ -34,9 +44,14 @@ from gfedntm_tpu_torch.data.datasets import (
     make_epoch_schedule,
 )
 from gfedntm_tpu_torch.device import resolve_device
+from gfedntm_tpu_torch.interop import flax_from_state_dict, state_dict_from_flax
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
+from gfedntm_tpu_torch.parallel.collectives import check_equal_across
+from gfedntm_tpu_torch.train.early_stopping import EarlyStopping
 from gfedntm_tpu_torch.train.optimizers import build_optimizer
-from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, grad_step
+from gfedntm_tpu_torch.train.schedulers import ReduceLROnPlateau, set_learning_rate
+from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, eval_epoch, grad_step
+from gfedntm_tpu_torch.utils.serialization import load_variables, save_variables
 
 _ACTIVATIONS = (
     "softplus", "relu", "sigmoid", "swish", "tanh", "leakyrelu", "rrelu",
@@ -140,7 +155,10 @@ class AVITM:
 
         self.epoch_losses: list[float] = []
         self.step_losses: list[float] = []  # every step's summed batch loss
+        self.validation_losses: list[float] = []  # every validated epoch's loss
         self.train_data: BowDataset | None = None
+        self.validation_data: BowDataset | None = None
+        self.model_dir: str | None = None
         self.nn_epoch: int | None = None
         self.best_components: np.ndarray | None = None
 
@@ -175,28 +193,51 @@ class AVITM:
         return build_optimizer(model.parameters(), self.solver, self.lr, self.momentum)
 
     # ---- training ----------------------------------------------------------
-    def fit(self, train_dataset: BowDataset, n_samples: int = 20) -> None:
-        """Train for ``num_epochs`` (``avitm.py:323-443``, train-only path).
-        ``best_components`` is beta after the last epoch run; a NaN epoch
-        loss aborts the run."""
+    def fit(
+        self,
+        train_dataset: BowDataset,
+        validation_dataset: BowDataset | None = None,
+        save_dir: str | None = None,
+        patience: int = 5,
+        delta: float = 0.0,
+        n_samples: int = 20,
+    ) -> None:
+        """Train with optional validation-based early stopping
+        (``avitm.py:275-395``). With a validation set, every improvement of
+        the validation loss saves into ``save_dir``; without one, every epoch
+        does. ``best_components`` is beta after the last epoch run."""
+        self.model_dir = save_dir
         x_all = self._device_data(train_dataset.X)
-        self._run_epochs(self.model, self.optimizer, train_dataset, x_all)
+        x_val = (None if validation_dataset is None
+                 else self._device_data(validation_dataset.X))
+        save = (lambda: self.save(save_dir)) if save_dir else None
+        self._run_epochs(self.model, self.optimizer, train_dataset, x_all,
+                         validation_dataset, x_val, save, patience, delta)
         self._finish_fit(train_dataset, n_samples)
 
     def _run_epochs(self, net, optimizer, train_dataset: BowDataset, x: torch.Tensor,
-                    vshard=None) -> None:
+                    validation_dataset: BowDataset | None = None,
+                    x_val: torch.Tensor | None = None, checkpoint_fn=None,
+                    patience: int = 5, delta: float = 0.0, vshard=None) -> None:
         """The epoch loop of :meth:`fit` on ``net`` and its ``optimizer``:
         every epoch's numpy schedule, its steps (``x`` holds the corpus on
-        the device), the epoch and step losses, the NaN abort and the plateau
-        scheduler. ``vshard`` (a ``DpMpGroups``) runs it on a rank-local V
-        shard of the network and of ``x``
+        the device), the epoch and step losses; then, with a validation set
+        (``x_val`` on the device), the validation schedule and loss, the NaN
+        abort, :class:`EarlyStopping` (``checkpoint_fn`` on every
+        improvement) and the plateau scheduler on the validation loss;
+        without one, the NaN abort, the scheduler on the training loss and
+        ``checkpoint_fn`` every epoch. ``vshard`` (a ``DpMpGroups``) runs it
+        on a rank-local V shard of the network, ``x`` and ``x_val``
         (:func:`~gfedntm_tpu_torch.parallel.sharded.fit_sharded`)."""
         self.train_data = train_dataset
-        scheduler = None
-        if self.reduce_on_plateau:
-            scheduler = torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, patience=10)
+        self.validation_data = validation_dataset
+        scheduler = ReduceLROnPlateau(self.lr) if self.reduce_on_plateau else None
+        early_stopping = None
+        if validation_dataset is not None:
+            early_stopping = EarlyStopping(patience=patience, delta=delta,
+                                           checkpoint_fn=checkpoint_fn, verbose=self.verbose)
         n_train = len(train_dataset)
-        self.epoch_losses, self.step_losses = [], []
+        self.epoch_losses, self.step_losses, self.validation_losses = [], [], []
         for epoch in range(self.num_epochs):
             self.nn_epoch = epoch
             sched = make_epoch_schedule(n_train, self.batch_size, self._np_rng)
@@ -210,15 +251,51 @@ class AVITM:
             train_loss = float(losses.sum()) / n_train
             self.epoch_losses.append(train_loss)
             self.step_losses.extend(losses.cpu().tolist())
-            # NaN abort in the train-only path too (intended reference
-            # semantics: a NaN run is garbage either way).
-            if np.isnan(train_loss):
-                break
-            if scheduler is not None:
-                scheduler.step(train_loss)
-            if self.verbose:
-                self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f",
-                                 epoch + 1, self.num_epochs, train_loss)
+            if validation_dataset is not None:
+                vsched = make_epoch_schedule(len(validation_dataset), self.batch_size,
+                                             self._np_rng)
+                val_loss = self._validation_loss(net, x_val, vsched, vshard)
+                self.validation_losses.append(val_loss)
+                if self.verbose:
+                    self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f\tValid Loss: %.4f",
+                                     epoch + 1, self.num_epochs, train_loss, val_loss)
+                if np.isnan(val_loss) or np.isnan(train_loss):
+                    break
+                early_stopping(val_loss)
+                if early_stopping.early_stop:
+                    self.logger.info("Early stopping")
+                    break
+                if scheduler is not None:
+                    set_learning_rate(optimizer, scheduler.step(val_loss))
+            else:
+                # NaN abort in the train-only path too (intended reference
+                # semantics: a NaN run is garbage either way).
+                if np.isnan(train_loss):
+                    break
+                if scheduler is not None:
+                    set_learning_rate(optimizer, scheduler.step(train_loss))
+                if checkpoint_fn is not None:
+                    checkpoint_fn()
+                if self.verbose:
+                    self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f",
+                                     epoch + 1, self.num_epochs, train_loss)
+
+    def _validation_loss(self, net, x_val: torch.Tensor, vsched, vshard=None) -> float:
+        """The validation loss of one epoch: the summed losses of the
+        validation schedule ``vsched`` over ``len(validation_data)``
+        (``avitm.py:353-363``), the noise drawn from the model's generator.
+        Under ``vshard`` it is checked to be equal on every rank of the
+        model group."""
+        indices = torch.as_tensor(vsched.indices, device=self.device, dtype=torch.long)
+        masks = torch.as_tensor(vsched.mask, device=self.device, dtype=torch.float32)
+        losses = eval_epoch(net, x_val, indices, masks, generator=self.generator,
+                            vshard=vshard)
+        val_loss = float(losses.sum()) / len(self.validation_data)
+        if vshard is not None:
+            # Every rank decides early stopping and the LR on this value.
+            check_equal_across(val_loss, vshard.model_group, self.device,
+                               "the validation loss")
+        return val_loss
 
     def _finish_fit(self, train_dataset: BowDataset, n_samples: int) -> None:
         """``best_components`` and the training documents' topic mixtures
@@ -246,6 +323,11 @@ class AVITM:
         # A bf16 model's mixtures are bf16, as the JAX package's; numpy holds
         # them as float32.
         return torch.cat(thetas).float().cpu().numpy()[: len(dataset)]
+
+    def get_predicted_topics(self, dataset: BowDataset, n_samples: int = 20) -> list[int]:
+        """Most likely topic per document (``avitm.py:412``)."""
+        thetas = self.get_doc_topic_distribution(dataset, n_samples)
+        return np.argmax(thetas, axis=1).tolist()
 
     def get_topic_word_matrix(self) -> np.ndarray:
         """Unnormalized beta for prodLDA; softmax-BN beta for LDA
@@ -276,3 +358,54 @@ class AVITM:
             idxs = np.argsort(-component_dists[i])[:k]
             topics_list.append([idx2token.get(int(j), str(int(j))) for j in idxs])
         return topics_list
+
+    # ---- persistence -------------------------------------------------------
+    def _config_dict(self) -> dict:
+        return {
+            "input_size": self.input_size,
+            "n_components": self.n_components,
+            "model_type": self.model_type,
+            "hidden_sizes": list(self.hidden_sizes),
+            "activation": self.activation,
+            "dropout": self.dropout,
+            "learn_priors": self.learn_priors,
+            "batch_size": self.batch_size,
+            "lr": self.lr,
+            "momentum": self.momentum,
+            "solver": self.solver,
+            "num_epochs": self.num_epochs,
+            "topic_prior_mean": self.topic_prior_mean,
+            "topic_prior_variance": self.topic_prior_variance,
+            "num_samples": self.num_samples,
+            "nn_epoch": self.nn_epoch,
+        }
+
+    def save(self, models_dir: str | None = None) -> None:
+        """Write ``epoch_{nn_epoch}.npz`` and ``.json`` into ``models_dir``
+        (``avitm.py:459-471``). A bf16-compute model writes its float32
+        state, which is all it holds."""
+        self._write(models_dir, self.model.state_dict())
+
+    def _write(self, models_dir: str | None, state_dict) -> None:
+        """:meth:`save` of the network state ``state_dict`` (a full one: the
+        V-sharded fit writes the state gathered from its ranks)."""
+        if models_dir is None:
+            return
+        os.makedirs(models_dir, exist_ok=True)
+        tag = f"epoch_{self.nn_epoch}"
+        params, batch_stats = flax_from_state_dict(state_dict)
+        save_variables(os.path.join(models_dir, f"{tag}.npz"),
+                       {"params": params, "batch_stats": batch_stats})
+        with open(os.path.join(models_dir, f"{tag}.json"), "w") as f:
+            json.dump(self._config_dict(), f, indent=2, default=str)
+
+    def load(self, model_dir: str, epoch: int) -> None:
+        """Restore a checkpoint written by ``save`` of either package
+        (``avitm.py:473-493``) onto the model's device, with a fresh
+        optimizer."""
+        variables = load_variables(os.path.join(model_dir, f"epoch_{epoch}.npz"))
+        self.model.load_state_dict(state_dict_from_flax(
+            variables["params"], variables.get("batch_stats", {})))
+        self.optimizer = self.build_optimizer(self.model)
+        self.nn_epoch = epoch
+        self.best_components = self.model.beta.detach().cpu().numpy()

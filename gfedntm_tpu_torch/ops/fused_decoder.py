@@ -68,6 +68,11 @@ from gfedntm_tpu_torch.parallel.collectives import merge_softmax, sum_in_rank_or
 #: bf16-storage instantiations.
 LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
             "stats_bf16": 0, "loss_bf16": 0, "grads_bf16": 0, "vsharded_bf16": 0}
+#: The eval-mode share of those launches: ``stats`` counts K1 launches with
+#: ``training=False`` (its running-statistics branch), ``vsharded`` K5
+#: forwards with ``training=False``, each of which launches K1 in eval mode
+#: and K2 once (the V-sharded validation, ``train.steps.eval_loss``).
+EVAL_LAUNCHES = {"stats": 0, "vsharded": 0, "stats_bf16": 0, "vsharded_bf16": 0}
 
 _NEG_INF = -1e30
 _PLAN_KIND = {"stats": 0, "loss": 1, "grads": 2}
@@ -87,6 +92,13 @@ def storage_torch_dtype(storage_dtype: str) -> torch.dtype:
         raise ValueError(
             f"storage_dtype must be 'float32' or 'bfloat16', got {storage_dtype!r}"
         ) from None
+
+
+def reset_launches() -> None:
+    """Set every count of :data:`LAUNCHES` and :data:`EVAL_LAUNCHES` to 0."""
+    for counts in (LAUNCHES, EVAL_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _counter(name, storage_dtype):
@@ -288,6 +300,8 @@ def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5,
     out = _launch_stats(_build.load(), theta, beta, mask, run_mean, run_var, training, eps,
                         storage_dtype)
     LAUNCHES[_counter("stats", storage_dtype)] += 1
+    if not training:
+        EVAL_LAUNCHES[_counter("stats", storage_dtype)] += 1
     return out
 
 
@@ -500,6 +514,8 @@ class VShardedReconLoss(torch.autograd.Function):
             parts = loss(theta, beta_s, x_s, mean, var, m, l, eps, floor, storage_dtype)
             if _on_cuda(theta):
                 LAUNCHES[_counter("vsharded", storage_dtype)] += 1
+                if not training:
+                    EVAL_LAUNCHES[_counter("vsharded", storage_dtype)] += 1
         rl, rd = sum_in_rank_order(torch.stack(parts), group)
         ctx.save_for_backward(theta, beta_s, x_s, mask, mean, var, m, l, rd)
         ctx.groups, ctx.training, ctx.eps, ctx.floor, ctx.plain = (

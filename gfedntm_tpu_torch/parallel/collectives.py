@@ -21,6 +21,9 @@ and NCCL alike.
 
 A group of ``None`` is a group of one rank: gathering returns the partial
 alone.
+
+:func:`check_equal_across` raises unless a host value (a validation loss
+that decides early stopping) is the same on every rank of a group.
 """
 
 from __future__ import annotations
@@ -74,3 +77,13 @@ class _SumIdentityGrad(torch.autograd.Function):
 def sum_forward_identity_backward(t: torch.Tensor, group) -> torch.Tensor:
     """Sum of every rank's ``t`` whose backward is the identity."""
     return _SumIdentityGrad.apply(t, group)
+
+
+def check_equal_across(value: float, group, device: torch.device, what: str) -> None:
+    """Raise unless ``value`` is bitwise the same float on every rank of
+    ``group`` (NaN equals NaN)."""
+    seen = gather_by_sum(torch.tensor([value], dtype=torch.float64, device=device),
+                         group).flatten().tolist()
+    same = [v == value or (v != v and value != value) for v in seen]
+    if not all(same):
+        raise RuntimeError(f"{what} differs across the group's ranks: {seen}")

@@ -14,7 +14,10 @@ training through them:
   full inputs, forward and backward, and optionally their times;
 - :func:`fit` — ``fit_sharded`` of an AVITM, with its first step's
   gradients (:func:`step_gradients`), launch counts, the gathered model's
-  state and topics, and optionally its steady ms per step;
+  state and topics, optionally its steady ms per step, and with a
+  validation set its validation losses, early-stopping outcome and, per
+  validation, what :func:`replay_validation` needs to take the same
+  validation unsharded;
 - :func:`forced_steps` — the sharded gradients at given points of another
   fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
   noise);
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gfedntm_tpu_torch.data.datasets import BowDataset, make_epoch_schedule
+from gfedntm_tpu_torch.data.datasets import BowDataset, EpochSchedule, make_epoch_schedule
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
 from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, merge_softmax
@@ -239,16 +242,23 @@ def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
 
 def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         init_state: dict | None = None, n_samples: int = 3,
-        timing_steps: int = 0) -> dict:
+        timing_steps: int = 0, X_val: np.ndarray | None = None,
+        save_dir: str | None = None, patience: int = 5, delta: float = 0.0) -> dict:
     """``fit_sharded`` of ``AVITM(device=device, **avitm_kw)`` on ``X`` (from
     ``init_state``, a full numpy state dict, when given), with the launch
     counters set to 0 just before and read just after. Returns the first
     step's loss and gradients on an identical model (``first_step``), the
-    launch counts, epoch and step losses, the gathered model's state dict, the
-    rank-local network's shapes, ``get_topics(10)`` and the training
-    documents' topic mixtures (``n_samples`` draws); then, with
-    ``timing_steps``, the steady wall ms per step of ``fit_sharded``'s step
-    (:func:`_step_loop`)."""
+    launch counts (``launches``, and ``eval_launches`` of them in eval mode),
+    epoch and step losses, the gathered model's state dict, the rank-local
+    network's shapes, ``get_topics(10)`` and the training documents' topic
+    mixtures (``n_samples`` draws); then, with ``timing_steps``, the steady
+    wall ms per step of ``fit_sharded``'s step (:func:`_step_loop`).
+
+    With ``X_val`` the fit validates every epoch (``save_dir``,
+    ``patience``, ``delta`` as in ``fit_sharded``) and also returns its
+    validation losses, last epoch run, and per validation a record of the
+    gathered state, the generator state and the schedule it validated with
+    (``validations``, for :func:`replay_validation`)."""
     groups = make_dp_mp_groups(dp, mp)
     data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
 
@@ -261,12 +271,30 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
 
     first_step = step_gradients(build(), X, groups)
     model = build()
-    for key in fd.LAUNCHES:
-        fd.LAUNCHES[key] = 0
-    net = fit_sharded(model, data, groups, n_samples=n_samples, device=device)
+    validation, validations = None, []
+    if X_val is not None:
+        validation = BowDataset(X=X_val)
+        validate = model._validation_loss
+
+        def recording(net, x_val, vsched, vshard=None):
+            record = {
+                "state": {k: _np(v).copy() for k, v in
+                          gather_state_dict(net.state_dict(), groups).items()},
+                "generator": _np(model.generator.get_state()),
+                "indices": vsched.indices, "mask": vsched.mask,
+            }
+            record["val_loss"] = validate(net, x_val, vsched, vshard)
+            validations.append(record)
+            return record["val_loss"]
+
+        model._validation_loss = recording
+    fd.reset_launches()
+    net = fit_sharded(model, data, groups, validation, save_dir, patience, delta,
+                      n_samples=n_samples, device=device)
     result = {
         "first_step": first_step,
         "launches": dict(fd.LAUNCHES),
+        "eval_launches": dict(fd.EVAL_LAUNCHES),
         "epoch_losses": list(model.epoch_losses),
         "step_losses": list(model.step_losses),
         "state": {k: _np(v) for k, v in model.model.state_dict().items()},
@@ -274,9 +302,26 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         "topics": model.get_topics(10),
         "theta": model.training_doc_topic_distributions,
     }
+    if X_val is not None:
+        result.update(validation_losses=list(model.validation_losses),
+                      last_epoch=model.nn_epoch, validations=validations)
     if timing_steps:
         result["step_ms"] = _step_loop(build(), X, groups)[1](timing_steps)
     return result
+
+
+def replay_validation(model: AVITM, X_val: np.ndarray, record: dict) -> float:
+    """The validation loss that an unsharded ``model.fit`` takes from one of
+    :func:`fit`'s ``validations``: the record's state loaded into ``model``,
+    its generator set to the record's state (so the reparameterization
+    noise is the same draw) and the same schedule, through the unfused
+    eval decode."""
+    model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                                 for k, v in record["state"].items()})
+    model.generator.set_state(torch.from_numpy(record["generator"]))
+    model.validation_data = BowDataset(X=X_val)
+    return model._validation_loss(model.model, torch.as_tensor(X_val, device=model.device),
+                                  EpochSchedule(record["indices"], record["mask"]))
 
 
 def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):

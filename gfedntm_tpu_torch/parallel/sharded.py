@@ -22,9 +22,15 @@ A bf16-compute model (``compute_dtype="bfloat16"``) trains the same way:
 its input layer sums the ranks' partial products in float32 and rounds once
 (:class:`VShardedLinear`), and K5 reads the rank's beta and x in bf16.
 
+With a validation set, each epoch's validation loss runs in eval mode on
+the rank-local network: through K5's forward with ``training=False`` when
+mp > 1 (the softmax over V spans the model group), the unfused decode when
+mp = 1 (:func:`~gfedntm_tpu_torch.train.steps.eval_loss`). Early stopping
+saves the gathered state from model rank 0 (:func:`fit_sharded`).
+
 Later slices: the data-parallel half (dp > 1: the encoder's two BatchNorms
 need statistics synced over the data group, and every gradient a SUM over
-it), validation and early stopping, and CTM.
+it), and CTM.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import copy
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -153,28 +160,36 @@ def local_network(network: nn.Module, groups: DpMpGroups) -> nn.Module:
 
 
 def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
-                validation_dataset: BowDataset | None = None, n_samples: int = 20,
+                validation_dataset: BowDataset | None = None, save_dir: str | None = None,
+                patience: int = 5, delta: float = 0.0, n_samples: int = 20,
                 device: str | torch.device | None = None) -> nn.Module:
     """Train ``model`` (an AVITM built alike on every rank) for its
     ``num_epochs`` with its V axis split over ``groups``
-    (``gfedntm_tpu/parallel/sharded.py:114-250``, train-only path).
+    (``gfedntm_tpu/parallel/sharded.py:114-250``).
 
     Runs ``model.fit``'s own epoch loop (``AVITM._run_epochs``) on the
-    rank-local network, so it matches ``model.fit`` epoch for epoch up to
-    float reduction order. With more than one rank the fused loss runs
+    rank-local network, so it matches ``model.fit(train_dataset,
+    validation_dataset, save_dir, patience, delta)`` epoch for epoch up to
+    float reduction order: the same schedules, validation epochs,
+    :class:`~gfedntm_tpu_torch.train.early_stopping.EarlyStopping`, plateau
+    scheduler and NaN abort. With more than one rank the fused loss runs
     through K5 (``:160-171``), so the model must be prodLDA with
-    ``fused_decoder`` on. On exit ``model`` holds the gathered full network
-    and optimizer state, and, as after ``model.fit``, ``best_components``
-    and ``training_doc_topic_distributions`` (``n_samples`` draws), equal on
+    ``fused_decoder`` on, and so does the validation loss, in eval mode.
+    Every validation loss is checked to be equal on every rank of the model
+    group, so every rank takes the same early-stopping and scheduler
+    decisions. An improvement saves into ``save_dir``: every rank gathers
+    the state (a collective), model rank 0 writes ``epoch_{n}.npz`` and
+    ``.json``, and the group waits at a barrier. As in the JAX package, a
+    run without a validation set saves nothing.
+
+    On exit ``model`` holds the gathered full network and optimizer state,
+    and, as after ``model.fit``, ``best_components`` and
+    ``training_doc_topic_distributions`` (``n_samples`` draws), equal on
     every rank; the rank-local network is returned.
 
     ``device`` (``None``: the GPU) must be the model's device."""
     if getattr(model, "family", None) != "avitm":
         raise NotImplementedError("fit_sharded: CTM is a later slice (ROADMAP queue 1, CTM)")
-    if validation_dataset is not None:
-        raise NotImplementedError(
-            "fit_sharded: validation and early stopping are a later slice "
-            "(ROADMAP queue 1, AVITM save/load, validation and early stopping)")
     if groups.dp > 1:
         raise NotImplementedError(
             "fit_sharded: dp > 1 needs the encoder BatchNorm statistics synced over the "
@@ -199,7 +214,15 @@ def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
         model.optimizer.state_dict(), names, lambda t, dim: _columns(t, dim, cols)))
     # shard_data (:77-88): this rank's columns of the corpus only.
     x_local = model._device_data(np.ascontiguousarray(train_dataset.X[:, cols]))
-    model._run_epochs(net, optimizer, train_dataset, x_local, vshard=vshard)
+    x_val = None
+    checkpoint_fn = None
+    if validation_dataset is not None:
+        x_val = model._device_data(np.ascontiguousarray(validation_dataset.X[:, cols]))
+        if save_dir:
+            def checkpoint_fn():
+                save_gathered(model, net, groups, save_dir)
+    model._run_epochs(net, optimizer, train_dataset, x_local, validation_dataset, x_val,
+                      checkpoint_fn, patience, delta, vshard=vshard)
 
     model.model.load_state_dict(gather_state_dict(net.state_dict(), groups))
     model.optimizer = model.build_optimizer(model.model)
@@ -207,3 +230,14 @@ def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
         optimizer.state_dict(), names, lambda t, dim: _gather_columns(t, dim, groups)))
     model._finish_fit(train_dataset, n_samples)
     return net
+
+
+def save_gathered(model, net: nn.Module, groups: DpMpGroups, save_dir: str) -> None:
+    """``model.save(save_dir)`` of the full state gathered from the rank-local
+    ``net``s: a collective, so every rank of the model group calls it; model
+    rank 0 writes, and the group waits until it has."""
+    full = gather_state_dict(net.state_dict(), groups)
+    if groups.model_rank == 0:
+        model._write(save_dir, full)
+    if groups.model_group is not None:
+        dist.barrier(group=groups.model_group)

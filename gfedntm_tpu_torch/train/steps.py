@@ -4,8 +4,10 @@ Counterpart of ``gfedntm_tpu/train/steps.py:142-320``: ``batch_loss`` is
 ``_batch_loss`` (the unfused decode), ``fused_batch_loss`` is
 ``_fused_batch_loss`` (the decode + reconstruction loss through the fused
 kernels, with the decoder BatchNorm's running stats updated from the
-kernels' batch statistics) and ``grad_step`` is ``grad_step``. PyTorch runs
-eagerly, so there is no epoch program: callers loop over steps.
+kernels' batch statistics), ``grad_step`` is ``grad_step`` and
+``eval_epoch`` is ``build_eval_epoch`` (:449-474, the validation epoch over
+``_batch_loss(train=False)``, :250-302). PyTorch runs eagerly, so there is
+no epoch program: training callers loop over steps.
 
 ``noise=`` passes a fixed reparameterization eps through to the network, as
 the JAX network's ``noise=`` does; ``generator`` draws it (and dropout)
@@ -15,7 +17,8 @@ otherwise.
 runs the step on a rank-local V-sharded network
 (:func:`~gfedntm_tpu_torch.parallel.sharded.local_network`): the fused loss
 goes through K5, ``prodlda_recon_loss_vsharded`` (``train/steps.py:186-220``),
-on the rank's columns of x.
+on the rank's columns of x; its validation loss goes through K5's forward
+in eval mode (:func:`eval_loss`).
 
 A bf16-compute network (``compute_dtype=torch.bfloat16``) stores beta and x
 in bf16 for the fused kernels (``_fused_batch_loss``, ``:176-180``);
@@ -121,3 +124,60 @@ def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+@torch.no_grad()
+def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
+              vshard=None) -> torch.Tensor:
+    """Validation loss of one (padded, masked) batch in eval mode: running
+    BatchNorm statistics, no dropout, a fresh reparameterization draw
+    (``noise`` or ``generator``). The decode is the unfused one, even for a
+    fused prodLDA network, with no BatchNorm mask and the loss masked by
+    ``mask`` (``_batch_loss(train=False)``).
+
+    Under ``vshard`` the softmax over V spans the model group, so the decode
+    + reconstruction loss run through K5's forward with ``training=False``
+    (:func:`prodlda_recon_loss_vsharded`: K1's running-statistics branch and
+    K2 on the rank's columns, their softmax partials merged over the group),
+    plus the KL; the JAX package gets the same function from GSPMD on its
+    unfused eval (``parallel/sharded.py:147-151``). The caller sets eval
+    mode (:func:`eval_epoch` does)."""
+    if vshard is None:
+        out = model(x, mask=None, noise=noise, generator=generator)
+        return avitm_loss(
+            x, out.word_dist, out.prior_mean, out.prior_variance,
+            out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
+            sample_mask=mask,
+        )
+    out = model.encode_theta(x, mask=None, noise=noise, generator=generator)
+    m = mask.to(torch.float32)
+    bn = model.beta_batchnorm
+    storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
+    rl, _, _ = prodlda_recon_loss_vsharded(
+        out.theta, model.beta, x, bn.running_mean, bn.running_var, m,
+        groups=vshard, training=False, storage_dtype=storage,
+    )
+    kl = gaussian_kl(
+        out.prior_mean, out.prior_variance, out.posterior_mean,
+        out.posterior_variance, out.posterior_log_variance,
+    )
+    return torch.sum((kl + rl) * m)
+
+
+def eval_epoch(model: DecoderNetwork, x_all, indices, masks, noise=None,
+               generator=None, vshard=None) -> torch.Tensor:
+    """Per-step summed validation losses ([steps], on the model's device) of
+    one validation schedule: ``indices`` and ``masks`` [steps, B] index the
+    rows of ``x_all``. ``noise`` [steps, B, K] injects each step's
+    reparameterization eps; otherwise ``generator`` draws them. The model's
+    train/eval mode is restored afterwards."""
+    was_training = model.training
+    model.eval()
+    try:
+        return torch.stack([
+            eval_loss(model, x_all[indices[i]], masks[i],
+                      None if noise is None else noise[i], generator, vshard)
+            for i in range(len(indices))
+        ])
+    finally:
+        model.train(was_training)

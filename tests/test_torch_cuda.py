@@ -1,5 +1,7 @@
-"""The port on the GPU: the CUDA kernels against their plain versions, and a
-small federated fit through them. Marked ``cuda``; each test skips where no
+"""The port on the GPU: the CUDA kernels against their plain versions, a
+small federated fit through them, and the persistence and validation layer
+(bitwise resume, save/load, the sharded validation through K5 in eval
+mode). Marked ``cuda``; each test skips where no
 CUDA device is present (run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``; K1 and K2
 alone with ``-k "stats or loss"``, K3 alone with ``-k grads``).
@@ -439,3 +441,80 @@ def test_bf16_federated_fit_runs_through_the_bf16_kernels(cuda):
     for key, value in result.client_params[0].items():
         assert value.dtype == torch.float32
         assert torch.equal(value, result.client_params[1][key]), key
+
+
+# ---------------------------------------------------------------------------
+# Persistence and validation
+# ---------------------------------------------------------------------------
+def small_corpus(n_docs, n_nodes, seed=0):
+    corpus = generate_synthetic_corpus(vocab_size=500, n_topics=6, n_docs=n_docs,
+                                       n_nodes=n_nodes, nwords=(30, 60), seed=seed,
+                                       materialize_docs=False)
+    return [BowDataset(X=n.bow) for n in corpus.nodes]
+
+
+class Interrupt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", BF])
+def test_federated_resume_is_bitwise_on_the_card(cuda, tmp_path, compute_dtype):
+    datasets = small_corpus(48, 2)
+
+    def trainer():
+        return FederatedTrainer(AVITM(input_size=500, n_components=6, hidden_sizes=(17, 13),
+                                      batch_size=16, num_epochs=2,
+                                      compute_dtype=compute_dtype), n_clients=2)
+
+    full = trainer().fit(datasets)
+
+    def interrupt(step, params, batch_stats):
+        if step == 2:
+            raise Interrupt
+
+    with pytest.raises(Interrupt):
+        trainer().fit(datasets, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                      segment_callback=interrupt)
+    resumed = trainer().fit(datasets, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                            resume=True)
+    np.testing.assert_array_equal(resumed.losses, full.losses)
+    for c in range(2):
+        for key, value in full.client_params[c].items():
+            assert resumed.client_params[c][key].device.type == "cuda"
+            assert torch.equal(resumed.client_params[c][key], value), key
+
+
+def test_save_and_load_round_trip_on_the_card(cuda, tmp_path):
+    train, val = small_corpus(64, 2)
+    model = AVITM(input_size=500, n_components=6, hidden_sizes=(17, 13), batch_size=16,
+                  num_epochs=2)
+    model.fit(train, val, n_samples=2)
+    assert len(model.validation_losses) == 2 and np.isfinite(model.validation_losses).all()
+    model.save(str(tmp_path))
+    fresh = AVITM(input_size=500, n_components=6, hidden_sizes=(17, 13), batch_size=16)
+    fresh.load(str(tmp_path), model.nn_epoch)
+    for key, value in model.model.state_dict().items():
+        got = fresh.model.state_dict()[key]
+        assert got.device.type == "cuda" and torch.equal(got, value), key
+    np.testing.assert_array_equal(fresh.get_topic_word_matrix(), model.get_topic_word_matrix())
+
+
+def test_sharded_validation_runs_k5_in_eval_mode(cuda, tmp_path):
+    """fit_sharded with validation over mp=2 gloo ranks on the first card:
+    one eval-mode K1 and K5 launch per validation step, K3 only for the
+    training steps, and each validation loss equal to the unsharded eval
+    teacher-forced from the same state, generator state and schedule."""
+    X = small_corpus(64, 1)[0].X
+    Xv = small_corpus(16, 1, seed=1)[0].X
+    kw = dict(input_size=500, n_components=6, hidden_sizes=(17, 13), batch_size=16,
+              num_epochs=2, dropout=0.0)
+    res = run_ranks(programs.fit, 2, "gloo", ["cuda:0", "cuda:0"], 300,
+                    args=(1, 2, kw, X, None, 1, 0, Xv, str(tmp_path), 5, 0.0))
+    for r in res:
+        assert r["launches"]["grads"] == 8
+        assert r["launches"]["stats"] == r["launches"]["vsharded"] == 8 + 2
+        assert r["eval_launches"]["stats"] == r["eval_launches"]["vsharded"] == 2
+        assert r["validation_losses"] == res[0]["validation_losses"]
+    for record in res[0]["validations"]:
+        replay = programs.replay_validation(AVITM(**kw), Xv, record)
+        assert replay == pytest.approx(record["val_loss"], rel=1e-5)

@@ -17,7 +17,7 @@ from gfedntm_tpu_torch.ops import fused_decoder as fd
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "gfedntm_tpu_torch"
-FORBIDDEN = {"jax", "flax", "optax", "gfedntm_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "gfedntm_tpu"}
 
 
 def port_modules():

@@ -12,6 +12,12 @@ versions; JAX's Pallas kernels in interpret mode) and dropout 0.
   that is wrong by a constant factor; the one-step gradients do not.
 - Port vs JAX: threefry and Philox noise never agree, so the final epoch
   loss is compared within 5%.
+- With a validation set (mp=2): each epoch's validation loss (K5's forward
+  in eval mode on the ranks; the plain versions here) within 1e-4 of the
+  unsharded ``fit``'s, and within 1e-5 of the unsharded eval teacher-forced
+  from the sharded run's state, generator state and schedule; the same
+  epoch stopped at, the same on both ranks; rank 0's checkpoint bitwise
+  equal to the gathered state and loadable by an unsharded ``AVITM``.
 """
 
 import time
@@ -34,6 +40,7 @@ from gfedntm_tpu_torch.parallel import programs
 from gfedntm_tpu_torch.parallel.launch import run_ranks
 from gfedntm_tpu_torch.parallel.mesh import DpMpGroups
 from gfedntm_tpu_torch.parallel.sharded import V_SHARDED, fit_sharded, shard_state_dict
+from gfedntm_tpu_torch.utils.serialization import load_variables
 
 V, K, H, B, DOCS, EPOCHS = 96, 4, (16, 16), 8, 32, 2
 KW = dict(input_size=V, n_components=K, hidden_sizes=H, batch_size=B, num_epochs=EPOCHS,
@@ -193,8 +200,6 @@ def test_later_slices_raise_not_implemented(runs):
     model = port_model(runs["init"])
     with pytest.raises(NotImplementedError, match="dp > 1"):
         fit_sharded(model, data, DpMpGroups(2, 1, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="validation"):
-        fit_sharded(model, data, DpMpGroups(1, 1, 0), validation_dataset=data, device="cpu")
     with pytest.raises(NotImplementedError, match="CTM"):
         fit_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(1, 1, 0),
                     device="cpu")
@@ -218,3 +223,71 @@ def test_a_hung_rank_fails_within_its_timeout():
 
 def test_collective_probe_counts_the_world():
     assert run_ranks(programs.collective_probe, 3, "gloo", ["cpu"] * 3, TIMEOUT_S) == [3.0] * 3
+
+
+VAL_DOCS = 12
+# patience 1 with delta 1.0: the second epoch's gain (about 0.4) is no
+# improvement, so both fits stop after it, far from the decision boundary.
+PATIENCE, DELTA = 1, 1.0
+
+
+@pytest.fixture(scope="module")
+def val_runs(runs, tmp_path_factory):
+    X = runs["X"]
+    Xv = np.random.default_rng(5).integers(0, 3, size=(VAL_DOCS, V)).astype(np.float32)
+    root = tmp_path_factory.mktemp("val")
+    ref = port_model(runs["init"], num_epochs=4)
+    ref.fit(BowDataset(X=X), BowDataset(X=Xv), save_dir=str(root / "ref"), patience=PATIENCE,
+            delta=DELTA, n_samples=2)
+    ranks = run_ranks(programs.fit, 2, "gloo", ["cpu"] * 2, TIMEOUT_S,
+                      (1, 2, {**KW, "num_epochs": 4}, X, runs["init"], 2, 0, Xv,
+                       str(root / "sharded"), PATIENCE, DELTA))
+    return dict(Xv=Xv, root=root, ref=ref, ranks=ranks)
+
+
+def test_sharded_validation_matches_the_unsharded_fit(val_runs):
+    ref, ranks = val_runs["ref"], val_runs["ranks"]
+    assert len(ref.validation_losses) == 2  # stopped after the second epoch
+    for r in ranks:
+        assert r["last_epoch"] == ref.nn_epoch == 1
+        assert len(r["epoch_losses"]) == len(ref.epoch_losses)
+        np.testing.assert_allclose(r["validation_losses"], ref.validation_losses, rtol=1e-4)
+        assert np.isfinite(r["validation_losses"]).all()
+    assert ranks[1]["validation_losses"] == ranks[0]["validation_losses"]
+
+
+def test_sharded_validation_matches_the_teacher_forced_unsharded_eval(runs, val_runs):
+    records = val_runs["ranks"][0]["validations"]
+    assert len(records) == 2
+    for record in records:
+        replay = programs.replay_validation(port_model(runs["init"]), val_runs["Xv"], record)
+        assert replay == pytest.approx(record["val_loss"], rel=1e-5)
+
+
+def test_rank_zero_checkpoint_is_the_gathered_state(runs, val_runs):
+    saved = val_runs["root"] / "sharded"
+    assert sorted(p.name for p in saved.iterdir()) == sorted(
+        p.name for p in (val_runs["root"] / "ref").iterdir()) == ["epoch_0.json",
+                                                                 "epoch_0.npz"]
+    gathered = val_runs["ranks"][0]["validations"][0]["state"]
+    variables = load_variables(str(saved / "epoch_0.npz"))
+    on_disk = interop.state_dict_from_flax(variables["params"], variables["batch_stats"])
+    assert sorted(on_disk) == sorted(gathered)
+    for key, value in gathered.items():
+        np.testing.assert_array_equal(on_disk[key].numpy(), value, err_msg=key)
+    model = port_model(runs["init"])
+    model.load(str(saved), 0)
+    for key, value in model.model.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), gathered[key], err_msg=key)
+
+
+def test_one_rank_fit_sharded_validates_as_fit(runs, val_runs, tmp_path):
+    """mp = 1: the unfused eval, as ``AVITM.fit`` runs it."""
+    model = port_model(runs["init"], num_epochs=4)
+    fit_sharded(model, BowDataset(X=runs["X"]), DpMpGroups(1, 1, 0),
+                BowDataset(X=val_runs["Xv"]), str(tmp_path), PATIENCE, DELTA, n_samples=2,
+                device="cpu")
+    ref = val_runs["ref"]
+    assert model.nn_epoch == ref.nn_epoch
+    np.testing.assert_allclose(model.validation_losses, ref.validation_losses, rtol=1e-5)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["epoch_0.json", "epoch_0.npz"]

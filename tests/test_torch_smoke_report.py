@@ -109,3 +109,58 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("losses,patience,delta,want", [
+    ([3.0, 2.0, 1.0], 5, 0.0, [0, 1, 2]),
+    ([3.0, 3.5, 2.0], 5, 0.0, [0, 2]),
+    ([3.0, 3.0, 3.0], 5, 0.0, [0, 1, 2]),  # a tie is an improvement (score >= best)
+    ([3.0, 2.9, 2.8], 5, 0.5, [0]),
+    ([3.0, 4.0, 1.0], 1, 0.0, [0]),  # stopped after epoch 1: epoch 2 never runs
+])
+def test_saved_epochs_follow_early_stopping(smoke, losses, patience, delta, want):
+    assert smoke.saved_epochs(losses, patience, delta) == want
+
+
+def test_eval_kernel_work_has_no_column_statistics_pass(smoke):
+    """Eval K1 at one rank's shard of the sharded validation: the training
+    bytes plus the running statistics it reads; the same product. Eval K2
+    is the training kernel."""
+    work, train = smoke.eval_kernel_work(256, 50, 50_000), smoke.kernel_work(256, 50, 50_000)
+    assert work["stats"] == (10_854_272, 1.28e9)
+    assert work["stats"][0] - train["stats"][0] == 4 * 2 * 50_000
+    assert work["loss"] == train["loss"] == (61_655_296, 1.28e9)
+    k1 = smoke.kernel_bound(*work["stats"], "NVIDIA H100 80GB HBM3")
+    k2 = smoke.kernel_bound(*work["loss"], "NVIDIA H100 80GB HBM3")
+    assert (k1["bound_by"], k2["bound_by"]) == ("operations", "bytes")
+    assert k1["bound_ms"] == pytest.approx(3 * 1.28e9 / 495e12 * 1e3)
+    assert k2["bound_ms"] == pytest.approx(61_655_296 / 3.35e12 * 1e3)
+
+
+def metrics_run(checkpoint_every):
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    rng = np.random.default_rng(0)
+    data = [BowDataset(X=rng.integers(0, 3, size=(16, 24)).astype(np.float32))
+            for _ in range(2)]
+    template = AVITM(input_size=24, n_components=3, hidden_sizes=(4,), batch_size=8,
+                     num_epochs=2, device="cpu")
+    logger = MetricsLogger(validate=True)
+    FederatedTrainer(template, 2, device="cpu").fit(data, checkpoint_every=checkpoint_every,
+                                                    metrics=logger)
+    return logger
+
+
+def test_metrics_report_reads_a_two_segment_run(smoke):
+    line = smoke.metrics_report(metrics_run(2))
+    assert line.startswith("metrics: 7 records, all valid (federated_segment, "
+                           "metrics_snapshot, phase); docs_per_s ")
+    assert "trainer_step_s 1 observation" in line and "federated_mesh_devices 1" in line
+
+
+def test_metrics_report_fails_without_a_steady_segment(smoke):
+    with pytest.raises(smoke.SmokeFailure, match="metrics records"):
+        smoke.metrics_report(metrics_run(None))
