@@ -4,8 +4,9 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
     python3 chip_smoke.py --kernels-only --against DIR  # and K1-K3 bitwise vs DIR's build
+    python3 chip_smoke.py --data-parallel-only  # phases 1 and 6
 
-Five phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Six phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -81,7 +82,23 @@ device or no port next to this script):
    ranks; rank 0's checkpoints loading into an unsharded ``AVITM`` equal to
    the gathered state. Then eval-mode K1 and K2 at one rank's shard
    (B=256, K=50, V=50,000) against their plain versions, timed beside their
-   bounds (rows ``stats_eval`` and ``loss_eval``, launches from (d)).
+   bounds (rows ``stats_eval`` and ``loss_eval``, launches from (d));
+6. data parallel, four gloo ranks on the card (NCCL on four cards), V=100,000,
+   K=50, H=(100, 100), B=256, 2,048 documents, dropout 0.2 with live noise:
+   (a) ``fit_sharded`` at dp=2 x mp=2, one epoch (8 steps) and its
+   validation on 256 documents: per rank K3 0 launches (training takes K5's
+   rows-sharded branch, 8 calls), K1, K2 and K5 one eval-mode launch each;
+   against the unsharded fused fit on the card: first-step gradients within
+   1e-3 of each leaf's max|grad|, step losses within 1e-3, beta within 1.5x
+   an unsharded unfused witness's spread (or 4 lr), validation within 1e-4
+   of the teacher-forced unsharded eval, the state bitwise equal on all four
+   ranks; (b) ``fit_data_sharded`` at dp=2, unfused, 8 steps, against the
+   unsharded unfused fit: first-step gradients within 1e-3 of each leaf's
+   max|grad|, step losses within 1e-4 relative, beta within 1e-4 but for no
+   more entries than an unsharded witness (the fused fit against the
+   unfused one) has beyond 1e-4, times 1.5;
+   each with its steady ms per step per rank and the bytes per step of its
+   batch gather and gradient sum, beside the card's name and power limit.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -1437,14 +1454,188 @@ def persistence_phase(card: str, rows: dict, notes: dict, datasets: list, result
                           f"eval-mode forwards per rank")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: data-parallel training in spawned ranks
+# ---------------------------------------------------------------------------
+def beta_spread(beta, beta_ref, tol: float) -> tuple[float, float]:
+    """Max |beta - beta_ref| and the fraction of entries beyond ``tol``."""
+    import numpy as np
+
+    diff = np.abs(beta - beta_ref)
+    return float(diff.max()), float((diff > tol).mean())
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def first_step_errors(first, ref) -> tuple[float, float, float]:
+    """(relative loss error, worst gradient error over its leaf's max|grad|,
+    worst cancelling-leaf error over the largest gradient) of a sharded
+    first step against the unsharded one."""
+    import numpy as np
+
+    (loss, grads), (ref_loss, ref_grads) = first, ref
+    scale = max(float(np.abs(g).max()) for g in ref_grads.values())
+    rel = [float(np.abs(grads[n] - g).max()) / float(np.abs(g).max())
+           for n, g in ref_grads.items() if n not in DEGENERATE]
+    cancel = [float(np.abs(grads[n] - ref_grads[n]).max()) / scale for n in DEGENERATE]
+    return abs(loss - ref_loss) / abs(ref_loss), max(rel), max(cancel)
+
+
+def step_line(card: str, label: str, ranks: list, backend: str, devices: list, steps: int) -> str:
+    return (f"data parallel steady step, {card}: {label} ({backend} on {devices}): "
+            f"{[round(r['step_ms'], 3) for r in ranks]} ms per step per rank ({steps} warm "
+            f"steps between barriers, batch gather included); bytes per step through each data "
+            f"group's all_reduce: batch gather {ranks[0]['step_bytes']['batch_gather'] / 1e6:.1f}"
+            f" MB, gradient sum {ranks[0]['step_bytes']['gradient_sum'] / 1e6:.1f} MB")
+
+
+def data_parallel_phase(card: str, notes: dict) -> dict:
+    """Phase 6: (a) ``fit_sharded`` at dp=2 x mp=2 with validation and (b)
+    ``fit_data_sharded`` at dp=2, each against the unsharded fit on the
+    card, with per-rank launch counts, steady ms per step and the bytes its
+    data-group collectives move per step. Returns rank 0's result of (a)."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM, BowDataset, generate_synthetic_corpus
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    t_phase = time.perf_counter()
+    V, K, B, N, dp, mp, steps = 100_000, 50, 256, 2048, 2, 2, 8
+    X = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=N, n_nodes=1,
+                                  materialize_docs=False, seed=0).nodes[0].bow
+    Xv = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=256, n_nodes=1,
+                                   materialize_docs=False, seed=1).nodes[0].bow
+    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+              num_epochs=1, dropout=0.2, seed=0)
+    kwu = {**kw, "fused_decoder": False}
+
+    # (a) fit_sharded at dp x mp, one epoch and its validation.
+    backend, devices = gpu_layout(dp * mp)
+    t0 = time.perf_counter()
+    res = run_ranks(programs.fit, dp * mp, backend, devices, 900,
+                    args=(dp, mp, kw, X, None, 1, steps, Xv, None, 5, 0.0))
+    n_val = len(Xv) // B
+    print(f"data parallel (a): fit_sharded {backend}, dp={dp} x mp={mp} on {devices}, {N} + "
+          f"{len(Xv)} docs, V={V}, dropout {kw['dropout']}, ranks done in "
+          f"{time.perf_counter() - t0:.1f} s; per rank, launches "
+          f"{[nonzero(r['launches']) for r in res]}, eval-mode of them "
+          f"{[nonzero(r['eval_launches']) for r in res]}, rows-sharded K5 calls "
+          f"{[r['rows_calls']['vsharded_rows'] for r in res]}; step losses "
+          f"{res[0]['step_losses']}", flush=True)
+    print(step_line(card, f"fit_sharded dp={dp} x mp={mp}", res, backend, devices, steps),
+          flush=True)
+    for rank, r in enumerate(res):
+        got, ev = r["launches"], r["eval_launches"]
+        check(got["grads"] == 0, f"rank {rank}: K3 launched {got['grads']} times in dp > 1 "
+              f"training, want 0 (K5's rows-sharded branch)")
+        for name in ("stats", "loss", "vsharded"):
+            check(got[name] == n_val, f"rank {rank}: {name} launched {got[name]} times, want "
+                  f"{n_val} (the validation's eval forward)")
+        check(ev["stats"] == ev["vsharded"] == n_val, f"rank {rank}: eval-mode launches {ev}")
+        check(r["rows_calls"]["vsharded_rows"] == steps,
+              f"rank {rank}: {r['rows_calls']} rows-sharded calls, want {steps}")
+        check(len(r["step_losses"]) == steps and bool(np.isfinite(r["step_losses"]).all()),
+              f"rank {rank}: step losses {r['step_losses']}")
+        check(r["validation_losses"] == res[0]["validation_losses"],
+              f"rank {rank}: validation losses differ from rank 0's")
+        for key, val in r["state"].items():
+            check(np.array_equal(val, res[0]["state"][key]),
+                  f"{key} differs between rank 0 and rank {rank} after the fit")
+
+    # The unsharded fits on the card, fused and unfused: the same seed,
+    # schedule and draws. Their beta spread is what reduction order alone
+    # gives after Adam (the witness for both parts).
+    ref, unfused = AVITM(**kw), AVITM(**kwu)
+    for model in (ref, unfused):
+        model.fit(BowDataset(X=X), n_samples=1)
+    beta_ref, beta_unfused = (m.model.beta.detach().cpu().numpy() for m in (ref, unfused))
+    tol = 1e-3 * float(np.abs(beta_ref).max())
+    witness = beta_spread(beta_unfused, beta_ref, tol)
+    witness_1e4 = beta_spread(beta_unfused, beta_ref, 1e-4)[1]
+    max_limit = max(4.0 * ref.lr, 1.5 * witness[0])
+
+    def step_err(losses, model):
+        want = np.asarray(model.step_losses)
+        return float(np.max(np.abs(np.asarray(losses) - want) / np.abs(want)))
+
+    loss_a, grad_a, cancel_a = first_step_errors(res[0]["first_step"],
+                                                 programs.step_gradients(AVITM(**kw), X))
+    steps_a = step_err(res[0]["step_losses"], ref)
+    sharded = beta_spread(res[0]["state"]["beta"], beta_ref, tol)
+    frac_limit = 1.5 * witness[1] + 1e-4
+    errs = [abs(programs.replay_validation(AVITM(**kw), Xv, rec) - rec["val_loss"])
+            / abs(rec["val_loss"]) for rec in res[0]["validations"]]
+    print(f"data parallel (a) vs the unsharded fused fit: first-step loss {loss_a:.3e} "
+          f"relative, gradients within {grad_a:.3e} of each leaf's max|grad| (limit 1e-3), "
+          f"{', '.join(DEGENERATE)} within {cancel_a:.3e} of the largest (limit 1e-5); step "
+          f"losses {steps_a:.3e} (limit 1e-3); beta max |diff| {sharded[0]:.3e}, "
+          f"{sharded[1]:.6f} of entries beyond {tol:.3e}; the unfused witness {witness[0]:.3e}, "
+          f"{witness[1]:.6f} (limits {max_limit:.3e}, {frac_limit:.6f}); validation vs the "
+          f"teacher-forced unsharded eval {[f'{e:.2e}' for e in errs]} (limit 1e-4)", flush=True)
+    check(loss_a <= 1e-3 and grad_a <= 1e-3 and cancel_a <= 1e-5,
+          f"first step: loss {loss_a:.3e}, gradients {grad_a:.3e}, cancelling {cancel_a:.3e}")
+    check(steps_a <= 1e-3, f"step losses differ from the unsharded fit by {steps_a:.3e}")
+    check(sharded[0] <= max_limit, f"beta max |diff| {sharded[0]:.3e} > {max_limit:.3e}")
+    check(sharded[1] <= frac_limit, f"beta: {sharded[1]:.6f} of entries beyond {tol:.3e}")
+    check(max(errs) <= 1e-4, f"validation loss differs by {max(errs):.3e}")
+
+    # (b) fit_data_sharded at dp, unfused, one epoch.
+    backend_b, devices_b = gpu_layout(dp)
+    t0 = time.perf_counter()
+    resd = run_ranks(programs.fit_data, dp, backend_b, devices_b, 900,
+                     args=(dp, kwu, X, None, 1, None, None, 5, 0.0, steps))
+    print(f"data parallel (b): fit_data_sharded {backend_b}, dp={dp} on {devices_b}, ranks done "
+          f"in {time.perf_counter() - t0:.1f} s; summary {resd[0]['summary']}", flush=True)
+    print(step_line(card, f"fit_data_sharded dp={dp}", resd, backend_b, devices_b, steps),
+          flush=True)
+    for rank, r in enumerate(resd):
+        for key, val in r["state"].items():
+            check(np.array_equal(val, resd[0]["state"][key]),
+                  f"fit_data_sharded: {key} differs between rank 0 and rank {rank}")
+    loss_b, grad_b, cancel_b = first_step_errors(resd[0]["first_step"],
+                                                 programs.step_gradients(AVITM(**kwu), X))
+    steps_b = step_err(resd[0]["step_losses"], unfused)
+    data_b = beta_spread(resd[0]["state"]["beta"], beta_unfused, 1e-4)
+    frac_b = 1.5 * witness_1e4 + 1e-4
+    # beta within 1e-4 of the unsharded unfused fit, but for the entries
+    # that reduction order alone moves by up to a few lr after Adam: no more
+    # of them than the witness has beyond 1e-4 (times 1.5), and none
+    # further than the witness's largest (times 1.5, or 4 lr).
+    print(f"data parallel (b) vs the unsharded unfused fit: first-step loss {loss_b:.3e} "
+          f"relative, gradients within {grad_b:.3e} of each leaf's max|grad| (limit 1e-3), "
+          f"{', '.join(DEGENERATE)} within {cancel_b:.3e} (limit 1e-5); step losses "
+          f"{steps_b:.3e} relative (limit 1e-4); beta max |diff| {data_b[0]:.3e}, "
+          f"{data_b[1]:.6f} of entries beyond 1e-4; the witness (fused vs unfused unsharded) "
+          f"{witness[0]:.3e}, {witness_1e4:.6f} beyond 1e-4 (limits {max_limit:.3e}, "
+          f"{frac_b:.6f})", flush=True)
+    check(loss_b <= 1e-3 and grad_b <= 1e-3 and cancel_b <= 1e-5,
+          f"fit_data_sharded first step: loss {loss_b:.3e}, gradients {grad_b:.3e}, "
+          f"cancelling {cancel_b:.3e}")
+    check(steps_b <= 1e-4, f"fit_data_sharded step losses differ by {steps_b:.3e}")
+    check(data_b[0] <= max_limit, f"fit_data_sharded beta max |diff| {data_b[0]:.3e}")
+    check(data_b[1] <= frac_b, f"fit_data_sharded beta: {data_b[1]:.6f} of entries beyond "
+          f"1e-4, limit {frac_b:.6f}")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"data parallel: phase 6 took {seconds:.1f} s ({card})", flush=True)
+    notes["vsharded"] += (f"; phase 6 (dp={dp} x mp={mp}): {res[0]['rows_calls']['vsharded_rows']}"
+                          f" rows-sharded training calls (plain tensor ops, no kernel) and "
+                          f"{res[0]['eval_launches']['vsharded']} eval-mode forward(s) per rank")
+    return res[0]
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
-    rest = [a for a in argv if a != "--kernels-only"]
-    against = None
-    if rest[:1] == ["--against"] and len(rest) == 2:
-        against = Path(rest[1]).resolve()
-    elif rest:
-        print("usage: chip_smoke.py [--kernels-only] [--against DIR]", file=sys.stderr)
+    dp_only = "--data-parallel-only" in argv
+    rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only")]
+    usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
+    against = Path(rest[1]).resolve() if rest and usage_ok else None
+    if not usage_ok or (dp_only and (kernels_only or against)):
+        print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -1471,11 +1662,15 @@ def main(argv: list[str]) -> int:
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
         for line in build_report(lib, _build.build_log):
             print(f"build: {line}", flush=True)
+        if dp_only:
+            data_parallel_phase(card, {"vsharded": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
             X, kw = sharded_fit_phase(card, rows, notes)
             persistence_phase(card, rows, notes, datasets, result, X, kw)
+            data_parallel_phase(card, notes)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -34,6 +34,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -47,10 +48,11 @@ from gfedntm_tpu_torch.device import resolve_device
 from gfedntm_tpu_torch.interop import flax_from_state_dict, state_dict_from_flax
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
 from gfedntm_tpu_torch.parallel.collectives import check_equal_across
+from gfedntm_tpu_torch.parallel.sharded import DocShard
 from gfedntm_tpu_torch.train.early_stopping import EarlyStopping
 from gfedntm_tpu_torch.train.optimizers import build_optimizer
 from gfedntm_tpu_torch.train.schedulers import ReduceLROnPlateau, set_learning_rate
-from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, eval_epoch, grad_step
+from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, eval_steps, grad_step
 from gfedntm_tpu_torch.utils.serialization import load_variables, save_variables
 
 _ACTIVATIONS = (
@@ -207,18 +209,19 @@ class AVITM:
         the validation loss saves into ``save_dir``; without one, every epoch
         does. ``best_components`` is beta after the last epoch run."""
         self.model_dir = save_dir
-        x_all = self._device_data(train_dataset.X)
-        x_val = (None if validation_dataset is None
-                 else self._device_data(validation_dataset.X))
+        corpus = DocShard(self._device_data(train_dataset.X))
+        val_corpus = (None if validation_dataset is None
+                      else DocShard(self._device_data(validation_dataset.X)))
         save = (lambda: self.save(save_dir)) if save_dir else None
-        self._run_epochs(self.model, self.optimizer, train_dataset, x_all,
-                         validation_dataset, x_val, save, patience, delta)
+        self._run_epochs(self.model, self.optimizer, train_dataset, corpus,
+                         validation_dataset, val_corpus, save, patience, delta)
         self._finish_fit(train_dataset, n_samples)
 
-    def _run_epochs(self, net, optimizer, train_dataset: BowDataset, x: torch.Tensor,
+    def _run_epochs(self, net, optimizer, train_dataset: BowDataset, x: DocShard,
                     validation_dataset: BowDataset | None = None,
-                    x_val: torch.Tensor | None = None, checkpoint_fn=None,
-                    patience: int = 5, delta: float = 0.0, vshard=None) -> None:
+                    x_val: DocShard | None = None, checkpoint_fn=None,
+                    patience: int = 5, delta: float = 0.0, vshard=None,
+                    on_epoch=None) -> None:
         """The epoch loop of :meth:`fit` on ``net`` and its ``optimizer``:
         every epoch's numpy schedule, its steps (``x`` holds the corpus on
         the device), the epoch and step losses; then, with a validation set
@@ -226,9 +229,13 @@ class AVITM:
         abort, :class:`EarlyStopping` (``checkpoint_fn`` on every
         improvement) and the plateau scheduler on the validation loss;
         without one, the NaN abort, the scheduler on the training loss and
-        ``checkpoint_fn`` every epoch. ``vshard`` (a ``DpMpGroups``) runs it
-        on a rank-local V shard of the network, ``x`` and ``x_val``
-        (:func:`~gfedntm_tpu_torch.parallel.sharded.fit_sharded`)."""
+        ``checkpoint_fn`` every epoch. On a rank of a sharded fit
+        (:mod:`gfedntm_tpu_torch.parallel.sharded`), ``net`` is the
+        rank-local network, ``x`` and ``x_val`` are the rank's
+        :class:`DocShard` blocks (their data group splits each batch's rows)
+        and ``vshard`` (a ``DpMpGroups``) runs the fused loss through K5.
+        ``on_epoch(epoch, seconds)`` gets each epoch's training wall time
+        (synced)."""
         self.train_data = train_dataset
         self.validation_data = validation_dataset
         scheduler = ReduceLROnPlateau(self.lr) if self.reduce_on_plateau else None
@@ -241,14 +248,16 @@ class AVITM:
         for epoch in range(self.num_epochs):
             self.nn_epoch = epoch
             sched = make_epoch_schedule(n_train, self.batch_size, self._np_rng)
-            indices = torch.as_tensor(sched.indices, device=self.device, dtype=torch.long)
-            masks = torch.as_tensor(sched.mask, device=self.device, dtype=torch.float32)
+            start = time.perf_counter()
             losses = torch.stack([
-                grad_step(net, optimizer, x[indices[i]], masks[i], self.fused_decoder,
-                          generator=self.generator, vshard=vshard)
-                for i in range(sched.steps_per_epoch)
+                grad_step(net, optimizer, xb, mask, self.fused_decoder,
+                          generator=self.generator, vshard=vshard, rows=rows,
+                          data_group=x.data_group)
+                for xb, mask, rows in x.steps(sched)
             ])
             train_loss = float(losses.sum()) / n_train
+            if on_epoch is not None:
+                on_epoch(epoch, time.perf_counter() - start)
             self.epoch_losses.append(train_loss)
             self.step_losses.extend(losses.cpu().tolist())
             if validation_dataset is not None:
@@ -280,20 +289,18 @@ class AVITM:
                     self.logger.info("Epoch: [%d/%d]\tTrain Loss: %.4f",
                                      epoch + 1, self.num_epochs, train_loss)
 
-    def _validation_loss(self, net, x_val: torch.Tensor, vsched, vshard=None) -> float:
+    def _validation_loss(self, net, x_val: DocShard, vsched, vshard=None) -> float:
         """The validation loss of one epoch: the summed losses of the
         validation schedule ``vsched`` over ``len(validation_data)``
         (``avitm.py:353-363``), the noise drawn from the model's generator.
-        Under ``vshard`` it is checked to be equal on every rank of the
-        model group."""
-        indices = torch.as_tensor(vsched.indices, device=self.device, dtype=torch.long)
-        masks = torch.as_tensor(vsched.mask, device=self.device, dtype=torch.float32)
-        losses = eval_epoch(net, x_val, indices, masks, generator=self.generator,
-                            vshard=vshard)
+        On a rank of a sharded fit (``x_val`` holds the rank's block) it is
+        summed over the data group and checked to be equal on every rank."""
+        losses = eval_steps(net, x_val.steps(vsched), generator=self.generator, vshard=vshard,
+                            data_group=x_val.data_group)
         val_loss = float(losses.sum()) / len(self.validation_data)
-        if vshard is not None:
+        if x_val.groups is not None and x_val.groups.world_group is not None:
             # Every rank decides early stopping and the LR on this value.
-            check_equal_across(val_loss, vshard.model_group, self.device,
+            check_equal_across(val_loss, x_val.groups.world_group, self.device,
                                "the validation loss")
         return val_loss
 

@@ -16,14 +16,67 @@ has no row mask, so :class:`MaskedBatchNorm` is written out:
 - ``num_batches_tracked`` is kept for state-dict parity with the
   reference's ``grads_to_share`` keys;
 - it computes in float32 whatever the input's dtype and returns the input's
-  dtype, with float32 running statistics (``layers.py:104-116``).
+  dtype, with float32 running statistics (``layers.py:104-116``);
+- with a data ``group`` (rows split over data-parallel ranks) its batch
+  statistics are those of the whole batch: each masked sum, and the count,
+  is summed over the group, the gradient of each sum too
+  (:func:`~gfedntm_tpu_torch.parallel.collectives.sum_forward_sum_backward`),
+  and the running statistics take the whole batch's count. GSPMD gives the
+  JAX package the same statistics (``gfedntm_tpu/train/steps.py:65-88``).
+
+Data-parallel ranks draw dropout (and the networks their reparameterization
+noise) at the whole batch's shape and keep their own rows (:class:`Rows`,
+:func:`draw`), so the generator's stream, and every row's draw, is the
+single-device run's.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gfedntm_tpu_torch.parallel.collectives import (
+    sum_forward_sum_backward,
+    sum_in_rank_order,
+)
+
+
+class Rows(NamedTuple):
+    """This rank's rows ``[start, stop)`` of a batch of ``full`` rows that is
+    padded with masked rows past ``full`` to split evenly over a data
+    group."""
+
+    full: int
+    start: int
+    stop: int
+
+
+def window(t: torch.Tensor, rows: Rows | None) -> torch.Tensor:
+    """The rows of ``t`` (a whole batch, [full, ...]) in ``rows``, with zero
+    rows past ``full``; ``t`` itself when ``rows`` is ``None``."""
+    if rows is None:
+        return t
+    if rows.stop > t.shape[0]:
+        t = torch.cat([t, t.new_zeros((rows.stop - t.shape[0], *t.shape[1:]))])
+    return t[rows.start:rows.stop]
+
+
+def draw(sample, shape, rows: Rows | None, **kwargs) -> torch.Tensor:
+    """``sample(shape, **kwargs)`` (``torch.rand``, ``torch.randn``) for a
+    tensor of ``shape``; under ``rows`` drawn at the whole batch's shape
+    and windowed to this rank's rows."""
+    if rows is None:
+        return sample(shape, **kwargs)
+    return window(sample((rows.full, *shape[1:]), **kwargs), rows)
+
+
+def batch_count(mask: torch.Tensor, group) -> torch.Tensor:
+    """The number of real (mask > 0) rows of the whole batch, at least 1:
+    the count of ``mask`` summed over the data ``group``."""
+    return torch.clamp_min(sum_in_rank_order(mask.to(torch.float32).sum(), group), 1.0)
 
 
 class Linear(nn.Linear):
@@ -44,13 +97,16 @@ class Linear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Affine-free BatchNorm1d with an optional [batch] row mask."""
+    """Affine-free BatchNorm1d with an optional [batch] row mask; ``group``
+    (a data group, set by the data-parallel trainers) syncs its training
+    statistics over the group's rows."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.num_features = num_features
         self.momentum = momentum
         self.eps = eps
+        self.group = None
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
@@ -59,6 +115,14 @@ class MaskedBatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if not self.training:
             mean, var = self.running_mean, self.running_var
+        elif self.group is not None:
+            m = (torch.ones_like(xf[:, :1]) if mask is None
+                 else mask.to(torch.float32)[:, None])
+            n = batch_count(m, self.group)
+            mean = sum_forward_sum_backward((xf * m).sum(dim=0), self.group) / n
+            var = sum_forward_sum_backward((torch.square(xf - mean) * m).sum(dim=0),
+                                           self.group) / n
+            self.update_running_stats(mean, var, n)
         else:
             if mask is None:
                 n = torch.tensor(float(max(1, x.shape[0])), device=x.device)
@@ -87,14 +151,15 @@ class MaskedBatchNorm(nn.Module):
 
 
 def dropout(
-    x: torch.Tensor, p: float, training: bool, generator: torch.Generator | None
+    x: torch.Tensor, p: float, training: bool, generator: torch.Generator | None,
+    rows: Rows | None = None,
 ) -> torch.Tensor:
     """Inverted dropout with keep-probability ``1 - p`` drawn from
     ``generator`` (flax ``nn.Dropout`` semantics: kept units scale by
-    ``1/(1-p)``)."""
+    ``1/(1-p)``); ``x`` holds the batch rows ``rows`` (:func:`draw`)."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
+    keep = draw(torch.rand, x.shape, rows, generator=generator, device=x.device) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -13,7 +13,11 @@ Parameter and buffer names are the reference's torch state-dict keys
 ``beta_batchnorm.running_var``, ...). Train/eval follows the module's own
 ``training`` flag. Randomness (the reparameterization draw and dropout) comes
 from the ``generator`` argument; ``noise=`` injects a fixed reparameterization
-eps instead, as the JAX network's ``noise=`` does.
+eps instead, as the JAX network's ``noise=`` does. On a data-parallel rank
+``rows`` (a :class:`~gfedntm_tpu_torch.models.layers.Rows`) names the rows of
+the whole batch that ``x`` holds: every draw is made at the whole batch's
+shape and windowed to them, and :meth:`DecoderNetwork.set_data_group` syncs
+the BatchNorms' statistics over the rank's data group.
 
 ``compute_dtype`` is the JAX networks' ``dtype``: under ``torch.bfloat16``
 the encoder's layers, activations, reparameterization draw, theta and the
@@ -32,7 +36,7 @@ from torch import nn
 
 from gfedntm_tpu_torch.models.activations import Activation
 from gfedntm_tpu_torch.models.initializers import init_linear_, xavier_uniform_2d_
-from gfedntm_tpu_torch.models.layers import Linear, MaskedBatchNorm, dropout
+from gfedntm_tpu_torch.models.layers import Linear, MaskedBatchNorm, Rows, draw, dropout
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,10 +94,11 @@ class InferenceNetwork(nn.Module):
         x: torch.Tensor,
         mask: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        rows: Rows | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         x = self.activation(self.input_layer(x))
         x = self.hiddens(x)
-        x = dropout(x, self.dropout, self.training, generator)
+        x = dropout(x, self.dropout, self.training, generator, rows)
         mu = self.f_mu_batchnorm(self.f_mu(x), mask)
         log_sigma = self.f_sigma_batchnorm(self.f_sigma(x), mask)
         return mu, log_sigma
@@ -160,8 +165,18 @@ class DecoderNetwork(nn.Module):
     def is_prodlda(self) -> bool:
         return self.model_type.lower() == "prodlda"
 
-    def _encode(self, x, mask, generator):
-        mu, log_sigma = self.inf_net(x, mask, generator)
+    def set_data_group(self, group) -> None:
+        """Sync the training statistics of the encoder's two BatchNorms, and
+        of prodLDA's ``beta_batchnorm`` over z = theta beta, over the data
+        ``group`` whose ranks split each batch's rows. LDA's
+        ``beta_batchnorm`` normalizes the replicated beta and stays local."""
+        self.inf_net.f_mu_batchnorm.group = group
+        self.inf_net.f_sigma_batchnorm.group = group
+        if self.is_prodlda:
+            self.beta_batchnorm.group = group
+
+    def _encode(self, x, mask, generator, rows=None):
+        mu, log_sigma = self.inf_net(x, mask, generator, rows)
         # Keeps exp(logvar) inside float32 range for degenerate inputs (e.g.
         # all-masked batches, whose BatchNorm rescales by 1/sqrt(eps));
         # |logvar| < 80 is vacuous for any real posterior.
@@ -173,8 +188,9 @@ class DecoderNetwork(nn.Module):
         mask: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        rows: Rows | None = None,
     ) -> TopicModelOutput:
-        out = self.encode_theta(x, mask=mask, noise=noise, generator=generator)
+        out = self.encode_theta(x, mask=mask, noise=noise, generator=generator, rows=rows)
         beta = self.beta.to(self.compute_dtype)
         if self.is_prodlda:
             word_dist = torch.softmax(self.beta_batchnorm(_dot(out.theta, beta), mask), dim=1)
@@ -190,18 +206,21 @@ class DecoderNetwork(nn.Module):
         mask: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        rows: Rows | None = None,
     ) -> TopicModelOutput:
         """Encoder + reparameterization + theta-dropout without the decode,
         for callers that fuse the decode + loss into the kernels. The
         ``beta_batchnorm`` running stats are left untouched (the fused
-        caller updates them from the kernel's batch statistics)."""
-        mu, log_sigma = self._encode(x, mask, generator)
+        caller updates them from the kernel's batch statistics). ``noise``
+        holds ``x``'s rows."""
+        mu, log_sigma = self._encode(x, mask, generator, rows)
         std = torch.exp(0.5 * log_sigma)
-        eps = noise if noise is not None else torch.randn(
-            std.shape, generator=generator, device=std.device, dtype=std.dtype
+        eps = noise if noise is not None else draw(
+            torch.randn, std.shape, rows, generator=generator, device=std.device,
+            dtype=std.dtype,
         )
         theta = torch.softmax(mu + eps * std, dim=1)
-        theta = dropout(theta, self.dropout, self.training, generator)
+        theta = dropout(theta, self.dropout, self.training, generator, rows)
         return TopicModelOutput(
             prior_mean=self.prior_mean,
             prior_variance=self.prior_variance,

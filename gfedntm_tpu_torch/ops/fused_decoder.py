@@ -73,6 +73,10 @@ LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
 #: forwards with ``training=False``, each of which launches K1 in eval mode
 #: and K2 once (the V-sharded validation, ``train.steps.eval_loss``).
 EVAL_LAUNCHES = {"stats": 0, "vsharded": 0, "stats_bf16": 0, "vsharded_bf16": 0}
+#: Calls on CUDA tensors of K5's rows-sharded training branch
+#: (:class:`VShardedRowsReconLoss`), which launches no kernel of its own: it
+#: is plain tensor ops, as the JAX package's branch is plain XLA.
+ROWS_CALLS = {"vsharded_rows": 0}
 
 _NEG_INF = -1e30
 _PLAN_KIND = {"stats": 0, "loss": 1, "grads": 2}
@@ -95,8 +99,9 @@ def storage_torch_dtype(storage_dtype: str) -> torch.dtype:
 
 
 def reset_launches() -> None:
-    """Set every count of :data:`LAUNCHES` and :data:`EVAL_LAUNCHES` to 0."""
-    for counts in (LAUNCHES, EVAL_LAUNCHES):
+    """Set every count of :data:`LAUNCHES`, :data:`EVAL_LAUNCHES` and
+    :data:`ROWS_CALLS` to 0."""
+    for counts in (LAUNCHES, EVAL_LAUNCHES, ROWS_CALLS):
         for key in counts:
             counts[key] = 0
 
@@ -553,10 +558,14 @@ class VShardedRowsReconLoss(torch.autograd.Function):
     count and the BatchNorm corrections ``sum_gn``, ``sum_gnn`` over the
     data group; g_theta over the model group. g_beta is this data rank's
     partial: a data-parallel trainer sums it over the data group with every
-    other gradient."""
+    other gradient. Under bf16 storage beta and x take their bf16-rounded
+    values, as the kernels read them."""
 
     @staticmethod
-    def forward(ctx, theta, beta, x, mask, groups, eps, floor):
+    def forward(ctx, theta, beta, x, mask, groups, eps, floor, storage_dtype):
+        if _on_cuda(theta):
+            ROWS_CALLS["vsharded_rows"] += 1
+        beta, x = _upcast(beta, storage_dtype), _upcast(x, storage_dtype)
         mk = mask[:, None]
         cnt = torch.clamp_min(sum_in_rank_order(mask.sum(), groups.data_group), 1.0)
         z = theta @ beta
@@ -586,17 +595,18 @@ class VShardedRowsReconLoss(torch.autograd.Function):
             torch.stack([(gn * mk).sum(0), (gn * n * mk).sum(0)]), groups.data_group)
         gz = torch.rsqrt(var + ctx.eps) * (gn - mk * (sum_gn / cnt) - n * mk * (sum_gnn / cnt))
         g_theta = sum_in_rank_order(gz @ beta.T, groups.model_group)
-        return g_theta, theta.T @ gz, None, None, None, None, None
+        return g_theta, theta.T @ gz, None, None, None, None, None, None
 
 
 def _vsharded(theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
               training, eps, floor, storage_dtype, plain):
     theta, mask = _prepare(theta, mask, storage_dtype)
     if training and groups.data_group is not None:
-        # Plain tensor ops in float32: the storage does not apply (nor does
-        # it in the JAX package's rows-sharded branch).
+        # Plain tensor ops in float32 on the values the storage holds (the
+        # JAX package's branch ignores the storage; here a dp > 1 run
+        # computes the function its single-device run computes).
         return VShardedRowsReconLoss.apply(theta, beta_local, x_local, mask, groups,
-                                           float(eps), float(floor))
+                                           float(eps), float(floor), storage_dtype)
     return VShardedReconLoss.apply(
         theta, beta_local, x_local, run_mean_local, run_var_local, mask, groups,
         bool(training), float(eps), float(floor), storage_dtype, plain,

@@ -18,6 +18,11 @@ and NCCL alike.
   gradient, so the backward passes it through.
   ``torch.distributed.nn.functional.all_reduce`` all-reduces the gradient
   instead, which would scale the inputs' gradients by the group size.
+- **Sum forward, sum backward** (:func:`sum_forward_sum_backward`): a sum
+  whose consumers differ on every rank, as the data group's BatchNorm
+  statistics feed each rank's own rows. The gradient of each rank's
+  partial is then the sum of every rank's gradient of the sum, folded in
+  rank order too, as SyncBatchNorm's backward does.
 
 A group of ``None`` is a group of one rank: gathering returns the partial
 alone.
@@ -79,9 +84,27 @@ def sum_forward_identity_backward(t: torch.Tensor, group) -> torch.Tensor:
     return _SumIdentityGrad.apply(t, group)
 
 
+class _SumSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return sum_in_rank_order(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return sum_in_rank_order(grad.contiguous(), ctx.group), None
+
+
+def sum_forward_sum_backward(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum of every rank's ``t`` whose backward sums the gradient over the
+    group: each rank's loss reaches every rank's partial."""
+    return _SumSumGrad.apply(t, group)
+
+
 def check_equal_across(value: float, group, device: torch.device, what: str) -> None:
     """Raise unless ``value`` is bitwise the same float on every rank of
-    ``group`` (NaN equals NaN)."""
+    ``group`` (NaN equals NaN). Pass ``DpMpGroups.world_group`` to check
+    every rank."""
     seen = gather_by_sum(torch.tensor([value], dtype=torch.float64, device=device),
                          group).flatten().tolist()
     same = [v == value or (v != v and value != value) for v in seen]

@@ -9,9 +9,10 @@ Rank r sits at (d, m) = (r // mp, r % mp), the order of
 - the ``dp`` ranks of one column (same m) hold the same vocabulary shard and
   split the rows: their *data group*.
 
-A group of one rank is ``None`` (nothing to reduce). The default process
-group must be initialized first, with the backend the caller chose; nothing
-here picks one.
+A group of one rank is ``None`` (nothing to reduce), so a check across every
+rank passes :attr:`DpMpGroups.world_group`, never ``None``. The default
+process group must be initialized first, with the backend the caller chose;
+nothing here picks one.
 """
 
 from __future__ import annotations
@@ -47,6 +48,22 @@ class DpMpGroups:
     def row_slice(self, n_rows: int) -> slice:
         """This rank's rows of a batch split over the data group."""
         return _even_slice(n_rows, self.dp, self.data_rank, "batch")
+
+    @property
+    def world_group(self):
+        """Every rank of the layout (``None`` when it has one rank)."""
+        return dist.group.WORLD if self.dp * self.mp > 1 else None
+
+    @property
+    def is_root(self) -> bool:
+        """Data rank 0 and model rank 0: the rank that writes files."""
+        return self.rank == 0
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``n`` (and >= m); copy of
+    ``gfedntm_tpu/parallel/mesh.py:108-110``."""
+    return max(1, -(-n // m)) * m
 
 
 def _even_slice(n: int, parts: int, index: int, what: str) -> slice:

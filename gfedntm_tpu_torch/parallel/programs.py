@@ -10,14 +10,20 @@ training through them:
   rank stalls), to check a group forms and to exercise timeouts;
 - :func:`describe_layout` — where the rank sits in a ``dp x mp`` layout and
   who shares its groups;
+- :func:`synced_batchnorm` — the data group's sum-forward/sum-backward
+  collective and the synced ``MaskedBatchNorm`` on this rank's rows of full
+  inputs, forward and input gradients;
 - :func:`vsharded_op` — K5 and its plain version on this rank's shard of
   full inputs, forward and backward, and optionally their times;
-- :func:`fit` — ``fit_sharded`` of an AVITM, with its first step's
+- :func:`fit` — ``fit_sharded`` of an AVITM on a ``dp x mp`` layout, with
+  its first step's
   gradients (:func:`step_gradients`), launch counts, the gathered model's
   state and topics, optionally its steady ms per step, and with a
   validation set its validation losses, early-stopping outcome and, per
   validation, what :func:`replay_validation` needs to take the same
   validation unsharded;
+- :func:`fit_data` — ``fit_data_sharded`` of an unfused AVITM over dp
+  ranks, with its summary, losses, gathered state and metrics records;
 - :func:`forced_steps` — the sharded gradients at given points of another
   fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
   noise);
@@ -36,10 +42,22 @@ import torch.distributed as dist
 from gfedntm_tpu_torch.data.datasets import BowDataset, EpochSchedule, make_epoch_schedule
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
-from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, merge_softmax
+from gfedntm_tpu_torch.models.layers import window
+from gfedntm_tpu_torch.parallel.collectives import (
+    gather_by_sum,
+    merge_softmax,
+    sum_in_rank_order,
+)
 from gfedntm_tpu_torch.parallel.mesh import DpMpGroups, make_dp_mp_groups
-from gfedntm_tpu_torch.parallel.sharded import fit_sharded, gather_state_dict, local_network
-from gfedntm_tpu_torch.train.steps import fused_batch_loss, grad_step
+from gfedntm_tpu_torch.parallel.sharded import (
+    DocShard,
+    fit_data_sharded,
+    fit_sharded,
+    gather_state_dict,
+    local_network,
+)
+from gfedntm_tpu_torch.train.steps import batch_loss, fused_batch_loss, grad_step, sum_gradients
+from gfedntm_tpu_torch.utils.observability import MetricsLogger
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -89,6 +107,43 @@ def describe_layout(rank, device, dp: int, mp: int, vocab_size: int) -> dict:
         "model_members": _np(gather_by_sum(me, groups.model_group)).astype(int).tolist(),
         "data_members": _np(gather_by_sum(me, groups.data_group)).astype(int).tolist(),
     }
+
+
+def synced_batchnorm(rank, device, dp: int, cases: list) -> list:
+    """For each case (a whole batch ``x`` [B, F], ``mask`` [B] or ``None``,
+    a cotangent ``g`` [B, F]): this rank's rows of the batch padded with
+    masked rows to a multiple of dp, through a ``MaskedBatchNorm`` synced
+    over the data group of a ``dp x 1`` layout; returns its output and the
+    gradient of ``sum(out * g)`` on those rows, the running statistics, and
+    the gradient of ``sum(w_r * S)`` for ``S`` the sum-forward/sum-backward
+    of each rank's ``x`` rows' column sums (``w_r`` = rank + 1)."""
+    from gfedntm_tpu_torch.models.layers import MaskedBatchNorm
+    from gfedntm_tpu_torch.parallel.collectives import sum_forward_sum_backward
+    from gfedntm_tpu_torch.parallel.mesh import pad_to_multiple
+
+    groups = make_dp_mp_groups(dp, 1)
+    out = []
+    for case in cases:
+        b, f = case["x"].shape
+        b_pad = pad_to_multiple(b, dp)
+        span = groups.row_slice(b_pad)
+
+        def rows(a):
+            a = np.concatenate([a, np.zeros((b_pad - len(a), *a.shape[1:]), a.dtype)])
+            return torch.from_numpy(np.ascontiguousarray(a[span])).to(device)
+
+        x = rows(case["x"]).requires_grad_(True)
+        mask = None if case["mask"] is None else rows(case["mask"])
+        bn = MaskedBatchNorm(f).to(device)
+        bn.group = groups.data_group
+        y = bn(x, mask)
+        (y * rows(case["g"])).sum().backward()
+        t = x.detach().clone().requires_grad_(True)
+        (float(rank + 1) * sum_forward_sum_backward(t.sum(0), groups.data_group)).sum().backward()
+        out.append({"span": (span.start, span.stop), "out": _np(y), "grad": _np(x.grad),
+                    "running_mean": _np(bn.running_mean), "running_var": _np(bn.running_var),
+                    "sum_grad": _np(t.grad)})
+    return out
 
 
 def vsharded_op(rank, device, dp: int, mp: int, cases: list) -> list:
@@ -166,35 +221,50 @@ def _batch(model: AVITM, n_docs: int, step: int) -> tuple[np.ndarray, np.ndarray
 
 def step_gradients(model: AVITM, X: np.ndarray, groups: DpMpGroups | None = None,
                    state: dict | None = None, step: int = 0,
-                   noise: np.ndarray | None = None) -> tuple[float, dict]:
-    """Loss and every parameter's gradient of the fused training loss on the
-    batch of global step ``step`` of a fresh ``model``'s schedule: unsharded,
-    or (``groups``) on the rank-local network, gathered to full shapes.
-    ``state`` (a full numpy state dict) replaces the model's own first, and
-    ``noise`` [B, K] the reparameterization draw from its generator, so the
-    step can be taken from any point of another fit's trajectory. The
-    one-step parity check of the whole network: Adam would hide a gradient
-    that is wrong by a constant factor, such as the model group's size."""
+                   noise: np.ndarray | None = None, with_stats: bool = False):
+    """Loss and every parameter's gradient of the training loss (the fused
+    one for a fused model) on the batch of global step ``step`` of a fresh
+    ``model``'s schedule: unsharded, or (``groups``) on the rank-local
+    network and the rank's rows, the gradients summed over the data group as
+    ``grad_step`` sums them and gathered to full shapes. ``state`` (a full
+    numpy state dict) replaces the model's own first, and ``noise`` [B, K]
+    the reparameterization draw from its generator, so the step can be
+    taken from any point of another fit's trajectory. The one-step parity
+    check of the whole network: Adam would hide a gradient that is wrong by
+    a constant factor, such as the model group's size. ``with_stats`` also
+    returns the gathered BatchNorm buffers after the step's forward."""
     if state is not None:
         model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                      for k, v in state.items()})
     indices, mask = _batch(model, len(X), step)
-    x = X[indices]
-    net, vshard = model.model, None
+    sched = EpochSchedule(indices[None], mask[None])
+    net, vshard, corpus = model.model, None, DocShard(torch.as_tensor(X, device=model.device))
     if groups is not None:
         net = local_network(model.model, groups)
-        x = x[:, groups.v_slice(X.shape[1])]
-        vshard = groups if groups.mp > 1 else None
+        vshard = groups if groups.dp * groups.mp > 1 and model.fused_decoder else None
+        corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=model.device))
     net.train()
-    mask = torch.as_tensor(mask, dtype=torch.float32, device=model.device)
-    eps = None if noise is None else torch.as_tensor(noise, device=model.device)
-    loss = fused_batch_loss(net, torch.as_tensor(np.ascontiguousarray(x), device=model.device),
-                            mask, noise=eps, generator=model.generator, vshard=vshard)
+    x, mask, rows = next(corpus.steps(sched))
+    eps = None if noise is None else window(torch.as_tensor(noise, device=model.device), rows)
+    if model.fused_decoder:
+        loss = fused_batch_loss(net, x, mask, noise=eps, generator=model.generator,
+                                vshard=vshard, rows=rows)
+    else:
+        loss = batch_loss(net, x, mask, noise=eps, generator=model.generator, rows=rows)
     loss.backward()
+    sum_gradients(net, corpus.data_group)
+    loss = loss.detach()
+    if corpus.data_group is not None:
+        loss = sum_in_rank_order(loss, corpus.data_group)
     grads = {name: p.grad for name, p in net.named_parameters()}
+    stats = {name: b for name, b in net.named_buffers()}
     if groups is not None:
         grads = gather_state_dict(grads, groups)
-    return float(loss.detach()), {name: _np(g) for name, g in grads.items()}
+        stats = gather_state_dict(stats, groups)
+    out = (float(loss), {name: _np(g) for name, g in grads.items()})
+    if with_stats:
+        return (*out, {name: _np(b).copy() for name, b in stats.items()})
+    return out
 
 
 def trajectory(model: AVITM, X: np.ndarray, steps) -> tuple[list, list]:
@@ -248,11 +318,13 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     ``init_state``, a full numpy state dict, when given), with the launch
     counters set to 0 just before and read just after. Returns the first
     step's loss and gradients on an identical model (``first_step``), the
-    launch counts (``launches``, and ``eval_launches`` of them in eval mode),
+    launch counts (``launches``, ``eval_launches`` of them in eval mode, and
+    ``rows_calls`` of K5's rows-sharded branch),
     epoch and step losses, the gathered model's state dict, the rank-local
     network's shapes, ``get_topics(10)`` and the training documents' topic
     mixtures (``n_samples`` draws); then, with ``timing_steps``, the steady
-    wall ms per step of ``fit_sharded``'s step (:func:`_step_loop`).
+    wall ms per step of ``fit_sharded``'s step and the bytes per step of its
+    data-group collectives (``step_ms``, ``step_bytes``; :func:`_step_loop`).
 
     With ``X_val`` the fit validates every epoch (``save_dir``,
     ``patience``, ``delta`` as in ``fit_sharded``) and also returns its
@@ -295,6 +367,7 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         "first_step": first_step,
         "launches": dict(fd.LAUNCHES),
         "eval_launches": dict(fd.EVAL_LAUNCHES),
+        "rows_calls": dict(fd.ROWS_CALLS),
         "epoch_losses": list(model.epoch_losses),
         "step_losses": list(model.step_losses),
         "state": {k: _np(v) for k, v in model.model.state_dict().items()},
@@ -306,7 +379,8 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         result.update(validation_losses=list(model.validation_losses),
                       last_epoch=model.nn_epoch, validations=validations)
     if timing_steps:
-        result["step_ms"] = _step_loop(build(), X, groups)[1](timing_steps)
+        result["step_ms"], result["step_bytes"] = _step_loop(build(), X, groups)[1](
+            timing_steps)
     return result
 
 
@@ -320,32 +394,83 @@ def replay_validation(model: AVITM, X_val: np.ndarray, record: dict) -> float:
                                  for k, v in record["state"].items()})
     model.generator.set_state(torch.from_numpy(record["generator"]))
     model.validation_data = BowDataset(X=X_val)
-    return model._validation_loss(model.model, torch.as_tensor(X_val, device=model.device),
+    return model._validation_loss(model.model,
+                                  DocShard(torch.as_tensor(X_val, device=model.device)),
                                   EpochSchedule(record["indices"], record["mask"]))
 
 
+def fit_data(rank, device, dp: int, avitm_kw: dict, X: np.ndarray,
+             init_state: dict | None = None, n_samples: int = 3,
+             X_val: np.ndarray | None = None, save_dir: str | None = None,
+             patience: int = 5, delta: float = 0.0, timing_steps: int = 0) -> dict:
+    """``fit_data_sharded`` of an unfused ``AVITM(device=device, **avitm_kw)``
+    over ``dp`` ranks (from ``init_state`` when given), with a validating
+    ``MetricsLogger``. Returns the first step's loss and gradients on an
+    identical model (``first_step``), the summary, epoch, step and validation
+    losses, the last epoch run, the gathered state, the metrics records and
+    the registry's snapshot; with ``timing_steps``, the steady wall ms per
+    step of its step (:func:`_step_loop`) and the bytes per step of its
+    batch gather and gradient sum."""
+    groups = make_dp_mp_groups(dp, 1)
+
+    def build():
+        model = AVITM(device=device, **avitm_kw)
+        if init_state is not None:
+            model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                                         for k, v in init_state.items()})
+        return model
+
+    first_step = step_gradients(build(), X, groups)
+    model = build()
+    metrics = MetricsLogger(validate=True)
+    data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
+    validation = None if X_val is None else BowDataset(X=X_val)
+    summary = fit_data_sharded(model, data, groups, validation, metrics, save_dir, patience,
+                               delta, n_samples, device)
+    result = {
+        "first_step": first_step,
+        "summary": summary,
+        "epoch_losses": list(model.epoch_losses),
+        "step_losses": list(model.step_losses),
+        "validation_losses": list(model.validation_losses),
+        "last_epoch": model.nn_epoch,
+        "state": {k: _np(v) for k, v in model.model.state_dict().items()},
+        "records": metrics.records,
+        "snapshot": metrics.registry.snapshot(),
+    }
+    if timing_steps:
+        result["step_ms"], result["step_bytes"] = _step_loop(build(), X, groups)[1](
+            timing_steps)
+    return result
+
+
 def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
-    """``fit_sharded``'s training step on this rank's V shard of ``model``,
-    on the first epoch's batches of ``X`` already on the device (repeated):
-    ``run(steps)`` takes ``steps`` of them and syncs the device;
-    ``wall_ms(steps)`` warms up with ``run(steps)``, then times ``run(steps)``
-    between barriers and returns the wall ms per step. Set-up (copies of the
-    network, the corpus upload, the state gather) is outside both."""
+    """The sharded fits' training step on this rank's network and corpus
+    block, on the first epoch's batches of ``X`` (repeated), each batch
+    gathered from the document blocks as in the fit: ``run(steps)`` takes
+    ``steps`` of them and syncs the device; ``wall_ms(steps)`` warms up with
+    ``run(steps)``, then times ``run(steps)`` between barriers and returns
+    the wall ms per step and the bytes per step that the batch gather and
+    the gradient sum put through the data group's ``all_reduce``. Set-up
+    (copies of the network, the corpus upload, the state gather) is outside
+    both."""
     device = model.device
     net = local_network(model.model, groups)
     optimizer = model.build_optimizer(net)
-    cols = groups.v_slice(X.shape[1])
-    x_local = torch.as_tensor(np.ascontiguousarray(X[:, cols]), device=device)
+    corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=device))
     sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
-    batches = [x_local[torch.as_tensor(i, device=device, dtype=torch.long)]
-               for i in sched.indices]
-    mask = torch.ones(model.batch_size, device=device)
-    vshard = groups if groups.mp > 1 else None
+    vshard = groups if groups.dp * groups.mp > 1 and model.fused_decoder else None
 
     def run(steps):
-        for i in range(steps):
-            grad_step(net, optimizer, batches[i % len(batches)], mask, True,
-                      generator=model.generator, vshard=vshard)
+        done = 0
+        while done < steps:
+            for x, mask, rows in corpus.steps(sched):
+                if done == steps:
+                    break
+                grad_step(net, optimizer, x, mask, model.fused_decoder,
+                          generator=model.generator, vshard=vshard, rows=rows,
+                          data_group=corpus.data_group)
+                done += 1
         _sync(device)
 
     def wall_ms(steps):
@@ -354,7 +479,13 @@ def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
         start = time.perf_counter()
         run(steps)
         dist.barrier()
-        return (time.perf_counter() - start) / steps * 1e3
+        grad_bytes = 0
+        if corpus.data_group is not None:
+            n_params = sum(p.numel() for p in net.parameters())
+            grad_bytes = groups.dp * n_params * 4  # the gathered [dp, n] buffer
+        bytes_per_step = {"batch_gather": corpus.gather_bytes(model.batch_size),
+                          "gradient_sum": grad_bytes}
+        return (time.perf_counter() - start) / steps * 1e3, bytes_per_step
 
     return run, wall_ms
 
@@ -370,7 +501,7 @@ def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
     from gfedntm_tpu_torch.profile_step import GROUPS, device_times
 
     run, step_ms = _step_loop(AVITM(device=device, **avitm_kw), X, make_dp_mp_groups(1, mp))
-    wall_ms = step_ms(steps)
+    wall_ms = step_ms(steps)[0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
     # No upload happens in these steps: host-device copies are gloo's

@@ -24,6 +24,15 @@ A bf16-compute network (``compute_dtype=torch.bfloat16``) stores beta and x
 in bf16 for the fused kernels (``_fused_batch_loss``, ``:176-180``);
 :func:`check_bf16_bow_counts` is the one-time screen of a corpus for counts
 bf16 cannot hold exactly.
+
+Data parallelism (``data_group``, with ``rows`` the
+:class:`~gfedntm_tpu_torch.models.layers.Rows` of the whole batch that ``x``
+holds): each rank takes the loss of its rows, with the BatchNorm statistics
+of the whole batch (the network's data group, ``set_data_group``) and every
+draw at the whole batch's shape; after the backward every gradient is
+summed over the data group (:func:`sum_gradients`), so each rank steps its
+optimizer on the whole batch's gradient, as the JAX package's GSPMD program
+does (``:65-88``, ``:110-127``). The step's loss is the sum of the ranks'.
 """
 
 from __future__ import annotations
@@ -31,12 +40,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gfedntm_tpu_torch.models.layers import batch_count
 from gfedntm_tpu_torch.models.losses import avitm_loss, gaussian_kl
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
 from gfedntm_tpu_torch.ops.fused_decoder import (
     prodlda_recon_loss,
     prodlda_recon_loss_vsharded,
 )
+from gfedntm_tpu_torch.parallel.collectives import sum_in_rank_order
+from gfedntm_tpu_torch.parallel.mesh import pad_to_multiple
 
 
 #: bfloat16 has an 8-bit significand: integers are exactly representable
@@ -66,11 +78,41 @@ def check_bf16_bow_counts(x_bow, logger=None) -> bool:
     return True
 
 
-def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
+def pad_batch_axis(indices, mask, multiple: int):
+    """Copy of ``gfedntm_tpu/train/steps.py:pad_batch_axis`` (:91-119):
+    an ``[S, B]`` epoch schedule with its batch axis padded up to a multiple
+    of ``multiple`` with masked rows on doc 0 (a real row, so every gather
+    stays in bounds); the first ``B`` rows of every step are unchanged."""
+    b = int(indices.shape[1])
+    b_pad = pad_to_multiple(b, multiple)
+    if b_pad == b:
+        return indices, mask
+    s = indices.shape[0]
+    idx_out = np.zeros((s, b_pad), dtype=indices.dtype)
+    idx_out[:, :b] = indices
+    mask_out = np.zeros((s, b_pad), dtype=mask.dtype)
+    mask_out[:, :b] = mask
+    return idx_out, mask_out
+
+
+def sum_gradients(model: DecoderNetwork, data_group) -> None:
+    """Replace every parameter's gradient by its sum over ``data_group``,
+    added in rank order on one flattened buffer (one collective per step),
+    so every rank holds the same gradients bit for bit."""
+    if data_group is None:
+        return
+    params = list(model.parameters())
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    total = sum_in_rank_order(torch.cat([g.reshape(-1) for g in grads]), data_group)
+    for p, part in zip(params, total.split([g.numel() for g in grads])):
+        p.grad = part.view_as(p).clone()
+
+
+def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None, rows=None):
     """Forward + reference loss on one (padded, masked) batch. Masked rows
     contribute exact zeros; the network clamps log-variance, so every row's
     loss term is finite."""
-    out = model(x, mask=mask, noise=noise, generator=generator)
+    out = model(x, mask=mask, noise=noise, generator=generator, rows=rows)
     return avitm_loss(
         x, out.word_dist, out.prior_mean, out.prior_variance,
         out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
@@ -79,13 +121,14 @@ def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None):
 
 
 def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
-                     vshard=None):
+                     vshard=None, rows=None):
     """Training loss through the fused decode + reconstruction kernels: the
     [B, V] word distribution never exists. The decoder BatchNorm's running
     stats are updated from the kernels' batch statistics with
     MaskedBatchNorm's semantics (momentum 0.1, unbiased running variance);
-    under ``vshard`` each rank updates its own columns'."""
-    out = model.encode_theta(x, mask=mask, noise=noise, generator=generator)
+    under ``vshard`` each rank updates its own columns', and with a data
+    group the statistics and their count are the whole batch's."""
+    out = model.encode_theta(x, mask=mask, noise=noise, generator=generator, rows=rows)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
     storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
@@ -103,32 +146,37 @@ def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
         out.prior_mean, out.prior_variance, out.posterior_mean,
         out.posterior_variance, out.posterior_log_variance,
     )
-    bn.update_running_stats(b_mean, b_var, torch.clamp_min(m.sum(), 1.0))
+    data_group = None if vshard is None else vshard.data_group
+    bn.update_running_stats(b_mean, b_var, batch_count(m, data_group))
     return torch.sum((kl + rl) * m)
 
 
 def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
-              fused: bool, noise=None, generator=None, vshard=None) -> torch.Tensor:
+              fused: bool, noise=None, generator=None, vshard=None, rows=None,
+              data_group=None) -> torch.Tensor:
     """One forward/backward/optimizer update in training mode; returns the
     batch loss (detached, on the model's device). ``fused`` selects the
     fused kernels for prodLDA; LDA always takes the unfused decode. A
-    ``vshard`` step needs the fused prodLDA loss."""
+    ``vshard`` step needs the fused prodLDA loss. With a ``data_group`` the
+    gradients and the returned loss are summed over it."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     if vshard is not None and not (fused and model.is_prodlda):
         raise NotImplementedError("a V-sharded step runs the fused prodLDA loss only")
     if fused and model.is_prodlda:
-        loss = fused_batch_loss(model, x, mask, noise, generator, vshard)
+        loss = fused_batch_loss(model, x, mask, noise, generator, vshard, rows)
     else:
-        loss = batch_loss(model, x, mask, noise, generator)
+        loss = batch_loss(model, x, mask, noise, generator, rows)
     loss.backward()
+    sum_gradients(model, data_group)
     optimizer.step()
-    return loss.detach()
+    loss = loss.detach()
+    return loss if data_group is None else sum_in_rank_order(loss, data_group)
 
 
 @torch.no_grad()
 def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
-              vshard=None) -> torch.Tensor:
+              vshard=None, rows=None) -> torch.Tensor:
     """Validation loss of one (padded, masked) batch in eval mode: running
     BatchNorm statistics, no dropout, a fresh reparameterization draw
     (``noise`` or ``generator``). The decode is the unfused one, even for a
@@ -141,15 +189,16 @@ def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
     K2 on the rank's columns, their softmax partials merged over the group),
     plus the KL; the JAX package gets the same function from GSPMD on its
     unfused eval (``parallel/sharded.py:147-151``). The caller sets eval
-    mode (:func:`eval_epoch` does)."""
+    mode (:func:`eval_epoch` does). ``rows`` as in :func:`grad_step`; the
+    loss is this rank's rows'."""
     if vshard is None:
-        out = model(x, mask=None, noise=noise, generator=generator)
+        out = model(x, mask=None, noise=noise, generator=generator, rows=rows)
         return avitm_loss(
             x, out.word_dist, out.prior_mean, out.prior_variance,
             out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
             sample_mask=mask,
         )
-    out = model.encode_theta(x, mask=None, noise=noise, generator=generator)
+    out = model.encode_theta(x, mask=None, noise=noise, generator=generator, rows=rows)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
     storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
@@ -171,13 +220,24 @@ def eval_epoch(model: DecoderNetwork, x_all, indices, masks, noise=None,
     rows of ``x_all``. ``noise`` [steps, B, K] injects each step's
     reparameterization eps; otherwise ``generator`` draws them. The model's
     train/eval mode is restored afterwards."""
+    return eval_steps(model, ((x_all[indices[i]], masks[i], None) for i in range(len(indices))),
+                      noise, generator, vshard)
+
+
+def eval_steps(model: DecoderNetwork, steps, noise=None, generator=None, vshard=None,
+               data_group=None) -> torch.Tensor:
+    """:func:`eval_epoch` over ``steps``, an iterable of ``(x, mask, rows)``
+    (this rank's rows of each validation batch,
+    :meth:`~gfedntm_tpu_torch.parallel.sharded.DocShard.steps`); with a
+    ``data_group`` the per-step losses are summed over it."""
     was_training = model.training
     model.eval()
     try:
-        return torch.stack([
-            eval_loss(model, x_all[indices[i]], masks[i],
-                      None if noise is None else noise[i], generator, vshard)
-            for i in range(len(indices))
+        losses = torch.stack([
+            eval_loss(model, x, mask, None if noise is None else noise[i], generator, vshard,
+                      rows)
+            for i, (x, mask, rows) in enumerate(steps)
         ])
     finally:
         model.train(was_training)
+    return losses if data_group is None else sum_in_rank_order(losses, data_group)

@@ -197,9 +197,9 @@ def test_one_rank_fit_sharded_matches_fit(runs):
 
 def test_later_slices_raise_not_implemented(runs):
     data = BowDataset(X=runs["X"])
-    model = port_model(runs["init"])
-    with pytest.raises(NotImplementedError, match="dp > 1"):
-        fit_sharded(model, data, DpMpGroups(2, 1, 0), device="cpu")
+    with pytest.raises(NotImplementedError, match="unfused and LDA decodes with mp > 1"):
+        fit_sharded(port_model(runs["init"], fused_decoder=False), data, DpMpGroups(2, 2, 0),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="CTM"):
         fit_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(1, 1, 0),
                     device="cpu")

@@ -1,18 +1,22 @@
 """The first-step gradient parity of ``fit_sharded``'s network catches the
-faults the V-sharded path invites.
+faults the V-sharded and the data-parallel paths invite.
 
-Each case breaks one convention inside two spawned gloo ranks (dp=1, mp=2)
-and computes the fused training loss and every parameter's gradient on the
-first batch (``programs.step_gradients``), gathered to full shapes; the
-unbroken run is the control. The parity thresholds are those of
+Each case breaks one convention inside two spawned gloo ranks (dp=1, mp=2;
+or dp=2, mp=1 for the data-parallel faults) and computes the fused training
+loss and every parameter's gradient on the first batch
+(``programs.step_gradients``), gathered to full shapes, and for the
+data-parallel cases the BatchNorm buffers after the step; the unbroken run
+is the control. The parity thresholds are those of
 ``tests/test_torch_sharded_fit.py::test_first_step_gradients_match_unsharded``:
 loss within 1e-6 relative of the unsharded network's, each gradient within
 5e-4 x its max|grad|, gradients that are zero in exact arithmetic within
-1e-5 x the largest gradient. This module imports only torch, numpy and the
-port, so the ranks can import its rank program.
+1e-5 x the largest gradient; the buffers within 1e-4 of their max (the
+counter exactly). This module imports only torch, numpy and the port, so
+the ranks can import its rank programs.
 """
 
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -20,14 +24,16 @@ import torch
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 
+from gfedntm_tpu_torch.models import layers
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
 from gfedntm_tpu_torch.parallel import programs, sharded
-from gfedntm_tpu_torch.parallel.collectives import gather_by_sum
+from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, sum_forward_identity_backward
 from gfedntm_tpu_torch.parallel.launch import run_ranks
 from gfedntm_tpu_torch.parallel.mesh import make_dp_mp_groups
+from gfedntm_tpu_torch.train import steps as train_steps
 
-V, K, H, B, DOCS, MP = 96, 4, (16, 16), 8, 32, 2
+V, K, H, B, DOCS, MP, DP = 96, 4, (16, 16), 8, 32, 2, 2
 KW = dict(input_size=V, n_components=K, hidden_sizes=H, batch_size=B, num_epochs=1,
           dropout=0.0, seed=0, fused_decoder=True)
 DEGENERATE = ("inf_net.f_mu.bias", "inf_net.f_sigma.bias", "prior_mean")
@@ -70,10 +76,32 @@ MUTATIONS = {  # name: [(object, attribute, replacement)]
 }
 
 
+def _local_count(real):
+    """The whole batch's count with the data group dropped: the local one."""
+    def patched(mask, group):
+        return real(mask, None)
+    return patched
+
+
+def _not_summed(model, data_group):
+    """Each data rank steps on its own rows' gradients."""
+
+
+DP_MUTATIONS = {
+    "none": [],
+    "batchnorm_identity_backward": [(layers, "sum_forward_sum_backward",
+                                     sum_forward_identity_backward)],
+    "running_var_local_count": [(train_steps, "batch_count",
+                                 _local_count(train_steps.batch_count))],
+    "gradients_not_summed": [(train_steps, "sum_gradients", _not_summed),
+                             (programs, "sum_gradients", _not_summed)],
+}
+
+
 @contextlib.contextmanager
-def mutated(name):
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in MUTATIONS[name]]
-    for obj, attr, value in MUTATIONS[name]:
+def mutated(name, table=MUTATIONS):
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in table[name]]
+    for obj, attr, value in table[name]:
         setattr(obj, attr, value)
     try:
         yield
@@ -93,10 +121,32 @@ def first_steps_under_mutations(rank, device, X):
     return out
 
 
+def first_steps_dp_mutations(rank, device, X):
+    """Rank program: ``{mutation: (loss, full gradients, BatchNorm
+    buffers)}`` of the first step at dp=2, each under its mutation."""
+    groups = make_dp_mp_groups(DP, 1)
+    out = {}
+    for name in DP_MUTATIONS:
+        with mutated(name, DP_MUTATIONS):
+            out[name] = programs.step_gradients(AVITM(device=device, **KW), X, groups,
+                                                with_stats=True)
+    return out
+
+
 def parity_failures(step, ref) -> set:
-    """The names (``"loss"`` or a parameter) that fail the parity check."""
-    (loss, grads), (ref_loss, ref_grads) = step, ref
+    """The names (``"loss"``, a parameter or a BatchNorm buffer) that fail
+    the parity check."""
+    (loss, grads), (ref_loss, ref_grads) = step[:2], ref[:2]
     failed = set() if loss == pytest.approx(ref_loss, rel=1e-6) else {"loss"}
+    if len(step) == 3:
+        for name, want in ref[2].items():
+            got = step[2][name]
+            if want.dtype.kind != "f":
+                bad = not np.array_equal(got, want)
+            else:
+                bad = float(np.abs(got - want).max()) > 1e-4 * max(1.0, float(np.abs(want).max()))
+            if bad:
+                failed.add(name)
     scale = max(float(np.abs(g).max()) for g in ref_grads.values())
     for name, want in ref_grads.items():
         if name in DEGENERATE:
@@ -111,15 +161,20 @@ def parity_failures(step, ref) -> set:
 @pytest.fixture(scope="module")
 def steps():
     X = np.random.default_rng(0).integers(0, 3, size=(DOCS, V)).astype(np.float32)
-    ref = programs.step_gradients(AVITM(device="cpu", **KW), X)
-    ranks = run_ranks(first_steps_under_mutations, MP, "gloo", ["cpu"] * MP, TIMEOUT_S,
-                      args=(X,))
-    return ref, ranks
+    ref = programs.step_gradients(AVITM(device="cpu", **KW), X, with_stats=True)
+    with ThreadPoolExecutor(2) as pool:
+        mp_ranks = pool.submit(run_ranks, first_steps_under_mutations, MP, "gloo",
+                               ["cpu"] * MP, TIMEOUT_S, (X,))
+        dp_ranks = pool.submit(run_ranks, first_steps_dp_mutations, DP, "gloo",
+                               ["cpu"] * DP, TIMEOUT_S, (X,))
+        return ref, mp_ranks.result(), dp_ranks.result()
 
 
 def test_the_unbroken_ranks_pass_the_parity_check(steps):
-    ref, ranks = steps
+    ref, ranks, dp_ranks = steps
     for r in ranks:
+        assert parity_failures(r["none"], ref[:2]) == set()
+    for r in dp_ranks:
         assert parity_failures(r["none"], ref) == set()
 
 
@@ -130,6 +185,17 @@ def test_the_unbroken_ranks_pass_the_parity_check(steps):
     ("softmax_merge_unrescaled", {"loss"}),
 ])
 def test_each_mutation_fails_the_parity_check(steps, mutation, caught_by):
-    ref, ranks = steps
+    ref, ranks, _ = steps
     for r in ranks:
+        assert caught_by <= parity_failures(r[mutation], ref[:2]), mutation
+
+
+@pytest.mark.parametrize("mutation, caught_by", [
+    ("batchnorm_identity_backward", {"inf_net.f_mu.weight", "inf_net.f_sigma.weight"}),
+    ("running_var_local_count", {"beta_batchnorm.running_var"}),
+    ("gradients_not_summed", {"beta", "inf_net.input_layer.weight", "prior_variance"}),
+])
+def test_each_data_parallel_mutation_fails_the_parity_check(steps, mutation, caught_by):
+    ref, _, dp_ranks = steps
+    for r in dp_ranks:
         assert caught_by <= parity_failures(r[mutation], ref), mutation

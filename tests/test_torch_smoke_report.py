@@ -7,6 +7,7 @@ is imported by path."""
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 MANGLED = {
@@ -99,13 +100,16 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
 
 
 @pytest.mark.parametrize("argv", [["--bogus"], ["--against"], ["--against", "a", "b"],
-                                  ["--kernels-only", "--nope"]])
+                                  ["--kernels-only", "--nope"],
+                                  ["--data-parallel-only", "--kernels-only"],
+                                  ["--data-parallel-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."]])
+@pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
+                                  ["--data-parallel-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -164,3 +168,10 @@ def test_metrics_report_reads_a_two_segment_run(smoke):
 def test_metrics_report_fails_without_a_steady_segment(smoke):
     with pytest.raises(smoke.SmokeFailure, match="metrics records"):
         smoke.metrics_report(metrics_run(None))
+
+
+def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
+    beta = np.zeros((2, 4), np.float32)
+    other = np.array([[0.0, 0.5, 0.0, 2.0], [0.0, 0.0, -1.5, 0.0]], np.float32)
+    assert smoke.beta_spread(other, beta, 1.0) == (2.0, 0.25)
+    assert smoke.nonzero({"stats": 1, "grads": 0}) == {"stats": 1}
