@@ -5,8 +5,9 @@
     python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
     python3 chip_smoke.py --kernels-only --against DIR  # and K1-K3 bitwise vs DIR's build
     python3 chip_smoke.py --data-parallel-only  # phases 1 and 6
+    python3 chip_smoke.py --phase-7-only  # phases 1 and 7
 
-Six phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Seven phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -17,7 +18,8 @@ device or no port next to this script):
    instantiation, FP32 and bf16 storage, none of which may have 0;
 2. kernels — run K1 (stats), K2 (loss) and K3 (grads) at the slice's shapes
    (B=256, K=50, V=100,000), at B=320 (16-column tiles), at V=99,999 (the
-   4-byte cp.async ring at full width), at B=64 / B=200 with V=3001 and at
+   4-byte cp.async ring at full width), at V=66,001 (phase 7(b)'s shape,
+   V % 4 = 1, training and eval), at B=64 / B=200 with V=3001 and at
    B=1100, K=8 (K1 and K2 on their CUDA-core route; K3 refuses that batch),
    in training and eval, with masked rows, an all-zero document row and an
    all-masked batch, and hold each against its plain PyTorch version on the
@@ -98,7 +100,39 @@ device or no port next to this script):
    more entries than an unsharded witness (the fused fit against the
    unfused one) has beyond 1e-4, times 1.5;
    each with its steady ms per step per rank and the bytes per step of its
-   batch gather and gradient sum, beside the card's name and power limit.
+   batch gather and gradient sum, beside the card's name and power limit;
+7. the unfused and LDA decodes at mp > 1, and the flow from raw text:
+   (a) ``fit_sharded`` of unfused prodLDA at dp=1 x mp=2 and of LDA at
+   dp=1 x mp=2 and dp=2 x mp=2 (gloo ranks on the card, NCCL on enough
+   cards), phase 6's corpus and widths, dropout 0, one epoch (8 steps) and
+   its validation on 256 documents, each against the unsharded fit of its
+   model type on the card: first-step gradients within 1e-3 of each leaf's
+   max|grad| (the leaves that cancel in exact arithmetic within 1e-5 of the
+   largest, or twice an unsharded split-encoder witness's distance), step
+   losses within 1e-4 relative, beta within 1e-4 but for no
+   more entries than 1.5x an unsharded split-encoder witness has beyond
+   1e-4 (+ 1e-4) and none further than 1.5x its largest (or 4 lr),
+   validation within 1e-4 of the teacher-forced unsharded eval, the state
+   bitwise equal on every rank, no kernel launched (K1-K3, K5, eval and
+   rows-sharded counts all 0, printed), steady ms per step per rank, and
+   where a rank group's seconds go (start-up, each fit's set-up, first
+   step, fit and timed steps, teardown); the ranks map the corpus from a ``.npy`` file
+   (``shared``; phases 4 to 6 too) rather than each receiving a pickled
+   copy;
+   (b) ``generate_synthetic_corpus(vocab_size=100,000, n_topics=50,
+   n_docs=1024, n_nodes=2, materialize_docs=True)``'s token-string documents
+   as ``RawCorpus`` clients -> ``run_vocab_consensus(max_features=None)``
+   (the native BoW library built; V must be 66,001 and each client's BoW
+   the synthetic BoW's columns in the vocabulary's order); K1-K3 on the
+   first client's first batch at V=66,001 (theta from an initial model's
+   encoder) against their plain versions -> ``AVITM``
+   (K=50, H=(100, 100), B=256) -> ``FederatedTrainer.fit``, 2 epochs, with
+   the launch counters reset just before and read just after (16 launches
+   of each of K1-K3, K2 and K3 on the 4-byte ring since V % 4 = 1) ->
+   ``make_global_model`` -> ``get_topics(10)`` -> ``npmi_coherence`` and
+   ``topic_diversity`` over the clients' tokenised documents (finite, in
+   [-1, 1] and [0, 1]); consensus s, vectorize s, steady ms per global step
+   and docs/s, beside the card's name and power limit.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -108,6 +142,7 @@ count, max error and its tolerance, kernel, plain and bound ms); a
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -186,6 +221,35 @@ def kernel_bound(nbytes: float, nflops: float, card: str,
         "bytes_ms": t_bytes, "ops_ms": t_ops,
         "simt_bound_ms": max(t_bytes, nflops / simt * 1e3), "peaks": key,
     }
+
+
+@functools.lru_cache(maxsize=None)
+def synthetic_bow(vocab_size: int, n_topics: int, n_docs: int, seed: int):
+    """One node's BoW of ``generate_synthetic_corpus`` (no documents), made
+    once per script run: phases 4 to 7 train on the same corpora."""
+    from gfedntm_tpu_torch import generate_synthetic_corpus
+
+    return generate_synthetic_corpus(vocab_size=vocab_size, n_topics=n_topics, n_docs=n_docs,
+                                     n_nodes=1, materialize_docs=False, seed=seed).nodes[0].bow
+
+
+CORPORA = Path(__file__).resolve().parent / "build" / "chip_smoke_corpora"
+_SHARED: dict[int, tuple[object, str]] = {}
+
+
+def shared(X) -> str:
+    """The path of a ``.npy`` copy of ``X`` under :data:`CORPORA`, written
+    once per array: spawned ranks map it (``programs.corpus``) instead of
+    each receiving a pickled copy through its spawn pipe, which the parent
+    fills one rank at a time. ``main`` removes the directory."""
+    import numpy as np
+
+    if id(X) not in _SHARED:
+        CORPORA.mkdir(parents=True, exist_ok=True)
+        path = CORPORA / f"corpus_{len(_SHARED)}.npy"
+        np.save(path, X)
+        _SHARED[id(X)] = (X, str(path))  # the reference keeps id(X) unique
+    return _SHARED[id(X)][1]
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -421,6 +485,7 @@ def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
     cases = [
         (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
         (320, 50, 100_000, "partial", True), (256, 50, 99_999, "partial", True),
+        (256, 50, 66_001, "partial", True), (256, 50, 66_001, "partial", False),
         (64, 50, 3001, "partial", True), (64, 50, 3001, "partial", False),
         (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
         (200, 50, 3001, "partial", True), (200, 50, 3001, "none", False),
@@ -885,7 +950,7 @@ def forced_phase(kw: dict, X, mp: int, split_losses: list) -> None:
     records, losses = programs.trajectory(witness, X, (0, 3, 7, 15))
     backend, devices = gpu_layout(mp)
     sharded = run_ranks(programs.forced_steps, mp, backend, devices, 600,
-                        args=(1, mp, kw, X, records))[0]
+                        args=(1, mp, kw, shared(X), records))[0]
     parts = []
     for rec, (loss, grads) in zip(records, sharded):
         ref_loss, ref = programs.step_gradients(AVITM(**kw), X, state=rec["state"],
@@ -913,22 +978,20 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
     import numpy as np
     import torch
 
-    from gfedntm_tpu_torch import AVITM, BowDataset, generate_synthetic_corpus
+    from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.parallel import programs
     from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     worst, op_times, op_backend = sharded_op_phase()
 
     V, K, B, N, mp = 100_000, 50, 256, 2048, 2
-    corpus = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=N, n_nodes=1,
-                                       materialize_docs=False, seed=0)
-    X = corpus.nodes[0].bow
+    X = synthetic_bow(V, K, N, 0)
     kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
               num_epochs=2, dropout=0.0, seed=0)
     backend, devices = gpu_layout(mp)
     t0 = time.perf_counter()
     res = run_ranks(programs.fit, mp, backend, devices, 900,
-                    args=(1, mp, kw, X, None, 1, 24))
+                    args=(1, mp, kw, shared(X), None, 1, 24))
     print(f"sharded fit: {backend}, dp=1 x mp={mp} on {devices}, {N} docs, V={V}, "
           f"ranks done in {time.perf_counter() - t0:.1f} s; launches per rank "
           f"{[r['launches'] for r in res]}; epoch losses {res[0]['epoch_losses']}", flush=True)
@@ -1027,7 +1090,8 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
     # against the unsharded bf16 fit, the launches read per rank.
     kw16 = {**kw, "num_epochs": 1, "compute_dtype": "bfloat16"}
     t0 = time.perf_counter()
-    res16 = run_ranks(programs.fit, mp, backend, devices, 900, args=(1, mp, kw16, X, None, 1, 0))
+    res16 = run_ranks(programs.fit, mp, backend, devices, 900,
+                      args=(1, mp, kw16, shared(X), None, 1, 0))
     steps16 = N // B
     print(f"sharded fit bf16: {backend}, dp=1 x mp={mp}, ranks done in "
           f"{time.perf_counter() - t0:.1f} s; launches per rank "
@@ -1382,18 +1446,18 @@ def sharded_validation_phase(X, kw: dict) -> dict:
     import numpy as np
     import torch
 
-    from gfedntm_tpu_torch import AVITM, generate_synthetic_corpus
+    from gfedntm_tpu_torch import AVITM
     from gfedntm_tpu_torch.parallel import programs
     from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     V, K, B, mp = kw["input_size"], kw["n_components"], kw["batch_size"], 2
-    Xv = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=256, n_nodes=1,
-                                   materialize_docs=False, seed=1).nodes[0].bow
+    Xv = synthetic_bow(V, K, 256, 1)
     save_dir = SCRATCH / "sharded"
     backend, devices = gpu_layout(mp)
     t0 = time.perf_counter()
     res = run_ranks(programs.fit, mp, backend, devices, 900,
-                    args=(1, mp, kw, X, None, 1, 0, Xv, str(save_dir), 5, 0.0))
+                    args=(1, mp, kw, shared(X), None, 1, 0, shared(Xv), str(save_dir), 5,
+                          0.0))
     n_epochs = res[0]["last_epoch"] + 1
     n_train, n_val = len(X) // B * n_epochs, len(Xv) // B * n_epochs
     print(f"sharded validation: {backend}, dp=1 x mp={mp}, {len(X)} + {len(Xv)} docs, ranks "
@@ -1498,16 +1562,13 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
     data-group collectives move per step. Returns rank 0's result of (a)."""
     import numpy as np
 
-    from gfedntm_tpu_torch import AVITM, BowDataset, generate_synthetic_corpus
+    from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.parallel import programs
     from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     t_phase = time.perf_counter()
     V, K, B, N, dp, mp, steps = 100_000, 50, 256, 2048, 2, 2, 8
-    X = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=N, n_nodes=1,
-                                  materialize_docs=False, seed=0).nodes[0].bow
-    Xv = generate_synthetic_corpus(vocab_size=V, n_topics=K, n_docs=256, n_nodes=1,
-                                   materialize_docs=False, seed=1).nodes[0].bow
+    X, Xv = synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1)
     kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
               num_epochs=1, dropout=0.2, seed=0)
     kwu = {**kw, "fused_decoder": False}
@@ -1516,7 +1577,7 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
     backend, devices = gpu_layout(dp * mp)
     t0 = time.perf_counter()
     res = run_ranks(programs.fit, dp * mp, backend, devices, 900,
-                    args=(dp, mp, kw, X, None, 1, steps, Xv, None, 5, 0.0))
+                    args=(dp, mp, kw, shared(X), None, 1, steps, shared(Xv), None, 5, 0.0))
     n_val = len(Xv) // B
     print(f"data parallel (a): fit_sharded {backend}, dp={dp} x mp={mp} on {devices}, {N} + "
           f"{len(Xv)} docs, V={V}, dropout {kw['dropout']}, ranks done in "
@@ -1586,7 +1647,7 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
     backend_b, devices_b = gpu_layout(dp)
     t0 = time.perf_counter()
     resd = run_ranks(programs.fit_data, dp, backend_b, devices_b, 900,
-                     args=(dp, kwu, X, None, 1, None, None, 5, 0.0, steps))
+                     args=(dp, kwu, shared(X), None, 1, None, None, 5, 0.0, steps))
     print(f"data parallel (b): fit_data_sharded {backend_b}, dp={dp} on {devices_b}, ranks done "
           f"in {time.perf_counter() - t0:.1f} s; summary {resd[0]['summary']}", flush=True)
     print(step_line(card, f"fit_data_sharded dp={dp}", resd, backend_b, devices_b, steps),
@@ -1627,15 +1688,271 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
     return res[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the unfused and LDA decodes at mp > 1; the raw-text flow
+# ---------------------------------------------------------------------------
+DECODE_CASES = (("prodLDA", 1, 2), ("LDA", 1, 2), ("LDA", 2, 2))
+
+
+def sharded_decodes_phase(card: str) -> None:
+    """Phase 7(a): ``fit_sharded`` of the unfused prodLDA and the LDA decodes
+    at mp > 1 (:data:`DECODE_CASES`), each against the unsharded unfused fit
+    of its model type on the card."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM, BowDataset
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    V, K, B, N, steps = 100_000, 50, 256, 2048, 8
+    X, Xv = synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1)
+    base = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+                num_epochs=1, dropout=0.0, seed=0, fused_decoder=False)
+    layouts = {}
+    for model_type, dp, mp in DECODE_CASES:
+        layouts.setdefault((dp, mp), []).append(model_type)
+    results = {}
+    for (dp, mp), model_types in layouts.items():
+        backend, devices = gpu_layout(dp * mp)
+        t0, launched = time.perf_counter(), time.time()
+        runs = [({**base, "model_type": mt}, shared(X), None, 1, steps, shared(Xv), None, 5,
+                 0.0) for mt in model_types]
+        ranks = run_ranks(programs.fit_each, dp * mp, backend, devices, 900,
+                          args=(dp, mp, runs))
+        # Where a rank group's seconds go: from the launch to the last rank
+        # entering its program (the corpus file written, spawn, imports),
+        # then rank 0's fits, then from the last rank leaving its program to
+        # the results in hand (the results sent back, the processes ended).
+        print(f"sharded decodes: {', '.join(model_types)} at dp={dp} x mp={mp}, {backend} on "
+              f"{devices}, ranks done in {time.perf_counter() - t0:.1f} s: start-up "
+              f"{max(r[0]['entered_at'] for r in ranks) - launched:.1f} s, then rank 0's "
+              + "; ".join(f"{mt} " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                                r["seconds"].items())
+                          for mt, r in zip(model_types, ranks[0]))
+              + f"; teardown {time.time() - max(r[-1]['left_at'] for r in ranks):.1f} s",
+              flush=True)
+        for i, mt in enumerate(model_types):
+            results[mt, dp, mp] = ([r[i] for r in ranks], backend, devices)
+
+    for model_type in dict.fromkeys(mt for mt, _, _ in DECODE_CASES):
+        t0 = time.perf_counter()
+        kw = {**base, "model_type": model_type}
+        # The unsharded fit on the card, and a witness of what reduction
+        # order alone does to beta after Adam: the same fit with the encoder
+        # input layer summed over its two column blocks.
+        ref, split = AVITM(**kw), AVITM(**kw)
+        split_input_layer(split, 2)
+        for model in (ref, split):
+            model.fit(BowDataset(X=X), n_samples=1)
+        ref_step = programs.step_gradients(AVITM(**kw), X)
+        split_step = AVITM(**kw)
+        split_input_layer(split_step, 2)
+        # The cancelling leaves are rounding noise on both sides: held to
+        # 1e-5 of the largest gradient, or to twice the witness's own noise.
+        cancel_limit = max(1e-5, 2.0 * first_step_errors(
+            programs.step_gradients(split_step, X), ref_step)[2])
+        beta_ref = ref.model.beta.detach().cpu().numpy()
+        witness = beta_spread(split.model.beta.detach().cpu().numpy(), beta_ref, 1e-4)
+        max_limit = max(4.0 * ref.lr, 1.5 * witness[0])
+        frac_limit = 1.5 * witness[1] + 1e-4
+        want = np.asarray(ref.step_losses)
+        print(f"sharded decodes: the unsharded {model_type} fit, its split-encoder witness "
+              f"and their first steps took {time.perf_counter() - t0:.1f} s", flush=True)
+        for (mt, dp, mp), (res, backend, devices) in results.items():
+            if mt != model_type:
+                continue
+            label = f"{mt} dp={dp} x mp={mp}"
+            r0 = res[0]
+            loss_e, grad_e, cancel_e = first_step_errors(r0["first_step"], ref_step)
+            steps_e = float(np.max(np.abs(np.asarray(r0["step_losses"]) - want) / np.abs(want)))
+            beta = beta_spread(r0["state"]["beta"], beta_ref, 1e-4)
+            val_e = [abs(programs.replay_validation(AVITM(**kw), Xv, rec) - rec["val_loss"])
+                     / abs(rec["val_loss"]) for rec in r0["validations"]]
+            launches = [{**r["launches"], **{f"eval_{k}": v for k, v in
+                                             r["eval_launches"].items()},
+                         **r["rows_calls"]} for r in res]
+            print(f"sharded decodes, {label}: launches per rank (K1 stats, K2 loss, K3 grads, "
+                  f"K5 vsharded, their bf16 and eval counts, K5 rows-sharded calls) "
+                  f"{[nonzero(c) or 'all 0' for c in launches]}; step losses "
+                  f"{r0['step_losses']}; validation {r0['validation_losses']}", flush=True)
+            print(f"sharded decodes, {label} vs the unsharded {mt} fit: first-step loss "
+                  f"{loss_e:.3e} relative, gradients within {grad_e:.3e} of each leaf's "
+                  f"max|grad| (limit 1e-3), {', '.join(DEGENERATE)} within {cancel_e:.3e} of the "
+                  f"largest (limit {cancel_limit:.3e}: 1e-5 or twice the split-encoder witness's "
+                  f"first step); step losses {steps_e:.3e} (limit 1e-4); beta max "
+                  f"|diff| {beta[0]:.3e}, {beta[1]:.6f} of entries beyond 1e-4; the "
+                  f"split-encoder witness {witness[0]:.3e}, {witness[1]:.6f} (limits "
+                  f"{max_limit:.3e}, {frac_limit:.6f}); validation vs the teacher-forced "
+                  f"unsharded eval {[f'{e:.2e}' for e in val_e]} (limit 1e-4)", flush=True)
+            print(f"sharded decodes steady step, {card}: {label} ({backend} on {devices}): "
+                  f"{[round(r['step_ms'], 3) for r in res]} ms per step per rank ({steps} warm "
+                  f"steps between barriers)", flush=True)
+            for rank, (r, counts) in enumerate(zip(res, launches)):
+                check(set(counts.values()) == {0},
+                      f"{label}: rank {rank} launched or called a kernel: {nonzero(counts)}")
+                check(len(r["step_losses"]) == steps
+                      and bool(np.isfinite(r["step_losses"]).all())
+                      and bool(np.isfinite(r["validation_losses"]).all()),
+                      f"{label}: rank {rank} step losses {r['step_losses']}, validation "
+                      f"{r['validation_losses']}")
+                check(r["validation_losses"] == r0["validation_losses"],
+                      f"{label}: rank {rank}'s validation losses differ from rank 0's")
+                for key, val in r["state"].items():
+                    check(np.array_equal(val, r0["state"][key]),
+                          f"{label}: {key} differs between rank 0 and rank {rank}")
+            check(loss_e <= 1e-3 and grad_e <= 1e-3 and cancel_e <= cancel_limit,
+                  f"{label} first step: loss {loss_e:.3e}, gradients {grad_e:.3e}, "
+                  f"cancelling {cancel_e:.3e}")
+            check(steps_e <= 1e-4, f"{label}: step losses differ by {steps_e:.3e}")
+            check(beta[0] <= max_limit, f"{label}: beta max |diff| {beta[0]:.3e}")
+            check(beta[1] <= frac_limit, f"{label}: beta: {beta[1]:.6f} of entries beyond "
+                  f"1e-4, limit {frac_limit:.6f}")
+            check(len(val_e) == 1 and max(val_e) <= 1e-4,
+                  f"{label}: validation differs from the teacher-forced eval by {val_e}")
+
+
+def raw_text_phase(card: str, notes: dict) -> None:
+    """Phase 7(b): the user flow from raw text through the port: vocabulary
+    consensus with the native BoW library, the federated fit through
+    K1-K3, the global model's topics and their metrics."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import (
+        AVITM,
+        FederatedTrainer,
+        RawCorpus,
+        generate_synthetic_corpus,
+        native,
+        npmi_coherence,
+        run_vocab_consensus,
+        topic_diversity,
+    )
+    from gfedntm_tpu_torch.data.vocab import vectorize
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    V_FULL, K, B, C = 100_000, 50, 256, 2
+    t0 = time.perf_counter()
+    corpus = generate_synthetic_corpus(vocab_size=V_FULL, n_topics=K, n_docs=1024, n_nodes=C,
+                                       materialize_docs=True, seed=0)
+    clients = [RawCorpus(documents=node.documents) for node in corpus.nodes]
+    n_tokens = sum(len(d.split()) for c in clients for d in c.documents)
+    print(f"raw text: {C} clients x {len(clients[0])} documents, {n_tokens} tokens, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    check(native.available(), "the native BoW library did not build")
+    t0 = time.perf_counter()
+    consensus = run_vocab_consensus(clients, max_features=None)
+    consensus_s = time.perf_counter() - t0
+    vocab = consensus.global_vocab
+    V = len(vocab)
+    t0 = time.perf_counter()
+    again = [vectorize(c.documents, vocab) for c in clients]
+    vectorize_s = time.perf_counter() - t0
+    cols = np.array([int(t[2:]) for t in vocab.tokens])
+    print(f"raw text, {card}: run_vocab_consensus(max_features=None) {consensus_s:.3f} s "
+          f"(local vocabularies {[len(v) for v in consensus.local_vocabs]}, global V={V}); "
+          f"vectorizing both clients against the global vocabulary {vectorize_s:.3f} s",
+          flush=True)
+    check(V == 66_001, f"global vocabulary of {V} words, want 66,001")
+    for c, (node, ds) in enumerate(zip(corpus.nodes, consensus.datasets)):
+        check(np.array_equal(ds.X, node.bow[:, cols]),
+              f"client {c}: BoW differs from the synthetic BoW's columns")
+        check(np.array_equal(again[c], ds.X), f"client {c}: vectorize differs from consensus")
+
+    def run(num_epochs):
+        template = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+                         num_epochs=num_epochs)
+        trainer = FederatedTrainer(template, n_clients=C)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = trainer.fit(consensus.datasets)
+        torch.cuda.synchronize()
+        return trainer, result, time.perf_counter() - start
+
+    # K1-K3 on this flow's own shapes and data against their plain versions
+    # (V % 4 = 1: the 4-byte cp.async ring): the first client's first B
+    # documents, theta from an initial model's encoder on them, its beta and
+    # BatchNorm statistics. Phase 2 holds the same shape on random inputs.
+    net = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B)
+    x = torch.as_tensor(consensus.datasets[0].X[:B], device="cuda")
+    mask = torch.ones(B, device="cuda")
+    with torch.no_grad():
+        theta = net.model.encode_theta(x, mask=mask, generator=net.generator).theta
+    bn = net.model.beta_batchnorm
+    case = f"the raw-text flow's first batch, B={B} K={K} V={V}"
+    st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
+    mean, var, m, s = fd.stats_reference(*st_args)
+    lo_args = (theta, net.model.beta.detach(), x, mean, var, m, s)
+    ref_loss = fd.loss_reference(*lo_args)
+    gr_args = lo_args + (ref_loss[1], mask / B, mask, True)
+    errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean, var, m, s), case),
+            compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
+            compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
+    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
+    print(f"raw text: K1, K2, K3 on {case} ({route}) within "
+          f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions (tol {ATOL:g} + "
+          f"{RTOL:g}*max|plain| per output)", flush=True)
+
+    fd.reset_launches()
+    trainer, result, secs = run(2)
+    launches = dict(fd.LAUNCHES)
+    print(f"raw text: fit {result.losses.shape[0]} global steps x {C} clients at V={V} in "
+          f"{secs:.3f} s; launches {nonzero(launches)}; epoch losses {result.epoch_losses}",
+          flush=True)
+    check(result.losses.shape == (8, C), f"losses shape {result.losses.shape} != (8, {C})")
+    check(bool(np.isfinite(result.losses).all()), "non-finite federated losses")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == 16, f"raw text: {name} launched {launches[name]} times, "
+              f"want 16")
+        notes[name] += (f"; phase 7 raw-text flow (V={V}, {4 if V % 4 else 16}-byte cp.async "
+                        f"ring): {launches[name]} launches")
+    model = trainer.make_global_model(result, consensus.datasets[0])
+    topics = model.get_topics(10)
+    check(len(topics) == K and all(len(t) == 10 and t[0].startswith("wd") for t in topics),
+          "get_topics did not return 50 lists of 10 words")
+    t0 = time.perf_counter()
+    tokens = [d.split() for c in clients for d in c.documents]
+    npmi = npmi_coherence(topics, tokens)
+    diversity = topic_diversity(topics)
+    print(f"raw text: topic 0 {topics[0]}; NPMI {npmi:.4f}, topic diversity {diversity:.4f} "
+          f"over {len(tokens)} documents in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(np.isfinite(npmi) and -1.0 <= npmi <= 1.0, f"NPMI {npmi}")
+    check(np.isfinite(diversity) and 0.0 <= diversity <= 1.0, f"topic diversity {diversity}")
+
+    # Steady state as in phase 3: a 24-step fit minus an 8-step fit.
+    run(2)
+    secs8 = min(run(2)[2], run(2)[2])
+    secs24 = min(run(6)[2], run(6)[2])
+    ms_step = (secs24 - secs8) / 16 * 1e3
+    check(ms_step > 0, f"steady-state step time {ms_step:.3f} ms is not positive")
+    print(f"raw text steady step, {card}: {ms_step:.3f} ms per global step, "
+          f"{C * B / ms_step * 1e3:.1f} docs/s ({C} clients x B={B}, V={V}); warm 8-step fit "
+          f"{secs8 * 1e3:.1f} ms, 24-step fit {secs24 * 1e3:.1f} ms", flush=True)
+
+
+def decodes_and_text_phase(card: str, notes: dict) -> None:
+    """Phase 7: (a) then (b), timed; (b) adds its launches to the K1-K3
+    rows' ``notes``."""
+    t_phase = time.perf_counter()
+    sharded_decodes_phase(card)
+    raw_text_phase(card, notes)
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
-    rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only")]
+    p7_only = "--phase-7-only" in argv
+    rest = [a for a in argv
+            if a not in ("--kernels-only", "--data-parallel-only", "--phase-7-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    if not usage_ok or (dp_only and (kernels_only or against)):
-        print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only]",
-              file=sys.stderr)
+    if not usage_ok or kernels_only + dp_only + p7_only > 1 or ((dp_only or p7_only)
+                                                                and against):
+        print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
+              "--phase-7-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1665,15 +1982,21 @@ def main(argv: list[str]) -> int:
         if dp_only:
             data_parallel_phase(card, {"vsharded": ""})
             return 0
+        if p7_only:
+            decodes_and_text_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
             X, kw = sharded_fit_phase(card, rows, notes)
             persistence_phase(card, rows, notes, datasets, result, X, kw)
             data_parallel_phase(card, notes)
+            decodes_and_text_phase(card, notes)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(CORPORA, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

@@ -1,8 +1,11 @@
 """gfedntm_tpu_torch — the PyTorch + CUDA port of ``gfedntm_tpu``.
 
-The package mirrors the JAX package's layout (``data/``, ``models/``,
-``ops/``, ``train/``, ``federated/``) so each module's counterpart is found
-under the same path. It imports ``torch``, ``numpy`` and the standard library
+The package mirrors the JAX package's layout (``data/``, ``native/``,
+``models/``, ``ops/``, ``parallel/``, ``train/``, ``federated/``, ``eval/``)
+so each module's counterpart is found under the same path. A user's flow
+starts from raw text: ``RawCorpus`` per client -> ``run_vocab_consensus``
+-> ``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
+``get_topics`` -> ``npmi_coherence`` / ``topic_diversity``. It imports ``torch``, ``numpy`` and the standard library
 only — never ``jax`` or anything of ``gfedntm_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; with
@@ -23,8 +26,12 @@ _EXPORTS = {
     "FederatedTrainer": "gfedntm_tpu_torch.federated.trainer",
     "FederatedResult": "gfedntm_tpu_torch.federated.trainer",
     "BowDataset": "gfedntm_tpu_torch.data.datasets",
+    "RawCorpus": "gfedntm_tpu_torch.data.loaders",
     "generate_synthetic_corpus": "gfedntm_tpu_torch.data.synthetic",
+    "npmi_coherence": "gfedntm_tpu_torch.eval.metrics",
     "resolve_device": "gfedntm_tpu_torch.device",
+    "run_vocab_consensus": "gfedntm_tpu_torch.federated.consensus",
+    "topic_diversity": "gfedntm_tpu_torch.eval.metrics",
 }
 
 __all__ = sorted(_EXPORTS)

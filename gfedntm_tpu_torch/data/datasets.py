@@ -1,6 +1,6 @@
 """Dataset container and batch schedules.
 
-A copy of ``gfedntm_tpu/data/datasets.py`` (``BowDataset``,
+A copy of ``gfedntm_tpu/data/datasets.py`` (``BowDataset``, ``CTMDataset``,
 ``EpochSchedule``, ``make_epoch_schedule``, ``make_run_schedule``), kept
 here so the port never imports the JAX package. For the same seed the
 schedules are the same numpy arrays as the original's, which is what lets
@@ -34,6 +34,35 @@ class BowDataset:
     @property
     def vocab_size(self) -> int:
         return self.X.shape[1]
+
+
+@dataclass
+class CTMDataset(BowDataset):
+    """BoW + contextual (SBERT) embeddings + optional one-hot labels.
+
+    Validates length agreement like the reference (``dataset.py:17-27``).
+    """
+
+    X_ctx: np.ndarray | None = None  # [n_docs, contextual_size]
+    labels: np.ndarray | None = None  # [n_docs, label_size] one-hot
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.X_ctx is None:
+            raise ValueError("CTMDataset requires contextual embeddings")
+        self.X_ctx = np.asarray(self.X_ctx, dtype=np.float32)
+        if len(self.X_ctx) != len(self.X):
+            raise ValueError(
+                f"length mismatch: {len(self.X)} bow vs {len(self.X_ctx)} contextual"
+            )
+        if self.labels is not None:
+            self.labels = np.asarray(self.labels, dtype=np.float32)
+            if len(self.labels) != len(self.X):
+                raise ValueError("length mismatch between labels and bow")
+
+    @property
+    def contextual_size(self) -> int:
+        return self.X_ctx.shape[1]
 
 
 @dataclass(frozen=True)

@@ -233,7 +233,8 @@ class AVITM:
         (:mod:`gfedntm_tpu_torch.parallel.sharded`), ``net`` is the
         rank-local network, ``x`` and ``x_val`` are the rank's
         :class:`DocShard` blocks (their data group splits each batch's rows)
-        and ``vshard`` (a ``DpMpGroups``) runs the fused loss through K5.
+        and ``vshard`` (a ``DpMpGroups``) runs the fused loss through K5
+        and the unfused decodes on the rank's columns.
         ``on_epoch(epoch, seconds)`` gets each epoch's training wall time
         (synced)."""
         self.train_data = train_dataset
@@ -296,7 +297,7 @@ class AVITM:
         On a rank of a sharded fit (``x_val`` holds the rank's block) it is
         summed over the data group and checked to be equal on every rank."""
         losses = eval_steps(net, x_val.steps(vsched), generator=self.generator, vshard=vshard,
-                            data_group=x_val.data_group)
+                            data_group=x_val.data_group, fused=self.fused_decoder)
         val_loss = float(losses.sum()) / len(self.validation_data)
         if x_val.groups is not None and x_val.groups.world_group is not None:
             # Every rank decides early stopping and the LR on this value.

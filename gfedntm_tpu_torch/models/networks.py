@@ -19,6 +19,15 @@ the whole batch that ``x`` holds: every draw is made at the whole batch's
 shape and windowed to them, and :meth:`DecoderNetwork.set_data_group` syncs
 the BatchNorms' statistics over the rank's data group.
 
+On a rank of a V-sharded layout (``model_group``, the ranks that split the
+vocabulary; :func:`~gfedntm_tpu_torch.parallel.sharded.local_network`
+builds the rank's network) the decode runs on the rank's columns: the
+softmax over V merges its row maximum and sum over the group
+(:func:`~gfedntm_tpu_torch.parallel.collectives.softmax_over_group`), and
+theta enters the decode through an identity-forward, sum-backward operator,
+so its gradient from the decode is every rank's columns' (the JAX
+package's GSPMD program of ``networks.py:275-294`` on sharded beta).
+
 ``compute_dtype`` is the JAX networks' ``dtype``: under ``torch.bfloat16``
 the encoder's layers, activations, reparameterization draw, theta and the
 unfused decodes run in bf16 (``networks.py:58-76``, ``:276-330``) while the
@@ -37,6 +46,10 @@ from torch import nn
 from gfedntm_tpu_torch.models.activations import Activation
 from gfedntm_tpu_torch.models.initializers import init_linear_, xavier_uniform_2d_
 from gfedntm_tpu_torch.models.layers import Linear, MaskedBatchNorm, Rows, draw, dropout
+from gfedntm_tpu_torch.parallel.collectives import (
+    identity_forward_sum_backward,
+    softmax_over_group,
+)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,6 +57,20 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     it (a theta made float32 by injected float32 noise, times a bf16 beta)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def _decode_dot(theta: torch.Tensor, b: torch.Tensor, model_group) -> torch.Tensor:
+    """:func:`_dot` of theta and this rank's columns ``b`` of the decode's
+    matrix. With a ``model_group`` theta enters through an identity-forward,
+    sum-backward operator, so its gradient is every rank's columns' part;
+    the product runs on the float32 values and is rounded to the promoted
+    dtype once, so a bf16 network's partials of theta's gradient are summed
+    in float32 and rounded once, as the unsharded bf16 product rounds its
+    float32 accumulation once."""
+    if model_group is None:
+        return _dot(theta, b)
+    dt = torch.promote_types(theta.dtype, b.dtype)
+    return (identity_forward_sum_backward(theta.float(), model_group) @ b.float()).to(dt)
 
 
 class TopicModelOutput(NamedTuple):
@@ -189,15 +216,21 @@ class DecoderNetwork(nn.Module):
         noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         rows: Rows | None = None,
+        model_group=None,
     ) -> TopicModelOutput:
+        """The whole forward; with a ``model_group`` (a V-sharded rank) the
+        word distribution is this rank's columns of it. The KL's inputs
+        (the posterior) stay outside the sum-backward operator: every rank
+        computes the same KL."""
         out = self.encode_theta(x, mask=mask, noise=noise, generator=generator, rows=rows)
         beta = self.beta.to(self.compute_dtype)
         if self.is_prodlda:
-            word_dist = torch.softmax(self.beta_batchnorm(_dot(out.theta, beta), mask), dim=1)
+            z = _decode_dot(out.theta, beta, model_group)
+            word_dist = softmax_over_group(self.beta_batchnorm(z, mask), model_group)
         else:
             # BN over beta's topic axis; no sample mask applies.
-            beta_sm = torch.softmax(self.beta_batchnorm(beta), dim=1)
-            word_dist = _dot(out.theta, beta_sm)
+            beta_sm = softmax_over_group(self.beta_batchnorm(beta), model_group)
+            word_dist = _decode_dot(out.theta, beta_sm, model_group)
         return out._replace(word_dist=word_dist)
 
     def encode_theta(

@@ -23,6 +23,15 @@ and NCCL alike.
   statistics feed each rank's own rows. The gradient of each rank's
   partial is then the sum of every rank's gradient of the sum, folded in
   rank order too, as SyncBatchNorm's backward does.
+- **Identity forward, sum backward** (:func:`identity_forward_sum_backward`):
+  a value replicated on every rank of the group (theta over the model
+  group) that each rank then uses on its own part of the work (its
+  vocabulary columns). Each rank's gradient is the part that flows
+  through its own columns, so the backward sums them.
+- **Softmax over the group** (:func:`softmax_over_group`): a row softmax
+  whose columns are split over the group, from the rows' maximum and
+  their summed exponentials over the group; its backward sums the rows'
+  dots over the group.
 
 A group of ``None`` is a group of one rank: gathering returns the partial
 alone.
@@ -99,6 +108,63 @@ def sum_forward_sum_backward(t: torch.Tensor, group) -> torch.Tensor:
     """Sum of every rank's ``t`` whose backward sums the gradient over the
     group: each rank's loss reaches every rank's partial."""
     return _SumSumGrad.apply(t, group)
+
+
+class _IdentitySumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return sum_in_rank_order(grad.contiguous(), ctx.group), None
+
+
+def identity_forward_sum_backward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself, whose backward sums the gradient over the group: each
+    rank's loss reaches ``t`` through that rank's part of the work only."""
+    return _IdentitySumGrad.apply(t, group)
+
+
+class _SoftmaxOverGroup(torch.autograd.Function):
+    """``torch.softmax``'s arithmetic over a row split on the group: the
+    forward in float32 rounded once to the input's dtype; the backward
+    ``y * (g - c)`` from the rounded output ``y``, in float32, with
+    ``c = sum_v g y`` the rows' dot over every rank's columns."""
+
+    @staticmethod
+    def forward(ctx, z, group):
+        zf = z.float()
+        m = gather_by_sum(zf.amax(dim=1), group).amax(dim=0)
+        e = torch.exp(zf - m[:, None])
+        y = (e / sum_in_rank_order(e.sum(dim=1), group)[:, None]).to(z.dtype)
+        ctx.group = group
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, = ctx.saved_tensors
+        yf, gf = y.float(), grad.float()
+        c = sum_in_rank_order((gf * yf).sum(dim=1), ctx.group)
+        return (yf * (gf - c[:, None])).to(grad.dtype), None
+
+
+def softmax_over_group(z: torch.Tensor, group) -> torch.Tensor:
+    """``softmax(z, dim=1)`` of the rows of ``z`` whose columns are split
+    over ``group`` (each rank holds its own): ``exp(z - M) / S`` with ``M``
+    the row maximum over the group and ``S`` the row sum of ``exp(z - M)``
+    over the group. ``M`` is a constant shift. ``S`` feeds every rank's
+    columns, so its sum is sum forward, sum backward: the backward sums the
+    rows' dots ``sum_v g y`` over the group. The arithmetic is
+    ``torch.softmax``'s for a bf16 input too (float32 inside, one rounding;
+    the backward from the rounded output), so a sharded bf16 decode differs
+    from the unsharded one by the sums' order only. A group of ``None`` is
+    ``torch.softmax`` itself."""
+    if group is None:
+        return torch.softmax(z, dim=1)
+    return _SoftmaxOverGroup.apply(z, group)
 
 
 def check_equal_across(value: float, group, device: torch.device, what: str) -> None:

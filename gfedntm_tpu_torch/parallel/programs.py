@@ -22,6 +22,8 @@ training through them:
   validation set its validation losses, early-stopping outcome and, per
   validation, what :func:`replay_validation` needs to take the same
   validation unsharded;
+- :func:`fit_each` — :func:`fit` of several models on one layout in the
+  same ranks (one spawn);
 - :func:`fit_data` — ``fit_data_sharded`` of an unfused AVITM over dp
   ranks, with its summary, losses, gathered state and metrics records;
 - :func:`forced_steps` — the sharded gradients at given points of another
@@ -33,6 +35,7 @@ training through them:
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -55,6 +58,7 @@ from gfedntm_tpu_torch.parallel.sharded import (
     fit_sharded,
     gather_state_dict,
     local_network,
+    vshard_of,
 )
 from gfedntm_tpu_torch.train.steps import batch_loss, fused_batch_loss, grad_step, sum_gradients
 from gfedntm_tpu_torch.utils.observability import MetricsLogger
@@ -67,6 +71,17 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def corpus(X):
+    """``X`` itself, or the array that ``np.save`` wrote at the path ``X``,
+    mapped read-only. A caller hands a large corpus to many ranks as a path:
+    each rank then maps it from the host's page cache, instead of receiving
+    a pickled copy through its spawn pipe, which the parent fills one rank
+    at a time."""
+    if isinstance(X, (str, os.PathLike)):
+        return np.load(X, mmap_mode="r")
+    return X
 
 
 def assemble(per_rank: list, dp: int, mp: int, name: str, path: str | None = "kernel"):
@@ -241,7 +256,7 @@ def step_gradients(model: AVITM, X: np.ndarray, groups: DpMpGroups | None = None
     net, vshard, corpus = model.model, None, DocShard(torch.as_tensor(X, device=model.device))
     if groups is not None:
         net = local_network(model.model, groups)
-        vshard = groups if groups.dp * groups.mp > 1 and model.fused_decoder else None
+        vshard = vshard_of(groups)
         corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=model.device))
     net.train()
     x, mask, rows = next(corpus.steps(sched))
@@ -250,7 +265,8 @@ def step_gradients(model: AVITM, X: np.ndarray, groups: DpMpGroups | None = None
         loss = fused_batch_loss(net, x, mask, noise=eps, generator=model.generator,
                                 vshard=vshard, rows=rows)
     else:
-        loss = batch_loss(net, x, mask, noise=eps, generator=model.generator, rows=rows)
+        loss = batch_loss(net, x, mask, noise=eps, generator=model.generator, rows=rows,
+                          vshard=vshard)
     loss.backward()
     sum_gradients(net, corpus.data_group)
     loss = loss.detach()
@@ -304,8 +320,9 @@ def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
                  records: list) -> list:
     """For each :func:`trajectory` record: the loss and gathered gradients of
     :func:`step_gradients` on this rank's V shard from the record's state,
-    batch and noise (a fresh model per record)."""
+    batch and noise (a fresh model per record). ``X`` as in :func:`corpus`."""
     groups = make_dp_mp_groups(dp, mp)
+    X = corpus(X)
     return [step_gradients(AVITM(device=device, **avitm_kw), X, groups, state=r["state"],
                            step=r["step"], noise=r["noise"]) for r in records]
 
@@ -313,11 +330,13 @@ def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
 def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
         init_state: dict | None = None, n_samples: int = 3,
         timing_steps: int = 0, X_val: np.ndarray | None = None,
-        save_dir: str | None = None, patience: int = 5, delta: float = 0.0) -> dict:
+        save_dir: str | None = None, patience: int = 5, delta: float = 0.0,
+        first_noise: np.ndarray | None = None) -> dict:
     """``fit_sharded`` of ``AVITM(device=device, **avitm_kw)`` on ``X`` (from
     ``init_state``, a full numpy state dict, when given), with the launch
     counters set to 0 just before and read just after. Returns the first
-    step's loss and gradients on an identical model (``first_step``), the
+    step's loss and gradients on an identical model (``first_step``; its
+    reparameterization draw is ``first_noise`` [B, K] when given), the
     launch counts (``launches``, ``eval_launches`` of them in eval mode, and
     ``rows_calls`` of K5's rows-sharded branch),
     epoch and step losses, the gathered model's state dict, the rank-local
@@ -330,8 +349,27 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     ``patience``, ``delta`` as in ``fit_sharded``) and also returns its
     validation losses, last epoch run, and per validation a record of the
     gathered state, the generator state and the schedule it validated with
-    (``validations``, for :func:`replay_validation`)."""
+    (``validations``, for :func:`replay_validation`).
+
+    ``X`` and ``X_val`` as in :func:`corpus`. ``entered_at`` and
+    ``left_at`` are the host's ``time.time()`` when the rank entered and
+    left, and ``seconds`` the wall seconds of the set-up (groups, corpus),
+    the first step, the fit and the timed steps with the result's
+    assembly (``setup``, ``first_step``, ``fit``, ``timing``), each ended
+    by a device sync."""
+    entered_at = clock = time.time()
+    seconds = {}
+
+    def lap(name):
+        nonlocal clock
+        _sync(device)
+        seconds[name] = time.time() - clock
+        clock = time.time()
+
     groups = make_dp_mp_groups(dp, mp)
+    X, X_val = corpus(X), corpus(X_val)
+    lap("setup")
+
     data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
 
     def build(**over):
@@ -341,7 +379,8 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
                                          for k, v in init_state.items()})
         return model
 
-    first_step = step_gradients(build(), X, groups)
+    first_step = step_gradients(build(), X, groups, noise=first_noise)
+    lap("first_step")
     model = build()
     validation, validations = None, []
     if X_val is not None:
@@ -363,6 +402,7 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     fd.reset_launches()
     net = fit_sharded(model, data, groups, validation, save_dir, patience, delta,
                       n_samples=n_samples, device=device)
+    lap("fit")
     result = {
         "first_step": first_step,
         "launches": dict(fd.LAUNCHES),
@@ -381,7 +421,15 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     if timing_steps:
         result["step_ms"], result["step_bytes"] = _step_loop(build(), X, groups)[1](
             timing_steps)
+    lap("timing")
+    result.update(entered_at=entered_at, left_at=time.time(), seconds=seconds)
     return result
+
+
+def fit_each(rank, device, dp: int, mp: int, runs: list) -> list:
+    """:func:`fit` of each tuple of its arguments after ``mp`` in ``runs``,
+    one after the other in the same ranks, each with its own counters."""
+    return [fit(rank, device, dp, mp, *args) for args in runs]
 
 
 def replay_validation(model: AVITM, X_val: np.ndarray, record: dict) -> float:
@@ -410,8 +458,10 @@ def fit_data(rank, device, dp: int, avitm_kw: dict, X: np.ndarray,
     losses, the last epoch run, the gathered state, the metrics records and
     the registry's snapshot; with ``timing_steps``, the steady wall ms per
     step of its step (:func:`_step_loop`) and the bytes per step of its
-    batch gather and gradient sum."""
+    batch gather and gradient sum. ``X`` and ``X_val`` as in
+    :func:`corpus`."""
     groups = make_dp_mp_groups(dp, 1)
+    X, X_val = corpus(X), corpus(X_val)
 
     def build():
         model = AVITM(device=device, **avitm_kw)
@@ -459,7 +509,7 @@ def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
     optimizer = model.build_optimizer(net)
     corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=device))
     sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
-    vshard = groups if groups.dp * groups.mp > 1 and model.fused_decoder else None
+    vshard = vshard_of(groups)
 
     def run(steps):
         done = 0
@@ -495,12 +545,13 @@ def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
     """``steps`` V-sharded training steps (:func:`_step_loop`): the
     unprofiled wall ms per step between barriers, then the device ms per
     step by kernel group and the top device events of the same steps under
-    ``torch.profiler``."""
+    ``torch.profiler``. ``X`` as in :func:`corpus`."""
     from torch.profiler import ProfilerActivity, profile
 
     from gfedntm_tpu_torch.profile_step import GROUPS, device_times
 
-    run, step_ms = _step_loop(AVITM(device=device, **avitm_kw), X, make_dp_mp_groups(1, mp))
+    run, step_ms = _step_loop(AVITM(device=device, **avitm_kw), corpus(X),
+                              make_dp_mp_groups(1, mp))
     wall_ms = step_ms(steps)[0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)

@@ -1,5 +1,5 @@
-"""Sharded ProdLDA training: data parallel, V-sharded (model parallel), or
-both on a ``dp x mp`` layout.
+"""Sharded AVITM training (prodLDA, fused or not, and LDA): data parallel,
+V-sharded (model parallel), or both on a ``dp x mp`` layout.
 
 Counterpart of ``gfedntm_tpu/parallel/sharded.py`` (``_leaf_spec`` :51-62,
 ``shard_data`` :77-88, ``fit_sharded`` :114-250, ``shard_docs`` :253-278,
@@ -8,10 +8,19 @@ group of a :class:`~gfedntm_tpu_torch.parallel.mesh.DpMpGroups` layout:
 
 - ``beta`` [K, V] on dim 1 — the fused loss runs on each rank's columns
   through K5 (:func:`~gfedntm_tpu_torch.ops.fused_decoder.prodlda_recon_loss_vsharded`);
+  the unfused prodLDA and the LDA decodes run on them in plain ops, their
+  softmax over V merged over the model group and theta's decode gradient
+  summed over it (``DecoderNetwork.forward``'s ``model_group``), and the
+  reconstruction term summed over it
+  (:func:`~gfedntm_tpu_torch.train.steps.batch_loss`); none launches a
+  kernel, as in the JAX package;
 - the encoder's input layer, ``inf_net.input_layer.weight`` [H, V] in torch's
   layout (the JAX kernel is [V, H]), on dim 1 — :class:`VShardedLinear` sums
   the ranks' ``x_m W_m^T`` and adds the bias once;
-- ``beta_batchnorm.running_mean`` / ``running_var`` [V] on dim 0;
+- ``beta_batchnorm.running_mean`` / ``running_var`` [V] on dim 0: per
+  column, so local to the model rank (prodLDA's take the batch statistics
+  of z = theta beta and sync over the data group; LDA's normalize the
+  replicated beta over its topic rows and stay local);
 - each rank holds only its columns of the corpus.
 
 Every batch's rows are split over the data group, and so is the corpus: each
@@ -35,11 +44,11 @@ its input layer sums the ranks' partial products in float32 and rounds once
 With a validation set, each epoch's validation loss runs in eval mode on
 the rank-local network and the rank's rows: through K5's forward with
 ``training=False`` when the fused loss is sharded (the softmax over V spans
-the model group), the unfused decode otherwise
+the model group), the merged unfused decode otherwise
 (:func:`~gfedntm_tpu_torch.train.steps.eval_loss`), summed over the data
 group. Early stopping saves the gathered state from world rank 0.
 
-Later slices: the unfused and LDA decodes with mp > 1, and CTM.
+A later slice: CTM.
 """
 
 from __future__ import annotations
@@ -156,21 +165,20 @@ def local_network(network: nn.Module, groups: DpMpGroups) -> nn.Module:
     """A copy of ``network`` for this rank: with mp > 1 it holds the rank's
     V shard (a :class:`VShardedLinear` input layer, ``beta`` and its
     BatchNorm over the local columns), and with dp > 1 its BatchNorms sync
-    over the data group. Parameter order is the full network's."""
+    over the data group (``set_data_group``: LDA's ``beta_batchnorm``
+    stays local). Parameter order is the full network's."""
     local = copy.deepcopy(network)
+    if groups.mp > 1:
+        cols = groups.v_slice(network.beta.shape[1])
+        width = cols.stop - cols.start
+        device = network.beta.device
+        hidden = network.inf_net.input_layer.out_features
+        local.inf_net.input_layer = VShardedLinear(width, hidden, groups.model_group,
+                                                   network.compute_dtype).to(device)
+        local.beta = nn.Parameter(torch.empty(network.beta.shape[0], width, device=device))
+        local.beta_batchnorm = MaskedBatchNorm(width).to(device)
+        local.load_state_dict(shard_state_dict(network.state_dict(), groups))
     local.set_data_group(groups.data_group)
-    if groups.mp == 1:
-        return local
-    cols = groups.v_slice(network.beta.shape[1])
-    width = cols.stop - cols.start
-    device = network.beta.device
-    hidden = network.inf_net.input_layer.out_features
-    local.inf_net.input_layer = VShardedLinear(width, hidden, groups.model_group,
-                                               network.compute_dtype).to(device)
-    local.beta = nn.Parameter(torch.empty(network.beta.shape[0], width, device=device))
-    local.beta_batchnorm = MaskedBatchNorm(width).to(device)
-    local.beta_batchnorm.group = groups.data_group
-    local.load_state_dict(shard_state_dict(network.state_dict(), groups))
     return local
 
 
@@ -261,7 +269,9 @@ def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
     scheduler and NaN abort. With more than one rank the fused loss runs
     through K5 (``:160-171``): its rows-sharded branch in training when
     dp > 1, its forward in eval mode for the validation loss. The unfused
-    prodLDA and LDA decodes train with mp = 1 only. Every validation loss is
+    prodLDA and LDA decodes run at any ``dp x mp``: with mp > 1 on the
+    rank's columns, their softmax over V merged over the model group, in
+    training and validation alike, with no kernel. Every validation loss is
     checked to be equal on every rank of the world, so every rank takes the
     same early-stopping and scheduler decisions. An improvement saves into
     ``save_dir``: every rank gathers the state (a collective), world rank 0
@@ -277,15 +287,9 @@ def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
     ``device`` (``None``: the GPU) must be the model's device."""
     if getattr(model, "family", None) != "avitm":
         raise NotImplementedError("fit_sharded: CTM is a later slice (ROADMAP queue 1, CTM)")
-    if groups.mp > 1 and not model.fused_decoder:
-        raise NotImplementedError(
-            "fit_sharded: with mp > 1 only prodLDA through the fused loss (K5) is "
-            "ported; the unfused and LDA decodes with mp > 1 are a later slice (ROADMAP "
-            "queue 1, unfused and LDA decodes beyond mp = 1)")
     _check_device(model, device, "fit_sharded")
-    vshard = groups if groups.dp * groups.mp > 1 and model.fused_decoder else None
     return _fit_on_ranks(model, train_dataset, groups, validation_dataset, save_dir, patience,
-                         delta, n_samples, vshard)
+                         delta, n_samples, vshard_of(groups))
 
 
 def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
@@ -370,6 +374,12 @@ def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
         metrics.log("sharded_fit", devices=n_dev, docs_per_s=summary["docs_per_s"],
                     mfu=summary["mfu"], compile_s=summary["compile_s"])
     return summary
+
+
+def vshard_of(groups: DpMpGroups) -> DpMpGroups | None:
+    """The ``vshard`` argument of a step on this layout: ``None`` on one
+    rank, else the layout."""
+    return groups if groups.dp * groups.mp > 1 else None
 
 
 def _check_device(model, device, caller: str) -> None:

@@ -17,8 +17,12 @@ otherwise.
 runs the step on a rank-local V-sharded network
 (:func:`~gfedntm_tpu_torch.parallel.sharded.local_network`): the fused loss
 goes through K5, ``prodlda_recon_loss_vsharded`` (``train/steps.py:186-220``),
-on the rank's columns of x; its validation loss goes through K5's forward
-in eval mode (:func:`eval_loss`).
+on the rank's columns of x, and its validation loss through K5's forward
+in eval mode (:func:`eval_loss`); the unfused prodLDA and the LDA decodes
+run on the rank's columns with their softmax merged over the model group
+(``DecoderNetwork.forward``'s ``model_group``), in training and in eval,
+and the reconstruction term is summed over the model group
+(:func:`batch_loss`).
 
 A bf16-compute network (``compute_dtype=torch.bfloat16``) stores beta and x
 in bf16 for the fused kernels (``_fused_batch_loss``, ``:176-180``);
@@ -41,13 +45,16 @@ import numpy as np
 import torch
 
 from gfedntm_tpu_torch.models.layers import batch_count
-from gfedntm_tpu_torch.models.losses import avitm_loss, gaussian_kl
+from gfedntm_tpu_torch.models.losses import gaussian_kl, reconstruction_loss
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
 from gfedntm_tpu_torch.ops.fused_decoder import (
     prodlda_recon_loss,
     prodlda_recon_loss_vsharded,
 )
-from gfedntm_tpu_torch.parallel.collectives import sum_in_rank_order
+from gfedntm_tpu_torch.parallel.collectives import (
+    sum_forward_identity_backward,
+    sum_in_rank_order,
+)
 from gfedntm_tpu_torch.parallel.mesh import pad_to_multiple
 
 
@@ -108,16 +115,30 @@ def sum_gradients(model: DecoderNetwork, data_group) -> None:
         p.grad = part.view_as(p).clone()
 
 
-def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None, rows=None):
+def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None, rows=None,
+               vshard=None, bn_mask: bool = True):
     """Forward + reference loss on one (padded, masked) batch. Masked rows
     contribute exact zeros; the network clamps log-variance, so every row's
-    loss term is finite."""
-    out = model(x, mask=mask, noise=noise, generator=generator, rows=rows)
-    return avitm_loss(
-        x, out.word_dist, out.prior_mean, out.prior_variance,
-        out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
-        sample_mask=mask,
+    loss term is finite. ``bn_mask=False`` gives the decoder's BatchNorm no
+    row mask, as the eval forward has none.
+
+    Under ``vshard`` (a V-sharded rank: ``x`` holds its columns) the decode
+    spans the model group, and the reconstruction term of the rank's columns
+    is summed over the group with an identity backward (every rank's loss is
+    the same function of each rank's term); the KL is added once, outside
+    that sum. Without it this is ``avitm_loss``, bit for bit."""
+    model_group = None if vshard is None else vshard.model_group
+    out = model(x, mask=mask if bn_mask else None, noise=noise, generator=generator, rows=rows,
+                model_group=model_group)
+    rl = reconstruction_loss(x, out.word_dist)
+    if model_group is not None:
+        rl = sum_forward_identity_backward(rl, model_group)
+    kl = gaussian_kl(
+        out.prior_mean, out.prior_variance, out.posterior_mean,
+        out.posterior_variance, out.posterior_log_variance,
     )
+    loss = kl + rl
+    return torch.sum(loss * mask.to(loss.dtype))
 
 
 def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
@@ -156,17 +177,17 @@ def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
               data_group=None) -> torch.Tensor:
     """One forward/backward/optimizer update in training mode; returns the
     batch loss (detached, on the model's device). ``fused`` selects the
-    fused kernels for prodLDA; LDA always takes the unfused decode. A
-    ``vshard`` step needs the fused prodLDA loss. With a ``data_group`` the
-    gradients and the returned loss are summed over it."""
+    fused kernels for prodLDA; LDA always takes the unfused decode. Under
+    ``vshard`` the fused loss runs through K5 and the unfused decodes merge
+    their softmax over the model group (:func:`batch_loss`). With a
+    ``data_group`` the gradients and the returned loss are summed over
+    it."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    if vshard is not None and not (fused and model.is_prodlda):
-        raise NotImplementedError("a V-sharded step runs the fused prodLDA loss only")
     if fused and model.is_prodlda:
         loss = fused_batch_loss(model, x, mask, noise, generator, vshard, rows)
     else:
-        loss = batch_loss(model, x, mask, noise, generator, rows)
+        loss = batch_loss(model, x, mask, noise, generator, rows, vshard)
     loss.backward()
     sum_gradients(model, data_group)
     optimizer.step()
@@ -176,28 +197,26 @@ def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
 
 @torch.no_grad()
 def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
-              vshard=None, rows=None) -> torch.Tensor:
+              vshard=None, rows=None, fused: bool = True) -> torch.Tensor:
     """Validation loss of one (padded, masked) batch in eval mode: running
     BatchNorm statistics, no dropout, a fresh reparameterization draw
     (``noise`` or ``generator``). The decode is the unfused one, even for a
     fused prodLDA network, with no BatchNorm mask and the loss masked by
     ``mask`` (``_batch_loss(train=False)``).
 
-    Under ``vshard`` the softmax over V spans the model group, so the decode
-    + reconstruction loss run through K5's forward with ``training=False``
-    (:func:`prodlda_recon_loss_vsharded`: K1's running-statistics branch and
-    K2 on the rank's columns, their softmax partials merged over the group),
-    plus the KL; the JAX package gets the same function from GSPMD on its
-    unfused eval (``parallel/sharded.py:147-151``). The caller sets eval
-    mode (:func:`eval_epoch` does). ``rows`` as in :func:`grad_step`; the
-    loss is this rank's rows'."""
-    if vshard is None:
-        out = model(x, mask=None, noise=noise, generator=generator, rows=rows)
-        return avitm_loss(
-            x, out.word_dist, out.prior_mean, out.prior_variance,
-            out.posterior_mean, out.posterior_variance, out.posterior_log_variance,
-            sample_mask=mask,
-        )
+    Under ``vshard`` the softmax over V spans the model group. For a
+    ``fused`` prodLDA network the decode + reconstruction loss run through
+    K5's forward with ``training=False`` (:func:`prodlda_recon_loss_vsharded`:
+    K1's running-statistics branch and K2 on the rank's columns, their
+    softmax partials merged over the group), plus the KL; the JAX package
+    gets the same function from GSPMD on its unfused eval
+    (``parallel/sharded.py:147-151``). Any other network runs the same
+    merged plain decode as in training (:func:`batch_loss` with the model
+    group), and launches no kernel. The caller sets eval mode
+    (:func:`eval_epoch` does). ``rows`` as in :func:`grad_step`; the loss
+    is this rank's rows'."""
+    if vshard is None or not (fused and model.is_prodlda):
+        return batch_loss(model, x, mask, noise, generator, rows, vshard, bn_mask=False)
     out = model.encode_theta(x, mask=None, noise=noise, generator=generator, rows=rows)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
@@ -225,17 +244,18 @@ def eval_epoch(model: DecoderNetwork, x_all, indices, masks, noise=None,
 
 
 def eval_steps(model: DecoderNetwork, steps, noise=None, generator=None, vshard=None,
-               data_group=None) -> torch.Tensor:
+               data_group=None, fused: bool = True) -> torch.Tensor:
     """:func:`eval_epoch` over ``steps``, an iterable of ``(x, mask, rows)``
     (this rank's rows of each validation batch,
     :meth:`~gfedntm_tpu_torch.parallel.sharded.DocShard.steps`); with a
-    ``data_group`` the per-step losses are summed over it."""
+    ``data_group`` the per-step losses are summed over it. ``fused`` as in
+    :func:`eval_loss`."""
     was_training = model.training
     model.eval()
     try:
         losses = torch.stack([
             eval_loss(model, x, mask, None if noise is None else noise[i], generator, vshard,
-                      rows)
+                      rows, fused)
             for i, (x, mask, rows) in enumerate(steps)
         ])
     finally:

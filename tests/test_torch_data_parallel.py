@@ -500,9 +500,9 @@ def test_refusals(runs):
     with pytest.raises(NotImplementedError, match="CTM"):
         fit_data_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(2, 1, 0),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="unfused and LDA decodes with mp > 1"):
-        fit_sharded(port_model(runs["init"], model_type="LDA", fused_decoder=False), data,
-                    DpMpGroups(2, 2, 0), device="cpu")
+    with pytest.raises(NotImplementedError, match="CTM"):
+        fit_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(2, 2, 0),
+                    device="cpu")
 
 
 def test_no_fallback_to_the_cpu(runs, monkeypatch):

@@ -18,21 +18,29 @@ from gfedntm_tpu_torch.ops import fused_decoder as fd
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "gfedntm_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "gfedntm_tpu"}
+#: Packages the port may import only inside the function that needs them:
+#: the card's machine has neither scikit-learn nor NLTK's data.
+LAZY = {"sklearn", "nltk", "pandas"}
 
 
 def port_modules():
+    """Every module of the port, packages (``__init__.py``) included."""
     return sorted(
-        "gfedntm_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
-        for p in PORT.rglob("*.py") if p.name != "__init__.py"
+        ".".join(("gfedntm_tpu_torch",) + p.relative_to(PORT).with_suffix("").parts
+                 [:-1 if p.name == "__init__.py" else None])
+        for p in PORT.rglob("*.py")
     )
 
 
 def test_import_leaves_jax_out():
+    """Importing every port module loads nothing of JAX, nor scikit-learn,
+    NLTK or pandas."""
     code = (
         "import importlib, sys\n"
         f"for name in {port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN | LAZY)!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -58,8 +66,45 @@ def test_source_imports_nothing_of_jax(path):
     assert not roots & FORBIDDEN, f"{path} imports {sorted(roots & FORBIDDEN)}"
 
 
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_imports_no_optional_package_at_module_level(path):
+    """scikit-learn, NLTK and pandas are imported, if at all, inside the
+    function that needs them (``load_20newsgroups``, the parquet loaders,
+    NLTK's stop words), never when a module is imported."""
+    tree = ast.parse((REPO / path).read_text())
+    functions = [n for n in ast.walk(tree)
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    inside = {id(n) for f in functions for n in ast.walk(f)}
+    roots = set()
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & LAZY, f"{path} imports {sorted(roots & LAZY)} at module level"
+
+
+def test_port_modules_include_the_packages():
+    names = port_modules()
+    for name in ("gfedntm_tpu_torch", "gfedntm_tpu_torch.native",
+                 "gfedntm_tpu_torch.data.vocab", "gfedntm_tpu_torch.federated.consensus",
+                 "gfedntm_tpu_torch.eval.metrics"):
+        assert name in names, name
+
+
 def test_lazy_package_exports():
     assert gfedntm_tpu_torch.AVITM is AVITM
+    from gfedntm_tpu_torch.data.loaders import RawCorpus
+    from gfedntm_tpu_torch.eval.metrics import npmi_coherence, topic_diversity
+    from gfedntm_tpu_torch.federated.consensus import run_vocab_consensus
+    assert gfedntm_tpu_torch.RawCorpus is RawCorpus
+    assert gfedntm_tpu_torch.run_vocab_consensus is run_vocab_consensus
+    assert gfedntm_tpu_torch.npmi_coherence is npmi_coherence
+    assert gfedntm_tpu_torch.topic_diversity is topic_diversity
     with pytest.raises(AttributeError):
         gfedntm_tpu_torch.no_such_name  # noqa: B018
 

@@ -196,16 +196,15 @@ def test_one_rank_fit_sharded_matches_fit(runs):
 
 
 def test_later_slices_raise_not_implemented(runs):
+    """CTM is a later slice; the unfused and LDA decodes run at mp > 1
+    (``tests/test_torch_sharded_decodes.py``)."""
     data = BowDataset(X=runs["X"])
-    with pytest.raises(NotImplementedError, match="unfused and LDA decodes with mp > 1"):
-        fit_sharded(port_model(runs["init"], fused_decoder=False), data, DpMpGroups(2, 2, 0),
-                    device="cpu")
     with pytest.raises(NotImplementedError, match="CTM"):
         fit_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(1, 1, 0),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="unfused"):
-        fit_sharded(port_model(runs["init"], fused_decoder=False), data,
-                    DpMpGroups(1, 2, 0), device="cpu")
+    with pytest.raises(NotImplementedError, match="CTM"):
+        fit_sharded(types.SimpleNamespace(family="ctm"), data, DpMpGroups(1, 2, 0),
+                    device="cpu")
 
 
 def test_no_fallback_to_the_cpu(runs, monkeypatch):

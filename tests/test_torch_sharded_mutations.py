@@ -1,5 +1,9 @@
 """The first-step gradient parity of ``fit_sharded``'s network catches the
-faults the V-sharded and the data-parallel paths invite.
+faults the V-sharded and the data-parallel paths invite, and those of the
+unfused prodLDA and LDA decodes at mp > 1 (``DECODE_MUTATIONS``, at dp=2 x
+mp=2: theta's decode gradient not summed over the model group, the merged
+softmax's sum with an identity backward, LDA's ``beta_batchnorm`` synced
+over the data group).
 
 Each case breaks one convention inside two spawned gloo ranks (dp=1, mp=2;
 or dp=2, mp=1 for the data-parallel faults) and computes the fused training
@@ -24,10 +28,10 @@ import torch
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 
-from gfedntm_tpu_torch.models import layers
+from gfedntm_tpu_torch.models import layers, networks
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
-from gfedntm_tpu_torch.parallel import programs, sharded
+from gfedntm_tpu_torch.parallel import collectives, programs, sharded
 from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, sum_forward_identity_backward
 from gfedntm_tpu_torch.parallel.launch import run_ranks
 from gfedntm_tpu_torch.parallel.mesh import make_dp_mp_groups
@@ -98,6 +102,43 @@ DP_MUTATIONS = {
 }
 
 
+def _theta_grad_unsummed(t, group):
+    """Theta enters the decode as is: each rank keeps only its own columns'
+    part of theta's decode gradient."""
+    return t
+
+
+def _lda_batchnorm_on_the_data_group(self, group):
+    """``set_data_group`` that also syncs LDA's ``beta_batchnorm``, which
+    normalizes the replicated beta and must stay local."""
+    self.inf_net.f_mu_batchnorm.group = group
+    self.inf_net.f_sigma_batchnorm.group = group
+    self.beta_batchnorm.group = group
+
+
+@staticmethod
+def _softmax_backward_unsummed(ctx, grad):
+    """The merged softmax's backward with the rows' dot ``sum_v g y`` of
+    the rank's own columns only: the sum ``S`` with an identity backward."""
+    y, = ctx.saved_tensors
+    yf, gf = y.float(), grad.float()
+    return (yf * (gf - (gf * yf).sum(dim=1)[:, None])).to(grad.dtype), None
+
+
+DECODE_KW = {model_type: {**KW, "fused_decoder": False, "model_type": model_type,
+                          "n_components": 6}
+             for model_type in ("prodLDA", "LDA")}
+DECODE_MUTATIONS = {
+    "none": [],
+    "theta_grad_unsummed": [(networks, "identity_forward_sum_backward",
+                             _theta_grad_unsummed)],
+    "softmax_sum_identity_backward": [(collectives._SoftmaxOverGroup, "backward",
+                                       _softmax_backward_unsummed)],
+    "lda_batchnorm_on_the_data_group": [(networks.DecoderNetwork, "set_data_group",
+                                         _lda_batchnorm_on_the_data_group)],
+}
+
+
 @contextlib.contextmanager
 def mutated(name, table=MUTATIONS):
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in table[name]]
@@ -130,6 +171,20 @@ def first_steps_dp_mutations(rank, device, X):
         with mutated(name, DP_MUTATIONS):
             out[name] = programs.step_gradients(AVITM(device=device, **KW), X, groups,
                                                 with_stats=True)
+    return out
+
+
+def first_steps_decode_mutations(rank, device, X):
+    """Rank program: ``{(model type, mutation): (loss, full gradients,
+    BatchNorm buffers)}`` of the first step of the unfused decodes at dp=2 x
+    mp=2, each under its mutation."""
+    groups = make_dp_mp_groups(DP, MP)
+    out = {}
+    for model_type, kw in DECODE_KW.items():
+        for name in DECODE_MUTATIONS:
+            with mutated(name, DECODE_MUTATIONS):
+                out[model_type, name] = programs.step_gradients(AVITM(device=device, **kw), X,
+                                                                groups, with_stats=True)
     return out
 
 
@@ -170,6 +225,15 @@ def steps():
         return ref, mp_ranks.result(), dp_ranks.result()
 
 
+@pytest.fixture(scope="module")
+def decode_steps():
+    X = np.random.default_rng(0).integers(0, 3, size=(DOCS, V)).astype(np.float32)
+    refs = {model_type: programs.step_gradients(AVITM(device="cpu", **kw), X, with_stats=True)
+            for model_type, kw in DECODE_KW.items()}
+    return refs, run_ranks(first_steps_decode_mutations, DP * MP, "gloo", ["cpu"] * (DP * MP),
+                           TIMEOUT_S, (X,))
+
+
 def test_the_unbroken_ranks_pass_the_parity_check(steps):
     ref, ranks, dp_ranks = steps
     for r in ranks:
@@ -199,3 +263,24 @@ def test_each_data_parallel_mutation_fails_the_parity_check(steps, mutation, cau
     ref, _, dp_ranks = steps
     for r in dp_ranks:
         assert caught_by <= parity_failures(r[mutation], ref), mutation
+
+
+@pytest.mark.parametrize("model_type", sorted(DECODE_KW))
+def test_the_unbroken_decode_ranks_pass_the_parity_check(decode_steps, model_type):
+    refs, ranks = decode_steps
+    for r in ranks:
+        assert parity_failures(r[model_type, "none"], refs[model_type]) == set()
+
+
+@pytest.mark.parametrize("model_type, mutation, caught_by", [
+    ("prodLDA", "theta_grad_unsummed", {"inf_net.input_layer.weight", "inf_net.f_mu.weight"}),
+    ("LDA", "theta_grad_unsummed", {"inf_net.input_layer.weight", "inf_net.f_mu.weight"}),
+    ("prodLDA", "softmax_sum_identity_backward", {"beta"}),
+    ("LDA", "softmax_sum_identity_backward", {"beta"}),
+    ("LDA", "lda_batchnorm_on_the_data_group", {"beta_batchnorm.running_var"}),
+])
+def test_each_decode_mutation_fails_the_parity_check(decode_steps, model_type, mutation,
+                                                      caught_by):
+    refs, ranks = decode_steps
+    for r in ranks:
+        assert caught_by <= parity_failures(r[model_type, mutation], refs[model_type]), mutation
