@@ -6,8 +6,9 @@
     python3 chip_smoke.py --kernels-only --against DIR  # and K1-K3 bitwise vs DIR's build
     python3 chip_smoke.py --data-parallel-only  # phases 1 and 6
     python3 chip_smoke.py --phase-7-only  # phases 1 and 7
+    python3 chip_smoke.py --ctm-only      # phases 1 and 8
 
-Seven phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Eight phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -132,7 +133,31 @@ device or no port next to this script):
    ``make_global_model`` -> ``get_topics(10)`` -> ``npmi_coherence`` and
    ``topic_diversity`` over the clients' tokenised documents (finite, in
    [-1, 1] and [0, 1]); consensus s, vectorize s, steady ms per global step
-   and docs/s, beside the card's name and power limit.
+   and docs/s, beside the card's name and power limit;
+8. the CTM family and the externally-stepped clients (every check fatal):
+   (a) 7(b)'s two raw-text clients (V=66,001) with 768-d
+   ``hashing_embedder`` embeddings and seeded one-hot labels (L=5) ->
+   ``CombinedTM`` (K=50, H=(100, 100), B=256) -> ``FederatedTrainer.fit``,
+   8 steps, in float32 and in bf16, the launch counters reset just before
+   and read just after (16 launches of each of K1-K3), K1-K3 on the path's
+   first batch against their plain versions, shared state bitwise equal
+   across clients, the global model's topics, NPMI and diversity, a
+   bitwise ``save``/``load`` round trip, steady ms per global step and
+   docs/s (24-step fit minus 8-step fit); (b) ``ZeroShotTM`` without labels
+   on the same clients, 8 steps: 16 launches of each of K1-K3, finite epoch
+   losses that fall; (c) ``fit_sharded`` of CombinedTM with labels on phase
+   4's corpus (V=100,000, 2,048 documents, seeded normal embeddings),
+   8 steps, at dp=1 x mp=2 (K5: 8 launches of K1-K3 and K5 per rank) and
+   dp=2 x mp=2 (K5's rows-sharded branch, 8 calls, no kernel): first-step
+   gradients within 1e-3 of each leaf's max|grad| of the unsharded
+   CombinedTM's, step losses within 1e-3, the state bitwise equal on every
+   rank, steady ms per step per rank; (d) two ``FederatedCTM`` steppers on
+   (a)'s model and data, then two ``FederatedAVITM`` steppers on phase 3's
+   data, 8 exchanged steps each through ``weighted_mean``: the
+   ``StepStatus`` sequences, shared state bitwise equal after every
+   ``delta_update_fit``, 16 launches of each of K1-K3, and ms per exchanged
+   step split into step, snapshot (with its device-to-host bytes), mean and
+   set.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -186,6 +211,21 @@ class SmokeFailure(Exception):
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise SmokeFailure(message)
+
+
+def check_same_state(res: list, label: str) -> None:
+    """The gathered state of a ``programs.fit`` is bitwise equal on every
+    rank: world rank 0's state is the one its digest names, and every
+    rank's digest equals rank 0's."""
+    from gfedntm_tpu_torch.parallel import programs
+
+    want = res[0]["state_digest"]
+    check(programs.state_digest(res[0]["state"]) == want,
+          f"{label}: rank 0's state is not the one its digest names")
+    for rank, r in enumerate(res[1:], 1):
+        for key in sorted(set(want) | set(r["state_digest"])):
+            check(r["state_digest"].get(key) == want.get(key),
+                  f"{label}: {key} differs between rank 0 and rank {rank} after the fit")
 
 
 def card_line() -> str:
@@ -604,12 +644,14 @@ def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
 
 
 # (B, K, V, mask kind, training): the main path's shape, its padded pitch
-# (V=99,999), eval, all rows masked, 16-column tiles (B=320), K2's
-# tensor-core route past where FP32 leaves it (B=360: half-size x stages),
-# and the CUDA-core route (B=512, past the FP32 route boundary; B=1100).
+# (V=99,999), the CTM flow's shape (V=66,001: 7 pad columns), eval, all rows
+# masked, 16-column tiles (B=320), K2's tensor-core route past where FP32
+# leaves it (B=360: half-size x stages), and the CUDA-core route (B=512, past
+# the FP32 route boundary; B=1100).
 BF16_CASES = [
     (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
     (256, 50, 99_999, "partial", True), (256, 50, 99_999, "none", False),
+    (256, 50, 66_001, "partial", True), (256, 50, 66_001, "partial", False),
     (320, 50, 100_000, "partial", True), (360, 50, 20_001, "partial", True),
     (360, 50, 20_001, "partial", False), (512, 50, 20_000, "partial", True),
     (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
@@ -733,15 +775,12 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
-def main_path_phase(rows: dict) -> tuple[list, object]:
-    """Phase 3; returns the client datasets and the float32 fit's result."""
-    import numpy as np
-    import torch
+def main_path_datasets() -> list:
+    """Phase 3's two client datasets: ``generate_synthetic_corpus``
+    (V=100,000, K=50, 1,024 documents per client, seed 0) as BoW."""
+    from gfedntm_tpu_torch import BowDataset, generate_synthetic_corpus
 
-    from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer, generate_synthetic_corpus
-    from gfedntm_tpu_torch.ops import fused_decoder as fd
-
-    V, K, B, C = 100_000, 50, 256, 2
+    V, K, C = 100_000, 50, 2
     t0 = time.perf_counter()
     corpus = generate_synthetic_corpus(
         vocab_size=V, n_topics=K, n_docs=1024, n_nodes=C, materialize_docs=False, seed=0,
@@ -750,6 +789,19 @@ def main_path_phase(rows: dict) -> tuple[list, object]:
     datasets = [BowDataset(X=node.bow, idx2token=idx2token) for node in corpus.nodes]
     print(f"main path: synthetic corpus {C} x {datasets[0].X.shape} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return datasets
+
+
+def main_path_phase(rows: dict) -> tuple[list, object]:
+    """Phase 3; returns the client datasets and the float32 fit's result."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, FederatedTrainer
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    V, K, B, C = 100_000, 50, 256, 2
+    datasets = main_path_datasets()
 
     def run(num_epochs, compute_dtype="float32"):
         template = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100),
@@ -1001,9 +1053,7 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
                   f"rank {rank}: {name} launched {r['launches'][name]} times, want 16")
         check(len(r["step_losses"]) == 16 and bool(np.isfinite(r["step_losses"]).all()),
               f"rank {rank}: step losses {r['step_losses']}")
-        for key, val in r["state"].items():
-            check(np.array_equal(val, res[0]["state"][key]),
-                  f"{key} differs between rank 0 and rank {rank} after the fit")
+    check_same_state(res, "sharded fit")
     topics = res[0]["topics"]
     check(len(topics) == K and all(len(t) == 10 for t in topics),
           "get_topics did not return 50 lists of 10")
@@ -1102,10 +1152,9 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
                   f"bf16 rank {rank}: {name} launched {r['launches'][name + '_bf16']} times in "
                   f"bf16 (want {steps16}) and {r['launches'][name]} in float32 (want 0)")
         check(bool(np.isfinite(r["step_losses"]).all()), f"bf16 rank {rank}: non-finite loss")
-        for key, val in r["state"].items():
-            check(val.dtype in (np.float32, np.int64), f"bf16 sharded fit: {key} is {val.dtype}")
-            check(np.array_equal(val, res16[0]["state"][key]),
-                  f"bf16: {key} differs between rank 0 and rank {rank} after the fit")
+    for key, val in res16[0]["state"].items():
+        check(val.dtype in (np.float32, np.int64), f"bf16 sharded fit: {key} is {val.dtype}")
+    check_same_state(res16, "bf16")
     ref16 = AVITM(**kw16)
     ref_loss16, ref_grads16 = programs.step_gradients(AVITM(**kw16), X)
     ref16.fit(BowDataset(X=X), n_samples=1)
@@ -1255,7 +1304,7 @@ def validation_fit_phase(datasets: list) -> None:
 
     from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.data.datasets import make_epoch_schedule
-    from gfedntm_tpu_torch.train.steps import eval_epoch, grad_step
+    from gfedntm_tpu_torch.train.steps import eval_epoch, grad_step, take
 
     V, K, B = 100_000, 50, 256
     kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
@@ -1291,7 +1340,7 @@ def validation_fit_phase(datasets: list) -> None:
     check(sorted(snapshots) == want, f"saves at epochs {sorted(snapshots)}, want {want}")
 
     rng = np.random.default_rng(0)
-    x_val = model._device_data(val.X)
+    x_val = model._device_data(val)
     vsched = make_epoch_schedule(len(val), B, rng)
     vidx = torch.as_tensor(vsched.indices, device=model.device, dtype=torch.long)
     vmask = torch.as_tensor(vsched.mask, device=model.device, dtype=torch.float32)
@@ -1314,14 +1363,14 @@ def validation_fit_phase(datasets: list) -> None:
           f"state, topic-word matrix and eval loss with injected noise "
           f"({float(losses_saved.sum()):.6f})", flush=True)
 
-    x_train = model._device_data(train.X)
+    x_train = model._device_data(train)
     sched = make_epoch_schedule(len(train), B, rng)
     idx = torch.as_tensor(sched.indices, device=model.device, dtype=torch.long)
     mask = torch.as_tensor(sched.mask, device=model.device, dtype=torch.float32)
 
     def train_epoch():
         for i in range(len(idx)):
-            grad_step(model.model, model.optimizer, x_train[idx[i]], mask[i], True,
+            grad_step(model.model, model.optimizer, take(x_train, idx[i]), mask[i], True,
                       generator=model.generator)
 
     train_ms = time_ms(train_epoch, reps=5, warmup=1)
@@ -1602,9 +1651,7 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
               f"rank {rank}: step losses {r['step_losses']}")
         check(r["validation_losses"] == res[0]["validation_losses"],
               f"rank {rank}: validation losses differ from rank 0's")
-        for key, val in r["state"].items():
-            check(np.array_equal(val, res[0]["state"][key]),
-                  f"{key} differs between rank 0 and rank {rank} after the fit")
+    check_same_state(res, f"dp={dp} x mp={mp}")
 
     # The unsharded fits on the card, fused and unfused: the same seed,
     # schedule and draws. Their beta spread is what reduction order alone
@@ -1797,9 +1844,7 @@ def sharded_decodes_phase(card: str) -> None:
                       f"{r['validation_losses']}")
                 check(r["validation_losses"] == r0["validation_losses"],
                       f"{label}: rank {rank}'s validation losses differ from rank 0's")
-                for key, val in r["state"].items():
-                    check(np.array_equal(val, r0["state"][key]),
-                          f"{label}: {key} differs between rank 0 and rank {rank}")
+            check_same_state(res, label)
             check(loss_e <= 1e-3 and grad_e <= 1e-3 and cancel_e <= cancel_limit,
                   f"{label} first step: loss {loss_e:.3e}, gradients {grad_e:.3e}, "
                   f"cancelling {cancel_e:.3e}")
@@ -1811,28 +1856,23 @@ def sharded_decodes_phase(card: str) -> None:
                   f"{label}: validation differs from the teacher-forced eval by {val_e}")
 
 
-def raw_text_phase(card: str, notes: dict) -> None:
-    """Phase 7(b): the user flow from raw text through the port: vocabulary
-    consensus with the native BoW library, the federated fit through
-    K1-K3, the global model's topics and their metrics."""
+def raw_text_corpora(card: str):
+    """Phase 7(b)'s clients from raw text: ``generate_synthetic_corpus``'s
+    token-string documents as ``RawCorpus`` clients, through
+    ``run_vocab_consensus`` (checked: V = 66,001, each client's BoW the
+    synthetic BoW's columns, ``vectorize`` equal). Returns ``(clients,
+    consensus)``."""
     import numpy as np
-    import torch
 
     from gfedntm_tpu_torch import (
-        AVITM,
-        FederatedTrainer,
         RawCorpus,
         generate_synthetic_corpus,
         native,
-        npmi_coherence,
         run_vocab_consensus,
-        topic_diversity,
     )
     from gfedntm_tpu_torch.data.vocab import vectorize
-    from gfedntm_tpu_torch.ops import _build
-    from gfedntm_tpu_torch.ops import fused_decoder as fd
 
-    V_FULL, K, B, C = 100_000, 50, 256, 2
+    V_FULL, K, C = 100_000, 50, 2
     t0 = time.perf_counter()
     corpus = generate_synthetic_corpus(vocab_size=V_FULL, n_topics=K, n_docs=1024, n_nodes=C,
                                        materialize_docs=True, seed=0)
@@ -1860,6 +1900,24 @@ def raw_text_phase(card: str, notes: dict) -> None:
         check(np.array_equal(ds.X, node.bow[:, cols]),
               f"client {c}: BoW differs from the synthetic BoW's columns")
         check(np.array_equal(again[c], ds.X), f"client {c}: vectorize differs from consensus")
+    return clients, consensus
+
+
+def raw_text_phase(card: str, notes: dict):
+    """Phase 7(b): the user flow from raw text through the port: vocabulary
+    consensus with the native BoW library, the federated fit through
+    K1-K3, the global model's topics and their metrics. Returns
+    :func:`raw_text_corpora`'s clients and consensus."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import AVITM, FederatedTrainer, npmi_coherence, topic_diversity
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    K, B, C = 50, 256, 2
+    clients, consensus = raw_text_corpora(card)
+    V = len(consensus.global_vocab)
 
     def run(num_epochs):
         template = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
@@ -1930,29 +1988,348 @@ def raw_text_phase(card: str, notes: dict) -> None:
     print(f"raw text steady step, {card}: {ms_step:.3f} ms per global step, "
           f"{C * B / ms_step * 1e3:.1f} docs/s ({C} clients x B={B}, V={V}); warm 8-step fit "
           f"{secs8 * 1e3:.1f} ms, 24-step fit {secs24 * 1e3:.1f} ms", flush=True)
+    return clients, consensus
 
 
-def decodes_and_text_phase(card: str, notes: dict) -> None:
+def decodes_and_text_phase(card: str, notes: dict):
     """Phase 7: (a) then (b), timed; (b) adds its launches to the K1-K3
-    rows' ``notes``."""
+    rows' ``notes``. Returns (b)'s clients and consensus."""
     t_phase = time.perf_counter()
     sharded_decodes_phase(card)
-    raw_text_phase(card, notes)
+    raw = raw_text_phase(card, notes)
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return raw
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the CTM family and the externally-stepped clients
+# ---------------------------------------------------------------------------
+CTM_LABELS = 5  # one-hot label classes of the CTM phases
+CTM_CONTEXT = 768  # contextual embedding width (SBERT's)
+
+
+def onehot_labels(n: int, seed: int):
+    """``n`` seeded one-hot labels over :data:`CTM_LABELS` classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.eye(CTM_LABELS, dtype=np.float32)[rng.integers(0, CTM_LABELS, n)]
+
+
+def ctm_federated_phase(card: str, notes: dict, raw) -> list:
+    """Phase 8 (a) and (b): federated CombinedTM with labels, float32 and
+    bf16, and federated ZeroShotTM without labels, on phase 7(b)'s raw-text
+    clients with ``hashing_embedder`` embeddings. Returns (a)'s datasets."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import (
+        CombinedTM,
+        CTMDataset,
+        FederatedTrainer,
+        ZeroShotTM,
+        hashing_embedder,
+        npmi_coherence,
+        topic_diversity,
+    )
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    clients, consensus = raw
+    V, K, B, C = len(consensus.global_vocab), 50, 256, 2
+    t0 = time.perf_counter()
+    embed = hashing_embedder(CTM_CONTEXT)
+    contexts = [embed(c.documents) for c in clients]
+    print(f"ctm: hashing_embedder({CTM_CONTEXT}) of {C} x {len(clients[0])} documents in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    datasets = [CTMDataset(X=ds.X, X_ctx=contexts[c], labels=onehot_labels(len(ds), c),
+                           idx2token=ds.idx2token) for c, ds in enumerate(consensus.datasets)]
+    kw = dict(input_size=V, contextual_size=CTM_CONTEXT, n_components=K,
+              hidden_sizes=(100, 100), batch_size=B)
+
+    def run(num_epochs, dtype="float32", cls=CombinedTM, data=datasets,
+            label_size=CTM_LABELS):
+        template = cls(**kw, num_epochs=num_epochs, label_size=label_size,
+                       compute_dtype=dtype)
+        trainer = FederatedTrainer(template, n_clients=C)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = trainer.fit(data)
+        torch.cuda.synchronize()
+        return trainer, result, time.perf_counter() - start
+
+    # K1-K3 on this path's first batch against their plain versions, in
+    # float32 and in bf16: theta from an initial CombinedTM's encoder on the
+    # first client's first B documents, their embeddings and labels. The
+    # bf16 kernels read beta and x rounded to bf16 at the padded pitch (7
+    # pad columns at V=66,001), as the fit stores them; their plain versions
+    # take the float32 values of the same rounded arrays.
+    for dtype in ("float32", "bfloat16"):
+        net = CombinedTM(**kw, label_size=CTM_LABELS, compute_dtype=dtype)
+        first = {key: value[:B] for key, value in net._device_data(datasets[0]).items()}
+        x, mask = first["x_bow"], torch.ones(B, device=net.device)
+        with torch.no_grad():
+            theta = net.model.encode_theta(x, first["x_ctx"], first["labels"], mask=mask,
+                                           generator=net.generator).theta.float()
+        beta_s, x_s = fd.store(net.model.beta.detach(), dtype), fd.store(x, dtype)
+        beta_r, x_r = beta_s.float(), x_s.float()
+        bn = net.model.beta_batchnorm
+        case = f"the CombinedTM flow's first batch, {dtype}, B={B} K={K} V={V}"
+        rest = (mask, bn.running_mean, bn.running_var, True)
+        mean, var, m, s = fd.stats_reference(theta, beta_r, *rest)
+        ref_loss = fd.loss_reference(theta, beta_r, x_r, mean, var, m, s)
+        gr_rest = (mean, var, m, s, ref_loss[1], mask / B, mask, True)
+        errs = [compare("mean,var,m,s", fd.stats(theta, beta_s, *rest, storage_dtype=dtype),
+                        (mean, var, m, s), case),
+                compare("loss,rd", fd.loss(theta, beta_s, x_s, mean, var, m, s,
+                                           storage_dtype=dtype), ref_loss, case),
+                compare("g_theta,g_beta", fd.grads(theta, beta_s, x_s, *gr_rest,
+                                                   storage_dtype=dtype),
+                        fd.grads_reference(theta, beta_r, x_r, *gr_rest), case)]
+        route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K, dtype)]
+        print(f"ctm: K1, K2, K3 on {case} ({route}) within "
+              f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions (tol {ATOL:g} + "
+              f"{RTOL:g}*max|plain| per output)", flush=True)
+
+    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        fd.reset_launches()
+        trainer, result, secs = run(2, dtype)
+        launches = dict(fd.LAUNCHES)
+        print(f"ctm (a) CombinedTM + labels, {dtype}: fit {result.losses.shape[0]} global "
+              f"steps x {C} clients at V={V} in {secs:.3f} s; launches {nonzero(launches)}; "
+              f"epoch losses {result.epoch_losses}", flush=True)
+        check(result.losses.shape == (8, C), f"ctm {dtype}: losses shape {result.losses.shape}")
+        check(bool(np.isfinite(result.losses).all()), f"ctm {dtype}: non-finite losses")
+        for name in ("stats", "loss", "grads"):
+            got = launches[name + suffix]
+            check(got == 16 and sum(launches.values()) == 48,
+                  f"ctm {dtype}: {name + suffix} launched {got} times (want 16), all "
+                  f"{launches}")
+            notes[name + suffix] += f"; phase 8(a) CombinedTM {dtype}: {got} launches"
+        for tree in (result.client_params, result.client_batch_stats):
+            for key, val in tree[0].items():
+                check(val.dtype in (torch.float32, torch.long),
+                      f"ctm {dtype}: {key} is {val.dtype}")
+                for other in tree[1:]:
+                    check(torch.equal(val, other[key]), f"ctm {dtype}: {key} differs across "
+                          "clients")
+        if dtype == "float32":
+            model = trainer.make_global_model(result, datasets[0])
+            check(isinstance(model, CombinedTM), f"global model is a {type(model).__name__}")
+            topics = model.get_topics(10)
+            check(len(topics) == K and all(len(t) == 10 for t in topics),
+                  "get_topics did not return 50 lists of 10")
+            tokens = [d.split() for c in clients for d in c.documents]
+            npmi, diversity = npmi_coherence(topics, tokens), topic_diversity(topics)
+            print(f"ctm (a): topic 0 {topics[0]}; NPMI {npmi:.4f}, topic diversity "
+                  f"{diversity:.4f}", flush=True)
+            check(np.isfinite(npmi) and -1.0 <= npmi <= 1.0, f"NPMI {npmi}")
+            check(np.isfinite(diversity) and 0.0 <= diversity <= 1.0, f"diversity {diversity}")
+            save_dir = SCRATCH / "ctm"
+            model.nn_epoch = 1
+            t0 = time.perf_counter()
+            model.save(str(save_dir))
+            fresh = CombinedTM(**kw, label_size=CTM_LABELS)
+            fresh.load(str(save_dir), 1)
+            for key, val in model.model.state_dict().items():
+                check(torch.equal(fresh.model.state_dict()[key], val),
+                      f"CombinedTM load: {key} differs from the saved state")
+            print(f"ctm (a): save + load of the global CombinedTM bitwise equal "
+                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+            shutil.rmtree(save_dir, ignore_errors=True)
+        # Steady state as in phase 3: a 24-step fit minus an 8-step fit.
+        secs8 = min(run(2, dtype)[2], run(2, dtype)[2])
+        secs24 = min(run(6, dtype)[2], run(6, dtype)[2])
+        ms_step = (secs24 - secs8) / 16 * 1e3
+        check(ms_step > 0, f"ctm steady step time {ms_step:.3f} ms is not positive")
+        print(f"ctm (a) steady step, {card}: CombinedTM + labels {dtype}: {ms_step:.3f} ms per "
+              f"global step, {C * B / ms_step * 1e3:.1f} docs/s ({C} clients x B={B}, V={V}); "
+              f"8-step fit {secs8 * 1e3:.1f} ms, 24-step fit {secs24 * 1e3:.1f} ms", flush=True)
+
+    plain = [CTMDataset(X=d.X, X_ctx=d.X_ctx, idx2token=d.idx2token) for d in datasets]
+    fd.reset_launches()
+    _, result, secs = run(2, cls=ZeroShotTM, data=plain, label_size=0)
+    launches = dict(fd.LAUNCHES)
+    print(f"ctm (b) ZeroShotTM, no labels: fit {result.losses.shape[0]} global steps x {C} "
+          f"clients in {secs:.3f} s; launches {nonzero(launches)}; epoch losses "
+          f"{result.epoch_losses}", flush=True)
+    check(bool(np.isfinite(result.losses).all()), "ZeroShotTM: non-finite losses")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == 16, f"ZeroShotTM: {name} launched {launches[name]} times")
+        notes[name] += f"; phase 8(b) ZeroShotTM: {launches[name]} launches"
+    for c, losses in enumerate(result.epoch_losses):
+        check(losses[1] < losses[0],
+              f"ZeroShotTM client {c}: epoch losses {losses} do not fall")
+    return datasets
+
+
+def ctm_sharded_phase(card: str) -> None:
+    """Phase 8 (c): ``fit_sharded`` of CombinedTM with labels on phase 4's
+    corpus at dp=1 x mp=2 and dp=2 x mp=2 against the unsharded fit."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import CTM, CTMDataset
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    V, K, B, N = 100_000, 50, 256, 2048
+    X = synthetic_bow(V, K, N, 0)
+    X_ctx = np.random.default_rng(1).standard_normal((N, CTM_CONTEXT), dtype=np.float32)
+    labels = onehot_labels(N, 2)
+    kw = dict(input_size=X.shape[1], contextual_size=CTM_CONTEXT, n_components=K,
+              hidden_sizes=(100, 100), batch_size=B, num_epochs=1, dropout=0.0, seed=0,
+              inference_type="combined", label_size=CTM_LABELS)
+    ref = CTM(**kw)
+    ref_step = programs.step_gradients(CTM(**kw), {"X": X, "X_ctx": X_ctx, "labels": labels})
+    ref.fit(CTMDataset(X=X, X_ctx=X_ctx, labels=labels), n_samples=1)
+    steps_ref = np.asarray(ref.step_losses)
+    corpus = {"X": shared(X), "X_ctx": shared(X_ctx), "labels": shared(labels)}
+    for dp, mp in ((1, 2), (2, 2)):
+        backend, devices = gpu_layout(dp * mp)
+        t0, launched = time.perf_counter(), time.time()
+        res = run_ranks(programs.fit, dp * mp, backend, devices, 900,
+                        args=(dp, mp, kw, corpus, None, 1, 4))
+        secs = time.perf_counter() - t0
+        # Where the rank group's seconds go, as in phase 7(a).
+        print(f"ctm (c) dp={dp} x mp={mp}: start-up "
+              f"{max(r['entered_at'] for r in res) - launched:.1f} s, then rank 0's "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in res[0]["seconds"].items())
+              + f"; teardown {time.time() - max(r['left_at'] for r in res):.1f} s", flush=True)
+        steps = len(steps_ref)
+        for rank, r in enumerate(res):
+            got = nonzero(r["launches"])
+            want = ({"stats": steps, "loss": steps, "grads": steps, "vsharded": steps}
+                    if dp == 1 else {})
+            check(got == want, f"ctm {dp} x {mp} rank {rank}: launches {got}, want {want}")
+            rows = r["rows_calls"]["vsharded_rows"]
+            check(rows == (steps if dp > 1 else 0),
+                  f"ctm {dp} x {mp} rank {rank}: {rows} rows-sharded K5 calls")
+        check_same_state(res, f"ctm {dp} x {mp}")
+        loss_e, grad_e, cancel_e = first_step_errors(res[0]["first_step"], ref_step)
+        step_e = float(np.max(np.abs(np.asarray(res[0]["step_losses"]) - steps_ref)
+                              / np.abs(steps_ref)))
+        print(f"ctm (c) fit_sharded CombinedTM + labels, {backend} dp={dp} x mp={mp} on "
+              f"{devices}: ranks done in {secs:.1f} s; launches per rank "
+              f"{[nonzero(r['launches']) for r in res]}, rows-sharded K5 calls "
+              f"{[r['rows_calls']['vsharded_rows'] for r in res]}; first step: loss "
+              f"{loss_e:.3e} relative, gradients within {grad_e:.3e} of each leaf's max|grad| "
+              f"(limit 1e-3), {', '.join(DEGENERATE)} within {cancel_e:.3e} of the largest "
+              f"(limit 1e-5); step losses {step_e:.3e} (limit 1e-3); state bitwise equal on "
+              f"{dp * mp} ranks", flush=True)
+        print(f"ctm (c) steady step, {card}: dp={dp} x mp={mp} ({backend}): "
+              f"{[round(r['step_ms'], 3) for r in res]} ms per step per rank (4 warm steps "
+              f"between barriers); bytes per step through each data group's all_reduce: batch "
+              f"gather {res[0]['step_bytes']['batch_gather'] / 1e6:.1f} MB, gradient sum "
+              f"{res[0]['step_bytes']['gradient_sum'] / 1e6:.1f} MB", flush=True)
+        check(loss_e <= 1e-3 and grad_e <= 1e-3 and cancel_e <= 1e-5,
+              f"ctm {dp} x {mp} first step: {loss_e:.3e}, {grad_e:.3e}, {cancel_e:.3e}")
+        check(step_e <= 1e-3, f"ctm {dp} x {mp} step losses differ by {step_e:.3e}")
+
+
+def stepper_phase(card: str, ctm_datasets: list, avitm_datasets: list) -> None:
+    """Phase 8 (d): two ``FederatedCTM`` steppers on (a)'s model and data,
+    then two ``FederatedAVITM`` steppers on phase 3's, each driven in
+    process for 8 exchanged steps through ``weighted_mean``."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import (
+        AVITM,
+        CombinedTM,
+        FederatedAVITM,
+        FederatedCTM,
+        weighted_mean,
+    )
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    K, B = 50, 256
+    ctm_kw = dict(input_size=ctm_datasets[0].vocab_size, contextual_size=CTM_CONTEXT,
+                  n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2,
+                  label_size=CTM_LABELS)
+    avitm_kw = dict(input_size=avitm_datasets[0].vocab_size, n_components=K,
+                    hidden_sizes=(100, 100), batch_size=B, num_epochs=2)
+    for label, build, datasets in (
+            ("FederatedCTM (CombinedTM + labels)",
+             lambda c: FederatedCTM(CombinedTM(**ctm_kw, seed=c)), ctm_datasets),
+            ("FederatedAVITM", lambda c: FederatedAVITM(AVITM(**avitm_kw, seed=c)),
+             avitm_datasets)):
+        steppers = [build(c) for c in range(len(datasets))]
+        for stepper, data in zip(steppers, datasets):
+            stepper.pre_fit(data)
+        weights = [float(len(d)) for d in datasets]
+        ms = {"step": [], "snapshot": [], "mean": [], "set": []}
+        statuses = [[] for _ in steppers]
+        fd.reset_launches()
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for stepper in steppers:
+                stepper.train_mb_delta(snapshot=False)  # its loss's read syncs
+            t1 = time.perf_counter()
+            snaps = [stepper.get_gradients() for stepper in steppers]
+            t2 = time.perf_counter()
+            avg = weighted_mean(list(zip(weights, snaps)))
+            t3 = time.perf_counter()
+            for c, stepper in enumerate(steppers):
+                statuses[c].append(stepper.delta_update_fit(avg))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for key, start, end in (("step", t0, t1), ("snapshot", t1, t2), ("mean", t2, t3),
+                                    ("set", t3, t4)):
+                ms[key].append((end - start) * 1e3)
+            first = steppers[0].model.model.state_dict()
+            for stepper in steppers[1:]:
+                for key, val in stepper.model.model.state_dict().items():
+                    check(torch.equal(val, first[key]),
+                          f"{label}: {key} differs across clients after delta_update_fit")
+        launches = dict(fd.LAUNCHES)
+        nbytes = sum(v.nbytes for v in snaps[0].values())
+        seq = [(s.current_mb, s.current_epoch, s.epoch_ended, s.finished) for s in statuses[0]]
+        print(f"stepper (d) {label}: launches {nonzero(launches)}; client 0's StepStatus "
+              f"(current_mb, current_epoch, epoch_ended, finished) {seq}; epoch losses "
+              f"{[s.epoch_losses for s in steppers]}", flush=True)
+        steady = {k: float(np.median(v[1:])) for k, v in ms.items()}
+        print(f"stepper (d) steady exchanged step, {card}: {label}, {len(steppers)} clients: "
+              f"median ms over steps 2-8: step {steady['step']:.3f}, snapshot "
+              f"{steady['snapshot']:.3f} ({nbytes / 1e6:.1f} MB device to host per client), "
+              f"mean {steady['mean']:.3f}, set {steady['set']:.3f}; total "
+              f"{sum(steady.values()):.3f}", flush=True)
+        for name in ("stats", "loss", "grads"):
+            check(launches[name] == 16, f"{label}: {name} launched {launches[name]} times")
+        want = [(1, 0, False, False), (2, 0, False, False), (3, 0, False, False),
+                (4, 1, True, False), (5, 1, False, False), (6, 1, False, False),
+                (7, 1, False, False), (8, 2, True, True)]
+        for c in range(len(steppers)):
+            got = [(s.current_mb, s.current_epoch, s.epoch_ended, s.finished)
+                   for s in statuses[c]]
+            check(got == want, f"{label} client {c}: StepStatus sequence {got}")
+            check(all(np.isfinite(steppers[c].epoch_losses)), f"{label}: non-finite epoch loss")
+
+
+def ctm_phase(card: str, notes: dict, raw=None, avitm_datasets=None) -> None:
+    """Phase 8: (a) and (b) on phase 7(b)'s clients (``raw``, made here when
+    not given), (c), then (d) on (a)'s datasets and phase 3's
+    (``avitm_datasets``, made here when not given); timed."""
+    t_phase = time.perf_counter()
+    ctm_datasets = ctm_federated_phase(card, notes, raw or raw_text_corpora(card))
+    ctm_sharded_phase(card)
+    stepper_phase(card, ctm_datasets, avitm_datasets or main_path_datasets())
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
     p7_only = "--phase-7-only" in argv
-    rest = [a for a in argv
-            if a not in ("--kernels-only", "--data-parallel-only", "--phase-7-only")]
+    ctm_only = "--ctm-only" in argv
+    rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
+                                         "--phase-7-only", "--ctm-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    if not usage_ok or kernels_only + dp_only + p7_only > 1 or ((dp_only or p7_only)
-                                                                and against):
+    only = dp_only or p7_only or ctm_only
+    if not usage_ok or kernels_only + dp_only + p7_only + ctm_only > 1 or (only and against):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
-              "--phase-7-only]", file=sys.stderr)
+              "--phase-7-only | --ctm-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1985,18 +2362,24 @@ def main(argv: list[str]) -> int:
         if p7_only:
             decodes_and_text_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if ctm_only:
+            ctm_phase(card, {name + dt: "" for name in ("stats", "loss", "grads")
+                             for dt in ("", "_bf16")})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
             X, kw = sharded_fit_phase(card, rows, notes)
             persistence_phase(card, rows, notes, datasets, result, X, kw)
             data_parallel_phase(card, notes)
-            decodes_and_text_phase(card, notes)
+            raw = decodes_and_text_phase(card, notes)
+            ctm_phase(card, notes, raw, datasets)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(CORPORA, ignore_errors=True)
+        shutil.rmtree(SCRATCH, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

@@ -5,8 +5,14 @@ The package mirrors the JAX package's layout (``data/``, ``native/``,
 so each module's counterpart is found under the same path. A user's flow
 starts from raw text: ``RawCorpus`` per client -> ``run_vocab_consensus``
 -> ``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
-``get_topics`` -> ``npmi_coherence`` / ``topic_diversity``. It imports ``torch``, ``numpy`` and the standard library
-only — never ``jax`` or anything of ``gfedntm_tpu``.
+``get_topics`` -> ``npmi_coherence`` / ``topic_diversity``. The CTM flow
+adds each document's contextual embedding (``hashing_embedder`` stands in
+for a sentence encoder) and optional one-hot labels: ``CTMDataset`` ->
+``CombinedTM`` or ``ZeroShotTM`` -> the same trainers. A federation server
+drives ``FederatedAVITM`` / ``FederatedCTM`` one minibatch at a time and
+averages their snapshots with ``weighted_mean``. It imports ``torch``,
+``numpy`` and the standard library only — never ``jax`` or anything of
+``gfedntm_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; with
 no CUDA device they raise rather than quietly take the CPU (see
@@ -23,6 +29,15 @@ import importlib
 
 _EXPORTS = {
     "AVITM": "gfedntm_tpu_torch.models.avitm",
+    "CTM": "gfedntm_tpu_torch.models.ctm",
+    "CTMDataset": "gfedntm_tpu_torch.data.datasets",
+    "CombinedTM": "gfedntm_tpu_torch.models.ctm",
+    "FederatedAVITM": "gfedntm_tpu_torch.federated.stepper",
+    "FederatedCTM": "gfedntm_tpu_torch.federated.stepper",
+    "StepStatus": "gfedntm_tpu_torch.federated.stepper",
+    "ZeroShotTM": "gfedntm_tpu_torch.models.ctm",
+    "hashing_embedder": "gfedntm_tpu_torch.data.embeddings",
+    "weighted_mean": "gfedntm_tpu_torch.federated.aggregation",
     "FederatedTrainer": "gfedntm_tpu_torch.federated.trainer",
     "FederatedResult": "gfedntm_tpu_torch.federated.trainer",
     "BowDataset": "gfedntm_tpu_torch.data.datasets",

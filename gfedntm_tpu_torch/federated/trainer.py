@@ -10,7 +10,12 @@ clients weighted by each client's sample count. Integer entries
 (``num_batches_tracked``) are not averaged, and optimizer state stays per
 client. Clients cycle their own epochs independently. The template's compute
 dtype rides along: a bf16-compute template trains bf16 networks whose shared
-state, float32 like the template's, is averaged as above.
+state, float32 like the template's, is averaged as above. A CTM template
+(:class:`~gfedntm_tpu_torch.models.ctm.CTM`) trains CTM clients: each
+client's contextual embeddings and labels are staged beside its BoW corpus
+(``trainer.py:335-345``), its steps take the CTM loss, and
+:meth:`FederatedTrainer.make_global_model` / :meth:`make_client_model`
+return CTMs (``:652-684``).
 
 The JAX package runs this as one SPMD program over a client mesh; here it is
 a loop over C (model, optimizer) pairs on one GPU.
@@ -42,7 +47,7 @@ from gfedntm_tpu_torch.device import resolve_device
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.params import SHARE_ALL, build_share_mask
 from gfedntm_tpu_torch.train.checkpoint import CheckpointManager
-from gfedntm_tpu_torch.train.steps import grad_step
+from gfedntm_tpu_torch.train.steps import grad_step, take
 from gfedntm_tpu_torch.utils.observability import phase_timer
 
 
@@ -63,7 +68,7 @@ class FederatedResult:
 class FederatedTrainer:
     """Orchestrates a federated run from per-client datasets.
 
-    ``template`` is a configured (untrained) :class:`AVITM` whose network,
+    ``template`` is a configured (untrained) :class:`AVITM` or CTM whose network,
     optimizer state and hyperparameters every client clones — the
     reference's server-initialized global model shipped to all clients
     (``server.py:290-331``). ``local_steps`` E exchanges every E global
@@ -146,7 +151,7 @@ class FederatedTrainer:
                        for s in schedules]
             masks = [torch.as_tensor(s.mask, device=dev, dtype=torch.float32)
                      for s in schedules]
-            data = [t._device_data(d.X) for d in datasets]
+            data = [t._device_data(d) for d in datasets]
             self._sync(metrics)
 
         # Identical initial state for every client: the template's network
@@ -196,8 +201,9 @@ class FederatedTrainer:
                 for s in range(step, step + n):
                     for c in range(C):
                         losses[s, c] = grad_step(
-                            models[c], optimizers[c], data[c][indices[c][s]],
+                            models[c], optimizers[c], take(data[c], indices[c][s]),
                             masks[c][s], t.fused_decoder, generator=generator,
+                            beta_weight=t._beta_weight(),
                         )
                     if exchange[s]:
                         self._fedavg(models, weights, total_weight)
@@ -313,8 +319,9 @@ class FederatedTrainer:
 
     def make_client_model(self, result: FederatedResult, c: int,
                           dataset: BowDataset | None = None) -> AVITM:
-        """Client ``c``'s trained model as a standalone AVITM (the
-        ``get_results_model`` path, ``federated_model.py:151-181``)."""
+        """Client ``c``'s trained model as a standalone model of the
+        template's class, AVITM or CTM (the ``get_results_model`` path,
+        ``federated_model.py:151-181``)."""
         return self._model_from(result.client_params[c],
                                 result.client_batch_stats[c], dataset)
 

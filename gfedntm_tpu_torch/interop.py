@@ -11,6 +11,12 @@ port's modules carry the reference's torch state-dict keys
   ``num_batches_tracked`` int32 in JAX and int64 in torch.
 
 It takes and returns numpy arrays on the Flax side, so it needs no JAX.
+Every leaf bridges alike, the CTM encoders' too (``inf_net.adapt_bert``,
+CombinedTM's [2V + L, H] and ZeroShotTM's [768 + L, H] input kernels,
+``label_classification``). :func:`flax_path`, :func:`to_flax` and
+:func:`from_flax` convert one leaf, which the federated stepper's snapshots
+use: they are keyed by '/'-joined Flax paths (``params/beta``,
+``batch_stats/beta_batchnorm/num_batches_tracked``), as the JAX stepper's.
 ``parallel.sharded.shard_state_dict`` slices a bridged state dict into one
 rank's V shard, so a V-sharded run starts from the JAX package's weights.
 """
@@ -48,23 +54,55 @@ def torch_key(path: tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def flax_path(key: str) -> tuple[str, tuple[str, ...]]:
+    """``(collection, path)`` of one state-dict key in the Flax variable
+    tree: ``("params", ("inf_net", "hiddens_l0", "kernel"))`` for
+    ``inf_net.hiddens.l_0.0.weight``."""
+    key = _TORCH_HIDDEN.sub(lambda m: f"{m.group(1)}hiddens_l{m.group(2)}.", key)
+    parts = key.split(".")
+    if parts[-1] in _BN_BUFFERS:
+        return "batch_stats", tuple(parts)
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "params", tuple(parts)
+
+
+def to_flax(key: str, tensor: torch.Tensor) -> np.ndarray:
+    """The Flax leaf of the state-dict entry ``key``: a copy on the host, a
+    weight transposed to its [in, out] kernel (on the tensor's device,
+    before the one copy to the host), the counter int32."""
+    leaf = key.rsplit(".", 1)[-1]
+    t = tensor.detach()
+    if leaf == "num_batches_tracked":
+        t = t.to(torch.int32)
+    elif leaf == "weight":
+        t = t.t()
+    t = t.contiguous()
+    # A CPU tensor's numpy view shares its memory: copy it.
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def from_flax(path: tuple[str, ...], leaf) -> torch.Tensor:
+    """The state-dict tensor of the Flax leaf at ``path`` (within its
+    collection): float32, a kernel transposed, the counter int64."""
+    arr = np.array(leaf, copy=True)
+    if path[-1] == "num_batches_tracked":
+        return torch.tensor(int(arr), dtype=torch.long)
+    arr = arr.astype(np.float32)
+    if path[-1] == "kernel":
+        arr = np.ascontiguousarray(arr.T)
+    return torch.from_numpy(arr)
+
+
 def state_dict_from_flax(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 ) -> "OrderedDict[str, torch.Tensor]":
     """Build a port state dict from Flax ``params`` / ``batch_stats`` trees
     of numpy arrays."""
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
-    for path, leaf in _walk(params):
-        arr = np.array(leaf, dtype=np.float32, copy=True)
-        if path[-1] == "kernel":
-            arr = np.ascontiguousarray(arr.T)
-        out[torch_key(path)] = torch.from_numpy(arr)
-    for path, leaf in _walk(batch_stats):
-        arr = np.array(leaf, copy=True)
-        if path[-1] == "num_batches_tracked":
-            out[torch_key(path)] = torch.tensor(int(arr), dtype=torch.long)
-        else:
-            out[torch_key(path)] = torch.from_numpy(arr.astype(np.float32))
+    for tree in (params, batch_stats):
+        for path, leaf in _walk(tree):
+            out[torch_key(path)] = from_flax(path, leaf)
     return out
 
 
@@ -73,22 +111,11 @@ def flax_from_state_dict(
 ) -> tuple[dict, dict]:
     """Inverse of :func:`state_dict_from_flax`: ``(params, batch_stats)``
     nested dicts of numpy arrays."""
-    params: dict = {}
-    batch_stats: dict = {}
+    trees: dict = {"params": {}, "batch_stats": {}}
     for key, tensor in state_dict.items():
-        arr = tensor.detach().cpu().numpy()
-        key = _TORCH_HIDDEN.sub(lambda m: f"{m.group(1)}hiddens_l{m.group(2)}.", key)
-        parts = key.split(".")
-        if parts[-1] in _BN_BUFFERS:
-            tree = batch_stats
-            if parts[-1] == "num_batches_tracked":
-                arr = np.asarray(arr, dtype=np.int32)
-        else:
-            tree = params
-            if parts[-1] == "weight":
-                parts[-1] = "kernel"
-                arr = np.ascontiguousarray(arr.T)
-        for p in parts[:-1]:
+        collection, path = flax_path(key)
+        tree = trees[collection]
+        for p in path[:-1]:
             tree = tree.setdefault(p, {})
-        tree[parts[-1]] = np.array(arr, copy=True)
-    return params, batch_stats
+        tree[path[-1]] = to_flax(key, tensor)
+    return trees["params"], trees["batch_stats"]

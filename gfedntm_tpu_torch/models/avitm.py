@@ -9,8 +9,11 @@ loss, checkpoints into ``save_dir`` and the NaN abort (``:275-395``);
 ``save`` / ``load`` in the JAX package's npz + JSON format (``:450-493``);
 and ``compute_dtype="bfloat16"``: the network computes in bf16 while its
 parameters, BatchNorm statistics and optimizer state stay float32, and the
-fused kernels read beta and x stored in bf16 (``:81``, ``:124-134``). The
-CTM subclass is a later slice.
+fused kernels read beta and x stored in bf16 (``:81``, ``:124-134``).
+:class:`~gfedntm_tpu_torch.models.ctm.CTM` (ZeroShotTM, CombinedTM)
+subclasses it through the hooks ``_contextual_size``, ``_label_size``,
+``_beta_weight`` and ``_host_data`` (``avitm.py:171-225``): the corpus is
+staged as a dict of ``x_bow`` (and CTM's ``x_ctx``, ``labels``).
 
 Schedules come from ``np.random.default_rng(seed)`` exactly as in the JAX
 package, so both train and validate on the same batches: each epoch draws
@@ -52,7 +55,12 @@ from gfedntm_tpu_torch.parallel.sharded import DocShard
 from gfedntm_tpu_torch.train.early_stopping import EarlyStopping
 from gfedntm_tpu_torch.train.optimizers import build_optimizer
 from gfedntm_tpu_torch.train.schedulers import ReduceLROnPlateau, set_learning_rate
-from gfedntm_tpu_torch.train.steps import check_bf16_bow_counts, eval_steps, grad_step
+from gfedntm_tpu_torch.train.steps import (
+    check_bf16_bow_counts,
+    eval_steps,
+    grad_step,
+    take,
+)
 from gfedntm_tpu_torch.utils.serialization import load_variables, save_variables
 
 _ACTIVATIONS = (
@@ -77,6 +85,7 @@ class AVITM:
     """
 
     family = "avitm"
+    inference_type = "bow"
 
     def __init__(
         self,
@@ -171,7 +180,8 @@ class AVITM:
             activation=activation, dropout=dropout, learn_priors=learn_priors,
             topic_prior_mean=topic_prior_mean,
             topic_prior_variance=topic_prior_variance, generator=init_gen,
-            compute_dtype=self._module_dtype(),
+            compute_dtype=self._module_dtype(), inference_type=self.inference_type,
+            contextual_size=self._contextual_size(), label_size=self._label_size(),
         ).to(self.device)
         self.optimizer = self.build_optimizer(self.model)
         self._np_rng = np.random.default_rng(seed)
@@ -181,14 +191,30 @@ class AVITM:
         """The network's compute dtype (its parameters stay float32)."""
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
-    def _device_data(self, X) -> torch.Tensor:
-        """The BoW matrix ``X`` on the model's device; under bf16 compute the
-        first corpus staged is screened for counts bf16 cannot hold
-        (``avitm.py:259-268``)."""
+    # ---- subclass hooks (CTM overrides) ------------------------------------
+    def _contextual_size(self) -> int:
+        return 0
+
+    def _label_size(self) -> int:
+        return 0
+
+    def _beta_weight(self) -> float:
+        return 1.0
+
+    def _host_data(self, dataset: BowDataset) -> dict:
+        """The dataset's arrays as the steps read them: ``{"x_bow": X}``.
+        Under bf16 compute the first corpus staged is screened for counts
+        bf16 cannot hold (``avitm.py:259-268``); only the BoW counts are
+        screened."""
         if self.compute_dtype == "bfloat16" and not self._bf16_bow_checked:
             self._bf16_bow_checked = True
-            check_bf16_bow_counts(X, self.logger)
-        return torch.as_tensor(X, device=self.device)
+            check_bf16_bow_counts(dataset.X, self.logger)
+        return {"x_bow": dataset.X}
+
+    def _device_data(self, dataset: BowDataset) -> dict:
+        """:meth:`_host_data` on the model's device."""
+        return {key: torch.as_tensor(value, device=self.device)
+                for key, value in self._host_data(dataset).items()}
 
     def build_optimizer(self, model: DecoderNetwork) -> torch.optim.Optimizer:
         """A fresh optimizer of this configuration over ``model``'s params."""
@@ -209,9 +235,9 @@ class AVITM:
         the validation loss saves into ``save_dir``; without one, every epoch
         does. ``best_components`` is beta after the last epoch run."""
         self.model_dir = save_dir
-        corpus = DocShard(self._device_data(train_dataset.X))
+        corpus = DocShard(self._device_data(train_dataset))
         val_corpus = (None if validation_dataset is None
-                      else DocShard(self._device_data(validation_dataset.X)))
+                      else DocShard(self._device_data(validation_dataset)))
         save = (lambda: self.save(save_dir)) if save_dir else None
         self._run_epochs(self.model, self.optimizer, train_dataset, corpus,
                          validation_dataset, val_corpus, save, patience, delta)
@@ -251,10 +277,10 @@ class AVITM:
             sched = make_epoch_schedule(n_train, self.batch_size, self._np_rng)
             start = time.perf_counter()
             losses = torch.stack([
-                grad_step(net, optimizer, xb, mask, self.fused_decoder,
+                grad_step(net, optimizer, batch, mask, self.fused_decoder,
                           generator=self.generator, vshard=vshard, rows=rows,
-                          data_group=x.data_group)
-                for xb, mask, rows in x.steps(sched)
+                          data_group=x.data_group, beta_weight=self._beta_weight())
+                for batch, mask, rows in x.steps(sched)
             ])
             train_loss = float(losses.sum()) / n_train
             if on_epoch is not None:
@@ -297,7 +323,8 @@ class AVITM:
         On a rank of a sharded fit (``x_val`` holds the rank's block) it is
         summed over the data group and checked to be equal on every rank."""
         losses = eval_steps(net, x_val.steps(vsched), generator=self.generator, vshard=vshard,
-                            data_group=x_val.data_group, fused=self.fused_decoder)
+                            data_group=x_val.data_group, fused=self.fused_decoder,
+                            beta_weight=self._beta_weight())
         val_loss = float(losses.sum()) / len(self.validation_data)
         if x_val.groups is not None and x_val.groups.world_group is not None:
             # Every rank decides early stopping and the LR on this value.
@@ -319,13 +346,15 @@ class AVITM:
         self, dataset: BowDataset, n_samples: int = 20
     ) -> np.ndarray:
         """Theta averaged over ``n_samples`` reparameterization draws
-        (``avitm.py:470-523``), with running BatchNorm stats and no dropout."""
-        x_all = self._device_data(dataset.X)
+        (``avitm.py:470-523``), with running BatchNorm stats and no dropout;
+        a CTM reads the dataset's contextual embeddings (and labels)."""
+        data = self._device_data(dataset)
         idx, _ = full_batch_indices(len(dataset), self.batch_size)
         thetas = []
         for step_idx in torch.as_tensor(idx, device=self.device, dtype=torch.long):
-            x = x_all[step_idx]
-            draws = [self.model.get_theta(x, generator=self.generator)
+            batch = take(data, step_idx)
+            draws = [self.model.get_theta(batch["x_bow"], batch.get("x_ctx"),
+                                          batch.get("labels"), generator=self.generator)
                      for _ in range(n_samples)]
             thetas.append(torch.stack(draws).mean(0))
         # A bf16 model's mixtures are bf16, as the JAX package's; numpy holds

@@ -15,17 +15,22 @@ training through them:
   inputs, forward and input gradients;
 - :func:`vsharded_op` — K5 and its plain version on this rank's shard of
   full inputs, forward and backward, and optionally their times;
-- :func:`fit` — ``fit_sharded`` of an AVITM on a ``dp x mp`` layout, with
-  its first step's
+Models are built by :func:`build_model` from keyword arguments: a CTM when
+they name an ``inference_type``, else an AVITM; a corpus ``X`` is a BoW
+matrix, or a dict of a CTM's ``X``, ``X_ctx`` and ``labels`` (each one an
+array or a path, :func:`corpus`).
+
+- :func:`fit` — ``fit_sharded`` of an AVITM or CTM on a ``dp x mp`` layout,
+  with its first step's
   gradients (:func:`step_gradients`), launch counts, the gathered model's
-  state and topics, optionally its steady ms per step, and with a
-  validation set its validation losses, early-stopping outcome and, per
-  validation, what :func:`replay_validation` needs to take the same
-  validation unsharded;
+  state (world rank 0's; every rank's :func:`state_digest`) and topics,
+  optionally its steady ms per step, and with a validation set its
+  validation losses, early-stopping outcome and, per validation, what
+  :func:`replay_validation` needs to take the same validation unsharded;
 - :func:`fit_each` — :func:`fit` of several models on one layout in the
   same ranks (one spawn);
-- :func:`fit_data` — ``fit_data_sharded`` of an unfused AVITM over dp
-  ranks, with its summary, losses, gathered state and metrics records;
+- :func:`fit_data` — ``fit_data_sharded`` of an unfused AVITM or CTM over
+  dp ranks, with its summary, losses, gathered state and metrics records;
 - :func:`forced_steps` — the sharded gradients at given points of another
   fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
   noise);
@@ -35,6 +40,7 @@ training through them:
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 
@@ -42,8 +48,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gfedntm_tpu_torch.data.datasets import BowDataset, EpochSchedule, make_epoch_schedule
+from gfedntm_tpu_torch.data.datasets import (
+    BowDataset,
+    CTMDataset,
+    EpochSchedule,
+    make_epoch_schedule,
+)
 from gfedntm_tpu_torch.models.avitm import AVITM
+from gfedntm_tpu_torch.models.ctm import CTM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
 from gfedntm_tpu_torch.models.layers import window
 from gfedntm_tpu_torch.parallel.collectives import (
@@ -60,12 +72,27 @@ from gfedntm_tpu_torch.parallel.sharded import (
     local_network,
     vshard_of,
 )
-from gfedntm_tpu_torch.train.steps import batch_loss, fused_batch_loss, grad_step, sum_gradients
+from gfedntm_tpu_torch.train.steps import (
+    batch_loss,
+    fused_batch_loss,
+    grad_step,
+    sum_gradients,
+    take,
+)
 from gfedntm_tpu_torch.utils.observability import MetricsLogger
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def state_digest(state: dict) -> dict:
+    """Each leaf's dtype, shape and SHA-256 of its bytes: equal digests are
+    bitwise equal states. A rank sends this back in place of a full state
+    that world rank 0 already sends."""
+    return {key: (str(v.dtype), tuple(v.shape),
+                  hashlib.sha256(np.ascontiguousarray(v).data).hexdigest())
+            for key, v in state.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -75,13 +102,32 @@ def _sync(device: torch.device) -> None:
 
 def corpus(X):
     """``X`` itself, or the array that ``np.save`` wrote at the path ``X``,
-    mapped read-only. A caller hands a large corpus to many ranks as a path:
-    each rank then maps it from the host's page cache, instead of receiving
-    a pickled copy through its spawn pipe, which the parent fills one rank
-    at a time."""
+    mapped read-only; for a dict (a CTM corpus), the dict of each value's.
+    A caller hands a large corpus to many ranks as a path: each rank then
+    maps it from the host's page cache, instead of receiving a pickled copy
+    through its spawn pipe, which the parent fills one rank at a time."""
+    if isinstance(X, dict):
+        return {key: corpus(value) for key, value in X.items()}
     if isinstance(X, (str, os.PathLike)):
         return np.load(X, mmap_mode="r")
     return X
+
+
+def dataset(X, idx2token: dict | None = None) -> BowDataset:
+    """The dataset of a corpus (:func:`corpus`): a ``BowDataset`` of a BoW
+    matrix, or a ``CTMDataset`` of a dict with ``X``, ``X_ctx`` and
+    optionally ``labels``."""
+    X = corpus(X)
+    if isinstance(X, dict):
+        return CTMDataset(X=X["X"], X_ctx=X["X_ctx"], labels=X.get("labels"),
+                          idx2token=idx2token or {})
+    return BowDataset(X=X, idx2token=idx2token or {})
+
+
+def build_model(device, kw: dict) -> AVITM:
+    """``CTM(device=device, **kw)`` when ``kw`` names an ``inference_type``,
+    else ``AVITM(device=device, **kw)``."""
+    return (CTM if "inference_type" in kw else AVITM)(device=device, **kw)
 
 
 def assemble(per_rank: list, dp: int, mp: int, name: str, path: str | None = "kernel"):
@@ -234,49 +280,50 @@ def _batch(model: AVITM, n_docs: int, step: int) -> tuple[np.ndarray, np.ndarray
     return sched.indices[i], sched.mask[i]
 
 
-def step_gradients(model: AVITM, X: np.ndarray, groups: DpMpGroups | None = None,
+def step_gradients(model: AVITM, X, groups: DpMpGroups | None = None,
                    state: dict | None = None, step: int = 0,
                    noise: np.ndarray | None = None, with_stats: bool = False):
     """Loss and every parameter's gradient of the training loss (the fused
     one for a fused model) on the batch of global step ``step`` of a fresh
     ``model``'s schedule: unsharded, or (``groups``) on the rank-local
     network and the rank's rows, the gradients summed over the data group as
-    ``grad_step`` sums them and gathered to full shapes. ``state`` (a full
-    numpy state dict) replaces the model's own first, and ``noise`` [B, K]
-    the reparameterization draw from its generator, so the step can be
-    taken from any point of another fit's trajectory. The one-step parity
-    check of the whole network: Adam would hide a gradient that is wrong by
-    a constant factor, such as the model group's size. ``with_stats`` also
+    ``grad_step`` sums them and gathered to full shapes. ``X`` is a corpus
+    as :func:`dataset` takes it. ``state`` (a full numpy state dict)
+    replaces the model's own first, and ``noise`` [B, K] the
+    reparameterization draw from its generator, so the step can be taken
+    from any point of another fit's trajectory. The one-step parity check of
+    the whole network: Adam would hide a gradient that is wrong by a
+    constant factor, such as the model group's size. ``with_stats`` also
     returns the gathered BatchNorm buffers after the step's forward."""
     if state is not None:
         model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                      for k, v in state.items()})
-    indices, mask = _batch(model, len(X), step)
+    data = dataset(X)
+    indices, mask = _batch(model, len(data), step)
     sched = EpochSchedule(indices[None], mask[None])
-    net, vshard, corpus = model.model, None, DocShard(torch.as_tensor(X, device=model.device))
+    net, vshard, docs = model.model, None, DocShard(model._device_data(data))
     if groups is not None:
         net = local_network(model.model, groups)
         vshard = vshard_of(groups)
-        corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=model.device))
+        docs = DocShard.place(model._host_data(data), groups,
+                              lambda a: torch.as_tensor(a, device=model.device))
     net.train()
-    x, mask, rows = next(corpus.steps(sched))
+    batch, mask, rows = next(docs.steps(sched))
     eps = None if noise is None else window(torch.as_tensor(noise, device=model.device), rows)
-    if model.fused_decoder:
-        loss = fused_batch_loss(net, x, mask, noise=eps, generator=model.generator,
-                                vshard=vshard, rows=rows)
-    else:
-        loss = batch_loss(net, x, mask, noise=eps, generator=model.generator, rows=rows,
-                          vshard=vshard)
+    loss_fn = fused_batch_loss if model.fused_decoder else batch_loss
+    loss = loss_fn(net, batch, mask, noise=eps, generator=model.generator, rows=rows,
+                   vshard=vshard, beta_weight=model._beta_weight(),
+                   data_group=docs.data_group)
     loss.backward()
-    sum_gradients(net, corpus.data_group)
+    sum_gradients(net, docs.data_group)
     loss = loss.detach()
-    if corpus.data_group is not None:
-        loss = sum_in_rank_order(loss, corpus.data_group)
+    if docs.data_group is not None:
+        loss = sum_in_rank_order(loss, docs.data_group)
     grads = {name: p.grad for name, p in net.named_parameters()}
     stats = {name: b for name, b in net.named_buffers()}
     if groups is not None:
-        grads = gather_state_dict(grads, groups)
-        stats = gather_state_dict(stats, groups)
+        grads = gather_state_dict(grads, groups, model.inference_type)
+        stats = gather_state_dict(stats, groups, model.inference_type)
     out = (float(loss), {name: _np(g) for name, g in grads.items()})
     if with_stats:
         return (*out, {name: _np(b).copy() for name, b in stats.items()})
@@ -294,7 +341,7 @@ def trajectory(model: AVITM, X: np.ndarray, steps) -> tuple[list, list]:
     if model.dropout != 0:
         raise ValueError("trajectory: the recorded noise is the step's only draw with dropout 0")
     steps = sorted(set(steps))
-    x_all = torch.as_tensor(X, device=model.device)
+    data = model._device_data(BowDataset(X=X))
     records, losses, step = [], [], 0
     while step <= steps[-1]:
         sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
@@ -309,7 +356,7 @@ def trajectory(model: AVITM, X: np.ndarray, steps) -> tuple[list, list]:
                                     generator=model.generator, device=model.device)
                 records.append({"step": step, "noise": _np(noise).copy(), "state": {
                     k: _np(v).copy() for k, v in model.model.state_dict().items()}})
-            losses.append(float(grad_step(model.model, model.optimizer, x_all[idx], mask,
+            losses.append(float(grad_step(model.model, model.optimizer, take(data, idx), mask,
                                           model.fused_decoder, noise=noise,
                                           generator=model.generator)))
             step += 1
@@ -327,20 +374,23 @@ def forced_steps(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
                            step=r["step"], noise=r["noise"]) for r in records]
 
 
-def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
-        init_state: dict | None = None, n_samples: int = 3,
-        timing_steps: int = 0, X_val: np.ndarray | None = None,
+def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X, init_state: dict | None = None,
+        n_samples: int = 3, timing_steps: int = 0, X_val=None,
         save_dir: str | None = None, patience: int = 5, delta: float = 0.0,
         first_noise: np.ndarray | None = None) -> dict:
-    """``fit_sharded`` of ``AVITM(device=device, **avitm_kw)`` on ``X`` (from
+    """``fit_sharded`` of ``build_model(device, avitm_kw)`` on ``X`` (from
     ``init_state``, a full numpy state dict, when given), with the launch
     counters set to 0 just before and read just after. Returns the first
-    step's loss and gradients on an identical model (``first_step``; its
-    reparameterization draw is ``first_noise`` [B, K] when given), the
+    step's loss and gradients on an identical model (``first_step``, the
+    same on every rank, so only world rank 0 sends it back and the others
+    return ``None``; its reparameterization draw is ``first_noise`` [B, K]
+    when given), the
     launch counts (``launches``, ``eval_launches`` of them in eval mode, and
     ``rows_calls`` of K5's rows-sharded branch),
-    epoch and step losses, the gathered model's state dict, the rank-local
-    network's shapes, ``get_topics(10)`` and the training documents' topic
+    epoch and step losses, the gathered model's state dict (``state``, world
+    rank 0's only, ``None`` elsewhere) and every rank's
+    :func:`state_digest` of it (``state_digest``), the rank-local network's
+    shapes, ``get_topics(10)`` and the training documents' topic
     mixtures (``n_samples`` draws); then, with ``timing_steps``, the steady
     wall ms per step of ``fit_sharded``'s step and the bytes per step of its
     data-group collectives (``step_ms``, ``step_bytes``; :func:`_step_loop`).
@@ -349,9 +399,9 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     ``patience``, ``delta`` as in ``fit_sharded``) and also returns its
     validation losses, last epoch run, and per validation a record of the
     gathered state, the generator state and the schedule it validated with
-    (``validations``, for :func:`replay_validation`).
+    (``validations``, for :func:`replay_validation`; world rank 0's only).
 
-    ``X`` and ``X_val`` as in :func:`corpus`. ``entered_at`` and
+    ``X`` and ``X_val`` as in :func:`dataset`. ``entered_at`` and
     ``left_at`` are the host's ``time.time()`` when the rank entered and
     left, and ``seconds`` the wall seconds of the set-up (groups, corpus),
     the first step, the fit and the timed steps with the result's
@@ -370,10 +420,10 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     X, X_val = corpus(X), corpus(X_val)
     lap("setup")
 
-    data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
+    data = dataset(X, {i: f"wd{i}" for i in range(avitm_kw["input_size"])})
 
     def build(**over):
-        model = AVITM(device=device, **{**avitm_kw, **over})
+        model = build_model(device, {**avitm_kw, **over})
         if init_state is not None:
             model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                          for k, v in init_state.items()})
@@ -384,13 +434,14 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     model = build()
     validation, validations = None, []
     if X_val is not None:
-        validation = BowDataset(X=X_val)
+        validation = dataset(X_val)
         validate = model._validation_loss
 
         def recording(net, x_val, vsched, vshard=None):
             record = {
                 "state": {k: _np(v).copy() for k, v in
-                          gather_state_dict(net.state_dict(), groups).items()},
+                          gather_state_dict(net.state_dict(), groups,
+                                            model.inference_type).items()},
                 "generator": _np(model.generator.get_state()),
                 "indices": vsched.indices, "mask": vsched.mask,
             }
@@ -403,21 +454,24 @@ def fit(rank, device, dp: int, mp: int, avitm_kw: dict, X: np.ndarray,
     net = fit_sharded(model, data, groups, validation, save_dir, patience, delta,
                       n_samples=n_samples, device=device)
     lap("fit")
+    state = {k: _np(v) for k, v in model.model.state_dict().items()}
     result = {
-        "first_step": first_step,
+        "first_step": first_step if groups.is_root else None,
         "launches": dict(fd.LAUNCHES),
         "eval_launches": dict(fd.EVAL_LAUNCHES),
         "rows_calls": dict(fd.ROWS_CALLS),
         "epoch_losses": list(model.epoch_losses),
         "step_losses": list(model.step_losses),
-        "state": {k: _np(v) for k, v in model.model.state_dict().items()},
+        "state": state if groups.is_root else None,
+        "state_digest": state_digest(state),
         "local_shapes": {k: tuple(v.shape) for k, v in net.state_dict().items()},
         "topics": model.get_topics(10),
         "theta": model.training_doc_topic_distributions,
     }
     if X_val is not None:
         result.update(validation_losses=list(model.validation_losses),
-                      last_epoch=model.nn_epoch, validations=validations)
+                      last_epoch=model.nn_epoch,
+                      validations=validations if groups.is_root else None)
     if timing_steps:
         result["step_ms"], result["step_bytes"] = _step_loop(build(), X, groups)[1](
             timing_steps)
@@ -432,39 +486,39 @@ def fit_each(rank, device, dp: int, mp: int, runs: list) -> list:
     return [fit(rank, device, dp, mp, *args) for args in runs]
 
 
-def replay_validation(model: AVITM, X_val: np.ndarray, record: dict) -> float:
+def replay_validation(model: AVITM, X_val, record: dict) -> float:
     """The validation loss that an unsharded ``model.fit`` takes from one of
     :func:`fit`'s ``validations``: the record's state loaded into ``model``,
     its generator set to the record's state (so the reparameterization
     noise is the same draw) and the same schedule, through the unfused
-    eval decode."""
+    eval decode. ``X_val`` as in :func:`dataset`."""
     model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                  for k, v in record["state"].items()})
     model.generator.set_state(torch.from_numpy(record["generator"]))
-    model.validation_data = BowDataset(X=X_val)
+    model.validation_data = dataset(X_val)
     return model._validation_loss(model.model,
-                                  DocShard(torch.as_tensor(X_val, device=model.device)),
+                                  DocShard(model._device_data(model.validation_data)),
                                   EpochSchedule(record["indices"], record["mask"]))
 
 
-def fit_data(rank, device, dp: int, avitm_kw: dict, X: np.ndarray,
-             init_state: dict | None = None, n_samples: int = 3,
-             X_val: np.ndarray | None = None, save_dir: str | None = None,
+def fit_data(rank, device, dp: int, avitm_kw: dict, X, init_state: dict | None = None,
+             n_samples: int = 3, X_val=None, save_dir: str | None = None,
              patience: int = 5, delta: float = 0.0, timing_steps: int = 0) -> dict:
-    """``fit_data_sharded`` of an unfused ``AVITM(device=device, **avitm_kw)``
+    """``fit_data_sharded`` of an unfused ``build_model(device, avitm_kw)``
     over ``dp`` ranks (from ``init_state`` when given), with a validating
     ``MetricsLogger``. Returns the first step's loss and gradients on an
-    identical model (``first_step``), the summary, epoch, step and validation
+    identical model (``first_step``, world rank 0's only, as in
+    :func:`fit`), the summary, epoch, step and validation
     losses, the last epoch run, the gathered state, the metrics records and
     the registry's snapshot; with ``timing_steps``, the steady wall ms per
     step of its step (:func:`_step_loop`) and the bytes per step of its
     batch gather and gradient sum. ``X`` and ``X_val`` as in
-    :func:`corpus`."""
+    :func:`dataset`."""
     groups = make_dp_mp_groups(dp, 1)
     X, X_val = corpus(X), corpus(X_val)
 
     def build():
-        model = AVITM(device=device, **avitm_kw)
+        model = build_model(device, avitm_kw)
         if init_state is not None:
             model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                                          for k, v in init_state.items()})
@@ -473,12 +527,12 @@ def fit_data(rank, device, dp: int, avitm_kw: dict, X: np.ndarray,
     first_step = step_gradients(build(), X, groups)
     model = build()
     metrics = MetricsLogger(validate=True)
-    data = BowDataset(X=X, idx2token={i: f"wd{i}" for i in range(X.shape[1])})
-    validation = None if X_val is None else BowDataset(X=X_val)
+    data = dataset(X, {i: f"wd{i}" for i in range(avitm_kw["input_size"])})
+    validation = None if X_val is None else dataset(X_val)
     summary = fit_data_sharded(model, data, groups, validation, metrics, save_dir, patience,
                                delta, n_samples, device)
     result = {
-        "first_step": first_step,
+        "first_step": first_step if groups.is_root else None,
         "summary": summary,
         "epoch_losses": list(model.epoch_losses),
         "step_losses": list(model.step_losses),
@@ -494,7 +548,7 @@ def fit_data(rank, device, dp: int, avitm_kw: dict, X: np.ndarray,
     return result
 
 
-def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
+def _step_loop(model: AVITM, X, groups: DpMpGroups):
     """The sharded fits' training step on this rank's network and corpus
     block, on the first epoch's batches of ``X`` (repeated), each batch
     gathered from the document blocks as in the fit: ``run(steps)`` takes
@@ -507,19 +561,21 @@ def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
     device = model.device
     net = local_network(model.model, groups)
     optimizer = model.build_optimizer(net)
-    corpus = DocShard.place(X, groups, lambda a: torch.as_tensor(a, device=device))
-    sched = make_epoch_schedule(len(X), model.batch_size, model._np_rng)
+    data = dataset(X)
+    docs = DocShard.place(model._host_data(data), groups,
+                          lambda a: torch.as_tensor(a, device=device))
+    sched = make_epoch_schedule(len(data), model.batch_size, model._np_rng)
     vshard = vshard_of(groups)
 
     def run(steps):
         done = 0
         while done < steps:
-            for x, mask, rows in corpus.steps(sched):
+            for batch, mask, rows in docs.steps(sched):
                 if done == steps:
                     break
-                grad_step(net, optimizer, x, mask, model.fused_decoder,
+                grad_step(net, optimizer, batch, mask, model.fused_decoder,
                           generator=model.generator, vshard=vshard, rows=rows,
-                          data_group=corpus.data_group)
+                          data_group=docs.data_group, beta_weight=model._beta_weight())
                 done += 1
         _sync(device)
 
@@ -530,10 +586,10 @@ def _step_loop(model: AVITM, X: np.ndarray, groups: DpMpGroups):
         run(steps)
         dist.barrier()
         grad_bytes = 0
-        if corpus.data_group is not None:
+        if docs.data_group is not None:
             n_params = sum(p.numel() for p in net.parameters())
             grad_bytes = groups.dp * n_params * 4  # the gathered [dp, n] buffer
-        bytes_per_step = {"batch_gather": corpus.gather_bytes(model.batch_size),
+        bytes_per_step = {"batch_gather": docs.gather_bytes(model.batch_size),
                           "gradient_sum": grad_bytes}
         return (time.perf_counter() - start) / steps * 1e3, bytes_per_step
 

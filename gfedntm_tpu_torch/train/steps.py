@@ -9,6 +9,16 @@ kernels' batch statistics), ``grad_step`` is ``grad_step`` and
 ``_batch_loss(train=False)``, :250-302). PyTorch runs eagerly, so there is
 no epoch program: training callers loop over steps.
 
+A batch is a dict, as in the JAX package: ``x_bow`` [B, V] and, for CTM,
+``x_ctx`` [B, contextual_size] and (optionally) one-hot ``labels`` [B, L]
+(:func:`take` gathers one from a staged corpus). The fused decode reads
+``x_bow`` for every family, ZeroShotTM's too, whose encoder ignores it.
+``beta_weight`` weighs the KL (CTM's ``loss_weights["beta"]``; 1 for
+AVITM, where ``1.0 * KL`` is the KL bit for bit), and when the network
+returns label logits the loss adds their cross-entropy, a mean over the
+whole batch's real rows (``_fused_batch_loss``/``_batch_loss``'s CTM
+branch, ``:220-238``, ``:286-305``).
+
 ``noise=`` passes a fixed reparameterization eps through to the network, as
 the JAX network's ``noise=`` does; ``generator`` draws it (and dropout)
 otherwise.
@@ -36,7 +46,8 @@ of the whole batch (the network's data group, ``set_data_group``) and every
 draw at the whole batch's shape; after the backward every gradient is
 summed over the data group (:func:`sum_gradients`), so each rank steps its
 optimizer on the whole batch's gradient, as the JAX package's GSPMD program
-does (``:65-88``, ``:110-127``). The step's loss is the sum of the ranks'.
+does (``:65-88``, ``:110-127``). The label cross-entropy divides by the
+whole batch's count of real rows. The step's loss is the sum of the ranks'.
 """
 
 from __future__ import annotations
@@ -45,7 +56,11 @@ import numpy as np
 import torch
 
 from gfedntm_tpu_torch.models.layers import batch_count
-from gfedntm_tpu_torch.models.losses import gaussian_kl, reconstruction_loss
+from gfedntm_tpu_torch.models.losses import (
+    elbo_sum,
+    gaussian_kl,
+    reconstruction_loss,
+)
 from gfedntm_tpu_torch.models.networks import DecoderNetwork
 from gfedntm_tpu_torch.ops.fused_decoder import (
     prodlda_recon_loss,
@@ -102,6 +117,27 @@ def pad_batch_axis(indices, mask, multiple: int):
     return idx_out, mask_out
 
 
+def take(data: dict, idx) -> dict:
+    """The rows ``idx`` of every array of a staged corpus (a batch)."""
+    return {key: value[idx] for key, value in data.items()}
+
+
+def _inputs(batch: dict) -> tuple:
+    """The network's positional inputs of a batch: x_bow, x_ctx, labels."""
+    return batch["x_bow"], batch.get("x_ctx"), batch.get("labels")
+
+
+def _elbo(out, rl, m, beta_weight: float, batch: dict, data_group) -> torch.Tensor:
+    """The masked batch sum of ``beta_weight * KL + RL``, plus the label
+    cross-entropy when the network returned label logits."""
+    kl = gaussian_kl(
+        out.prior_mean, out.prior_variance, out.posterior_mean,
+        out.posterior_variance, out.posterior_log_variance,
+    )
+    return elbo_sum(kl, rl, beta_weight, m, out.estimated_labels, batch.get("labels"),
+                    data_group)
+
+
 def sum_gradients(model: DecoderNetwork, data_group) -> None:
     """Replace every parameter's gradient by its sum over ``data_group``,
     added in rank order on one flattened buffer (one collective per step),
@@ -115,41 +151,46 @@ def sum_gradients(model: DecoderNetwork, data_group) -> None:
         p.grad = part.view_as(p).clone()
 
 
-def batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None, rows=None,
-               vshard=None, bn_mask: bool = True):
+def batch_loss(model: DecoderNetwork, batch: dict, mask, noise=None, generator=None,
+               rows=None, vshard=None, bn_mask: bool = True, beta_weight: float = 1.0,
+               data_group=None):
     """Forward + reference loss on one (padded, masked) batch. Masked rows
     contribute exact zeros; the network clamps log-variance, so every row's
     loss term is finite. ``bn_mask=False`` gives the decoder's BatchNorm no
     row mask, as the eval forward has none.
 
-    Under ``vshard`` (a V-sharded rank: ``x`` holds its columns) the decode
-    spans the model group, and the reconstruction term of the rank's columns
-    is summed over the group with an identity backward (every rank's loss is
-    the same function of each rank's term); the KL is added once, outside
-    that sum. Without it this is ``avitm_loss``, bit for bit."""
+    Under ``vshard`` (a V-sharded rank: ``x_bow`` holds its columns) the
+    decode spans the model group, and the reconstruction term of the rank's
+    columns is summed over the group with an identity backward (every rank's
+    loss is the same function of each rank's term); the KL and the label
+    term are added once, outside that sum. Without it this is
+    ``avitm_loss`` (``ctm_loss`` for a CTM network), bit for bit.
+    ``data_group`` (or ``vshard``'s) counts the label term's real rows."""
     model_group = None if vshard is None else vshard.model_group
-    out = model(x, mask=mask if bn_mask else None, noise=noise, generator=generator, rows=rows,
-                model_group=model_group)
-    rl = reconstruction_loss(x, out.word_dist)
+    if vshard is not None:
+        data_group = vshard.data_group
+    out = model(*_inputs(batch), mask=mask if bn_mask else None, noise=noise,
+                generator=generator, rows=rows, model_group=model_group)
+    rl = reconstruction_loss(batch["x_bow"], out.word_dist)
     if model_group is not None:
         rl = sum_forward_identity_backward(rl, model_group)
-    kl = gaussian_kl(
-        out.prior_mean, out.prior_variance, out.posterior_mean,
-        out.posterior_variance, out.posterior_log_variance,
-    )
-    loss = kl + rl
-    return torch.sum(loss * mask.to(loss.dtype))
+    return _elbo(out, rl, mask, beta_weight, batch, data_group)
 
 
-def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
-                     vshard=None, rows=None):
+def fused_batch_loss(model: DecoderNetwork, batch: dict, mask, noise=None, generator=None,
+                     vshard=None, rows=None, beta_weight: float = 1.0, data_group=None):
     """Training loss through the fused decode + reconstruction kernels: the
     [B, V] word distribution never exists. The decoder BatchNorm's running
     stats are updated from the kernels' batch statistics with
     MaskedBatchNorm's semantics (momentum 0.1, unbiased running variance);
     under ``vshard`` each rank updates its own columns', and with a data
-    group the statistics and their count are the whole batch's."""
-    out = model.encode_theta(x, mask=mask, noise=noise, generator=generator, rows=rows)
+    group (``data_group`` or ``vshard``'s) the statistics, their count and
+    the label term's count are the whole batch's."""
+    if vshard is not None:
+        data_group = vshard.data_group
+    out = model.encode_theta(*_inputs(batch), mask=mask, noise=noise, generator=generator,
+                             rows=rows)
+    x = batch["x_bow"]
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
     storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
@@ -163,18 +204,13 @@ def fused_batch_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
             out.theta, model.beta, x, bn.running_mean, bn.running_var, m,
             groups=vshard, training=True, storage_dtype=storage,
         )
-    kl = gaussian_kl(
-        out.prior_mean, out.prior_variance, out.posterior_mean,
-        out.posterior_variance, out.posterior_log_variance,
-    )
-    data_group = None if vshard is None else vshard.data_group
     bn.update_running_stats(b_mean, b_var, batch_count(m, data_group))
-    return torch.sum((kl + rl) * m)
+    return _elbo(out, rl, m, beta_weight, batch, data_group)
 
 
-def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
+def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, batch: dict, mask,
               fused: bool, noise=None, generator=None, vshard=None, rows=None,
-              data_group=None) -> torch.Tensor:
+              data_group=None, beta_weight: float = 1.0) -> torch.Tensor:
     """One forward/backward/optimizer update in training mode; returns the
     batch loss (detached, on the model's device). ``fused`` selects the
     fused kernels for prodLDA; LDA always takes the unfused decode. Under
@@ -185,9 +221,11 @@ def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
     model.train()
     optimizer.zero_grad(set_to_none=True)
     if fused and model.is_prodlda:
-        loss = fused_batch_loss(model, x, mask, noise, generator, vshard, rows)
+        loss = fused_batch_loss(model, batch, mask, noise, generator, vshard, rows,
+                                beta_weight, data_group)
     else:
-        loss = batch_loss(model, x, mask, noise, generator, rows, vshard)
+        loss = batch_loss(model, batch, mask, noise, generator, rows, vshard,
+                          beta_weight=beta_weight, data_group=data_group)
     loss.backward()
     sum_gradients(model, data_group)
     optimizer.step()
@@ -196,8 +234,9 @@ def grad_step(model: DecoderNetwork, optimizer: torch.optim.Optimizer, x, mask,
 
 
 @torch.no_grad()
-def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
-              vshard=None, rows=None, fused: bool = True) -> torch.Tensor:
+def eval_loss(model: DecoderNetwork, batch: dict, mask, noise=None, generator=None,
+              vshard=None, rows=None, fused: bool = True, beta_weight: float = 1.0,
+              data_group=None) -> torch.Tensor:
     """Validation loss of one (padded, masked) batch in eval mode: running
     BatchNorm statistics, no dropout, a fresh reparameterization draw
     (``noise`` or ``generator``). The decode is the unfused one, even for a
@@ -208,45 +247,44 @@ def eval_loss(model: DecoderNetwork, x, mask, noise=None, generator=None,
     ``fused`` prodLDA network the decode + reconstruction loss run through
     K5's forward with ``training=False`` (:func:`prodlda_recon_loss_vsharded`:
     K1's running-statistics branch and K2 on the rank's columns, their
-    softmax partials merged over the group), plus the KL; the JAX package
-    gets the same function from GSPMD on its unfused eval
-    (``parallel/sharded.py:147-151``). Any other network runs the same
+    softmax partials merged over the group), plus the KL (and the label
+    term); the JAX package gets the same function from GSPMD on its unfused
+    eval (``parallel/sharded.py:147-151``). Any other network runs the same
     merged plain decode as in training (:func:`batch_loss` with the model
     group), and launches no kernel. The caller sets eval mode
     (:func:`eval_epoch` does). ``rows`` as in :func:`grad_step`; the loss
     is this rank's rows'."""
     if vshard is None or not (fused and model.is_prodlda):
-        return batch_loss(model, x, mask, noise, generator, rows, vshard, bn_mask=False)
-    out = model.encode_theta(x, mask=None, noise=noise, generator=generator, rows=rows)
+        return batch_loss(model, batch, mask, noise, generator, rows, vshard, bn_mask=False,
+                          beta_weight=beta_weight, data_group=data_group)
+    out = model.encode_theta(*_inputs(batch), mask=None, noise=noise, generator=generator,
+                             rows=rows)
     m = mask.to(torch.float32)
     bn = model.beta_batchnorm
     storage = "bfloat16" if model.compute_dtype == torch.bfloat16 else "float32"
     rl, _, _ = prodlda_recon_loss_vsharded(
-        out.theta, model.beta, x, bn.running_mean, bn.running_var, m,
+        out.theta, model.beta, batch["x_bow"], bn.running_mean, bn.running_var, m,
         groups=vshard, training=False, storage_dtype=storage,
     )
-    kl = gaussian_kl(
-        out.prior_mean, out.prior_variance, out.posterior_mean,
-        out.posterior_variance, out.posterior_log_variance,
-    )
-    return torch.sum((kl + rl) * m)
+    return _elbo(out, rl, m, beta_weight, batch, vshard.data_group)
 
 
-def eval_epoch(model: DecoderNetwork, x_all, indices, masks, noise=None,
-               generator=None, vshard=None) -> torch.Tensor:
+def eval_epoch(model: DecoderNetwork, data: dict, indices, masks, noise=None,
+               generator=None, vshard=None, beta_weight: float = 1.0) -> torch.Tensor:
     """Per-step summed validation losses ([steps], on the model's device) of
     one validation schedule: ``indices`` and ``masks`` [steps, B] index the
-    rows of ``x_all``. ``noise`` [steps, B, K] injects each step's
-    reparameterization eps; otherwise ``generator`` draws them. The model's
-    train/eval mode is restored afterwards."""
-    return eval_steps(model, ((x_all[indices[i]], masks[i], None) for i in range(len(indices))),
-                      noise, generator, vshard)
+    rows of the staged corpus ``data``. ``noise`` [steps, B, K] injects each
+    step's reparameterization eps; otherwise ``generator`` draws them. The
+    model's train/eval mode is restored afterwards."""
+    return eval_steps(model, ((take(data, indices[i]), masks[i], None)
+                              for i in range(len(indices))),
+                      noise, generator, vshard, beta_weight=beta_weight)
 
 
 def eval_steps(model: DecoderNetwork, steps, noise=None, generator=None, vshard=None,
-               data_group=None, fused: bool = True) -> torch.Tensor:
-    """:func:`eval_epoch` over ``steps``, an iterable of ``(x, mask, rows)``
-    (this rank's rows of each validation batch,
+               data_group=None, fused: bool = True, beta_weight: float = 1.0) -> torch.Tensor:
+    """:func:`eval_epoch` over ``steps``, an iterable of ``(batch, mask,
+    rows)`` (this rank's rows of each validation batch,
     :meth:`~gfedntm_tpu_torch.parallel.sharded.DocShard.steps`); with a
     ``data_group`` the per-step losses are summed over it. ``fused`` as in
     :func:`eval_loss`."""
@@ -254,9 +292,9 @@ def eval_steps(model: DecoderNetwork, steps, noise=None, generator=None, vshard=
     model.eval()
     try:
         losses = torch.stack([
-            eval_loss(model, x, mask, None if noise is None else noise[i], generator, vshard,
-                      rows, fused)
-            for i, (x, mask, rows) in enumerate(steps)
+            eval_loss(model, batch, mask, None if noise is None else noise[i], generator,
+                      vshard, rows, fused, beta_weight, data_group)
+            for i, (batch, mask, rows) in enumerate(steps)
         ])
     finally:
         model.train(was_training)

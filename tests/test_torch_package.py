@@ -92,7 +92,9 @@ def test_port_modules_include_the_packages():
     names = port_modules()
     for name in ("gfedntm_tpu_torch", "gfedntm_tpu_torch.native",
                  "gfedntm_tpu_torch.data.vocab", "gfedntm_tpu_torch.federated.consensus",
-                 "gfedntm_tpu_torch.eval.metrics"):
+                 "gfedntm_tpu_torch.eval.metrics", "gfedntm_tpu_torch.models.ctm",
+                 "gfedntm_tpu_torch.federated.stepper", "gfedntm_tpu_torch.federated.aggregation",
+                 "gfedntm_tpu_torch.data.embeddings"):
         assert name in names, name
 
 
@@ -105,6 +107,13 @@ def test_lazy_package_exports():
     assert gfedntm_tpu_torch.run_vocab_consensus is run_vocab_consensus
     assert gfedntm_tpu_torch.npmi_coherence is npmi_coherence
     assert gfedntm_tpu_torch.topic_diversity is topic_diversity
+    from gfedntm_tpu_torch.data.embeddings import hashing_embedder
+    from gfedntm_tpu_torch.federated.stepper import FederatedCTM
+    from gfedntm_tpu_torch.models.ctm import CombinedTM, ZeroShotTM
+    assert gfedntm_tpu_torch.CombinedTM is CombinedTM
+    assert gfedntm_tpu_torch.ZeroShotTM is ZeroShotTM
+    assert gfedntm_tpu_torch.FederatedCTM is FederatedCTM
+    assert gfedntm_tpu_torch.hashing_embedder is hashing_embedder
     with pytest.raises(AttributeError):
         gfedntm_tpu_torch.no_such_name  # noqa: B018
 

@@ -40,7 +40,6 @@ reconstruction term summed over it (``gfedntm_tpu/models/networks.py:
 """
 
 import importlib.util
-import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -209,10 +208,10 @@ def test_first_step_gradients_with_injected_noise_match_unsharded(runs, mt, dp, 
 def test_replicated_state_bitwise_equal_on_every_rank(runs, mt, dp, mp):
     ranks = runs["ranks"]["fit", mt, dp, mp]
     assert len(ranks) == dp * mp
+    assert programs.state_digest(ranks[0]["state"]) == ranks[0]["state_digest"]
     for r in ranks[1:]:
-        assert sorted(r["state"]) == sorted(ranks[0]["state"])
-        for key, value in r["state"].items():
-            np.testing.assert_array_equal(value, ranks[0]["state"][key], err_msg=key)
+        assert r["state"] is None
+        assert r["state_digest"] == ranks[0]["state_digest"]
         assert r["step_losses"] == ranks[0]["step_losses"]
         assert r["validation_losses"] == ranks[0]["validation_losses"]
         np.testing.assert_array_equal(r["theta"], ranks[0]["theta"])
@@ -264,9 +263,9 @@ def test_final_loss_within_envelope_of_jax_fit_sharded(runs, mt):
 @pytest.mark.parametrize("mt", MODEL_TYPES)
 def test_bf16_at_mp2_matches_the_unsharded_bf16_fit(runs, mt):
     res, ref = runs["ranks"]["bf16", mt], runs[mt]["ref_bf16"]
-    for r in res:
-        assert all(v.dtype in (np.float32, np.int64) for v in r["state"].values())
-        assert all(np.array_equal(v, res[0]["state"][k]) for k, v in r["state"].items())
+    assert all(v.dtype in (np.float32, np.int64) for v in res[0]["state"].values())
+    assert programs.state_digest(res[0]["state"]) == res[0]["state_digest"]
+    assert all(r["state_digest"] == res[0]["state_digest"] for r in res)
     np.testing.assert_allclose(res[0]["step_losses"], ref.step_losses, rtol=BF16_TOL)
     _, ref_grads = runs[mt]["ref_step_bf16"]
     scale = max(float(np.abs(g).max()) for g in ref_grads.values())
@@ -289,6 +288,21 @@ def test_beta_batchnorm_syncs_over_the_data_group_for_prodlda_only(runs, mt):
 
 
 def test_ctm_still_raises(runs):
-    with pytest.raises(NotImplementedError, match="CTM"):
-        fit_sharded(types.SimpleNamespace(family="ctm"), BowDataset(X=runs["X"]),
-                    DpMpGroups(1, 2, 0), device="cpu")
+    """A one-rank ``fit_sharded`` of an unfused ZeroShotTM equals its own
+    ``fit`` bitwise (its multi-rank layouts:
+    ``tests/test_torch_ctm_sharded.py``). The name is historical: CTM raised
+    here before it was ported."""
+    from gfedntm_tpu_torch.data.datasets import CTMDataset
+    from gfedntm_tpu_torch.models.ctm import ZeroShotTM
+
+    X = runs["X"]
+    ctx = np.random.default_rng(6).normal(size=(len(X), 12)).astype(np.float32)
+    data = CTMDataset(X=X, X_ctx=ctx)
+    kw = dict(input_size=V, n_components=K, hidden_sizes=H, batch_size=B, num_epochs=1,
+              dropout=0.0, fused_decoder=False, contextual_size=12)
+    sharded, plain = ZeroShotTM(device="cpu", **kw), ZeroShotTM(device="cpu", **kw)
+    fit_sharded(sharded, data, DpMpGroups(1, 1, 0), n_samples=2, device="cpu")
+    plain.fit(data, n_samples=2)
+    assert sharded.step_losses == plain.step_losses
+    for key, value in plain.model.state_dict().items():
+        assert torch.equal(sharded.model.state_dict()[key], value), key

@@ -3,7 +3,10 @@ faults the V-sharded and the data-parallel paths invite, and those of the
 unfused prodLDA and LDA decodes at mp > 1 (``DECODE_MUTATIONS``, at dp=2 x
 mp=2: theta's decode gradient not summed over the model group, the merged
 softmax's sum with an identity backward, LDA's ``beta_batchnorm`` synced
-over the data group).
+over the data group), and those of a CombinedTM with labels at dp=2 x mp=2
+(``CTM_MUTATIONS``: the label columns' product added on every rank of the
+model group, the label cross-entropy divided by the rank's own count of
+real rows, ``adapt_bert`` held whole on every rank instead of split).
 
 Each case breaks one convention inside two spawned gloo ranks (dp=1, mp=2;
 or dp=2, mp=1 for the data-parallel faults) and computes the fused training
@@ -28,8 +31,9 @@ import torch
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 
-from gfedntm_tpu_torch.models import layers, networks
+from gfedntm_tpu_torch.models import layers, losses, networks
 from gfedntm_tpu_torch.models.avitm import AVITM
+from gfedntm_tpu_torch.models.ctm import CTM
 from gfedntm_tpu_torch.ops import fused_decoder as fd
 from gfedntm_tpu_torch.parallel import collectives, programs, sharded
 from gfedntm_tpu_torch.parallel.collectives import gather_by_sum, sum_forward_identity_backward
@@ -139,6 +143,60 @@ DECODE_MUTATIONS = {
 }
 
 
+CTM_KW = {**KW, "n_components": 6, "inference_type": "combined", "contextual_size": 12,
+          "label_size": 3}
+
+
+def _label_rows_inside_the_sum(self, x_local):
+    """The input layer with the label columns' product inside the sum over
+    the model group: counted mp times."""
+    return sum_forward_identity_backward(F.linear(x_local, self.weight), self.group) + self.bias
+
+
+class _WholeAdaptBert(layers.Linear):
+    """``adapt_bert`` held whole on the rank, its output cut to the rank's
+    columns: the forward is right, but each rank's gradient reaches only
+    its own rows, and nothing sums them over the model group."""
+
+    def __init__(self, full, cols):
+        super().__init__(full.in_features, full.out_features, full.compute_dtype)
+        self.load_state_dict(full.state_dict())
+        self.cols = cols
+
+    def forward(self, x):
+        return super().forward(x)[:, self.cols]
+
+
+def _adapt_bert_replicated(real):
+    def patched(network, groups):
+        local = real(network, groups)
+        local.inf_net.adapt_bert = _WholeAdaptBert(local.inf_net.adapt_bert,
+                                                   groups.v_slice(network.beta.shape[1]))
+        return local
+    return patched
+
+
+CTM_MUTATIONS = {
+    "none": [],
+    "label_rows_on_every_rank": [(sharded.VShardedLinear, "forward",
+                                  _label_rows_inside_the_sum)],
+    "label_ce_local_count": [(losses, "batch_count", _local_count(losses.batch_count))],
+    "adapt_bert_replicated": [
+        (sharded, "SPLITS", {**sharded.SPLITS, "combined": {
+            k: v for k, v in sharded.SPLITS["combined"].items() if "adapt_bert" not in k}}),
+        (sharded, "local_network", _adapt_bert_replicated(sharded.local_network)),
+        (programs, "local_network", _adapt_bert_replicated(sharded.local_network)),
+    ],
+}
+
+
+def ctm_corpus() -> dict:
+    rng = np.random.default_rng(1)
+    return {"X": rng.integers(0, 3, size=(DOCS, V)).astype(np.float32),
+            "X_ctx": rng.normal(size=(DOCS, 12)).astype(np.float32),
+            "labels": np.eye(3, dtype=np.float32)[rng.integers(0, 3, DOCS)]}
+
+
 @contextlib.contextmanager
 def mutated(name, table=MUTATIONS):
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in table[name]]
@@ -185,6 +243,19 @@ def first_steps_decode_mutations(rank, device, X):
             with mutated(name, DECODE_MUTATIONS):
                 out[model_type, name] = programs.step_gradients(AVITM(device=device, **kw), X,
                                                                 groups, with_stats=True)
+    return out
+
+
+def first_steps_ctm_mutations(rank, device, X):
+    """Rank program: ``{mutation: (loss, full gradients, BatchNorm
+    buffers)}`` of a CombinedTM's first step at dp=2 x mp=2, each under its
+    mutation."""
+    groups = make_dp_mp_groups(DP, MP)
+    out = {}
+    for name in CTM_MUTATIONS:
+        with mutated(name, CTM_MUTATIONS):
+            out[name] = programs.step_gradients(CTM(device=device, **CTM_KW), X, groups,
+                                                with_stats=True)
     return out
 
 
@@ -284,3 +355,28 @@ def test_each_decode_mutation_fails_the_parity_check(decode_steps, model_type, m
     refs, ranks = decode_steps
     for r in ranks:
         assert caught_by <= parity_failures(r[model_type, mutation], refs[model_type]), mutation
+
+
+@pytest.fixture(scope="module")
+def ctm_steps():
+    X = ctm_corpus()
+    ref = programs.step_gradients(CTM(device="cpu", **CTM_KW), X, with_stats=True)
+    return ref, run_ranks(first_steps_ctm_mutations, DP * MP, "gloo", ["cpu"] * (DP * MP),
+                          TIMEOUT_S, (X,))
+
+
+def test_the_unbroken_ctm_ranks_pass_the_parity_check(ctm_steps):
+    ref, ranks = ctm_steps
+    for r in ranks:
+        assert parity_failures(r["none"], ref) == set()
+
+
+@pytest.mark.parametrize("mutation, caught_by", [
+    ("label_rows_on_every_rank", {"loss", "inf_net.input_layer.weight"}),
+    ("label_ce_local_count", {"loss", "label_classification.weight"}),
+    ("adapt_bert_replicated", {"inf_net.adapt_bert.weight", "inf_net.adapt_bert.bias"}),
+])
+def test_each_ctm_mutation_fails_the_parity_check(ctm_steps, mutation, caught_by):
+    ref, ranks = ctm_steps
+    for r in ranks:
+        assert caught_by <= parity_failures(r[mutation], ref), mutation

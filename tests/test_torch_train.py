@@ -137,7 +137,8 @@ def run_both(steps, fused):
             j_params[c], j_bs[c], j_opt[c], _ = jax_step(
                 jnet, tx, j_params[c], j_bs[c], j_opt[c], jnp.asarray(x),
                 jnp.asarray(mask), jnp.asarray(noise[step, c]), fused)
-            grad_step(models[c], opts[c], torch.from_numpy(x), torch.from_numpy(mask),
+            grad_step(models[c], opts[c], {"x_bow": torch.from_numpy(x)},
+                      torch.from_numpy(mask),
                       fused, noise=torch.from_numpy(noise[step, c]))
         j_params = jax_fedavg(j_params, weights)
         j_bs = jax_fedavg(j_bs, weights)

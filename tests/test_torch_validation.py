@@ -95,7 +95,8 @@ def test_eval_epoch_matches_jax_eval(model_type, fused, dtype):
     noise = rng.normal(size=(sched.steps_per_epoch, B, K)).astype(np.float32)
 
     port.model.train()
-    got = eval_epoch(port.model, torch.from_numpy(X), torch.as_tensor(sched.indices).long(),
+    got = eval_epoch(port.model, {"x_bow": torch.from_numpy(X)},
+                     torch.as_tensor(sched.indices).long(),
                      torch.as_tensor(sched.mask, dtype=torch.float32),
                      noise=torch.from_numpy(noise).to(port.model.compute_dtype))
     assert port.model.training  # the mode is restored
@@ -122,7 +123,7 @@ def test_eval_epoch_leaves_state_and_running_stats_alone():
     X = torch.from_numpy(np.random.default_rng(0).integers(0, 3, size=(N_VAL, V))
                          .astype(np.float32))
     sched = make_epoch_schedule(N_VAL, B, np.random.default_rng(0))
-    losses = eval_epoch(port.model, X, torch.as_tensor(sched.indices).long(),
+    losses = eval_epoch(port.model, {"x_bow": X}, torch.as_tensor(sched.indices).long(),
                         torch.as_tensor(sched.mask, dtype=torch.float32),
                         generator=port.generator)
     assert losses.shape == (3,) and torch.isfinite(losses).all() and not losses.requires_grad
