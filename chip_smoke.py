@@ -7,8 +7,9 @@
     python3 chip_smoke.py --data-parallel-only  # phases 1 and 6
     python3 chip_smoke.py --phase-7-only  # phases 1 and 7
     python3 chip_smoke.py --ctm-only      # phases 1 and 8
+    python3 chip_smoke.py --federation-only  # phases 1 and 9
 
-Eight phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Nine phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -158,6 +159,20 @@ device or no port next to this script):
    ``delta_update_fit``, 16 launches of each of K1-K3, and ms per exchanged
    step split into step, snapshot (with its device-to-host bytes), mean and
    set.
+9. the gRPC federation (every check fatal): a port ``FederatedServer`` and
+   two port ``Client``s over localhost gRPC in this process, on the card,
+   on 7(b)'s raw-text clients (each client's own vocabulary offered to the
+   server's consensus: V=66,001), K=50, H=(100, 100), B=256, 2 epochs (8
+   global steps), the launch counters reset just before the clients start
+   and read after they stop (16 launches of each of K1-K3); K1-K3 on the
+   first client's first batch against their plain versions; the shared
+   state bitwise equal across clients after every aggregate; every step
+   loss, StepStatus and state bitwise equal to the same two
+   ``FederatedAVITM`` steppers driven in process through
+   ``weighted_mean``; ``server_model.npz`` written; ms per global step
+   split into client step, snapshot and encode, transfer and decode, mean,
+   and push and set (median over steps 2-8), and the bytes each way per
+   step and client.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -2317,19 +2332,285 @@ def ctm_phase(card: str, notes: dict, raw=None, avitm_datasets=None) -> None:
     print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the gRPC federation
+# ---------------------------------------------------------------------------
+FED_STEPS = 8  # global steps of phase 9: 1,024 documents per client, B=256, 2 epochs
+
+
+def _timed(obj, name: str, sink: list) -> None:
+    """Replace ``obj.name`` by a wrapper that appends each call's
+    ``(start, end)`` perf-counter pair to ``sink``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append((t0, time.perf_counter()))
+
+    setattr(obj, name, wrapper)
+
+
+def _seconds(pairs) -> list:
+    return [end - start for start, end in pairs]
+
+
+def federation_phase(card: str, notes: dict, raw=None) -> None:
+    """Phase 9: a port ``FederatedServer`` and two port ``Client``s over
+    localhost gRPC on the card, in one process, on phase 7(b)'s raw-text
+    clients (consensus V=66,001), K=50, H=(100, 100), B=256, 8 global steps;
+    checked against the same two ``FederatedAVITM`` steppers driven in
+    process."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federated.aggregation import weighted_mean
+    from gfedntm_tpu_torch.federated.stepper import FederatedAVITM
+    from gfedntm_tpu_torch.federation.client import Client, load_global_setup
+    from gfedntm_tpu_torch.federation.server import FederatedServer, build_template_model
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    t_phase = time.perf_counter()
+    clients_raw = (raw or raw_text_corpora(card))[0]
+    K, B, C = 50, 256, len(clients_raw)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
+    save_dir = SCRATCH / "federation"
+
+    class Recorded(Client):
+        """A client whose stepper records, per step, its step and snapshot
+        times, loss, StepStatus and a copy of its state on the card."""
+
+        def join_federation(self):
+            t0 = time.perf_counter()
+            super().join_federation()
+            self.join_s = time.perf_counter() - t0
+            st = self.stepper
+            self.first_batch = (st._schedule.indices[0].copy(), st._schedule.mask[0].copy())
+            self.steps, self.snaps, self.sets = [], [], []
+            self.losses, self.statuses, self.states = [], [], []
+            _timed(st, "get_gradients", self.snaps)
+            _timed(st, "train_mb_delta", self.steps)
+            update = st.delta_update_fit
+
+            def delta_update_fit(averaged):
+                t0 = time.perf_counter()
+                status = update(averaged)
+                self.sets.append((t0, time.perf_counter()))
+                self.losses.append(st.loss)
+                self.statuses.append(status)
+                self.states.append({k: v.clone() for k, v in st.model.model.state_dict().items()})
+                return status
+
+            st.delta_update_fit = delta_update_fit
+
+    server_log = MetricsLogger(node="server", keep_records=True)
+    server = FederatedServer(min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
+                             save_dir=str(save_dir), metrics=server_log)
+    check(server.device.type == "cuda", f"the server's template is on {server.device}")
+    decode, mean, encode = [], [], []
+    _timed(server, "_collect_snapshots", decode)
+    _timed(server.aggregator, "aggregate", mean)
+    _timed(server, "_encode_push", encode)
+    address = server.start("127.0.0.1:0")
+    logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True) for c in range(C)]
+    clients = [Recorded(client_id=c + 1, corpus=clients_raw[c], server_address=address,
+                        listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                        max_features=None, metrics=logs[c]) for c in range(C)]
+    errors: list = []
+
+    def run(client):
+        try:
+            client.run()
+        except BaseException as err:  # reported below: the phase fails
+            errors.append(f"client {client.client_id}: {type(err).__name__}: {err}")
+
+    threads = [threading.Thread(target=run, args=(cl,), daemon=True) for cl in clients]
+    try:
+        fd.reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while not server.wait_done(timeout=1.0):
+            check(not errors, f"phase 9: {errors}")
+            check(time.perf_counter() - t0 < 600, "phase 9: the federation did not finish "
+                  "in 600 s")
+        for t in threads:
+            t.join(timeout=60)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(fd.LAUNCHES)
+        check(not errors, f"phase 9: {errors}")
+        check(all(not t.is_alive() for t in threads), "phase 9: a client did not stop")
+    finally:
+        server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+    V = len(server.global_vocab)
+    print(f"federation: {C} port clients joined a port server over gRPC on {server.device} "
+          f"(global V={V}) in {[round(cl.join_s, 2) for cl in clients]} s; {server.global_iterations} "
+          f"global steps; the run took {run_s:.2f} s; launches {nonzero(launches)}", flush=True)
+    check(V == 66_001, f"phase 9: global vocabulary of {V} words, want 66,001")
+    check(server.global_iterations == FED_STEPS,
+          f"phase 9: {server.global_iterations} global steps, want {FED_STEPS}")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == C * FED_STEPS,
+              f"phase 9: {name} launched {launches[name]} times, want {C * FED_STEPS}")
+        notes[name] += f"; phase 9 gRPC federation: {launches[name]} launches"
+    check((save_dir / "server_model.npz").exists(), "phase 9: no server_model.npz")
+    check(bool(np.isfinite(server.global_betas).all()), "phase 9: non-finite server betas")
+    for cl in clients:
+        check(cl.stepper.model.device.type == "cuda", f"client {cl.client_id} not on the card")
+        check(len(cl.states) == FED_STEPS, f"client {cl.client_id}: {len(cl.states)} aggregates")
+    for step in range(FED_STEPS):
+        for key, value in clients[0].states[step].items():
+            check(torch.equal(value, clients[1].states[step][key]),
+                  f"phase 9: {key} differs across clients after aggregate {step + 1}")
+
+    # K1-K3 on the first client's first batch against their plain versions:
+    # the server's initial state, theta from its encoder.
+    net = build_template_model("avitm", V, kw)
+    load_global_setup(net, server._setup_reply)
+    idx, mask_np = clients[0].first_batch
+    x = torch.as_tensor(clients[0].dataset.X[idx], device=net.device)
+    mask = torch.as_tensor(mask_np, device=net.device, dtype=torch.float32)
+    with torch.no_grad():
+        theta = net.model.encode_theta(
+            x, mask=mask, generator=torch.Generator(device=net.device).manual_seed(0)).theta
+    bn = net.model.beta_batchnorm
+    case = f"phase 9's first batch, B={B} K={K} V={V}"
+    st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
+    mean_, var_, m, s = fd.stats_reference(*st_args)
+    lo_args = (theta, net.model.beta.detach(), x, mean_, var_, m, s)
+    ref_loss = fd.loss_reference(*lo_args)
+    gr_args = lo_args + (ref_loss[1], mask / B, mask, True)
+    errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean_, var_, m, s), case),
+            compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
+            compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
+    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
+    print(f"federation: K1, K2, K3 on {case} ({route}) within "
+          f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions", flush=True)
+
+    # The same two steppers in process from the server's initial state.
+    steppers = []
+    for cl in clients:
+        model = build_template_model("avitm", V, kw)
+        load_global_setup(model, server._setup_reply)
+        stepper = FederatedAVITM(model)
+        stepper.pre_fit(cl.dataset)
+        steppers.append(stepper)
+    for step in range(FED_STEPS):
+        snaps = []
+        for st in steppers:
+            snap = st.train_mb_delta()
+            snaps.append((st._last_batch_size, snap))
+        avg = weighted_mean(snaps)
+        for c, (cl, st) in enumerate(zip(clients, steppers)):
+            status = st.delta_update_fit(avg)
+            check(st.loss == cl.losses[step], f"phase 9 client {c + 1} step {step + 1}: loss "
+                  f"{cl.losses[step]!r} over the wire, {st.loss!r} in process")
+            check(status == cl.statuses[step],
+                  f"phase 9 client {c + 1} step {step + 1}: StepStatus differs")
+            for key, value in st.model.model.state_dict().items():
+                check(torch.equal(value, cl.states[step][key]),
+                      f"phase 9 client {c + 1} step {step + 1}: {key} differs from the "
+                      "in-process stepper's")
+    check(np.array_equal(server.global_betas, steppers[0].get_topics_in_server()),
+          "phase 9: the server's betas differ from the in-process steppers'")
+
+    # Where a global step's time goes: median over steps 2-8.
+    rounds = {r["span_id"]: r for r in server_log.events("span") if r["name"] == "round"}
+    order = sorted(rounds.values(), key=lambda r: r["round"])
+    child = {(r["parent_id"], r["name"]): r["seconds"] for r in server_log.events("span")
+             if r["name"] in ("poll", "average", "push")}
+    serve = [{(r.get("round"), r["method"]): r["seconds"] for r in log.events("span")
+              if r["name"] == "serve"} for log in logs]
+    split = {k: [] for k in ("round", "client step", "snapshot and encode",
+                             "transfer and decode", "mean", "push and set")}
+    for i, rnd in enumerate(order[1:], 1):
+        sid = rnd["span_id"]
+        poll, average, push = (child[(sid, n)] for n in ("poll", "average", "push"))
+        steps = [b - a for cl in clients for a, b in [cl.steps[i]]]
+        snapshot = [g for cl in clients for g in _seconds(cl.snaps[i:i + 1])]
+        train = [sv[(i, "FederationClient.TrainStep")] for sv in serve]
+        step_only = [t - g for t, g in zip(steps, snapshot)]
+        split["round"].append(rnd["seconds"])
+        split["client step"].append(float(np.mean(step_only)))
+        split["snapshot and encode"].append(float(np.mean(
+            [tr - so for tr, so in zip(train, step_only)])))
+        split["transfer and decode"].append(poll - max(train) + _seconds(decode)[i])
+        split["mean"].append(_seconds(mean)[i])
+        split["push and set"].append(average - _seconds(decode)[i] - _seconds(mean)[i] + push)
+    steady = {k: float(np.median(v)) * 1e3 for k, v in split.items()}
+    pulled = [r["bytes_pulled"] / C for r in order]
+    pushed = [r["bytes_pushed"] / C for r in order]
+    print(f"federation steady global step, {card}: median ms over steps 2-{FED_STEPS}: "
+          f"{steady['round']:.3f} per global step ({C * B / steady['round'] * 1e3:.1f} docs/s), "
+          f"split: client step {steady['client step']:.3f}, snapshot and encode "
+          f"{steady['snapshot and encode']:.3f}, transfer and decode "
+          f"{steady['transfer and decode']:.3f}, mean {steady['mean']:.3f}, push and set "
+          f"{steady['push and set']:.3f}", flush=True)
+    print(f"federation bytes per step and client, {card}: up (StepReply.shared) "
+          f"{float(np.median(pulled)) / 1e6:.3f} MB, down (Aggregate) "
+          f"{float(np.median(pushed)) / 1e6:.3f} MB; GlobalSetup "
+          f"{server._setup_reply.ByteSize() / 1e6:.3f} MB", flush=True)
+    print(f"federation first global step {order[0]['seconds'] * 1e3:.1f} ms; outside the "
+          f"steps (the joins, the stop broadcast, the clients' results, server_model.npz) "
+          f"{run_s - sum(r['seconds'] for r in order):.2f} s of the run", flush=True)
+
+    # The same host work for one client with no other node in the process:
+    # the wire's per-byte cost without contention for the interpreter.
+    from gfedntm_tpu_torch.federation import codec as wire
+    from gfedntm_tpu_torch.federation.protos import federated_pb2 as pb
+
+    st = steppers[0]
+    alone = {k: [] for k in ("snapshot", "encode", "serialize", "parse", "decode", "mean",
+                             "set")}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        snap = st.get_gradients()
+        t1 = time.perf_counter()
+        reply = pb.StepReply(client_id=1, shared=wire.flatdict_to_bundle(snap))
+        t2 = time.perf_counter()
+        data = reply.SerializeToString()
+        t3 = time.perf_counter()
+        parsed = pb.StepReply.FromString(data)
+        t4 = time.perf_counter()
+        back = wire.bundle_to_flatdict(parsed.shared)
+        t5 = time.perf_counter()
+        avg = weighted_mean([(256.0, back), (256.0, snap)])
+        t6 = time.perf_counter()
+        st.set_gradients(avg)
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        for key, a, b in zip(alone, (t0, t1, t2, t3, t4, t5, t6), (t1, t2, t3, t4, t5, t6, t7)):
+            alone[key].append((b - a) * 1e3)
+    print(f"federation host work of one client alone, {card}: median ms over 5 of "
+          + ", ".join(f"{k} {float(np.median(v)):.3f}" for k, v in alone.items())
+          + f" ({len(data) / 1e6:.3f} MB StepReply)", flush=True)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
     p7_only = "--phase-7-only" in argv
     ctm_only = "--ctm-only" in argv
+    fed_only = "--federation-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
-                                         "--phase-7-only", "--ctm-only")]
+                                         "--phase-7-only", "--ctm-only", "--federation-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    only = dp_only or p7_only or ctm_only
-    if not usage_ok or kernels_only + dp_only + p7_only + ctm_only > 1 or (only and against):
+    only = dp_only or p7_only or ctm_only or fed_only
+    if (not usage_ok or kernels_only + dp_only + p7_only + ctm_only + fed_only > 1
+            or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
-              "--phase-7-only | --ctm-only]", file=sys.stderr)
+              "--phase-7-only | --ctm-only | --federation-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2366,6 +2647,9 @@ def main(argv: list[str]) -> int:
             ctm_phase(card, {name + dt: "" for name in ("stats", "loss", "grads")
                              for dt in ("", "_bf16")})
             return 0
+        if fed_only:
+            federation_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
@@ -2374,6 +2658,7 @@ def main(argv: list[str]) -> int:
             data_parallel_phase(card, notes)
             raw = decodes_and_text_phase(card, notes)
             ctm_phase(card, notes, raw, datasets)
+            federation_phase(card, notes, raw)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

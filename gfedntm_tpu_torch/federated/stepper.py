@@ -32,9 +32,19 @@ The intended-semantics fixes of the JAX package are kept: the sample
 accounting reads the minibatch just processed, and a CTM's label loss is
 part of the tracked loss. The JAX stepper's multi-chip ``mesh`` (a
 data-parallel client) is not ported yet: the constructor raises for one.
+
+``metrics`` (a :class:`~gfedntm_tpu_torch.utils.observability.MetricsLogger`,
+as the federation client passes it) is the JAX stepper's hook
+(``gfedntm_tpu/federated/stepper.py:96-107, 206-246``): a ``stepper_step_s``
+histogram of every step but the first (which builds the kernels), and the
+device-memory gauges ``device_bytes_in_use/cuda<i>`` and
+``device_peak_bytes_in_use/cuda<i>`` from ``torch.cuda`` after each step
+(none on the CPU).
 """
 
 from __future__ import annotations
+
+import time
 
 from dataclasses import dataclass
 from typing import Any
@@ -76,15 +86,15 @@ class FederatedStepper:
 
     ``grads_to_share`` takes reference state-dict keys or ``SHARE_ALL``
     (``federated_model.py:98-131``). ``epoch_snapshot_dir`` saves the model
-    at every epoch's end (``federated_ctm.py:150-159``). The JAX stepper's
-    ``metrics`` hook waits for the federation client's telemetry (ROADMAP
-    queue 1)."""
+    at every epoch's end (``federated_ctm.py:150-159``). ``metrics`` feeds
+    the step-time histogram and the device-memory gauges."""
 
     def __init__(
         self,
         model: AVITM,
         grads_to_share: tuple[str, ...] = SHARE_ALL,
         epoch_snapshot_dir: str | None = None,
+        metrics=None,
         mesh=None,
     ):
         if mesh is not None:
@@ -94,6 +104,8 @@ class FederatedStepper:
         self.model = model
         self.grads_to_share = tuple(grads_to_share)
         self.epoch_snapshot_dir = epoch_snapshot_dir
+        self.metrics = metrics
+        self._first_step_done = False
         keys = list(model.model.state_dict())
         self.share_mask = build_share_mask(keys, self.grads_to_share)
         self._paths = {key: "/".join((collection, *path))
@@ -148,15 +160,31 @@ class FederatedStepper:
         if self._schedule is None:
             raise RuntimeError("pre_fit must be called before stepping")
         m = self.model
+        t0 = time.perf_counter() if self.metrics is not None else 0.0
         i = self._step_in_epoch
         idx = torch.as_tensor(self._schedule.indices[i], device=m.device, dtype=torch.long)
         mask = torch.as_tensor(self._schedule.mask[i], device=m.device, dtype=torch.float32)
         loss = grad_step(m.model, m.optimizer, take(self._data, idx), mask, m.fused_decoder,
                          generator=m.generator, beta_weight=m._beta_weight())
         self.loss = float(loss)
+        if self.metrics is not None:
+            # float(loss) synchronized, so this is the step's wall time.
+            self._observe_step(time.perf_counter() - t0)
         self._last_batch_size = float(self._schedule.mask[i].sum())
         self._pending_step = True
         return self.get_gradients() if snapshot else {}
+
+    def _observe_step(self, seconds: float) -> None:
+        reg = self.metrics.registry
+        if self._first_step_done:
+            reg.histogram("stepper_step_s").observe(seconds)
+        self._first_step_done = True
+        dev = self.model.device
+        if dev.type == "cuda":
+            reg.gauge(f"device_bytes_in_use/cuda{dev.index}").set(
+                torch.cuda.memory_allocated(dev))
+            reg.gauge(f"device_peak_bytes_in_use/cuda{dev.index}").set(
+                torch.cuda.max_memory_allocated(dev))
 
     def get_gradients(self) -> dict[str, np.ndarray]:
         """``{flax path: array}`` of the shared entries, host copies in the

@@ -19,6 +19,17 @@ use: they are keyed by '/'-joined Flax paths (``params/beta``,
 ``batch_stats/beta_batchnorm/num_batches_tracked``), as the JAX stepper's.
 ``parallel.sharded.shard_state_dict`` slices a bridged state dict into one
 rank's V shard, so a V-sharded run starts from the JAX package's weights.
+
+The Adam bridge (:func:`optax_adam_state`, :func:`load_optax_adam_state`)
+carries a torch ``Adam``'s state in optax's layout, as numpy, without
+optax: ``optax.adam``'s state is ``(ScaleByAdamState(count, mu, nu),
+EmptyState())``, and under ``reduce_on_plateau`` the JAX package wraps it in
+``inject_hyperparams`` (``InjectStatefulHyperparamsState(count, hyperparams,
+hyperparams_states, inner_state)``; ``gfedntm_tpu/train/optimizers.py:38-78``).
+optax keeps one int32 ``count`` where torch keeps a ``step`` per parameter;
+``mu`` and ``nu`` are trees of the parameters' Flax paths, kernels [in, out]
+(they transpose with their kernel). The federation's join ships this state
+(``GlobalSetup.init_opt_state``).
 """
 
 from __future__ import annotations
@@ -92,6 +103,92 @@ def from_flax(path: tuple[str, ...], leaf) -> torch.Tensor:
     if path[-1] == "kernel":
         arr = np.ascontiguousarray(arr.T)
     return torch.from_numpy(arr)
+
+
+def _params_tree(module: torch.nn.Module, leaf) -> dict:
+    """``{flax path: leaf(key, parameter)}`` over ``module``'s parameters as a
+    nested dict (the optax ``mu`` / ``nu`` layout)."""
+    tree: dict = {}
+    for key, p in module.named_parameters():
+        collection, path = flax_path(key)
+        if collection != "params":
+            raise ValueError(f"parameter {key!r} maps to the {collection} collection")
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf(key, p)
+    return tree
+
+
+def _adam(optimizer: torch.optim.Optimizer) -> None:
+    if not isinstance(optimizer, torch.optim.Adam):
+        raise NotImplementedError(
+            f"the optax state bridge covers Adam only, not {type(optimizer).__name__} "
+            "(ROADMAP queue 1)")
+
+
+def optax_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     inject_lr: bool = False):
+    """The optax layout of ``optimizer``'s Adam state over ``module``'s
+    parameters, as a tree of numpy arrays for
+    :func:`gfedntm_tpu_torch.federation.codec.tree_to_bundle` (a fresh
+    optimizer's is count 0 and zero moments, as ``optax.adam().init``'s).
+    ``inject_lr`` wraps it as ``inject_hyperparams`` does, with the first
+    param group's learning rate as float32."""
+    from gfedntm_tpu_torch.federation.codec import Fields
+
+    _adam(optimizer)
+    steps = {int(optimizer.state[p]["step"]) for p in module.parameters()
+             if "step" in optimizer.state.get(p, {})}
+    if len(steps) > 1:
+        raise ValueError(f"parameters at different Adam steps {sorted(steps)}: "
+                         "optax keeps one count")
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def moment(name):
+        def leaf(key, p):
+            t = optimizer.state.get(p, {}).get(name)
+            return to_flax(key, torch.zeros_like(p) if t is None else t)
+        return _params_tree(module, leaf)
+
+    adam = (Fields(count=count, mu=moment("exp_avg"), nu=moment("exp_avg_sq")), ())
+    if not inject_lr:
+        return adam
+    lr = np.asarray(optimizer.param_groups[0]["lr"], np.float32)
+    return Fields(count=count, hyperparams={"learning_rate": lr},
+                  hyperparams_states={}, inner_state=adam)
+
+
+@torch.no_grad()
+def load_optax_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          state) -> None:
+    """Set ``optimizer``'s Adam state from the optax layout (the inverse of
+    :func:`optax_adam_state`): every parameter's ``step`` is the count, its
+    moments are ``mu`` and ``nu`` at its Flax path (kernels transposed),
+    on its device. An injected learning rate replaces the param groups' only
+    where it differs from theirs in float32, so a state bridged from this
+    optimizer loads back bitwise."""
+    _adam(optimizer)
+    if isinstance(state, Mapping):  # inject_hyperparams
+        lr = np.float32(state["hyperparams"]["learning_rate"])
+        for group in optimizer.param_groups:
+            if np.float32(group["lr"]) != lr:
+                group["lr"] = float(lr)
+        state = state["inner_state"]
+    adam = state[0]
+    count = float(np.asarray(adam["count"]))
+    for key, p in module.named_parameters():
+        _, path = flax_path(key)
+
+        def at(tree):
+            for part in path:
+                tree = tree[part]
+            return from_flax(path, tree).to(p.device)
+
+        # The step stays a host float32 scalar, as Adam's own lazy init
+        # makes it (not capturable, not fused).
+        optimizer.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                              "exp_avg": at(adam["mu"]), "exp_avg_sq": at(adam["nu"])}
 
 
 def state_dict_from_flax(

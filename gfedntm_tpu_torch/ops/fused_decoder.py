@@ -55,6 +55,7 @@ partial cross ranks (:mod:`gfedntm_tpu_torch.parallel.collectives`).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -108,6 +109,16 @@ def reset_launches() -> None:
 
 def _counter(name, storage_dtype):
     return name if storage_dtype == "float32" else f"{name}_bf16"
+
+
+#: The counts are bumped from every thread that launches: the federation
+#: client steps on gRPC worker threads, two clients at once in one process.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counts: dict, key: str) -> None:
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def _pitched(t: torch.Tensor) -> torch.Tensor:
@@ -304,9 +315,9 @@ def stats(theta, beta, mask, run_mean, run_var, training, eps=1e-5,
                                training, eps)
     out = _launch_stats(_build.load(), theta, beta, mask, run_mean, run_var, training, eps,
                         storage_dtype)
-    LAUNCHES[_counter("stats", storage_dtype)] += 1
+    _count(LAUNCHES, _counter("stats", storage_dtype))
     if not training:
-        EVAL_LAUNCHES[_counter("stats", storage_dtype)] += 1
+        _count(EVAL_LAUNCHES, _counter("stats", storage_dtype))
     return out
 
 
@@ -317,7 +328,7 @@ def loss(theta, beta, x, mean, var, m, s, eps=1e-5, floor=1e-10, storage_dtype="
                               mean, var, m, s, eps, floor)
     out = _launch_loss(_build.load(), theta, beta, x, mean, var, m, s, eps, floor,
                        storage_dtype)
-    LAUNCHES[_counter("loss", storage_dtype)] += 1
+    _count(LAUNCHES, _counter("loss", storage_dtype))
     return out
 
 
@@ -329,7 +340,7 @@ def grads(theta, beta, x, mean, var, m, s, rd, g, mask, training, eps=1e-5,
                                mean, var, m, s, rd, g, mask, training, eps, floor)
     out = _launch_grads(_build.load(), theta, beta, x, mean, var, m, s, rd, g, mask,
                         training, eps, floor, storage_dtype)
-    LAUNCHES[_counter("grads", storage_dtype)] += 1
+    _count(LAUNCHES, _counter("grads", storage_dtype))
     return out
 
 
@@ -518,9 +529,9 @@ class VShardedReconLoss(torch.autograd.Function):
             m, l = merge_softmax(m_loc, s_loc, group)
             parts = loss(theta, beta_s, x_s, mean, var, m, l, eps, floor, storage_dtype)
             if _on_cuda(theta):
-                LAUNCHES[_counter("vsharded", storage_dtype)] += 1
+                _count(LAUNCHES, _counter("vsharded", storage_dtype))
                 if not training:
-                    EVAL_LAUNCHES[_counter("vsharded", storage_dtype)] += 1
+                    _count(EVAL_LAUNCHES, _counter("vsharded", storage_dtype))
         rl, rd = sum_in_rank_order(torch.stack(parts), group)
         ctx.save_for_backward(theta, beta_s, x_s, mask, mean, var, m, l, rd)
         ctx.groups, ctx.training, ctx.eps, ctx.floor, ctx.plain = (
@@ -564,7 +575,7 @@ class VShardedRowsReconLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, beta, x, mask, groups, eps, floor, storage_dtype):
         if _on_cuda(theta):
-            ROWS_CALLS["vsharded_rows"] += 1
+            _count(ROWS_CALLS, "vsharded_rows")
         beta, x = _upcast(beta, storage_dtype), _upcast(x, storage_dtype)
         mk = mask[:, None]
         cnt = torch.clamp_min(sum_in_rank_order(mask.sum(), groups.data_group), 1.0)

@@ -10,22 +10,32 @@ uses, so the port's records are the same JSON the JAX package's
 - :class:`Counter`, :class:`Gauge`, :class:`Histogram` and
   :class:`MetricRegistry` (:257-442);
 - :class:`MetricsLogger` (:445-566): thread-safe JSONL, flushed eagerly,
-  ``keep_records``, ``node``, ``events``, ``snapshot_registry``; without the
-  flight-recorder tap, ``sync`` and the trace identity of spans, which
-  belong to the server;
-- :func:`phase_timer` (:894-906) and :func:`read_metrics` (:1473).
+  ``keep_records``, ``node``, ``events``, ``snapshot_registry``, the
+  flight-recorder tap (``recorder``), ``sync`` and the ambient ``trace_id``;
+- :func:`phase_timer` (:894-906) and :func:`read_metrics` (:1473);
+- what the federation's wire uses: ``DEFAULT_BYTE_BUCKETS`` (:266), the
+  spans (:562-664), the trace context carried in gRPC metadata
+  (:667-671, :800-861), the telemetry reports a client piggybacks on its
+  replies (``encode_telemetry_report``,
+  ``TelemetryShipper``, :1148-1229) and the ``StragglerDetector`` behind
+  the server's adaptive poll deadline (:2456-2548).
 
-Spans, tracing, fleet telemetry and Prometheus come with the server.
+The JAX module imports ``jax`` inside a few functions (the profiler window,
+the device-memory gauge), so it is copied by function, not by file. Fleet
+telemetry, the ops endpoint and Prometheus are not ported yet.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import contextvars
+import itertools
 import json
 import os
 import threading
 import time
+import zlib
 from typing import Any, Iterator
 
 # ---- event schema -----------------------------------------------------------
@@ -410,14 +420,23 @@ class MetricsLogger:
 
     ``node`` names this process ("server", "client3"); it is stamped on
     every record so per-node streams merge without guessing from filenames.
+    ``trace_id`` is the process's ambient trace identity (see :class:`Span`);
+    the federation server mints one per training run.
     """
 
     def __init__(self, path: str | None = None, validate: bool = False,
                  mode: str = "a", keep_records: bool | None = None,
-                 node: str | None = None):
+                 node: str | None = None, trace_id: str | None = None):
         self.path = path
         self.validate = validate
         self.node = node
+        # The process's ambient trace identity: spans inherit it and
+        # outbound RPCs advertise it (ambient_trace_pairs).
+        self.trace_id = trace_id
+        # Flight-recorder tap (utils/flightrec.py): when a FlightRecorder is
+        # attached, every record is also ringed and checked against the
+        # incident trigger. None costs one attribute load per log().
+        self.recorder = None
         # In-memory retention is for in-process consumers (.events(), tests).
         # Default: retain only when there is no file.
         self.keep_records = (
@@ -451,7 +470,19 @@ class MetricsLogger:
             if self._fh is not None and line is not None:
                 self._fh.write(line + "\n")
                 self._fh.flush()
+        # Outside the lock: a capture the recorder triggers logs back
+        # through this method.
+        recorder = self.recorder
+        if recorder is not None:
+            recorder.observe(record)
         return record
+
+    def sync(self) -> None:
+        """Flush and fsync the JSONL stream (the incident dump path)."""
+        with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
 
     def events(self, event: str) -> list[dict[str, Any]]:
         if not self.keep_records:
@@ -496,6 +527,319 @@ def phase_timer(
         elapsed = time.perf_counter() - t0
         if logger is not None:
             logger.log("phase", phase=phase, seconds=elapsed, **fields)
+
+
+# ---- hierarchical spans (observability.py:562-664) ---------------------------
+
+_SPAN_IDS = itertools.count(1)
+_CURRENT_SPAN: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
+    "gfedntm_torch_current_span", default=None
+)
+
+
+class Span:
+    """One timed region of a run. Logs a ``span`` event on exit with its
+    monotonic duration, id, parent id, and any annotated attributes.
+
+    Within a thread, nesting is implicit (contextvars). Work handed to a
+    pool thread does NOT inherit the submitting thread's context — pass the
+    enclosing span explicitly: ``span(logger, "poll", parent=round_span)``.
+
+    A ``trace_id`` field is inherited from the parent span (explicit or
+    ambient), falling back to the logger's ``trace_id``; the emitting
+    thread id is recorded too (``thread``).
+    """
+
+    __slots__ = ("logger", "name", "fields", "span_id", "parent_id",
+                 "_parent", "_token", "_t0")
+
+    def __init__(self, logger: MetricsLogger, name: str, parent: Any,
+                 fields: dict[str, Any]):
+        self.logger = logger
+        self.name = name
+        self.fields = dict(fields)
+        self.span_id = next(_SPAN_IDS)
+        self.parent_id: int | None = None
+        self._parent = parent
+        self._token = None
+        self._t0 = 0.0
+
+    def annotate(self, **fields: Any) -> "Span":
+        """Attach attributes that become fields of the logged span event."""
+        self.fields.update(fields)
+        return self
+
+    def __enter__(self) -> "Span":
+        cur = self._parent if self._parent is not None else _CURRENT_SPAN.get()
+        if cur is not None:
+            self.parent_id = getattr(cur, "span_id", cur)
+        if self.fields.get("trace_id") is None:
+            inherited = getattr(cur, "fields", {}).get("trace_id") if (
+                cur is not None
+            ) else None
+            if inherited is None:
+                inherited = getattr(self.logger, "trace_id", None)
+            if inherited is not None:
+                self.fields["trace_id"] = inherited
+        self._token = _CURRENT_SPAN.set(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        seconds = time.perf_counter() - self._t0
+        _CURRENT_SPAN.reset(self._token)
+        self.logger.log(
+            "span", name=self.name, span_id=self.span_id,
+            parent_id=self.parent_id, seconds=seconds,
+            ok=exc_type is None, thread=threading.get_ident(),
+            **self.fields,
+        )
+
+
+class _NullSpan:
+    """No-op span returned for ``logger=None`` call sites (zero overhead)."""
+
+    __slots__ = ()
+    span_id = None
+    parent_id = None
+
+    def annotate(self, **fields: Any) -> "_NullSpan":
+        return self
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span(logger: MetricsLogger | None, name: str, parent: Any = None,
+         **fields: Any):
+    """Hierarchical timing context; a no-op when ``logger`` is None."""
+    if logger is None:
+        return _NULL_SPAN
+    return Span(logger, name, parent, fields)
+
+
+# ---- trace-context propagation in gRPC metadata (:667-671, :800-861) --------
+
+TRACE_ID_KEY = "x-gfedntm-trace-id"
+PARENT_SPAN_KEY = "x-gfedntm-parent-span"
+ROUND_KEY = "x-gfedntm-round"
+SEND_TIME_KEY = "x-gfedntm-send-time"
+NODE_KEY = "x-gfedntm-node"
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex-char trace id (one federation training run)."""
+    import uuid
+
+    return uuid.uuid4().hex[:16]
+
+
+def trace_pairs(trace_id: str | None = None, parent_span: int | None = None,
+                round_idx: int | None = None) -> list[tuple[str, str]]:
+    """Explicit outbound trace metadata — the server's poll/push workers
+    use this (pool threads do not inherit the round span's contextvars)."""
+    pairs: list[tuple[str, str]] = []
+    if trace_id:
+        pairs.append((TRACE_ID_KEY, str(trace_id)))
+    if parent_span is not None:
+        pairs.append((PARENT_SPAN_KEY, str(parent_span)))
+    if round_idx is not None:
+        pairs.append((ROUND_KEY, str(round_idx)))
+    return pairs
+
+
+def ambient_trace_pairs(logger: MetricsLogger | None) -> list[tuple[str, str]]:
+    """Outbound trace metadata from the calling thread's ambient context:
+    the innermost open span (id + inherited trace id), falling back to the
+    logger's process-level ``trace_id``."""
+    cur = _CURRENT_SPAN.get()
+    trace_id = cur.fields.get("trace_id") if cur is not None else None
+    if trace_id is None:
+        trace_id = getattr(logger, "trace_id", None)
+    return trace_pairs(
+        trace_id, cur.span_id if cur is not None else None
+    )
+
+
+def extract_trace_context(invocation_metadata) -> dict[str, Any]:
+    """Parse inbound gRPC metadata into span fields: ``trace_id``,
+    ``remote_parent_id`` (the SENDER's span id), ``round``,
+    ``rpc_send_time`` (sender wall clock), ``remote_node``. Missing or
+    malformed entries are simply absent — un-instrumented peers must
+    interoperate."""
+    md: dict[str, str] = {}
+    for k, v in (invocation_metadata or ()):
+        md[str(k).lower()] = v
+    out: dict[str, Any] = {}
+    if md.get(TRACE_ID_KEY):
+        out["trace_id"] = str(md[TRACE_ID_KEY])
+    if md.get(NODE_KEY):
+        out["remote_node"] = str(md[NODE_KEY])
+    for key, field, conv in (
+        (PARENT_SPAN_KEY, "remote_parent_id", int),
+        (ROUND_KEY, "round", int),
+        (SEND_TIME_KEY, "rpc_send_time", float),
+    ):
+        v = md.get(key)
+        if v is not None:
+            try:
+                out[field] = conv(v)
+            except (TypeError, ValueError):
+                pass
+    return out
+
+
+# ---- telemetry reports piggybacked on replies (:1148-1229) ------------------
+
+def encode_telemetry_report(
+    nodes: "dict[str, dict[str, Any]]", full: bool
+) -> bytes:
+    """Serialize one telemetry report (``{node: {metric: snapshot}}``) to
+    the compact zlib+JSON wire form carried in the ``telemetry`` proto
+    fields. ``full`` tells the receiver to REPLACE each included node's
+    series instead of patching."""
+    return zlib.compress(json.dumps(
+        {"nodes": nodes, "full": bool(full)}, default=float,
+    ).encode())
+
+
+class TelemetryShipper:
+    """Builds the delta-encoded telemetry reports a node piggybacks on
+    RPCs it already makes (StepReply / rejoin — zero extra round-trips).
+
+    Each :meth:`build` ships only the metrics whose snapshot CHANGED since
+    the last ship; every ``full_every``-th ship is a full snapshot, which
+    re-synchronizes a receiver that missed deltas. Returns ``b""`` when
+    nothing changed. Not thread-safe — call from the single thread that
+    builds the carrying RPC reply.
+    """
+
+    def __init__(self, registry: MetricRegistry | None = None,
+                 node: str = "", nodes_fn=None, full_every: int = 10):
+        if nodes_fn is None:
+            if registry is None:
+                raise ValueError("need a registry or a nodes_fn")
+            reg, name = registry, node
+
+            def nodes_fn():
+                return {name: reg.snapshot()}
+
+        self._nodes_fn = nodes_fn
+        self.full_every = max(1, int(full_every))
+        self._ships = 0
+        self._last: dict[str, dict[str, Any]] = {}
+
+    def build(self) -> bytes:
+        """The next report's wire bytes (``b""`` = nothing changed)."""
+        nodes = self._nodes_fn()
+        full = self._ships % self.full_every == 0
+        self._ships += 1
+        if full:
+            payload = nodes
+        else:
+            payload = {}
+            for node, metrics in nodes.items():
+                prev = self._last.get(node, {})
+                changed = {
+                    name: snap for name, snap in metrics.items()
+                    if prev.get(name) != snap
+                }
+                if changed:
+                    payload[node] = changed
+        self._last = {n: dict(m) for n, m in nodes.items()}
+        if not payload:
+            return b""
+        return encode_telemetry_report(payload, full)
+
+
+# ---- straggler analytics (:2456-2548) ---------------------------------------
+
+class StragglerDetector:
+    """Rolling per-client step-time EWMAs with z-score outlier flagging.
+
+    Each round the server reports the warmed clients' poll latencies
+    (:meth:`observe_round`); the detector updates one EWMA gauge per client
+    (``client_step_ewma_s/clientN``) and flags any client whose EWMA sits
+    more than ``z_threshold`` standard deviations above the population
+    mean — provided the population is large enough (``min_clients``), the
+    client has enough history (``min_rounds``), AND its EWMA exceeds
+    ``min_ratio`` x the mean. :meth:`ewma_view` feeds the pacing engines'
+    adaptive poll deadline.
+    """
+
+    def __init__(self, registry: MetricRegistry | None = None,
+                 z_threshold: float = 2.0, alpha: float = 0.3,
+                 min_clients: int = 3, min_rounds: int = 3,
+                 min_ratio: float = 1.5):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        self.registry = registry
+        self.z_threshold = float(z_threshold)
+        self.alpha = float(alpha)
+        self.min_clients = int(min_clients)
+        self.min_rounds = int(min_rounds)
+        self.min_ratio = float(min_ratio)
+        self._ewma: dict[Any, float] = {}
+        self._rounds: dict[Any, int] = {}
+        self._lock = threading.Lock()
+
+    def observe_round(
+        self, latencies: dict[Any, float]
+    ) -> list[dict[str, Any]]:
+        """Fold one round's per-client latencies in; returns the newly
+        computed stragglers as ``{"client", "z", "ewma_s"}`` dicts."""
+        with self._lock:
+            for cid, lat in latencies.items():
+                prev = self._ewma.get(cid)
+                self._ewma[cid] = (
+                    float(lat) if prev is None
+                    else self.alpha * float(lat) + (1 - self.alpha) * prev
+                )
+                self._rounds[cid] = self._rounds.get(cid, 0) + 1
+                if self.registry is not None:
+                    self.registry.gauge(
+                        f"client_step_ewma_s/client{cid}"
+                    ).set(self._ewma[cid])
+            mature = {
+                cid: e for cid, e in self._ewma.items()
+                if self._rounds[cid] >= self.min_rounds
+            }
+            if len(mature) < self.min_clients:
+                return []
+            values = list(mature.values())
+            mean = sum(values) / len(values)
+            var = sum((v - mean) ** 2 for v in values) / len(values)
+            std = var ** 0.5
+            if std <= 1e-12:
+                return []
+            flagged = []
+            for cid, e in mature.items():
+                z = (e - mean) / std
+                if (
+                    z > self.z_threshold and e > self.min_ratio * mean
+                    and cid in latencies
+                ):
+                    flagged.append({"client": cid, "z": z, "ewma_s": e})
+            return flagged
+
+    def ewma_view(self) -> dict[Any, float]:
+        """Snapshot of the per-client poll-latency EWMAs."""
+        with self._lock:
+            return dict(self._ewma)
+
+    def forget(self, client_id: Any) -> None:
+        """Evict a departed client (and its gauge)."""
+        with self._lock:
+            self._ewma.pop(client_id, None)
+            self._rounds.pop(client_id, None)
+        if self.registry is not None:
+            self.registry.drop(f"client_step_ewma_s/client{client_id}")
 
 
 # ---- reading a stream ---------------------------------------------------------

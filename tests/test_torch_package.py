@@ -94,7 +94,11 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.data.vocab", "gfedntm_tpu_torch.federated.consensus",
                  "gfedntm_tpu_torch.eval.metrics", "gfedntm_tpu_torch.models.ctm",
                  "gfedntm_tpu_torch.federated.stepper", "gfedntm_tpu_torch.federated.aggregation",
-                 "gfedntm_tpu_torch.data.embeddings"):
+                 "gfedntm_tpu_torch.data.embeddings", "gfedntm_tpu_torch.federation",
+                 "gfedntm_tpu_torch.federation.client", "gfedntm_tpu_torch.federation.server",
+                 "gfedntm_tpu_torch.federation.codec", "gfedntm_tpu_torch.federation.pacing",
+                 "gfedntm_tpu_torch.federation.protos.federated_pb2",
+                 "gfedntm_tpu_torch.utils.flightrec"):
         assert name in names, name
 
 
