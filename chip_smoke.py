@@ -8,8 +8,9 @@
     python3 chip_smoke.py --phase-7-only  # phases 1 and 7
     python3 chip_smoke.py --ctm-only      # phases 1 and 8
     python3 chip_smoke.py --federation-only  # phases 1 and 9
+    python3 chip_smoke.py --server-planes-only  # phases 1 and 10
 
-Nine phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Ten phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -43,7 +44,9 @@ device or no port next to this script):
    ``fit`` and read just after; then the same with ``compute_dtype=
    "bfloat16"`` (16 launches of each bf16 instantiation, float32 state
    equal across clients, step losses within 2% of the float32 run's and
-   corr(beta_bf16, beta_f32) > 0.98); steady ms per step of both;
+   corr(beta_bf16, beta_f32) > 0.98); steady ms per step of both; the model
+   FLOPs of one client step (``AVITM.step_flops``) equal to the analytic
+   count, and the trainer's ``mfu`` gauge of a 24-step fit in segments of 4;
 4. sharded — V-sharded (model-parallel) training in spawned ranks
    (``gfedntm_tpu_torch.parallel``): NCCL with one GPU per rank when there
    are enough GPUs, else gloo with every rank on ``cuda:0`` (the line says
@@ -100,7 +103,8 @@ device or no port next to this script):
    unsharded unfused fit: first-step gradients within 1e-3 of each leaf's
    max|grad|, step losses within 1e-4 relative, beta within 1e-4 but for no
    more entries than an unsharded witness (the fused fit against the
-   unfused one) has beyond 1e-4, times 1.5;
+   unfused one) has beyond 1e-4, times 1.5, and its ``flops_per_step``
+   equal to the analytic count, with the mfu of its steady step;
    each with its steady ms per step per rank and the bytes per step of its
    batch gather and gradient sum, beside the card's name and power limit;
 7. the unfused and LDA decodes at mp > 1, and the flow from raw text:
@@ -159,8 +163,10 @@ device or no port next to this script):
    ``delta_update_fit``, 16 launches of each of K1-K3, and ms per exchanged
    step split into step, snapshot (with its device-to-host bytes), mean and
    set.
-9. the gRPC federation (every check fatal): a port ``FederatedServer`` and
-   two port ``Client``s over localhost gRPC in this process, on the card,
+9. the gRPC federation (every check fatal): a port ``FederatedServer`` at
+   the JAX server's defaults (update gate, divergence guardian, a journal
+   write per round, round checkpoints, the aggregation plane on the card)
+   and two port ``Client``s over localhost gRPC in this process, on the card,
    on 7(b)'s raw-text clients (each client's own vocabulary offered to the
    server's consensus: V=66,001), K=50, H=(100, 100), B=256, 2 epochs (8
    global steps), the launch counters reset just before the clients start
@@ -170,9 +176,30 @@ device or no port next to this script):
    loss, StepStatus and state bitwise equal to the same two
    ``FederatedAVITM`` steppers driven in process through
    ``weighted_mean``; ``server_model.npz`` written; ms per global step
-   split into client step, snapshot and encode, transfer and decode, mean,
-   and push and set (median over steps 2-8), and the bytes each way per
-   step and client.
+   split into client step, snapshot and encode, transfer and decode (with
+   the gate), mean, push and set, and the journal write (median over steps
+   2-8), and the bytes each way per step and client.
+10. the server's planes (every check fatal): (b) a port server at the JAX
+   defaults but ``checkpoint_every=2`` (8 steps hold no 25th), under the
+   delta codec, two port clients on 7(b)'s corpora, K=50, H=(100, 100),
+   B=256, 8 global steps; the server aborted after round 4 and its
+   training thread joined, a replacement on the same ``save_dir``
+   recovering from the journal (a round >= killed - 1) and both clients
+   reconnecting by session token (2 session restores, no
+   ``codec_ref_miss``), 8 aggregates per client bitwise equal across
+   clients, finite betas, K1-K3 launched once per local step the steppers
+   took and held to their plain versions on the first batch; the journal
+   and checkpoint writes' ms, ``maybe_autorecover``'s s, the seconds from
+   the restart to the first recovered round and the ms per global step
+   before and after the kill. (a) The aggregation plane at full width
+   (D = 10,052,752): phase 9's two client snapshots (10(b)'s under
+   ``--server-planes-only``), an honest perturbation, one scaled by 100
+   and one with a NaN, through ``DeviceAggEngine`` on the card against
+   the numpy oracle: the weighted mean bitwise, the gate's norms within
+   1e-6 relative of ``update_norm`` with the same admissions, trimmed
+   mean and median (N=5 and N=4) within 1e-6, Krum's distances within
+   1e-6 of the gram's scale of the exact (float64) ones with numpy's
+   Krum selection; each one's ms beside numpy's.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -276,6 +303,16 @@ def kernel_bound(nbytes: float, nflops: float, card: str,
         "bytes_ms": t_bytes, "ops_ms": t_ops,
         "simt_bound_ms": max(t_bytes, nflops / simt * 1e3), "peaks": key,
     }
+
+
+def model_step_flops(b: int, v: int, k: int, hidden: tuple) -> int:
+    """The analytic model FLOPs of one training step of an AVITM: the
+    forward's GEMMs 2·B·(V·H1 + sum H_i·H_i+1 + 2·H_last·K + K·V), times
+    three (forward, input and weight gradients), less the input layer's
+    input gradient, which no step computes (``utils/flops.py``)."""
+    widths = (v,) + tuple(hidden)
+    fwd = sum(a * c for a, c in zip(widths, widths[1:])) + 2 * widths[-1] * k + k * v
+    return 3 * 2 * b * fwd - 2 * b * v * hidden[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -881,6 +918,26 @@ def main_path_phase(rows: dict) -> tuple[list, object]:
           f"(limit 2e-2); corr(beta_bf16, beta_f32) {corr:.6f} (limit 0.98)", flush=True)
     check(rel <= 2e-2, f"bf16 step losses differ from float32 by {rel:.3e} (limit 2e-2)")
     check(corr > 0.98, f"corr(beta_bf16, beta_f32) {corr:.6f} <= 0.98")
+
+    # The FLOP count and the trainer's mfu gauge: a 24-step fit in segments
+    # of 4 steps (the first segment warms up, the other 20 steps are timed).
+    from gfedntm_tpu_torch.utils import flops
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    template = AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+                     num_epochs=6)
+    want = model_step_flops(B, V, K, (100, 100))
+    got = template.step_flops(datasets[0])
+    metrics = MetricsLogger()
+    FederatedTrainer(template, n_clients=C).fit(datasets, checkpoint_every=4, metrics=metrics)
+    mfu = metrics.registry.gauge("mfu").value
+    peak, source = flops.resolve_peak_flops_per_device(template.device)
+    print(f"main path FLOPs, {card_line()}: {got:.0f} per client step (analytic {want}), "
+          f"{C * got:.0f} per global step; trainer mfu gauge {mfu:.6f} of {peak:.4g} FLOP/s "
+          f"({source}, dense BF16), steady {metrics.registry.gauge('docs_per_s').value:.1f} "
+          f"docs/s", flush=True)
+    check(got == want, f"step FLOPs {got} != the analytic count {want}")
+    check(mfu > 0, f"trainer mfu gauge {mfu}")
 
     # Steady state: after one more warm fit, a 24-step fit minus an 8-step
     # fit cancels the per-fit set-up (client copies, corpus upload) and
@@ -1714,6 +1771,21 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
           f"in {time.perf_counter() - t0:.1f} s; summary {resd[0]['summary']}", flush=True)
     print(step_line(card, f"fit_data_sharded dp={dp}", resd, backend_b, devices_b, steps),
           flush=True)
+    from gfedntm_tpu_torch.utils import flops
+
+    summary = resd[0]["summary"]
+    want = model_step_flops(B, V, K, (100, 100))
+    peak, source = flops.resolve_peak_flops_per_device("cuda:0")
+    step_mfu = flops.mfu(summary["flops_per_step"], resd[0]["step_ms"] / 1e3, dp, peak)
+    print(f"data parallel (b) FLOPs, {card}: flops_per_step {summary['flops_per_step']:.0f} "
+          f"(analytic {want}), flops_per_epoch {summary['flops_per_epoch']:.0f}, summary mfu "
+          f"{summary['mfu']} (one epoch: no steady epoch), mfu of the steady step "
+          f"{step_mfu:.6f} per rank of {peak:.4g} FLOP/s ({summary['peak_flops_source']})",
+          flush=True)
+    check(summary["flops_per_step"] == want,
+          f"fit_data_sharded flops_per_step {summary['flops_per_step']} != {want}")
+    check(summary["peak_flops_source"] == source,
+          f"peak source {summary['peak_flops_source']} on the ranks, {source} here")
     for rank, r in enumerate(resd):
         for key, val in r["state"].items():
             check(np.array_equal(val, resd[0]["state"][key]),
@@ -2357,35 +2429,14 @@ def _seconds(pairs) -> list:
     return [end - start for start, end in pairs]
 
 
-def federation_phase(card: str, notes: dict, raw=None) -> None:
-    """Phase 9: a port ``FederatedServer`` and two port ``Client``s over
-    localhost gRPC on the card, in one process, on phase 7(b)'s raw-text
-    clients (consensus V=66,001), K=50, H=(100, 100), B=256, 8 global steps;
-    checked against the same two ``FederatedAVITM`` steppers driven in
-    process."""
-    import threading
-
-    import numpy as np
-    import torch
-
-    from gfedntm_tpu_torch.federated.aggregation import weighted_mean
-    from gfedntm_tpu_torch.federated.stepper import FederatedAVITM
-    from gfedntm_tpu_torch.federation.client import Client, load_global_setup
-    from gfedntm_tpu_torch.federation.server import FederatedServer, build_template_model
-    from gfedntm_tpu_torch.ops import _build
-    from gfedntm_tpu_torch.ops import fused_decoder as fd
-    from gfedntm_tpu_torch.utils.observability import MetricsLogger
-
-    t_phase = time.perf_counter()
-    clients_raw = (raw or raw_text_corpora(card))[0]
-    K, B, C = 50, 256, len(clients_raw)
-    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
-    save_dir = SCRATCH / "federation"
+def recorded_client():
+    """A port ``Client`` class whose stepper records, per step, its step and
+    snapshot times, loss, StepStatus, the server round of the aggregate it
+    applied and a copy of its state on the card, and the last snapshot it
+    sent (``snapshot``, host arrays)."""
+    from gfedntm_tpu_torch.federation.client import Client
 
     class Recorded(Client):
-        """A client whose stepper records, per step, its step and snapshot
-        times, loss, StepStatus and a copy of its state on the card."""
-
         def join_federation(self):
             t0 = time.perf_counter()
             super().join_federation()
@@ -2393,9 +2444,17 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
             st = self.stepper
             self.first_batch = (st._schedule.indices[0].copy(), st._schedule.mask[0].copy())
             self.steps, self.snaps, self.sets = [], [], []
-            self.losses, self.statuses, self.states = [], [], []
-            _timed(st, "get_gradients", self.snaps)
+            self.losses, self.statuses, self.states, self.rounds = [], [], [], []
             _timed(st, "train_mb_delta", self.steps)
+            snapshot = st.get_gradients
+
+            def get_gradients():
+                t0 = time.perf_counter()
+                self.snapshot = snapshot()
+                self.snaps.append((t0, time.perf_counter()))
+                return self.snapshot
+
+            st.get_gradients = get_gradients
             update = st.delta_update_fit
 
             def delta_update_fit(averaged):
@@ -2404,24 +2463,21 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
                 self.sets.append((t0, time.perf_counter()))
                 self.losses.append(st.loss)
                 self.statuses.append(status)
+                self.rounds.append(self._servicer._applied_round)
                 self.states.append({k: v.clone() for k, v in st.model.model.state_dict().items()})
                 return status
 
             st.delta_update_fit = delta_update_fit
 
-    server_log = MetricsLogger(node="server", keep_records=True)
-    server = FederatedServer(min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
-                             save_dir=str(save_dir), metrics=server_log)
-    check(server.device.type == "cuda", f"the server's template is on {server.device}")
-    decode, mean, encode = [], [], []
-    _timed(server, "_collect_snapshots", decode)
-    _timed(server.aggregator, "aggregate", mean)
-    _timed(server, "_encode_push", encode)
-    address = server.start("127.0.0.1:0")
-    logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True) for c in range(C)]
-    clients = [Recorded(client_id=c + 1, corpus=clients_raw[c], server_address=address,
-                        listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
-                        max_features=None, metrics=logs[c]) for c in range(C)]
+    return Recorded
+
+
+def run_clients(clients, server, label: str, limit_s: float = 600.0) -> float:
+    """Run ``clients`` in threads until ``server`` is done, polling for a
+    client that raised every second (each check fatal); returns the
+    seconds it took. The caller stops the server and the clients."""
+    import threading
+
     errors: list = []
 
     def run(client):
@@ -2431,22 +2487,105 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
             errors.append(f"client {client.client_id}: {type(err).__name__}: {err}")
 
     threads = [threading.Thread(target=run, args=(cl,), daemon=True) for cl in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while not server.wait_done(timeout=1.0):
+        check(not errors, f"{label}: {errors}")
+        check(time.perf_counter() - t0 < limit_s,
+              f"{label}: the federation did not finish in {limit_s:.0f} s")
+    for t in threads:
+        t.join(timeout=60)
+    check(not errors, f"{label}: {errors}")
+    check(all(not t.is_alive() for t in threads), f"{label}: a client did not stop")
+    return time.perf_counter() - t0
+
+
+def first_batch_kernels(label: str, setup, client, kw: dict) -> None:
+    """K1-K3 on ``client``'s first batch against their plain versions: the
+    server's initial state (``setup``, a ``GlobalSetup``), theta from its
+    encoder."""
+    import torch
+
+    from gfedntm_tpu_torch.federation.client import load_global_setup
+    from gfedntm_tpu_torch.federation.server import build_template_model
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    V, B, K = len(setup.vocab), kw["batch_size"], kw["n_components"]
+    net = build_template_model("avitm", V, kw)
+    load_global_setup(net, setup)
+    idx, mask_np = client.first_batch
+    x = torch.as_tensor(client.dataset.X[idx], device=net.device)
+    mask = torch.as_tensor(mask_np, device=net.device, dtype=torch.float32)
+    with torch.no_grad():
+        theta = net.model.encode_theta(
+            x, mask=mask, generator=torch.Generator(device=net.device).manual_seed(0)).theta
+    bn = net.model.beta_batchnorm
+    case = f"{label}'s first batch, B={B} K={K} V={V}"
+    st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
+    mean_, var_, m, s = fd.stats_reference(*st_args)
+    lo_args = (theta, net.model.beta.detach(), x, mean_, var_, m, s)
+    ref_loss = fd.loss_reference(*lo_args)
+    gr_args = lo_args + (ref_loss[1], mask / B, mask, True)
+    errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean_, var_, m, s), case),
+            compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
+            compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
+    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
+    print(f"{label}: K1, K2, K3 on {case} ({route}) within "
+          f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions", flush=True)
+
+
+def federation_phase(card: str, notes: dict, raw=None) -> list:
+    """Phase 9: a port ``FederatedServer`` at its defaults (the update gate,
+    the divergence guardian, the journal, the checkpoints, the aggregation
+    plane on the card) and two port ``Client``s over localhost gRPC on the
+    card, in one process, on phase 7(b)'s raw-text clients (consensus
+    V=66,001), K=50, H=(100, 100), B=256, 8 global steps; checked against
+    the same two ``FederatedAVITM`` steppers driven in process. Returns the
+    two clients' last snapshots (phase 10(a)'s inputs) and the server's
+    last average."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federated.aggregation import weighted_mean
+    from gfedntm_tpu_torch.federated.stepper import FederatedAVITM
+    from gfedntm_tpu_torch.federation.client import load_global_setup
+    from gfedntm_tpu_torch.federation.server import FederatedServer, build_template_model
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    t_phase = time.perf_counter()
+    clients_raw = (raw or raw_text_corpora(card))[0]
+    K, B, C = 50, 256, len(clients_raw)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
+    save_dir = SCRATCH / "federation"
+    shutil.rmtree(save_dir, ignore_errors=True)  # a fresh federation: nothing to recover
+
+    Recorded = recorded_client()
+    server_log = MetricsLogger(node="server", keep_records=True)
+    server = FederatedServer(min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
+                             save_dir=str(save_dir), metrics=server_log)
+    check(server.device.type == "cuda", f"the server's template is on {server.device}")
+    check(server.update_gate.check_finite and server.guardian is not None
+          and server.journal_every == 1 and server.checkpoint_every == 25
+          and server.aggregation_backend == "auto",
+          "phase 9: the server is not at the JAX server's defaults")
+    decode, mean, encode, journal = [], [], [], []
+    _timed(server, "_collect_snapshots", decode)
+    _timed(server.aggregator, "aggregate", mean)
+    _timed(server, "_encode_push", encode)
+    _timed(server, "_journal_round", journal)
+    address = server.start("127.0.0.1:0")
+    logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True) for c in range(C)]
+    clients = [Recorded(client_id=c + 1, corpus=clients_raw[c], server_address=address,
+                        listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                        max_features=None, metrics=logs[c]) for c in range(C)]
     try:
         fd.reset_launches()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        while not server.wait_done(timeout=1.0):
-            check(not errors, f"phase 9: {errors}")
-            check(time.perf_counter() - t0 < 600, "phase 9: the federation did not finish "
-                  "in 600 s")
-        for t in threads:
-            t.join(timeout=60)
+        run_s = run_clients(clients, server, "phase 9")
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
         launches = dict(fd.LAUNCHES)
-        check(not errors, f"phase 9: {errors}")
-        check(all(not t.is_alive() for t in threads), "phase 9: a client did not stop")
     finally:
         server.stop(grace=0.5, join_timeout=30)
         for cl in clients:
@@ -2458,6 +2597,14 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
     check(V == 66_001, f"phase 9: global vocabulary of {V} words, want 66,001")
     check(server.global_iterations == FED_STEPS,
           f"phase 9: {server.global_iterations} global steps, want {FED_STEPS}")
+    engine = server.update_gate._engine
+    check(server._agg_backend_resolved == "device" and engine is not None
+          and engine.device.type == "cuda", "phase 9: the aggregation plane is not on the card")
+    check(len(journal) == FED_STEPS and (save_dir / "checkpoints" / "journal.json").exists(),
+          f"phase 9: {len(journal)} journal writes, want {FED_STEPS}")
+    check(server_log.registry.counter("updates_rejected").value == 0
+          and server_log.registry.counter("divergence_rollbacks").value == 0,
+          "phase 9: the gate or the guardian acted on honest clients")
     for name in ("stats", "loss", "grads"):
         check(launches[name] == C * FED_STEPS,
               f"phase 9: {name} launched {launches[name]} times, want {C * FED_STEPS}")
@@ -2472,29 +2619,8 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
             check(torch.equal(value, clients[1].states[step][key]),
                   f"phase 9: {key} differs across clients after aggregate {step + 1}")
 
-    # K1-K3 on the first client's first batch against their plain versions:
-    # the server's initial state, theta from its encoder.
-    net = build_template_model("avitm", V, kw)
-    load_global_setup(net, server._setup_reply)
-    idx, mask_np = clients[0].first_batch
-    x = torch.as_tensor(clients[0].dataset.X[idx], device=net.device)
-    mask = torch.as_tensor(mask_np, device=net.device, dtype=torch.float32)
-    with torch.no_grad():
-        theta = net.model.encode_theta(
-            x, mask=mask, generator=torch.Generator(device=net.device).manual_seed(0)).theta
-    bn = net.model.beta_batchnorm
-    case = f"phase 9's first batch, B={B} K={K} V={V}"
-    st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
-    mean_, var_, m, s = fd.stats_reference(*st_args)
-    lo_args = (theta, net.model.beta.detach(), x, mean_, var_, m, s)
-    ref_loss = fd.loss_reference(*lo_args)
-    gr_args = lo_args + (ref_loss[1], mask / B, mask, True)
-    errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean_, var_, m, s), case),
-            compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
-            compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
-    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
-    print(f"federation: K1, K2, K3 on {case} ({route}) within "
-          f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions", flush=True)
+    # K1-K3 on the first client's first batch against their plain versions.
+    first_batch_kernels("federation", server._setup_reply, clients[0], kw)
 
     # The same two steppers in process from the server's initial state.
     steppers = []
@@ -2531,7 +2657,7 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
     serve = [{(r.get("round"), r["method"]): r["seconds"] for r in log.events("span")
               if r["name"] == "serve"} for log in logs]
     split = {k: [] for k in ("round", "client step", "snapshot and encode",
-                             "transfer and decode", "mean", "push and set")}
+                             "transfer and decode", "mean", "push and set", "journal")}
     for i, rnd in enumerate(order[1:], 1):
         sid = rnd["span_id"]
         poll, average, push = (child[(sid, n)] for n in ("poll", "average", "push"))
@@ -2545,7 +2671,9 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
             [tr - so for tr, so in zip(train, step_only)])))
         split["transfer and decode"].append(poll - max(train) + _seconds(decode)[i])
         split["mean"].append(_seconds(mean)[i])
-        split["push and set"].append(average - _seconds(decode)[i] - _seconds(mean)[i] + push)
+        split["journal"].append(_seconds(journal)[i])
+        split["push and set"].append(average - _seconds(decode)[i] - _seconds(mean)[i] + push
+                                     - _seconds(journal)[i])
     steady = {k: float(np.median(v)) * 1e3 for k, v in split.items()}
     pulled = [r["bytes_pulled"] / C for r in order]
     pushed = [r["bytes_pushed"] / C for r in order]
@@ -2553,8 +2681,10 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
           f"{steady['round']:.3f} per global step ({C * B / steady['round'] * 1e3:.1f} docs/s), "
           f"split: client step {steady['client step']:.3f}, snapshot and encode "
           f"{steady['snapshot and encode']:.3f}, transfer and decode "
-          f"{steady['transfer and decode']:.3f}, mean {steady['mean']:.3f}, push and set "
-          f"{steady['push and set']:.3f}", flush=True)
+          f"{steady['transfer and decode']:.3f} (with the update gate, the stack onto the card "
+          f"and its norms), mean on the card {steady['mean']:.3f}, push and set "
+          f"{steady['push and set']:.3f} (with the guardian), journal write "
+          f"{steady['journal']:.3f} (npz + JSON, fsynced)", flush=True)
     print(f"federation bytes per step and client, {card}: up (StepReply.shared) "
           f"{float(np.median(pulled)) / 1e6:.3f} MB, down (Aggregate) "
           f"{float(np.median(pushed)) / 1e6:.3f} MB; GlobalSetup "
@@ -2594,6 +2724,294 @@ def federation_phase(card: str, notes: dict, raw=None) -> None:
           + ", ".join(f"{k} {float(np.median(v)):.3f}" for k, v in alone.items())
           + f" ({len(data) / 1e6:.3f} MB StepReply)", flush=True)
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return [cl.snapshot for cl in clients], server.last_average
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the server's planes at the JAX server's defaults
+# ---------------------------------------------------------------------------
+KILL_AFTER = 4  # phase 10(b) aborts its server once this many rounds are pushed
+
+
+def kill_and_recover_phase(card: str, notes: dict, clients_raw) -> tuple:
+    """Phase 10(b): a port server at the JAX server's defaults (but
+    ``checkpoint_every=2``) under the delta codec, two port clients on phase
+    7(b)'s corpora, 8 global steps; the server aborted after round 4 (its
+    training thread joined), a replacement on the same ``save_dir``
+    autorecovers from the journal and the clients reconnect by session
+    token. Returns the clients' last snapshots and the last average."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    K, B, C = 50, 256, len(clients_raw)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
+    save_dir = SCRATCH / "server_planes"
+    shutil.rmtree(save_dir, ignore_errors=True)  # a fresh federation: nothing to recover
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    address = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    common = dict(min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
+                  save_dir=str(save_dir), checkpoint_every=2, wire_codec="delta")
+    logs = [MetricsLogger(node="server", keep_records=True),
+            MetricsLogger(node="server2", keep_records=True)]
+    journal, ckpt = [], []
+    server1 = FederatedServer(metrics=logs[0], **common)
+    _timed(server1, "_journal_round", journal)
+    _timed(server1, "_save_round_checkpoint", ckpt)
+    server1.start(address)
+    client_log = MetricsLogger(node="clients", keep_records=True)
+    Recorded = recorded_client()
+    clients = [Recorded(client_id=c + 1, corpus=clients_raw[c], server_address=address,
+                        listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                        max_features=None, metrics=client_log, liveness_timeout=10.0,
+                        watchdog_poll_s=0.1, reconnect_window=120.0, wire_codec="delta")
+               for c in range(C)]
+    errors: list = []
+
+    def run(client):
+        try:
+            client.run()
+        except BaseException as err:  # reported below: the phase fails
+            errors.append(f"client {client.client_id}: {type(err).__name__}: {err}")
+
+    threads = [threading.Thread(target=run, args=(cl,), daemon=True) for cl in clients]
+    server2 = None
+    try:
+        fd.reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while server1.global_iterations < KILL_AFTER:
+            check(not errors, f"phase 10(b): {errors}")
+            check(time.perf_counter() - t0 < 300, "phase 10(b): round 4 never came")
+            time.sleep(0.01)
+        server1.abort()
+        server1._train_thread.join(timeout=120)
+        check(not server1._train_thread.is_alive(), "phase 10(b): the aborted loop never exited")
+        killed_at = server1.global_iterations
+        t_restart = time.perf_counter()
+        server2 = FederatedServer(metrics=logs[1], **common)
+        resumed = server2.maybe_autorecover()
+        recover_s = time.perf_counter() - t_restart
+        _timed(server2, "_journal_round", journal)
+        _timed(server2, "_save_round_checkpoint", ckpt)
+        server2.start(address)
+        while not server2.wait_done(timeout=0.5):
+            check(not errors, f"phase 10(b): {errors}")
+            check(time.perf_counter() - t0 < 600, "phase 10(b): the recovered run did not end")
+        for t in threads:
+            t.join(timeout=60)
+        torch.cuda.synchronize()
+        launches = dict(fd.LAUNCHES)
+        check(not errors, f"phase 10(b): {errors}")
+        check(all(not t.is_alive() for t in threads), "phase 10(b): a client did not stop")
+    finally:
+        for server in (server1, server2):
+            if server is not None:
+                server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+    reg2, creg = logs[1].registry, client_log.registry
+    after = [r for r in logs[1].events("span") if r["name"] == "round"]
+    before = [r for r in logs[0].events("span") if r["name"] == "round"]
+    steps = sum(len(cl.steps) for cl in clients)
+    print(f"server planes (b), {card}: killed after round {killed_at}, recovered from the "
+          f"{server2._recovered_source} at round {resumed} in {recover_s:.3f} s "
+          f"(maybe_autorecover); session restores {reg2.counter('session_restores').value}, "
+          f"client reconnections {creg.counter('client_reconnections').value}, codec_ref_miss "
+          f"{reg2.counter('codec_ref_miss').value}/{creg.counter('codec_ref_miss').value}, "
+          f"rpcs deduplicated {reg2.counter('rpcs_deduplicated').value}; "
+          f"{server2.global_iterations} global steps; local steps {steps}; launches "
+          f"{nonzero(launches)}", flush=True)
+    check(server2._recovered_source == "journal", f"recovered from {server2._recovered_source}")
+    check(resumed is not None and resumed >= killed_at - 1,
+          f"phase 10(b): resumed at {resumed}, killed at {killed_at}")
+    check(reg2.counter("session_restores").value == C, "phase 10(b): session restores")
+    check(reg2.counter("codec_ref_miss").value == 0 and creg.counter("codec_ref_miss").value == 0,
+          "phase 10(b): codec_ref_miss")
+    check(server2.global_iterations >= FED_STEPS and
+          all(len(cl.states) == FED_STEPS and cl.stepper.finished for cl in clients),
+          f"phase 10(b): {server2.global_iterations} rounds, "
+          f"{[len(cl.states) for cl in clients]} aggregates per client")
+    check(bool(np.isfinite(server2.global_betas).all()), "phase 10(b): non-finite betas")
+    # The recovered server restarts once quorum_fraction (0.5) of the
+    # restored members are back, so the first client to reconnect may take
+    # rounds alone; every round both clients applied leaves them equal.
+    by_round = [dict(zip(cl.rounds, cl.states)) for cl in clients]
+    both = sorted(set(by_round[0]) & set(by_round[1]))
+    alone = sorted(set(by_round[0]) ^ set(by_round[1]))
+    print(f"server planes (b): rounds applied by both clients {both}, by one {alone}",
+          flush=True)
+    check(len(both) >= KILL_AFTER, f"phase 10(b): only rounds {both} reached both clients")
+    for rnd in both:
+        for key, value in by_round[0][rnd].items():
+            check(torch.equal(value, by_round[1][rnd][key]),
+                  f"phase 10(b): {key} differs across clients after round {rnd}'s aggregate")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == steps,
+              f"phase 10(b): {name} launched {launches[name]} times, the steppers took {steps}")
+        notes[name] += f"; phase 10(b) kill and recovery: {launches[name]} launches"
+    first_batch_kernels("server planes (b)", server2._setup_reply, clients[0], kw)
+    nbytes = sum(f.stat().st_size for f in (save_dir / "checkpoints").iterdir()
+                 if f.name.startswith("journal"))
+    restart_s = min(b for _a, b in journal if b > t_restart) - t_restart
+    ms = [r["seconds"] * 1e3 for r in before], [r["seconds"] * 1e3 for r in after]
+    print(f"server planes (b) times, {card}: journal write median "
+          f"{float(np.median(_seconds(journal))) * 1e3:.3f} ms ({nbytes / 1e6:.1f} MB npz + JSON, "
+          f"fsynced; {len(journal)} writes), checkpoint write median "
+          f"{float(np.median(_seconds(ckpt))) * 1e3:.3f} ms ({len(ckpt)} writes); "
+          f"maybe_autorecover {recover_s:.3f} s; restart to the first recovered round pushed "
+          f"{restart_s:.3f} s (the clients' liveness window is 10 s); ms per global step, "
+          f"median: before the kill {float(np.median(ms[0][1:])):.3f} (rounds 2-{len(ms[0])}), "
+          f"after {float(np.median(ms[1][1:])):.3f} (rounds {resumed + 2}-"
+          f"{resumed + len(ms[1])}); first round after the restart {ms[1][0]:.3f}", flush=True)
+    return [cl.snapshot for cl in clients], server2.last_average
+
+
+def aggregation_plane_phase(card: str, snapshots: list, average: dict) -> None:
+    """Phase 10(a): the aggregation plane at full width (V=66,001, D =
+    10,052,752): two client snapshots, an honest perturbation, one scaled by
+    100 and one with a NaN, through the engine on the card and the numpy
+    oracle."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federated import aggregation as agg
+    from gfedntm_tpu_torch.federation.device_agg import DeviceAggEngine, FlatPlane, stack_round
+    from gfedntm_tpu_torch.federation.sanitize import UpdateGate, update_norm
+
+    rng = np.random.default_rng(0)
+    s0, s1 = snapshots
+    # The last average in the template's dtypes (the int counters average
+    # to float64), as the server restores it.
+    g = {k: np.asarray(v, dtype=np.asarray(s0[k]).dtype) for k, v in average.items()}
+    plane = FlatPlane(g)
+    n_f32 = plane.dim - sum(int(np.asarray(g[k]).size) for k in plane.non_f32_keys)
+    check(n_f32 == 10_052_752, f"phase 10(a): {n_f32} float32 values in the plane")
+    honest = {k: (v + rng.normal(0.0, float(np.std(np.asarray(s0[k], np.float64) - v)) or 1e-3,
+                                 size=np.shape(v))).astype(v.dtype)
+              if v.dtype == np.float32 else v for k, v in g.items()}
+    scaled = {k: (np.asarray(v) * np.float32(100)).astype(np.asarray(v).dtype)
+              if np.asarray(v).dtype == np.float32 else v for k, v in s0.items()}
+    nan = {k: np.array(v, copy=True) for k, v in s1.items()}
+    nan["params/beta"].reshape(-1)[12345] = np.nan
+    rows = [s0, s1, honest, scaled, nan]
+    pairs = [(256.0, r) for r in rows]
+    engine = DeviceAggEngine()
+    check(engine.device.type == "cuda", f"phase 10(a): engine on {engine.device}")
+
+    def timed(fn, reps=3):
+        out = fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    sr, stack_ms = timed(lambda: stack_round(engine, plane, pairs, current_global=g))
+    finite = stack_round(engine, plane, pairs[:4])
+    line = {}
+
+    # The weighted mean, bitwise.
+    dev, line["weighted mean"] = timed(lambda: agg.WeightedMean()(finite))
+    ref, np_ms = timed(lambda: agg.weighted_mean(pairs[:4]))
+    for k in ref:
+        a, b = np.asarray(ref[k]), np.asarray(dev[k])
+        check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+              f"phase 10(a): weighted mean {k} is not numpy's, bitwise")
+    numpy_ms = {"weighted mean": np_ms}
+
+    # The gate: norms and admissions.
+    (counts, norms), line["gate norms"] = timed(lambda: engine.gate_stats(sr.mat, sr.gvec))
+    want, numpy_ms["gate norms"] = timed(lambda: [update_norm(r, g) for r in rows])
+    for i in range(4):
+        check(abs(norms[i] - want[i]) <= 1e-6 * want[i],
+              f"phase 10(a): norm {i} {norms[i]!r} vs update_norm {want[i]!r}")
+    check(list(counts) == [0, 0, 0, 0, 1], f"phase 10(a): non-finite counts {list(counts)}")
+    decisions = []
+    for eng in (None, engine):
+        gate = UpdateGate()
+        gate.set_template(g)
+        gate.set_engine(eng)
+        res = gate.admit_round([(c, 256.0, r) for c, r in enumerate(rows)], g, 0)
+        decisions.append(([c for c, _w, _s in res.accepted],
+                          [(r.client_id, r.reason) for r in res.rejected]))
+    check(decisions[0] == decisions[1] == ([0, 1, 2], [(4, "nonfinite"), (3, "norm_outlier")]),
+          f"phase 10(a): admissions numpy {decisions[0]}, engine {decisions[1]}")
+
+    # Trimmed mean, median (odd and even N) and Krum's distances.
+    errs = {}
+    for name, est, stacked, oracle in (
+            ("trimmed mean", agg.TrimmedMean(0.2), sr, pairs),
+            ("median, N=5", agg.Median(), sr, pairs),
+            ("median, N=4", agg.Median(), finite, pairs[:4])):
+        dev, line[name] = timed(lambda: est(stacked))
+        ref, numpy_ms[name] = timed(lambda: est(oracle), reps=1)
+        err = 0.0
+        for k in ref:
+            a, b = np.asarray(ref[k], np.float64), np.asarray(dev[k], np.float64)
+            check(np.array_equal(np.isnan(a), np.isnan(b)), f"phase 10(a): {name} {k} NaNs")
+            ok = ~np.isnan(a)
+            err = max(err, float(np.max(np.abs(a[ok] - b[ok]) / np.maximum(np.abs(a[ok]), 1.0),
+                                        initial=0.0)))
+        errs[name] = err
+        check(err <= 1e-6, f"phase 10(a): {name} differs from numpy by {err:.3e}")
+    d2, line["Krum distances"] = timed(lambda: engine.krum_d2(finite))
+    flat = np.stack([plane.flatten(r) for r in rows[:4]])
+    t0 = time.perf_counter()
+    sq32 = np.einsum("ij,ij->i", flat, flat)
+    d2_np = sq32[:, None] + sq32[None, :] - 2.0 * (flat @ flat.T)
+    numpy_ms["Krum distances"] = (time.perf_counter() - t0) * 1e3
+    f64 = flat.astype(np.float64)
+    gram = f64 @ f64.T
+    sq = np.diagonal(gram)
+    d2_exact = sq[:, None] + sq[None, :] - 2.0 * gram
+    errs["Krum distances"] = float(np.max(np.abs(d2 - d2_exact)) / sq.max())
+    errs["numpy float32 Krum distances"] = float(np.max(np.abs(d2_np - d2_exact)) / sq.max())
+    check(errs["Krum distances"] <= 1e-6,
+          f"phase 10(a): Krum distances {errs['Krum distances']:.3e} of the scale off")
+    # The same clients selected; their order follows scores that differ in
+    # rounding only (numpy ranks on its float32 distances), so the Krum
+    # estimate (their weighted mean) is held within 1e-6, as the others.
+    chosen = [sorted(int(i) for i in agg.krum_select(x, 4, 1)) for x in (d2, d2_np)]
+    check(chosen[0] == chosen[1] and 3 not in chosen[0], f"phase 10(a): Krum picks {chosen}")
+    dev_k, line["Krum estimate"] = timed(lambda: agg.Krum(1)(finite))
+    ref_k, numpy_ms["Krum estimate"] = timed(lambda: agg.Krum(1)(pairs[:4]), reps=1)
+    errs["Krum estimate"] = max(
+        float(np.max(np.abs(np.asarray(ref_k[k], np.float64) - np.asarray(dev_k[k], np.float64))
+                     / np.maximum(np.abs(np.asarray(ref_k[k], np.float64)), 1.0), initial=0.0))
+        for k in ref_k)
+    check(errs["Krum estimate"] <= 1e-6,
+          f"phase 10(a): Krum estimate differs by {errs['Krum estimate']:.3e}")
+    print(f"server planes (a), {card}: D={plane.dim} ({n_f32} float32 values and "
+          f"{len(plane.non_f32_keys)} int counters), N=5 (two client snapshots, honest, x100, "
+          f"NaN); stack onto the card {stack_ms:.3f} ms; engine ms vs numpy ms: "
+          + ", ".join(f"{k} {line[k]:.3f} vs {numpy_ms.get(k, float('nan')):.3f}"
+                      for k in line)
+          + "; errors: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (of the gram's scale for Krum); admissions {decisions[1]}", flush=True)
+
+
+def server_planes_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
+    """Phase 10: (b) kill and autorecover on the card, then (a) the
+    aggregation plane at full width on phase 9's client snapshots (or
+    (b)'s, when phase 9 did not run)."""
+    t_phase = time.perf_counter()
+    clients_raw = (raw or raw_text_corpora(card))[0]
+    snaps, average = kill_and_recover_phase(card, notes, clients_raw)
+    aggregation_plane_phase(card, *(phase9 or (snaps, average)))
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -2602,15 +3020,19 @@ def main(argv: list[str]) -> int:
     p7_only = "--phase-7-only" in argv
     ctm_only = "--ctm-only" in argv
     fed_only = "--federation-only" in argv
+    planes_only = "--server-planes-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
-                                         "--phase-7-only", "--ctm-only", "--federation-only")]
+                                         "--phase-7-only", "--ctm-only", "--federation-only",
+                                         "--server-planes-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    only = dp_only or p7_only or ctm_only or fed_only
-    if (not usage_ok or kernels_only + dp_only + p7_only + ctm_only + fed_only > 1
+    only = dp_only or p7_only or ctm_only or fed_only or planes_only
+    if (not usage_ok
+            or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
-              "--phase-7-only | --ctm-only | --federation-only]", file=sys.stderr)
+              "--phase-7-only | --ctm-only | --federation-only | --server-planes-only]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -2650,6 +3072,9 @@ def main(argv: list[str]) -> int:
         if fed_only:
             federation_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if planes_only:
+            server_planes_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
@@ -2658,7 +3083,8 @@ def main(argv: list[str]) -> int:
             data_parallel_phase(card, notes)
             raw = decodes_and_text_phase(card, notes)
             ctm_phase(card, notes, raw, datasets)
-            federation_phase(card, notes, raw)
+            phase9 = federation_phase(card, notes, raw)
+            server_planes_phase(card, notes, raw, phase9)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

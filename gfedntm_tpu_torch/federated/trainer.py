@@ -48,6 +48,8 @@ from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.params import SHARE_ALL, build_share_mask
 from gfedntm_tpu_torch.train.checkpoint import CheckpointManager
 from gfedntm_tpu_torch.train.steps import grad_step, take
+from gfedntm_tpu_torch.utils.flops import mfu as compute_mfu
+from gfedntm_tpu_torch.utils.flops import resolve_peak_flops_per_device
 from gfedntm_tpu_torch.utils.observability import phase_timer
 
 
@@ -121,8 +123,13 @@ class FederatedTrainer:
         the JAX package's records: ``phase`` for the schedules, the corpus
         staging and every segment (timed between device syncs), ``resume``,
         ``federated_segment``, the ``trainer_step_s`` histogram, the
-        ``federated_mesh_devices`` and ``docs_per_s`` gauges and a registry
-        snapshot.
+        ``federated_mesh_devices``, ``docs_per_s`` and ``mfu`` gauges and a
+        registry snapshot. ``mfu`` is the FLOPs of one global step (C
+        clients' :meth:`AVITM.step_flops`, counted once before the steps)
+        over the steady seconds per step and the device's peak
+        (:func:`~gfedntm_tpu_torch.utils.flops.resolve_peak_flops_per_device`);
+        like ``docs_per_s`` it needs a steady segment, one whose length ran
+        before.
 
         ``segment_callback(step, params, batch_stats)`` is called after each
         segment with the absolute step and, per client, copies of the
@@ -190,6 +197,9 @@ class FederatedTrainer:
                 "generator": generator.get_state(),
             }, force=force)
 
+        # Model FLOPs of one global step, counted before the timed window on
+        # a CPU replica (the run's state and launch counts stay untouched).
+        step_flops = C * t.step_flops(datasets[0]) if metrics is not None else None
         seg_len = checkpoint_every or total_steps
         steady_s, steady_steps = 0.0, 0
         step = start_step
@@ -247,6 +257,10 @@ class FederatedTrainer:
                 docs_per_s = docs_per_step * steady_steps / steady_s
                 reg.gauge("docs_per_s").set(docs_per_s)
                 reg.gauge("docs_per_s_per_device").set(docs_per_s)
+                peak, _source = resolve_peak_flops_per_device(dev)
+                mfu_val = compute_mfu(step_flops, steady_s / steady_steps, 1, peak)
+                if mfu_val is not None:
+                    reg.gauge("mfu").set(mfu_val)
             metrics.snapshot_registry(step=total_steps)
 
         epoch_losses: list[list[float]] = []

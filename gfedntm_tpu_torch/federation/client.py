@@ -23,7 +23,10 @@ Kept from the JAX client: the replay cache (a replayed ``TrainStep`` seq is
 answered from the cache and advances nothing), the ``base_round``
 accounting, ``nr_samples`` summed over every minibatch of an E-step round,
 codec negotiation, the liveness watchdog with its reconnect loop, and
-finalization on the stop broadcast. Not ported yet, and raising
+finalization on the stop broadcast. Unlike the JAX client, a reconnect
+holds the servicer's lock from its ready to the codec reset a recovered
+server orders, so the recovered server's first poll cannot be answered with
+a delta against a broadcast it never held. Not ported yet, and raising
 ``NotImplementedError`` (ROADMAP queue 1): a multi-device local step
 (``mesh_devices > 1``), re-homing to ``failover_addrs`` (the relay tier's
 counterpart), client-side differential privacy (``dp``), the device
@@ -508,10 +511,23 @@ class Client:
                 )
                 return False
             attempts += 1
+            # The servicer's lock is held from the ready to the reset it may
+            # order: a recovered server can start training on this ready
+            # and poll at once, and a poll answered before the reset would
+            # send a delta against a broadcast that server never held.
             try:
-                ack = self._federation_stub.ReadyForTraining(
-                    self._join_request(full_telemetry=True), timeout=10.0,
-                )
+                with self._session_lock():
+                    ack = self._federation_stub.ReadyForTraining(
+                        self._join_request(full_telemetry=True), timeout=10.0,
+                    )
+                    if ack.code == 3:
+                        # A recovered server holds none of our codec session
+                        # state: drop both directions.
+                        self.logger.warning(
+                            "client %d: recovered server ordered a wire-codec "
+                            "session reset", self.client_id,
+                        )
+                        self._reset_codec_sessions()
             except Exception as exc:
                 self.logger.info(
                     "client %d: reconnect attempt %d failed (%s)",
@@ -531,14 +547,6 @@ class Client:
                     self.client_id, ack.detail,
                 )
                 return False
-            if ack.code == 3:
-                # A recovered server holds none of our codec session state:
-                # drop both directions.
-                self.logger.warning(
-                    "client %d: recovered server ordered a wire-codec "
-                    "session reset", self.client_id,
-                )
-                self._reset_codec_sessions()
             self._touch()
             downtime = time.monotonic() - start
             self.logger.warning(
@@ -554,12 +562,16 @@ class Client:
             return True
         return True  # stop arrived mid-reconnect: nothing left to do
 
-    def _reset_codec_sessions(self) -> None:
-        lock = (
+    def _session_lock(self):
+        """The servicer's (reentrant) lock, which every TrainStep and
+        ApplyAggregate holds; a fresh one before training starts."""
+        return (
             self._servicer._lock if self._servicer is not None
             else threading.RLock()
         )
-        with lock:
+
+    def _reset_codec_sessions(self) -> None:
+        with self._session_lock():
             if self._uplink is not None:
                 self._uplink.reset()
             if self._downlink is not None:
@@ -568,11 +580,7 @@ class Client:
     def _watchdog_finalize(self) -> bool:
         """Self-finalize under the servicer's lock, re-checking liveness
         once the lock is held. Returns False when the fire was spurious."""
-        lock = (
-            self._servicer._lock if self._servicer is not None
-            else threading.RLock()
-        )
-        with lock:
+        with self._session_lock():
             idle = self._idle_expired()
             if self.stopped.is_set() or idle is None:
                 return False

@@ -11,17 +11,21 @@ server's round *control plane*:
   delta-reference bookkeeping;
 - :class:`SyncEngine` is the all-clients barrier of the JAX engine, line
   for line where the port has the plane it drives: poll every eligible
-  client concurrently, quorum over the full unfinished membership, FedAvg
-  over the admitted replies, push to every replier.
+  client concurrently, quorum over the full unfinished membership, the
+  update gate and the configured strategy over the admitted replies, the
+  divergence guardian's verdict (and its rollback swap), push to every
+  replier, journal the pushed round, and checkpoint every
+  ``checkpoint_every`` rounds while the guardian is healthy, and once at
+  the end (JAX ``pacing.py:441-589``, ``:690-791``).
 
 What the port's server does not have yet is left out of the loop: the
-divergence guardian and the quality plane (the JAX ``_guard_quality``),
-the round journal and checkpoints, fleet telemetry and the privacy ledger
-(``_fleet_tick``), the device profiler window, incident capture tokens and
-relay shard supervision (``relay_grace_rounds``). The server refuses every
-option that would need them, so the loop here is the JAX loop with each of
-those planes switched off. ``cohort``, ``async`` and ``push`` pacing parse,
-and :func:`make_engine` raises ``NotImplementedError`` for them (ROADMAP
+quality plane (the quality step of the JAX ``_guard_quality``), fleet
+telemetry and the privacy ledger (``_fleet_tick``), the device profiler
+window, incident capture tokens and relay shard supervision
+(``relay_grace_rounds``). The server refuses every option that would need
+them, so the loop here is the JAX loop with each of those planes switched
+off. ``cohort``, ``async`` and ``push`` pacing parse, and
+:func:`make_engine` raises ``NotImplementedError`` for them (ROADMAP
 queue 1).
 """
 
@@ -234,10 +238,33 @@ class RoundEngine:
             s._note_client_failure(rec, addr, iteration, exc, "TrainStep")
             return rec, None, time.perf_counter() - t0
 
-    def _encode(self, iteration: int, average, replies):
-        """Install the round's average as ``last_average`` and encode the
-        per-recipient pushes."""
+    # ---- the guardian/encode tail -----------------------------------------
+    def _guard_quality(self, iteration: int, snapshots, average):
+        """Divergence guardian verdict (and rollback swap); returns the
+        (possibly restored) average to install. The JAX engine's
+        model-quality step follows here; the port's server has no quality
+        plane (``quality_every`` must be 0), so it is the identity."""
         s = self.server
+        if s.guardian is not None:
+            verdict = s.guardian.observe(
+                iteration,
+                losses=[loss for _c, _w, loss in s._round_accepted],
+                average=average,
+                contributors=[(c, w) for c, w, _l in s._round_accepted],
+            )
+            if verdict is not None:
+                restored = s._divergence_rollback(iteration, verdict)
+                if restored is not None:
+                    average = restored
+        return average
+
+    def _guard_quality_encode(
+        self, iteration: int, snapshots, average, replies
+    ):
+        """Guardian tail + the ``last_average`` install + the
+        per-recipient wire-codec push encode."""
+        s = self.server
+        average = self._guard_quality(iteration, snapshots, average)
         s.last_average = average
         return s._encode_push(average, iteration, replies)
 
@@ -290,26 +317,56 @@ class RoundEngine:
                     s._push_acked[rec.client_id] = iteration
                 else:
                     s._push_acked.pop(rec.client_id, None)
+        # Crash-recovery journal: the round is now fully pushed — one
+        # atomic journal write makes it the restart point, so a kill from
+        # here on replays at most the next (in-flight) round.
+        s._journal_round(iteration)
         return acked
 
     def _wait_for_pollable(self, iteration: int) -> list:
-        """No pollable client right now: convert probation backoffs into
-        wall-clock waits (no rounds burned) and return the next pollable
-        roster — empty when the federation is over (or stopping)."""
+        """No pollable client right now: convert probation backoffs and
+        the post-recovery reconnect grace into wall-clock waits (no rounds
+        burned) and return the next pollable roster — empty when the
+        federation is over (or stopping)."""
         s = self.server
         while not s._stopping.is_set():
             pending = s.federation.pending_suspects(iteration)
-            if not pending:
+            if not pending and not s._awaiting_reconnect_grace():
                 return []
-            # Earliest scheduled probation retry, as wall-clock (one
-            # backoff tick per round it is denominated in).
-            gap = min(x.next_retry_round for x in pending) - iteration
-            if s._stopping.wait(s.round_backoff_s * max(1, gap)):
+            if pending:
+                # Earliest scheduled probation retry, as wall-clock (one
+                # backoff tick per round it is denominated in).
+                gap = min(x.next_retry_round for x in pending) - iteration
+                wait_s = s.round_backoff_s * max(1, gap)
+            else:
+                wait_s = s.round_backoff_s
+            if s._stopping.wait(wait_s):
                 return []
             active = s.federation.active_clients()
             if active:
                 return active
         return []
+
+    def _maybe_checkpoint(self, iteration: int) -> None:
+        s = self.server
+        if (
+            s.checkpoint_every > 0 and s.save_dir is not None
+            and s.last_average is not None
+            and s.global_iterations % s.checkpoint_every == 0
+            and (s.guardian is None or s.guardian.healthy)
+        ):
+            # While the guardian has an open unhealthy streak, the
+            # periodic checkpoint is withheld: the state it would persist
+            # is exactly what a rollback may be about to discard.
+            s._save_round_checkpoint()
+
+    def _final_checkpoint(self) -> None:
+        s = self.server
+        if (
+            s.checkpoint_every > 0 and s.save_dir is not None
+            and s.last_average is not None and not s._aborted.is_set()
+        ):
+            s._save_round_checkpoint()
 
     def run(self, stubs: dict, pool: ThreadPoolExecutor) -> None:
         raise NotImplementedError
@@ -387,9 +444,13 @@ class SyncEngine(RoundEngine):
                     s._note_round_poll(round_sp, polled, replies, iteration)
                 if not replies:
                     # A fully failed round ends the federation only when
-                    # nobody is left to come back; otherwise wait out a
-                    # backoff tick and let probation re-poll.
-                    if not s.federation.active_clients():
+                    # nobody is left to come back (everyone dropped or
+                    # finished, nobody mid-reconnect); otherwise wait out
+                    # a backoff tick and let probation re-poll.
+                    if (
+                        not s.federation.active_clients()
+                        and not s._awaiting_reconnect_grace()
+                    ):
                         break
                     s._stopping.wait(s.round_backoff_s)
                     continue
@@ -418,7 +479,9 @@ class SyncEngine(RoundEngine):
                         )
                         continue
                     average = self.combine(snapshots, iteration)
-                    aggs = self._encode(iteration, average, replies)
+                    aggs = self._guard_quality_encode(
+                        iteration, snapshots, average, replies
+                    )
 
                 # 3. concurrent push + progress bookkeeping.
                 with span(m, "push", parent=round_sp, clients=len(replies)):
@@ -430,6 +493,7 @@ class SyncEngine(RoundEngine):
                         bytes_pushed=self.push_bytes(aggs, replies)
                     )
             s.global_iterations = iteration + 1
+            self._maybe_checkpoint(iteration)
             if m is not None and iteration % 50 == 0:
                 m.snapshot_registry(rounds=iteration + 1)
                 m.log(
@@ -438,3 +502,6 @@ class SyncEngine(RoundEngine):
                         np.mean([r.loss for _, r in replies])
                     ),
                 )
+        # Final checkpoint so a resume of a finished (or stopped) run does
+        # not replay rounds since the last periodic save.
+        self._final_checkpoint()

@@ -15,17 +15,34 @@ and port clients join a JAX server: the ``GlobalSetup`` carries the
 template's variables and Adam state in the JAX layout (Flax '/'-paths,
 [in, out] kernels, int32 counters, optax's ``[0].count``/``mu``/``nu``;
 :mod:`gfedntm_tpu_torch.interop`, :mod:`gfedntm_tpu_torch.federation.codec`).
-The template model lives on ``device`` (``None`` is the GPU); FedAvg runs in
-numpy on the host, as the JAX server's does on a CPU backend.
+The template model lives on ``device`` (``None`` is the GPU).
 
-The JAX server's other planes are not ported yet, and asking for one raises
-``NotImplementedError`` (ROADMAP queue 1): round checkpoints and the
-journal (and so resume), the update admission gate beyond conformance
-(``sanitize``, ``max_update_norm``), differential privacy, the divergence
-guardian, the quality monitor and contribution tracker, the ops endpoint,
-SLOs, the device profiler, incident dumps, relay supervision, device-resident
-aggregation, the server optimizers and robust mean stages, and cohort,
-async and push pacing.
+Its defaults are the JAX server's (``server.py:135-197``), and so are the
+planes behind them:
+
+- the update admission gate (:class:`~gfedntm_tpu_torch.federation.sanitize.UpdateGate`:
+  conformance, finiteness, the cohort's median + MAD norm screen, the
+  optional hard clip), whose repeat offenders enter probation;
+- the robust mean stages and server optimizers
+  (:func:`~gfedntm_tpu_torch.federated.aggregation.make_aggregator`);
+- the aggregation plane on the server's device
+  (:class:`~gfedntm_tpu_torch.federation.device_agg.DeviceAggEngine`):
+  ``aggregation_backend="auto"`` is ``"device"`` on a CUDA server and
+  ``"numpy"`` on a CPU one, and ``"device"`` on a CPU server runs the
+  engine on the CPU. Unlike the JAX server, an engine failure is not
+  degraded to numpy: it raises;
+- the divergence guardian, which rolls the federation back to its last
+  healthy round checkpoint;
+- the round journal (every pushed round) and the round checkpoints, with
+  crash autorecovery (:meth:`FederatedServer.maybe_autorecover`): the
+  journal is the JAX package's format, so either package's server recovers
+  from the other's journal.
+
+The JAX server's remaining planes are not ported yet, and asking for one
+raises ``NotImplementedError`` (ROADMAP queue 1): differential privacy,
+the quality monitor and contribution tracker, the ops endpoint, SLOs, the
+device profiler, incident dumps, relay supervision, and cohort, async and
+push pacing. Their defaults are off, so every JAX default is accepted.
 """
 
 from __future__ import annotations
@@ -34,6 +51,8 @@ import dataclasses
 import itertools
 import json
 import logging
+import math
+import os
 import threading
 import time
 import uuid
@@ -50,27 +69,30 @@ from gfedntm_tpu_torch.federated.aggregation import make_aggregator
 from gfedntm_tpu_torch.federated.stepper import FederatedStepper
 from gfedntm_tpu_torch.federation import codec, pacing, rpc
 from gfedntm_tpu_torch.federation.compression import (
-    CodecError,
     DownlinkEncoder,
     UplinkDecoder,
     encode_push_for_recipients,
     make_codec,
 )
 from gfedntm_tpu_torch.federation.protos import federated_pb2 as pb
+from gfedntm_tpu_torch.federation.device_agg import DeviceAggEngine
 from gfedntm_tpu_torch.federation.registry import (
     DROPPED,
     Federation,
     looks_like_session_token as _looks_like_session_token,
 )
 from gfedntm_tpu_torch.federation.resilience import RetryPolicy
+from gfedntm_tpu_torch.federation.sanitize import UpdateGate, decode_and_admit
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.ctm import CTM
 from gfedntm_tpu_torch.models.params import SHARE_ALL
+from gfedntm_tpu_torch.train.checkpoint import (
+    CheckpointIntegrityError,
+    FederationCheckpointer,
+    RoundJournal,
+)
+from gfedntm_tpu_torch.train.guardian import DivergenceGuardian
 from gfedntm_tpu_torch.utils.observability import StragglerDetector, new_trace_id
-
-#: A client whose replies fail the conformance check this many rounds in a
-#: row enters probation (the JAX gate's ``suspect_after``).
-SUSPECT_AFTER = 2
 
 
 def build_template_model(
@@ -109,23 +131,22 @@ def model_opt_state(model: AVITM):
 #: ``NotImplementedError``.
 _QUEUED_OPTIONS = {
     "pacing_policy": ("sync",), "cohort_size": (None,), "async_buffer": (None,),
-    "aggregator_kwargs": (None,), "robust_aggregator": (None,),
-    "aggregation_backend": ("auto", "numpy"), "checkpoint_every": (0,),
-    "journal_every": (0,), "sanitize": (False,), "max_update_norm": (None,),
-    "divergence_patience": (0,), "ops_port": (None,), "profiler": (None,),
-    "quality_every": (0,), "quality_guard": (False,), "relay_grace_rounds": (0,),
-    "slo_specs": (None,), "dp": ("off",), "dump_dir": (None,),
+    "ops_port": (None,), "profiler": (None,), "quality_every": (0,),
+    "quality_guard": (False,), "relay_grace_rounds": (0,), "slo_specs": (None,),
+    "dp": ("off",), "dump_dir": (None,),
 }
 
 
 class FederatedServer:
     """gRPC servicer + sync training orchestrator.
 
-    Parameters mirror the JAX server's (``min_clients`` = the CLI's
-    ``--min_clients_federation``, ``family`` + ``model_kwargs``,
-    ``max_iters``, the resilience knobs, ``wire_codec``), plus ``device``
-    for the template model. The options of planes that are not ported yet
-    (see the module docstring) are accepted only at their off values.
+    Parameters and their defaults mirror the JAX server's
+    (``min_clients`` = the CLI's ``--min_clients_federation``, ``family`` +
+    ``model_kwargs``, ``max_iters``, the resilience knobs, the data-plane
+    defense, checkpoints and the journal, ``wire_codec``), plus ``device``
+    for the template model and the aggregation plane. The options of
+    planes that are not ported yet (see the module docstring) are accepted
+    only at their off values.
 
     ``metrics`` is an optional
     :class:`~gfedntm_tpu_torch.utils.observability.MetricsLogger`: each
@@ -149,12 +170,23 @@ class FederatedServer:
         retry_policy: RetryPolicy | None = None,
         probation_rounds: int = 3,
         quorum_fraction: float = 0.5,
+        checkpoint_every: int = 25,
         round_backoff_s: float = 0.5,
         fault_injector=None,
         aggregator="fedavg",
+        aggregator_kwargs: dict[str, Any] | None = None,
+        robust_aggregator: str | None = None,
+        aggregation_backend: str = "auto",
+        sanitize: bool = True,
+        max_update_norm: float | None = None,
+        outlier_mad_k: float = 4.0,
+        divergence_patience: int = 3,
+        divergence_loss_factor: float = 4.0,
         wire_codec: str = "none",
         codec_ref_cache: int = 8,
         straggler_z: float = 2.0,
+        journal_every: int = 1,
+        reconnect_grace_s: float = 120.0,
         device: str | torch.device | None = None,
         **queued: Any,
     ):
@@ -192,9 +224,48 @@ class FederatedServer:
         self.retry_policy = retry_policy or RetryPolicy(metrics=metrics)
         self.probation_rounds = int(probation_rounds)
         self.quorum_fraction = float(quorum_fraction)
+        # Round checkpoint period (0 disables; needs save_dir).
+        self.checkpoint_every = int(checkpoint_every)
         self.round_backoff_s = float(round_backoff_s)
         self.fault_injector = fault_injector
-        self.aggregator = make_aggregator(aggregator)
+        # The aggregate step is a strategy call: FedAvg is the reference's
+        # weighted mean bit for bit; FedAvgM/FedAdam/FedYogi carry
+        # server-optimizer state across rounds (checkpointed and journaled
+        # with the round state); a robust spec swaps the mean stage.
+        self.aggregator = make_aggregator(
+            aggregator, robust=robust_aggregator, **(aggregator_kwargs or {})
+        )
+        # Aggregation data plane: "device" stacks each round's admitted
+        # snapshots on the server's device for the gate statistics and the
+        # mean stage; "numpy" is the host oracle; "auto" is "device" on a
+        # CUDA server. Resolved at first template use (_ensure_template).
+        if aggregation_backend not in ("auto", "device", "numpy"):
+            raise ValueError(
+                f"aggregation_backend must be auto|device|numpy, got "
+                f"{aggregation_backend!r}"
+            )
+        self.aggregation_backend = aggregation_backend
+        self._agg_backend_resolved: str | None = None
+        # Data-plane defense, three layers: (1) the update admission gate
+        # screens every decoded reply (conformance always; finiteness +
+        # norm screening unless sanitize=False) and feeds repeat offenders
+        # into probation; (2) the aggregator's mean stage may be robust;
+        # (3) the divergence guardian watches the aggregate itself and
+        # rolls back to a checkpoint (divergence_patience=0 disables it).
+        self.update_gate = UpdateGate(
+            check_finite=bool(sanitize),
+            mad_k=float(outlier_mad_k) if sanitize else 0.0,
+            max_update_norm=max_update_norm if sanitize else None,
+            metrics=metrics, logger=self.logger,
+        )
+        self.guardian = (
+            DivergenceGuardian(
+                patience=divergence_patience,
+                loss_factor=divergence_loss_factor,
+                metrics=metrics, logger=self.logger,
+            )
+            if divergence_patience > 0 else None
+        )
         # Wire codec, negotiated with every client at join time: the
         # GlobalSetup advertises this id, ReadyForTraining verifies the
         # client runs the same one (mismatch = Ack code 2).
@@ -212,16 +283,47 @@ class FederatedServer:
         # discarded in ReadyForTraining), so every mutation holds the lock.
         self._push_lock = threading.Lock()
         self._push_acked: dict[int, int] = {}  # guarded-by: _push_lock
+        # Set by a divergence rollback (and by crash recovery): the NEXT
+        # push carries Aggregate.reset_session so every recipient drops its
+        # wire-codec session state before applying.
+        self._session_reset_pending = False
         # Idempotent TrainStep: every delivery carries a server-minted seq,
         # monotonic across restarts (wall-clock epoch base); clients answer
         # a replayed seq from their cache, and `_reply_seen` drops a
-        # duplicate StepReply before it can count twice in the average.
-        self._seq_epoch = int(time.time()) << 20
+        # duplicate StepReply before it can count twice in the average. The
+        # base is in milliseconds (the JAX server's is in seconds): a
+        # replacement started within the second of a kill must not reissue
+        # the dead server's seqs, which its clients would answer from their
+        # replay caches. 2^20 seqs per millisecond of the old server's life
+        # keep it monotonic, and the value stays within int64.
+        self._seq_epoch = (time.time_ns() // 1_000_000) << 20
         self._seq_counter = itertools.count(1)
         self._reply_seen: dict[int, int] = {}
         self.client_retry_policy = dataclasses.replace(
             self.retry_policy, idempotent=True
         )
+        # Crash-recovery plane: a per-pushed-round journal (atomic npz +
+        # JSON under save_dir/checkpoints) lets a killed server restarted
+        # with the same arguments resume from the last fully-pushed round
+        # (journal_every rounds of work at risk; 0 disables journaling and
+        # autorecovery).
+        self.journal_every = int(journal_every)
+        self._round_journal: RoundJournal | None = None
+        # Set by the first journal write that fails with an OSError:
+        # training continues, journaling (and autorecovery) is off.
+        self._journal_disabled = False
+        self._recovered_source: str | None = None
+        # Monotonic time of the autorecovery restore, read by the
+        # recovery_time_s gauge when the post-recovery quorum re-forms.
+        self._recovered_at: float | None = None
+        # After recovery the original min_clients bar may be unreachable:
+        # training restarts once quorum_fraction of the restored
+        # unfinished membership is back.
+        self._resume_ready_needed: int | None = None
+        # Restored members that have not reconnected hold the round loop
+        # open for this long after training resumes (bounded).
+        self.reconnect_grace_s = float(reconnect_grace_s)
+        self._recovery_deadline: float | None = None
         # Clients whose first poll (which builds the kernels) has been seen.
         self._poll_warmed: set[int] = set()
         self.trace_id: str | None = None
@@ -244,10 +346,18 @@ class FederatedServer:
         # Set BEFORE the stop-broadcast snapshot, so a ReadyForTraining in
         # the shutdown window is turned away with code=1.
         self._stopping = threading.Event()
+        # _aborted models a hard server crash (tests, chip_smoke.py): the
+        # loop exits WITHOUT the stop broadcast or finalization, leaving
+        # clients to their liveness watchdogs, as a kill would.
+        self._aborted = threading.Event()
         self.training_done = threading.Event()
         self._grpc_server = None
         self._template_shared: dict[str, np.ndarray] | None = None
-        self._reject_streak: dict[int, int] = {}
+        self._expected_keys: frozenset[str] | None = None
+        self._ckpt: FederationCheckpointer | None = None
+        # The most recent admitted cohort, written by _collect_snapshots
+        # and read by the guardian: (client_id, weight, reported loss).
+        self._round_accepted: list[tuple[int, float, float]] = []
 
     # ---- lifecycle ---------------------------------------------------------
     def start(self, address: str = "[::]:50051") -> str:
@@ -283,6 +393,18 @@ class FederatedServer:
                 )
         if self._grpc_server is not None:
             self._grpc_server.stop(grace)
+
+    def abort(self) -> None:
+        """Hard-crash simulation: kill the gRPC server now and abandon the
+        training loop with no stop broadcast and no finalization — clients
+        are left to their liveness watchdogs, and a later server can
+        :meth:`maybe_autorecover`. A caller in the same process joins
+        ``_train_thread`` before a replacement reads the journal, since a
+        real kill takes the thread's last journal write with it."""
+        self._aborted.set()
+        self._stopping.set()
+        if self._grpc_server is not None:
+            self._grpc_server.stop(0)
 
     def wait_done(self, timeout: float | None = None) -> bool:
         return self.training_done.wait(timeout)
@@ -382,6 +504,373 @@ class FederatedServer:
                 self.template, self.grads_to_share).get_gradients()
         return self._template_shared
 
+    # ---- round checkpoints and the crash-recovery journal ------------------
+    def _checkpointer(self) -> FederationCheckpointer:
+        """The FederationCheckpointer under ``save_dir/checkpoints`` (round
+        checkpointing needs a save_dir)."""
+        if self._ckpt is None:
+            if self.save_dir is None:
+                raise ValueError("round checkpointing requires save_dir")
+            self._ckpt = FederationCheckpointer(
+                os.path.join(self.save_dir, "checkpoints")
+            )
+        return self._ckpt
+
+    def _membership_state(self) -> list[dict[str, Any]]:
+        """JSON-able membership snapshot persisted with checkpoints and the
+        round journal — session tokens included, so a restarted server can
+        re-admit live-process reconnects."""
+        return [
+            {
+                "client_id": c.client_id,
+                "nr_samples": c.nr_samples,
+                "current_mb": c.current_mb,
+                "current_epoch": c.current_epoch,
+                "finished": bool(c.finished),
+                "status": c.status,
+                "session_token": c.session_token,
+            }
+            for c in self.federation.get_clients()
+        ]
+
+    def _state_extra(self) -> dict[str, Any]:
+        """JSON-able run descriptors persisted with checkpoints and the
+        journal, as the JAX server writes them (:930-963): ``model_kwargs``
+        lets a serving process rebuild the template model from the journal
+        alone."""
+        return {
+            "family": self.family,
+            "aggregator": self.aggregator.name,
+            "wire_codec": self.wire_codec.codec_id,
+            "model_kwargs": dict(self.model_kwargs),
+        }
+
+    def _save_round_checkpoint(self) -> None:
+        """Persist round state; a checkpoint failure is loud but never
+        kills training (the checkpoint is the recovery path, not the
+        workload)."""
+        try:
+            self._checkpointer().save_round(
+                self.global_iterations, self.last_average,
+                self._membership_state(),
+                vocab=list(self.global_vocab.tokens),
+                extra=self._state_extra(),
+                aggregator_state=self.aggregator.state_dict(),
+            )
+        except Exception:
+            self.logger.exception(
+                "round checkpoint at %d failed", self.global_iterations
+            )
+            return
+        if self.metrics is not None:
+            self.metrics.registry.counter("checkpoints_saved").inc()
+            self.metrics.log("checkpoint", round=self.global_iterations)
+
+    def _journal(self) -> RoundJournal:
+        if self._round_journal is None:
+            if self.save_dir is None:
+                raise ValueError("the round journal requires save_dir")
+            self._round_journal = RoundJournal(
+                os.path.join(self.save_dir, "checkpoints")
+            )
+        return self._round_journal
+
+    def _note_journal_write_failure(self, iteration: int,
+                                    err: Exception) -> None:
+        """A journal write hit the filesystem's failure surface (ENOSPC,
+        EIO): degrade loudly and disable journaling for the rest of the
+        run. Training continues; only crash autorecovery is lost."""
+        self._journal_disabled = True
+        self.logger.error(
+            "round journal write at %d failed (%s); journaling disabled "
+            "for the rest of this run — training continues WITHOUT crash "
+            "autorecovery", iteration, err,
+        )
+        if self.metrics is not None:
+            self.metrics.registry.counter("journal_write_failures").inc()
+            self.metrics.log(
+                "journal_write_failed", round=iteration, error=str(err),
+            )
+
+    def _journal_round(self, iteration: int) -> None:
+        """Journal one fully-pushed round (called by the engine after the
+        push). A failure is loud but never kills training."""
+        if (
+            self.journal_every <= 0 or self.save_dir is None
+            or self._journal_disabled
+            or self.last_average is None
+            or iteration % self.journal_every != 0
+        ):
+            return
+        try:
+            self._journal().record(
+                iteration, self.last_average, self._membership_state(),
+                vocab=list(self.global_vocab.tokens),
+                extra=self._state_extra(),
+                aggregator_state=self.aggregator.state_dict(),
+            )
+        except OSError as err:
+            self._note_journal_write_failure(iteration, err)
+        except Exception:
+            self.logger.exception(
+                "round journal write at %d failed", iteration
+            )
+            if self.metrics is not None:
+                self.metrics.registry.counter("journal_errors").inc()
+
+    def _mark_journal_finished(self) -> None:
+        """Stamp the journal after a normal shutdown so the next server
+        start's autorecovery probe does not resurrect a finished run."""
+        if self.journal_every <= 0 or self.save_dir is None:
+            return
+        try:
+            self._journal().mark_finished()
+        except Exception:
+            self.logger.exception("marking the round journal finished failed")
+            if self.metrics is not None:
+                self.metrics.registry.counter("journal_errors").inc()
+
+    def _load_journal_state(self) -> "dict[str, Any] | None":
+        """The round journal's recovery state, or ``None`` when absent,
+        disabled, or marked finished. A corrupt journal is loud
+        (``checkpoint_invalid``) but degrades to the round checkpoint."""
+        if self.journal_every <= 0 or self.save_dir is None:
+            return None
+        try:
+            return self._journal().load()
+        except CheckpointIntegrityError as err:
+            self.logger.error(
+                "round journal unusable (%s); falling back to the latest "
+                "checkpoint", err,
+            )
+            if self.metrics is not None:
+                self.metrics.registry.counter("checkpoint_invalid").inc()
+                self.metrics.log("checkpoint_invalid", reason=str(err))
+            return None
+
+    def _invalid_checkpoint(self, err: Exception) -> None:
+        self.logger.error("cannot resume: %s", err)
+        if self.metrics is not None:
+            self.metrics.registry.counter("checkpoint_invalid").inc()
+            self.metrics.log("checkpoint_invalid", reason=str(err))
+
+    def restore_from_checkpoint(self) -> int:
+        """Rebuild vocabulary, template, ``last_average``, the round
+        counter and the (not yet ready) membership from the newer of the
+        round journal and the latest round checkpoint under ``save_dir``
+        (``server.py:1083-1212``); the restored average is applied onto the
+        template so rejoining clients replicate the trained state. Call
+        before :meth:`start`. Returns the round the loop continues from;
+        raises ``FileNotFoundError`` when there is nothing to resume and
+        :class:`~gfedntm_tpu_torch.train.checkpoint.CheckpointIntegrityError`
+        (after a ``checkpoint_invalid`` event) when what exists is corrupt
+        or cannot be read by this package."""
+        ckpt = self._checkpointer()
+        jstate = self._load_journal_state()
+        try:
+            meta = ckpt.load_meta()
+            ckpt_round = ckpt.latest_round() if meta is not None else None
+        except CheckpointIntegrityError as err:
+            if jstate is None:
+                self._invalid_checkpoint(err)
+                raise
+            self.logger.error(
+                "checkpoint unusable (%s); recovering from the round "
+                "journal alone", err,
+            )
+            meta, ckpt_round = None, None
+        # The journal records the last fully-PUSHED round R (resume at
+        # R+1); the checkpoint sidecar records the resume round directly.
+        # Prefer whichever is further along.
+        use_journal = jstate is not None and (
+            ckpt_round is None
+            or int(jstate["round"]) + 1 >= int(ckpt_round)
+        )
+        if not use_journal and (meta is None or ckpt_round is None):
+            raise FileNotFoundError(
+                f"no federation checkpoint or round journal under "
+                f"{ckpt.directory}"
+            )
+        source = jstate if use_journal else meta
+        vocab = source.get("vocab")
+        if not vocab:
+            raise CheckpointIntegrityError(
+                "recovery state has no consensus vocabulary; delete "
+                f"{ckpt.directory} to start the federation fresh"
+            )
+        self.global_vocab = Vocabulary(tuple(vocab))
+        self.template = build_template_model(
+            self.family, len(self.global_vocab), self.model_kwargs,
+            device=self.device,
+        )
+        self._template_shared = None
+        template = self._shared_template()
+        self._expected_keys = frozenset(template)
+        self.update_gate.set_template(template)
+        if use_journal:
+            missing = [
+                k for k in jstate["average_keys"] if k not in template
+            ]
+            if missing:
+                raise ValueError(
+                    f"journal avg keys not in template (model config "
+                    f"changed since the journal?): {missing[:3]}"
+                )
+            round_idx = int(jstate["round"]) + 1
+            average = {
+                k: np.asarray(jstate["average"][k], dtype=v.dtype)
+                for k, v in template.items() if k in jstate["average"]
+            }
+            self._restore_journal_aggregator(jstate)
+        else:
+            try:
+                round_idx, average = ckpt.restore_round(template)
+            except CheckpointIntegrityError as err:
+                self._invalid_checkpoint(err)
+                raise
+            self._restore_aggregator_state(ckpt, meta, round_idx)
+        self.last_average = average
+        self.global_iterations = int(round_idx)
+        if source.get("privacy") is not None:
+            self.logger.warning(
+                "recovery state carries a privacy ledger but this server "
+                "runs dp='off'; the ledger is NOT carried forward — rounds "
+                "from here on are unaccounted",
+            )
+        self._restore_membership(source.get("membership") or ())
+        # Recovered-server wire posture: this process holds no codec
+        # session state and no push acks — the next push is
+        # self-contained and orders a fleet-wide session reset, and token
+        # reconnects get the per-client reset order (Ack code 3).
+        self._session_reset_pending = not self.wire_codec.identity
+        self._recovered_source = "journal" if use_journal else "checkpoint"
+        FederatedStepper(self.template, self.grads_to_share).set_gradients(
+            average
+        )
+        with self._setup_lock:
+            self._setup_reply = self._setup_reply_from_template()
+        self.logger.info(
+            "resumed federation from round %d via the %s (%d restored "
+            "members)", round_idx,
+            "round journal" if use_journal else "checkpoint",
+            len(source.get("membership", ())),
+        )
+        if self.metrics is not None:
+            self.metrics.log("resume", step=round_idx)
+        return round_idx
+
+    def _restore_journal_aggregator(self, jstate: dict) -> None:
+        """Reload journaled server-optimizer slots (same name-mismatch
+        stance as :meth:`_restore_aggregator_state`)."""
+        saved_name = jstate.get("aggregator")
+        arrays = jstate.get("aggregator_state") or {}
+        if not arrays:
+            return
+        if saved_name is not None and saved_name != self.aggregator.name:
+            self.logger.warning(
+                "journal was written by aggregator %r but this server "
+                "runs %r; server-optimizer state starts fresh",
+                saved_name, self.aggregator.name,
+            )
+            return
+        self.aggregator.load_state_dict(arrays)
+
+    def _restore_membership(self, membership) -> None:
+        """Repopulate the registry from a recovery snapshot: members keep
+        their identity, FedAvg weight, progress and session tokens, but
+        none are training-ready until they reconnect. The training restart
+        bar becomes ``quorum_fraction`` of the restored unfinished
+        membership (capped by ``min_clients``)."""
+        unfinished = 0
+        for m in membership:
+            try:
+                client_id = int(m["client_id"])
+            except (KeyError, TypeError, ValueError):
+                continue
+            finished = bool(m.get("finished"))
+            self.federation.restore_member(
+                client_id,
+                nr_samples=float(m.get("nr_samples") or 0.0),
+                session_token=str(m.get("session_token") or ""),
+                finished=finished,
+                current_mb=int(m.get("current_mb") or 0),
+                current_epoch=int(m.get("current_epoch") or 0),
+                needs_codec_reset=not self.wire_codec.identity,
+            )
+            unfinished += not finished
+        if unfinished:
+            self._resume_ready_needed = max(
+                1, math.ceil(self.quorum_fraction * unfinished)
+            )
+
+    def maybe_autorecover(self) -> "int | None":
+        """Crash recovery with no operator flags: when ``save_dir`` holds a
+        round journal (or checkpoint) of an interrupted run — this
+        package's or the JAX package's — restore it and return the resume
+        round; return ``None`` when there is nothing to recover or the
+        previous run finished cleanly. Corrupt state still raises."""
+        if self.save_dir is None or self.journal_every <= 0:
+            # No journal ⇒ no autorecovery: without the journal's finished
+            # stamp a cleanly-completed run would be resurrected.
+            return None
+        try:
+            finished = bool(
+                (self._journal().load_meta() or {}).get("finished")
+            )
+        except CheckpointIntegrityError:
+            finished = False
+        if finished:
+            self.logger.info(
+                "previous federation under %s finished cleanly; "
+                "starting fresh", self.save_dir,
+            )
+            return None
+        try:
+            round_idx = self.restore_from_checkpoint()
+        except FileNotFoundError:
+            return None
+        self.logger.warning(
+            "auto-recovered an interrupted federation: resuming from "
+            "round %d (re-admitting session-token reconnects)", round_idx,
+        )
+        self._recovered_at = time.monotonic()
+        if self.metrics is not None:
+            self.metrics.registry.counter("server_recoveries").inc()
+            self.metrics.log(
+                "server_recovered", round=round_idx,
+                source=self._recovered_source or "checkpoint",
+            )
+        return round_idx
+
+    def _restore_aggregator_state(self, ckpt, meta: dict, round_idx) -> None:
+        """Reload the server aggregator's optimizer state saved with the
+        round checkpoint; an aggregator-name mismatch or a round mismatch
+        restarts it stateless, loudly."""
+        saved_name = meta.get("aggregator")
+        if saved_name is not None and saved_name != self.aggregator.name:
+            self.logger.warning(
+                "checkpoint was written by aggregator %r but this server "
+                "runs %r; server-optimizer state starts fresh",
+                saved_name, self.aggregator.name,
+            )
+            return
+        state = ckpt.load_aggregator_state()
+        if state is None:
+            return
+        state_round, arrays = state
+        if int(state_round) != int(round_idx):
+            self.logger.warning(
+                "aggregator state is from round %d but the round "
+                "checkpoint is %d (crash between the two saves); "
+                "server-optimizer state starts fresh", state_round, round_idx,
+            )
+            return
+        self.aggregator.load_state_dict(arrays)
+        self.logger.info(
+            "restored %s aggregator state (%d arrays) from round %d",
+            self.aggregator.name, len(arrays), state_round,
+        )
+
     def ReadyForTraining(self, request: pb.JoinRequest, context) -> pb.Ack:
         """Client readiness signal; the training thread starts exactly once
         when quorum is reached (``trainFederatedModel``,
@@ -418,6 +907,7 @@ class FederatedServer:
             request.client_id, request.session_token
         )
         self.federation.connect_ready(request.client_id, request.address)
+        ack_code, ack_detail = 0, "ready recorded"
         if kind == "restore":
             self.logger.info(
                 "client %d reconnected with its session token",
@@ -428,6 +918,27 @@ class FederatedServer:
                 self.metrics.log(
                     "session_restored", client=request.client_id,
                 )
+            if (
+                self.federation.consume_codec_reset(request.client_id)
+                and not self.wire_codec.identity
+            ):
+                # This server recovered from a crash and holds none of the
+                # codec session state the reconnecting client carries:
+                # order a client-side reset so the next bundles are
+                # self-contained on both ends.
+                ack_code = 3
+                ack_detail = (
+                    "session restored by a recovered server; reset "
+                    "wire-codec sessions"
+                )
+            if request.recovered:
+                # The presenter restored itself from its own journal: same
+                # session and weight, but its wire-codec state died with
+                # the old process.
+                with self._push_lock:
+                    self._push_acked.pop(request.client_id, None)
+                self._reply_seen.pop(request.client_id, None)
+                self._poll_warmed.discard(request.client_id)
         elif kind == "new":
             if _looks_like_session_token(request.session_token):
                 self.logger.warning(
@@ -444,20 +955,33 @@ class FederatedServer:
         if self._stopping.is_set() or self.training_done.is_set():
             return pb.Ack(code=1, detail="federation already finished")
         with self._train_lock:
+            # After crash recovery the original min_clients bar may be
+            # unreachable: the restored run restarts once quorum_fraction
+            # of the restored unfinished membership is back.
+            needed = self.federation.min_clients
+            if self._resume_ready_needed is not None:
+                needed = min(needed, self._resume_ready_needed)
             if (
                 self._train_thread is None
                 and sum(
                     c.ready_for_training
                     for c in self.federation.get_clients()
                 )
-                >= self.federation.min_clients
+                >= needed
             ):
+                if self._recovered_at is not None:
+                    elapsed = time.monotonic() - self._recovered_at
+                    self._recovered_at = None
+                    if self.metrics is not None:
+                        self.metrics.registry.gauge(
+                            "recovery_time_s"
+                        ).set(elapsed)
                 self._train_thread = threading.Thread(
                     target=self._run_training, name="federated-training",
                     daemon=True,
                 )
                 self._train_thread.start()
-        return pb.Ack(code=0, detail="ready recorded")
+        return pb.Ack(code=ack_code, detail=ack_detail)
 
     # ---- phase-2 training loop (server.py:408-553) -------------------------
     def _stub_for(self, stubs: dict, rec) -> rpc.ServiceStub | None:
@@ -572,47 +1096,75 @@ class FederatedServer:
 
     def _current_global(self) -> dict[str, np.ndarray]:
         """The parameters every client stepped from this round: the last
-        broadcast average, or the template init before round 0."""
+        broadcast average, or the template init before round 0 — the
+        reference of the gate's update norms and of the server optimizer's
+        pseudo-gradient."""
         return (
             self.last_average if self.last_average is not None
             else self._shared_template()
         )
 
-    def _conformance(self, snap: dict[str, np.ndarray]) -> str | None:
-        """Why ``snap`` does not match the shared template's key set,
-        shapes and dtypes (the JAX gate's conformance stage), or None."""
-        template = self._shared_template()
-        if frozenset(snap) != frozenset(template):
-            missing = sorted(set(template) - set(snap))[:3]
-            unexpected = sorted(set(snap) - set(template))[:3]
-            return f"key_skew: missing={missing}, unexpected={unexpected}"
-        for key, arr in snap.items():
-            want = template[key]
-            if arr.shape != want.shape:
-                return f"shape_skew: {key}: {arr.shape} != {want.shape}"
-            if arr.dtype != want.dtype:
-                return f"dtype_skew: {key}: {arr.dtype} != {want.dtype}"
-        return None
+    def _awaiting_reconnect_grace(self) -> bool:
+        """True while the post-recovery grace window is open and some
+        restored member has not reconnected: the round engine then waits
+        (no rounds burned) instead of ending the federation without it."""
+        if self._recovery_deadline is None:
+            return False
+        if time.monotonic() >= self._recovery_deadline:
+            return False
+        return bool(self.federation.awaiting_reconnect())
+
+    def _ensure_template(self) -> None:
+        if self._expected_keys is None:
+            template = self._shared_template()
+            self._expected_keys = frozenset(template)
+            self.update_gate.set_template(template)
+        self._resolve_agg_backend()
+
+    def _resolve_agg_backend(self) -> None:
+        """Pick the aggregation data-plane backend at first template use:
+        ``auto`` is ``device`` on a CUDA server and ``numpy`` on a CPU one;
+        ``device`` runs the engine on the server's device, CPU included.
+        An engine failure raises: there is no fallback to numpy."""
+        if self._agg_backend_resolved is not None:
+            return
+        mode = self.aggregation_backend
+        if mode == "auto":
+            mode = "device" if self.device.type == "cuda" else "numpy"
+        if mode == "device":
+            engine = DeviceAggEngine(self.device)
+            self.update_gate.set_engine(engine)
+            self.logger.info("aggregation backend: device (%s)", engine.device)
+        else:
+            self.update_gate.set_engine(None)
+        self._agg_backend_resolved = mode
+        if self.metrics is not None:
+            self.metrics.registry.gauge("agg_backend_device").set(
+                1.0 if mode == "device" else 0.0
+            )
 
     def _collect_snapshots(
         self, replies: list, iteration: int,
         was_suspect: frozenset = frozenset(),
-    ) -> list[tuple[float, dict[str, np.ndarray]]]:
-        """Decode a round's replies and check each against the shared
-        template. A replayed reply (a seq already consumed) is dropped; a
-        reply the codec cannot decode, or that does not conform, costs the
-        round one contributor, and a client whose replies fail
-        ``SUSPECT_AFTER`` rounds in a row enters probation. The FedAvg
-        weight is the reply's ``nr_samples`` (every minibatch of its round),
-        falling back to the client's join-time corpus size. A suspect
-        client clears probation only when its update is accepted."""
+    ):
+        """Decode a round's replies and pass them through the update
+        admission gate (:func:`~gfedntm_tpu_torch.federation.sanitize.decode_and_admit`,
+        ``server.py:2062-2191``): conformance, finiteness and the cohort
+        norm screen. A replayed reply (a seq already consumed) is dropped;
+        anything the codec cannot decode or the gate rejects costs the
+        round one contributor, and repeat offenders enter probation with
+        ``reason="poisoned"``. A suspect clears probation only when its
+        update is accepted. The FedAvg weight is the reply's
+        ``nr_samples``, falling back to the join-time corpus size.
+
+        Returns the admitted cohort as ``[(weight, snapshot)]`` on the
+        numpy backend, or as a
+        :class:`~gfedntm_tpu_torch.federation.device_agg.StackedRound` on
+        the device backend; ``_round_accepted`` keeps (client, weight,
+        loss) per admitted reply for the guardian."""
+        self._ensure_template()
         m = self.metrics
-        if self.wire_codec.identity:
-            def decode(bundle):
-                return codec.bundle_to_flatdict(bundle, metrics=m)
-        else:
-            decode = self._uplink_dec.decode
-        accepted: list[tuple[float, dict[str, np.ndarray]]] = []
+        deduped: list = []
         for rec, reply in replies:
             seq = int(reply.seq)
             if seq and self._reply_seen.get(rec.client_id, 0) >= seq:
@@ -629,55 +1181,54 @@ class FederatedServer:
                 continue
             if seq:
                 self._reply_seen[rec.client_id] = seq
-            try:
-                snap = decode(reply.shared)
-            except CodecError as err:
-                if m is not None:
-                    m.registry.counter("codec_ref_miss").inc()
-                    m.log(
-                        "codec_ref_miss", client=rec.client_id,
-                        ref_round=int(reply.shared.ref_round) - 1,
-                        round=iteration,
-                    )
-                self.logger.warning(
-                    "round %d: client %d reply not decodable (%s); "
-                    "excluding it from the average",
-                    iteration, rec.client_id, err,
-                )
-                continue
-            reason = self._conformance(snap)
-            if reason is not None:
-                streak = self._reject_streak.get(rec.client_id, 0) + 1
-                self._reject_streak[rec.client_id] = streak
-                self.logger.warning(
-                    "round %d: rejecting client %d update (%s); excluding "
-                    "it from the average", iteration, rec.client_id, reason,
-                )
-                if m is not None:
-                    m.registry.counter("updates_rejected").inc()
-                    m.log("update_rejected", client=rec.client_id,
-                          round=iteration, reason=reason.split(":")[0],
-                          detail=reason)
-                if streak >= SUSPECT_AFTER:
-                    self._note_client_failure(
-                        rec, rec.address, iteration, RuntimeError(reason),
-                        "update admission", reason="poisoned",
-                    )
-                continue
-            self._reject_streak.pop(rec.client_id, None)
-            accepted.append((float(reply.nr_samples) or rec.nr_samples, snap))
-            if rec.client_id in was_suspect and self.federation.mark_recovered(
-                rec.client_id
-            ):
+            deduped.append((rec, reply))
+
+        if self.wire_codec.identity:
+            def decode(bundle):
+                return codec.bundle_to_flatdict(bundle, metrics=m)
+        else:
+            decode = self._uplink_dec.decode
+
+        def on_decode_error(rec, err):
+            self.logger.warning(
+                "round %d: client %d reply not decodable (%s); "
+                "excluding it from the average",
+                iteration, rec.client_id, err,
+            )
+
+        def on_poisoned(rec, rej):
+            self._note_client_failure(
+                rec, rec.address, iteration,
+                RuntimeError(f"{rej.reason}: {rej.detail}"),
+                "update admission", reason="poisoned",
+            )
+
+        def on_recovered(client_id):
+            if self.federation.mark_recovered(client_id):
                 self.logger.info(
                     "client %d recovered (update admitted at round %d)",
-                    rec.client_id, iteration,
+                    client_id, iteration,
                 )
                 if m is not None:
                     m.registry.counter("client_recoveries").inc()
-                    m.log("client_recovered", client=rec.client_id,
+                    m.log("client_recovered", client=client_id,
                           round=iteration)
-        return accepted
+
+        result, losses, _records = decode_and_admit(
+            deduped, decode, self.update_gate, self._current_global(),
+            iteration, metrics=m, was_suspect=was_suspect,
+            on_decode_error=on_decode_error, on_poisoned=on_poisoned,
+            on_recovered=on_recovered,
+        )
+        self._round_accepted = [
+            (client_id, weight, losses[client_id])
+            for client_id, weight, _snap in result.accepted
+        ]
+        if result.stacked is not None:
+            return result.stacked
+        return [
+            (weight, snap) for _client_id, weight, snap in result.accepted
+        ]
 
     def _encode_push(
         self, average: dict[str, np.ndarray], iteration: int, replies: list
@@ -686,19 +1237,118 @@ class FederatedServer:
         wire codec: the shared chain bundle for an up-to-date recipient,
         an exact catch-up bundle for one holding an older cached view, a
         self-contained bundle for one holding nothing usable."""
+        reset_session = self._session_reset_pending
+        self._session_reset_pending = False
         recipients = [rec.client_id for rec, _reply in replies]
         if self.wire_codec.identity:
             return encode_push_for_recipients(
                 None, None, average, iteration, recipients, {},
-                False, metrics=self.metrics,
+                reset_session, metrics=self.metrics,
             )
         with self._push_lock:
             acked = dict(self._push_acked)
         with self._codec_lock:
             return encode_push_for_recipients(
                 self._downlink_enc, self._uplink_dec, average, iteration,
-                recipients, acked, False, metrics=self.metrics,
+                recipients, acked, reset_session, metrics=self.metrics,
             )
+
+    def _divergence_rollback(
+        self, iteration: int, verdict: str
+    ) -> "dict[str, np.ndarray] | None":
+        """Restore the last good checkpointed round after a divergence
+        verdict and return its average (the rollback re-broadcast), or
+        ``None`` when nothing safe exists to restore
+        (``server.py:2229-2352``). Alongside the parameters the wire-codec
+        sessions are reset (the re-broadcast is self-contained and orders
+        every recipient to reset its own), the aggregator's optimizer
+        state is rolled back to the same round, clients whose admitted
+        weight dominated the unhealthy streak are quarantined through
+        probation, and the guardian's baselines are re-anchored."""
+        m = self.metrics
+        restored: dict[str, np.ndarray] | None = None
+        restored_round: int | None = None
+        if self.save_dir is not None:
+            try:
+                ckpt = self._checkpointer()
+                if ckpt.latest_round() is not None:
+                    self._ensure_template()
+                    restored_round, restored = ckpt.restore_round(
+                        self._shared_template()
+                    )
+                    self._restore_aggregator_state(
+                        ckpt, ckpt.load_meta() or {}, restored_round
+                    )
+            except Exception:
+                self.logger.exception(
+                    "round %d: divergence rollback restore failed",
+                    iteration,
+                )
+                restored, restored_round = None, None
+        if restored is None:
+            # No checkpoint to return to. A non-finite aggregate must still
+            # never reach a client — fall back to the last broadcast state;
+            # a loss/norm explosion keeps the computed average and the
+            # guardian keeps watching (and the periodic checkpoint stays
+            # withheld while it is unhealthy).
+            if verdict != "nonfinite_global":
+                self.logger.error(
+                    "round %d: divergence (%s) but no checkpoint to roll "
+                    "back to; continuing with the current aggregate",
+                    iteration, verdict,
+                )
+                return None
+            restored = self._current_global()
+            self.logger.error(
+                "round %d: non-finite aggregate and no checkpoint; "
+                "re-broadcasting the last finite state instead",
+                iteration,
+            )
+        # The push reference chains describe the diverged trajectory: drop
+        # them all, server-side now and client-side through the
+        # re-broadcast's reset_session.
+        with self._push_lock:
+            self._push_acked.clear()
+        self._session_reset_pending = True
+        if not self.wire_codec.identity:
+            with self._codec_lock:
+                self._uplink_dec.reset()
+                self._downlink_enc.reset()
+        quarantined = (
+            self.guardian.dominant_contributors()
+            if self.guardian is not None else []
+        )
+        for client_id in quarantined:
+            rec = self.federation.get(client_id)
+            if rec is None:
+                continue
+            self._note_client_failure(
+                rec, rec.address, iteration,
+                RuntimeError(f"dominated the diverged rounds ({verdict})"),
+                "divergence quarantine", reason="divergence",
+            )
+            if m is not None:
+                m.registry.counter("clients_quarantined").inc()
+                m.log(
+                    "client_quarantined", client=client_id,
+                    round=iteration, reason=verdict,
+                )
+        if self.guardian is not None:
+            self.guardian.note_rollback()
+        self.logger.warning(
+            "round %d: DIVERGENCE (%s) — rolled back to %s, quarantined "
+            "%s", iteration, verdict,
+            f"checkpointed round {restored_round}"
+            if restored_round is not None else "last finite state",
+            quarantined or "nobody",
+        )
+        if m is not None:
+            m.registry.counter("divergence_rollbacks").inc()
+            event = dict(round=iteration, reason=verdict)
+            if restored_round is not None:
+                event["restored_round"] = int(restored_round)
+            m.log("divergence_rollback", **event)
+        return restored
 
     def _skip_below_quorum(self, iteration: int, got: int, membership: int,
                            quorum: int, what: str) -> None:
@@ -715,6 +1365,11 @@ class FederatedServer:
         self._stopping.wait(self.round_backoff_s)
 
     def _run_training(self) -> None:
+        # The recovery grace clock starts when training actually resumes.
+        if self.federation.awaiting_reconnect():
+            self._recovery_deadline = (
+                time.monotonic() + self.reconnect_grace_s
+            )
         if self.metrics is not None:
             # One trace identity per training run: every round span
             # inherits it and every poll/push advertises it.
@@ -747,8 +1402,10 @@ class FederatedServer:
         try:
             engine.run(stubs, pool)
         finally:
-            self._stop_broadcast(stubs)
-            self._finalize()
+            if not self._aborted.is_set():
+                self._stop_broadcast(stubs)
+                self._finalize()
+                self._mark_journal_finished()
             pool.shutdown(wait=False)
             for _addr, channel, _stub in stubs.values():
                 channel.close()

@@ -34,6 +34,7 @@ config), so a model saved by either package loads in the other.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -61,6 +62,7 @@ from gfedntm_tpu_torch.train.steps import (
     grad_step,
     take,
 )
+from gfedntm_tpu_torch.utils.flops import measure_step_flops
 from gfedntm_tpu_torch.utils.serialization import load_variables, save_variables
 
 _ACTIVATIONS = (
@@ -219,6 +221,23 @@ class AVITM:
     def build_optimizer(self, model: DecoderNetwork) -> torch.optim.Optimizer:
         """A fresh optimizer of this configuration over ``model``'s params."""
         return build_optimizer(model.parameters(), self.solver, self.lr, self.momentum)
+
+    def step_flops(self, dataset: BowDataset) -> float:
+        """Model FLOPs of one training step at ``batch_size``
+        (:func:`~gfedntm_tpu_torch.utils.flops.measure_step_flops`): every GEMM
+        of the forward, backward and update, and the fused decoder's
+        2·B·K·V + 4·B·K·V. It is counted on a CPU replica of the network
+        with a fresh optimizer, on the first ``batch_size`` documents of
+        ``dataset`` (repeated when it holds fewer), so this model's state,
+        its generator and the kernels' launch counts are untouched; the
+        count depends on shapes only, so it is the card's too."""
+        replica = copy.deepcopy(self.model).to("cpu")
+        data = {key: torch.as_tensor(value) for key, value in self._host_data(dataset).items()}
+        rows = torch.arange(self.batch_size) % len(dataset)
+        return measure_step_flops(
+            grad_step, replica, self.build_optimizer(replica), take(data, rows),
+            torch.ones(self.batch_size), self.fused_decoder,
+            generator=torch.Generator().manual_seed(0), beta_weight=self._beta_weight())
 
     # ---- training ----------------------------------------------------------
     def fit(

@@ -61,6 +61,7 @@ import torch
 
 from gfedntm_tpu_torch.ops import _build
 from gfedntm_tpu_torch.parallel.collectives import merge_softmax, sum_in_rank_order
+from gfedntm_tpu_torch.utils import flops
 
 #: Kernel launches per wrapper since the last reset — the proof that a run
 #: went through the CUDA kernels. Plain ints; set them to 0 to reset.
@@ -420,11 +421,26 @@ class ProdLDAReconLoss(torch.autograd.Function):
     BatchNorm running-stat update). ``theta`` is float32; beta and x are
     stored once per call (:func:`store`), and the backward reuses that
     copy, as the JAX package's residuals keep the padded operands. g_beta
-    takes beta's dtype (``_bwd``, :809-814)."""
+    takes beta's dtype (``_bwd``, :809-814).
+
+    Under a FLOP measurement (:func:`~gfedntm_tpu_torch.utils.flops.measure_step_flops`)
+    the forward reports the model's 2·B·K·V of ``theta @ beta`` and the
+    backward its 4·B·K·V (the two products of g_theta and g_beta), and
+    nothing inside either is counted: the kernels launch through ctypes,
+    where no counter sees them, and the plain versions' products would add
+    the kernels' recomputation."""
 
     @staticmethod
     def forward(ctx, theta, beta, x, run_mean, run_var, mask, training, eps, floor,
                 storage_dtype):
+        flops.add_model_flops(2 * theta.shape[0] * theta.shape[1] * beta.shape[1])
+        with flops.uncounted():
+            return ProdLDAReconLoss._forward(ctx, theta, beta, x, run_mean, run_var, mask,
+                                             training, eps, floor, storage_dtype)
+
+    @staticmethod
+    def _forward(ctx, theta, beta, x, run_mean, run_var, mask, training, eps, floor,
+                 storage_dtype):
         beta_s, x_s = store(beta, storage_dtype), store(x, storage_dtype)
         mean, var, m, s = stats(theta, beta_s, mask, run_mean, run_var, training, eps,
                                 storage_dtype)
@@ -438,9 +454,11 @@ class ProdLDAReconLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rl, _g_mean, _g_var):
         theta, beta_s, x_s, mask, mean, var, m, s, rd = ctx.saved_tensors
+        flops.add_model_flops(4 * theta.shape[0] * theta.shape[1] * beta_s.shape[1])
         g = (g_rl * mask).contiguous()
-        g_theta, g_beta = grads(theta, beta_s, x_s, mean, var, m, s, rd, g, mask,
-                                ctx.training, ctx.eps, ctx.floor, ctx.storage_dtype)
+        with flops.uncounted():
+            g_theta, g_beta = grads(theta, beta_s, x_s, mean, var, m, s, rd, g, mask,
+                                    ctx.training, ctx.eps, ctx.floor, ctx.storage_dtype)
         return g_theta, g_beta.to(ctx.beta_dtype), None, None, None, None, None, None, None, None
 
 

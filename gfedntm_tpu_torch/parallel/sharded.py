@@ -84,6 +84,8 @@ from gfedntm_tpu_torch.parallel.collectives import (
 )
 from gfedntm_tpu_torch.parallel.mesh import DpMpGroups, pad_to_multiple
 from gfedntm_tpu_torch.train.steps import pad_batch_axis, take
+from gfedntm_tpu_torch.utils.flops import mfu as compute_mfu
+from gfedntm_tpu_torch.utils.flops import resolve_peak_flops_per_device
 
 _DECODER_SPLIT = {
     "beta": (1, 1),
@@ -395,11 +397,14 @@ def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
     ``sharded_fit`` event.
 
     Returns the JAX summary's keys. Steady time excludes the first epoch,
-    as there. ``compile_s``, ``flops_per_step``, ``flops_per_epoch``,
-    ``mfu`` and ``peak_flops_source`` are ``None``: eager PyTorch compiles
-    no program, and the FLOP count waits on a port of ``utils/flops.py``
-    (ROADMAP queue 1). The trained state is left on ``model``, as after
-    :func:`fit_sharded`."""
+    as there. ``compile_s`` is ``None``: eager PyTorch compiles no program.
+    ``flops_per_step`` is the model FLOPs of one step of the whole batch
+    over all ranks (:meth:`AVITM.step_flops`, counted once before the
+    fit), ``flops_per_epoch`` that times ``steps_per_epoch``, and ``mfu``
+    the steady epoch's FLOP/s per rank over ``peak_flops_source``'s peak
+    (:mod:`gfedntm_tpu_torch.utils.flops`; ``None`` with a single epoch);
+    an ``mfu`` also sets the ``sharded_mfu`` gauge. The trained state is
+    left on ``model``, as after :func:`fit_sharded`."""
     if model.fused_decoder:
         raise ValueError(
             "fit_data_sharded runs the unfused loss; the fused decoder composes with "
@@ -410,6 +415,11 @@ def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
                          " (fit_sharded splits the vocabulary)")
     _check_device(model, device, "fit_data_sharded")
     n_dev = groups.dp
+    n_train = len(train_dataset)
+    steps_per_epoch = max(1, -(-n_train // model.batch_size))
+    flops_per_step = model.step_flops(train_dataset)
+    flops_per_epoch = flops_per_step * steps_per_epoch
+    peak, peak_source = resolve_peak_flops_per_device(model.device)
     if metrics is not None:
         metrics.registry.gauge("sharded_devices").set(float(n_dev))
     epoch_s: list[float] = []
@@ -421,10 +431,10 @@ def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
 
     _fit_on_ranks(model, train_dataset, groups, validation_dataset, save_dir, patience, delta,
                   n_samples, None, on_epoch)
-    n_train = len(train_dataset)
     steady_s = sum(epoch_s[1:], 0.0)  # epoch 0 holds the warm-up
     per_epoch_s = steady_s / (len(epoch_s) - 1) if len(epoch_s) > 1 else None
     docs_per_s = n_train / per_epoch_s if per_epoch_s else None
+    mfu_val = compute_mfu(flops_per_epoch, per_epoch_s or 0.0, n_dev, peak)
     summary = {
         "devices": n_dev,
         "epochs_run": len(model.epoch_losses),
@@ -432,17 +442,19 @@ def fit_data_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,
         "steady_s": round(steady_s, 3),
         "docs_per_s": round(docs_per_s, 1) if docs_per_s else None,
         "docs_per_s_per_device": round(docs_per_s / n_dev, 1) if docs_per_s else None,
-        "flops_per_step": None,
-        "steps_per_epoch": max(1, -(-n_train // model.batch_size)),
-        "flops_per_epoch": None,
-        "mfu": None,
-        "peak_flops_source": None,
+        "flops_per_step": flops_per_step,
+        "steps_per_epoch": steps_per_epoch,
+        "flops_per_epoch": flops_per_epoch,
+        "mfu": round(mfu_val, 6) if mfu_val is not None else None,
+        "peak_flops_source": peak_source,
         "batch_pad": pad_to_multiple(model.batch_size, n_dev),
     }
     if metrics is not None:
         if docs_per_s:
             metrics.registry.gauge("sharded_docs_per_s").set(docs_per_s)
             metrics.registry.gauge("sharded_docs_per_s_per_device").set(docs_per_s / n_dev)
+        if mfu_val is not None:
+            metrics.registry.gauge("sharded_mfu").set(mfu_val)
         metrics.log("sharded_fit", devices=n_dev, docs_per_s=summary["docs_per_s"],
                     mfu=summary["mfu"], compile_s=summary["compile_s"])
     return summary

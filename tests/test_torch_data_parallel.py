@@ -362,12 +362,20 @@ def test_fit_data_sharded_final_loss_within_envelope_of_jax(runs):
 
 
 def test_fit_data_sharded_summary_keys_are_jax_s(runs):
+    """The JAX summary's keys; no compile in eager PyTorch, and the FLOP
+    count of one whole-batch step (``utils/flops.py``): the analytic GEMM
+    count of these widths, whatever dp, with its epoch total and MFU."""
+    widths = (V,) + H
+    fwd = sum(a * c for a, c in zip(widths, widths[1:])) + 2 * H[-1] * K + K * V
+    step = 3 * 2 * B * fwd - 2 * B * V * H[0]
     for dp in DATA_DPS:
         summary = runs["ranks"]["data", dp][0]["summary"]
         assert sorted(summary) == sorted(runs["j_summary"])
-        for key in ("compile_s", "flops_per_step", "flops_per_epoch", "mfu",
-                    "peak_flops_source"):
-            assert summary[key] is None, key
+        assert summary["compile_s"] is None
+        assert summary["flops_per_step"] == step
+        assert summary["flops_per_epoch"] == step * summary["steps_per_epoch"]
+        assert summary["mfu"] > 0
+        assert summary["peak_flops_source"] == "measured-matmul-probe"
 
 
 @pytest.mark.parametrize("dp", DATA_DPS)

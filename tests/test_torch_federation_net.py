@@ -14,9 +14,11 @@ and the server polls the other alone.
 (c) Port server, two JAX clients: the JAX join succeeds on the port's
     GlobalSetup, the run finishes, ``server_model.npz`` has the JAX
     server's keys.
-(d) Port server, two port clients: every step loss, every StepStatus and
-    the final beta are bitwise those of two in-process steppers driven
-    through ``weighted_mean`` — the wire changes nothing.
+(d) Port server at its defaults (gate, guardian, journal, checkpoints),
+    two port clients: every step loss, every StepStatus and the final beta
+    are bitwise those of two in-process steppers driven through
+    ``weighted_mean`` — the wire and the server's planes change nothing,
+    with the mean in numpy and on the aggregation plane's engine.
 (e) (a) under the ``delta+topk:0.25`` wire codec.
 (f) (a) with CombinedTM and labels.
 (g) A replayed TrainStep seq is answered from the replay cache, and nothing
@@ -125,14 +127,15 @@ JRecServer, PRecServer = recording(JServer), recording(FederatedServer)
 
 
 def federate(tmp_path, server_side, client_sides, family="avitm", wire_codec="none",
-             local_steps=1):
+             local_steps=1, **server_kw):
     """Run one federation to its end; ``server_side`` and each of
-    ``client_sides`` is ``"jax"`` or ``"port"``. Returns (server, clients)."""
+    ``client_sides`` is ``"jax"`` or ``"port"``; ``server_kw`` go to the
+    server. Returns (server, clients)."""
     ctm = family == "ctm"
     kw = dict(CTM_KW if ctm else AVITM_KW)
     common = dict(min_clients=len(client_sides), family=family, model_kwargs=kw,
                   max_iters=200, save_dir=str(tmp_path / "server"), wire_codec=wire_codec,
-                  local_steps=local_steps)
+                  local_steps=local_steps, **server_kw)
     server = (JRecServer(**common) if server_side == "jax"
               else PRecServer(device="cpu", **common))
     server.replies = {}
@@ -219,8 +222,26 @@ def test_c_port_server_with_two_jax_clients(tmp_path, jax_clients_run):
 def test_d_the_wire_is_bitwise_neutral(tmp_path, local_steps):
     """With ``local_steps`` E = 2 every round runs two local steps (the
     last round of an epoch budget fewer), the first without a snapshot,
-    and the FedAvg weight is the samples of both."""
-    server, clients = federate(tmp_path, "port", ["port", "port"], local_steps=local_steps)
+    and the FedAvg weight is the samples of both. The server runs at its
+    defaults: the update gate, the divergence guardian, the journal and the
+    checkpoints on, and ``aggregation_backend="auto"``, which is numpy on
+    the CPU; none of them changes a bit of an honest federation."""
+    check_bitwise_neutral(tmp_path, local_steps)
+
+
+@pytest.mark.parametrize("local_steps", [1, 2])
+def test_d_the_wire_is_bitwise_neutral_on_the_device_plane(tmp_path, local_steps):
+    """(d) with the gate's statistics and the mean on the aggregation
+    plane's engine (``aggregation_backend="device"``, on the CPU here)."""
+    server = check_bitwise_neutral(tmp_path, local_steps, aggregation_backend="device")
+    assert server._agg_backend_resolved == "device"
+
+
+def check_bitwise_neutral(tmp_path, local_steps, **server_kw):
+    server, clients = federate(tmp_path, "port", ["port", "port"], local_steps=local_steps,
+                               **server_kw)
+    assert server.guardian is not None and server.update_gate.check_finite
+    assert (tmp_path / "server" / "checkpoints" / "journal.json").exists()
     assert sorted(len(r) for r in server.replies.values()) == [-(-6 // local_steps),
                                                              -(-10 // local_steps)]
     # The same two steppers, driven in process from the server's init.
@@ -257,6 +278,7 @@ def test_d_the_wire_is_bitwise_neutral(tmp_path, local_steps):
             assert torch.equal(cl.stepper.model.model.state_dict()[key], value), key
     assert np.array_equal(server.global_betas, steppers[1].get_topics_in_server())
     assert (tmp_path / "server" / "server_model.npz").exists()
+    return server
 
 
 def test_e_a_non_identity_wire_codec(tmp_path, jax_clients_run):
@@ -317,15 +339,53 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]), server_address="localhost:1")
 
 
-@pytest.mark.parametrize("option", [dict(sanitize=True), dict(checkpoint_every=25),
-                                    dict(journal_every=1), dict(dp="server"),
-                                    dict(divergence_patience=3), dict(ops_port=0),
+@pytest.mark.parametrize("option", [dict(quality_every=1), dict(slo_specs=[{"name": "x"}]),
+                                    dict(dump_dir="x"), dict(dp="server"),
+                                    dict(quality_guard=True), dict(ops_port=0),
                                     dict(pacing_policy="push:2"),
-                                    dict(aggregation_backend="device"),
-                                    dict(aggregator="fedadam")])
+                                    dict(relay_grace_rounds=1),
+                                    dict(pacing_policy="cohort:2")])
 def test_server_refuses_planes_not_ported(option):
     with pytest.raises(NotImplementedError):
         FederatedServer(min_clients=1, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [dict(sanitize=False), dict(checkpoint_every=5),
+                                    dict(journal_every=2), dict(divergence_patience=2),
+                                    dict(aggregation_backend="device"),
+                                    dict(aggregator="fedadam")])
+def test_server_accepts_the_ported_planes(tmp_path, option):
+    """Each option that the refusal test above refused until the planes
+    were ported is accepted now and takes effect."""
+    server = FederatedServer(min_clients=1, device="cpu", save_dir=str(tmp_path), **option)
+    name, value = next(iter(option.items()))
+    if name == "sanitize":
+        assert server.update_gate.check_finite is False and server.update_gate.mad_k == 0.0
+    elif name == "divergence_patience":
+        assert server.guardian is not None and server.guardian.patience == value
+    elif name == "aggregation_backend":
+        server.template = build_template_model("avitm", 30, AVITM_KW, device="cpu")
+        server._ensure_template()
+        assert server._agg_backend_resolved == "device"
+        assert server.update_gate._engine.device == torch.device("cpu")
+    elif name == "aggregator":
+        assert server.aggregator.name == "fedadam"
+    else:
+        assert getattr(server, name) == value
+
+
+def test_server_defaults_are_the_jax_servers():
+    import inspect
+
+    port = inspect.signature(FederatedServer).parameters
+    jax = inspect.signature(JServer).parameters
+    shared = [name for name in port if name in jax]
+    assert len(shared) >= 30
+    for name in shared:
+        assert port[name].default == jax[name].default, name
+    for name in ("sanitize", "outlier_mad_k", "divergence_patience", "checkpoint_every",
+                 "journal_every", "aggregation_backend", "reconnect_grace_s"):
+        assert name in port, name
 
 
 @pytest.mark.parametrize("option", [dict(mesh_devices=2), dict(dp="client"),

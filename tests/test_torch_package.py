@@ -98,7 +98,10 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.federation.client", "gfedntm_tpu_torch.federation.server",
                  "gfedntm_tpu_torch.federation.codec", "gfedntm_tpu_torch.federation.pacing",
                  "gfedntm_tpu_torch.federation.protos.federated_pb2",
-                 "gfedntm_tpu_torch.utils.flightrec"):
+                 "gfedntm_tpu_torch.utils.flightrec", "gfedntm_tpu_torch.utils.flops",
+                 "gfedntm_tpu_torch.federation.sanitize",
+                 "gfedntm_tpu_torch.federation.device_agg",
+                 "gfedntm_tpu_torch.train.guardian"):
         assert name in names, name
 
 
