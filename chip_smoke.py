@@ -9,8 +9,9 @@
     python3 chip_smoke.py --ctm-only      # phases 1 and 8
     python3 chip_smoke.py --federation-only  # phases 1 and 9
     python3 chip_smoke.py --server-planes-only  # phases 1 and 10
+    python3 chip_smoke.py --privacy-ops-only  # phases 1 and 11
 
-Ten phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Eleven phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -200,6 +201,33 @@ device or no port next to this script):
    mean and median (N=5 and N=4) within 1e-6, Krum's distances within
    1e-6 of the gram's scale of the exact (float64) ones with numpy's
    Krum selection; each one's ms beside numpy's.
+11. the privacy and observation planes (every check fatal): (a) a port
+   server at the JAX defaults with ``dp="server"`` (``dp_clip=1.0``,
+   ``dp_sigma=0.01``, a ``dp_budget`` crossed at the fifth round), the
+   quality plane with its guard (``quality_every=1``, ``quality_ref`` the
+   clients' documents), the ops endpoint with two SLOs (one holds, one
+   fires) and ``dump_dir`` plus a ``MetricsLogger`` on every node, two port
+   clients on 7(b)'s corpora (V=66,001), K=50, H=(100, 100), B=256, 8
+   global steps: finite losses, the shared state bitwise equal across
+   clients after every aggregate, 16 launches of each of K1-K3 and K1-K3
+   within tolerance on the first batch, the ledger's epsilon after each
+   round equal to the accountant replayed at q=1, one noise application per
+   round on the card, one ``quality_computed`` per round and no quality
+   error, every ops route answering 200 during the run, ``/status`` with
+   ``privacy`` and ``model_quality``, the fleet naming all three nodes,
+   only the firing SLO fired, one ``privacy_budget_exceeded``, and two
+   incidents each with the server's bundle and both clients' solicited
+   rings; (b) the same federation under ``dp="client"``: one
+   ``dp_noise_applied`` per uplink on each client with consecutive
+   indices, a host replay of one captured sanitizer application bitwise
+   the tensors on the wire, the server's ledger at q=1 and no server noise;
+   (c) ``DeviceAggEngine.noise_vector`` at D = 10,052,752: two draws at one
+   (seed, index) bitwise equal, |corr| < 2e-3 between neighbouring
+   indices, the mean within 2e-3 std of 0 and the std within 1e-3
+   relative. Each plane's ms per round (noise on the card beside
+   ``host_noise_vector``, the quality step, contribution stats, the
+   ``/metrics`` render, fleet ingest, incident captures) and the ms per
+   global step beside phase 9's.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -211,6 +239,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -2408,6 +2437,9 @@ def ctm_phase(card: str, notes: dict, raw=None, avitm_datasets=None) -> None:
 # Phase 9: the gRPC federation
 # ---------------------------------------------------------------------------
 FED_STEPS = 8  # global steps of phase 9: 1,024 documents per client, B=256, 2 epochs
+#: Median ms per global step of the federation phases that ran (phase 11
+#: prints its own beside phase 9's).
+STEADY_MS: dict = {}
 
 
 def _timed(obj, name: str, sink: list) -> None:
@@ -2472,10 +2504,11 @@ def recorded_client():
     return Recorded
 
 
-def run_clients(clients, server, label: str, limit_s: float = 600.0) -> float:
+def run_clients(clients, server, label: str, limit_s: float = 600.0, tick=None) -> float:
     """Run ``clients`` in threads until ``server`` is done, polling for a
-    client that raised every second (each check fatal); returns the
-    seconds it took. The caller stops the server and the clients."""
+    client that raised every second (each check fatal) and calling ``tick``
+    (if given) at each poll; returns the seconds it took. The caller stops
+    the server and the clients."""
     import threading
 
     errors: list = []
@@ -2490,10 +2523,12 @@ def run_clients(clients, server, label: str, limit_s: float = 600.0) -> float:
     t0 = time.perf_counter()
     for t in threads:
         t.start()
-    while not server.wait_done(timeout=1.0):
+    while not server.wait_done(timeout=1.0 if tick is None else 0.1):
         check(not errors, f"{label}: {errors}")
         check(time.perf_counter() - t0 < limit_s,
               f"{label}: the federation did not finish in {limit_s:.0f} s")
+        if tick is not None:
+            tick()
     for t in threads:
         t.join(timeout=60)
     check(not errors, f"{label}: {errors}")
@@ -2675,6 +2710,7 @@ def federation_phase(card: str, notes: dict, raw=None) -> list:
         split["push and set"].append(average - _seconds(decode)[i] - _seconds(mean)[i] + push
                                      - _seconds(journal)[i])
     steady = {k: float(np.median(v)) * 1e3 for k, v in split.items()}
+    STEADY_MS["phase 9"] = steady["round"]
     pulled = [r["bytes_pulled"] / C for r in order]
     pushed = [r["bytes_pushed"] / C for r in order]
     print(f"federation steady global step, {card}: median ms over steps 2-{FED_STEPS}: "
@@ -3014,6 +3050,396 @@ def server_planes_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the privacy and observation planes
+# ---------------------------------------------------------------------------
+DP_SIGMA = 0.01  # noise multiplier of phase 11 (std = sigma * clip / n on the aggregate)
+DP_CLIP = 1.0
+DP_DELTA = 1e-5
+OPS_ROUTES = ("/healthz", "/ready", "/metrics", "/status", "/status?full=1", "/status.fleet",
+              "/alerts")
+#: Phase 11(a)'s SLOs: one that holds (the warm polls' p99 latency stays under
+#: ten minutes) and one that fires at the first round's tick (more than one
+#: poll answered fleet-wide).
+SLO_SPECS = [
+    {"name": "poll-p99", "metric": "client_poll_s", "agg": "p99", "op": "<=", "threshold": 600.0},
+    {"name": "one-poll", "metric": "client_polls", "agg": "value", "op": "<=", "threshold": 1.0},
+]
+
+
+def replayed_eps(steps: int) -> list:
+    """The port accountant's epsilon after each of ``steps`` rounds at
+    (DP_SIGMA, DP_DELTA, q=1)."""
+    from gfedntm_tpu_torch.privacy import PrivacyAccountant
+
+    acct = PrivacyAccountant(sigma=DP_SIGMA, delta=DP_DELTA)
+    return [acct.step(q=1.0) for _ in range(steps)]
+
+
+def fetch_routes(port: int) -> dict:
+    """GET every ops route; returns ``{route: (status, body, ms)}``."""
+    import urllib.error
+    import urllib.request
+
+    out = {}
+    for route in OPS_ROUTES:
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as resp:
+                out[route] = (resp.status, resp.read(), (time.perf_counter() - t0) * 1e3)
+        except urllib.error.HTTPError as err:
+            out[route] = (err.code, err.read(), (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def capturing_client():
+    """Phase 9's recorded client that also keeps its ``ClientSanitizer``'s
+    inputs and output and the StepReply of application ``CAPTURE_AT``."""
+    Recorded = recorded_client()
+
+    class Capturing(Recorded):
+        CAPTURE_AT = 3
+
+        def serve_training(self):
+            import numpy as np
+
+            self.captured = {}
+            sanitizer = self._dp_sanitizer
+            apply = sanitizer.apply
+
+            def record(params, reference, round_index):
+                index = sanitizer.applications
+                out = apply(params, reference, round_index)
+                if index == self.CAPTURE_AT:
+                    self.captured.update(
+                        params={k: np.array(v, copy=True) for k, v in params.items()},
+                        reference={k: np.array(v, copy=True) for k, v in reference.items()},
+                        round=round_index, index=index)
+                return out
+
+            sanitizer.apply = record
+            super().serve_training()
+            servicer = self._servicer
+            train_step = servicer._train_step
+
+            def keep_reply(request):
+                reply = train_step(request)
+                if sanitizer.applications == self.CAPTURE_AT + 1 and "reply" not in self.captured:
+                    self.captured["reply"] = reply.SerializeToString()
+                return reply
+
+            servicer._train_step = keep_reply
+
+    return Capturing
+
+
+def dp_federation(card: str, clients_raw, mode: str, label: str, budget: float = 0.0,
+                  planes: bool = False, tick=None, server_cls=None):
+    """One phase-11 federation: a port server (``server_cls``, by default
+    ``FederatedServer``) at the JAX defaults with ``dp=mode`` and two port
+    clients on phase 7(b)'s corpora (client DP when ``mode == "client"``), 8
+    global steps; ``planes`` turns on the quality plane with its guard, the
+    ops endpoint with SLOs, and incident dumps on every node. Returns
+    (server, clients, logs, launches, run_s, base directory)."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    K, B, C = 50, 256, len(clients_raw)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
+    base = SCRATCH / "privacy_ops" / mode
+    shutil.rmtree(base, ignore_errors=True)  # a fresh federation: nothing to recover
+    base.mkdir(parents=True)
+    dp = dict(dp=mode, dp_clip=DP_CLIP, dp_sigma=DP_SIGMA, dp_delta=DP_DELTA, dp_budget=budget,
+              dp_seed=11)
+    extra = {}
+    if planes:
+        ref = base / "quality_ref.txt"
+        ref.write_text("\n".join(d for c in clients_raw for d in c.documents) + "\n")
+        extra = dict(quality_every=1, quality_guard=True, quality_ref=str(ref), ops_port=0,
+                     slo_specs=SLO_SPECS, dump_dir=str(base / "incidents"))
+    server_log = MetricsLogger(node="server", keep_records=True)
+    server = (server_cls or FederatedServer)(
+        min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
+        save_dir=str(base / "server"), metrics=server_log, **dp, **extra)
+    check(server.device.type == "cuda", f"{label}: the server's template is on {server.device}")
+    check(server.update_gate.check_finite and server.guardian is not None
+          and server.aggregation_backend == "auto",
+          f"{label}: the server is not at the JAX server's defaults")
+    address = server.start("127.0.0.1:0")
+    logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True) for c in range(C)]
+    cls = capturing_client() if mode == "client" else recorded_client()
+    client_dp = dict(dp) if mode == "client" else {}
+    clients = [cls(client_id=c + 1, corpus=clients_raw[c], server_address=address,
+                   listen_address="127.0.0.1:0", advertise_host="127.0.0.1", max_features=None,
+                   metrics=logs[c],
+                   dump_dir=str(base / f"client{c + 1}") if planes else None, **client_dp)
+               for c in range(C)]
+    try:
+        fd.reset_launches()
+        run_s = run_clients(clients, server, label, tick=tick)
+        torch.cuda.synchronize()
+        launches = dict(fd.LAUNCHES)
+    finally:
+        server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+    check(server.global_iterations == FED_STEPS,
+          f"{label}: {server.global_iterations} global steps, want {FED_STEPS}")
+    check(server._agg_backend_resolved == "device"
+          and server.update_gate._engine.device.type == "cuda",
+          f"{label}: the aggregation plane is not on the card")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == C * FED_STEPS,
+              f"{label}: {name} launched {launches[name]} times, want {C * FED_STEPS}")
+    for cl in clients:
+        check(cl.stepper.model.device.type == "cuda", f"client {cl.client_id} not on the card")
+        check(all(math.isfinite(loss) for loss in cl.losses), f"{label}: a non-finite loss")
+        check(len(cl.states) == FED_STEPS, f"{label}: client {cl.client_id}: "
+              f"{len(cl.states)} aggregates")
+    for step in range(FED_STEPS):
+        for key, value in clients[0].states[step].items():
+            check(torch.equal(value, clients[1].states[step][key]),
+                  f"{label}: {key} differs across clients after aggregate {step + 1}")
+    check(server_log.registry.counter("divergence_rollbacks").value == 0,
+          f"{label}: the guardian rolled the federation back")
+    ledger = server_log.events("privacy_budget")
+    want = replayed_eps(FED_STEPS)
+    check([r["steps"] for r in ledger] == list(range(1, FED_STEPS + 1))
+          and all(r["q"] == 1.0 and r["mode"] == mode for r in ledger),
+          f"{label}: ledger rows {[(r['steps'], r['q'], r['mode']) for r in ledger]}")
+    check([r["eps"] for r in ledger] == want,
+          f"{label}: ledger eps {[r['eps'] for r in ledger]} vs replayed {want}")
+    first_batch_kernels(label, server._setup_reply, clients[0], kw)
+    rounds = sorted((r for r in server_log.events("span") if r["name"] == "round"),
+                    key=lambda r: r["round"])
+    STEADY_MS[label] = float(np.median([r["seconds"] for r in rounds[1:]])) * 1e3
+    return server, clients, logs, launches, run_s, base
+
+
+def server_dp_phase(card: str, notes: dict, clients_raw):
+    """Phase 11(a): server-mode DP with the quality, ops, fleet, SLO and
+    incident planes on. Returns the server (its engine and last average
+    feed 11(c))."""
+    import numpy as np
+
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+    from gfedntm_tpu_torch.privacy import host_noise_vector
+    from gfedntm_tpu_torch.utils.observability import render_prometheus
+
+    label = "privacy and ops (a)"
+    eps = replayed_eps(FED_STEPS)
+    budget = (eps[3] + eps[4]) / 2  # crossed at the fifth aggregated round
+    times = {k: [] for k in ("noise", "quality step", "contribution stats", "fleet ingest",
+                             "incident capture")}
+    fetched = {}
+    holder = {}
+
+    def tick():
+        server = holder.get("server")
+        if server is not None and not fetched and server.global_iterations >= 3:
+            fetched.update(fetch_routes(server.ops_actual_port))
+
+    class Timed(FederatedServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            holder["server"] = self
+            _timed(self, "_quality_step", times["quality step"])
+            _timed(self, "_observe_contributions", times["contribution stats"])
+            _timed(self.fleet, "ingest_bytes", times["fleet ingest"])
+            _timed(self._incident_trigger, "capture", times["incident capture"])
+            _timed(self._dp_noiser, "_noise_vec", times["noise"])
+
+    server, clients, logs, launches, run_s, base = dp_federation(
+        card, clients_raw, "server", label, budget=budget, planes=True, tick=tick,
+        server_cls=Timed)
+    reg = server.metrics.registry
+    for name in ("stats", "loss", "grads"):
+        notes[name] += f"; phase 11(a) server-mode DP with the planes: {launches[name]} launches"
+    # The noiser: one application per aggregated round, on the card.
+    noise_events = server.metrics.events("dp_noise_applied")
+    check(server._dp_noiser.applications == FED_STEPS and len(noise_events) == FED_STEPS
+          and [r["index"] for r in noise_events] == list(range(FED_STEPS))
+          and all(r["backend"] == "device" for r in noise_events),
+          f"{label}: noiser applications {server._dp_noiser.applications}, events "
+          f"{[(r['index'], r['backend']) for r in noise_events]}")
+    check(server._dp_noiser.device_engine is server.update_gate._engine,
+          f"{label}: the noise is not drawn on the aggregation engine")
+    check(server.update_gate.max_update_norm == DP_CLIP, f"{label}: the gate's clip is not dp_clip")
+    # The quality plane.
+    quality = server.metrics.events("quality_computed")
+    check([r["round"] for r in quality] == list(range(FED_STEPS)),
+          f"{label}: quality rounds {[r['round'] for r in quality]}")
+    check(reg.counter("quality_errors").value == 0,
+          f"{label}: {reg.counter('quality_errors').value} quality errors")
+    check(all(r["npmi"] is not None and -1.0 <= r["npmi"] <= 1.0 for r in quality),
+          f"{label}: NPMI {[r['npmi'] for r in quality]}")
+    # The ops endpoint, fetched during the run.
+    check(sorted(fetched) == sorted(OPS_ROUTES) and all(v[0] == 200 for v in fetched.values()),
+          f"{label}: routes {({k: v[0] for k, v in fetched.items()})}")
+    status = json.loads(fetched["/status"][1])
+    check(status["privacy"] is not None and status["model_quality"] is not None,
+          f"{label}: /status privacy {status['privacy']}, model_quality "
+          f"{status['model_quality'] is not None}")
+    full = json.loads(fetched["/status?full=1"][1])
+    check(sorted(str(c["client_id"]) for c in full["clients"]) == ["1", "2"],
+          f"{label}: /status?full=1 roster {full['clients']}")
+    fleet = json.loads(fetched["/status.fleet"][1])
+    nodes = sorted(n["node"] for n in fleet["top_nodes"])
+    check(nodes == ["client1", "client2", "server"] and status["fleet"]["nodes"] == 3,
+          f"{label}: fleet nodes {nodes}")
+    metrics_text = fetched["/metrics"][1].decode()
+    check("gfedntm_fleet_" in metrics_text and 'node="client1"' in metrics_text,
+          f"{label}: /metrics carries no fleet families")
+    # SLOs: exactly the firing one fired.
+    alerts = {a["alert"]: a for a in server.slo.status()["alerts"]}
+    check(alerts["one-poll"]["ever_fired"] and alerts["one-poll"]["state"] == "firing"
+          and not alerts["poll-p99"]["ever_fired"],
+          f"{label}: alerts {alerts}")
+    # The budget, crossed once; two incidents, each with both clients' rings.
+    exceeded = server.metrics.events("privacy_budget_exceeded")
+    check(len(exceeded) == 1 and exceeded[0]["round"] == 4,
+          f"{label}: privacy_budget_exceeded {exceeded}")
+    incidents = {}
+    for f in (base / "incidents").iterdir():
+        ident, _, node = f.name[len("inc-"):-len(".json")].partition("__")
+        incidents.setdefault(ident, set()).add(node)
+    reasons = sorted(r["reason"] for r in server.metrics.events("incident_captured"))
+    check(reasons == ["privacy_budget", "slo_alert"]
+          and sorted(incidents.values(), key=sorted) == [{"client1", "client2", "server"}] * 2,
+          f"{label}: incidents {reasons}, bundles {incidents}")
+
+    # Each plane's ms per round.
+    ms = {k: [x * 1e3 for x in _seconds(v)] for k, v in times.items()}
+    noise_dim = next(r["dim"] for r in noise_events)
+    host = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        host_noise_vector(noise_dim, 0.005, 11, i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    render_prometheus(reg.snapshot())
+    render_ms = (time.perf_counter() - t0) * 1e3
+    med = {k: float(np.median(v)) if v else float("nan") for k, v in ms.items()}
+    print(f"{label}, {card}: {FED_STEPS} global steps in {run_s:.2f} s; launches "
+          f"{nonzero(launches)}; eps after each round {[round(e, 3) for e in eps]} (budget "
+          f"{budget:.3f}, crossed at round 4); NPMI per round "
+          f"{[round(r['npmi'], 4) for r in quality]}; unhealthy quality rounds "
+          f"{reg.counter('unhealthy_quality_rounds').value:g}; updates clipped to {DP_CLIP} "
+          f"{reg.counter('updates_clipped').value:g}; incidents {reasons}, "
+          f"{sum(len(v) for v in incidents.values())} bundles", flush=True)
+    print(f"{label} ms per round, {card}: noise on the card (D={noise_dim}) median "
+          f"{med['noise']:.3f} (first {ms['noise'][0]:.3f}), host_noise_vector "
+          f"{float(np.median(host)):.3f}; quality step {med['quality step']:.3f} (contribution "
+          f"stats {med['contribution stats']:.3f} of it); fleet ingest per report "
+          f"{med['fleet ingest']:.3f} ({len(ms['fleet ingest'])} reports); /metrics render "
+          f"{render_ms:.3f} (HTTP fetch {fetched['/metrics'][2]:.3f}, "
+          f"{len(fetched['/metrics'][1])} bytes); incident capture "
+          f"{', '.join(f'{x:.3f}' for x in ms['incident capture'])}; routes "
+          + ", ".join(f"{k} {v[2]:.1f}" for k, v in fetched.items()), flush=True)
+    return server
+
+
+def client_dp_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 11(b): client-mode DP on both clients and the server."""
+    import numpy as np
+
+    from gfedntm_tpu_torch.federation import codec
+    from gfedntm_tpu_torch.federation.protos import federated_pb2 as pb
+    from gfedntm_tpu_torch.privacy import ClientSanitizer
+
+    label = "privacy and ops (b)"
+    server, clients, logs, launches, run_s, _base = dp_federation(
+        card, clients_raw, "client", label)
+    for name in ("stats", "loss", "grads"):
+        notes[name] += f"; phase 11(b) client-mode DP: {launches[name]} launches"
+    for cl, log in zip(clients, logs):
+        events = log.events("dp_noise_applied")
+        check([r["index"] for r in events] == list(range(FED_STEPS))
+              and all(r["mode"] == "client" for r in events),
+              f"{label}: client {cl.client_id} noise events {[r['index'] for r in events]}")
+    check(server._dp_noiser is None and server.aggregator.noiser is None
+          and not server.metrics.events("dp_noise_applied"), f"{label}: the server added noise")
+    # A host replay of one captured application: bitwise the wire's tensors.
+    cap = clients[0].captured
+    replay = ClientSanitizer(clients[0].dp, client_id=1)
+    replay.applications = cap["index"]
+    t0 = time.perf_counter()
+    want = replay.apply(cap["params"], cap["reference"], cap["round"])
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    wire = codec.bundle_to_flatdict(pb.StepReply.FromString(cap["reply"]).shared)
+    check(sorted(wire) == sorted(want) and all(
+        np.asarray(want[k]).dtype == wire[k].dtype
+        and np.asarray(want[k]).tobytes() == wire[k].tobytes() for k in want),
+          f"{label}: the replayed sanitizer differs from the wire")
+    norms = [r["norm"] for r in logs[0].events("dp_noise_applied")]
+    print(f"{label}, {card}: {FED_STEPS} global steps in {run_s:.2f} s; launches "
+          f"{nonzero(launches)}; client update norms before the clip {[round(n, 3) for n in norms]}"
+          f"; one application replayed on the host in {replay_ms:.1f} ms, bitwise the wire's "
+          f"{len(wire)} tensors; server ledger at q=1 {server.privacy_accountant.steps} steps",
+          flush=True)
+
+
+def device_noise_phase(card: str, server) -> None:
+    """Phase 11(c): the device noise at phase 10(a)'s plane (D = 10,052,752)
+    on 11(a)'s engine."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federation.device_agg import FlatPlane
+    from gfedntm_tpu_torch.privacy import host_noise_vector
+
+    label = "privacy and ops (c)"
+    engine = server.update_gate._engine
+    avg = server.last_average
+    plane = FlatPlane({k: v for k, v in avg.items() if np.asarray(v).dtype == np.float32})
+    check(plane.dim == 10_052_752, f"{label}: D={plane.dim}")
+    std = 0.25
+
+    def draw(index):
+        t0 = time.perf_counter()
+        vec = engine.noise_vector(plane, std=std, seed=11, index=index)
+        torch.cuda.synchronize()
+        return vec, (time.perf_counter() - t0) * 1e3
+
+    a, ms_a = draw(5)
+    b, ms_b = draw(5)
+    c, ms_c = draw(6)
+    check(a.dtype == np.float32 and a.shape == (plane.dim,), f"{label}: {a.dtype} {a.shape}")
+    check(np.array_equal(a, b), f"{label}: two draws at (seed, index) differ")
+    a64, c64 = a.astype(np.float64), c.astype(np.float64)
+    corr = float(np.corrcoef(a64, c64)[0, 1])
+    mean, sd = float(a64.mean()), float(a64.std())
+    check(abs(corr) < 2e-3, f"{label}: corr(index, index+1) = {corr:.3e}")
+    check(abs(mean) < 2e-3 * std, f"{label}: mean {mean:.3e} vs std {std}")
+    check(abs(sd / std - 1.0) < 1e-3, f"{label}: std {sd:.6f} vs {std}")
+    t0 = time.perf_counter()
+    host_noise_vector(plane.dim, std, 11, 5)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{label}, {card}: D={plane.dim}, std {std}: draws bitwise equal per (seed, index); "
+          f"corr(index 5, 6) {corr:.3e}, mean {mean:.3e} ({mean / std:.3e} std), std "
+          f"{sd:.6f} ({sd / std - 1:.3e} relative); ms on the card with the copy back "
+          f"{ms_a:.3f}, {ms_b:.3f}, {ms_c:.3f} vs host_noise_vector {host_ms:.3f}", flush=True)
+
+
+def privacy_ops_phase(card: str, notes: dict, raw=None) -> None:
+    """Phase 11: (a) server-mode DP with every observation plane on, (b)
+    client-mode DP, (c) the device noise at full width."""
+    t_phase = time.perf_counter()
+    clients_raw = (raw or raw_text_corpora(card))[0]
+    server = server_dp_phase(card, notes, clients_raw)
+    client_dp_phase(card, notes, clients_raw)
+    device_noise_phase(card, server)
+    p9 = STEADY_MS.get("phase 9")
+    print(f"privacy and ops ms per global step (median over steps 2-{FED_STEPS}), {card}: "
+          f"(a) {STEADY_MS['privacy and ops (a)']:.3f}, (b) {STEADY_MS['privacy and ops (b)']:.3f}"
+          f"; phase 9 " + (f"{p9:.3f}" if p9 is not None else "not run in this call"), flush=True)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -3021,18 +3447,20 @@ def main(argv: list[str]) -> int:
     ctm_only = "--ctm-only" in argv
     fed_only = "--federation-only" in argv
     planes_only = "--server-planes-only" in argv
+    privacy_only = "--privacy-ops-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
-                                         "--server-planes-only")]
+                                         "--server-planes-only", "--privacy-ops-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    only = dp_only or p7_only or ctm_only or fed_only or planes_only
+    only = dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
     if (not usage_ok
-            or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only > 1
+            or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
+            + privacy_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
-              "--phase-7-only | --ctm-only | --federation-only | --server-planes-only]",
-              file=sys.stderr)
+              "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
+              "--privacy-ops-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3075,6 +3503,9 @@ def main(argv: list[str]) -> int:
         if planes_only:
             server_planes_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if privacy_only:
+            privacy_ops_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
@@ -3085,6 +3516,7 @@ def main(argv: list[str]) -> int:
             ctm_phase(card, notes, raw, datasets)
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
+            privacy_ops_phase(card, notes, raw)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -1,8 +1,11 @@
 """Synthetic LDA corpus generator (vectorized, seedable).
 
 A copy of ``gfedntm_tpu/data/synthetic.py`` (``SyntheticNode``,
-``SyntheticCorpus``, ``generate_synthetic_corpus``), kept here so the port
-never imports the JAX package; for the same seed it draws the same corpus.
+``SyntheticCorpus``, ``generate_synthetic_corpus``, and
+``load_reference_npz`` with its ``_bow_from_wd_docs``, the reader of a
+reference-format archive that the quality monitor's ``quality_ref``
+takes), kept here so the port never imports the JAX package; for the same
+seed it draws the same corpus.
 
 Documents are drawn from a known LDA generative model so ground-truth
 topic-word (``topic_vectors``) and doc-topic (``doc_topics``) distributions
@@ -108,3 +111,42 @@ def generate_synthetic_corpus(
     return SyntheticCorpus(
         topic_vectors=topic_vectors, nodes=nodes, vocab_tokens=vocab_tokens
     )
+
+
+def load_reference_npz(path: str) -> SyntheticCorpus:
+    """Load a reference-format synthetic archive (single- or multi-node):
+    keys ``topic_vectors``, ``doc_topics``, ``documents``
+    (``main.py:138-146`` reads the same keys)."""
+    with np.load(path, allow_pickle=True) as z:
+        topic_vectors = z["topic_vectors"]
+        docs = z["documents"]
+        doc_topics = z["doc_topics"]
+        vocab_size = int(z["vocab_size"]) if "vocab_size" in z else topic_vectors.shape[1]
+    if docs.ndim == 1 and isinstance(docs[0], str):  # single node
+        docs = docs[None, :]
+        doc_topics = doc_topics[None, ...]
+    nodes = []
+    for i in range(len(docs)):
+        node_docs = [
+            d if isinstance(d, str) else " ".join(d) for d in list(docs[i])
+        ]
+        nodes.append(
+            SyntheticNode(
+                bow=_bow_from_wd_docs(node_docs, vocab_size),
+                documents=node_docs,
+                doc_topics=np.asarray(doc_topics[i]),
+            )
+        )
+    return SyntheticCorpus(
+        topic_vectors=topic_vectors,
+        nodes=nodes,
+        vocab_tokens=tuple(f"wd{i}" for i in range(vocab_size)),
+    )
+
+
+def _bow_from_wd_docs(docs: list[str], vocab_size: int) -> np.ndarray:
+    bow = np.zeros((len(docs), vocab_size), dtype=np.float32)
+    for i, doc in enumerate(docs):
+        for tok in doc.split():
+            bow[i, int(tok[2:])] += 1
+    return bow

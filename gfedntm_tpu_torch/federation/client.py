@@ -26,11 +26,21 @@ codec negotiation, the liveness watchdog with its reconnect loop, and
 finalization on the stop broadcast. Unlike the JAX client, a reconnect
 holds the servicer's lock from its ready to the codec reset a recovered
 server orders, so the recovered server's first poll cannot be answered with
-a delta against a broadcast it never held. Not ported yet, and raising
-``NotImplementedError`` (ROADMAP queue 1): a multi-device local step
-(``mesh_devices > 1``), re-homing to ``failover_addrs`` (the relay tier's
-counterpart), client-side differential privacy (``dp``), the device
-profiler (``profiler``), incident dumps (``dump_dir``) and push pacing.
+a delta against a broadcast it never held.
+
+Client-side differential privacy (``dp="client"``): a
+:class:`~gfedntm_tpu_torch.privacy.mechanisms.ClientSanitizer` clips each
+outgoing snapshot's delta from the last applied aggregate (the replicated
+init before the first) and adds seeded noise before it is encoded, so only
+the sanitized update leaves the client. Incident dumps (``dump_dir``): a
+flight recorder on the client's logger, a local incident trigger, and the
+answer to a server's capture token (the client's ring, once per token, on
+the poll's reply).
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1): a
+multi-device local step (``mesh_devices > 1``), re-homing to
+``failover_addrs`` (the relay tier's counterpart), the device profiler
+(``profiler``) and push pacing.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from gfedntm_tpu_torch.federation.server import (
     model_opt_state,
     model_variables,
 )
+from gfedntm_tpu_torch.privacy.mechanisms import ClientSanitizer, parse_dp
 from gfedntm_tpu_torch.utils import flightrec, observability
 from gfedntm_tpu_torch.utils.observability import span
 
@@ -100,15 +111,22 @@ class FederatedClientServicer:
 
     ``metrics`` (optional MetricsLogger) feeds codec byte/latency telemetry
     and a per-poll counter, and ships a delta-encoded telemetry report on
-    every reply; the wrapped stepper carries its own step-time histogram."""
+    every reply; the wrapped stepper carries its own step-time histogram.
+    ``sanitizer`` (a ``ClientSanitizer``) clips and noises each outgoing
+    snapshot against the last applied aggregate."""
 
     def __init__(self, client_id: int, stepper: FederatedStepper,
                  on_stop, logger: logging.Logger, metrics=None,
                  on_activity=None, on_done=None, on_local_steps=None,
                  uplink: UplinkEncoder | None = None,
-                 downlink: DownlinkDecoder | None = None):
+                 downlink: DownlinkDecoder | None = None,
+                 sanitizer: ClientSanitizer | None = None):
         self.client_id = client_id
         self.stepper = stepper
+        # Client-mode DP: the clip and noise reference is the replicated
+        # init until the first aggregate, then the last one applied.
+        self.sanitizer = sanitizer
+        self._dp_reference: dict[str, np.ndarray] | None = None  # guarded-by: _lock
         self.on_stop = on_stop
         self.logger = logger
         self.metrics = metrics
@@ -141,6 +159,9 @@ class FederatedClientServicer:
             )
             if metrics is not None else None
         )
+        # The last capture token answered: one flight-record snapshot per
+        # incident, however many polls the token rides.
+        self._last_capture_token = ""  # guarded-by: _lock
 
     def TrainStep(self, request: pb.StepRequest, context) -> pb.StepReply:
         """The round's local step(s); reply with the post-step shared
@@ -175,6 +196,13 @@ class FederatedClientServicer:
                 return self._last_step_reply
             requested = max(1, int(request.local_steps or 1))
             self.on_local_steps(requested)
+            if self.sanitizer is not None and self._dp_reference is None:
+                # Before any broadcast the reference is the replicated init,
+                # read before a local step changes it.
+                self._dp_reference = {
+                    k: np.array(v, copy=True)
+                    for k, v in self.stepper.get_gradients().items()
+                }
             # Truncate the round to the remaining epoch budget so the
             # exchanged step is always the final scheduled one; never
             # train past num_epochs.
@@ -198,6 +226,12 @@ class FederatedClientServicer:
                 round=int(request.global_iter), seq=seq, steps=n_run,
                 loss=float(losses[-1]), samples=nr_samples,
             )
+            if self.sanitizer is not None:
+                # DP-SGD at the source: from here on only the sanitized
+                # update exists (codec, wire, server).
+                snapshot = self.sanitizer.apply(
+                    snapshot, self._dp_reference, self._applied_round + 1,
+                )
             if self.uplink is not None:
                 shared = self.uplink.encode(snapshot)
             else:
@@ -217,6 +251,15 @@ class FederatedClientServicer:
             )
             if self.shipper is not None:
                 reply.telemetry = self.shipper.build()
+            tok = request.capture_token
+            if tok and tok != self._last_capture_token:
+                # A solicited flight-record snapshot, once per token
+                # (best-effort: a lost reply drops it, and the token rides
+                # the next poll).
+                blob = flightrec.build_remote_snapshot(self.metrics, tok)
+                if blob is not None:
+                    reply.flightrec = blob
+                    self._last_capture_token = tok
             if seq:
                 self._last_step_seq = seq
                 self._last_step_reply = reply
@@ -301,6 +344,14 @@ class FederatedClientServicer:
                     request.shared, metrics=self.metrics
                 )
             self._applied_round = int(request.round)
+            if self.sanitizer is not None:
+                # The applied aggregate is the next round's reference (merged:
+                # a partial push must not orphan keys the previous one had).
+                ref = dict(self._dp_reference or {})
+                ref.update(
+                    (k, np.array(v, copy=True)) for k, v in average.items()
+                )
+                self._dp_reference = ref
             status = self.stepper.delta_update_fit(average)
             if status.epoch_ended:
                 self.logger.info(
@@ -341,18 +392,51 @@ class Client:
         mesh_devices: int = 0,
         failover_addrs: "tuple[str, ...] | list[str]" = (),
         dp: str = "off",
+        dp_clip: float = 1.0,
+        dp_sigma: float = 0.0,
+        dp_delta: float = 1e-5,
+        dp_budget: float = 0.0,
+        dp_seed: int = 0,
         dump_dir: str | None = None,
+        flightrec_entries: int = 2048,
+        flightrec_seconds: float = 300.0,
         device=None,
     ):
         if client_id <= 0:
             raise ValueError("client ids start at 1 (0 is the server)")
         for name, value, off in (("mesh_devices", int(mesh_devices) > 1, False),
                                  ("failover_addrs", bool(failover_addrs), False),
-                                 ("dp", dp, "off"), ("profiler", profiler, None),
-                                 ("dump_dir", dump_dir, None)):
+                                 ("profiler", profiler, None)):
             if value != off:
                 raise NotImplementedError(
                     f"Client({name}=...): not ported yet (ROADMAP queue 1)")
+        # Local DP: dp="client" sanitizes every outgoing snapshot; "server"
+        # is the server's mechanism (parsed here only to validate it);
+        # "off" constructs nothing.
+        self.dp = parse_dp(
+            dp, clip=dp_clip, sigma=dp_sigma, delta=dp_delta,
+            budget=dp_budget, seed=dp_seed,
+        )
+        self._dp_sanitizer = (
+            ClientSanitizer(self.dp, client_id=client_id, metrics=metrics)
+            if self.dp.mode == "client" else None
+        )
+        # Incident dumps: a flight recorder on the logger and a local
+        # trigger, which also lets the client answer a server's capture
+        # token. No dump_dir constructs nothing.
+        self.dump_dir = dump_dir
+        self._incident_trigger = None
+        if dump_dir is not None and metrics is not None:
+            recorder = flightrec.FlightRecorder(
+                max_entries=flightrec_entries,
+                max_seconds=flightrec_seconds,
+                registry=metrics.registry,
+            )
+            metrics.recorder = recorder
+            self._incident_trigger = flightrec.IncidentTrigger(
+                recorder, dump_dir, metrics=metrics,
+                node=metrics.node or f"client{client_id}",
+            )
         self.device = resolve_device(device)
         self.client_id = client_id
         self.corpus = corpus
@@ -738,6 +822,7 @@ class Client:
             metrics=self.metrics, on_activity=self._rpc_begin,
             on_done=self._rpc_end, on_local_steps=self._note_local_steps,
             uplink=self._uplink, downlink=self._downlink,
+            sanitizer=self._dp_sanitizer,
         )
         self._servicer = servicer
         self._grpc_server = rpc.make_server(max_workers=4)

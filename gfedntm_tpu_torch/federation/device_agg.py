@@ -47,8 +47,14 @@ numpy implementations in :mod:`gfedntm_tpu_torch.federated.aggregation` and
 - Every admission decision is the numpy gate's; non-float32 leaves keep
   the numpy expressions (:func:`_non_f32_weighted_mean`).
 
-DP noise generation (:meth:`DeviceAggEngine.noise_vector`) waits for the
-privacy plane and raises.
+DP noise (:meth:`DeviceAggEngine.noise_vector`, the server-mode
+``ServerNoiser``'s device path) is drawn on the engine's device from an
+explicit Philox ``torch.Generator`` seeded per ``(seed, index)``, never
+from ambient RNG state. As in the JAX engine (a jitted ``jax.random``
+program there, no Pallas kernel) the draw is exactly reproducible per
+``(seed, index)``, zero-mean Gaussian at the requested std, and
+deliberately not bitwise equal to the numpy oracle
+(:func:`~gfedntm_tpu_torch.privacy.mechanisms.host_noise_vector`).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import torch
 from gfedntm_tpu_torch.device import resolve_device
 
 __all__ = [
+    "noise_seed",
     "FlatPlane",
     "StackedRound",
     "DeviceAggEngine",
@@ -169,6 +176,15 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def noise_seed(seed: int, index: int) -> int:
+    """The 64-bit Philox seed of DP noise application ``index`` under
+    mechanism ``seed``: the first word of
+    ``np.random.SeedSequence((seed, index))``'s state, so every pair maps
+    to a well-mixed, distinct seed."""
+    state = np.random.SeedSequence((int(seed), int(index))).generate_state(1, np.uint64)
+    return int(state[0])
+
+
 class DeviceAggEngine:
     """The aggregation data plane's programs on one device (``None`` is the
     GPU, which must be present; the tests pass ``"cpu"``). Stateless
@@ -259,9 +275,16 @@ class DeviceAggEngine:
     # ---- DP noise ------------------------------------------------------
     def noise_vector(self, plane: FlatPlane, *, std: float, seed: int,
                      index: int) -> np.ndarray:
-        raise NotImplementedError(
-            "device DP noise waits for the privacy plane, which is not ported yet "
-            "(ROADMAP queue 1); the port's server runs dp='off'")
+        """``[plane.dim]`` float32 standard-normal draws times ``std``,
+        made on the engine's device and returned to the host. The generator
+        is seeded by :func:`noise_seed` of ``(seed, index)``: the same pair
+        gives the same draws on the same device, and neighbouring indices
+        give independent streams."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(noise_seed(seed, index))
+        draws = torch.randn(plane.dim, generator=gen, dtype=torch.float32,
+                            device=self.device)
+        return _host(draws.mul_(float(np.float32(std))))
 
     def contribution_stats(
         self, stacked: StackedRound, avg: Mapping[str, Any]

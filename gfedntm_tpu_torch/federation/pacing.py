@@ -11,27 +11,27 @@ server's round *control plane*:
   delta-reference bookkeeping;
 - :class:`SyncEngine` is the all-clients barrier of the JAX engine, line
   for line where the port has the plane it drives: poll every eligible
-  client concurrently, quorum over the full unfinished membership, the
-  update gate and the configured strategy over the admitted replies, the
-  divergence guardian's verdict (and its rollback swap), push to every
-  replier, journal the pushed round, and checkpoint every
+  client concurrently (each poll carrying the incident trigger's capture
+  token, each reply's solicited flight record taken in), quorum over the
+  full unfinished membership, the update gate and the configured strategy
+  over the admitted replies, the divergence guardian's verdict (and its
+  rollback swap), the model-quality step, push to every replier, journal
+  the pushed round, the fleet, SLO and privacy tick, and checkpoint every
   ``checkpoint_every`` rounds while the guardian is healthy, and once at
-  the end (JAX ``pacing.py:441-589``, ``:690-791``).
+  the end (JAX ``pacing.py:396-589``, ``:690-791``).
 
 What the port's server does not have yet is left out of the loop: the
-quality plane (the quality step of the JAX ``_guard_quality``), fleet
-telemetry and the privacy ledger (``_fleet_tick``), the device profiler
-window, incident capture tokens and relay shard supervision
-(``relay_grace_rounds``). The server refuses every option that would need
-them, so the loop here is the JAX loop with each of those planes switched
-off. ``cohort``, ``async`` and ``push`` pacing parse, and
-:func:`make_engine` raises ``NotImplementedError`` for them (ROADMAP
-queue 1).
+device profiler window and relay shard supervision
+(``relay_grace_rounds``). The server refuses the options that would need
+them, so the loop here is the JAX loop with those switched off. ``cohort``,
+``async`` and ``push`` pacing parse, and :func:`make_engine` raises
+``NotImplementedError`` for them (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -179,6 +179,9 @@ class RoundEngine:
     def __init__(self, server: "FederatedServer", spec: PacingSpec):
         self.server = server
         self.spec = spec
+        # The last polled roster, read by the ops thread's /status.
+        self._lock = threading.Lock()
+        self._last_cohort: tuple[int, ...] = ()
 
     def pool_workers(self, poll_workers: int) -> int:
         """Bound the persistent poll executor to the configured width."""
@@ -202,6 +205,23 @@ class RoundEngine:
         mine = ewmas.get(rec.client_id, max(ewmas.values()))
         derived = POLL_DEADLINE_MARGIN_S + POLL_DEADLINE_HEADROOM * mine
         return min(base, max(POLL_DEADLINE_FLOOR_S, derived))
+
+    def inclusion_q(self) -> float:
+        """Per-round client inclusion probability, the q the privacy ledger
+        credits: sync pacing polls everyone, so 1.0 (no amplification)."""
+        return 1.0
+
+    def status(self) -> "dict[str, Any]":
+        with self._lock:
+            return {
+                "policy": self.spec.spec_id,
+                "staleness_alpha": self.spec.staleness_alpha,
+                "last_cohort": list(self._last_cohort),
+            }
+
+    def _note_cohort(self, cohort) -> None:
+        with self._lock:
+            self._last_cohort = tuple(rec.client_id for rec in cohort)
 
     def _poll_one(self, stubs: dict, rec, iteration: int, rpc_kwargs: dict):
         """Poll one client for its round step; failures feed the
@@ -229,10 +249,14 @@ class RoundEngine:
                     local_steps=s.local_steps,
                     broadcast_round=s.global_iterations,
                     seq=s._next_step_seq(),
+                    capture_token=s.flightrec_token(),
                 ),
                 timeout=deadline,
                 **rpc_kwargs,
             )
+            if reply.flightrec and s._incident_trigger is not None:
+                # A solicited flight-record snapshot rides the reply.
+                s._incident_trigger.ingest_remote(reply.flightrec)
             return rec, reply, time.perf_counter() - t0
         except Exception as exc:
             s._note_client_failure(rec, addr, iteration, exc, "TrainStep")
@@ -240,11 +264,11 @@ class RoundEngine:
 
     # ---- the guardian/encode tail -----------------------------------------
     def _guard_quality(self, iteration: int, snapshots, average):
-        """Divergence guardian verdict (and rollback swap); returns the
-        (possibly restored) average to install. The JAX engine's
-        model-quality step follows here; the port's server has no quality
-        plane (``quality_every`` must be 0), so it is the identity."""
+        """Divergence guardian verdict (and rollback swap), then the
+        model-quality step; returns the (possibly restored) average to
+        install."""
         s = self.server
+        accepted_average = average
         if s.guardian is not None:
             verdict = s.guardian.observe(
                 iteration,
@@ -256,12 +280,14 @@ class RoundEngine:
                 restored = s._divergence_rollback(iteration, verdict)
                 if restored is not None:
                     average = restored
-        return average
+        return s._quality_step(
+            iteration, snapshots, average, accepted_average
+        )
 
     def _guard_quality_encode(
         self, iteration: int, snapshots, average, replies
     ):
-        """Guardian tail + the ``last_average`` install + the
+        """Guardian and quality tail + the ``last_average`` install + the
         per-recipient wire-codec push encode."""
         s = self.server
         average = self._guard_quality(iteration, snapshots, average)
@@ -410,6 +436,7 @@ class SyncEngine(RoundEngine):
                     break
 
             cohort = active
+            self._note_cohort(cohort)
 
             with span(m, "round", round=iteration) as round_sp:
                 # Trace metadata for this round's polls/pushes — built once
@@ -493,6 +520,7 @@ class SyncEngine(RoundEngine):
                         bytes_pushed=self.push_bytes(aggs, replies)
                     )
             s.global_iterations = iteration + 1
+            s._fleet_tick(iteration)
             self._maybe_checkpoint(iteration)
             if m is not None and iteration % 50 == 0:
                 m.snapshot_registry(rounds=iteration + 1)

@@ -36,13 +36,28 @@ planes behind them:
 - the round journal (every pushed round) and the round checkpoints, with
   crash autorecovery (:meth:`FederatedServer.maybe_autorecover`): the
   journal is the JAX package's format, so either package's server recovers
-  from the other's journal.
+  from the other's journal;
+- differential privacy (``dp="server"``: FedLD noise on the aggregate,
+  drawn on the engine's device under the device backend, and the gate's
+  clip tightened to ``dp_clip``; ``dp="client"``: the ledger of the
+  clients' own mechanism) with its (ε, δ) ledger, which rides the journal
+  and the checkpoints so a recovered run resumes it
+  (:mod:`gfedntm_tpu_torch.privacy`);
+- the model-quality plane: the topic-quality monitor with its coherence
+  guard routed through the rollback, and the per-client contribution
+  tracker (:mod:`gfedntm_tpu_torch.eval.monitor`);
+- the ops endpoint (``/healthz``, ``/ready``, ``/metrics``, ``/status``,
+  ``/status.fleet``, ``/alerts``), the fleet telemetry the clients
+  piggyback on their replies and readies, and the SLO engine, ticked once
+  per aggregated round (:mod:`gfedntm_tpu_torch.utils.slo`);
+- incident dumps (``dump_dir``): a flight recorder on the logger and an
+  incident trigger whose captures solicit the clients' rings through the
+  next poll's capture token.
 
-The JAX server's remaining planes are not ported yet, and asking for one
-raises ``NotImplementedError`` (ROADMAP queue 1): differential privacy,
-the quality monitor and contribution tracker, the ops endpoint, SLOs, the
-device profiler, incident dumps, relay supervision, and cohort, async and
-push pacing. Their defaults are off, so every JAX default is accepted.
+The JAX server's remaining options are not ported yet, and asking for one
+raises ``NotImplementedError`` (ROADMAP queue 1): the device profiler,
+relay supervision, and cohort, async and push pacing. Their defaults are
+off, so every JAX default is accepted.
 """
 
 from __future__ import annotations
@@ -65,7 +80,13 @@ import torch
 from gfedntm_tpu_torch import interop
 from gfedntm_tpu_torch.data.vocab import Vocabulary, union_vocabularies
 from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.federated.aggregation import make_aggregator
+from gfedntm_tpu_torch.eval.monitor import (
+    COHERENCE_COLLAPSE,
+    ContributionTracker,
+    TopicQualityMonitor,
+    load_reference_corpus,
+)
+from gfedntm_tpu_torch.federated.aggregation import contribution_stats, make_aggregator
 from gfedntm_tpu_torch.federated.stepper import FederatedStepper
 from gfedntm_tpu_torch.federation import codec, pacing, rpc
 from gfedntm_tpu_torch.federation.compression import (
@@ -86,13 +107,27 @@ from gfedntm_tpu_torch.federation.sanitize import UpdateGate, decode_and_admit
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.ctm import CTM
 from gfedntm_tpu_torch.models.params import SHARE_ALL
+from gfedntm_tpu_torch.privacy import PrivacyAccountant, ServerNoiser, parse_dp
 from gfedntm_tpu_torch.train.checkpoint import (
     CheckpointIntegrityError,
     FederationCheckpointer,
     RoundJournal,
 )
 from gfedntm_tpu_torch.train.guardian import DivergenceGuardian
-from gfedntm_tpu_torch.utils.observability import StragglerDetector, new_trace_id
+from gfedntm_tpu_torch.utils import flightrec
+from gfedntm_tpu_torch.utils.slo import SLOEngine
+from gfedntm_tpu_torch.utils.observability import (
+    FleetRegistry,
+    OpsServer,
+    StragglerDetector,
+    new_trace_id,
+)
+
+#: Additive NPMI slack the coherence-collapse guard gets under any DP mode
+#: (the JAX server's ``DP_GUARD_NOISE_FLOOR``): per-round noise jitter must
+#: not read as decay, while a genuine collapse (a drop of several tenths)
+#: still fires. ``quality_monitor_kwargs={"noise_floor": ...}`` overrides it.
+DP_GUARD_NOISE_FLOOR = 0.05
 
 
 def build_template_model(
@@ -131,9 +166,7 @@ def model_opt_state(model: AVITM):
 #: ``NotImplementedError``.
 _QUEUED_OPTIONS = {
     "pacing_policy": ("sync",), "cohort_size": (None,), "async_buffer": (None,),
-    "ops_port": (None,), "profiler": (None,), "quality_every": (0,),
-    "quality_guard": (False,), "relay_grace_rounds": (0,), "slo_specs": (None,),
-    "dp": ("off",), "dump_dir": (None,),
+    "relay_grace_rounds": (0,), "profiler": (None,),
 }
 
 
@@ -147,6 +180,11 @@ class FederatedServer:
     for the template model and the aggregation plane. The options of
     planes that are not ported yet (see the module docstring) are accepted
     only at their off values.
+
+    The privacy (``dp*``), quality (``quality_*``), ops and fleet
+    (``ops_port``, ``ops_host``, ``slo_specs``, ``fleet_max_*``) and
+    incident (``dump_dir``, ``flightrec_*``) options are the JAX server's;
+    each plane constructs nothing while its option is off.
 
     ``metrics`` is an optional
     :class:`~gfedntm_tpu_torch.utils.observability.MetricsLogger`: each
@@ -184,9 +222,31 @@ class FederatedServer:
         divergence_loss_factor: float = 4.0,
         wire_codec: str = "none",
         codec_ref_cache: int = 8,
+        ops_port: int | None = None,
+        ops_host: str = "127.0.0.1",
         straggler_z: float = 2.0,
+        quality_every: int = 0,
+        quality_ref: str | None = None,
+        quality_topn: int = 10,
+        quality_guard: bool = False,
+        quality_history: int = 64,
+        quality_monitor_kwargs: dict[str, Any] | None = None,
         journal_every: int = 1,
         reconnect_grace_s: float = 120.0,
+        slo_specs=None,
+        fleet_max_nodes: int = 512,
+        fleet_max_series: int = 512,
+        dp: str = "off",
+        dp_clip: float = 1.0,
+        dp_sigma: float = 0.0,
+        dp_delta: float = 1e-5,
+        dp_budget: float = 0.0,
+        dp_seed: int = 0,
+        dump_dir: str | None = None,
+        flightrec_entries: int = 2048,
+        flightrec_seconds: float = 300.0,
+        flightrec_debounce_s: float = 30.0,
+        flightrec_max_bundles: int = 32,
         device: str | torch.device | None = None,
         **queued: Any,
     ):
@@ -266,6 +326,37 @@ class FederatedServer:
             )
             if divergence_patience > 0 else None
         )
+        # Privacy plane: dp="off" constructs nothing. "server" adds FedLD
+        # noise to the aggregate after the mean stage and tightens the
+        # gate's clip to dp_clip (the sensitivity the noise is calibrated
+        # to); "client" expects the clients to sanitize and runs only the
+        # ledger, charged at q = 1 with the declared parameters.
+        self.dp = parse_dp(
+            dp, clip=dp_clip, sigma=dp_sigma, delta=dp_delta,
+            budget=dp_budget, seed=dp_seed,
+        )
+        self.privacy_accountant = None
+        self._dp_noiser = None
+        if self.dp.enabled:
+            self.privacy_accountant = PrivacyAccountant(
+                sigma=self.dp.sigma, delta=self.dp.delta,
+                budget=self.dp.budget, mode=self.dp.mode,
+            )
+            if self.dp.mode == "server":
+                self._dp_noiser = ServerNoiser(self.dp, metrics=metrics)
+                self.aggregator.noiser = self._dp_noiser
+                if sanitize:
+                    gate = self.update_gate
+                    gate.max_update_norm = (
+                        self.dp.clip if gate.max_update_norm is None
+                        else min(gate.max_update_norm, self.dp.clip)
+                    )
+                else:
+                    self.logger.warning(
+                        "dp='server' with sanitize off: the admission gate "
+                        "is not enforcing the DP clip, so the declared "
+                        "sensitivity bound rests on clients clipping honestly",
+                    )
         # Wire codec, negotiated with every client at join time: the
         # GlobalSetup advertises this id, ReadyForTraining verifies the
         # client runs the same one (mismatch = Ack code 2).
@@ -312,6 +403,7 @@ class FederatedServer:
         # Set by the first journal write that fails with an OSError:
         # training continues, journaling (and autorecovery) is off.
         self._journal_disabled = False
+        self._recovered_from: int | None = None
         self._recovered_source: str | None = None
         # Monotonic time of the autorecovery restore, read by the
         # recovery_time_s gauge when the post-recovery quorum re-forms.
@@ -327,9 +419,69 @@ class FederatedServer:
         # Clients whose first poll (which builds the kernels) has been seen.
         self._poll_warmed: set[int] = set()
         self.trace_id: str | None = None
+        # Ops endpoint (port 0 binds an ephemeral port, None starts no
+        # thread): /healthz, /ready, /metrics, /status, /status.fleet and,
+        # with SLOs, /alerts.
+        self.ops_port = ops_port
+        self.ops_host = ops_host
+        self.ops_actual_port: int | None = None
+        self._ops_server: OpsServer | None = None
         self.straggler = StragglerDetector(
             registry=metrics.registry if metrics is not None else None,
             z_threshold=straggler_z,
+        )
+        # Fleet telemetry: the clients' registry reports ride their replies
+        # and readies; the SLO engine is ticked once per aggregated round
+        # (_fleet_tick), so no thread and no extra round trip.
+        self.fleet = FleetRegistry(
+            metrics=metrics, max_nodes=fleet_max_nodes,
+            max_series_per_node=fleet_max_series,
+        )
+        if slo_specs:
+            self.slo = SLOEngine(
+                slo_specs, snapshot_fn=self.fleet.merged, metrics=metrics,
+            )
+        else:
+            self.slo = None
+        # Incident dumps: with a dump_dir (and a logger), a flight recorder
+        # rings every logger record and the trigger writes a bundle when a
+        # detector fires, then solicits the clients' rings through the
+        # capture token of the next poll. No dump_dir constructs nothing.
+        self.dump_dir = dump_dir
+        self._incident_trigger: "flightrec.IncidentTrigger | None" = None
+        self._flightrec_solicit: "tuple[str, float] | None" = None
+        if dump_dir is not None and metrics is not None:
+            recorder = flightrec.FlightRecorder(
+                max_entries=flightrec_entries,
+                max_seconds=flightrec_seconds,
+                registry=metrics.registry,
+            )
+            metrics.recorder = recorder
+            self._incident_trigger = flightrec.IncidentTrigger(
+                recorder, dump_dir, metrics=metrics,
+                node=metrics.node or "server",
+                status_cb=lambda: self._status(full=False),
+                debounce_s=flightrec_debounce_s,
+                max_bundles=flightrec_max_bundles,
+                on_capture=self._solicit_flightrec,
+            )
+        # Model-quality plane: with quality_every > 0, each quality round
+        # scores the global beta's topics (NPMI against quality_ref,
+        # diversity, drift) and every averaged round feeds the contribution
+        # tracker; 0 constructs no monitor and runs nothing.
+        if quality_every < 0:
+            raise ValueError(
+                f"quality_every must be >= 0, got {quality_every}"
+            )
+        self.quality_every = int(quality_every)
+        self.quality_ref = quality_ref
+        self.quality_topn = int(quality_topn)
+        self.quality_guard = bool(quality_guard)
+        self.quality_history = int(quality_history)
+        self.quality_monitor_kwargs = dict(quality_monitor_kwargs or {})
+        self._quality_mon = None
+        self.contributions = ContributionTracker(
+            registry=metrics.registry if metrics is not None else None
         )
         self.federation = Federation(min_clients=min_clients)
         self.template: AVITM | None = None
@@ -352,6 +504,7 @@ class FederatedServer:
         self._aborted = threading.Event()
         self.training_done = threading.Event()
         self._grpc_server = None
+        self._engine: pacing.RoundEngine | None = None
         self._template_shared: dict[str, np.ndarray] | None = None
         self._expected_keys: frozenset[str] | None = None
         self._ckpt: FederationCheckpointer | None = None
@@ -375,6 +528,26 @@ class FederatedServer:
         port = self._grpc_server.add_insecure_port(address)
         self._grpc_server.start()
         self.logger.info("federation server listening on port %d", port)
+        if self.ops_port is not None:
+            self._ops_server = OpsServer(
+                registry=(
+                    self.metrics.registry if self.metrics is not None
+                    else None
+                ),
+                status_fn=self._status,
+                host=self.ops_host, port=self.ops_port,
+                fleet=self.fleet,
+                alerts_fn=self.slo.status if self.slo is not None else None,
+            )
+            self.ops_actual_port = self._ops_server.start()
+            self.logger.info(
+                "ops endpoint on http://%s:%d (/metrics /healthz /status)",
+                self.ops_host, self.ops_actual_port,
+            )
+            if self.metrics is not None:
+                self.metrics.log(
+                    "ops_server_started", port=self.ops_actual_port,
+                )
         host = address.rsplit(":", 1)[0]
         return f"localhost:{port}" if host in ("[::]", "0.0.0.0") else f"{host}:{port}"
 
@@ -393,6 +566,7 @@ class FederatedServer:
                 )
         if self._grpc_server is not None:
             self._grpc_server.stop(grace)
+        self._stop_ops_server()
 
     def abort(self) -> None:
         """Hard-crash simulation: kill the gRPC server now and abandon the
@@ -405,9 +579,120 @@ class FederatedServer:
         self._stopping.set()
         if self._grpc_server is not None:
             self._grpc_server.stop(0)
+        self._stop_ops_server()
+
+    def _stop_ops_server(self) -> None:
+        if self._ops_server is not None:
+            self._ops_server.stop()
+            self._ops_server = None
 
     def wait_done(self, timeout: float | None = None) -> bool:
         return self.training_done.wait(timeout)
+
+    # ---- the ops endpoint's views ------------------------------------------
+    def _status(self, full: bool = False) -> dict[str, Any]:
+        """The ops endpoint's ``/status`` payload, with the JAX server's keys
+        (``server.py:651-759``): round progress, membership, codec and
+        compression, recovery, stragglers, the data plane, the quality and
+        privacy planes (``None`` while off) and the fleet's headline counts.
+        The default view is bounded (membership counts and top-k members);
+        ``full=True`` (``/status?full=1``) gives the whole roster and the
+        per-client straggler and contribution series."""
+        reg = self.metrics.registry if self.metrics is not None else None
+
+        def gauge(name):
+            metric = reg.get(name) if reg is not None else None
+            return metric.value if metric is not None else None
+
+        def count(name):
+            metric = reg.get(name) if reg is not None else None
+            return int(metric.value) if metric is not None else 0
+
+        return {
+            "round": int(self.global_iterations),
+            "max_iters": int(self.max_iters),
+            "min_clients": int(self.federation.min_clients),
+            "training_started": self._train_thread is not None,
+            "training_done": self.training_done.is_set(),
+            "stopping": self._stopping.is_set(),
+            "trace_id": self.trace_id,
+            "codec": self.wire_codec.codec_id,
+            "aggregator": self.aggregator.name,
+            "local_steps": self.local_steps,
+            "quorum_fraction": self.quorum_fraction,
+            "pacing": (
+                self._engine.status() if self._engine is not None
+                else {"policy": self.pacing.spec_id}
+            ),
+            "clients": (
+                self.federation.membership_snapshot() if full
+                else self.federation.membership_summary()
+            ),
+            "recovery": {
+                "recovered_from": self._recovered_from,
+                "source": self._recovered_source,
+                "journal_every": self.journal_every,
+                "session_restores": count("session_restores"),
+                "rpcs_deduplicated": count("rpcs_deduplicated"),
+            },
+            "compression": {
+                "ratio_sent": gauge("compression_ratio_sent"),
+                "ratio_recv": gauge("compression_ratio_recv"),
+            },
+            "stragglers": (
+                self.straggler.status() if full
+                else self.straggler.summary()
+            ),
+            "data_plane": {
+                "agg_backend": (
+                    self._agg_backend_resolved or self.aggregation_backend
+                ),
+                "sanitize": self.update_gate.check_finite,
+                "outlier_mad_k": self.update_gate.mad_k,
+                "max_update_norm": self.update_gate.max_update_norm,
+                "updates_rejected": count("updates_rejected"),
+                "updates_clipped": count("updates_clipped"),
+                "rejections_by_client": dict(
+                    self.update_gate.total_rejections
+                ),
+                "divergence_rollbacks": count("divergence_rollbacks"),
+                "clients_quarantined": count("clients_quarantined"),
+                "guardian_healthy": (
+                    self.guardian.healthy if self.guardian is not None
+                    else None
+                ),
+            },
+            "model_quality": self._model_quality_status(full=full),
+            "privacy": (
+                self.privacy_accountant.status()
+                if self.privacy_accountant is not None else None
+            ),
+            "fleet": {
+                "nodes": len(self.fleet.node_snapshots()),
+                "reports_invalid": count("fleet_reports_invalid"),
+                "reports_dropped": count("fleet_reports_dropped"),
+                "alerts_firing": (
+                    self.slo.status()["firing"]
+                    if self.slo is not None else None
+                ),
+            },
+        }
+
+    def _model_quality_status(self, full: bool = False) -> dict[str, Any] | None:
+        if self.quality_every <= 0:
+            return None
+        out: dict[str, Any] = {
+            "every": self.quality_every,
+            "guard": self.quality_guard,
+            "reference": self.quality_ref,
+        }
+        if self._quality_mon is not None:
+            out.update(self._quality_mon.status())
+        out["contributions"] = (
+            self.contributions.status() if full
+            else self.contributions.summary()
+        )
+        return out
 
     # ---- Federation service (client -> server) -----------------------------
     def OfferVocab(self, request: pb.VocabOffer, context) -> pb.Ack:
@@ -456,6 +741,7 @@ class FederatedServer:
         self._reply_seen.pop(client_id, None)
         self._poll_warmed.discard(client_id)
         self.straggler.forget(client_id)
+        self.contributions.forget(client_id)
 
     def _build_setup_reply(self) -> pb.GlobalSetup:
         vocabs = [
@@ -537,13 +823,30 @@ class FederatedServer:
         """JSON-able run descriptors persisted with checkpoints and the
         journal, as the JAX server writes them (:930-963): ``model_kwargs``
         lets a serving process rebuild the template model from the journal
-        alone."""
-        return {
+        alone; ``quality`` is the coherence guard's view of the journaled
+        round (``flagged`` while an unhealthy streak is open), and
+        ``privacy`` the (ε, δ) ledger, so a recovered run resumes its spent
+        budget instead of starting a fresh one."""
+        extra: dict[str, Any] = {
             "family": self.family,
             "aggregator": self.aggregator.name,
             "wire_codec": self.wire_codec.codec_id,
             "model_kwargs": dict(self.model_kwargs),
         }
+        mon = self._quality_mon
+        if mon is not None:
+            view = mon.status()
+            streak = int(view.get("unhealthy_streak") or 0)
+            last = view.get("last") or {}
+            extra["quality"] = {
+                "flagged": streak > 0,
+                "unhealthy_streak": streak,
+                "npmi": last.get("npmi"),
+                "round": last.get("round"),
+            }
+        if self.privacy_accountant is not None:
+            extra["privacy"] = self.privacy_accountant.state_dict()
+        return extra
 
     def _save_round_checkpoint(self) -> None:
         """Persist round state; a checkpoint failure is loud but never
@@ -731,18 +1034,14 @@ class FederatedServer:
             self._restore_aggregator_state(ckpt, meta, round_idx)
         self.last_average = average
         self.global_iterations = int(round_idx)
-        if source.get("privacy") is not None:
-            self.logger.warning(
-                "recovery state carries a privacy ledger but this server "
-                "runs dp='off'; the ledger is NOT carried forward — rounds "
-                "from here on are unaccounted",
-            )
+        self._restore_privacy(source.get("privacy"))
         self._restore_membership(source.get("membership") or ())
         # Recovered-server wire posture: this process holds no codec
         # session state and no push acks — the next push is
         # self-contained and orders a fleet-wide session reset, and token
         # reconnects get the per-client reset order (Ack code 3).
         self._session_reset_pending = not self.wire_codec.identity
+        self._recovered_from = int(round_idx)
         self._recovered_source = "journal" if use_journal else "checkpoint"
         FederatedStepper(self.template, self.grads_to_share).set_gradients(
             average
@@ -758,6 +1057,39 @@ class FederatedServer:
         if self.metrics is not None:
             self.metrics.log("resume", step=round_idx)
         return round_idx
+
+    def _restore_privacy(self, state) -> None:
+        """Resume the (ε, δ) ledger from recovery state (``server.py:1213-1251``):
+        ε continues and never resets. The journal is written before the
+        round's ledger tick, so the journaled ledger can lag the released
+        noise by one round: recovery charges one conservative catch-up
+        step, and the server noiser's application counter follows the
+        ledger's step count, so no draw the dead process may have spent is
+        reused. A ledger in the recovery state of a server that now runs
+        ``dp="off"`` is carried nowhere, loudly."""
+        if state is None:
+            return
+        if self.privacy_accountant is None:
+            self.logger.warning(
+                "recovery state carries a privacy ledger (%s steps, "
+                "mode=%s) but this server runs dp='off'; the ledger is NOT "
+                "carried forward — rounds from here on are unaccounted",
+                state.get("steps"), state.get("mode"),
+            )
+            return
+        self.privacy_accountant.load_state_dict(dict(state))
+        self.privacy_accountant.step(
+            q=self.privacy_accountant.last_q or 1.0
+        )
+        if self._dp_noiser is not None:
+            self._dp_noiser.applications = self.privacy_accountant.steps
+        self.logger.info(
+            "resumed privacy ledger: eps=%.4f at delta=%g after %d noised "
+            "rounds (incl. one conservative catch-up step for the "
+            "possibly-uncharged in-flight round)",
+            self.privacy_accountant.epsilon(),
+            self.privacy_accountant.delta, self.privacy_accountant.steps,
+        )
 
     def _restore_journal_aggregator(self, jstate: dict) -> None:
         """Reload journaled server-optimizer slots (same name-mismatch
@@ -907,6 +1239,10 @@ class FederatedServer:
             request.client_id, request.session_token
         )
         self.federation.connect_ready(request.client_id, request.address)
+        if request.telemetry:
+            # The joining client's full registry report rides its ready and
+            # heals any deltas lost while it was away.
+            self.fleet.ingest_bytes(request.telemetry)
         ack_code, ack_detail = 0, "ready recorded"
         if kind == "restore":
             self.logger.info(
@@ -1029,6 +1365,7 @@ class FederatedServer:
             )
             self._poll_warmed.discard(rec.client_id)
             self.straggler.forget(rec.client_id)
+            self.contributions.forget(rec.client_id)
             if reg is not None:
                 reg.counter("client_drops").inc()
         else:
@@ -1089,6 +1426,85 @@ class FederatedServer:
                 ),
             )
 
+    def _fleet_tick(self, iteration: int) -> None:
+        """Once per aggregated round (``server.py:1883-1898``): fold the
+        server's own registry into the fleet view, run one SLO evaluation
+        over the merged snapshot, and charge the privacy ledger."""
+        if self.metrics is not None:
+            node = self.metrics.node or "server"
+            self.fleet.ingest(
+                node, self.metrics.registry.snapshot(), full=True,
+            )
+        if self.slo is not None:
+            self.slo.evaluate()
+        self._privacy_tick(iteration)
+
+    def _privacy_tick(self, iteration: int) -> None:
+        """Charge the (ε, δ) ledger for one aggregated round
+        (``server.py:1900-1943``): skipped rounds apply no mechanism and are
+        charged nothing, so the ledger's steps stay in step with the
+        noiser's applications. q is the engine's inclusion probability (1
+        under sync pacing). Crossing the budget is loud (a warning, a
+        counter and one ``privacy_budget_exceeded`` event) but never stops
+        training."""
+        acct = self.privacy_accountant
+        if acct is None:
+            return
+        q = (
+            self._engine.inclusion_q() if self._engine is not None
+            else 1.0
+        )
+        was_exceeded = acct.exceeded
+        eps = acct.step(q=q)
+        if self.metrics is not None:
+            self.metrics.registry.gauge("privacy_eps").set(eps)
+            self.metrics.log(
+                "privacy_budget", round=iteration, eps=float(eps),
+                delta=acct.delta, steps=acct.steps, q=float(q),
+                sigma=acct.sigma, mode=acct.mode, budget=acct.budget,
+            )
+        if acct.exceeded and not was_exceeded:
+            self.logger.warning(
+                "privacy budget EXCEEDED at round %d: eps=%.4f > declared "
+                "budget %.4f (delta=%g); training continues — the offline "
+                "`privacy` gate is the enforcement point",
+                iteration, eps, acct.budget, acct.delta,
+            )
+            if self.metrics is not None:
+                self.metrics.registry.counter(
+                    "privacy_budget_exceeded"
+                ).inc()
+                self.metrics.log(
+                    "privacy_budget_exceeded", round=iteration,
+                    eps=float(eps), budget=acct.budget, delta=acct.delta,
+                )
+
+    # ---- incident dumps ----------------------------------------------------
+    def _solicit_flightrec(self, incident_id: str, reason: str,
+                           trigger_record: dict) -> None:
+        """The incident trigger's post-capture hook: arm a capture token
+        that rides every poll for the next 120 s, asking each client for
+        its flight-record snapshot (best-effort; clients dedupe by
+        token)."""
+        self._flightrec_solicit = (incident_id, time.time() + 120.0)
+        if self.metrics is not None:
+            self.metrics.log(
+                "flightrec_requested", incident_id=incident_id,
+                reason=reason,
+            )
+
+    def flightrec_token(self) -> str:
+        """The live solicitation token ("" when none is armed or its window
+        has closed), stamped onto outgoing StepRequests."""
+        sol = self._flightrec_solicit
+        if sol is None:
+            return ""
+        token, expires = sol
+        if time.time() >= expires:
+            self._flightrec_solicit = None
+            return ""
+        return token
+
     def _next_step_seq(self) -> int:
         """Fresh TrainStep delivery sequence number, monotonic within the
         process and across restarts."""
@@ -1134,6 +1550,9 @@ class FederatedServer:
         if mode == "device":
             engine = DeviceAggEngine(self.device)
             self.update_gate.set_engine(engine)
+            if self._dp_noiser is not None:
+                # The server noise is drawn on the engine's device.
+                self._dp_noiser.device_engine = engine
             self.logger.info("aggregation backend: device (%s)", engine.device)
         else:
             self.update_gate.set_engine(None)
@@ -1181,6 +1600,10 @@ class FederatedServer:
                 continue
             if seq:
                 self._reply_seen[rec.client_id] = seq
+            if reply.telemetry:
+                # The client's registry deltas ride its reply; one ingest
+                # per reply that is not a replay.
+                self.fleet.ingest_bytes(reply.telemetry)
             deduped.append((rec, reply))
 
         if self.wire_codec.identity:
@@ -1350,6 +1773,122 @@ class FederatedServer:
             m.log("divergence_rollback", **event)
         return restored
 
+    # ---- the model-quality plane --------------------------------------------
+    def _ensure_quality_monitor(self):
+        """The topic-quality monitor, built on the first quality round (the
+        global vocabulary exists only after consensus). Under any DP mode
+        the coherence guard gets :data:`DP_GUARD_NOISE_FLOOR` of slack
+        unless ``quality_monitor_kwargs`` sets its own."""
+        if self.quality_every <= 0:
+            return None
+        if self._quality_mon is None:
+            ref = (
+                load_reference_corpus(self.quality_ref)
+                if self.quality_ref else None
+            )
+            if ref is None:
+                self.logger.warning(
+                    "quality monitoring is on without quality_ref: NPMI "
+                    "coherence (and the coherence guard) are disabled; "
+                    "diversity and drift still run"
+                )
+            kwargs = dict(self.quality_monitor_kwargs)
+            if self.dp.enabled and "noise_floor" not in kwargs:
+                kwargs["noise_floor"] = DP_GUARD_NOISE_FLOOR
+            self._quality_mon = TopicQualityMonitor(
+                every=self.quality_every,
+                id2token=self.global_vocab.id2token,
+                ref_tokens=ref,
+                topn=self.quality_topn,
+                history=self.quality_history,
+                metrics=self.metrics,
+                logger=self.logger,
+                **kwargs,
+            )
+        return self._quality_mon
+
+    def _observe_contributions(self, iteration: int, snapshots,
+                               average: dict[str, np.ndarray]) -> None:
+        """Per-client contribution analytics over the admitted cohort: each
+        update's cosine to the aggregate update the cohort produced (never a
+        rollback's restored state) and the pairwise summary, from the numpy
+        oracle or the engine's gram over the stacked round."""
+        if len(snapshots) == 0:
+            return
+        client_ids = [c for c, _w, _l in self._round_accepted]
+        if isinstance(snapshots, list):
+            cos, norms, pair_mean, pair_min = contribution_stats(
+                [s for _w, s in snapshots], self._current_global(), average,
+            )
+        else:  # the device backend's StackedRound
+            cos, norms, pair_mean, pair_min = (
+                snapshots.engine.contribution_stats(snapshots, average)
+            )
+        self.contributions.observe_round(
+            iteration, client_ids, cos, norms, pair_mean, pair_min,
+        )
+
+    def _quality_step(
+        self, iteration: int, snapshots, average: dict[str, np.ndarray],
+        accepted_average: "dict[str, np.ndarray] | None" = None,
+    ) -> dict[str, np.ndarray]:
+        """One round's model-quality pass, after the aggregate and before the
+        push (``server.py:2425-2496``): contribution analytics every averaged
+        round, the topic monitor on its cadence, and with ``quality_guard``
+        a ``coherence_collapse`` verdict routed through
+        :meth:`_divergence_rollback` (the returned average is then the
+        restored one). ``accepted_average`` is what the cohort produced when
+        the loss guardian already swapped ``average`` for a checkpoint.
+        Observation failures are counted in ``quality_errors`` and never
+        kill the round loop."""
+        if self.quality_every <= 0:
+            return average
+        m = self.metrics
+        try:
+            self._observe_contributions(
+                iteration, snapshots,
+                accepted_average if accepted_average is not None
+                else average,
+            )
+        except Exception:
+            self.logger.exception(
+                "round %d: contribution analytics failed", iteration
+            )
+            if m is not None:
+                m.registry.counter("quality_errors").inc()
+        monitor = None
+        try:
+            monitor = self._ensure_quality_monitor()
+        except Exception:
+            self.logger.exception(
+                "quality monitor construction failed; disabling the "
+                "topic-quality plane (contribution analytics stay on)"
+            )
+            self.quality_ref = None
+            if m is not None:
+                m.registry.counter("quality_errors").inc()
+        if monitor is None or not monitor.should_run(iteration):
+            return average
+        try:
+            monitor.observe(iteration, average)
+        except Exception:
+            self.logger.exception(
+                "round %d: quality observation failed", iteration
+            )
+            if m is not None:
+                m.registry.counter("quality_errors").inc()
+            return average
+        if self.quality_guard and monitor.collapsed:
+            restored = self._divergence_rollback(
+                iteration, COHERENCE_COLLAPSE
+            )
+            if restored is not None:
+                # Only a rollback that restored state re-anchors the
+                # monitor; with nothing to restore the verdict keeps firing.
+                monitor.note_rollback()
+                return restored
+        return average
+
     def _skip_below_quorum(self, iteration: int, got: int, membership: int,
                            quorum: int, what: str) -> None:
         """Log/count one skipped round, then wait out a backoff tick."""
@@ -1393,7 +1932,7 @@ class FederatedServer:
 
     def _training_loop(self) -> None:
         stubs: dict[int, tuple[str, Any, rpc.ServiceStub]] = {}
-        engine = pacing.make_engine(self, self.pacing)
+        engine = self._engine = pacing.make_engine(self, self.pacing)
         pool = ThreadPoolExecutor(max_workers=engine.pool_workers(self.poll_workers))
         self.logger.info(
             "starting federated training (%s pacing): total weight %.0f",

@@ -20,9 +20,19 @@ uses, so the port's records are the same JSON the JAX package's
   ``TelemetryShipper``, :1148-1229) and the ``StragglerDetector`` behind
   the server's adaptive poll deadline (:2456-2548).
 
+- the fleet telemetry plane and the ops endpoint: the exact snapshot
+  merges (``merge_metric_snapshots``, ``merge_node_snapshots``, :1076-1146),
+  ``decode_telemetry_report`` (:1160), :class:`FleetRegistry` (:1232) and
+  ``render_fleet_prometheus`` (:1354), ``sample_process_metrics`` (:1435),
+  the run summaries of the quality and privacy planes
+  (``summarize_model_quality``, ``summarize_privacy``, with
+  ``collect_data_plane``; :1507, :1931, :2138), ``render_prometheus``
+  (:2202) and :class:`OpsServer` (:2284).
+
 The JAX module imports ``jax`` inside a few functions (the profiler window,
-the device-memory gauge), so it is copied by function, not by file. Fleet
-telemetry, the ops endpoint and Prometheus are not ported yet.
+the device-memory gauge), so it is copied by function, not by file;
+``tests/test_torch_ops_plane.py`` pins each copied function's source to
+the original's.
 """
 
 from __future__ import annotations
@@ -30,9 +40,12 @@ from __future__ import annotations
 import bisect
 import contextlib
 import contextvars
+import heapq
+import inspect
 import itertools
 import json
 import os
+import re
 import threading
 import time
 import zlib
@@ -767,10 +780,13 @@ class StragglerDetector:
     (:meth:`observe_round`); the detector updates one EWMA gauge per client
     (``client_step_ewma_s/clientN``) and flags any client whose EWMA sits
     more than ``z_threshold`` standard deviations above the population
-    mean — provided the population is large enough (``min_clients``), the
-    client has enough history (``min_rounds``), AND its EWMA exceeds
-    ``min_ratio`` x the mean. :meth:`ewma_view` feeds the pacing engines'
-    adaptive poll deadline.
+    mean — provided the population is large enough to make a z-score
+    meaningful (``min_clients``), the client has enough history
+    (``min_rounds``), AND its EWMA exceeds ``min_ratio`` × the mean: a
+    z-score alone is scale-invariant, so in a tightly-clustered fleet a
+    client microseconds slower than its peers would otherwise flag.
+    :meth:`status` serves the current per-client view to the ops
+    endpoint's ``/status``.
     """
 
     def __init__(self, registry: MetricRegistry | None = None,
@@ -787,6 +803,7 @@ class StragglerDetector:
         self.min_ratio = float(min_ratio)
         self._ewma: dict[Any, float] = {}
         self._rounds: dict[Any, int] = {}
+        self._current: dict[Any, dict[str, Any]] = {}
         self._lock = threading.Lock()
 
     def observe_round(
@@ -810,6 +827,10 @@ class StragglerDetector:
                 cid: e for cid, e in self._ewma.items()
                 if self._rounds[cid] >= self.min_rounds
             }
+            self._current = {
+                cid: {"ewma_s": e, "z": None, "straggler": False}
+                for cid, e in self._ewma.items()
+            }
             if len(mature) < self.min_clients:
                 return []
             values = list(mature.values())
@@ -821,25 +842,66 @@ class StragglerDetector:
             flagged = []
             for cid, e in mature.items():
                 z = (e - mean) / std
+                self._current[cid]["z"] = z
                 if (
                     z > self.z_threshold and e > self.min_ratio * mean
                     and cid in latencies
                 ):
+                    self._current[cid]["straggler"] = True
                     flagged.append({"client": cid, "z": z, "ewma_s": e})
             return flagged
 
     def ewma_view(self) -> dict[Any, float]:
-        """Snapshot of the per-client poll-latency EWMAs."""
+        """Snapshot of the per-client poll-latency EWMAs — the live input
+        to the pacing engines' adaptive poll deadline (a warmed client's
+        deadline derives from these instead of the fixed 120 + 2E
+        population-scale constant)."""
         with self._lock:
             return dict(self._ewma)
 
     def forget(self, client_id: Any) -> None:
-        """Evict a departed client (and its gauge)."""
+        """Evict a departed client: a dropped client's frozen EWMA would
+        otherwise skew the population mean/std forever (inflating std so
+        genuine new stragglers stop flagging) and haunt ``/status``. Its
+        gauge is dropped from the registry too — per-client series must
+        not accumulate one ghost per client that ever churned through
+        the federation. A rejoin re-warms from scratch, like the
+        server's poll warm-up."""
         with self._lock:
             self._ewma.pop(client_id, None)
             self._rounds.pop(client_id, None)
+            self._current.pop(client_id, None)
         if self.registry is not None:
             self.registry.drop(f"client_step_ewma_s/client{client_id}")
+
+    def status(self) -> dict[str, dict[str, Any]]:
+        """JSON-safe per-client view for the ops endpoint."""
+        with self._lock:
+            return {
+                str(cid): dict(state)
+                for cid, state in sorted(self._current.items(), key=str)
+            }
+
+    def summary(self, top_k: int = 5) -> dict[str, Any]:
+        """Bounded view for the default ``/status`` scrape: counts plus
+        the ``top_k`` slowest EWMAs. One heap pass over the live map —
+        the full per-client materialize-and-sort that :meth:`status`
+        does would stall the ops thread at 10⁴ clients; only the
+        ``top_k`` winners are copied out."""
+        with self._lock:
+            top = heapq.nlargest(
+                top_k, self._current.items(),
+                key=lambda kv: (kv[1].get("ewma_s") or 0.0, str(kv[0])),
+            )
+            return {
+                "observed": len(self._current),
+                "flagged": sum(
+                    1 for v in self._current.values() if v.get("straggler")
+                ),
+                "top_slowest": [
+                    {"client": str(cid), **state} for cid, state in top
+                ],
+            }
 
 
 # ---- reading a stream ---------------------------------------------------------
@@ -858,3 +920,745 @@ def read_metrics(path: str) -> list[dict[str, Any]]:
             except json.JSONDecodeError as err:
                 raise ValueError(f"{path}:{lineno}: bad JSONL line: {err}")
     return records
+
+
+# ---- fleet telemetry, run summaries, Prometheus and the ops endpoint -------
+
+
+def merge_metric_snapshots(
+    a: dict[str, Any], b: dict[str, Any]
+) -> dict[str, Any]:
+    """Merge two snapshot dicts of the SAME metric from different nodes.
+
+    The merge is exact by construction: counters are monotone (values
+    add), gauges are last-write-wins (``b`` wins when it carries a value),
+    and histograms are fixed-bucket (identical edges ⇒ bucket-wise count
+    addition loses nothing). This one primitive backs the relay tier's
+    upstream pre-reduction, the server's :class:`FleetRegistry`, and the
+    offline ``summarize`` cross-node merge, so live and post-hoc fleet
+    views can never drift apart. Raises ``ValueError`` on a type or
+    bucket-layout mismatch."""
+    ta, tb = a.get("type"), b.get("type")
+    if ta != tb:
+        raise ValueError(f"cannot merge snapshot types {ta!r} and {tb!r}")
+    if ta == "counter":
+        return {"type": "counter",
+                "value": float(a.get("value") or 0.0)
+                + float(b.get("value") or 0.0)}
+    if ta == "gauge":
+        return {"type": "gauge",
+                "value": b["value"] if b.get("value") is not None
+                else a.get("value")}
+    if ta == "histogram":
+        if list(a["edges"]) != list(b["edges"]):
+            raise ValueError(
+                "cannot merge histograms with different bucket edges"
+            )
+        out: dict[str, Any] = {
+            "type": "histogram",
+            "count": a.get("count", 0) + b.get("count", 0),
+            "sum": a.get("sum", 0.0) + b.get("sum", 0.0),
+            "edges": list(a["edges"]),
+            "counts": [x + y for x, y in zip(a["counts"], b["counts"])],
+        }
+        # Empty histograms omit min/max (Histogram.snapshot contract).
+        mins = [s["min"] for s in (a, b) if "min" in s]
+        maxs = [s["max"] for s in (a, b) if "max" in s]
+        if mins:
+            out["min"], out["max"] = min(mins), max(maxs)
+        return out
+    raise ValueError(f"cannot merge unknown snapshot type {ta!r}")
+
+
+def merge_node_snapshots(
+    nodes: "dict[str, dict[str, Any]]"
+) -> dict[str, Any]:
+    """Merge per-node registry snapshots (``{node: {metric: snapshot}}``)
+    into one fleet-wide snapshot dict via :func:`merge_metric_snapshots`.
+    A metric whose snapshots are unmergeable across nodes (type or bucket
+    mismatch — a fleet running mixed code) is dropped from the merged view
+    rather than poisoning the scrape; iteration order is node-sorted so
+    gauge last-write-wins resolution is deterministic."""
+    merged: dict[str, Any] = {}
+    dropped: set[str] = set()
+    for node in sorted(nodes):
+        for name, snap in nodes[node].items():
+            if name in dropped:
+                continue
+            cur = merged.get(name)
+            if cur is None:
+                merged[name] = dict(snap)
+                continue
+            try:
+                merged[name] = merge_metric_snapshots(cur, snap)
+            except (ValueError, KeyError, TypeError):
+                del merged[name]
+                dropped.add(name)
+    return merged
+
+
+def decode_telemetry_report(data: bytes) -> dict[str, Any]:
+    """Parse a wire telemetry report; raises ``ValueError`` on garbage
+    (truncated zlib stream, non-JSON, wrong shape)."""
+    try:
+        report = json.loads(zlib.decompress(data).decode())
+    except Exception as err:
+        raise ValueError(f"bad telemetry report: {err}")
+    if not isinstance(report, dict) or not isinstance(
+        report.get("nodes"), dict
+    ):
+        raise ValueError("bad telemetry report: missing 'nodes' mapping")
+    return report
+
+
+class FleetRegistry:
+    """Server-side store of per-node registry snapshots: the live,
+    federation-wide metrics view.
+
+    Reports arrive via :meth:`ingest_bytes` (the wire form), are patched
+    per-node with replace-semantics (cumulative snapshots ⇒ ingesting the
+    same report twice is a no-op, so RPC replays deduplicate naturally),
+    and merge on demand into one fleet snapshot (:meth:`merged`) via the
+    exact merge primitive. A cardinality guard bounds both the node count
+    and the per-node series count — an adversarial or runaway client can
+    at worst have its OWN report withheld (counted in the
+    ``fleet_reports_dropped`` counter + one ``fleet_overflow`` event per
+    offending node, never silently)."""
+
+    def __init__(self, metrics: "MetricsLogger | None" = None,
+                 max_nodes: int = 512, max_series_per_node: int = 512):
+        self.metrics = metrics
+        self.max_nodes = int(max_nodes)
+        self.max_series_per_node = int(max_series_per_node)
+        self._nodes: dict[str, dict[str, Any]] = {}
+        self._last_report: dict[str, float] = {}
+        self._overflow_seen: set[tuple[str, str]] = set()
+        self._lock = threading.Lock()
+
+    def _overflow(self, node: str, reason: str) -> None:
+        if self.metrics is not None:
+            self.metrics.registry.counter("fleet_reports_dropped").inc()
+            key = (node, reason)
+            if key not in self._overflow_seen:
+                self._overflow_seen.add(key)
+                self.metrics.log("fleet_overflow", node=node, reason=reason)
+
+    def ingest_bytes(self, data: bytes) -> bool:
+        """Ingest one wire report; corrupt bytes are counted
+        (``fleet_reports_invalid``), never raised — a garbled telemetry
+        payload must not perturb the round loop carrying it."""
+        if not data:
+            return False
+        try:
+            report = decode_telemetry_report(bytes(data))
+        except ValueError:
+            if self.metrics is not None:
+                self.metrics.registry.counter("fleet_reports_invalid").inc()
+            return False
+        ok = False
+        full = bool(report.get("full"))
+        for node in sorted(report["nodes"]):
+            metrics = report["nodes"][node]
+            if isinstance(metrics, dict):
+                ok = self.ingest(str(node), metrics, full=full) or ok
+        return ok
+
+    def ingest(self, node: str, metrics: dict[str, Any],
+               full: bool = False) -> bool:
+        """Patch (or, with ``full``, replace) one node's series."""
+        overflow_reason = None
+        with self._lock:
+            cur = self._nodes.get(node)
+            if cur is None:
+                if len(self._nodes) >= self.max_nodes:
+                    overflow_reason = "max_nodes"
+                else:
+                    cur = self._nodes[node] = {}
+            if cur is not None:
+                if full:
+                    cur.clear()
+                for name in sorted(metrics):
+                    if (name not in cur
+                            and len(cur) >= self.max_series_per_node):
+                        overflow_reason = "max_series_per_node"
+                        break
+                    cur[name] = metrics[name]
+                self._last_report[node] = time.time()
+        if overflow_reason is not None:
+            self._overflow(node, overflow_reason)
+        return overflow_reason is None
+
+    def node_snapshots(self) -> dict[str, dict[str, Any]]:
+        with self._lock:
+            return {node: dict(m) for node, m in self._nodes.items()}
+
+    def merged(self) -> dict[str, Any]:
+        """The fleet-wide merged snapshot (one dict, same shape as a
+        :meth:`MetricRegistry.snapshot` — every downstream consumer of
+        single-registry snapshots works on it unchanged)."""
+        return merge_node_snapshots(self.node_snapshots())
+
+    def summary(self, top_k: int = 8) -> dict[str, Any]:
+        """Bounded fleet summary for ``/status.fleet``: totals plus the
+        top-k nodes by series count and the top-k busiest merged
+        histograms — the response size is O(top_k) regardless of fleet
+        size (the StragglerDetector top-k pattern)."""
+        now = time.time()
+        with self._lock:
+            sizes = {node: len(m) for node, m in self._nodes.items()}
+            ages = {node: now - t for node, t in self._last_report.items()}
+        top_nodes = heapq.nlargest(
+            top_k, sizes.items(), key=lambda kv: (kv[1], str(kv[0]))
+        )
+        merged = self.merged()
+        hists = [
+            (name, snap) for name, snap in merged.items()
+            if snap.get("type") == "histogram" and snap.get("count")
+        ]
+        top_hists = heapq.nlargest(
+            top_k, hists, key=lambda kv: (kv[1]["count"], kv[0])
+        )
+        return {
+            "nodes": len(sizes),
+            "series": sum(sizes.values()),
+            "merged_series": len(merged),
+            "top_nodes": [
+                {"node": node, "series": n,
+                 "report_age_s": round(ages.get(node, 0.0), 3)}
+                for node, n in top_nodes
+            ],
+            "histograms": {
+                name: _hist_stats(snap) for name, snap in top_hists
+            },
+        }
+
+
+def render_fleet_prometheus(
+    nodes: "dict[str, dict[str, Any]]", prefix: str = "gfedntm",
+    max_series: int = 256,
+) -> str:
+    """Prometheus exposition of a fleet view: ``<prefix>_fleet_*``
+    families carry the exact cross-node merge, ``<prefix>_node_*``
+    families carry the per-node series with a ``node`` label (plus the
+    usual ``key`` label). Distinct family prefixes keep both valid in one
+    scrape alongside the process's own ``<prefix>_*`` registry. The
+    per-node section shares the cardinality-cap discipline of
+    :func:`render_prometheus`: each family exports its first
+    ``max_series`` (node, key) pairs sorted (stable across scrapes) plus
+    an overflow counter for the withheld remainder."""
+    out = [render_prometheus(
+        merge_node_snapshots(nodes), prefix=f"{prefix}_fleet",
+        max_series=max_series,
+    )]
+
+    families: dict[str, list[tuple[str, str, dict[str, Any]]]] = {}
+    for node, metrics in nodes.items():
+        for name, snap in metrics.items():
+            base, _, key = name.partition("/")
+            families.setdefault(_prom_name(base), []).append(
+                (node, key, snap)
+            )
+    overflow: dict[str, int] = {}
+    lines: list[str] = []
+    for base in sorted(families):
+        series = sorted(families[base], key=lambda t: (t[0], t[1]))
+        if max_series and len(series) > max_series:
+            overflow[base] = len(series) - max_series
+            series = series[:max_series]
+        kind = series[0][2].get("type")
+        full = f"{prefix}_node_{base}"
+        if kind == "counter":
+            full += "_total"
+        if kind not in ("counter", "gauge", "histogram"):
+            continue
+        lines.append(f"# TYPE {full} {kind}")
+        for node, key, snap in series:
+            if snap.get("type") != kind:
+                continue  # cross-node type mismatch: skip, never 500
+            label_parts = [f'node="{_prom_label(node)}"']
+            if key:
+                label_parts.append(f'key="{_prom_label(key)}"')
+            label = "{" + ",".join(label_parts) + "}"
+            if kind == "counter":
+                lines.append(f"{full}{label} {snap['value']}")
+            elif kind == "gauge":
+                if snap["value"] is not None:
+                    lines.append(f"{full}{label} {snap['value']}")
+            else:
+                base_label = ",".join(label_parts)
+                cum = 0
+                for edge, count in zip(snap["edges"], snap["counts"]):
+                    cum += count
+                    lines.append(
+                        f'{full}_bucket{{{base_label},le="{edge}"}} {cum}'
+                    )
+                cum += snap["counts"][-1]
+                lines.append(
+                    f'{full}_bucket{{{base_label},le="+Inf"}} {cum}'
+                )
+                lines.append(f"{full}_sum{label} {snap['sum']}")
+                lines.append(f"{full}_count{label} {snap['count']}")
+    if overflow:
+        full = f"{prefix}_node_series_overflow_total"
+        lines.append(f"# TYPE {full} counter")
+        for base in sorted(overflow):
+            lines.append(
+                f'{full}{{family="{_prom_label(base)}"}} {overflow[base]}'
+            )
+    if lines:
+        out.append("\n".join(lines) + "\n")
+    return "".join(out)
+
+
+#: Process start reference for the ``process_uptime_s`` gauge.
+_PROCESS_START_TIME = time.time()
+
+
+def sample_process_metrics(registry: MetricRegistry) -> None:
+    """Refresh the process self-gauges (``process_rss_bytes``,
+    ``process_uptime_s``, ``process_threads``) — stdlib only, sampled per
+    ops scrape so every plane that serves ``/metrics`` exposes them
+    without per-plane wiring. Makes the BENCH_SCALE flat-RSS claim
+    scrapeable live instead of only measurable via subprocess
+    ``ru_maxrss``."""
+    rss = None
+    try:
+        # Current RSS (not the rusage high-water mark) when /proc exists.
+        with open("/proc/self/statm") as fh:
+            rss = int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    # A platform without /proc (macOS) falls back to the rusage peak.
+    except Exception:
+        try:
+            import resource
+            import sys
+
+            ru = resource.getrusage(resource.RUSAGE_SELF)
+            # ru_maxrss (the peak, the best available without /proc) is
+            # bytes on macOS, KiB elsewhere.
+            scale = 1 if sys.platform == "darwin" else 1024
+            rss = int(ru.ru_maxrss) * scale
+        # No resource module (non-POSIX): the gauge is simply absent.
+        except Exception:
+            rss = None
+    if rss is not None:
+        registry.gauge("process_rss_bytes").set(rss)
+    registry.gauge("process_uptime_s").set(
+        time.time() - _PROCESS_START_TIME
+    )
+    registry.gauge("process_threads").set(threading.active_count())
+
+
+def _hist_stats(snap: dict[str, Any]) -> dict[str, Any]:
+    count = snap.get("count", 0)
+    out: dict[str, Any] = {"count": count}
+    if count:
+        out["mean_s"] = snap["sum"] / count
+        for q, label in ((0.5, "p50_s"), (0.95, "p95_s"), (0.99, "p99_s")):
+            out[label] = quantile_from_snapshot(snap, q)
+        out["min_s"], out["max_s"] = snap["min"], snap["max"]
+    return out
+
+
+def collect_data_plane(records: list[dict[str, Any]]) -> dict[str, Any]:
+    """Aggregate the data-plane defense events of a stream (admission-gate
+    rejections per client by reason, norm clips, divergence rollbacks,
+    quarantines — README "Robust aggregation & divergence recovery") into
+    one dict. Shared by the ``summarize`` and ``report`` engines so both
+    CLIs show identical accounting."""
+    rejections: dict[str, dict[str, int]] = {}
+    clips: dict[str, int] = {}
+    rollbacks: list[dict[str, Any]] = []
+    quarantines: dict[str, int] = {}
+    for r in records:
+        event = r.get("event")
+        if event == "update_rejected":
+            by = rejections.setdefault(str(r.get("client")), {})
+            reason = str(r.get("reason", "?"))
+            by[reason] = by.get(reason, 0) + 1
+        elif event == "update_clipped":
+            cid = str(r.get("client"))
+            clips[cid] = clips.get(cid, 0) + 1
+        elif event == "divergence_rollback":
+            rollbacks.append({
+                "round": r.get("round"), "reason": r.get("reason"),
+                "restored_round": r.get("restored_round"),
+            })
+        elif event == "client_quarantined":
+            cid = str(r.get("client"))
+            quarantines[cid] = quarantines.get(cid, 0) + 1
+    return {
+        "rejections": rejections,
+        "clips": clips,
+        "rollbacks": rollbacks,
+        "quarantines": quarantines,
+    }
+
+
+def summarize_model_quality(
+    records: list[dict[str, Any]]
+) -> dict[str, Any]:
+    """Aggregate a run's model-quality telemetry into a report dict: the
+    per-round coherence/diversity/drift trajectory (``quality_computed``
+    + ``topic_drift`` events keyed by round), the per-client contribution
+    EWMAs (read from the LAST ``metrics_snapshot`` carrying the
+    contribution gauges), and the data-plane accounting
+    (:func:`collect_data_plane`). Everything comes from the JSONL stream
+    alone — the report needs no live server."""
+    quality: dict[int, dict[str, Any]] = {}
+    last_gauges: dict[str, float] = {}
+    topics_last: list[list[str]] | None = None
+    alerts: dict[str, dict[str, Any]] = {}
+    for r in records:
+        event = r.get("event")
+        if event in ("alert_pending", "alert_firing", "alert_resolved"):
+            state = event[len("alert_"):]
+            a = alerts.setdefault(
+                str(r.get("alert")),
+                {"pending": 0, "firing": 0, "resolved": 0,
+                 "last_state": "ok", "metric": r.get("metric")},
+            )
+            a[state] += 1
+            a["last_state"] = state
+        elif event == "quality_computed":
+            row = quality.setdefault(int(r.get("round", -1)), {})
+            row.update(
+                npmi=r.get("npmi"), diversity=r.get("diversity"),
+                irbo=r.get("irbo"), n_topics=r.get("n_topics"),
+            )
+            if r.get("topics"):
+                topics_last = r["topics"]
+        elif event == "topic_drift":
+            row = quality.setdefault(int(r.get("round", -1)), {})
+            row.update(
+                mean_drift=r.get("mean_drift"),
+                max_drift=r.get("max_drift"),
+                mean_js=r.get("mean_js"), churn=r.get("churn"),
+            )
+        elif event == "metrics_snapshot":
+            for name, snap in (r.get("metrics") or {}).items():
+                if snap.get("type") == "gauge" and snap["value"] is not None:
+                    last_gauges[name] = snap["value"]
+
+    contributions: dict[str, dict[str, Any]] = {}
+    for name, value in last_gauges.items():
+        base, _, key = name.partition("/")
+        if base in ("client_contribution_cos", "client_contribution_share"):
+            cid = key.removeprefix("client")
+            field = (
+                "cos_ewma" if base == "client_contribution_cos"
+                else "share_ewma"
+            )
+            contributions.setdefault(cid, {})[field] = value
+
+    return {
+        "quality": [
+            {"round": rnd, **row} for rnd, row in sorted(quality.items())
+        ],
+        "contributions": contributions,
+        "pairwise": {
+            "cos_mean": last_gauges.get("contribution_pairwise_cos_mean"),
+            "cos_min": last_gauges.get("contribution_pairwise_cos_min"),
+        },
+        "topics": topics_last,
+        "alerts": alerts,
+        "data_plane": collect_data_plane(records),
+    }
+
+
+def summarize_privacy(
+    records: "list[dict[str, Any]]",
+) -> "dict[str, Any] | None":
+    """Fold a stream's ``privacy_budget`` ledger into its final state
+    (the accountant's running (eps, delta) — README "Differential
+    privacy & posterior sampling"); ``None`` when the run carried no
+    ledger (``--dp off``)."""
+    last: dict[str, Any] | None = None
+    rounds = 0
+    exceeded = 0
+    for r in records:
+        event = r.get("event")
+        if event == "privacy_budget":
+            rounds += 1
+            last = r
+        elif event == "privacy_budget_exceeded":
+            exceeded += 1
+    if last is None:
+        return None
+    return {
+        "mode": last.get("mode"),
+        "eps": float(last.get("eps", 0.0)),
+        "delta": float(last.get("delta", 0.0)),
+        "sigma": float(last.get("sigma", 0.0)),
+        "steps": int(last.get("steps", rounds)),
+        "budget": float(last.get("budget", 0.0)),
+        "rounds": rounds,
+        "exceeded_events": exceeded,
+    }
+
+
+_PROM_NAME_OK = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    name = _PROM_NAME_OK.sub("_", name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def _prom_label(value: str) -> str:
+    return (
+        value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    )
+
+
+def render_prometheus(snapshot: dict[str, Any],
+                      prefix: str = "gfedntm",
+                      max_series: int = 256) -> str:
+    """Render a :meth:`MetricRegistry.snapshot` dict as Prometheus text
+    exposition (version 0.0.4). Registry names like
+    ``rpc_s/FederationClient.TrainStep`` split at the first ``/`` into the
+    metric family (sanitized) plus a ``key`` label, so per-client and
+    per-method series stay one scrapeable family.
+
+    ``max_series`` caps the label cardinality per family: per-client
+    series (poll latency, contribution EWMAs) grow with client churn, and
+    an unbounded exposition would eventually dominate every scrape. A
+    family over the cap exports its first ``max_series`` keys (sorted —
+    stable across scrapes) plus one ``<prefix>_series_overflow_total``
+    counter recording how many series were withheld, so the truncation is
+    itself observable instead of silent. ``max_series=0`` disables the
+    cap."""
+    families: dict[str, list[tuple[str, dict[str, Any]]]] = {}
+    for name, snap in snapshot.items():
+        base, _, key = name.partition("/")
+        families.setdefault(_prom_name(base), []).append((key, snap))
+
+    overflow: dict[str, int] = {}
+    lines: list[str] = []
+    for base in sorted(families):
+        series = sorted(families[base])
+        if max_series and len(series) > max_series:
+            overflow[base] = len(series) - max_series
+            series = series[:max_series]
+        kind = series[0][1].get("type")
+        full = f"{prefix}_{base}"
+        if kind == "counter":
+            full += "_total"
+        if kind in ("counter", "gauge", "histogram"):
+            lines.append(f"# TYPE {full} {kind}")
+        for key, snap in series:
+            label = f'{{key="{_prom_label(key)}"}}' if key else ""
+            if kind == "counter":
+                lines.append(f"{full}{label} {snap['value']}")
+            elif kind == "gauge":
+                if snap["value"] is not None:
+                    lines.append(f"{full}{label} {snap['value']}")
+            elif kind == "histogram":
+                base_label = (
+                    f'key="{_prom_label(key)}",' if key else ""
+                )
+                cum = 0
+                for edge, count in zip(snap["edges"], snap["counts"]):
+                    cum += count
+                    lines.append(
+                        f'{full}_bucket{{{base_label}le="{edge}"}} {cum}'
+                    )
+                cum += snap["counts"][-1]
+                lines.append(
+                    f'{full}_bucket{{{base_label}le="+Inf"}} {cum}'
+                )
+                lines.append(f"{full}_sum{label} {snap['sum']}")
+                lines.append(f"{full}_count{label} {snap['count']}")
+    if overflow:
+        full = f"{prefix}_series_overflow_total"
+        lines.append(f"# TYPE {full} counter")
+        for base in sorted(overflow):
+            lines.append(
+                f'{full}{{family="{_prom_label(base)}"}} {overflow[base]}'
+            )
+    return "\n".join(lines) + "\n"
+
+
+def _accepts_kwarg(fn, name: str) -> bool:
+    """True when ``fn`` can be called with keyword ``name``."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # builtins / C callables: no signature
+        return False
+    p = params.get(name)
+    if p is not None:
+        return p.kind is not inspect.Parameter.VAR_POSITIONAL
+    return any(
+        q.kind is inspect.Parameter.VAR_KEYWORD for q in params.values()
+    )
+
+
+class OpsServer:
+    """Live ops endpoint: a stdlib ``ThreadingHTTPServer`` on a daemon
+    thread serving
+
+    - ``/healthz`` — liveness probe (``200 ok``): the ops thread exists;
+    - ``/ready`` — readiness probe, distinct from liveness (README
+      "Serving"): 200 only when ``ready_fn`` returns truthy — for the
+      serving plane that means "a model is loaded and the encoder is
+      warm", which a load balancer must gate on before routing traffic;
+      503 otherwise. Without a ``ready_fn`` the route mirrors
+      ``/healthz`` (a process with no warm-up phase is ready when alive);
+    - ``/metrics`` — Prometheus text exposition of the registry
+      (:func:`render_prometheus`);
+    - ``/status`` — JSON from ``status_fn`` (the federation server's live
+      round / membership / codec view). ``/status?full=1`` passes
+      ``full=True`` through to ``status_fn`` (the federation server then
+      serves the complete per-client roster instead of the bounded
+      summary); a ``status_fn`` that takes no ``full`` kwarg is called
+      plain — older callers keep working.
+
+    ``routes`` mounts additional POST handlers (the serving plane's JSON
+    ``/infer``): a dict of path -> ``fn(body_bytes, query_string)``
+    returning ``(http_code, content_type, body_bytes)``. Handler
+    exceptions surface as 500s, never kill the serving thread.
+
+    Fleet telemetry (README "Fleet telemetry & SLOs"): passing a
+    :class:`FleetRegistry` as ``fleet`` extends ``/metrics`` with the
+    fleet-merged ``<prefix>_fleet_*`` families plus node-labeled
+    ``<prefix>_node_*`` series, and mounts ``/status.fleet`` (the bounded
+    top-k :meth:`FleetRegistry.summary`). An ``alerts_fn`` mounts
+    ``/alerts`` (the SLO engine's live alert states). Every ``/metrics``
+    scrape also refreshes the process self-gauges
+    (:func:`sample_process_metrics`), so each ops plane exposes
+    ``gfedntm_process_{rss_bytes,uptime_s,threads}`` for free.
+
+    Entirely out of the training hot path: no thread is started unless
+    :meth:`start` is called, and GET handlers only *read* registry
+    snapshots.
+    """
+
+    def __init__(self, registry: MetricRegistry | None = None,
+                 status_fn=None, host: str = "127.0.0.1", port: int = 0,
+                 ready_fn=None, routes: dict | None = None,
+                 fleet: "FleetRegistry | None" = None, alerts_fn=None):
+        self.registry = registry or MetricRegistry()
+        self.status_fn = status_fn
+        self.ready_fn = ready_fn
+        self.routes = dict(routes or {})
+        self.fleet = fleet
+        self.alerts_fn = alerts_fn
+        self.host = host
+        self.port = port
+        self._httpd = None
+        self._thread = None
+
+    def start(self) -> int:
+        """Bind + serve on a daemon thread; returns the actual port
+        (``port=0`` binds an ephemeral one)."""
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        ops = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 - http.server API
+                path, _, query = self.path.partition("?")
+                try:
+                    if path == "/healthz":
+                        code, ctype, body = 200, "text/plain", b"ok\n"
+                    elif path == "/ready":
+                        # Readiness is not liveness: a serving process is
+                        # alive the moment its ops thread binds, but must
+                        # not receive traffic until a model is loaded and
+                        # warm (README "Serving").
+                        ready = (
+                            bool(ops.ready_fn()) if ops.ready_fn is not None
+                            else True
+                        )
+                        code = 200 if ready else 503
+                        ctype = "text/plain"
+                        body = b"ready\n" if ready else b"not ready\n"
+                    elif path == "/metrics":
+                        sample_process_metrics(ops.registry)
+                        text = render_prometheus(ops.registry.snapshot())
+                        if ops.fleet is not None:
+                            text += render_fleet_prometheus(
+                                ops.fleet.node_snapshots()
+                            )
+                        code = 200
+                        ctype = "text/plain; version=0.0.4"
+                        body = text.encode()
+                    elif path == "/status.fleet" and ops.fleet is not None:
+                        code, ctype = 200, "application/json"
+                        body = json.dumps(
+                            ops.fleet.summary(), default=str, indent=1,
+                        ).encode()
+                    elif path == "/alerts" and ops.alerts_fn is not None:
+                        code, ctype = 200, "application/json"
+                        body = json.dumps(
+                            ops.alerts_fn(), default=str, indent=1,
+                        ).encode()
+                    elif path == "/status":
+                        full = "full=1" in query.split("&")
+                        if ops.status_fn is None:
+                            status = {}
+                        elif full and _accepts_kwarg(ops.status_fn, "full"):
+                            # Detected by signature, not by calling and
+                            # catching TypeError — that would also eat a
+                            # TypeError raised INSIDE status_fn and
+                            # silently serve the summary view instead.
+                            status = ops.status_fn(full=True)
+                        else:
+                            # status_fn without a full kwarg (older
+                            # callers / test fixtures) serves its one view
+                            status = ops.status_fn()
+                        code, ctype = 200, "application/json"
+                        body = json.dumps(
+                            status, default=str, indent=1
+                        ).encode()
+                    else:
+                        code, ctype, body = 404, "text/plain", b"not found\n"
+                except Exception as err:  # never kill the serving thread
+                    code, ctype = 500, "text/plain"
+                    body = f"error: {err}\n".encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_POST(self):  # noqa: N802 - http.server API
+                path, _, query = self.path.partition("?")
+                handler = ops.routes.get(path)
+                try:
+                    if handler is None:
+                        code, ctype, body = 404, "text/plain", b"not found\n"
+                    else:
+                        length = int(self.headers.get("Content-Length", 0))
+                        payload = self.rfile.read(length) if length else b""
+                        code, ctype, body = handler(payload, query)
+                except Exception as err:  # never kill the serving thread
+                    code, ctype = 500, "text/plain"
+                    body = f"error: {err}\n".encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # silence per-request stderr
+                pass
+
+        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="ops-server", daemon=True,
+        )
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

@@ -546,9 +546,13 @@ class TestEngineParity:
         with pytest.raises(ValueError, match="gvec"):
             engine.contribution_stats(stack_round(engine, plane, pairs), avg)
 
-    def test_noise_waits_for_the_privacy_plane(self, engine, plane):
-        with pytest.raises(NotImplementedError):
-            engine.noise_vector(plane, std=1.0, seed=0, index=0)
+    def test_noise_is_reproducible_per_seed_and_index(self, engine, plane):
+        a = engine.noise_vector(plane, std=1.0, seed=0, index=0)
+        assert a.dtype == np.float32 and a.shape == (plane.dim,)
+        assert np.array_equal(a, engine.noise_vector(plane, std=1.0, seed=0, index=0))
+        assert not np.array_equal(a, engine.noise_vector(plane, std=1.0, seed=0, index=1))
+        assert np.array_equal(engine.noise_vector(plane, std=2.0, seed=0, index=0),
+                              a * np.float32(2.0))
 
     def test_engine_defaults_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -339,12 +339,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]), server_address="localhost:1")
 
 
-@pytest.mark.parametrize("option", [dict(quality_every=1), dict(slo_specs=[{"name": "x"}]),
-                                    dict(dump_dir="x"), dict(dp="server"),
-                                    dict(quality_guard=True), dict(ops_port=0),
-                                    dict(pacing_policy="push:2"),
+@pytest.mark.parametrize("option", [dict(pacing_policy="push:2"),
                                     dict(relay_grace_rounds=1),
-                                    dict(pacing_policy="cohort:2")])
+                                    dict(pacing_policy="cohort:2"),
+                                    dict(pacing_policy="async:2"),
+                                    dict(profiler=object())])
 def test_server_refuses_planes_not_ported(option):
     with pytest.raises(NotImplementedError):
         FederatedServer(min_clients=1, device="cpu", **option)
@@ -353,13 +352,43 @@ def test_server_refuses_planes_not_ported(option):
 @pytest.mark.parametrize("option", [dict(sanitize=False), dict(checkpoint_every=5),
                                     dict(journal_every=2), dict(divergence_patience=2),
                                     dict(aggregation_backend="device"),
-                                    dict(aggregator="fedadam")])
+                                    dict(aggregator="fedadam"),
+                                    dict(quality_every=1),
+                                    dict(slo_specs=[{"name": "x", "metric": "rpc_errors",
+                                                     "op": "<=", "threshold": 0.0}]),
+                                    dict(dump_dir="incidents"), dict(dp="server"),
+                                    dict(quality_guard=True), dict(ops_port=0)])
 def test_server_accepts_the_ported_planes(tmp_path, option):
     """Each option that the refusal test above refused until the planes
-    were ported is accepted now and takes effect."""
-    server = FederatedServer(min_clients=1, device="cpu", save_dir=str(tmp_path), **option)
+    were ported is accepted now and builds its plane."""
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
     name, value = next(iter(option.items()))
-    if name == "sanitize":
+    if name == "dump_dir":
+        option = dict(dump_dir=str(tmp_path / value))
+    if name == "dp":
+        option = dict(option, dp_sigma=1.0)
+    server = FederatedServer(min_clients=1, device="cpu", save_dir=str(tmp_path),
+                             metrics=MetricsLogger(), **option)
+    if name == "quality_every":
+        assert server.quality_every == 1 and server._status()["model_quality"]["every"] == 1
+    elif name == "slo_specs":
+        assert [a["alert"] for a in server.slo.status()["alerts"]] == ["x"]
+    elif name == "dump_dir":
+        assert server._incident_trigger is not None and (tmp_path / value).is_dir()
+        assert server.metrics.recorder is not None
+    elif name == "dp":
+        assert server.privacy_accountant.mode == "server"
+        assert server.aggregator.noiser is server._dp_noiser
+        assert server.update_gate.max_update_norm == 1.0
+    elif name == "ops_port":
+        server.start("127.0.0.1:0")
+        try:
+            assert server.ops_actual_port > 0
+        finally:
+            server.stop(grace=0.1)
+        assert server._ops_server is None
+    elif name == "sanitize":
         assert server.update_gate.check_finite is False and server.update_gate.mad_k == 0.0
     elif name == "divergence_patience":
         assert server.guardian is not None and server.guardian.patience == value
@@ -388,10 +417,31 @@ def test_server_defaults_are_the_jax_servers():
         assert name in port, name
 
 
-@pytest.mark.parametrize("option", [dict(mesh_devices=2), dict(dp="client"),
-                                    dict(dump_dir="x"), dict(profiler=object()),
+@pytest.mark.parametrize("option", [dict(mesh_devices=2), dict(profiler=object()),
                                     dict(failover_addrs=("localhost:2",))])
 def test_client_refuses_options_not_ported(option):
     with pytest.raises(NotImplementedError):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]),
                server_address="localhost:1", device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [dict(dp="client", dp_sigma=0.5), dict(dump_dir="x"),
+                                    dict(dp="server", dp_sigma=0.5)])
+def test_client_accepts_the_ported_options(tmp_path, option):
+    """The client options the refusal test above refused until their planes
+    were ported are accepted and build their halves of the planes."""
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    if "dump_dir" in option:
+        option = dict(dump_dir=str(tmp_path / "x"))
+    client = Client(client_id=2, corpus=RawCorpus(documents=["a b"]),
+                    server_address="localhost:1", device="cpu", metrics=MetricsLogger(),
+                    **option)
+    if "dump_dir" in option:
+        assert client._incident_trigger.node == "client2" and (tmp_path / "x").is_dir()
+    else:
+        # A server-mode spec is the server's mechanism: the client builds none.
+        sanitizer = client._dp_sanitizer
+        assert (sanitizer is not None) == (option["dp"] == "client")
+        if sanitizer is not None:
+            assert sanitizer.client_id == 2 and sanitizer.spec.sigma == 0.5
