@@ -10,8 +10,9 @@
     python3 chip_smoke.py --federation-only  # phases 1 and 9
     python3 chip_smoke.py --server-planes-only  # phases 1 and 10
     python3 chip_smoke.py --privacy-ops-only  # phases 1 and 11
+    python3 chip_smoke.py --pacing-only   # phases 1 and 12
 
-Eleven phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Twelve phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -228,6 +229,30 @@ device or no port next to this script):
    ``host_noise_vector``, the quality step, contribution stats, the
    ``/metrics`` render, fleet ingest, incident captures) and the ms per
    global step beside phase 9's.
+12. cohort, async and push pacing, and the simulated fleet (every check
+   fatal): three port clients over localhost gRPC on the card, phase 7(b)'s
+   two raw-text clients and a third from the same generator with its own
+   seed (``seed=1``; the consensus V printed), K=50, H=(100, 100), B=256,
+   2 epochs, each federation on a port server at the JAX defaults but for
+   its pacing: (a) ``cohort:2`` under the delta codec with
+   ``pacing_seed=1``: every ``cohort_sampled`` roster the sampler replayed
+   for its (seed, round, eligible), rotating rosters, no quorum skip and no
+   ``codec_ref_miss``, every recipient of round r holding the server's
+   round-r downlink view bitwise; (b) ``async:2`` with
+   ``staleness_alpha=0.5``: every discount ``1/(1+s)^0.5`` for its s;
+   (c) ``push:2`` under the delta codec, each client's round 16 local
+   steps (``local_steps=16``), 32 epochs: one push received per round, at
+   least 8 ``push_aggregated``, no ``codec_ref_miss``,
+   ``/status`` pacing ``push:2`` with ``push: true``. In each of (a)-(c):
+   at least 8 aggregations, every client finished with finite losses,
+   ``server_model.npz`` finite, K1-K3 launched once per local step the
+   clients took and held to their plain versions on the first batch, and
+   the ms per aggregation split as phase 9's beside phase 9's ms per global
+   step. (d) The simulated fleet (``federation/simfleet.py``) with its
+   server on the card: cohort:16 and push:16 at N=100 and N=1,000 (6
+   rounds), sync at N=100 (2 rounds), each run's set-up and run seconds,
+   bytes per round, loopback calls and peak RSS; cohort's and push's bytes
+   per round at N=1,000 within 1.25x of N=100.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -239,9 +264,11 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import math
 import os
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -3440,6 +3467,485 @@ def privacy_ops_phase(card: str, notes: dict, raw=None) -> None:
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: cohort, async and push pacing, and the simulated-client fleet
+# ---------------------------------------------------------------------------
+PACING_SEED = 1  # phase 12(a)'s pacing_seed
+PACING_ALPHA = 0.5  # phase 12(b)'s staleness_alpha
+PACING_MIN_AGGS = 8  # each of 12(a)-(c) aggregates at least this often
+# Under push pacing ``local_steps`` is the length of a client's own round.
+# At 1, three free-running clients in one interpreter push faster than the
+# server decodes (a drained update costs it more host time than a push
+# costs its client), and the drains grow round by round (2, 8, 10, ... 30
+# updates on the card); 16 local steps a push keep them at about B = 2.
+# 32 epochs give each client 8 pushes, so 12(c) aggregates about 12 times.
+PUSH_LOCAL_STEPS = 16
+PUSH_EPOCHS = 32
+SIM_RUNS = (("cohort", 100, 16, 6), ("cohort", 1_000, 16, 6), ("push", 100, 16, 6),
+            ("push", 1_000, 16, 6), ("sync", 100, 0, 2))  # (mode, N, K or B, rounds)
+
+
+def pacing_corpora(card: str, raw=None) -> list:
+    """Phase 12's three raw-text clients: phase 7(b)'s two and a third from
+    the same generator with its own seed (``seed=1``: its own topics, so the
+    consensus vocabulary grows past 66,001)."""
+    from gfedntm_tpu_torch import RawCorpus, generate_synthetic_corpus
+
+    clients = list((raw or raw_text_corpora(card))[0])
+    t0 = time.perf_counter()
+    third = generate_synthetic_corpus(vocab_size=100_000, n_topics=50, n_docs=1024, n_nodes=1,
+                                      materialize_docs=True, seed=1)
+    clients.append(RawCorpus(documents=third.nodes[0].documents))
+    print(f"pacing: a third raw-text client of {len(clients[2])} documents made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return clients
+
+
+def view_digest(view: dict) -> str:
+    """SHA-256 over a flat state's keys, dtypes, shapes and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for key in sorted(view):
+        arr = np.ascontiguousarray(view[key])
+        h.update(f"{key}|{arr.dtype}|{arr.shape}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def pacing_client(views: bool):
+    """Phase 9's recorded client that also records the loss of every local
+    step (a push round that applies no aggregate still steps) and, with
+    ``views``, a digest of every downlink view it decodes, by round."""
+    Recorded = recorded_client()
+
+    class Pacing(Recorded):
+        def join_federation(self):
+            super().join_federation()
+            st = self.stepper
+            self.step_losses, self.views = [], {}
+            step = st.train_mb_delta
+
+            def train_mb_delta(snapshot=True):
+                out = step(snapshot)
+                self.step_losses.append(st.loss)
+                return out
+
+            st.train_mb_delta = train_mb_delta
+            if views:
+                decode = self._downlink.decode
+
+                def recorded_decode(bundle, round_idx=None):
+                    out = decode(bundle, round_idx=round_idx)
+                    self.views[int(round_idx)] = view_digest(out)
+                    return out
+
+                self._downlink.decode = recorded_decode
+
+    return Pacing
+
+
+def pacing_federation(card: str, notes: dict, clients_raw, label: str, num_epochs: int = 2,
+                      views: bool = False, **server_kw):
+    """One phase 12 federation: a port server at the JAX defaults but for
+    ``server_kw`` (the pacing and its codec), three port clients over
+    localhost gRPC on the card, K=50, H=(100, 100), B=256, ``num_epochs``;
+    with ``views``, digests of the server's and the clients' downlink views
+    by round; the checks every part shares. Returns (server, clients, server
+    log, times)."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    K, B, C = 50, 256, len(clients_raw)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=num_epochs,
+              seed=0)
+    save_dir = SCRATCH / f"pacing_{label}"
+    shutil.rmtree(save_dir, ignore_errors=True)  # a fresh federation: nothing to recover
+    server_log = MetricsLogger(node="server", keep_records=True)
+    server = FederatedServer(min_clients=C, family="avitm", model_kwargs=kw, max_iters=100,
+                             save_dir=str(save_dir), metrics=server_log, **server_kw)
+    check(server.device.type == "cuda", f"phase 12({label}): the server is on {server.device}")
+    times = {k: [] for k in ("decode", "mean", "encode", "journal")}
+    _timed(server, "_collect_snapshots", times["decode"])
+    _timed(server.aggregator, "aggregate", times["mean"])
+    _timed(server, "_encode_push", times["encode"])
+    _timed(server, "_advance_broadcast", times["encode"])
+    _timed(server, "_journal_round", times["journal"])
+    server.views = {}
+    if views:
+        advance = server._downlink_enc.advance
+
+        def recorded_advance(average, round_idx):
+            bundle, view = advance(average, round_idx=round_idx)
+            server.views[int(round_idx)] = view_digest(view)
+            return bundle, view
+
+        server._downlink_enc.advance = recorded_advance
+    address = server.start("127.0.0.1:0")
+    logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True) for c in range(C)]
+    Pacing = pacing_client(views)
+    clients = [Pacing(client_id=c + 1, corpus=clients_raw[c], server_address=address,
+                      listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                      max_features=None, metrics=logs[c]) for c in range(C)]
+    try:
+        fd.reset_launches()
+        run_s = run_clients(clients, server, f"phase 12({label})")
+        torch.cuda.synchronize()
+        launches = dict(fd.LAUNCHES)
+    finally:
+        server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+    reg = server_log.registry
+    steps = sum(len(cl.steps) for cl in clients)
+    V = len(server.global_vocab)
+    print(f"pacing ({label}), {card}: {server.pacing.spec_id}, codec "
+          f"{server.wire_codec.codec_id}, {C} port clients, global V={V}; "
+          f"{server.global_iterations} aggregations in {run_s:.2f} s; local steps "
+          f"{[len(cl.steps) for cl in clients]}; launches {nonzero(launches)}; "
+          f"quorum skips {reg.counter('quorum_skipped_rounds').value}, codec_ref_miss "
+          f"{reg.counter('codec_ref_miss').value}, updates rejected by the gate "
+          f"{reg.counter('updates_rejected').value}, rollbacks "
+          f"{reg.counter('divergence_rollbacks').value}", flush=True)
+    drains = [e["buffered"] for e in server_log.events("push_aggregated")
+              + server_log.events("async_aggregated")]
+    check(server.global_iterations >= PACING_MIN_AGGS,
+          f"phase 12({label}): {server.global_iterations} aggregations (drains of {drains} "
+          f"updates), want >= {PACING_MIN_AGGS}")
+    check(server._agg_backend_resolved == "device", f"phase 12({label}): aggregation plane")
+    for cl in clients:
+        check(cl.stepper.finished and cl.stepper.model.device.type == "cuda",
+              f"phase 12({label}): client {cl.client_id} did not finish on the card")
+        check(len(cl.step_losses) == len(cl.steps)
+              and bool(np.isfinite(cl.step_losses).all()),
+              f"phase 12({label}): client {cl.client_id}: non-finite losses")
+        check(logs[cl.client_id - 1].registry.counter("codec_ref_miss").value == 0,
+              f"phase 12({label}): client {cl.client_id} missed a codec reference")
+    check(reg.counter("codec_ref_miss").value == 0,
+          f"phase 12({label}): the server missed a codec reference")
+    check((save_dir / "server_model.npz").exists()
+          and bool(np.isfinite(server.global_betas).all()),
+          f"phase 12({label}): server_model.npz missing or not finite")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == steps,
+              f"phase 12({label}): {name} launched {launches[name]} times, the clients took "
+              f"{steps} local steps")
+        notes[name] += f"; phase 12({label}) {server.pacing.spec_id}: {launches[name]} launches"
+    first_batch_kernels(f"pacing ({label})", server._setup_reply, clients[0], kw)
+    return server, clients, server_log, dict(times, run=run_s)
+
+
+def pacing_times(card: str, label: str, server, clients, server_log, times) -> float:
+    """Print phase 12's ms per aggregation, split as phase 9's where the
+    pacing has the part, beside phase 9's ms per global step; returns the
+    median ms per aggregation (aggregations 2 onwards)."""
+    import numpy as np
+
+    rounds = sorted((r for r in server_log.events("span") if r["name"] == "round"),
+                    key=lambda r: r["round"])[1:]
+    med = {k: float(np.median(_seconds(v[1:]))) * 1e3 if len(v) > 1 else float("nan")
+           for k, v in times.items() if k != "run"}
+    step = float(np.median([b - a for cl in clients for a, b in cl.steps[1:]])) * 1e3
+    snap = float(np.median([b - a for cl in clients for a, b in cl.snaps[1:]])) * 1e3
+    per_agg = float(np.median([r["seconds"] for r in rounds])) * 1e3
+    p9 = STEADY_MS.get("phase 9")
+    print(f"pacing ({label}) ms per aggregation, {card}: median over aggregations 2-"
+          f"{len(rounds) + 1}: {per_agg:.3f} per aggregation (its round span; wall "
+          f"{times['run'] / server.global_iterations * 1e3:.3f}: {server.global_iterations} "
+          f"in {times['run']:.2f} s with the joins and the stop); split: local step {step:.3f} "
+          f"(median over every step; an exchanged step includes its snapshot, median "
+          f"{snap:.3f}), transfer and decode (with the "
+          f"update gate) {med['decode']:.3f}, mean on the card {med['mean']:.3f}, downlink "
+          f"encode {med['encode']:.3f}, journal write {med['journal']:.3f}; phase 9 ms per "
+          f"global step " + (f"{p9:.3f}" if p9 is not None else "not run in this call"),
+          flush=True)
+    return per_agg
+
+
+def cohort_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 12(a): ``cohort:2`` of 3 under the delta codec, ``pacing_seed=1``:
+    every roster is the sampler replayed for its (seed, round, eligible),
+    the rosters rotate, no quorum skip and no reference miss, and every
+    recipient of round r holds the server's round-r view bitwise."""
+    import numpy as np
+
+    from gfedntm_tpu_torch.federation import pacing
+
+    samples = []
+    select = pacing.CohortEngine.select_cohort
+
+    def recorded_select(self, iteration, active):
+        cohort = select(self, iteration, active)
+        samples.append((iteration, [r.client_id for r in active],
+                        [r.client_id for r in cohort]))
+        return cohort
+
+    pacing.CohortEngine.select_cohort = recorded_select
+    try:
+        server, clients, log, times = pacing_federation(
+            card, notes, clients_raw, "a", views=True, pacing_policy="cohort:2",
+            pacing_seed=PACING_SEED, wire_codec="delta")
+    finally:
+        pacing.CohortEngine.select_cohort = select
+    check(log.registry.counter("quorum_skipped_rounds").value == 0,
+          "phase 12(a): a round was skipped below quorum")
+    events = [(e["round"], e["cohort"]) for e in log.events("cohort_sampled")]
+    check(events == [(it, roster) for it, _active, roster in samples],
+          "phase 12(a): cohort_sampled events differ from the sampler's rosters")
+    for iteration, active, roster in samples:
+        if len(active) <= 2:
+            want = active
+        else:
+            rng = np.random.default_rng((PACING_SEED, iteration))
+            picked = {active[int(i)] for i in rng.choice(len(active), size=2, replace=False)}
+            want = [c for c in active if c in picked]
+        check(roster == want, f"phase 12(a): round {iteration}'s roster {roster}, the "
+              f"sampler replayed for eligible {active} gives {want}")
+    full = {tuple(roster) for _it, active, roster in samples if len(active) == 3}
+    check(len(full) > 1, f"phase 12(a): the rosters do not rotate ({full})")
+    held = 0
+    for cl in clients:
+        for rnd, digest in cl.views.items():
+            check(server.views.get(rnd) == digest,
+                  f"phase 12(a): client {cl.client_id} holds another view of round {rnd} "
+                  "than the server's")
+            held += 1
+    check(held == sum(len(cl.states) for cl in clients) and held > 0,
+          f"phase 12(a): {held} views compared, {sum(len(cl.states) for cl in clients)} "
+          "aggregates applied")
+    print(f"pacing (a): rosters {[(it, roster) for it, _a, roster in samples]}; {held} "
+          f"recipient views bitwise the server's round views", flush=True)
+    STEADY_MS["pacing (a)"] = pacing_times(card, "a", server, clients, log, times)
+
+
+def async_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 12(b): ``async:2`` with ``staleness_alpha=0.5``: every discount
+    the drain applies is ``1/(1+s)^0.5`` for its server-clamped s."""
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+
+    drains = []
+    collect = FederatedServer._collect_snapshots
+
+    def recorded_collect(self, replies, iteration, was_suspect=frozenset(),
+                         weight_scale=None, staleness=None):
+        drains.append((iteration, dict(weight_scale or {}), dict(staleness or {})))
+        return collect(self, replies, iteration, was_suspect, weight_scale=weight_scale,
+                       staleness=staleness)
+
+    FederatedServer._collect_snapshots = recorded_collect
+    try:
+        server, clients, log, times = pacing_federation(
+            card, notes, clients_raw, "b", pacing_policy="async:2",
+            staleness_alpha=PACING_ALPHA)
+    finally:
+        FederatedServer._collect_snapshots = collect
+    aggs = log.events("async_aggregated")
+    check(len(aggs) == server.global_iterations == len(drains),
+          f"phase 12(b): {len(aggs)} async_aggregated events, {len(drains)} drains")
+    stale = []
+    for iteration, scale, stal in drains:
+        check(bool(scale) and sorted(scale) == sorted(stal), f"phase 12(b): drain {iteration}")
+        for cid, factor in scale.items():
+            want = 1.0 / (1.0 + stal[cid]) ** PACING_ALPHA
+            check(factor == want, f"phase 12(b): client {cid} at {iteration}: discount "
+                  f"{factor!r}, 1/(1+{stal[cid]})^0.5 = {want!r}")
+            stale.append(stal[cid])
+    print(f"pacing (b): {len(drains)} drains of {[len(s) for _i, s, _t in drains]} updates; "
+          f"staleness per update {stale}, each discount 1/(1+s)^0.5 exactly", flush=True)
+    STEADY_MS["pacing (b)"] = pacing_times(card, "b", server, clients, log, times)
+
+
+def push_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 12(c): ``push:2`` under the delta codec, each push a round of
+    ``PUSH_LOCAL_STEPS`` local steps, ``PUSH_EPOCHS`` epochs: the clients
+    push, the server aggregates at least eight times without polling, no
+    reference miss, and ``/status`` reads the push engine."""
+    server, clients, log, times = pacing_federation(
+        card, notes, clients_raw, "c", num_epochs=PUSH_EPOCHS, pacing_policy="push:2",
+        wire_codec="delta", local_steps=PUSH_LOCAL_STEPS)
+    reg = log.registry
+    received = reg.counter("push_updates_received").value
+    aggs = log.events("push_aggregated")
+    status = server._status()["pacing"]
+    steps = sum(len(cl.steps) for cl in clients)
+    pushes = sum(cl.metrics.registry.counter("client_pushes").value for cl in clients)
+    print(f"pacing (c): {received} pushes received ({pushes} sent, {steps} local steps), "
+          f"{len(aggs)} push_aggregated of {[e['buffered'] for e in aggs]} updates, /status "
+          f"pacing {status}", flush=True)
+    want = sum(-(-len(cl.steps) // PUSH_LOCAL_STEPS) for cl in clients)
+    check(received > 0 and received == pushes == want,
+          f"phase 12(c): {received} pushes received, {pushes} sent, {steps} local steps in "
+          f"rounds of {PUSH_LOCAL_STEPS}")
+    check(len(aggs) >= PACING_MIN_AGGS, f"phase 12(c): {len(aggs)} push_aggregated events")
+    check(status["policy"] == "push:2" and status["push"] is True,
+          f"phase 12(c): /status pacing {status}")
+    check(reg.counter("rpcs_deduplicated").value == 0, "phase 12(c): a push was replayed")
+    STEADY_MS["pacing (c)"] = pacing_times(card, "c", server, clients, log, times)
+
+
+def rss_mb() -> "tuple[float, float | None]":
+    """This process's resident set and its peak since the last reset
+    (``VmRSS``, ``VmHWM``; ``None`` where the kernel reports no peak), MB."""
+    fields = {}
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "VmHWM"):
+                fields[key] = float(value.split()[0]) / 1024.0
+    return fields["VmRSS"], fields.get("VmHWM")
+
+
+def push_rounds(server, servicers, template, fan: int, rounds: int, deadline: float) -> None:
+    """Drive a push-paced sim fleet round by round: ``fan`` round-robin
+    pushes (each reply applied), then wait for their aggregation, so every
+    round drains exactly B updates and its bytes do not depend on the race
+    between this driver and the engine thread."""
+    order, i = sorted(servicers), 0
+    while not server.training_done.is_set() and server.global_iterations < rounds:
+        done = server.global_iterations
+        pushed = 0
+        while pushed < fan:
+            servicer = servicers[order[i % len(order)]]
+            i += 1
+            if servicer.finished:
+                continue
+            update = servicer.build_update(template)
+            agg = server.PushUpdate(update, None)
+            server.byte_counter.note(agg, update)
+            servicer.apply(agg)
+            pushed += 1
+        while server.global_iterations == done and not server.training_done.is_set():
+            check(time.perf_counter() < deadline, "sim fleet: a push round never aggregated")
+            time.sleep(0.001)
+
+
+def sim_fleet_run(mode: str, n: int, fan: int, rounds: int) -> dict:
+    """One ``scripts/scale_bench.py`` configuration on the port's sim fleet,
+    its server on the card: set-up and run seconds, bytes per round counted
+    before the stop broadcast, loopback calls, and the process's peak RSS
+    over the run (reset first through ``/proc/self/clear_refs``)."""
+    import numpy as np
+
+    from gfedntm_tpu_torch.federation.simfleet import SimFleetServer, make_sim_fleet
+
+    try:
+        with open("/proc/self/clear_refs", "w") as fh:
+            fh.write("5")
+        peak_reset = rss_mb()[1] is not None
+    except OSError:
+        peak_reset = False
+    rss_before = rss_mb()[0]
+    save_dir = SCRATCH / f"simfleet_{mode}_{n}"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    pacing_spec = {"cohort": f"cohort:{fan}", "push": f"push:{fan}", "sync": "sync"}[mode]
+    # The bytes are read just before the stop broadcast (an O(N) fan-out of
+    # stop messages, not a round's cost). A poll-driven run can end before
+    # make_sim_fleet returns, so the hook goes on the class first.
+    counted = {}
+    stop_broadcast = SimFleetServer._stop_broadcast
+
+    def before_stop(self, stubs):
+        counted["bytes"] = self.byte_counter.sent + self.byte_counter.recv
+        stop_broadcast(self, stubs)
+
+    SimFleetServer._stop_broadcast = before_stop
+    t0 = time.perf_counter()
+    try:
+        server, servicers, template = make_sim_fleet(
+            n, steps=rounds + 2, pacing_policy=pacing_spec, max_iters=rounds,
+            save_dir=str(save_dir), checkpoint_every=0, journal_every=0,
+            round_backoff_s=0.02)
+    except BaseException:
+        SimFleetServer._stop_broadcast = stop_broadcast
+        raise
+    setup_s = time.perf_counter() - t0
+    counter = server.byte_counter
+    t1 = time.perf_counter()
+    try:
+        if mode == "push":
+            push_rounds(server, servicers, template, fan, rounds, t1 + 300)
+        check(server.wait_done(timeout=300), f"sim fleet {mode} N={n} did not finish")
+    finally:
+        server.stop(grace=0.1)
+        SimFleetServer._stop_broadcast = stop_broadcast
+    run_s = time.perf_counter() - t1
+    check(server.device.type == "cuda" and server._agg_backend_resolved == "device",
+          f"sim fleet {mode} N={n}: the server is not on the card")
+    check(server.global_iterations == rounds,
+          f"sim fleet {mode} N={n}: {server.global_iterations} rounds, want {rounds}")
+    check(all(bool(np.isfinite(np.asarray(v)).all()) for v in server.last_average.values()),
+          f"sim fleet {mode} N={n}: non-finite average")
+    rss_now, peak = rss_mb()
+    return {"mode": mode, "n": n, "fan": fan, "rounds": rounds, "setup_s": setup_s,
+            "run_s": run_s, "bytes_per_round": counted["bytes"] / rounds,
+            "calls": counter.calls, "rss_before_mb": rss_before, "rss_mb": rss_now,
+            "peak_rss_mb": peak if peak_reset else None,
+            "lifetime_peak_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0}
+
+
+class _Count(logging.Handler):
+    """Counts the records it sees (and prints none)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.n = 0
+
+    def emit(self, record):
+        self.n += 1
+
+
+def sim_fleet_phase(card: str) -> None:
+    """Phase 12(d): the simulated fleet with its server on the card; cohort
+    and push bytes per round at N=1,000 within 1.25x of N=100. The gate's
+    warnings (it rejects some stale sim updates as norm outliers) are
+    counted, not printed."""
+    runs = {}
+    server_log = logging.getLogger("FederatedServer")
+    for mode, n, fan, rounds in SIM_RUNS:
+        counter = _Count()
+        server_log.addHandler(counter)
+        server_log.propagate = False
+        try:
+            res = sim_fleet_run(mode, n, fan, rounds)
+        finally:
+            server_log.removeHandler(counter)
+            server_log.propagate = True
+        res["warnings"] = counter.n
+        runs[(mode, n)] = res
+        peak = (f"{res['peak_rss_mb']:.1f} MB" if res["peak_rss_mb"] is not None
+                else "not measured")
+        print(f"sim fleet, {card}: {mode}" + (f":{fan}" if fan else "") + f" N={n}, "
+              f"{rounds} rounds: set-up {res['setup_s']:.3f} s, run {res['run_s']:.3f} s, "
+              f"{res['bytes_per_round']:.0f} bytes per round, {res['calls']} loopback calls, "
+              f"{res['warnings']} server warnings (gate rejections), peak RSS over the run {peak} (RSS {res['rss_before_mb']:.1f} MB before, "
+              f"{res['rss_mb']:.1f} after; the process's lifetime peak "
+              f"{res['lifetime_peak_mb']:.1f} MB)", flush=True)
+    for mode in ("cohort", "push"):
+        lo, hi = (f(n for m, n in runs if m == mode) for f in (min, max))
+        ratio = runs[(mode, hi)]["bytes_per_round"] / runs[(mode, lo)]["bytes_per_round"]
+        print(f"sim fleet: {mode} bytes per round N={hi} / N={lo} = {ratio:.4f}", flush=True)
+        check(ratio <= 1.25, f"phase 12(d): {mode} bytes per round grew {ratio:.3f}x from "
+              f"N={lo} to N={hi}")
+
+
+def pacing_phase(card: str, notes: dict, raw=None) -> None:
+    """Phase 12: (a) cohort, (b) async and (c) push pacing with three real
+    port clients at phase 9's width, (d) the simulated fleet."""
+    t_phase = time.perf_counter()
+    clients_raw = pacing_corpora(card, raw)
+    cohort_phase(card, notes, clients_raw)
+    async_phase(card, notes, clients_raw)
+    push_phase(card, notes, clients_raw)
+    sim_fleet_phase(card)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -3448,19 +3954,22 @@ def main(argv: list[str]) -> int:
     fed_only = "--federation-only" in argv
     planes_only = "--server-planes-only" in argv
     privacy_only = "--privacy-ops-only" in argv
+    pacing_only = "--pacing-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
-                                         "--server-planes-only", "--privacy-ops-only")]
+                                         "--server-planes-only", "--privacy-ops-only",
+                                         "--pacing-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
-    only = dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
+    only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
+            or pacing_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
-            + privacy_only > 1
+            + privacy_only + pacing_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
-              "--privacy-ops-only]", file=sys.stderr)
+              "--privacy-ops-only | --pacing-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3506,6 +4015,9 @@ def main(argv: list[str]) -> int:
         if privacy_only:
             privacy_ops_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if pacing_only:
+            pacing_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
@@ -3517,6 +4029,7 @@ def main(argv: list[str]) -> int:
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
+            pacing_phase(card, notes, raw)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

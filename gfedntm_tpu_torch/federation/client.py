@@ -28,6 +28,14 @@ holds the servicer's lock from its ready to the codec reset a recovered
 server orders, so the recovered server's first poll cannot be answered with
 a delta against a broadcast it never held.
 
+Under every pacing but ``push`` the client is polled. Under ``push:B``
+(the ``GlobalSetup``'s ``pacing_id``) it clocks its own rounds
+(:meth:`Client._run_push_loop`): each local round of the setup's
+``local_steps`` goes up as a ``PushUpdate`` carrying the session token and
+a client-minted seq, and the reply's aggregate (or reset order, or empty
+marker) completes the round with exactly one schedule advance
+(:meth:`FederatedClientServicer.finish_push_round`).
+
 Client-side differential privacy (``dp="client"``): a
 :class:`~gfedntm_tpu_torch.privacy.mechanisms.ClientSanitizer` clips each
 outgoing snapshot's delta from the last applied aggregate (the replicated
@@ -39,12 +47,13 @@ the poll's reply).
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1): a
 multi-device local step (``mesh_devices > 1``), re-homing to
-``failover_addrs`` (the relay tier's counterpart), the device profiler
-(``profiler``) and push pacing.
+``failover_addrs`` (the relay tier's counterpart) and the device profiler
+(``profiler``).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -162,6 +171,9 @@ class FederatedClientServicer:
         # The last capture token answered: one flight-record snapshot per
         # incident, however many polls the token rides.
         self._last_capture_token = ""  # guarded-by: _lock
+        # Under push pacing the token arrives on a PushUpdate reply and is
+        # answered on the next push's StepReply.
+        self._pending_capture_token = ""  # guarded-by: _lock
 
     def TrainStep(self, request: pb.StepRequest, context) -> pb.StepReply:
         """The round's local step(s); reply with the post-step shared
@@ -251,15 +263,16 @@ class FederatedClientServicer:
             )
             if self.shipper is not None:
                 reply.telemetry = self.shipper.build()
-            tok = request.capture_token
+            tok = request.capture_token or self._pending_capture_token
             if tok and tok != self._last_capture_token:
                 # A solicited flight-record snapshot, once per token
                 # (best-effort: a lost reply drops it, and the token rides
-                # the next poll).
+                # the next exchange).
                 blob = flightrec.build_remote_snapshot(self.metrics, tok)
                 if blob is not None:
                     reply.flightrec = blob
                     self._last_capture_token = tok
+            self._pending_capture_token = ""
             if seq:
                 self._last_step_seq = seq
                 self._last_step_reply = reply
@@ -359,6 +372,49 @@ class FederatedClientServicer:
                     self.client_id, status.current_epoch, status.epoch_loss,
                 )
             return self._reply(status.finished, status.current_epoch)
+
+    # ---- push pacing -------------------------------------------------------
+    def local_round(self, local_steps: int) -> pb.StepReply:
+        """One client-clocked local round under push pacing
+        (``client.py:378-400``): the round's local steps and the StepReply to
+        stream upstream, through the same snapshot and encode path as a
+        poll, without the seq replay cache (a push carries no server-minted
+        seq)."""
+        self.on_activity()
+        try:
+            reply = self._train_step(pb.StepRequest(
+                global_iter=self._applied_round + 1,
+                local_steps=local_steps, seq=0,
+            ))
+            # The schedule advances only after the round completes
+            # (finish_push_round), so `stepper.finished` is one step stale
+            # here: on the final scheduled step it still reads False.
+            # steps_remaining counts the pending step, so <= 1 means this
+            # exchanged step is the last one.
+            if self.stepper.steps_remaining <= 1:
+                reply.finished = True
+            return reply
+        finally:
+            self.on_done()
+
+    def finish_push_round(self, agg: "pb.Aggregate | None") -> None:
+        """Complete one push round with its PushUpdate reply
+        (``client.py:402-423``): apply the reply's aggregate when it carries
+        a new broadcast or a session-reset order, else advance past the
+        exchanged step locally. Exactly one schedule advance happens either
+        way (one aggregate per exchanged step)."""
+        with self._lock:
+            if agg is not None and agg.capture_token:
+                # A solicited capture: answered on the next push.
+                self._pending_capture_token = agg.capture_token
+            if agg is not None and not agg.stop and (
+                agg.reset_session or len(agg.shared.tensors)
+            ):
+                self._apply_aggregate(agg)
+            if self.stepper._pending_step:
+                # An empty marker, a bare reset order or a replayed round:
+                # no aggregate consumed the pending step.
+                self.stepper.advance_local()
 
 
 class Client:
@@ -484,6 +540,11 @@ class Client:
         self._inflight_lock = threading.Lock()
         self._finalize_lock = threading.Lock()
         self._finalized = False
+        # Pacing from the GlobalSetup: under push pacing the client streams
+        # PushUpdate rounds of `_push_local_steps` with client-minted seqs.
+        self._pacing_id = "sync"
+        self._push_local_steps = 1
+        self._push_seq = itertools.count(1)
 
     # ---- lifecycle ---------------------------------------------------------
     def _touch(self) -> None:
@@ -552,6 +613,12 @@ class Client:
         exhausted or the federation is reported finished."""
         self.join_federation()
         self.serve_training()
+        if self._pacing_id.startswith("push") and not self.stopped.is_set():
+            # Push pacing: this client clocks its own rounds until finished
+            # (or told to stop), then waits for the stop broadcast below.
+            self._run_push_loop()
+            if self.stopped.is_set():
+                return
         if self.liveness_timeout <= 0:
             self.stopped.wait()
             return
@@ -569,6 +636,76 @@ class Client:
                     continue
             if self._watchdog_finalize():
                 break
+
+    def _run_push_loop(self) -> None:
+        """Push pacing (``client.py:727-819``): run local rounds on this
+        client's clock and stream each upstream as a ``PushUpdate``, applying
+        whatever fresher broadcast the reply carries. Ends when local
+        training finishes (the final push carries ``finished=True``), a
+        ``stop`` reply arrives, or the server stays unreachable past the
+        reconnect window."""
+        reply: pb.StepReply | None = None
+        retries = 0
+        while not self.stopped.is_set():
+            if reply is None:
+                if self.stepper.finished:
+                    return
+                reply = self._servicer.local_round(self._push_local_steps)
+                reply.session_token = self.session_token
+                reply.seq = next(self._push_seq)
+                retries = 0
+            agg = None
+            try:
+                agg = self._federation_stub.PushUpdate(reply)
+            except Exception as exc:
+                self.logger.warning(
+                    "client %d: PushUpdate failed (%s)", self.client_id, exc,
+                )
+                # The stub already retried transient failures: the server is
+                # gone. Reconnect by session token (a recovered server's
+                # Ack 3 resets the codec sessions), or self-finalize.
+                if not (self._reconnect_available()
+                        and self._reconnect_loop(0.0)):
+                    self._on_stop()
+                    return
+                if retries < 3:
+                    # Re-present the held update: its seq makes the re-send
+                    # idempotent, and the final round has no successor to
+                    # supersede it.
+                    retries += 1
+                    continue
+                # Retries exhausted: advance; the next round supersedes it.
+            if (
+                agg is not None and not agg.stop and agg.round < 0
+                and not len(agg.shared.tensors)
+            ):
+                # Hold: the federation has not started aggregating; present
+                # this round again rather than spend the epoch budget.
+                self._touch()
+                self.stopped.wait(0.5)
+                continue
+            # Exactly one schedule advance per pushed round, fresh state or
+            # not (a failed push advances too).
+            self._servicer.finish_push_round(agg)
+            was_final = bool(reply.finished)
+            reply = None
+            self._touch()
+            if self.metrics is not None:
+                self.metrics.registry.counter(
+                    "client_pushes" if agg is not None
+                    else "client_pushes_abandoned"
+                ).inc()
+            if agg is not None and agg.stop:
+                self.logger.info(
+                    "client %d: server answered a push with stop; "
+                    "finalizing", self.client_id,
+                )
+                self._on_stop()
+                return
+            if was_final:
+                # The final local round went up; wait for the stop
+                # broadcast like any early finisher.
+                return
 
     def _reconnect_loop(self, idle: float) -> bool:
         """RECONNECTING: keep re-presenting the session token under capped
@@ -713,12 +850,8 @@ class Client:
                 timeout=self.setup_timeout,
             )
             self.session_token = setup.session_token or ""
-            pacing_id = setup.pacing_id or "sync"
-            if pacing_id != "sync":
-                raise NotImplementedError(
-                    f"client {self.client_id}: the federation runs {pacing_id} "
-                    "pacing, which the port's client does not have yet "
-                    "(ROADMAP queue 1)")
+            self._pacing_id = setup.pacing_id or "sync"
+            self._push_local_steps = max(1, int(setup.local_steps or 1))
             self.global_vocab = Vocabulary(tuple(setup.vocab))
             self._negotiate_codec(setup.codec_id or "none")
             hyper = json.loads(setup.hyperparams_json)

@@ -1,14 +1,18 @@
 """Federated server for the cross-datacenter network path.
 
 Counterpart of ``gfedntm_tpu/federation/server.py`` (itself the reference's
-``src/federation/server.py:37-553``), the sync path: phase-1 vocabulary
-consensus as a gRPC servicer (``OfferVocab``, ``GetGlobalSetup``,
-``ReadyForTraining`` with durable-session tokens), then phase-2
-per-minibatch orchestration, where the :class:`~gfedntm_tpu_torch.federation.pacing.SyncEngine`
-polls every client concurrently for its post-step shared state, FedAvg
+``src/federation/server.py:37-553``): phase-1 vocabulary consensus as a gRPC
+servicer (``OfferVocab``, ``GetGlobalSetup``, ``ReadyForTraining`` with
+durable-session tokens), then phase-2 orchestration by a pacing engine
+(:mod:`~gfedntm_tpu_torch.federation.pacing`). Under ``sync`` pacing every
+client is polled concurrently for its post-step shared state, FedAvg
 weights the replies by their ``nr_samples``, and the average is pushed back
-(``ApplyAggregate``); clients that finish early drop out of the polls, and
-the run ends with a stop broadcast and ``server_model.npz``.
+(``ApplyAggregate``); ``cohort:K`` polls a seeded K-of-N sample per round,
+``async:B`` aggregates every B buffered updates with staleness discounts,
+and ``push:B`` is never polled: clients stream ``PushUpdate`` and the reply
+carries the freshest round, delta-encoded against what each client holds.
+Clients that finish drop out, and the run ends with a stop broadcast and
+``server_model.npz``.
 
 It speaks the JAX package's protocol byte for byte, so JAX clients join it
 and port clients join a JAX server: the ``GlobalSetup`` carries the
@@ -55,9 +59,10 @@ planes behind them:
   next poll's capture token.
 
 The JAX server's remaining options are not ported yet, and asking for one
-raises ``NotImplementedError`` (ROADMAP queue 1): the device profiler,
-relay supervision, and cohort, async and push pacing. Their defaults are
-off, so every JAX default is accepted.
+raises ``NotImplementedError`` (ROADMAP queue 1): the device profiler
+(``profiler``) and relay supervision (``relay_grace_rounds``). Their
+defaults are off, so every keyword of the JAX server is accepted at its
+default.
 """
 
 from __future__ import annotations
@@ -162,24 +167,22 @@ def model_opt_state(model: AVITM):
 
 
 #: JAX server options whose planes are not ported yet, with the values that
-#: keep each off (or select what the port has). Any other value raises
-#: ``NotImplementedError``.
-_QUEUED_OPTIONS = {
-    "pacing_policy": ("sync",), "cohort_size": (None,), "async_buffer": (None,),
-    "relay_grace_rounds": (0,), "profiler": (None,),
-}
+#: keep each off. Any other value raises ``NotImplementedError``.
+_QUEUED_OPTIONS = {"relay_grace_rounds": (0,), "profiler": (None,)}
 
 
 class FederatedServer:
-    """gRPC servicer + sync training orchestrator.
+    """gRPC servicer + training orchestrator under any pacing.
 
     Parameters and their defaults mirror the JAX server's
     (``min_clients`` = the CLI's ``--min_clients_federation``, ``family`` +
     ``model_kwargs``, ``max_iters``, the resilience knobs, the data-plane
-    defense, checkpoints and the journal, ``wire_codec``), plus ``device``
-    for the template model and the aggregation plane. The options of
-    planes that are not ported yet (see the module docstring) are accepted
-    only at their off values.
+    defense, checkpoints and the journal, ``wire_codec`` and
+    ``codec_ref_cache_max``, and the pacing options ``pacing_policy``,
+    ``cohort_size``, ``async_buffer``, ``staleness_alpha`` and
+    ``pacing_seed``), plus ``device`` for the template model and the
+    aggregation plane. The options of planes that are not ported yet (see
+    the module docstring) are accepted only at their off values.
 
     The privacy (``dp*``), quality (``quality_*``), ops and fleet
     (``ops_port``, ``ops_host``, ``slo_specs``, ``fleet_max_*``) and
@@ -222,6 +225,7 @@ class FederatedServer:
         divergence_loss_factor: float = 4.0,
         wire_codec: str = "none",
         codec_ref_cache: int = 8,
+        codec_ref_cache_max: int = 64,
         ops_port: int | None = None,
         ops_host: str = "127.0.0.1",
         straggler_z: float = 2.0,
@@ -231,6 +235,11 @@ class FederatedServer:
         quality_guard: bool = False,
         quality_history: int = 64,
         quality_monitor_kwargs: dict[str, Any] | None = None,
+        pacing_policy: str = "sync",
+        cohort_size: int | None = None,
+        async_buffer: int | None = None,
+        staleness_alpha: float = 0.5,
+        pacing_seed: int = 0,
         journal_every: int = 1,
         reconnect_grace_s: float = 120.0,
         slo_specs=None,
@@ -276,7 +285,17 @@ class FederatedServer:
         self.logger = logger or logging.getLogger("FederatedServer")
         self.metrics = metrics
         self.poll_workers = poll_workers
-        self.pacing = pacing.parse_pacing("sync")
+        # Round pacing: "sync" is the all-clients barrier; "cohort:<K>"
+        # samples a seeded K-of-N roster per round with inverse-inclusion
+        # reweighting; "async:<B>" is FedBuff-style buffered aggregation
+        # with staleness-discounted updates; "push:<B>" inverts the poll
+        # (clients stream PushUpdate). Parsed here so a bad spec fails at
+        # construction; the engine is built when training starts.
+        self.pacing = pacing.parse_pacing(
+            pacing_policy, cohort_size=cohort_size,
+            async_buffer=async_buffer, staleness_alpha=staleness_alpha,
+            seed=pacing_seed,
+        )
         # FedAvg exchange period in local minibatches (1 = the reference's
         # per-minibatch averaging; E>1 = FedAvg proper), carried to clients
         # per StepRequest.
@@ -367,6 +386,14 @@ class FederatedServer:
         self._downlink_enc = DownlinkEncoder(
             self.wire_codec, metrics=metrics, max_views=codec_ref_cache,
         )
+        # Hard cap on both reference caches: the rotation-aware size of
+        # non-sync pacing (~4N/K, _size_codec_caches) grows with N at fixed
+        # K, and server memory must not; past the cap a long-unsampled
+        # client costs one self-contained push or one loud reference miss.
+        self.codec_ref_cache_max = int(codec_ref_cache_max)
+        # Push pacing adds PushUpdate threads encoding per-recipient
+        # replies while the engine advances the canonical chain: every
+        # codec session touch holds this.
         self._codec_lock = threading.Lock()
         # Per-client round of the last acked push: a push may only be
         # delta-encoded against a reference its recipient holds. Written
@@ -374,6 +401,20 @@ class FederatedServer:
         # discarded in ReadyForTraining), so every mutation holds the lock.
         self._push_lock = threading.Lock()
         self._push_acked: dict[int, int] = {}  # guarded-by: _push_lock
+        # Push pacing: the round of the last broadcast each client was
+        # SENT in a PushUpdate reply (caps its base_round claim: a client
+        # cannot ack a round it was never given), and, after a rollback or
+        # a recovery, the round each member still owes a session reset for
+        # (the reset rides its replies until it applied a later round).
+        self._push_sent: dict[int, int] = {}  # guarded-by: _push_lock
+        self._reset_owed: dict[int, int] = {}  # guarded-by: _push_lock
+        # Receipt-time replay guard for client-minted PushUpdate seqs,
+        # apart from `_reply_seen` (which the drain reads and records):
+        # recording a push seq at receipt would make its drain a replay.
+        self._push_seen: dict[int, int] = {}
+        # Identity-codec PushUpdate reply memo: (average object, round,
+        # encoded bundle), one encode per installed average.
+        self._push_identity_memo: "tuple[Any, int, pb.TensorBundle] | None" = None
         # Set by a divergence rollback (and by crash recovery): the NEXT
         # push carries Aggregate.reset_session so every recipient drops its
         # wire-codec session state before applying.
@@ -733,13 +774,21 @@ class FederatedServer:
         reply.session_token = token
         return reply
 
-    def _forget_process(self, client_id: int) -> None:
-        """Drop what describes a client's previous process: its push-ack
-        posture, reply-seq guard, poll warm-up and straggler EWMA."""
+    def _forget_wire_posture(self, client_id: int) -> None:
+        """Drop a client's push-ack, push-sent and owed-reset posture and
+        its reply and push seq guards, and its poll warm-up."""
         with self._push_lock:
             self._push_acked.pop(client_id, None)
+            self._push_sent.pop(client_id, None)
+            self._reset_owed.pop(client_id, None)
         self._reply_seen.pop(client_id, None)
+        self._push_seen.pop(client_id, None)
         self._poll_warmed.discard(client_id)
+
+    def _forget_process(self, client_id: int) -> None:
+        """Drop what describes a client's previous process: its wire
+        posture, poll warm-up, straggler EWMA and contribution history."""
+        self._forget_wire_posture(client_id)
         self.straggler.forget(client_id)
         self.contributions.forget(client_id)
 
@@ -1041,6 +1090,19 @@ class FederatedServer:
         # self-contained and orders a fleet-wide session reset, and token
         # reconnects get the per-client reset order (Ack code 3).
         self._session_reset_pending = not self.wire_codec.identity
+        if self.pacing.policy == "push" and not self.wire_codec.identity:
+            # A push server is never polled, so _encode_push (the consumer
+            # of _session_reset_pending) never runs, and a client whose
+            # channel heals within its stub's retry window never re-presents
+            # its token for the Ack-3 reset: the reset rides every member's
+            # PushUpdate replies instead, or its delta uplinks reference
+            # pre-crash state this process does not hold.
+            with self._push_lock:
+                self._reset_owed = {
+                    c.client_id: int(round_idx)
+                    for c in self.federation.get_clients()
+                    if not c.finished
+                }
         self._recovered_from = int(round_idx)
         self._recovered_source = "journal" if use_journal else "checkpoint"
         FederatedStepper(self.template, self.grads_to_share).set_gradients(
@@ -1271,10 +1333,7 @@ class FederatedServer:
                 # The presenter restored itself from its own journal: same
                 # session and weight, but its wire-codec state died with
                 # the old process.
-                with self._push_lock:
-                    self._push_acked.pop(request.client_id, None)
-                self._reply_seen.pop(request.client_id, None)
-                self._poll_warmed.discard(request.client_id)
+                self._forget_wire_posture(request.client_id)
         elif kind == "new":
             if _looks_like_session_token(request.session_token):
                 self.logger.warning(
@@ -1318,6 +1377,177 @@ class FederatedServer:
                 )
                 self._train_thread.start()
         return pb.Ack(code=ack_code, detail=ack_detail)
+
+    def PushUpdate(self, request: pb.StepReply, context) -> pb.Aggregate:
+        """A client-initiated round under push pacing (``server.py:1543-1736``):
+        buffer the streamed update for the engine's FedBuff drain and answer
+        with the freshest broadcast, per-recipient delta-encoded against the
+        round the client reports holding, so one RPC moves the update up and
+        the model down.
+
+        The durable-session token authenticates the push (a stale process's
+        update must not enter the average); the client's ``base_round``
+        claim is its broadcast ack, clamped to what this server sent it. The
+        reply is a hold marker (``round=-1``) before training starts, an
+        empty marker when the client is already current, and ``stop`` once
+        the federation is over."""
+        cid = int(request.client_id)
+        m = self.metrics
+        if self._stopping.is_set() or self.training_done.is_set():
+            return pb.Aggregate(stop=True)
+        if self.pacing.policy != "push":
+            self.logger.warning(
+                "client %d sent PushUpdate but this federation paces %s; "
+                "refusing", cid, self.pacing.spec_id,
+            )
+            if m is not None:
+                m.registry.counter("push_updates_refused").inc()
+            return pb.Aggregate(stop=True)
+        rec = self.federation.get(cid)
+        if (
+            rec is None or not rec.session_token
+            or rec.session_token != request.session_token
+        ):
+            # An unknown member or a token minted for another process: the
+            # pusher is stale, and is told to finalize.
+            self.logger.warning(
+                "client %d PushUpdate with a stale/unknown session "
+                "token; refusing", cid,
+            )
+            if m is not None:
+                m.registry.counter("push_updates_refused").inc()
+            return pb.Aggregate(stop=True)
+        engine = self._engine
+        if not isinstance(engine, pacing.PushEngine):
+            # Training has not started: a hold marker (round=-1, nothing
+            # buffered), so the client re-presents the same round later.
+            return pb.Aggregate(round=-1)
+
+        # Every reply in a solicitation window carries the capture token;
+        # the client answers it once, on its next push.
+        tok = self.flightrec_token()
+
+        # Broadcast-ack bookkeeping from the client's claim, capped by what
+        # this server sent it (the delta encoder trusts the ack).
+        claimed = int(request.base_round) - 1
+        with self._push_lock:
+            acked = min(claimed, self._push_sent.get(cid, -1))
+            if acked >= 0:
+                self._push_acked[cid] = acked
+            else:
+                self._push_acked.pop(cid, None)
+            owed_round = self._reset_owed.get(cid)
+            if owed_round is not None and acked >= owed_round:
+                # The member applied a post-reset round THIS process sent
+                # (acked is clamped to _push_sent): its reset landed. The
+                # raw claim must not clear it — a surviving client's
+                # pre-crash base_round can sit past the recovered round
+                # while this process delivered nothing.
+                self._reset_owed.pop(cid, None)
+                owed_round = None
+        reset = owed_round is not None
+
+        # Replay guard: the stub retries UNAVAILABLE, so a push delivered
+        # but whose reply was lost would be buffered twice without it. A
+        # duplicate still gets the freshest broadcast, not a buffer slot.
+        seq = int(request.seq)
+        duplicate = bool(seq) and self._push_seen.get(cid, 0) >= seq
+        if duplicate:
+            self.logger.warning(
+                "client %d: duplicate PushUpdate seq %d; answering "
+                "without re-buffering", cid, seq,
+            )
+            if m is not None:
+                m.registry.counter("rpcs_deduplicated").inc()
+                m.log(
+                    "rpc_deduplicated", client=cid, method="PushUpdate",
+                    seq=seq,
+                )
+        else:
+            if seq:
+                self._push_seen[cid] = seq
+            if request.telemetry:
+                # The client's registry deltas ride its push.
+                self.fleet.ingest_bytes(request.telemetry)
+            if request.flightrec and self._incident_trigger is not None:
+                # A solicited flight-record snapshot rides the push.
+                self._incident_trigger.ingest_remote(request.flightrec)
+            self.federation.update_progress(
+                cid, int(request.current_mb), int(request.current_epoch),
+                float(request.loss), finished=bool(request.finished),
+            )
+            depth = engine.submit(rec, request)
+            if m is not None:
+                m.registry.counter("push_updates_received").inc()
+                m.registry.gauge("push_buffer_depth").set(depth)
+
+        # Reply with the freshest installed broadcast. The round tag and the
+        # bundle are read atomically against the engine's chain advance: a
+        # round-K view labelled K-1 would skew the client's uplink chain.
+        if self.wire_codec.identity:
+            # Counter before payload: a race with the engine's install may
+            # under-label (the client re-applies an identical view later)
+            # but never over-label (the client would skip the real round).
+            current = int(self.global_iterations) - 1
+            avg = self.last_average
+            if avg is None or current < 0 or (
+                not reset and acked >= current
+            ):
+                # Nothing new: an empty marker (round <= applied); an owed
+                # reset still rides it.
+                return pb.Aggregate(
+                    round=max(current, claimed, 0), reset_session=reset,
+                    capture_token=tok,
+                )
+            # One encode per installed average (keyed by the dict's
+            # identity, so a rollback's fresh dict invalidates it), not one
+            # per push.
+            memo = self._push_identity_memo
+            if memo is None or memo[0] is not avg or memo[1] != current:
+                memo = (avg, current, codec.flatdict_to_bundle(avg, metrics=m))
+                self._push_identity_memo = memo
+            agg = pb.Aggregate(
+                shared=memo[2], round=current, reset_session=reset,
+                capture_token=tok,
+            )
+        else:
+            with self._codec_lock:
+                # The chain's own round tags the bundle bundle_for serves. A
+                # recovered server has a fresh chain (last_round=-1) until
+                # its first aggregation: empty markers until then.
+                current = self._downlink_enc.last_round
+                if current < 0 or (not reset and acked >= current):
+                    # A bare reset order still rides the empty marker: the
+                    # client must drop its pre-crash sessions before its
+                    # next uplink encode, or no update can decode.
+                    return pb.Aggregate(
+                        round=max(current, claimed, 0), reset_session=reset,
+                        capture_token=tok,
+                    )
+                bundle = self._downlink_enc.bundle_for(
+                    None if reset else (acked if acked >= 0 else None)
+                )
+            agg = pb.Aggregate(
+                shared=bundle, round=current, reset_session=reset,
+                capture_token=tok,
+            )
+        with self._push_lock:
+            self._push_sent[cid] = current
+        return agg
+
+    def _advance_broadcast(
+        self, average: dict[str, np.ndarray], iteration: int
+    ) -> None:
+        """Push pacing: advance the canonical broadcast chain for a round
+        with no immediate recipients; members pick it up, per-recipient
+        encoded, in their next PushUpdate replies."""
+        if self.wire_codec.identity:
+            return
+        with self._codec_lock:
+            _bundle, view = self._downlink_enc.advance(
+                average, round_idx=iteration
+            )
+            self._uplink_dec.note_push(iteration, view)
 
     # ---- phase-2 training loop (server.py:408-553) -------------------------
     def _stub_for(self, stubs: dict, rec) -> rpc.ServiceStub | None:
@@ -1443,8 +1673,9 @@ class FederatedServer:
         """Charge the (ε, δ) ledger for one aggregated round
         (``server.py:1900-1943``): skipped rounds apply no mechanism and are
         charged nothing, so the ledger's steps stay in step with the
-        noiser's applications. q is the engine's inclusion probability (1
-        under sync pacing). Crossing the budget is loud (a warning, a
+        noiser's applications. q is the engine's inclusion probability: the
+        cohort sampler's live K/eligible, 1 under sync, async and push
+        pacing. Crossing the budget is loud (a warning, a
         counter and one ``privacy_budget_exceeded`` event) but never stops
         training."""
         acct = self.privacy_accountant
@@ -1565,6 +1796,8 @@ class FederatedServer:
     def _collect_snapshots(
         self, replies: list, iteration: int,
         was_suspect: frozenset = frozenset(),
+        weight_scale: "dict[int, float] | None" = None,
+        staleness: "dict[int, int] | None" = None,
     ):
         """Decode a round's replies and pass them through the update
         admission gate (:func:`~gfedntm_tpu_torch.federation.sanitize.decode_and_admit`,
@@ -1574,7 +1807,12 @@ class FederatedServer:
         round one contributor, and repeat offenders enter probation with
         ``reason="poisoned"``. A suspect clears probation only when its
         update is accepted. The FedAvg weight is the reply's
-        ``nr_samples``, falling back to the join-time corpus size.
+        ``nr_samples``, falling back to the join-time corpus size, times
+        ``weight_scale``'s entry for the client (the async and push
+        engines' staleness discount; absent entries scale by 1).
+        ``staleness`` (rounds since each client's base broadcast) makes the
+        norm screen judge staleness-normalized norms, so an honest client
+        polled from an old broadcast does not read as a poisoner.
 
         Returns the admitted cohort as ``[(weight, snapshot)]`` on the
         numpy backend, or as a
@@ -1640,6 +1878,7 @@ class FederatedServer:
         result, losses, _records = decode_and_admit(
             deduped, decode, self.update_gate, self._current_global(),
             iteration, metrics=m, was_suspect=was_suspect,
+            weight_scale=weight_scale, staleness=staleness,
             on_decode_error=on_decode_error, on_poisoned=on_poisoned,
             on_recovered=on_recovered,
         )
@@ -1732,6 +1971,15 @@ class FederatedServer:
         # re-broadcast's reset_session.
         with self._push_lock:
             self._push_acked.clear()
+            self._push_sent.clear()
+            if self.pacing.policy == "push":
+                # Reply-delivered resets: every unfinished member owes one
+                # until it applied a post-rollback round.
+                self._reset_owed = {
+                    c.client_id: iteration
+                    for c in self.federation.get_clients()
+                    if not c.finished
+                }
         self._session_reset_pending = True
         if not self.wire_codec.identity:
             with self._codec_lock:
@@ -1903,6 +2151,30 @@ class FederatedServer:
             )
         self._stopping.wait(self.round_backoff_s)
 
+    def _size_codec_caches(self) -> None:
+        """Size both codec reference caches at training start
+        (``server.py:2512``). Cohort, async and push recipients sync at
+        different rounds, so uplink deltas may reference broadcasts older
+        than the sync cache depth: size the caches to the rotation period
+        (every client is polled again within ~N/K aggregations) so
+        ``codec_ref_miss`` stays 0, capped at ``codec_ref_cache_max``."""
+        if self.pacing.policy == "sync" or self.wire_codec.identity:
+            return
+        fan = max(self.pacing.cohort_size, self.pacing.buffer_size, 1)
+        sized = max(
+            self._uplink_dec.max_refs,
+            4 * math.ceil(max(1, len(self.federation)) / fan),
+        )
+        capped = min(sized, max(1, self.codec_ref_cache_max))
+        if capped < sized:
+            self.logger.info(
+                "codec reference cache capped at %d (rotation-aware "
+                "size would be %d): long-unsampled clients degrade to "
+                "self-contained pushes", capped, sized,
+            )
+        self._uplink_dec.max_refs = capped
+        self._downlink_enc.max_views = capped
+
     def _run_training(self) -> None:
         # The recovery grace clock starts when training actually resumes.
         if self.federation.awaiting_reconnect():
@@ -1933,6 +2205,7 @@ class FederatedServer:
     def _training_loop(self) -> None:
         stubs: dict[int, tuple[str, Any, rpc.ServiceStub]] = {}
         engine = self._engine = pacing.make_engine(self, self.pacing)
+        self._size_codec_caches()
         pool = ThreadPoolExecutor(max_workers=engine.pool_workers(self.poll_workers))
         self.logger.info(
             "starting federated training (%s pacing): total weight %.0f",

@@ -431,8 +431,14 @@ def test_poll_deadlines_are_the_jax_engines():
 
 @pytest.mark.parametrize("spec", ["cohort:2", "async:2", "push:2"])
 def test_other_pacings_are_queued(spec):
-    with pytest.raises(NotImplementedError, match="pacing"):
-        pacing.make_engine(None, pacing.parse_pacing(spec))
+    """Cohort, async and push pacing, once queued, are ported: each spec
+    builds the engine the JAX package's ``make_engine`` builds."""
+    got = pacing.make_engine(None, pacing.parse_pacing(spec))
+    want = j_pacing.make_engine(None, j_pacing.parse_pacing(spec))
+    assert type(got).__name__ == type(want).__name__
+    assert [c.__name__ for c in type(got).__mro__[:-1]] == [
+        c.__name__ for c in type(want).__mro__[:-1]]
+    assert got.policy == want.policy == spec.split(":")[0]
 
 
 def test_fedavg_is_the_weighted_mean_and_others_are_queued():

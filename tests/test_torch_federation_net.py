@@ -339,10 +339,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]), server_address="localhost:1")
 
 
-@pytest.mark.parametrize("option", [dict(pacing_policy="push:2"),
-                                    dict(relay_grace_rounds=1),
-                                    dict(pacing_policy="cohort:2"),
-                                    dict(pacing_policy="async:2"),
+@pytest.mark.parametrize("option", [dict(relay_grace_rounds=1),
+                                    dict(relay_grace_rounds=3),
                                     dict(profiler=object())])
 def test_server_refuses_planes_not_ported(option):
     with pytest.raises(NotImplementedError):
@@ -357,7 +355,10 @@ def test_server_refuses_planes_not_ported(option):
                                     dict(slo_specs=[{"name": "x", "metric": "rpc_errors",
                                                      "op": "<=", "threshold": 0.0}]),
                                     dict(dump_dir="incidents"), dict(dp="server"),
-                                    dict(quality_guard=True), dict(ops_port=0)])
+                                    dict(quality_guard=True), dict(ops_port=0),
+                                    dict(pacing_policy="push:2"),
+                                    dict(pacing_policy="cohort:2"),
+                                    dict(pacing_policy="async:2")])
 def test_server_accepts_the_ported_planes(tmp_path, option):
     """Each option that the refusal test above refused until the planes
     were ported is accepted now and builds its plane."""
@@ -399,6 +400,9 @@ def test_server_accepts_the_ported_planes(tmp_path, option):
         assert server.update_gate._engine.device == torch.device("cpu")
     elif name == "aggregator":
         assert server.aggregator.name == "fedadam"
+    elif name == "pacing_policy":
+        assert server.pacing.spec_id == value
+        assert server._status()["pacing"]["policy"] == value
     else:
         assert getattr(server, name) == value
 

@@ -101,6 +101,7 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.utils.flightrec", "gfedntm_tpu_torch.utils.flops",
                  "gfedntm_tpu_torch.federation.sanitize",
                  "gfedntm_tpu_torch.federation.device_agg",
+                 "gfedntm_tpu_torch.federation.simfleet",
                  "gfedntm_tpu_torch.train.guardian"):
         assert name in names, name
 
@@ -133,6 +134,9 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FederatedTrainer(template, n_clients=2)
     FederatedTrainer(template, n_clients=2, device="cpu")
+    from gfedntm_tpu_torch.federation.simfleet import make_sim_fleet
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_sim_fleet(2, pacing_policy="push:2")
 
 
 def test_resolve_device_pins_full_float32(monkeypatch):
