@@ -11,8 +11,9 @@
     python3 chip_smoke.py --server-planes-only  # phases 1 and 10
     python3 chip_smoke.py --privacy-ops-only  # phases 1 and 11
     python3 chip_smoke.py --pacing-only   # phases 1 and 12
+    python3 chip_smoke.py --hierarchy-only  # phases 1 and 13
 
-Twelve phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Thirteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -253,6 +254,43 @@ device or no port next to this script):
    rounds), sync at N=100 (2 rounds), each run's set-up and run seconds,
    bytes per round, loopback calls and peak RSS; cohort's and push's bytes
    per round at N=1,000 within 1.25x of N=100.
+13. the relay tier and the round profiler (every check fatal): four port
+   clients over localhost gRPC on the card, phase 12's three and a fourth
+   from the same generator (``seed=2``; the consensus V printed), K=50,
+   H=(100, 100), B=256, 2 epochs (8 local steps a client; (b) stops at the
+   root's ninth round, (c) at its eighth), under a port root at the JAX
+   defaults
+   (``min_clients`` = its direct members), relays 101 (clients 1, 2) and
+   102 (clients 3, 4) each terminating two. (a) The four clients flat under
+   a root, then under the root and the two relays, default codec: every
+   leaf finished with finite losses, each relay one ``relay_preaggregated``
+   per root round with ``admitted`` 2 and ``weight`` its members'
+   ``nr_samples`` summed, the root's membership {101, 102}, the four leaves'
+   state bitwise equal after every round, the root's first average within
+   1e-6 x max|.| of the flat run's, the final beta within 1e-4 of the flat
+   run's (or, if Adam carries rounding past it, its spread within 1.5x a
+   witness's: the flat run with the clients reversed), K1-K3 launched once
+   per leaf local step and held to their plain versions on the first
+   batch, client 1's ``RoundProfiler(dir, "2:3")`` with one start, one stop,
+   no failure and a trace naming the three kernels; the ms per root round
+   split into relay fan-out, relay decode and gate, pre-reduction, upstream
+   encode, root decode and mean and re-broadcast beside the flat run's ms
+   per global step, and the root's bytes per round in both topologies.
+   (b) The delta codec, ``relay_grace_rounds=2`` on the root, a
+   ``save_dir`` per relay: relay 101 aborted after root round 3 and
+   respawned on its address and ``save_dir`` once the grace has expired:
+   ``maybe_autorecover`` at a round >= killed - 2, both members restored
+   with one Ack 3 reset each, the root's
+   ready with ``recovered=True``, rounds over relay 102 alone
+   (``live_shards`` 1), no ``codec_ref_miss``, the run finished, and the
+   root's ``RoundProfiler(dir, "1:2")`` trace written without failure; the
+   seconds from the respawn to its first round. (c) Relay 102 aborted after
+   root round 2 for good, its members with ``failover_addrs=[root]``:
+   ``client_rehomes`` 1 on each, ``member_rehomed`` for both at the root, the run
+   finished with the root's live membership {101, 3, 4}; K1-K3 launched
+   once per local step in (b) and (c), every leaf stopped with its results
+   and finite losses. Relay 101's members' liveness window in (b) is 18 s;
+   relay 102's members' in (c) 3 s, their reconnect window 2 s.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -3934,9 +3972,10 @@ def sim_fleet_phase(card: str) -> None:
               f"N={lo} to N={hi}")
 
 
-def pacing_phase(card: str, notes: dict, raw=None) -> None:
+def pacing_phase(card: str, notes: dict, raw=None) -> list:
     """Phase 12: (a) cohort, (b) async and (c) push pacing with three real
-    port clients at phase 9's width, (d) the simulated fleet."""
+    port clients at phase 9's width, (d) the simulated fleet. Returns the
+    three raw-text clients (phase 13's first three)."""
     t_phase = time.perf_counter()
     clients_raw = pacing_corpora(card, raw)
     cohort_phase(card, notes, clients_raw)
@@ -3944,6 +3983,514 @@ def pacing_phase(card: str, notes: dict, raw=None) -> None:
     push_phase(card, notes, clients_raw)
     sim_fleet_phase(card)
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return clients_raw
+
+
+HIER_RELAYS = (101, 102)  # phase 13's relay ids, disjoint from the member ids 1-4
+RELAY_KILL_AFTER = 3  # 13(b) aborts relay 101 once the root has pushed this many rounds
+RELAY_LOSS_AFTER = 2  # 13(c) aborts relay 102 once the root has pushed this many rounds
+# 13(b): relay 101's members' liveness window: above a member's idle gaps
+# between two polls (up to ~12 s: a root round is 4-14 s of host work in
+# this one interpreter), and about as long as the outage before the respawn
+# (two rounds over relay 102 alone, ~15 s), so that the members first knock
+# once the relay is back: a channel that has failed for a while backs off
+# for seconds before it connects again (33 s offline at a 12 s window,
+# 23 s from the respawn to the first recovered round at 25 s).
+HIER_LIVENESS_S = 18.0
+# 13(c): relay 102's members' liveness and reconnect windows, tight (as the
+# JAX relayloss scenario's) so that they re-home while relay 101's members
+# still train: re-homing races the end of the run.
+DOOMED_LIVENESS_S = 3.0
+DOOMED_RECONNECT_S = 2.0
+# 13(b) stops at the root's ninth round and 13(c) at its eighth: the members
+# of the relay that was out miss the rounds of its outage, and finishing
+# their schedules would add rounds of 6-13 s of host work each (two
+# journaled relays in (b)) to the script.
+HIER_CRASH_ROUNDS = 9
+HIER_LOSS_ROUNDS = 8
+BETA_TOL = 1e-4  # 13(a): final beta, hierarchy vs flat (tests/test_scaleout.py:790-806)
+
+
+def hierarchy_corpora(card: str, clients_raw=None) -> list:
+    """Phase 13's four raw-text clients: phase 12's three and a fourth from
+    the same generator with ``seed=2``."""
+    from gfedntm_tpu_torch import RawCorpus, generate_synthetic_corpus
+
+    clients = list(clients_raw or pacing_corpora(card))
+    t0 = time.perf_counter()
+    fourth = generate_synthetic_corpus(vocab_size=100_000, n_topics=50, n_docs=1024, n_nodes=1,
+                                       materialize_docs=True, seed=2)
+    clients.append(RawCorpus(documents=fourth.nodes[0].documents))
+    print(f"hierarchy: a fourth raw-text client of {len(clients[3])} documents made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return clients
+
+
+def free_address() -> str:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    address = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    return address
+
+
+class Federation13:
+    """One phase 13 federation of port nodes on the card, in this process:
+    a root at the JAX defaults (but ``root_kw``), the relays of
+    ``shards`` (relay id -> member ids; none: the members join the root),
+    each with a ``save_dir`` (its shard journal) when ``journaled``, and
+    recorded clients (``client_kw``: client id -> keywords); every node
+    with its own ``MetricsLogger``."""
+
+    def __init__(self, label: str, clients_raw, shards=None, root_kw=None, client_kw=None,
+                 journaled: bool = False):
+        import numpy as np
+
+        from gfedntm_tpu_torch.federation.server import FederatedServer
+        from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+        self.label = label
+        self.kw = dict(n_components=50, hidden_sizes=(100, 100), batch_size=256,
+                       num_epochs=2, seed=0)
+        self.save = SCRATCH / f"hierarchy_{label}"
+        shutil.rmtree(self.save, ignore_errors=True)  # a fresh federation
+        self.root_log = MetricsLogger(node="root", keep_records=True)
+        n_up = len(shards) if shards else len(clients_raw)
+        root_kw = dict(root_kw or {})
+        self.root = FederatedServer(min_clients=n_up, family="avitm", model_kwargs=self.kw,
+                                    max_iters=root_kw.pop("max_iters", 100),
+                                    save_dir=str(self.save / "root"),
+                                    metrics=self.root_log, **root_kw)
+        check(self.root.device.type == "cuda", f"phase 13({label}): the root is on "
+              f"{self.root.device}")
+        self.averages = []
+        self.times = {k: [] for k in ("root decode", "root mean")}
+        aggregate = self.root.aggregator.aggregate
+
+        def recorded_aggregate(snapshots, current_global=None):
+            t0 = time.perf_counter()
+            out = aggregate(snapshots, current_global=current_global)
+            self.times["root mean"].append((t0, time.perf_counter()))
+            self.averages.append({k: np.array(v, copy=True) for k, v in out.items()})
+            return out
+
+        self.root.aggregator.aggregate = recorded_aggregate
+        _timed(self.root, "_collect_snapshots", self.times["root decode"])
+        self.root_ready = []
+        ready = self.root.ReadyForTraining
+
+        def recorded_ready(request, context):
+            self.root_ready.append((int(request.client_id), bool(request.recovered)))
+            return ready(request, context)
+
+        self.root.ReadyForTraining = recorded_ready
+        self.root_address = self.root.start("127.0.0.1:0")
+        self.relay_args, self.relays, self.relay_logs = {}, {}, {}
+        home = {}
+        for rid, members in (shards or {}).items():
+            self.relay_args[rid] = dict(
+                relay_id=rid, upstream_address=self.root_address, min_members=len(members),
+                listen_address=free_address(), advertise_host="127.0.0.1",
+                save_dir=str(self.save / f"relay{rid}") if journaled else None)
+            address = self.spawn(rid)
+            home.update({cid: address for cid in members})
+        Recorded = recorded_client()
+        self.logs = [MetricsLogger(node=f"client{c + 1}", keep_records=True)
+                     for c in range(len(clients_raw))]
+        self.clients = [
+            Recorded(client_id=c + 1, corpus=clients_raw[c],
+                     server_address=home.get(c + 1, self.root_address),
+                     listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                     max_features=None, metrics=self.logs[c],
+                     **(client_kw or {}).get(c + 1, {}))
+            for c in range(len(clients_raw))]
+
+    def spawn(self, rid: int) -> str:
+        """Start relay ``rid`` (again, after an abort: on its address and
+        ``save_dir``, recovering its shard first); returns its address."""
+        from gfedntm_tpu_torch.federation.relay import RelayNode
+        from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+        log = MetricsLogger(node=f"relay{rid}", keep_records=True)
+        relay = RelayNode(metrics=log, **self.relay_args[rid])
+        relay.resumed = relay.maybe_autorecover()
+        relay.acks = []
+        ready = relay.ReadyForTraining
+
+        def recorded_ready(request, context):
+            ack = ready(request, context)
+            relay.acks.append((int(request.client_id), ack.code))
+            return ack
+
+        relay.ReadyForTraining = recorded_ready
+        self.relays.setdefault(rid, []).append(relay)
+        self.relay_logs.setdefault(rid, []).append(log)
+        return relay.start()
+
+    def run(self, tick=None) -> float:
+        import torch
+
+        from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+        try:
+            fd.reset_launches()
+            run_s = run_clients(self.clients, self.root, f"phase 13({self.label})",
+                                tick=tick)
+            torch.cuda.synchronize()
+            self.launches = dict(fd.LAUNCHES)
+        finally:
+            self.root.stop(grace=0.5, join_timeout=30)
+            for relays in self.relays.values():
+                for relay in relays:
+                    relay.shutdown(grace=0.5)
+            for cl in self.clients:
+                cl.shutdown(grace=0.5)
+        return run_s
+
+    def check_leaves(self, notes: dict, scheduled: bool = True) -> None:
+        """Every leaf finished (with ``scheduled``, its whole schedule; else
+        stopped by the root with its results) on the card with finite
+        losses; K1-K3 launched once per local step the leaves took."""
+        import numpy as np
+
+        steps = sum(len(cl.steps) for cl in self.clients)
+        for cl in self.clients:
+            done = cl.stepper.finished if scheduled else cl.results is not None
+            check(done and cl.stepper.model.device.type == "cuda",
+                  f"phase 13({self.label}): client {cl.client_id} did not finish on the card")
+            check(bool(np.isfinite(cl.losses).all()) and len(cl.losses) > 0,
+                  f"phase 13({self.label}): client {cl.client_id}: non-finite losses")
+        check(bool(np.isfinite(self.root.global_betas).all()),
+              f"phase 13({self.label}): non-finite betas")
+        for name in ("stats", "loss", "grads"):
+            check(self.launches[name] == steps,
+                  f"phase 13({self.label}): {name} launched {self.launches[name]} times, the "
+                  f"leaves took {steps} local steps")
+            notes[name] += f"; phase 13({self.label}): {self.launches[name]} launches"
+
+    def counter(self, logs, name: str) -> float:
+        return sum(log.registry.counter(name).value for log in logs)
+
+
+def trace_kernels(path) -> dict:
+    """Kernel events by family in a Chrome trace ``torch.profiler`` wrote."""
+    names = [e.get("name", "") for e in json.loads(Path(path).read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    return {fam: sum(fam in n for n in names) for fam in TENSOR_CORE_FAMILIES}
+
+
+def check_profiler(label: str, prof, log) -> None:
+    events = [e["event"] for e in log.records if e.get("event", "").startswith("profiler_")]
+    written = prof.trace_path is not None and Path(prof.trace_path).is_file()
+    kernels = trace_kernels(prof.trace_path) if written else {}
+    size = f"{Path(prof.trace_path).stat().st_size / 1e6:.1f} MB" if written else "not written"
+    print(f"hierarchy ({label}): RoundProfiler rounds [{prof.start_round}, {prof.stop_round}): "
+          f"events {events}, profiler_failures {log.registry.counter('profiler_failures').value}, "
+          f"trace {prof.trace_path} ({size}), kernel events {kernels}", flush=True)
+    check(events == ["profiler_started", "profiler_stopped"],
+          f"phase 13({label}): profiler events {events}")
+    check(log.registry.counter("profiler_failures").value == 0 and written,
+          f"phase 13({label}): profiler_failures, or no trace")
+    check(all(kernels.get(fam, 0) > 0 for fam in TENSOR_CORE_FAMILIES),
+          f"phase 13({label}): the trace names kernels {kernels}")
+
+
+def hierarchy_flat_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 13(a): the four clients flat under a port root, then under the
+    root and relays 101 (clients 1, 2) and 102 (clients 3, 4), both under
+    the default codec; client 1 carries ``RoundProfiler(dir, "2:3")``."""
+    import numpy as np
+
+    import gfedntm_tpu_torch.federation.relay as relay_mod
+    from gfedntm_tpu_torch.federation.relay import RelayNode
+    from gfedntm_tpu_torch.utils.observability import RoundProfiler
+
+    flat = Federation13("a-flat", clients_raw)
+    flat_s = flat.run()
+    flat.check_leaves(notes)
+    prof = RoundProfiler(str(SCRATCH / "profile_a"), "2:3", metrics=None)
+    shards = {HIER_RELAYS[0]: (1, 2), HIER_RELAYS[1]: (3, 4)}
+    relay_times = {k: [] for k in ("decode and gate", "pre-reduction", "upstream encode")}
+    weights = {}
+    decode_and_admit = relay_mod.decode_and_admit
+
+    def timed_admit(answered, decode, gate, current, round_idx, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return decode_and_admit(answered, decode, gate, current, round_idx, **kwargs)
+        finally:
+            relay_times["decode and gate"].append((t0, time.perf_counter()))
+            members = tuple(sorted(rec.client_id for rec, _r in answered))
+            weights[(int(round_idx), members)] = sum(r.nr_samples for _rec, r in answered)
+
+    pre_reduce, encode = RelayNode._pre_reduce, RelayNode._encode_upstream
+
+    def timed(fn, sink):
+        def wrapper(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args)
+            finally:
+                sink.append((t0, time.perf_counter()))
+        return wrapper
+
+    relay_mod.decode_and_admit = timed_admit
+    RelayNode._pre_reduce = timed(pre_reduce, relay_times["pre-reduction"])
+    RelayNode._encode_upstream = timed(encode, relay_times["upstream encode"])
+    try:
+        hier = Federation13("a", clients_raw, shards=shards)
+        prof.metrics = hier.logs[0]
+        hier.clients[0].profiler = prof
+        prof.device = hier.clients[0].device
+        hier_s = hier.run()
+    finally:
+        relay_mod.decode_and_admit = decode_and_admit
+        RelayNode._pre_reduce, RelayNode._encode_upstream = pre_reduce, encode
+    hier.check_leaves(notes)
+    root, R = hier.root, hier.root.global_iterations
+    V = len(root.global_vocab)
+    print(f"hierarchy (a), {card}: global V={V}; flat {flat.root.global_iterations} rounds in "
+          f"{flat_s:.2f} s, hierarchy {R} rounds in {hier_s:.2f} s; root members "
+          f"{sorted(c.client_id for c in root.federation.get_clients())}; local steps "
+          f"{[len(cl.steps) for cl in hier.clients]}; launches {nonzero(hier.launches)}",
+          flush=True)
+    check(sorted(c.client_id for c in root.federation.get_clients()) == list(HIER_RELAYS),
+          "phase 13(a): the root's membership is not the two relays")
+    check(R == flat.root.global_iterations, f"phase 13(a): {R} hierarchy rounds, "
+          f"{flat.root.global_iterations} flat")
+    for rid, members in shards.items():
+        events = hier.relay_logs[rid][0].events("relay_preaggregated")
+        check([e["round"] for e in events] == list(range(R)),
+              f"phase 13(a): relay {rid} pre-aggregated rounds {[e['round'] for e in events]}")
+        for e in events:
+            want = weights[(e["round"], members)]
+            check(e["admitted"] == 2 and e["weight"] == want,
+                  f"phase 13(a): relay {rid} round {e['round']}: admitted {e['admitted']}, "
+                  f"weight {e['weight']}, its members' nr_samples sum to {want}")
+    for cl in hier.clients:
+        check(cl.rounds == list(range(R)), f"phase 13(a): client {cl.client_id} applied "
+              f"rounds {cl.rounds}")
+    for r in range(R):
+        for cl in hier.clients[1:]:
+            for key, value in hier.clients[0].states[r].items():
+                check(bool((value == cl.states[r][key]).all()),
+                      f"phase 13(a): {key} differs between clients 1 and {cl.client_id} "
+                      f"after round {r}")
+    first = max(float(np.max(np.abs(hier.averages[0][k] - flat.averages[0][k])))
+                / max(float(np.max(np.abs(flat.averages[0][k]))), 1e-30)
+                for k in flat.averages[0] if flat.averages[0][k].dtype.kind == "f")
+    beta_err = np.abs(root.global_betas - flat.root.global_betas)
+    past = int((beta_err > BETA_TOL).sum())
+    print(f"hierarchy (a): the root's first average within {first:.3e} x max|.| of the flat "
+          f"run's (bound 1e-6); final beta max |hierarchy - flat| {float(beta_err.max()):.3e} "
+          f"(bound {BETA_TOL:g}), {past} of {beta_err.size} entries past it", flush=True)
+    check(first <= 1e-6, f"phase 13(a): first average {first:.3e} x max|.| from the flat run's")
+    if past:
+        # Adam's sign flips can carry rounding past the bound, as in phase 6:
+        # hold the hierarchy's spread to that of a witness whose only
+        # difference from the flat run is the mean's association (the
+        # clients in the reverse order, so the sum runs the other way).
+        witness = Federation13("a-witness", clients_raw[::-1])
+        witness.run()
+        witness.check_leaves(notes)
+        check(witness.root.global_iterations == R, "phase 13(a): witness rounds")
+        w_max, w_frac = beta_spread(witness.root.global_betas, flat.root.global_betas, BETA_TOL)
+        h_max, h_frac = beta_spread(root.global_betas, flat.root.global_betas, BETA_TOL)
+        max_limit, frac_limit = max(4.0 * root.template.lr, 1.5 * w_max), 1.5 * w_frac + 1e-4
+        print(f"hierarchy (a): past {BETA_TOL:g} the witness (flat, clients reversed) has "
+              f"{w_frac:.6f} of beta's entries, max {w_max:.3e}; the hierarchy {h_frac:.6f}, "
+              f"max {h_max:.3e} (limits {frac_limit:.6f}, {max_limit:.3e})", flush=True)
+        check(h_max <= max_limit and h_frac <= frac_limit,
+              f"phase 13(a): hierarchy beta spread {h_max:.3e}, {h_frac:.6f} past the "
+              f"witness's limits {max_limit:.3e}, {frac_limit:.6f}")
+    first_batch_kernels("hierarchy (a)", root._setup_reply, hier.clients[0], hier.kw)
+    check_profiler("a", prof, hier.logs[0])
+
+    def med(pairs, skip):
+        return float(np.median(_seconds(pairs[skip:]))) * 1e3 if len(pairs) > skip else float("nan")
+
+    def span_ms(logs, name):
+        spans = [r for log in logs for r in log.events("span") if r["name"] == name
+                 and r.get("round", 0) >= 1]
+        return float(np.median([r["seconds"] for r in spans])) * 1e3 if spans else float("nan")
+
+    def rounds(fed):
+        out = sorted((r for r in fed.root_log.events("span") if r["name"] == "round"),
+                     key=lambda r: r["round"])
+        return out[1:]
+
+    relay_logs = [hier.relay_logs[rid][0] for rid in HIER_RELAYS]
+    h_rounds, f_rounds = rounds(hier), rounds(flat)
+    h_ms = float(np.median([r["seconds"] for r in h_rounds])) * 1e3
+    f_ms = float(np.median([r["seconds"] for r in f_rounds])) * 1e3
+    n = len(HIER_RELAYS)
+    print(f"hierarchy (a) ms per root round, {card}: median over rounds 2-{R}: {h_ms:.3f} "
+          f"(flat: {f_ms:.3f} per global step); split, per relay: relay fan-out (the members' "
+          f"steps, snapshots, encodes and transfer) {span_ms(relay_logs, 'relay_fanout'):.3f}, "
+          f"relay decode and gate {med(relay_times['decode and gate'], n):.3f}, pre-reduction "
+          f"{med(relay_times['pre-reduction'], n):.3f}, upstream encode "
+          f"{med(relay_times['upstream encode'], n):.3f}; root decode and gate "
+          f"{med(hier.times['root decode'], 1):.3f}, root mean "
+          f"{med(hier.times['root mean'], 1):.3f}, relay re-broadcast (decode of the root's "
+          f"push, per-member encode, members' set) {span_ms(relay_logs, 'relay_push'):.3f}",
+          flush=True)
+    h_bytes = [r["bytes_pulled"] + r["bytes_pushed"] for r in h_rounds]
+    f_bytes = [r["bytes_pulled"] + r["bytes_pushed"] for r in f_rounds]
+    print(f"hierarchy (a) bytes per round at the root, {card}: hierarchy "
+          f"{float(np.median(h_bytes)) / 1e6:.3f} MB (2 relays), flat "
+          f"{float(np.median(f_bytes)) / 1e6:.3f} MB (4 clients)", flush=True)
+
+
+def relay_crash_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 13(b): the delta codec, ``relay_grace_rounds=2`` on the root and
+    a ``save_dir`` on each relay; relay 101 aborted once the root has pushed
+    ``RELAY_KILL_AFTER`` rounds and respawned on its address and
+    ``save_dir``, its members back by session token; the root carries
+    ``RoundProfiler(dir, "1:2")``."""
+    from gfedntm_tpu_torch.utils.observability import RoundProfiler
+
+    live = dict(liveness_timeout=HIER_LIVENESS_S, watchdog_poll_s=0.1, reconnect_window=120.0,
+                wire_codec="delta")
+    prof = RoundProfiler(str(SCRATCH / "profile_b"), "1:2")
+    fed = Federation13("b", clients_raw, shards={HIER_RELAYS[0]: (1, 2), HIER_RELAYS[1]: (3, 4)},
+                       root_kw=dict(relay_grace_rounds=2, wire_codec="delta", profiler=prof,
+                                    max_iters=HIER_CRASH_ROUNDS),
+                       client_kw={c: live for c in (1, 2, 3, 4)}, journaled=True)
+    prof.metrics = fed.root_log
+    rid = HIER_RELAYS[0]
+    state = {}
+
+    reg = fed.root_log.registry
+
+    def tick():
+        if "killed" in state:
+            # The respawn waits for the grace to expire (the root counting
+            # live shards only), so the rounds over relay 102 alone happen
+            # whatever a round costs.
+            if "respawn" not in state and (
+                    reg.gauge("live_shards").value == 1
+                    or fed.root.global_iterations >= state["round"] + 3):
+                respawn()
+            return
+        if fed.root.global_iterations < RELAY_KILL_AFTER:
+            return
+        victim = fed.relays[rid][0]
+        victim.abort()
+        # A real kill takes the relay's handler threads along: wait for the
+        # one in flight (it holds the data-plane lock) before the respawn
+        # reads the journal it may be writing.
+        check(victim._lock.acquire(timeout=120), "phase 13(b): the aborted relay's "
+              "round never ended")
+        victim._lock.release()
+        state["killed"] = victim._applied_round
+        state["round"] = fed.root.global_iterations
+
+    def respawn():
+        state["respawn"] = time.perf_counter()
+        state["respawn_round"] = fed.root.global_iterations
+        fed.spawn(rid)
+        respawned = fed.relays[rid][1]
+        pre_reduce = respawned._pre_reduce
+
+        def first_round(accepted):
+            state.setdefault("first", time.perf_counter())
+            return pre_reduce(accepted)
+
+        respawned._pre_reduce = first_round
+
+    run_s = fed.run(tick)
+    check("respawn" in state, "phase 13(b): the relay was never killed and respawned")
+    fed.check_leaves(notes, scheduled=False)
+    respawned, log2 = fed.relays[rid][1], fed.relay_logs[rid][1]
+    resets = [cid for cid, code in respawned.acks if code == 3]
+    restored = sorted(e["client"] for e in log2.events("session_restored"))
+    misses = (fed.counter(fed.logs, "codec_ref_miss") + reg.counter("codec_ref_miss").value
+              + sum(fed.counter(logs, "codec_ref_miss") for logs in fed.relay_logs.values()))
+    print(f"hierarchy (b), {card}: relay {rid} killed after root round "
+          f"{RELAY_KILL_AFTER} (its last applied round {state['killed']}), respawned at root "
+          f"round {state['respawn_round']} and recovered at round {respawned.resumed}; session "
+          f"restores {restored}, Ack 3 resets to members {sorted(resets)}; the root saw "
+          f"ready(recovered) "
+          f"{[c for c, rec in fed.root_ready if rec]}; live_shards "
+          f"{reg.gauge('live_shards').value}; codec_ref_miss {misses}; "
+          f"{fed.root.global_iterations} rounds in {run_s:.2f} s; local steps "
+          f"{[len(cl.steps) for cl in fed.clients]}; members' liveness window "
+          f"{HIER_LIVENESS_S:g} s (their inter-poll gap EWMAs "
+          f"{[round(cl._gap_ewma or 0.0, 3) for cl in fed.clients]} s); respawn to the first "
+          f"recovered round {state.get('first', float('nan')) - state['respawn']:.3f} s",
+          flush=True)
+    check(respawned.resumed is not None and respawned.resumed >= state["killed"] - 2,
+          f"phase 13(b): recovered at {respawned.resumed}, killed at {state['killed']}")
+    # A member whose idle gap outlasts its window reconnects with no cause
+    # (restored, Ack 0): only the two restores after the crash reset codecs.
+    check(sorted(resets) == [1, 2] and len(restored) >= 2 and set(restored) == {1, 2},
+          f"phase 13(b): session restores {restored} and Ack 3 resets {resets} at the "
+          "respawned relay")
+    check((rid, True) in fed.root_ready, "phase 13(b): the root never saw recovered=True")
+    check("first" in state, "phase 13(b): the respawned relay never answered a round")
+    check(reg.gauge("live_shards").value == 1, "phase 13(b): live_shards")
+    pre = {r: [e["round"] for e in logs[0].events("relay_preaggregated")]
+           for r, logs in fed.relay_logs.items()}
+    alone = sorted(set(pre[HIER_RELAYS[1]]) - set(pre[rid])
+                   - {e["round"] for e in log2.events("relay_preaggregated")})
+    print(f"hierarchy (b): rounds over relay {HIER_RELAYS[1]} alone {alone}", flush=True)
+    check(len(alone) >= 1, "phase 13(b): no round went on over the live shard alone")
+    check(misses == 0, "phase 13(b): codec_ref_miss")
+    check_profiler("b", prof, fed.root_log)
+
+
+def relay_loss_phase(card: str, notes: dict, clients_raw) -> None:
+    """Phase 13(c): relay 102 aborted once the root has pushed
+    ``RELAY_LOSS_AFTER`` rounds and never respawned; its members carry
+    ``failover_addrs=[root]`` and re-home there."""
+    short = dict(liveness_timeout=DOOMED_LIVENESS_S, watchdog_poll_s=0.1,
+                 reconnect_window=DOOMED_RECONNECT_S)
+    fed = Federation13("c", clients_raw, shards={HIER_RELAYS[0]: (1, 2), HIER_RELAYS[1]: (3, 4)},
+                       root_kw=dict(max_iters=HIER_LOSS_ROUNDS),
+                       client_kw={c: short for c in (3, 4)})
+    for cl in fed.clients[2:]:
+        cl.failover_addrs = [fed.root_address]
+    rid = HIER_RELAYS[1]
+    state = {}
+
+    def tick():
+        if "killed" not in state and fed.root.global_iterations >= RELAY_LOSS_AFTER:
+            fed.relays[rid][0].abort()
+            state["killed"] = time.perf_counter()
+
+    run_s = fed.run(tick)
+    check("killed" in state, "phase 13(c): the relay was never killed")
+    fed.check_leaves(notes, scheduled=False)
+    from gfedntm_tpu_torch.federation.registry import DROPPED
+
+    rehomes = [log.registry.counter("client_rehomes").value for log in fed.logs]
+    # A re-homed member whose idle gap at the root outlasts its tight window
+    # reconnects again, and the root, which minted it no token, logs it
+    # re-homed again: count the members.
+    rehomed = sorted(e["client"] for e in fed.root_log.events("member_rehomed"))
+    live = sorted(c.client_id for c in fed.root.federation.get_clients() if c.status != DROPPED)
+    print(f"hierarchy (c), {card}: relay {rid} killed after root round {RELAY_LOSS_AFTER}; "
+          f"client_rehomes per client {rehomes}; the root's member_rehomed {rehomed}; its live "
+          f"membership {live}; {fed.root.global_iterations} rounds in {run_s:.2f} s; local "
+          f"steps {[len(cl.steps) for cl in fed.clients]}; members 3 and 4's liveness "
+          f"window {DOOMED_LIVENESS_S:g} s, reconnect window {DOOMED_RECONNECT_S:g} s", flush=True)
+    check(rehomes == [0, 0, 1, 1], f"phase 13(c): client_rehomes {rehomes}")
+    check(sorted(set(rehomed)) == [3, 4], f"phase 13(c): member_rehomed {rehomed}")
+    check(live == [3, 4, HIER_RELAYS[0]], f"phase 13(c): the root's live membership {live}")
+
+
+def hierarchy_phase(card: str, notes: dict, clients_raw=None) -> None:
+    """Phase 13: the relay tier and the round profiler with four port
+    clients on the card."""
+    t_phase = time.perf_counter()
+    clients_raw = hierarchy_corpora(card, clients_raw)
+    hierarchy_flat_phase(card, notes, clients_raw)
+    relay_crash_phase(card, notes, clients_raw)
+    relay_loss_phase(card, notes, clients_raw)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
 
 
 def main(argv: list[str]) -> int:
@@ -3955,21 +4502,22 @@ def main(argv: list[str]) -> int:
     planes_only = "--server-planes-only" in argv
     privacy_only = "--privacy-ops-only" in argv
     pacing_only = "--pacing-only" in argv
+    hier_only = "--hierarchy-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
-                                         "--pacing-only")]
+                                         "--pacing-only", "--hierarchy-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
-            or pacing_only)
+            or pacing_only or hier_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
-            + privacy_only + pacing_only > 1
+            + privacy_only + pacing_only + hier_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
-              "--privacy-ops-only | --pacing-only]", file=sys.stderr)
+              "--privacy-ops-only | --pacing-only | --hierarchy-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4018,6 +4566,9 @@ def main(argv: list[str]) -> int:
         if pacing_only:
             pacing_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if hier_only:
+            hierarchy_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
@@ -4029,7 +4580,7 @@ def main(argv: list[str]) -> int:
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
-            pacing_phase(card, notes, raw)
+            hierarchy_phase(card, notes, pacing_phase(card, notes, raw))
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -45,10 +45,17 @@ flight recorder on the client's logger, a local incident trigger, and the
 answer to a server's capture token (the client's ring, once per token, on
 the poll's reply).
 
+The failover ladder (``client.py:821-984``): the reconnect loop records why
+it ended (``_last_reconnect_outcome``), and only a window exhausted against
+a dead endpoint walks on to the next of ``failover_addrs`` (a sibling relay
+or the root), re-homing the control channel there with both codec sessions
+reset (``client_rehomes``); an endpoint that answers finished or refused
+ends the ladder. A :class:`~gfedntm_tpu_torch.utils.observability.RoundProfiler`
+(``profiler``) is observed at each ``StepRequest`` and closed when the
+client finalizes.
+
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1): a
-multi-device local step (``mesh_devices > 1``), re-homing to
-``failover_addrs`` (the relay tier's counterpart) and the device profiler
-(``profiler``).
+multi-device local step (``mesh_devices > 1``).
 """
 
 from __future__ import annotations
@@ -122,16 +129,19 @@ class FederatedClientServicer:
     and a per-poll counter, and ships a delta-encoded telemetry report on
     every reply; the wrapped stepper carries its own step-time histogram.
     ``sanitizer`` (a ``ClientSanitizer``) clips and noises each outgoing
-    snapshot against the last applied aggregate."""
+    snapshot against the last applied aggregate; ``profiler`` (a
+    ``RoundProfiler``) observes each request's round."""
 
     def __init__(self, client_id: int, stepper: FederatedStepper,
                  on_stop, logger: logging.Logger, metrics=None,
                  on_activity=None, on_done=None, on_local_steps=None,
                  uplink: UplinkEncoder | None = None,
                  downlink: DownlinkDecoder | None = None,
-                 sanitizer: ClientSanitizer | None = None):
+                 profiler=None, sanitizer: ClientSanitizer | None = None):
         self.client_id = client_id
         self.stepper = stepper
+        # The round profiler learns the round from each StepRequest.
+        self.profiler = profiler
         # Client-mode DP: the clip and noise reference is the replicated
         # init until the first aggregate, then the last one applied.
         self.sanitizer = sanitizer
@@ -206,6 +216,8 @@ class FederatedClientServicer:
                         method="TrainStep", seq=seq,
                     )
                 return self._last_step_reply
+            if self.profiler is not None:
+                self.profiler.observe(int(request.global_iter))
             requested = max(1, int(request.local_steps or 1))
             self.on_local_steps(requested)
             if self.sanitizer is not None and self._dp_reference is None:
@@ -277,6 +289,14 @@ class FederatedClientServicer:
                 self._last_step_seq = seq
                 self._last_step_reply = reply
             return reply
+
+    def forget_replays(self) -> None:
+        """Drop the TrainStep replay cache: after a re-homing the new tier
+        mints its own seqs, which may sit below the dead tier's (each node's
+        base is its own start time), and none of them is a redelivery."""
+        with self._lock:
+            self._last_step_seq = 0
+            self._last_step_reply = None
 
     def ApplyAggregate(self, request: pb.Aggregate, context) -> pb.AggregateReply:
         """Overwrite shared params with the global average and advance
@@ -460,12 +480,9 @@ class Client:
     ):
         if client_id <= 0:
             raise ValueError("client ids start at 1 (0 is the server)")
-        for name, value, off in (("mesh_devices", int(mesh_devices) > 1, False),
-                                 ("failover_addrs", bool(failover_addrs), False),
-                                 ("profiler", profiler, None)):
-            if value != off:
-                raise NotImplementedError(
-                    f"Client({name}=...): not ported yet (ROADMAP queue 1)")
+        if int(mesh_devices) > 1:
+            raise NotImplementedError(
+                "Client(mesh_devices=...): not ported yet (ROADMAP queue 1)")
         # Local DP: dp="client" sanitizes every outgoing snapshot; "server"
         # is the server's mechanism (parsed here only to validate it);
         # "off" constructs nothing.
@@ -494,6 +511,11 @@ class Client:
                 node=metrics.node or f"client{client_id}",
             )
         self.device = resolve_device(device)
+        # The round profiler (observed by the servicer at each StepRequest)
+        # records this client's device unless it names one.
+        self.profiler = profiler
+        if profiler is not None and profiler.device is None:
+            profiler.device = self.device
         self.client_id = client_id
         self.corpus = corpus
         self.server_address = server_address
@@ -516,6 +538,14 @@ class Client:
         # reconnect_window > 0, a client whose server contact dies
         # re-presents the token for up to reconnect_window seconds.
         self.reconnect_window = float(reconnect_window)
+        # Re-homing: fallback endpoints tried in order once the reconnect
+        # window against the current one is exhausted (consumed left to
+        # right; empty keeps the single endpoint).
+        self.failover_addrs: list[str] = list(failover_addrs or ())
+        # Why the last _reconnect_loop ended ("exhausted", "finished",
+        # "refused", "stopped" or "ok"): only an exhausted window against a
+        # dead endpoint justifies re-homing.
+        self._last_reconnect_outcome = "ok"
         self.session_token = ""
         self._advertised_address = ""
         self.retry_policy = retry_policy or RetryPolicy(metrics=metrics)
@@ -632,7 +662,7 @@ class Client:
             if idle is None:
                 continue
             if self._reconnect_available():
-                if self._reconnect_loop(idle):
+                if self._reconnect_or_rehome(idle):
                     continue
             if self._watchdog_finalize():
                 break
@@ -665,7 +695,7 @@ class Client:
                 # gone. Reconnect by session token (a recovered server's
                 # Ack 3 resets the codec sessions), or self-finalize.
                 if not (self._reconnect_available()
-                        and self._reconnect_loop(0.0)):
+                        and self._reconnect_or_rehome(0.0)):
                     self._on_stop()
                     return
                 if retries < 3:
@@ -730,6 +760,7 @@ class Client:
                     "%d attempts; self-finalizing",
                     self.client_id, self.reconnect_window, attempts,
                 )
+                self._last_reconnect_outcome = "exhausted"
                 return False
             attempts += 1
             # The servicer's lock is held from the ready to the reset it may
@@ -761,12 +792,14 @@ class Client:
                     "client %d: federation finished while disconnected; "
                     "finalizing", self.client_id,
                 )
+                self._last_reconnect_outcome = "finished"
                 return False
             if ack.code == 2:
                 self.logger.error(
                     "client %d: reconnect rejected (%s); finalizing",
                     self.client_id, ack.detail,
                 )
+                self._last_reconnect_outcome = "refused"
                 return False
             self._touch()
             downtime = time.monotonic() - start
@@ -780,8 +813,64 @@ class Client:
                     "client_reconnected", client=self.client_id,
                     attempts=attempts, downtime_s=downtime,
                 )
+            self._last_reconnect_outcome = "ok"
             return True
+        self._last_reconnect_outcome = "stopped"
         return True  # stop arrived mid-reconnect: nothing left to do
+
+    def _rehome(self, address: str) -> None:
+        """Point the control stub at a new upstream endpoint and drop this
+        client's wire-codec sessions: no broadcast reference or uplink view
+        survives a tier change, so the next bundles are self-contained on
+        this end (the adoptive tier's fresh-join handling covers its end).
+        Unlike the JAX client, the TrainStep replay cache goes too: the new
+        tier's seqs are not ordered after the dead tier's."""
+        old = self._fed_channel
+        self._fed_channel = rpc.make_channel(address)
+        self._federation_stub = rpc.ServiceStub(
+            self._fed_channel, "gfedntm.Federation",
+            metrics=self.metrics, peer="server",
+            retry_policy=self.retry_policy,
+        )
+        self.server_address = address
+        try:
+            old.close()
+        except Exception as exc:  # noqa: BLE001 — the old channel is dead
+            self.logger.info(
+                "client %d: closing the dead channel failed (%s)",
+                self.client_id, exc,
+            )
+        with self._session_lock():
+            self._reset_codec_sessions()
+            if self._servicer is not None:
+                self._servicer.forget_replays()
+
+    def _reconnect_or_rehome(self, idle: float) -> bool:
+        """The survivability ladder: reconnect to the current endpoint, and
+        when that window is exhausted against a dead endpoint (not a
+        finished or refusing one), fail over to the next of
+        ``failover_addrs``, presenting the same session token there; the
+        adoptive tier admits it as a fresh join and logs
+        ``member_rehomed``."""
+        if self._reconnect_loop(idle):
+            return True
+        while (
+            self.failover_addrs
+            and self._last_reconnect_outcome == "exhausted"
+            and not self.stopped.is_set()
+        ):
+            target = self.failover_addrs.pop(0)
+            self.logger.warning(
+                "client %d: re-homing to %s (session %s…, %d fallback "
+                "endpoint(s) left)", self.client_id, target,
+                self.session_token[:8], len(self.failover_addrs),
+            )
+            if self.metrics is not None:
+                self.metrics.registry.counter("client_rehomes").inc()
+            self._rehome(target)
+            if self._reconnect_loop(0.0):
+                return True
+        return False
 
     def _session_lock(self):
         """The servicer's (reentrant) lock, which every TrainStep and
@@ -955,7 +1044,7 @@ class Client:
             metrics=self.metrics, on_activity=self._rpc_begin,
             on_done=self._rpc_end, on_local_steps=self._note_local_steps,
             uplink=self._uplink, downlink=self._downlink,
-            sanitizer=self._dp_sanitizer,
+            profiler=self.profiler, sanitizer=self._dp_sanitizer,
         )
         self._servicer = servicer
         self._grpc_server = rpc.make_server(max_workers=4)
@@ -998,6 +1087,8 @@ class Client:
             )
             raise
         finally:
+            if self.profiler is not None:
+                self.profiler.close()
             if self.metrics is not None:
                 self.metrics.snapshot_registry(client=self.client_id)
             self.stopped.set()

@@ -36,9 +36,13 @@ Counterpart of ``gfedntm_tpu/federation/pacing.py``, the server's round
   broadcast chain, and each client picks the round up in its next push's
   reply; a member silent for four poll deadlines is struck into probation.
 
-The device profiler window and relay shard supervision
-(``relay_grace_rounds``) are not ported; the server refuses those options,
-so the loops here are the JAX loops with them switched off.
+Shard supervision (``relay_grace_rounds > 0`` on a root whose members are
+relays, JAX ``pacing.py:536-556, 618-656``): a shard silent past the grace
+leaves the wait for pollable members and the sync quorum's denominator,
+with its weight dropped from the HT population estimate, one warning per
+expiry and the ``live_shards`` gauge; cohort and async inherit the wait.
+Every engine reports each round to the server's round profiler
+(``s.profiler.observe``).
 """
 
 from __future__ import annotations
@@ -271,6 +275,9 @@ class RoundEngine:
         # Last-known per-round admitted weight per client (the HT
         # population-weight estimate); /status summarizes it.
         self._round_weight: dict[int, float] = {}  # guarded-by: _lock
+        # Shards already warned about as past the relay grace (loop thread
+        # only): loud once per outage, not once per round.
+        self._grace_noted: set[int] = set()
 
     def pool_workers(self, poll_workers: int) -> int:
         """Bound the persistent poll executor to the configured width."""
@@ -481,6 +488,17 @@ class RoundEngine:
         s = self.server
         while not s._stopping.is_set():
             pending = s.federation.pending_suspects(iteration)
+            grace = s.relay_grace_rounds
+            if grace > 0 and pending:
+                # Shard supervision: a relay silent past the grace is not
+                # worth a wall-clock wait — the loop degrades to the live
+                # shards (the dead one is still re-polled if its backed-off
+                # retry round comes while others keep the run alive).
+                gone = {
+                    rec.client_id
+                    for rec in s.federation.grace_expired(iteration, grace)
+                }
+                pending = [x for x in pending if x.client_id not in gone]
             if not pending and not s._awaiting_reconnect_grace():
                 return []
             if pending:
@@ -545,8 +563,36 @@ class SyncEngine(RoundEngine):
         still inside their backoff window. Denominating over only the
         polled set would make the quorum vacuous exactly when it matters:
         with every peer in backoff, a lone straggler would be 1/1 and its
-        solo reply would become the average."""
-        return len(self.server.federation.active_clients())
+        solo reply would become the average.
+
+        Shard supervision: with ``relay_grace_rounds > 0``, a shard silent
+        past the grace leaves the denominator (the root aggregates over
+        live shards instead of skipping every round until the dead relay's
+        probation runs out), and its last-known weight leaves the HT
+        population estimate."""
+        s = self.server
+        active = s.federation.active_clients()
+        expired = s.federation.grace_expired(iteration, s.relay_grace_rounds)
+        if expired:
+            gone = {rec.client_id for rec in expired}
+            with self._lock:
+                for cid in gone:
+                    self._round_weight.pop(cid, None)
+            for cid in sorted(gone - self._grace_noted):
+                s.logger.warning(
+                    "shard %d silent past the %d-round grace window; "
+                    "quorum now denominates over live shards without it",
+                    cid, s.relay_grace_rounds,
+                )
+            # A shard that answers again (mark_recovered clears its streak)
+            # leaves this memo, so a later second expiry is loud again.
+            self._grace_noted = gone
+            active = [rec for rec in active if rec.client_id not in gone]
+            if s.metrics is not None:
+                s.metrics.registry.gauge("live_shards").set(len(active))
+        elif self._grace_noted:
+            self._grace_noted = set()
+        return len(active)
 
     def combine(self, snapshots, iteration: int):
         s = self.server
@@ -569,6 +615,9 @@ class SyncEngine(RoundEngine):
                 active = self._wait_for_pollable(iteration)
                 if not active:
                     break
+
+            if s.profiler is not None:
+                s.profiler.observe(iteration)
 
             cohort = self.select_cohort(iteration, active)
             self._note_cohort(cohort)
@@ -881,6 +930,8 @@ class AsyncEngine(RoundEngine):
             and skips < max(16, 4 * s.max_iters)
             and not s._stopping.is_set()
         ):
+            if s.profiler is not None:
+                s.profiler.observe(iteration)
             # 1. keep one poll in flight per eligible client (free-running
             # clients: each new poll starts the moment the previous
             # completes and its update is aggregated + pushed).
@@ -1137,6 +1188,8 @@ class PushEngine(AsyncEngine):
             and skips < max(16, 4 * s.max_iters)
             and not s._stopping.is_set()
         ):
+            if s.profiler is not None:
+                s.profiler.observe(iteration)
             # Clear BEFORE reading the buffer depth: any push landing
             # after this point re-sets the event, so either the depth
             # read below sees it or the wait returns immediately —

@@ -56,13 +56,16 @@ planes behind them:
   per aggregated round (:mod:`gfedntm_tpu_torch.utils.slo`);
 - incident dumps (``dump_dir``): a flight recorder on the logger and an
   incident trigger whose captures solicit the clients' rings through the
-  next poll's capture token.
+  next poll's capture token;
+- shard supervision for a root whose members are relays
+  (``relay_grace_rounds > 0``, :mod:`gfedntm_tpu_torch.federation.relay`):
+  a shard silent for that many rounds leaves the quorum denominator and the
+  wait for pollable members, so the root aggregates over live shards;
+- a round profiler window (``profiler``, a
+  :class:`~gfedntm_tpu_torch.utils.observability.RoundProfiler`) observed
+  by every round engine and closed when training ends.
 
-The JAX server's remaining options are not ported yet, and asking for one
-raises ``NotImplementedError`` (ROADMAP queue 1): the device profiler
-(``profiler``) and relay supervision (``relay_grace_rounds``). Their
-defaults are off, so every keyword of the JAX server is accepted at its
-default.
+Every keyword of the JAX server is accepted.
 """
 
 from __future__ import annotations
@@ -166,11 +169,6 @@ def model_opt_state(model: AVITM):
                                     inject_lr=model.reduce_on_plateau)
 
 
-#: JAX server options whose planes are not ported yet, with the values that
-#: keep each off. Any other value raises ``NotImplementedError``.
-_QUEUED_OPTIONS = {"relay_grace_rounds": (0,), "profiler": (None,)}
-
-
 class FederatedServer:
     """gRPC servicer + training orchestrator under any pacing.
 
@@ -181,8 +179,7 @@ class FederatedServer:
     ``codec_ref_cache_max``, and the pacing options ``pacing_policy``,
     ``cohort_size``, ``async_buffer``, ``staleness_alpha`` and
     ``pacing_seed``), plus ``device`` for the template model and the
-    aggregation plane. The options of planes that are not ported yet (see
-    the module docstring) are accepted only at their off values.
+    aggregation plane.
 
     The privacy (``dp*``), quality (``quality_*``), ops and fleet
     (``ops_port``, ``ops_host``, ``slo_specs``, ``fleet_max_*``) and
@@ -228,6 +225,7 @@ class FederatedServer:
         codec_ref_cache_max: int = 64,
         ops_port: int | None = None,
         ops_host: str = "127.0.0.1",
+        profiler=None,
         straggler_z: float = 2.0,
         quality_every: int = 0,
         quality_ref: str | None = None,
@@ -242,6 +240,7 @@ class FederatedServer:
         pacing_seed: int = 0,
         journal_every: int = 1,
         reconnect_grace_s: float = 120.0,
+        relay_grace_rounds: int = 0,
         slo_specs=None,
         fleet_max_nodes: int = 512,
         fleet_max_series: int = 512,
@@ -257,15 +256,7 @@ class FederatedServer:
         flightrec_debounce_s: float = 30.0,
         flightrec_max_bundles: int = 32,
         device: str | torch.device | None = None,
-        **queued: Any,
     ):
-        for name, value in queued.items():
-            if name not in _QUEUED_OPTIONS:
-                raise TypeError(f"FederatedServer got an unexpected option {name!r}")
-            if value not in _QUEUED_OPTIONS[name]:
-                raise NotImplementedError(
-                    f"FederatedServer({name}={value!r}): that plane of the JAX "
-                    "server is not ported yet (ROADMAP queue 1)")
         if local_steps < 1:
             raise ValueError(f"local_steps must be >= 1, got {local_steps}")
         if probation_rounds < 1:
@@ -457,6 +448,11 @@ class FederatedServer:
         # open for this long after training resumes (bounded).
         self.reconnect_grace_s = float(reconnect_grace_s)
         self._recovery_deadline: float | None = None
+        # Shard supervision: when the members are relays, a shard silent
+        # for this many rounds leaves the quorum denominator, so the root
+        # aggregates over live shards instead of stalling until the dead
+        # relay's probation runs out. 0 keeps the flat fleet's semantics.
+        self.relay_grace_rounds = int(relay_grace_rounds)
         # Clients whose first poll (which builds the kernels) has been seen.
         self._poll_warmed: set[int] = set()
         self.trace_id: str | None = None
@@ -467,6 +463,11 @@ class FederatedServer:
         self.ops_host = ops_host
         self.ops_actual_port: int | None = None
         self._ops_server: OpsServer | None = None
+        # The round profiler window, observed by the round engines; it
+        # records this server's device unless it names one.
+        self.profiler = profiler
+        if profiler is not None and profiler.device is None:
+            profiler.device = self.device
         self.straggler = StragglerDetector(
             registry=metrics.registry if metrics is not None else None,
             z_threshold=straggler_z,
@@ -2197,6 +2198,8 @@ class FederatedServer:
         except Exception:  # pragma: no cover - defensive
             self.logger.exception("federated training loop failed")
         finally:
+            if self.profiler is not None:
+                self.profiler.close()
             if self.metrics is not None:
                 self.metrics.snapshot_registry(rounds=self.global_iterations)
             self._stopping.set()

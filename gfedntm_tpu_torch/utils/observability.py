@@ -27,7 +27,9 @@ uses, so the port's records are the same JSON the JAX package's
   the run summaries of the quality and privacy planes
   (``summarize_model_quality``, ``summarize_privacy``, with
   ``collect_data_plane``; :1507, :1931, :2138), ``render_prometheus``
-  (:2202) and :class:`OpsServer` (:2284).
+  (:2202) and :class:`OpsServer` (:2284);
+- the round profiler window: ``parse_round_window`` (a copy, :921) and
+  :class:`RoundProfiler` (:942), rewritten over ``torch.profiler``.
 
 The JAX module imports ``jax`` inside a few functions (the profiler window,
 the device-memory gauge), so it is copied by function, not by file;
@@ -1662,3 +1664,212 @@ class OpsServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+
+
+# ---- the round profiler window (:921-1019) ----------------------------------
+
+def parse_round_window(spec: str) -> tuple[int, int]:
+    """Parse a ``--profile_rounds`` window: ``"start:stop"`` (half-open) or
+    a single round ``"N"`` (= ``N:N+1``)."""
+    try:
+        if ":" in spec:
+            lo_s, hi_s = spec.split(":", 1)
+            lo, hi = int(lo_s), int(hi_s)
+        else:
+            lo = int(spec)
+            hi = lo + 1
+    except ValueError:
+        raise ValueError(
+            f"bad round window {spec!r}: expected 'start:stop' or 'round'"
+        )
+    if lo < 0 or hi <= lo:
+        raise ValueError(
+            f"bad round window {spec!r}: need 0 <= start < stop"
+        )
+    return lo, hi
+
+
+#: Held by the one open window of this process: like ``jax.profiler``,
+#: ``torch.profiler`` runs one session per process, and a second start
+#: silently ends the first.
+_PROFILER_SESSION = threading.Lock()
+
+
+class _ProfilerSession:
+    """One ``torch.profiler`` session on a thread of its own: the profiler's
+    CPU callbacks belong to the thread that starts it, and it must stop on
+    that thread, while rounds are observed from any thread (a server's
+    round loop, a client's gRPC handlers). CPU ops of every thread are
+    recorded where the installed PyTorch can (``profile_all_threads``);
+    CUDA kernels come from CUPTI, which sees the whole process."""
+
+    def __init__(self, path: str, cuda: bool):
+        self.path = path
+        self.cuda = cuda
+        self._stop = threading.Event()
+        self._started = threading.Event()
+        self._done = threading.Event()
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(
+            target=self._run, name="round-profiler", daemon=True,
+        )
+
+    def _profile(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+
+            config = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):  # an older PyTorch: this thread's ops
+            config = None
+        if self.cuda:
+            torch.cuda.synchronize()
+        return profile(activities=activities, experimental_config=config)
+
+    def _run(self) -> None:
+        try:
+            prof = self._profile()
+            prof.start()
+        except BaseException as err:  # reported by start()
+            self.error = err
+            self._started.set()
+            return
+        self._started.set()
+        self._stop.wait()
+        try:
+            if self.cuda:
+                import torch
+
+                torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(self.path)
+        except BaseException as err:  # reported by stop()
+            self.error = err
+        finally:
+            self._done.set()
+
+    def start(self) -> None:
+        self._thread.start()
+        self._started.wait()
+        if self.error is not None:
+            raise self.error
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._done.wait()
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+class RoundProfiler:
+    """``torch.profiler`` capture around a round window [start, stop) — the
+    JAX ``RoundProfiler`` (``observability.py:942-1019``) over the port's
+    profiler.
+
+    Driven by :meth:`observe` with the current round index — the server's
+    round engines and the client servicer (which learns the round from each
+    ``StepRequest``) both just report rounds as they see them; the profiler
+    starts the trace on the first round inside the window and stops it on
+    the first round at/after ``stop`` (or at :meth:`close`), writing one
+    Chrome trace (``rounds_<start>-<stop>.<pid>.pt.trace.json``) under
+    ``profile_dir``. It records CPU activity, and CUDA activity when
+    ``device`` is a CUDA device (the owning server or client sets it from
+    its own device when it is left ``None``). A ``None`` ``profile_dir``
+    makes every method a no-op. A window that cannot start (a profiler
+    error, or another window already open in this process) disables the
+    instance loudly — ``profiler_failures`` counter and a warning — rather
+    than killing the round loop; a failed stop warns and disables it.
+    """
+
+    def __init__(self, profile_dir: str | None, rounds: str = "1:2",
+                 metrics: MetricsLogger | None = None, device=None):
+        self.profile_dir = profile_dir
+        self.metrics = metrics
+        self.device = device
+        self.start_round, self.stop_round = parse_round_window(rounds)
+        self.trace_path: str | None = None
+        self._active = False
+        self._disabled = profile_dir is None
+        self._session: _ProfilerSession | None = None
+        self._lock = threading.Lock()
+
+    def observe(self, round_idx: int) -> None:
+        if self._disabled:
+            return
+        with self._lock:
+            if (not self._active and
+                    self.start_round <= round_idx < self.stop_round):
+                self._start(round_idx)
+            elif self._active and round_idx >= self.stop_round:
+                self._stop(round_idx)
+
+    def close(self) -> None:
+        if self._disabled:
+            return
+        with self._lock:
+            if self._active:
+                self._stop(self.stop_round)
+
+    # callers hold self._lock
+    def _start(self, round_idx: int) -> None:
+        import logging
+
+        try:
+            if not _PROFILER_SESSION.acquire(blocking=False):
+                raise RuntimeError(
+                    "another profiler window is open in this process"
+                )
+            try:
+                os.makedirs(self.profile_dir, exist_ok=True)
+                path = os.path.join(
+                    self.profile_dir,
+                    f"rounds_{self.start_round}-{self.stop_round}."
+                    f"{os.getpid()}.pt.trace.json",
+                )
+                session = _ProfilerSession(
+                    path, str(self.device or "").startswith("cuda")
+                )
+                session.start()
+            except BaseException:
+                _PROFILER_SESSION.release()
+                raise
+        except Exception as err:  # no profiler, or a window already open
+            self._disabled = True
+            if self.metrics is not None:
+                self.metrics.registry.counter("profiler_failures").inc()
+            logging.getLogger("RoundProfiler").warning(
+                "torch.profiler unavailable (%s); device profiling disabled",
+                err,
+            )
+            return
+        self._session = session
+        self.trace_path = path
+        self._active = True
+        if self.metrics is not None:
+            self.metrics.log(
+                "profiler_started", dir=self.profile_dir, round=round_idx,
+            )
+
+    def _stop(self, round_idx: int) -> None:
+        import logging
+
+        self._active = False
+        session, self._session = self._session, None
+        try:
+            session.stop()
+        except Exception as err:
+            self._disabled = True
+            logging.getLogger("RoundProfiler").warning(
+                "torch.profiler stop failed: %s", err,
+            )
+            return
+        finally:
+            _PROFILER_SESSION.release()
+        if self.metrics is not None:
+            self.metrics.log("profiler_stopped", round=round_idx)

@@ -339,14 +339,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]), server_address="localhost:1")
 
 
-@pytest.mark.parametrize("option", [dict(relay_grace_rounds=1),
-                                    dict(relay_grace_rounds=3),
-                                    dict(profiler=object())])
-def test_server_refuses_planes_not_ported(option):
-    with pytest.raises(NotImplementedError):
-        FederatedServer(min_clients=1, device="cpu", **option)
-
-
 @pytest.mark.parametrize("option", [dict(sanitize=False), dict(checkpoint_every=5),
                                     dict(journal_every=2), dict(divergence_patience=2),
                                     dict(aggregation_backend="device"),
@@ -358,13 +350,18 @@ def test_server_refuses_planes_not_ported(option):
                                     dict(quality_guard=True), dict(ops_port=0),
                                     dict(pacing_policy="push:2"),
                                     dict(pacing_policy="cohort:2"),
-                                    dict(pacing_policy="async:2")])
+                                    dict(pacing_policy="async:2"),
+                                    dict(relay_grace_rounds=1),
+                                    dict(relay_grace_rounds=3),
+                                    dict(profiler="window")])
 def test_server_accepts_the_ported_planes(tmp_path, option):
-    """Each option that the refusal test above refused until the planes
-    were ported is accepted now and builds its plane."""
-    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+    """Each option the server refused until its plane was ported is
+    accepted now and builds its plane."""
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger, RoundProfiler
 
     name, value = next(iter(option.items()))
+    if name == "profiler":
+        option = dict(profiler=RoundProfiler(str(tmp_path / "prof"), "1:2"))
     if name == "dump_dir":
         option = dict(dump_dir=str(tmp_path / value))
     if name == "dp":
@@ -403,6 +400,9 @@ def test_server_accepts_the_ported_planes(tmp_path, option):
     elif name == "pacing_policy":
         assert server.pacing.spec_id == value
         assert server._status()["pacing"]["policy"] == value
+    elif name == "profiler":
+        assert server.profiler is option["profiler"]
+        assert str(server.profiler.device) == "cpu"
     else:
         assert getattr(server, name) == value
 
@@ -421,8 +421,7 @@ def test_server_defaults_are_the_jax_servers():
         assert name in port, name
 
 
-@pytest.mark.parametrize("option", [dict(mesh_devices=2), dict(profiler=object()),
-                                    dict(failover_addrs=("localhost:2",))])
+@pytest.mark.parametrize("option", [dict(mesh_devices=2)])
 def test_client_refuses_options_not_ported(option):
     with pytest.raises(NotImplementedError):
         Client(client_id=1, corpus=RawCorpus(documents=["a b"]),
@@ -430,7 +429,8 @@ def test_client_refuses_options_not_ported(option):
 
 
 @pytest.mark.parametrize("option", [dict(dp="client", dp_sigma=0.5), dict(dump_dir="x"),
-                                    dict(dp="server", dp_sigma=0.5)])
+                                    dict(dp="server", dp_sigma=0.5), dict(profiler="window"),
+                                    dict(failover_addrs=("localhost:2",))])
 def test_client_accepts_the_ported_options(tmp_path, option):
     """The client options the refusal test above refused until their planes
     were ported are accepted and build their halves of the planes."""
@@ -438,10 +438,19 @@ def test_client_accepts_the_ported_options(tmp_path, option):
 
     if "dump_dir" in option:
         option = dict(dump_dir=str(tmp_path / "x"))
+    if "profiler" in option:
+        from gfedntm_tpu_torch.utils.observability import RoundProfiler
+
+        option = dict(profiler=RoundProfiler(str(tmp_path / "prof"), "1:2"))
     client = Client(client_id=2, corpus=RawCorpus(documents=["a b"]),
                     server_address="localhost:1", device="cpu", metrics=MetricsLogger(),
                     **option)
-    if "dump_dir" in option:
+    if "profiler" in option:
+        assert client.profiler is option["profiler"] and str(client.profiler.device) == "cpu"
+    elif "failover_addrs" in option:
+        assert client.failover_addrs == ["localhost:2"]
+        assert client._last_reconnect_outcome == "ok"
+    elif "dump_dir" in option:
         assert client._incident_trigger.node == "client2" and (tmp_path / "x").is_dir()
     else:
         # A server-mode spec is the server's mechanism: the client builds none.

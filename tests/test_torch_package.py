@@ -102,6 +102,7 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.federation.sanitize",
                  "gfedntm_tpu_torch.federation.device_agg",
                  "gfedntm_tpu_torch.federation.simfleet",
+                 "gfedntm_tpu_torch.federation.relay",
                  "gfedntm_tpu_torch.train.guardian"):
         assert name in names, name
 

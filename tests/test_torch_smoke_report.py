@@ -102,17 +102,33 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
 @pytest.mark.parametrize("argv", [["--bogus"], ["--against"], ["--against", "a", "b"],
                                   ["--kernels-only", "--nope"],
                                   ["--data-parallel-only", "--kernels-only"],
-                                  ["--data-parallel-only", "--against", "."]])
+                                  ["--data-parallel-only", "--against", "."],
+                                  ["--hierarchy-only", "--pacing-only"]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
-                                  ["--data-parallel-only"]])
+                                  ["--data-parallel-only"], ["--hierarchy-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_trace_kernels_counts_kernel_events_by_family(smoke, tmp_path):
+    """Phase 13's profiler check reads the Chrome trace's kernel events by
+    the three kernels' names; CPU ops of the same names do not count."""
+    import json
+
+    events = [{"cat": "kernel", "name": "void stats_kernel<32, (VecWidth)1>(Args)"},
+              {"cat": "kernel", "name": "void grads_kernel<32, (VecWidth)1>(Args)"},
+              {"cat": "kernel", "name": "void grads_kernel<16, (VecWidth)1>(Args)"},
+              {"cat": "cpu_op", "name": "loss_kernel"},
+              {"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert smoke.trace_kernels(path) == {"stats_kernel": 1, "loss_kernel": 0, "grads_kernel": 2}
 
 
 @pytest.mark.parametrize("losses,patience,delta,want", [
