@@ -12,8 +12,9 @@
     python3 chip_smoke.py --privacy-ops-only  # phases 1 and 11
     python3 chip_smoke.py --pacing-only   # phases 1 and 12
     python3 chip_smoke.py --hierarchy-only  # phases 1 and 13
+    python3 chip_smoke.py --serving-only  # phases 1, 9 and 14
 
-Thirteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Fourteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script):
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -291,10 +292,32 @@ device or no port next to this script):
    once per local step in (b) and (c), every leaf stopped with its results
    and finite losses. Relay 101's members' liveness window in (b) is 18 s;
    relay 102's members' in (c) 3 s, their reconnect window 2 s.
+14. the serving plane (every check fatal), on phase 9's store and corpora
+   (``--serving-only`` runs phase 9 first): (a) a ``ServingPlane``
+   (``max_batch`` 64, ``poll_s`` 0.2) on the store turns ready; theta for
+   256 documents of client 1 bitwise equal to ``get_theta(noise=0.0)`` of
+   the port's template with the journal's average, the same rows in 1-,
+   3- and 17-row requests within 1e-6, rows stochastic within 1e-5;
+   (b) the cold load's seconds, ms per ``engine.infer`` per bucket (median
+   of 20) beside the padded batch's copy to the card and the request's
+   protobuf parse and decode, and closed loops over gRPC ``Infer`` at
+   concurrency 1, 4 and 16 (p50, p99, docs/s, mean batch fill), no failed
+   request, and no launch of K1-K3 from the load to here; (c) a copy of the
+   store resumed by a port server autorecovering from its journal with the
+   same two clients for 3 global steps while a plane polls the copy under
+   load at concurrency 4: at least two swaps, no failed request, no
+   worker's round going back, K1-K3 once per local step and held to their
+   plain versions on the first batch; then a round journaled with
+   ``quality.flagged`` refused while the plane keeps the round before it;
+   (d) a port federation with ``solver="rmsprop"`` at V near 5,000, 2
+   clients, 2 global steps: finite losses, each client's optimizer state
+   the GlobalSetup's bytes and its momentum buffers the bridge's, the
+   shared state bitwise equal across the clients.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
-``{"kernels": [...]}`` JSON line before the last; and as the last line
+``{"kernels": [...]}`` JSON line before the last, after the script's own
+seconds; and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1078,50 +1101,67 @@ def split_input_layer(model, parts: int) -> None:
     layer.forward = types.MethodType(forward, layer)
 
 
-def sharded_op_phase() -> tuple[dict, dict, str]:
+#: Phase 4(a)'s K5 cases by (dp, mp): [(B, V, mask kind, training, timing
+#: reps, storage)].
+OP_LAYOUTS = {
+    (1, 2): [(256, 100_000, "partial", True, 10, "float32"),
+             (256, 100_000, "partial", False, 0, "float32"),
+             (64, 3002, "partial", True, 0, "float32"), (64, 3002, "partial", False, 0, "float32"),
+             (64, 3002, "all", True, 0, "float32"), (64, 3002, "all", False, 0, "float32"),
+             (256, 100_000, "partial", True, 10, "bfloat16"),
+             (64, 3002, "partial", False, 0, "bfloat16"), (64, 3002, "all", True, 0, "bfloat16")],
+    (2, 2): [(64, 3002, "partial", True, 0, "float32"), (64, 3002, "partial", False, 0, "float32"),
+             (64, 3002, "all", True, 0, "float32"), (64, 3002, "all", False, 0, "float32")],
+}
+
+
+def op_cases(specs: list) -> tuple[list, list]:
+    """K5's inputs for ``specs`` (one :data:`OP_LAYOUTS` entry) as numpy for
+    the ranks, and the full-V kernels' outputs on the card for each."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    cases, full = [], []
+    for i, (b, v, mask_kind, training, reps, storage) in enumerate(specs):
+        t = make_inputs(b, 50, v, seed=100 + i, mask_kind=mask_kind)
+        cases.append({**{k: t[k].cpu().numpy() for k in (
+            "theta", "beta", "x", "run_mean", "run_var", "mask", "g")},
+            "training": training, "reps": reps, "storage": storage})
+        th = t["theta"].clone().requires_grad_(True)
+        be = t["beta"].clone().requires_grad_(True)
+        rl, mean, var = fd.prodlda_recon_loss(th, be, t["x"], t["run_mean"], t["run_var"],
+                                              t["mask"], training, storage_dtype=storage)
+        (rl * t["g"]).sum().backward()
+        _, _, m, s = fd.stats(t["theta"], fd.store(t["beta"], storage), t["mask"],
+                              t["run_mean"], t["run_var"], training, storage_dtype=storage)
+        full.append(((rl, mean, var, th.grad, be.grad), (m, s)))
+    return cases, full
+
+
+def sharded_op_phase(op12: tuple) -> tuple[dict, dict, str]:
     """(a): K5 against the full-V kernels and its plain version, on float32
-    and on bf16 storage. Returns, by storage, the worst |K5 - full kernel|
-    and rank 0's op times; and the backend."""
+    and on bf16 storage. ``op12``: the dp=1 x mp=2 layout's ``(full,
+    per-rank results, backend)``, run in :func:`mp2_group`; the dp=2 x mp=2
+    layout runs its own rank group here. Returns, by storage, the worst
+    |K5 - full kernel| and rank 0's op times; and the backend."""
     import numpy as np
     import torch
 
-    from gfedntm_tpu_torch.ops import fused_decoder as fd
     from gfedntm_tpu_torch.parallel import programs
     from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     f32, bf = "float32", "bfloat16"
-    layouts = {  # (dp, mp): [(B, V, mask kind, training, timing reps, storage)]
-        (1, 2): [(256, 100_000, "partial", True, 10, f32), (256, 100_000, "partial", False, 0, f32),
-                 (64, 3002, "partial", True, 0, f32), (64, 3002, "partial", False, 0, f32),
-                 (64, 3002, "all", True, 0, f32), (64, 3002, "all", False, 0, f32),
-                 (256, 100_000, "partial", True, 10, bf), (64, 3002, "partial", False, 0, bf),
-                 (64, 3002, "all", True, 0, bf)],
-        (2, 2): [(64, 3002, "partial", True, 0, f32), (64, 3002, "partial", False, 0, f32),
-                 (64, 3002, "all", True, 0, f32), (64, 3002, "all", False, 0, f32)],
-    }
     worst, times, outputs = {f32: 0.0, bf: 0.0}, {}, "rl,mean,var,g_theta,g_beta"
-    for (dp, mp), specs in layouts.items():
-        backend, devices = gpu_layout(dp * mp)
-        cases, full = [], []
-        for i, (b, v, mask_kind, training, reps, storage) in enumerate(specs):
-            t = make_inputs(b, 50, v, seed=100 + i, mask_kind=mask_kind)
-            cases.append({**{k: t[k].cpu().numpy() for k in (
-                "theta", "beta", "x", "run_mean", "run_var", "mask", "g")},
-                "training": training, "reps": reps, "storage": storage})
-            th = t["theta"].clone().requires_grad_(True)
-            be = t["beta"].clone().requires_grad_(True)
-            rl, mean, var = fd.prodlda_recon_loss(th, be, t["x"], t["run_mean"],
-                                                  t["run_var"], t["mask"], training,
-                                                  storage_dtype=storage)
-            (rl * t["g"]).sum().backward()
-            _, _, m, s = fd.stats(t["theta"], fd.store(t["beta"], storage), t["mask"],
-                                  t["run_mean"], t["run_var"], training, storage_dtype=storage)
-            full.append(((rl, mean, var, th.grad, be.grad), (m, s)))
-        t0 = time.perf_counter()
-        res = run_ranks(programs.vsharded_op, dp * mp, backend, devices, 600,
-                        args=(dp, mp, cases))
-        print(f"sharded op: {backend}, dp={dp} x mp={mp} on {devices}, "
-              f"{len(specs)} cases in {time.perf_counter() - t0:.1f} s", flush=True)
+    for (dp, mp), specs in OP_LAYOUTS.items():
+        if (dp, mp) == (1, 2):
+            full, res, backend = op12
+        else:
+            backend, devices = gpu_layout(dp * mp)
+            cases, full = op_cases(specs)
+            t0 = time.perf_counter()
+            res = run_ranks(programs.vsharded_op, dp * mp, backend, devices, 600,
+                            args=(dp, mp, cases))
+            print(f"sharded op: {backend}, dp={dp} x mp={mp} on {devices}, "
+                  f"{len(specs)} cases in {time.perf_counter() - t0:.1f} s", flush=True)
         for i, (b, v, mask_kind, training, reps, storage) in enumerate(specs):
             case = (f"K5 dp={dp} mp={mp} B={b} V={v} mask={mask_kind} "
                     f"{'train' if training else 'eval'} {storage}")
@@ -1146,29 +1186,35 @@ def sharded_op_phase() -> tuple[dict, dict, str]:
             if reps:
                 times[storage] = {"backend": backend, "per_rank": [r["ms"] for r in per_rank]}
             print(f"sharded op ok: {case}", flush=True)
-    return worst, times, backend
+    return worst, times, op12[2]
 
 
-def forced_phase(kw: dict, X, mp: int, split_losses: list) -> None:
+def forced_records(kw: dict, X, mp: int) -> tuple[list, list]:
+    """(c)'s inputs: the state, batch and noise at steps 1, 4, 8 and 16 of
+    the unsharded split-encoder fit, and that replay's step losses."""
+    from gfedntm_tpu_torch import AVITM
+    from gfedntm_tpu_torch.parallel import programs
+
+    witness = AVITM(**kw)
+    split_input_layer(witness, mp)
+    return programs.trajectory(witness, X, (0, 3, 7, 15))
+
+
+def forced_phase(kw: dict, X, split_losses: list, records: list, losses: list,
+                 sharded: list) -> None:
     """(c) Teacher-forced steps: at steps 1, 4, 8 and 16 of the unsharded
-    split-encoder fit, its state, that step's batch and its noise go through
-    the mp ranks and an unsharded model. Prints each step's worst relative
-    gradient error over the leaves (error over the leaf's max|grad|) and the
-    cancelling leaves' error over the largest gradient; fails past 1e-3 and
-    1e-5 of those. ``split_losses``: the split-encoder fit's step losses,
-    which the trajectory's replay must repeat."""
+    split-encoder fit (:func:`forced_records`), its state, that step's batch
+    and its noise went through the mp ranks (``sharded``, rank 0's
+    ``forced_steps``) and go through an unsharded model. Prints each step's
+    worst relative gradient error over the leaves (error over the leaf's
+    max|grad|) and the cancelling leaves' error over the largest gradient;
+    fails past 1e-3 and 1e-5 of those. ``split_losses``: the split-encoder
+    fit's step losses, which the trajectory's replay must repeat."""
     import numpy as np
 
     from gfedntm_tpu_torch import AVITM
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
-    witness = AVITM(**kw)
-    split_input_layer(witness, mp)
-    records, losses = programs.trajectory(witness, X, (0, 3, 7, 15))
-    backend, devices = gpu_layout(mp)
-    sharded = run_ranks(programs.forced_steps, mp, backend, devices, 600,
-                        args=(1, mp, kw, shared(X), records))[0]
     parts = []
     for rec, (loss, grads) in zip(records, sharded):
         ref_loss, ref = programs.step_gradients(AVITM(**kw), X, state=rec["state"],
@@ -1189,30 +1235,70 @@ def forced_phase(kw: dict, X, mp: int, split_losses: list) -> None:
           + "; ".join(parts), flush=True)
 
 
+#: Where the dp=1 x mp=2 rank group writes phase 5(d)'s checkpoints (phase 5
+#: empties :data:`SCRATCH` before it starts); ``main`` removes it.
+SHARDED_SAVE = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
+
+
+def mp2_group(kw: dict, X, Xv) -> dict:
+    """Every dp=1 x mp=2 program of phases 4 and 5 in one rank group (one
+    start-up and one teardown instead of five): 4(a)'s K5 cases, 4(b)'s
+    ``fit_sharded`` with 24 timed steps, 4(c)'s teacher-forced steps, 4(f)'s
+    bf16 fit and 5(d)'s fit with validation into :data:`SHARDED_SAVE`.
+    Returns each program's per-rank results by name, the inputs the checks
+    need, and the backend."""
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    mp = 2
+    cases, full = op_cases(OP_LAYOUTS[1, mp])
+    records, losses = forced_records(kw, X, mp)
+    kw16 = {**kw, "num_epochs": 1, "compute_dtype": "bfloat16"}
+    shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
+    calls = {
+        "op": (programs.vsharded_op, (1, mp, cases)),
+        "fit": (programs.fit, (1, mp, kw, shared(X), None, 1, 24)),
+        "forced": (programs.forced_steps, (1, mp, kw, shared(X), records)),
+        "fit16": (programs.fit, (1, mp, kw16, shared(X), None, 1, 0)),
+        "validation": (programs.fit, (1, mp, kw, shared(X), None, 1, 0, shared(Xv),
+                                      str(SHARDED_SAVE), 5, 0.0)),
+    }
+    backend, devices = gpu_layout(mp)
+    t0 = time.perf_counter()
+    res = run_ranks(programs.run_each, mp, backend, devices, 1800,
+                    args=(list(calls.values()),))
+    print(f"dp=1 x mp={mp} rank group: {backend} on {devices}, {', '.join(calls)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {name: [r[i] for r in res] for i, name in enumerate(calls)}
+    out.update(op_full=full, records=records, forced_losses=losses, kw16=kw16,
+               backend=backend, devices=devices)
+    return out
+
+
 def sharded_fit_phase(card: str, rows: dict, notes: dict):
     """(a) through (d): the op checks, then ``fit_sharded`` at full width
     against an unsharded ``AVITM.fit``, its timing, and the ``vsharded``
-    row of the kernels line. Returns the fit's corpus and its settings."""
+    row of the kernels line; every dp=1 x mp=2 program, phase 5(d)'s too,
+    runs in :func:`mp2_group`. Returns the fit's corpus, its settings and
+    5(d)'s per-rank results."""
     import numpy as np
     import torch
 
     from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
-
-    worst, op_times, op_backend = sharded_op_phase()
 
     V, K, B, N, mp = 100_000, 50, 256, 2048, 2
     X = synthetic_bow(V, K, N, 0)
     kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
               num_epochs=2, dropout=0.0, seed=0)
-    backend, devices = gpu_layout(mp)
-    t0 = time.perf_counter()
-    res = run_ranks(programs.fit, mp, backend, devices, 900,
-                    args=(1, mp, kw, shared(X), None, 1, 24))
-    print(f"sharded fit: {backend}, dp=1 x mp={mp} on {devices}, {N} docs, V={V}, "
-          f"ranks done in {time.perf_counter() - t0:.1f} s; launches per rank "
-          f"{[r['launches'] for r in res]}; epoch losses {res[0]['epoch_losses']}", flush=True)
+    group = mp2_group(kw, X, synthetic_bow(V, K, 256, 1))
+    backend, devices = group["backend"], group["devices"]
+    worst, op_times, op_backend = sharded_op_phase((group["op_full"], group["op"], backend))
+
+    res = group["fit"]
+    print(f"sharded fit: {backend}, dp=1 x mp={mp} on {devices}, {N} docs, V={V}; launches "
+          f"per rank {[r['launches'] for r in res]}; epoch losses {res[0]['epoch_losses']}",
+          flush=True)
     for rank, r in enumerate(res):
         for name in ("stats", "loss", "grads", "vsharded"):
             check(r["launches"][name] == 16,
@@ -1294,7 +1380,8 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
           f"sharded beta is further from the split-encoder fit ({pairs['sharded', 'split'][1]:.5f}"
           f") than that is from the plain fit ({pairs['split', 'plain'][1]:.5f})")
 
-    forced_phase(kw, X, mp, split.step_losses)
+    forced_phase(kw, X, split.step_losses, group["records"], group["forced_losses"],
+                 group["forced"][0])
 
     ms_step = max(r["step_ms"] for r in res)
     print(f"sharded fit ({backend}, {devices}): steady {ms_step:.3f} ms per step, "
@@ -1304,13 +1391,9 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
 
     # (f) bf16 compute: fit_sharded of a bf16 model for one epoch (8 steps)
     # against the unsharded bf16 fit, the launches read per rank.
-    kw16 = {**kw, "num_epochs": 1, "compute_dtype": "bfloat16"}
-    t0 = time.perf_counter()
-    res16 = run_ranks(programs.fit, mp, backend, devices, 900,
-                      args=(1, mp, kw16, shared(X), None, 1, 0))
+    kw16, res16 = group["kw16"], group["fit16"]
     steps16 = N // B
-    print(f"sharded fit bf16: {backend}, dp=1 x mp={mp}, ranks done in "
-          f"{time.perf_counter() - t0:.1f} s; launches per rank "
+    print(f"sharded fit bf16: {backend}, dp=1 x mp={mp}; launches per rank "
           f"{[r['launches'] for r in res16]}; step losses {res16[0]['step_losses']}", flush=True)
     for rank, r in enumerate(res16):
         for name in ("stats", "loss", "grads", "vsharded"):
@@ -1380,7 +1463,7 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
             f"{bound['simt_bound_ms']:.4f} ms; max |err| vs the full-V kernels, tol {ATOL:g} + "
             f"{RTOL:g}*max|plain|"
         )
-    return X, kw
+    return X, kw, group["validation"]
 
 
 # ---------------------------------------------------------------------------
@@ -1651,32 +1734,26 @@ def metrics_report(logger) -> str:
             f"federated_mesh_devices {snap['federated_mesh_devices']['value']:g}")
 
 
-def sharded_validation_phase(X, kw: dict) -> dict:
-    """(d) ``fit_sharded`` with validation at dp=1 x mp=2 in spawned ranks:
-    per-rank launch counts (eval-mode K1 and K2 through K5, K3 untouched by
-    the validation), each validation against the unsharded eval
-    teacher-forced from the same state, generator state and schedule, the
-    same early-stopping decisions on both ranks, and rank 0's checkpoints
-    against the gathered state. Returns rank 0's eval-mode launches."""
+def sharded_validation_phase(X, kw: dict, res: list) -> dict:
+    """(d) ``fit_sharded`` with validation at dp=1 x mp=2, run in phase 4's
+    rank group (``res``, per rank; its checkpoints in
+    :data:`SHARDED_SAVE`): per-rank launch counts (eval-mode K1 and K2
+    through K5, K3 untouched by the validation), each validation against
+    the unsharded eval teacher-forced from the same state, generator state
+    and schedule, the same early-stopping decisions on both ranks, and rank
+    0's checkpoints against the gathered state. Returns rank 0's eval-mode
+    launches."""
     import numpy as np
-    import torch
 
     from gfedntm_tpu_torch import AVITM
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     V, K, B, mp = kw["input_size"], kw["n_components"], kw["batch_size"], 2
     Xv = synthetic_bow(V, K, 256, 1)
-    save_dir = SCRATCH / "sharded"
-    backend, devices = gpu_layout(mp)
-    t0 = time.perf_counter()
-    res = run_ranks(programs.fit, mp, backend, devices, 900,
-                    args=(1, mp, kw, shared(X), None, 1, 0, shared(Xv), str(save_dir), 5,
-                          0.0))
+    save_dir = SHARDED_SAVE
     n_epochs = res[0]["last_epoch"] + 1
     n_train, n_val = len(X) // B * n_epochs, len(Xv) // B * n_epochs
-    print(f"sharded validation: {backend}, dp=1 x mp={mp}, {len(X)} + {len(Xv)} docs, ranks "
-          f"done in {time.perf_counter() - t0:.1f} s; launches per rank "
+    print(f"sharded validation: dp=1 x mp={mp}, {len(X)} + {len(Xv)} docs; launches per rank "
           f"{[r['launches'] for r in res]}; eval-mode {[r['eval_launches'] for r in res]}; "
           f"validation losses {res[0]['validation_losses']}", flush=True)
     for rank, r in enumerate(res):
@@ -1717,15 +1794,17 @@ def sharded_validation_phase(X, kw: dict) -> dict:
 
 
 def persistence_phase(card: str, rows: dict, notes: dict, datasets: list, result, X,
-                      kw: dict) -> None:
-    """Phase 5, (a) to (d), and the eval-mode rows of the kernels line."""
+                      kw: dict, validation: list) -> None:
+    """Phase 5, (a) to (d), and the eval-mode rows of the kernels line;
+    ``validation``: (d)'s per-rank results from phase 4's rank group."""
     shutil.rmtree(SCRATCH, ignore_errors=True)
     try:
         validation_fit_phase(datasets)
         resume_phase(datasets, result)
-        eval_launches = sharded_validation_phase(X, kw)
+        eval_launches = sharded_validation_phase(X, kw, validation)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
+        shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
     eval_kernel_rows(card, rows, notes)
     rows["stats_eval"]["launches"] = eval_launches["stats"]
     rows["loss_eval"]["launches"] = eval_launches["vsharded"]  # one K2 per eval K5 forward
@@ -4008,6 +4087,13 @@ DOOMED_RECONNECT_S = 2.0
 # journaled relays in (b)) to the script.
 HIER_CRASH_ROUNDS = 9
 HIER_LOSS_ROUNDS = 8
+# 13(b): the root's probation of relay 101. A dead relay's polls fail at
+# once, with retries at the next round and two after; the respawn waits for
+# the 2-round grace, so at the default of 3 the relay had one round over
+# relay 102 alone (~5 s) to come back from its journal before the root
+# dropped it for good, which its autorecovery does not always make. At 4 the
+# next retry falls past HIER_CRASH_ROUNDS.
+HIER_PROBATION = 4
 BETA_TOL = 1e-4  # 13(a): final beta, hierarchy vs flat (tests/test_scaleout.py:790-806)
 
 
@@ -4356,7 +4442,8 @@ def relay_crash_phase(card: str, notes: dict, clients_raw) -> None:
     prof = RoundProfiler(str(SCRATCH / "profile_b"), "1:2")
     fed = Federation13("b", clients_raw, shards={HIER_RELAYS[0]: (1, 2), HIER_RELAYS[1]: (3, 4)},
                        root_kw=dict(relay_grace_rounds=2, wire_codec="delta", profiler=prof,
-                                    max_iters=HIER_CRASH_ROUNDS),
+                                    max_iters=HIER_CRASH_ROUNDS,
+                                    probation_rounds=HIER_PROBATION),
                        client_kw={c: live for c in (1, 2, 3, 4)}, journaled=True)
     prof.metrics = fed.root_log
     rid = HIER_RELAYS[0]
@@ -4493,6 +4580,387 @@ def hierarchy_phase(card: str, notes: dict, clients_raw=None) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the serving plane
+# ---------------------------------------------------------------------------
+SERVE_DOCS = 256  # 14(a): client 1's documents answered
+SERVE_LOAD_S = 4.0  # 14(b): each closed loop's seconds
+SERVE_CONCURRENCY = (1, 4, 16)  # 14(b): closed-loop workers
+SERVE_REQUEST_DOCS = 4  # documents per request of 14(b) and 14(c)
+SERVE_RESUME_STEPS = 3  # 14(c): global steps of the resumed federation
+SERVE_BRIDGE_V = 5_000  # 14(d): the rmsprop federation's generator vocabulary
+
+
+def serving_reference(pub, X, rows: int):
+    """theta of ``X`` from ``get_theta(noise=0.0)`` of the port's template
+    model with ``pub``'s average loaded through the weight bridge, in
+    ``rows``-row chunks (the engine's largest bucket)."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import interop
+    from gfedntm_tpu_torch.federation.server import build_template_model
+
+    model = build_template_model(pub.family, len(pub.vocab), pub.model_kwargs)
+    trees = {"params": {}, "batch_stats": {}}
+    for key, value in pub.average.items():
+        collection, *path = key.split("/")
+        node = trees[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    _, unexpected = model.model.load_state_dict(
+        interop.state_dict_from_flax(trees["params"], trees["batch_stats"]), strict=False)
+    check(not unexpected, f"phase 14(a): the journal has keys the template lacks {unexpected}")
+    out = []
+    with torch.no_grad():
+        for lo in range(0, len(X), rows):
+            x = torch.from_numpy(X[lo:lo + rows]).to(model.device)
+            out.append(model.model.get_theta(x, noise=0.0).cpu().numpy())
+    return np.concatenate(out)
+
+
+def serving_cold_phase(card: str, store: Path, clients_raw) -> None:
+    """Phase 14(a) and (b): a ``ServingPlane`` on phase 9's store (V=66,001,
+    K=50, H=(100, 100)): the cold load, theta for client 1's documents held
+    against the template model's ``get_theta``, bucket invariance, the
+    engine's ms per bucket beside the padded batch's copy to the card and
+    the request's protobuf work, and closed loops over gRPC; no launch of
+    K1-K3 from the load to the end of the loops."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.data.vocab import Vocabulary, vectorize
+    from gfedntm_tpu_torch.federation import codec
+    from gfedntm_tpu_torch.federation.protos import federated_pb2 as pb
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.serving import ClosedLoopLoadGen, ServingPlane, make_infer_stub
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    log = MetricsLogger(node="serve", keep_records=True)
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    plane = ServingPlane(str(store), max_batch=64, poll_s=0.2, metrics=log, ops_port=0)
+    engine = plane.engine
+    check(engine.device.type == "cuda", f"phase 14: the engine is on {engine.device}")
+    plane.start("127.0.0.1:0")
+    try:
+        while not engine.ready:
+            check(time.perf_counter() - t0 < 120, "phase 14(a): the plane never became ready")
+            time.sleep(0.01)
+        cold_s = time.perf_counter() - t0
+        pub = plane.source.load()
+        check(pub.round == engine.model_round, f"phase 14(a): serving round "
+              f"{engine.model_round}, the store's newest {pub.round}")
+        V, K = len(pub.vocab), int(pub.model_kwargs["n_components"])
+        X = vectorize(clients_raw[0].documents[:SERVE_DOCS], Vocabulary(pub.vocab))
+        theta, rnd = engine.infer(X)
+        want = serving_reference(pub, X, engine.max_batch)
+        check(theta.shape == (SERVE_DOCS, K) and theta.dtype == np.float32,
+              f"phase 14(a): theta {theta.shape} {theta.dtype}")
+        check(np.array_equal(theta, want), "phase 14(a): theta differs from get_theta(noise=0.0) "
+              f"of the template with the journal's average by "
+              f"{float(np.abs(theta - want).max()):.3e}")
+        per_size = {}
+        for size in (1, 3, 17):
+            parts = [engine.infer(X[lo:lo + size])[0] for lo in range(0, SERVE_DOCS, size)]
+            per_size[size] = float(np.abs(np.concatenate(parts) - theta).max())
+        stochastic = float(np.abs(theta.astype(np.float64).sum(1) - 1.0).max())
+        print(f"serving (a), {card}: cold load of round {rnd} ({pub.source}, V={V}, K={K}) to "
+              f"ready in {cold_s:.3f} s; theta of {SERVE_DOCS} documents of client 1 in "
+              f"{engine.max_batch}-row requests bitwise equal to get_theta(noise=0.0) of the "
+              f"template with the journal's average; max |diff| against 1-, 3- and 17-row "
+              f"requests {per_size} (limit 1e-6); max |row sum - 1| {stochastic:.2e}",
+              flush=True)
+        check(max(per_size.values()) <= 1e-6, f"phase 14(a): bucket sizes differ {per_size}")
+        check(stochastic <= 1e-5, f"phase 14(a): rows sum to 1 within {stochastic:.2e}")
+
+        # (b) ms per engine.infer per bucket, beside the padded batch's copy
+        # to the card and a request's protobuf work at that bucket.
+        parts = []
+        for bucket in engine.buckets:
+            x = np.ascontiguousarray(X[:bucket])
+            infer_ms = time_ms(lambda: engine.infer(x))
+            copy_ms = time_ms(lambda: torch.from_numpy(x).to(engine.device))
+            req = pb.InferRequest(request_id=1)
+            req.bow.tensors.append(codec.array_to_record("bow", x))
+            data = req.SerializeToString()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                codec.record_to_array(pb.InferRequest.FromString(data).bow.tensors[0])
+            decode_ms = (time.perf_counter() - t1) / 5 * 1e3
+            parts.append(f"{bucket}: {infer_ms:.3f} (copy {copy_ms:.3f}, request parse and "
+                         f"decode {decode_ms:.3f} of {len(data) / 1e6:.2f} MB)")
+        print(f"serving (b) engine.infer ms per bucket, {card}: median of 20 after 3 warm-ups, "
+              + "; ".join(parts), flush=True)
+        stub = make_infer_stub(f"127.0.0.1:{plane.bound_port}")
+        rngs = [np.random.default_rng(14 + i) for i in range(max(SERVE_CONCURRENCY))]
+
+        def make_batch(worker, seq):
+            lo = int(rngs[worker].integers(0, SERVE_DOCS - SERVE_REQUEST_DOCS))
+            return X[lo:lo + SERVE_REQUEST_DOCS]
+
+        fill = log.registry.histogram("serve_batch_fill", buckets=(0.125, 0.25, 0.5, 0.75, 0.9,
+                                                                   1.0))
+        loops = []
+        try:
+            for conc in SERVE_CONCURRENCY:
+                n0, s0 = fill.count, fill.sum
+                summary = ClosedLoopLoadGen(stub, make_batch, concurrency=conc,
+                                            duration_s=SERVE_LOAD_S).run()
+                check(summary["failures"] == 0 and summary["requests"] > 0,
+                      f"phase 14(b): {summary['failures']} failed requests at concurrency "
+                      f"{conc}: {summary['failure_samples']}")
+                mean_fill = (fill.sum - s0) / max(fill.count - n0, 1)
+                loops.append(f"{conc}: p50 {summary['p50_ms']:.3f} p99 {summary['p99_ms']:.3f} "
+                             f"ms, {summary['docs_per_s']:.1f} docs/s, {summary['requests']} "
+                             f"requests, mean batch fill {mean_fill:.3f} in "
+                             f"{(fill.count - n0)} batches")
+        finally:
+            stub.channel.close()
+        print(f"serving (b) closed loops over gRPC Infer, {card}: {SERVE_REQUEST_DOCS}-document "
+              f"requests, {SERVE_LOAD_S:g} s each; by concurrency " + "; ".join(loops),
+              flush=True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fd.LAUNCHES.items() if k in ("stats", "loss", "grads")}
+        check(not any(launches.values()), f"phase 14(a)-(b): the serving path launched {launches}")
+        print(f"serving (a)-(b): launches of K1-K3 from the load to the end of the loops "
+              f"{launches}", flush=True)
+    finally:
+        plane.stop()
+
+
+def serving_swap_phase(card: str, notes: dict, store: Path, clients_raw) -> None:
+    """Phase 14(c): a copy of phase 9's store resumed by a port server that
+    autorecovers from its journal, with phase 9's two clients, for
+    :data:`SERVE_RESUME_STEPS` more global steps, while a ``ServingPlane``
+    polls the copy every 0.2 s under closed-loop gRPC load at concurrency 4:
+    at least two swaps, no failed request, no worker's model round going
+    back; then a journaled round flagged by the quality guard is refused and
+    the plane keeps serving the round before it."""
+    import json
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.data.vocab import Vocabulary, vectorize
+    from gfedntm_tpu_torch.federation.server import FederatedServer
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.serving import ClosedLoopLoadGen, ServingPlane, make_infer_stub
+    from gfedntm_tpu_torch.train.checkpoint import RoundJournal, atomic_write_json
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    copy = SCRATCH / "serving"
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(store, copy)
+    journal = copy / "checkpoints" / RoundJournal.META_NAME
+    meta = json.loads(journal.read_text())
+    meta.pop("finished", None)  # phase 9 stopped cleanly: resume it as if it had been killed
+    atomic_write_json(str(journal), meta)
+    last = int(meta["round"])
+    kw = dict(meta["model_kwargs"])
+    log = MetricsLogger(node="serve", keep_records=True)
+    plane = ServingPlane(str(copy), max_batch=64, poll_s=0.2, metrics=log)
+    plane.start("127.0.0.1:0")
+    server = None
+    clients = []
+    try:
+        t0 = time.perf_counter()
+        while not plane.engine.ready:
+            check(time.perf_counter() - t0 < 120, "phase 14(c): the plane never became ready")
+            time.sleep(0.01)
+        check(plane.engine.model_round == last, f"phase 14(c): serving round "
+              f"{plane.engine.model_round}, the copy's journal {last}")
+        X = vectorize(clients_raw[0].documents[:SERVE_DOCS], Vocabulary(plane.engine.vocab))
+        server_log = MetricsLogger(node="server", keep_records=True)
+        server = FederatedServer(min_clients=len(clients_raw), family="avitm", model_kwargs=kw,
+                                 max_iters=last + 1 + SERVE_RESUME_STEPS, save_dir=str(copy),
+                                 metrics=server_log)
+        resumed = server.maybe_autorecover()
+        check(resumed == last + 1, f"phase 14(c): resumed at {resumed}, want {last + 1}")
+        address = server.start("127.0.0.1:0")
+        Recorded = recorded_client()
+        clients = [Recorded(client_id=c + 1, corpus=corpus, server_address=address,
+                            listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                            max_features=None) for c, corpus in enumerate(clients_raw)]
+        stub = make_infer_stub(f"127.0.0.1:{plane.bound_port}")
+        seen: dict[int, list] = {}
+        rngs = [np.random.default_rng(40 + i) for i in range(4)]
+
+        def infer(x):
+            theta, rnd = stub(x)
+            seen.setdefault(threading.get_ident(), []).append(rnd)
+            return theta, rnd
+
+        def make_batch(worker, seq):
+            lo = int(rngs[worker].integers(0, SERVE_DOCS - SERVE_REQUEST_DOCS))
+            return X[lo:lo + SERVE_REQUEST_DOCS]
+
+        # The load ends once it has answered from three rounds (two swaps).
+        gen = ClosedLoopLoadGen(infer, make_batch, concurrency=4, duration_s=1.0,
+                                min_rounds=3, max_duration_s=120.0)
+        out: dict = {}
+        loader = threading.Thread(target=lambda: out.update(gen.run()), daemon=True)
+        fd.reset_launches()
+        loader.start()
+        run_s = run_clients(clients, server, "phase 14(c)")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fd.LAUNCHES.items() if k in ("stats", "loss", "grads")}
+        loader.join(timeout=300)
+        stub.channel.close()
+        check(not loader.is_alive() and out, "phase 14(c): the load generator did not end")
+        swaps = log.events("serve_model_swapped")
+        steps = sum(len(cl.steps) for cl in clients)
+        print(f"serving (c), {card}: phase 9's store resumed at round {resumed} from the "
+              f"{server._recovered_source}; {server.global_iterations - resumed} global steps in "
+              f"{run_s:.2f} s while the plane served {out['requests']} requests at concurrency 4 "
+              f"({out['failures']} failed, p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms, "
+              f"{out['docs_per_s']:.1f} docs/s); rounds answered {out['model_rounds_seen']}; "
+              f"swaps {[(e['prev_round'], e['round']) for e in swaps]}; local steps {steps}; "
+              f"launches {launches}", flush=True)
+        check(out["failures"] == 0, f"phase 14(c): failed requests {out['failure_samples']}")
+        check(len(swaps) >= 2 and len(out["model_rounds_seen"]) >= 3,
+              f"phase 14(c): {len(swaps)} swaps, the load saw {out['model_rounds_seen']}")
+        check(all(r == sorted(r) for r in seen.values()),
+              "phase 14(c): a worker saw a model round go back")
+        check(server.global_iterations == last + 1 + SERVE_RESUME_STEPS,
+              f"phase 14(c): the resumed federation ended at round {server.global_iterations}")
+        for name in ("stats", "loss", "grads"):
+            check(launches[name] == steps, f"phase 14(c): {name} launched {launches[name]} "
+                  f"times, the clients took {steps} local steps")
+            notes[name] += f"; phase 14(c) resumed federation under serving load: " \
+                           f"{launches[name]} launches"
+        first_batch_kernels("serving (c)", server._setup_reply, clients[0], kw)
+
+        # A round the quality guard flagged is refused; the plane keeps the
+        # round before it.
+        last = server.global_iterations - 1
+        while plane.engine.model_round != last:
+            check(time.perf_counter() - t0 < 600, f"phase 14(c): round {last} never served")
+            time.sleep(0.05)
+        kept = plane.engine.model_round
+        state = RoundJournal(str(copy / "checkpoints")).load(include_finished=True)
+        extra = {k: v for k, v in state.items() if k not in (
+            "round", "average", "aggregator_state", "membership", "vocab", "average_keys",
+            "finished")}
+        extra["quality"] = {"flagged": True, "unhealthy_streak": 3}
+        RoundJournal(str(copy / "checkpoints")).record(
+            kept + 1, state["average"], state["membership"], vocab=state["vocab"], extra=extra)
+        refused = log.registry.counter("serving_swaps_refused")
+        while refused.value < 1:
+            check(time.perf_counter() - t0 < 600, "phase 14(c): the flagged round was never read")
+            time.sleep(0.05)
+        theta, rnd = plane.batcher.submit(X[:SERVE_REQUEST_DOCS]).result(timeout=30)
+        print(f"serving (c): round {kept + 1} journaled with quality.flagged refused "
+              f"(serving_swaps_refused {refused.value:g}); still serving round {rnd}", flush=True)
+        check(refused.value == 1 and plane.engine.model_round == kept and rnd == kept,
+              f"phase 14(c): serving round {plane.engine.model_round} after the flagged round")
+    finally:
+        plane.stop()
+        if server is not None:
+            server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+
+
+def serving_bridge_phase(card: str) -> None:
+    """Phase 14(d): a port-only gRPC federation with ``solver="rmsprop"``,
+    2 clients, 2 global steps, from a generator vocabulary of
+    :data:`SERVE_BRIDGE_V` words: the join carries rmsprop's optax state,
+    each client's momentum buffers equal what the bridge loads from the
+    GlobalSetup, the losses are finite and the shared state is bitwise
+    equal across the clients."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch import RawCorpus, generate_synthetic_corpus
+    from gfedntm_tpu_torch.federation import codec
+    from gfedntm_tpu_torch.federation.client import load_global_setup
+    from gfedntm_tpu_torch.federation.server import (
+        FederatedServer,
+        build_template_model,
+        model_opt_state,
+    )
+    from gfedntm_tpu_torch.train.optimizers import RMSprop
+
+    corpus = generate_synthetic_corpus(vocab_size=SERVE_BRIDGE_V, n_topics=50, n_docs=1024,
+                                       n_nodes=2, materialize_docs=True, seed=3)
+    clients_raw = [RawCorpus(documents=node.documents) for node in corpus.nodes]
+    kw = dict(n_components=50, hidden_sizes=(100, 100), batch_size=256, num_epochs=2, seed=0,
+              solver="rmsprop")
+    save_dir = SCRATCH / "serving_rmsprop"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    Recorded = recorded_client()
+
+    class Joined(Recorded):
+        def join_federation(self):
+            super().join_federation()
+            model = self.stepper.model
+            self.joined_bytes = codec.tree_to_bundle(model_opt_state(model)).SerializeToString()
+            self.joined_buffers = {
+                n: model.optimizer.state[p]["momentum_buffer"].clone()
+                for n, p in model.model.named_parameters()}
+
+    server = FederatedServer(min_clients=2, family="avitm", model_kwargs=kw, max_iters=2,
+                             save_dir=str(save_dir))
+    address = server.start("127.0.0.1:0")
+    clients = [Joined(client_id=c + 1, corpus=corpus_c, server_address=address,
+                      listen_address="127.0.0.1:0", advertise_host="127.0.0.1",
+                      max_features=None) for c, corpus_c in enumerate(clients_raw)]
+    try:
+        run_s = run_clients(clients, server, "phase 14(d)")
+    finally:
+        server.stop(grace=0.5, join_timeout=30)
+        for cl in clients:
+            cl.shutdown(grace=0.5)
+    setup = server._setup_reply
+    V = len(setup.vocab)
+    bridged = build_template_model("avitm", V, kw)
+    load_global_setup(bridged, setup)
+    losses = [cl.losses for cl in clients]
+    print(f"serving (d), {card}: a port federation with solver='rmsprop' at V={V}: "
+          f"{server.global_iterations} global steps in {run_s:.2f} s; losses {losses}; "
+          f"optimizer {type(clients[0].stepper.model.optimizer).__name__}; init_opt_state "
+          f"{len(setup.init_opt_state.tensors)} records, {setup.init_opt_state.ByteSize() / 1e6:.2f} "
+          f"MB", flush=True)
+    check(server.global_iterations == 2, f"phase 14(d): {server.global_iterations} global steps")
+    check(all(len(l) == 2 and bool(np.isfinite(l).all()) for l in losses),
+          f"phase 14(d): losses {losses}")
+    for cl in clients:
+        check(isinstance(cl.stepper.model.optimizer, RMSprop),
+              f"phase 14(d): client {cl.client_id} steps with "
+              f"{type(cl.stepper.model.optimizer).__name__}")
+        check(cl.joined_bytes == setup.init_opt_state.SerializeToString(),
+              f"phase 14(d): client {cl.client_id}'s optimizer state is not the setup's")
+        for name, p in bridged.model.named_parameters():
+            check(torch.equal(cl.joined_buffers[name],
+                              bridged.optimizer.state[p]["momentum_buffer"]),
+                  f"phase 14(d): client {cl.client_id}'s {name} momentum buffer differs from "
+                  "the bridge's")
+    for step in range(2):
+        for key, value in clients[0].states[step].items():
+            check(torch.equal(value, clients[1].states[step][key]),
+                  f"phase 14(d): {key} differs across clients after aggregate {step + 1}")
+
+
+def serving_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
+    """Phase 14: the serving plane on phase 9's store and corpora (phase 9
+    runs first when it has not, as under ``--serving-only``)."""
+    t_phase = time.perf_counter()
+    raw = raw or raw_text_corpora(card)
+    if phase9 is None:
+        federation_phase(card, notes, raw)
+    store = SCRATCH / "federation"
+    check((store / "checkpoints" / "journal.json").exists(), "phase 14: phase 9 left no journal")
+    t0 = time.perf_counter()
+    serving_cold_phase(card, store, raw[0])
+    serving_swap_phase(card, notes, store, raw[0])
+    serving_bridge_phase(card)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s ({card}; "
+          f"{time.perf_counter() - t_phase:.1f} s with what it ran first)", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -4503,21 +4971,23 @@ def main(argv: list[str]) -> int:
     privacy_only = "--privacy-ops-only" in argv
     pacing_only = "--pacing-only" in argv
     hier_only = "--hierarchy-only" in argv
+    serve_only = "--serving-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
-                                         "--pacing-only", "--hierarchy-only")]
+                                         "--pacing-only", "--hierarchy-only", "--serving-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
-            or pacing_only or hier_only)
+            or pacing_only or hier_only or serve_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
-            + privacy_only + pacing_only + hier_only > 1
+            + privacy_only + pacing_only + hier_only + serve_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
-              "--privacy-ops-only | --pacing-only | --hierarchy-only]", file=sys.stderr)
+              "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -4535,6 +5005,7 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: the port is not next to this script ({err})", file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     resolve_device(None)
@@ -4569,11 +5040,14 @@ def main(argv: list[str]) -> int:
         if hier_only:
             hierarchy_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if serve_only:
+            serving_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
         rows, notes = kernel_phase(card, against)
         if not kernels_only:
             datasets, result = main_path_phase(rows)
-            X, kw = sharded_fit_phase(card, rows, notes)
-            persistence_phase(card, rows, notes, datasets, result, X, kw)
+            X, kw, validation = sharded_fit_phase(card, rows, notes)
+            persistence_phase(card, rows, notes, datasets, result, X, kw, validation)
             data_parallel_phase(card, notes)
             raw = decodes_and_text_phase(card, notes)
             ctm_phase(card, notes, raw, datasets)
@@ -4581,18 +5055,21 @@ def main(argv: list[str]) -> int:
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
             hierarchy_phase(card, notes, pacing_phase(card, notes, raw))
+            serving_phase(card, notes, raw, phase9)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(CORPORA, ignore_errors=True)
         shutil.rmtree(SCRATCH, ignore_errors=True)
+        shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
               f"bound_ms {row['bound_ms']:.4f}; {notes[name]}", flush=True)
     if kernels_only:
         return 0
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s ({card})", flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

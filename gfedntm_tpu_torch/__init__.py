@@ -10,7 +10,8 @@ adds each document's contextual embedding (``hashing_embedder`` stands in
 for a sentence encoder) and optional one-hot labels: ``CTMDataset`` ->
 ``CombinedTM`` or ``ZeroShotTM`` -> the same trainers. A federation server
 drives ``FederatedAVITM`` / ``FederatedCTM`` one minibatch at a time and
-averages their snapshots with ``weighted_mean``. It imports ``torch``,
+averages their snapshots with ``weighted_mean``. ``ServingPlane`` serves a
+federation's published rounds (doc→θ over gRPC and HTTP). It imports ``torch``,
 ``numpy`` and the standard library only — never ``jax`` or anything of
 ``gfedntm_tpu``.
 
@@ -47,6 +48,10 @@ _EXPORTS = {
     "resolve_device": "gfedntm_tpu_torch.device",
     "run_vocab_consensus": "gfedntm_tpu_torch.federated.consensus",
     "topic_diversity": "gfedntm_tpu_torch.eval.metrics",
+    "ModelSource": "gfedntm_tpu_torch.serving",
+    "ServingEngine": "gfedntm_tpu_torch.serving",
+    "ServingPlane": "gfedntm_tpu_torch.serving",
+    "make_infer_stub": "gfedntm_tpu_torch.serving",
 }
 
 __all__ = sorted(_EXPORTS)

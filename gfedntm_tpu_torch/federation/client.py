@@ -117,7 +117,7 @@ def load_global_setup(model, setup: pb.GlobalSetup, metrics=None) -> None:
     opt_state = codec.bundle_to_tree(
         model_opt_state(model), setup.init_opt_state, metrics=metrics,
     )
-    interop.load_optax_adam_state(model.model, model.optimizer, opt_state)
+    interop.load_optax_opt_state(model.model, model.optimizer, opt_state)
 
 
 class FederatedClientServicer:

@@ -20,7 +20,7 @@ So ``{"params": ..., "batch_stats": ...}`` of a bridged model
 (:func:`gfedntm_tpu_torch.interop.flax_from_state_dict`) gives
 ``['batch_stats']['beta_batchnorm']['num_batches_tracked']``, …,
 ``['params']['inf_net']['input_layer']['kernel']``, …, and the Adam state of
-:func:`gfedntm_tpu_torch.interop.optax_adam_state` gives ``[0].count``,
+:func:`gfedntm_tpu_torch.interop.optax_opt_state` gives ``[0].count``,
 ``[0].mu['beta']``, … — the JAX server's records, name for name.
 """
 

@@ -165,8 +165,8 @@ def model_variables(model: AVITM) -> dict:
 def model_opt_state(model: AVITM):
     """``model``'s optimizer state in optax's layout (``inject_hyperparams``
     under ``reduce_on_plateau``, as the JAX model builds it)."""
-    return interop.optax_adam_state(model.model, model.optimizer,
-                                    inject_lr=model.reduce_on_plateau)
+    return interop.optax_opt_state(model.model, model.optimizer,
+                                   inject_lr=model.reduce_on_plateau)
 
 
 class FederatedServer:

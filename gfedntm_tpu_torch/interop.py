@@ -20,14 +20,20 @@ use: they are keyed by '/'-joined Flax paths (``params/beta``,
 ``parallel.sharded.shard_state_dict`` slices a bridged state dict into one
 rank's V shard, so a V-sharded run starts from the JAX package's weights.
 
-The Adam bridge (:func:`optax_adam_state`, :func:`load_optax_adam_state`)
-carries a torch ``Adam``'s state in optax's layout, as numpy, without
-optax: ``optax.adam``'s state is ``(ScaleByAdamState(count, mu, nu),
-EmptyState())``, and under ``reduce_on_plateau`` the JAX package wraps it in
+The optimizer-state bridge (:func:`optax_opt_state`,
+:func:`load_optax_opt_state`; the Adam names are aliases) carries the state
+of any solver of :func:`gfedntm_tpu_torch.train.optimizers.build_optimizer`
+in optax's layout, as numpy, without optax. ``optax.adam``'s state is
+``(ScaleByAdamState(count, mu, nu), EmptyState())``; sgd's
+``(TraceState(trace), EmptyState())``; adagrad's
+``(ScaleByRssState(sum_of_squares), EmptyState())``; adadelta's
+``(EmptyState(), ScaleByAdaDeltaState(e_g, e_x), EmptyState())``; rmsprop's
+``(ScaleByRmsState(nu), EmptyState(), TraceState(trace))`` (:data:`_LAYOUTS`).
+Under ``reduce_on_plateau`` the JAX package wraps it in
 ``inject_hyperparams`` (``InjectStatefulHyperparamsState(count, hyperparams,
 hyperparams_states, inner_state)``; ``gfedntm_tpu/train/optimizers.py:38-78``).
 optax keeps one int32 ``count`` where torch keeps a ``step`` per parameter;
-``mu`` and ``nu`` are trees of the parameters' Flax paths, kernels [in, out]
+every other slot is a tree of the parameters' Flax paths, kernels [in, out]
 (they transpose with their kernel). The federation's join ships this state
 (``GlobalSetup.init_opt_state``).
 """
@@ -41,9 +47,25 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from gfedntm_tpu_torch.train.optimizers import SGD, RMSprop
+
 _FLAX_HIDDEN = re.compile(r"^hiddens_l(\d+)$")
 _TORCH_HIDDEN = re.compile(r"(^|\.)hiddens\.l_(\d+)\.0\.")
 _BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+#: Each solver's optax state (``gfedntm_tpu/train/optimizers.py``) as a tuple
+#: of chain entries: ``()`` for an ``EmptyState``, else ``(field, slot)``
+#: pairs in field order, where a torch optimizer-state slot of ``None`` is
+#: the step count. ``optax.rmsprop`` traces after its learning-rate scale,
+#: and the port's :class:`RMSprop` keeps the same lr-scaled trace, so every
+#: slot maps 1:1.
+_LAYOUTS = {
+    torch.optim.Adam: ((("count", None), ("mu", "exp_avg"), ("nu", "exp_avg_sq")), ()),
+    SGD: ((("trace", "momentum_buffer"),), ()),
+    torch.optim.Adagrad: ((("sum_of_squares", "sum"),), ()),
+    torch.optim.Adadelta: ((), (("e_g", "square_avg"), ("e_x", "acc_delta")), ()),
+    RMSprop: ((("nu", "square_avg"),), (), (("trace", "momentum_buffer"),)),
+}
 
 
 def _walk(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
@@ -120,63 +142,79 @@ def _params_tree(module: torch.nn.Module, leaf) -> dict:
     return tree
 
 
-def _adam(optimizer: torch.optim.Optimizer) -> None:
-    if not isinstance(optimizer, torch.optim.Adam):
+def _layout(optimizer: torch.optim.Optimizer):
+    layout = _LAYOUTS.get(type(optimizer))
+    if layout is None:
         raise NotImplementedError(
-            f"the optax state bridge covers Adam only, not {type(optimizer).__name__} "
-            "(ROADMAP queue 1)")
+            f"no optax layout for {type(optimizer).__name__}: the bridge covers the "
+            "five solvers of train.optimizers.build_optimizer")
+    return layout
 
 
-def optax_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                     inject_lr: bool = False):
-    """The optax layout of ``optimizer``'s Adam state over ``module``'s
-    parameters, as a tree of numpy arrays for
-    :func:`gfedntm_tpu_torch.federation.codec.tree_to_bundle` (a fresh
-    optimizer's is count 0 and zero moments, as ``optax.adam().init``'s).
-    ``inject_lr`` wraps it as ``inject_hyperparams`` does, with the first
-    param group's learning rate as float32."""
-    from gfedntm_tpu_torch.federation.codec import Fields
-
-    _adam(optimizer)
+def _count(module: torch.nn.Module, optimizer: torch.optim.Optimizer) -> np.ndarray:
     steps = {int(optimizer.state[p]["step"]) for p in module.parameters()
              if "step" in optimizer.state.get(p, {})}
     if len(steps) > 1:
-        raise ValueError(f"parameters at different Adam steps {sorted(steps)}: "
+        raise ValueError(f"parameters at different steps {sorted(steps)}: "
                          "optax keeps one count")
-    count = np.asarray(steps.pop() if steps else 0, np.int32)
+    return np.asarray(steps.pop() if steps else 0, np.int32)
 
-    def moment(name):
+
+def optax_opt_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    inject_lr: bool = False):
+    """The optax layout of ``optimizer``'s state over ``module``'s
+    parameters, as a tree of numpy arrays for
+    :func:`gfedntm_tpu_torch.federation.codec.tree_to_bundle` (a fresh
+    optimizer's equals ``build_optimizer(solver).init``'s: zeros, and
+    Adagrad's 0.1). ``inject_lr`` wraps it as ``inject_hyperparams`` does,
+    with the first param group's learning rate as float32 and the step as
+    its count."""
+    from gfedntm_tpu_torch.federation.codec import Fields
+
+    layout = _layout(optimizer)
+    count = _count(module, optimizer)
+
+    def slot(name):
         def leaf(key, p):
             t = optimizer.state.get(p, {}).get(name)
             return to_flax(key, torch.zeros_like(p) if t is None else t)
         return _params_tree(module, leaf)
 
-    adam = (Fields(count=count, mu=moment("exp_avg"), nu=moment("exp_avg_sq")), ())
+    inner = tuple(Fields((field, count if name is None else slot(name))
+                         for field, name in entry) if entry else ()
+                  for entry in layout)
     if not inject_lr:
-        return adam
+        return inner
     lr = np.asarray(optimizer.param_groups[0]["lr"], np.float32)
     return Fields(count=count, hyperparams={"learning_rate": lr},
-                  hyperparams_states={}, inner_state=adam)
+                  hyperparams_states={}, inner_state=inner)
 
 
 @torch.no_grad()
-def load_optax_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                          state) -> None:
-    """Set ``optimizer``'s Adam state from the optax layout (the inverse of
-    :func:`optax_adam_state`): every parameter's ``step`` is the count, its
-    moments are ``mu`` and ``nu`` at its Flax path (kernels transposed),
-    on its device. An injected learning rate replaces the param groups' only
-    where it differs from theirs in float32, so a state bridged from this
-    optimizer loads back bitwise."""
-    _adam(optimizer)
+def load_optax_opt_state(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                         state) -> None:
+    """Set ``optimizer``'s state from the optax layout (the inverse of
+    :func:`optax_opt_state`): each slot at its Flax path (kernels
+    transposed), on its parameter's device, and every parameter's ``step``
+    the layout's count (Adam's own, else the injected one, else 0). An injected learning rate replaces the param
+    groups' only where it differs from theirs in float32, so a state
+    bridged from this optimizer loads back bitwise."""
+    layout = _layout(optimizer)
+    count = 0.0
     if isinstance(state, Mapping):  # inject_hyperparams
         lr = np.float32(state["hyperparams"]["learning_rate"])
         for group in optimizer.param_groups:
             if np.float32(group["lr"]) != lr:
                 group["lr"] = float(lr)
+        count = float(np.asarray(state["count"]))
         state = state["inner_state"]
-    adam = state[0]
-    count = float(np.asarray(adam["count"]))
+    slots = {}
+    for entry, fields in zip(layout, state):
+        for field, name in entry:
+            if name is None:
+                count = float(np.asarray(fields[field]))
+            else:
+                slots[name] = fields[field]
     for key, p in module.named_parameters():
         _, path = flax_path(key)
 
@@ -185,10 +223,15 @@ def load_optax_adam_state(module: torch.nn.Module, optimizer: torch.optim.Optimi
                 tree = tree[part]
             return from_flax(path, tree).to(p.device)
 
-        # The step stays a host float32 scalar, as Adam's own lazy init
-        # makes it (not capturable, not fused).
+        # The step stays a host float32 scalar, as the solvers' own lazy
+        # init makes it (not capturable, not fused).
         optimizer.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
-                              "exp_avg": at(adam["mu"]), "exp_avg_sq": at(adam["nu"])}
+                              **{name: at(tree) for name, tree in slots.items()}}
+
+
+#: Thin aliases of the Adam case, the bridge's first form.
+optax_adam_state = optax_opt_state
+load_optax_adam_state = load_optax_opt_state
 
 
 def state_dict_from_flax(

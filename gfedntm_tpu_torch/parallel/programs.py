@@ -486,6 +486,13 @@ def fit_each(rank, device, dp: int, mp: int, runs: list) -> list:
     return [fit(rank, device, dp, mp, *args) for args in runs]
 
 
+def run_each(rank, device, calls: list) -> list:
+    """``fn(rank, device, *args)`` of each ``(fn, args)`` in ``calls``, one
+    after the other in the same ranks: several programs at one layout pay
+    for one rank group's start-up and teardown."""
+    return [fn(rank, device, *args) for fn, args in calls]
+
+
 def replay_validation(model: AVITM, X_val, record: dict) -> float:
     """The validation loss that an unsharded ``model.fit`` takes from one of
     :func:`fit`'s ``validations``: the record's state loaded into ``model``,

@@ -12,6 +12,10 @@
   model, takes a third step with injected noise in both packages; the
   parameters and Adam moments agree within the float32 parity bounds of
   ``tests/test_torch_train.py``.
+- The sgd, adagrad, adadelta and rmsprop bridges: a fresh state is the JAX
+  template's bytes, the template loads and encodes back bitwise, and one
+  step from a bridged two-step state follows the JAX step, with and without
+  ``inject_hyperparams``.
 - The copied modules (``rpc``, ``resilience``, ``compression``,
   ``registry``, ``utils/flightrec``) are the originals' code with their
   imports rewritten (docstrings and comments aside); compression sessions, the registry and pacing give the JAX
@@ -198,12 +202,6 @@ def test_a_mismatched_setup_does_not_load():
         load_global_setup(plateau, setup)
 
 
-def test_bridge_refuses_other_solvers():
-    pm = build_template_model("avitm", V, dict(MODELS["avitm"][1], solver="sgd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Adam"):
-        model_opt_state(pm)
-
-
 # ---- the Adam bridge: one step in both packages ------------------------------
 
 LR = 2e-3
@@ -293,6 +291,72 @@ def test_injected_learning_rate_loads_where_it_differs():
     state["hyperparams"]["learning_rate"] = np.float32(2e-4)
     interop.load_optax_adam_state(pm.model, pm.optimizer, state)
     assert pm.optimizer.param_groups[0]["lr"] == float(np.float32(2e-4))
+
+
+# ---- the other four solvers' bridges ----------------------------------------
+
+#: How far a leaf whose gradient is rounding noise (:data:`DEGENERATE`) can
+#: move in three steps: rmsprop's first steps divide g by sqrt(0.01 g^2), up
+#: to 10 lr a step, and its trace sums three of them; the others move such a
+#: leaf by far less than lr.
+NOISE_MOVE = {"sgd": LR, "adagrad": LR, "adadelta": LR, "rmsprop": 30 * LR}
+NOISE_SLOTS = ("['f_mu']['bias']", "['f_sigma']['bias']", "['prior_mean']")
+
+
+@pytest.mark.parametrize("plateau", [False, True], ids=["fixed_lr", "inject_hyperparams"])
+@pytest.mark.parametrize("solver", ["sgd", "adagrad", "adadelta", "rmsprop"])
+def test_solver_state_bridges_both_ways(solver, plateau):
+    """Each non-Adam solver's state against a JAX template: a fresh port
+    state encodes to the JAX template's bytes (names, order, shapes, dtypes
+    and values; adagrad's accumulator starts at 0.1), the template loads
+    into a port model and encodes back to the same bytes, and a JAX state
+    after two steps, loaded into a port model, takes a third step as the JAX
+    model does: parameters and every optimizer slot agree within the
+    float32 parity bounds of :func:`close`."""
+    kw = dict(n_components=4, hidden_sizes=(8, 8), batch_size=8, dropout=0.0, seed=0,
+              solver=solver, reduce_on_plateau=plateau, fused_decoder=False)
+    jm = j_build("avitm", V, kw)
+    template = j_codec.tree_to_bundle(jm.opt_state).SerializeToString()
+    fresh = build_template_model("avitm", V, dict(kw, seed=5), device="cpu")
+    assert codec.tree_to_bundle(model_opt_state(fresh)).SerializeToString() == template
+    load_global_setup(fresh, jax_setup(jm))
+    assert codec.tree_to_bundle(model_opt_state(fresh)).SerializeToString() == template
+
+    rng = np.random.default_rng(3)
+    xs = rng.integers(0, 4, size=(3, 8, V)).astype(np.float32)
+    masks = np.ones((3, 8), np.float32)
+    masks[2, 5:] = 0.0
+    noise = rng.normal(size=(3, 8, 4)).astype(np.float32)
+    for i in range(2):
+        jax_step(jm, jnp.asarray(xs[i]), jnp.asarray(masks[i]), jnp.asarray(noise[i]))
+    pm = build_template_model("avitm", V, dict(kw, seed=7), device="cpu")
+    load_global_setup(pm, jax_setup(jm))
+    init = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+    jax_step(jm, jnp.asarray(xs[2]), jnp.asarray(masks[2]), jnp.asarray(noise[2]))
+    grad_step(pm.model, pm.optimizer, {"x_bow": torch.from_numpy(xs[2])},
+              torch.from_numpy(masks[2]), False, noise=torch.from_numpy(noise[2]))
+
+    want = interop.state_dict_from_flax(jax.tree.map(np.asarray, jm.params),
+                                        jax.tree.map(np.asarray, jm.batch_stats))
+    for key, value in pm.model.state_dict().items():
+        if key in DEGENERATE:
+            for side in (value, want[key]):
+                assert float((side - init[key]).abs().max()) <= NOISE_MOVE[solver] * 1.001, key
+        elif key in BIAS_CARRIERS:
+            assert float((value - want[key]).abs().max()) <= 2 * NOISE_MOVE[solver], key
+        else:
+            close(value.numpy(), want[key].numpy(), key)
+    got = codec.leaves_with_names(model_opt_state(pm))
+    exp = [(r.name, j_codec.record_to_array(r))
+           for r in j_codec.tree_to_bundle(jm.opt_state).tensors]
+    assert [n for n, _ in got] == [n for n, _ in exp]
+    for (name, leaf), (_, ref) in zip(got, exp):
+        if name.endswith(NOISE_SLOTS):
+            assert np.abs(leaf - ref).max() <= 2 * NOISE_MOVE[solver] + 2 * np.abs(ref).max(), name
+        elif name.endswith(".count"):
+            assert int(leaf) == int(ref) == 3, name
+        else:
+            close(np.asarray(leaf), ref, f"{solver} {name}")
 
 
 # ---- the copies --------------------------------------------------------------

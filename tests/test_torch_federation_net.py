@@ -23,6 +23,8 @@ and the server polls the other alone.
 (f) (a) with CombinedTM and labels.
 (g) A replayed TrainStep seq is answered from the replay cache, and nothing
     advances; a replayed push is ignored.
+(h) A port federation with ``solver="rmsprop"``: the optimizer state
+    crosses the join and the clients stay bitwise equal.
 """
 
 import hashlib
@@ -127,14 +129,15 @@ JRecServer, PRecServer = recording(JServer), recording(FederatedServer)
 
 
 def federate(tmp_path, server_side, client_sides, family="avitm", wire_codec="none",
-             local_steps=1, **server_kw):
+             local_steps=1, model_kw=None, max_iters=200, **server_kw):
     """Run one federation to its end; ``server_side`` and each of
-    ``client_sides`` is ``"jax"`` or ``"port"``; ``server_kw`` go to the
-    server. Returns (server, clients)."""
+    ``client_sides`` is ``"jax"`` or ``"port"``; ``model_kw`` update the
+    model's keywords and ``server_kw`` go to the server. Returns (server,
+    clients)."""
     ctm = family == "ctm"
-    kw = dict(CTM_KW if ctm else AVITM_KW)
+    kw = dict(CTM_KW if ctm else AVITM_KW, **(model_kw or {}))
     common = dict(min_clients=len(client_sides), family=family, model_kwargs=kw,
-                  max_iters=200, save_dir=str(tmp_path / "server"), wire_codec=wire_codec,
+                  max_iters=max_iters, save_dir=str(tmp_path / "server"), wire_codec=wire_codec,
                   local_steps=local_steps, **server_kw)
     server = (JRecServer(**common) if server_side == "jax"
               else PRecServer(device="cpu", **common))
@@ -294,6 +297,28 @@ def test_f_combined_tm_with_labels(tmp_path):
     check_port_clients(server, clients, reference)
     assert "params/label_classification/kernel" in server.last_average
     assert all(cl.dataset.labels.shape == (len(cl.dataset), 3) for cl in clients)
+
+
+def test_h_a_port_federation_with_rmsprop(tmp_path):
+    """Port server and two port clients with ``solver="rmsprop"`` for two
+    global steps: the join ships rmsprop's optax state, which each client
+    loads into the port's optax-ordered RMSprop and encodes back to the
+    setup's bytes; the losses are finite and the shared state is bitwise
+    equal across the clients after both aggregates."""
+    from gfedntm_tpu_torch.train.optimizers import RMSprop
+
+    server, clients = federate(tmp_path, "port", ["port", "port"], max_iters=2,
+                               model_kw=dict(solver="rmsprop"))
+    setup = server._setup_reply
+    assert [r.name for r in setup.init_opt_state.tensors][0].startswith("[0].nu")
+    for cl in clients:
+        assert isinstance(cl.stepper.model.optimizer, RMSprop)
+        assert cl.joined == (setup.init_variables.SerializeToString(),
+                             setup.init_opt_state.SerializeToString())
+        assert len(cl.losses) == 2 and np.isfinite(cl.losses).all()
+    a, b = (dict(cl.shared) for cl in clients)
+    assert len(a) == len(b) == 2 and a == b
+    assert np.isfinite(server.global_betas).all()
 
 
 def test_g_a_replayed_train_step_is_answered_from_the_cache():

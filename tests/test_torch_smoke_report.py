@@ -1,8 +1,11 @@
 """How ``chip_smoke.py`` reads what the build made, and how it refuses to
 run, on the CPU: kernel names from mangled symbols, the tensor-core
 instruction check over every instantiation of K1, K2 and K3, ptxas' spill
-report, and the exit codes without a card or with bad arguments. The script
-is imported by path."""
+report, and the exit codes without a card or with bad arguments; with a
+card faked and every phase stubbed, the order of the phases (phase 14 last,
+on phase 9's store) and of the output lines (the script's own seconds
+before the ``kernels`` line, the ``ok`` line last). The script is imported
+by path."""
 
 import importlib.util
 from pathlib import Path
@@ -103,14 +106,17 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
                                   ["--kernels-only", "--nope"],
                                   ["--data-parallel-only", "--kernels-only"],
                                   ["--data-parallel-only", "--against", "."],
-                                  ["--hierarchy-only", "--pacing-only"]])
+                                  ["--hierarchy-only", "--pacing-only"],
+                                  ["--serving-only", "--federation-only"],
+                                  ["--serving-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
-                                  ["--data-parallel-only"], ["--hierarchy-only"]])
+                                  ["--data-parallel-only"], ["--hierarchy-only"],
+                                  ["--serving-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -191,3 +197,74 @@ def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
     other = np.array([[0.0, 0.5, 0.0, 2.0], [0.0, 0.0, -1.5, 0.0]], np.float32)
     assert smoke.beta_spread(other, beta, 1.0) == (2.0, 0.25)
     assert smoke.nonzero({"stats": 1, "grads": 0}) == {"stats": 1}
+
+
+PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_phase",
+          "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
+          "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
+          "serving_phase")
+
+
+@pytest.fixture()
+def faked(smoke, monkeypatch):
+    """A card as ``main`` sees it, on the CPU, and every phase replaced by a
+    recorder: returns the list of ``(phase, args)`` calls."""
+    import torch
+
+    from gfedntm_tpu_torch import device
+    from gfedntm_tpu_torch.ops import _build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda index=0: "FAKE H100")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(device, "resolve_device", lambda d=None: torch.device("cpu"))
+    monkeypatch.setattr(_build, "build", lambda: Path("fake.so"))
+    monkeypatch.setattr(smoke, "build_report", lambda lib, log: ["ptxas fake"])
+    monkeypatch.setattr(smoke, "card_line", lambda: "FAKE H100, 700.00 W")
+    calls = []
+    row = {"name": "stats", "route": "cuda", "source": "s", "replaces": "r", "launches": 16,
+           "max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
+           "bound_by": "bytes", "library_ms": None}
+    results = {"kernel_phase": ({"stats": row}, {"stats": ""}),
+               "main_path_phase": ("datasets", "result"),
+               "sharded_fit_phase": ("X", "kw", "validation"),
+               "decodes_and_text_phase": "raw", "federation_phase": "phase9",
+               "pacing_phase": "pacing"}
+    for name in PHASES:
+        def phase(*args, _name=name):
+            calls.append((_name, args))
+            return results.get(_name)
+        monkeypatch.setattr(smoke, name, phase)
+    return calls
+
+
+def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys):
+    """Phase 14 runs last, on phase 7(b)'s corpora and phase 9's store;
+    the script's own seconds come before the ``kernels`` line, and the
+    ``ok`` line is the last."""
+    import json
+
+    assert smoke.main([]) == 0
+    assert [name for name, _ in faked] == list(PHASES)
+    name, args = faked[-1]
+    assert args[2:] == ("raw", "phase9")
+    assert dict(faked)["persistence_phase"][-3:] == ("X", "kw", "validation")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "FAKE H100, 700.00 W"
+    assert lines[-3].startswith("chip_smoke took ") and lines[-3].endswith(
+        " s (FAKE H100, 700.00 W)")
+    assert float(lines[-3].split()[2]) >= 0.0
+    assert [k["name"] for k in json.loads(lines[-2])["kernels"]] == ["stats"]
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "FAKE H100", "count": 1}}
+
+
+def test_serving_only_runs_phase_14_alone(smoke, faked, capsys):
+    """``--serving-only`` runs phase 14 with nothing before it, so phase 14
+    runs phase 9 itself; it prints no result lines."""
+    assert smoke.main(["--serving-only"]) == 0
+    assert [name for name, _ in faked] == ["serving_phase"]
+    card, notes = faked[0][1]
+    assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "kernels" not in out

@@ -178,3 +178,40 @@ def test_two_clients_lockstep_with_fedavg(steps, fused):
     # The exchange leaves every client with the same floating state.
     for key, value in models[0].state_dict().items():
         assert torch.equal(value, models[1].state_dict()[key]), key
+
+
+# ---- the five solvers against the JAX package's optax solvers ---------------
+
+SOLVERS = ("adam", "sgd", "adagrad", "adadelta", "rmsprop")
+
+
+@pytest.mark.parametrize("inject_lr", [False, True], ids=["fixed_lr", "inject_lr"])
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_solver_steps_as_the_jax_build_optimizer(solver, inject_lr):
+    """Three steps of each solver on 1,000 float32 parameters, gradients of
+    scales 1, 0.3 and 1e-3, lr 2e-3 and momentum 0.99, against the JAX
+    ``build_optimizer``; within 1e-6 after every step. With ``inject_lr`` the
+    learning rate is halved before step 3 on both sides, as
+    ``reduce_on_plateau`` does: an rmsprop that scales its momentum by the
+    learning rate after the trace would part from optax's there."""
+    from gfedntm_tpu.train.optimizers import build_optimizer as j_build_optimizer
+
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=1000).astype(np.float32)
+    grads = [(s * rng.normal(size=1000)).astype(np.float32) for s in (1.0, 0.3, 1e-3)]
+    tx = j_build_optimizer(solver, lr=LR, momentum=0.99, inject_lr=inject_lr)
+    jp = jnp.asarray(p0)
+    j_state = tx.init(jp)
+    p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = build_optimizer([p], solver, LR, 0.99)
+    for i, g in enumerate(grads):
+        if inject_lr and i == 2:
+            j_state.hyperparams["learning_rate"] = jnp.asarray(LR / 2, jnp.float32)
+            for group in opt.param_groups:
+                group["lr"] = LR / 2
+        updates, j_state = tx.update(jnp.asarray(g), j_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        p.grad = torch.from_numpy(g.copy())
+        opt.step()
+        err = float(np.abs(p.detach().numpy() - np.asarray(jp)).max())
+        assert err <= 1e-6, (solver, i + 1, err)
