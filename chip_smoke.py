@@ -13,9 +13,15 @@
     python3 chip_smoke.py --pacing-only   # phases 1 and 12
     python3 chip_smoke.py --hierarchy-only  # phases 1 and 13
     python3 chip_smoke.py --serving-only  # phases 1, 9 and 14
+    python3 chip_smoke.py --cli-only      # phases 1 and 15
 
-Fourteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
-device or no port next to this script):
+Fifteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+device or no port next to this script). In a run of every phase, phase 4
+runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
+7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
+group's start-up, warm-up and teardown are paid twice rather than ten times;
+each phase checks its programs' results where it did before. Every
+phase prints its seconds.
 
 1. build — compile the fused decoder's CUDA kernels from
    ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
@@ -313,6 +319,28 @@ device or no port next to this script):
    clients, 2 global steps: finite losses, each client's optimizer state
    the GlobalSetup's bytes and its momentum buffers the bridge's, the
    shared state bitwise equal across the clients.
+15. the command line, every node a ``python -m gfedntm_tpu_torch`` process
+   of its own on the card (each with its own time limit; every check
+   fatal): phase 3's corpus as a reference archive
+   (``save_reference_npz``: V=100,000, K=50, 2 x 1,024 documents, seed 0)
+   and an INI (K=50, H=(100, 100), B=256, 2 epochs, ``max_features``
+   100,000); (a) runs beside (b)'s start-up, then (c) alone.
+   (a) ``simulate`` with ``--config``: exit 0, a summary line of
+   2 clients, V=100,000, 8 global steps, a finite loss and TSS, and
+   ``global_model.npz``'s betas bitwise those of phase 3's float32 fit
+   (fitted here under ``--cli-only``); its wall time, ``federated_fit``
+   seconds and ``docs_per_s``. (b) A server (``--id 0``, 2 clients, 8
+   global steps) and clients 1 and 2 on the archive's nodes (the consensus
+   V), client 1 with ``--profile_dir`` over rounds [2, 3): every process
+   exits 0, ``server_model.npz`` written, the clients' saved betas bitwise
+   equal, client 1's Chrome trace naming ``stats_kernel``, ``loss_kernel``
+   and ``grads_kernel``, and ``summarize``, ``trace`` (events of all three
+   nodes) and ``report`` over the three streams exiting 0; the median ms per
+   global step over rounds 2-8 of the server's ``round`` spans beside phase
+   9's, and the bytes each way per step. (c) ``--role serve`` on (b)'s save
+   dir: 16 four-document ``Infer`` requests through ``make_infer_stub``, no
+   failure, theta rows summing to 1 within 1e-6, ``model_round`` the store's
+   newest round, exit 0.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -433,9 +461,12 @@ def model_step_flops(b: int, v: int, k: int, hidden: tuple) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+@functools.cache
 def synthetic_bow(vocab_size: int, n_topics: int, n_docs: int, seed: int):
     """One node's BoW of ``generate_synthetic_corpus`` (no documents), made
-    once per script run: phases 4 to 7 train on the same corpora."""
+    once per script run: phases 4 to 8 train on the same corpora (the same
+    array, so :func:`shared` writes its ``.npy`` once). Callers only read
+    it."""
     from gfedntm_tpu_torch import generate_synthetic_corpus
 
     return generate_synthetic_corpus(vocab_size=vocab_size, n_topics=n_topics, n_docs=n_docs,
@@ -1137,31 +1168,21 @@ def op_cases(specs: list) -> tuple[list, list]:
     return cases, full
 
 
-def sharded_op_phase(op12: tuple) -> tuple[dict, dict, str]:
+def sharded_op_phase(group: dict) -> tuple[dict, dict]:
     """(a): K5 against the full-V kernels and its plain version, on float32
-    and on bf16 storage. ``op12``: the dp=1 x mp=2 layout's ``(full,
-    per-rank results, backend)``, run in :func:`mp2_group`; the dp=2 x mp=2
-    layout runs its own rank group here. Returns, by storage, the worst
-    |K5 - full kernel| and rank 0's op times; and the backend."""
+    and on bf16 storage, from :func:`sharded_calls`' ``op`` programs and
+    full-V outputs in ``group``. Returns, by storage, the worst |K5 - full
+    kernel| and rank 0's op times with the backend."""
     import numpy as np
     import torch
 
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     f32, bf = "float32", "bfloat16"
     worst, times, outputs = {f32: 0.0, bf: 0.0}, {}, "rl,mean,var,g_theta,g_beta"
     for (dp, mp), specs in OP_LAYOUTS.items():
-        if (dp, mp) == (1, 2):
-            full, res, backend = op12
-        else:
-            backend, devices = gpu_layout(dp * mp)
-            cases, full = op_cases(specs)
-            t0 = time.perf_counter()
-            res = run_ranks(programs.vsharded_op, dp * mp, backend, devices, 600,
-                            args=(dp, mp, cases))
-            print(f"sharded op: {backend}, dp={dp} x mp={mp} on {devices}, "
-                  f"{len(specs)} cases in {time.perf_counter() - t0:.1f} s", flush=True)
+        full, res = group["op_full"][dp, mp], group[f"op {dp}x{mp}"]
+        backend = group[f"layout/{dp * mp}"][0]
         for i, (b, v, mask_kind, training, reps, storage) in enumerate(specs):
             case = (f"K5 dp={dp} mp={mp} B={b} V={v} mask={mask_kind} "
                     f"{'train' if training else 'eval'} {storage}")
@@ -1186,7 +1207,7 @@ def sharded_op_phase(op12: tuple) -> tuple[dict, dict, str]:
             if reps:
                 times[storage] = {"backend": backend, "per_rank": [r["ms"] for r in per_rank]}
             print(f"sharded op ok: {case}", flush=True)
-    return worst, times, op12[2]
+    return worst, times
 
 
 def forced_records(kw: dict, X, mp: int) -> tuple[list, list]:
@@ -1240,47 +1261,63 @@ def forced_phase(kw: dict, X, split_losses: list, records: list, losses: list,
 SHARDED_SAVE = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
 
 
-def mp2_group(kw: dict, X, Xv) -> dict:
-    """Every dp=1 x mp=2 program of phases 4 and 5 in one rank group (one
-    start-up and one teardown instead of five): 4(a)'s K5 cases, 4(b)'s
-    ``fit_sharded`` with 24 timed steps, 4(c)'s teacher-forced steps, 4(f)'s
-    bf16 fit and 5(d)'s fit with validation into :data:`SHARDED_SAVE`.
-    Returns each program's per-rank results by name, the inputs the checks
-    need, and the backend."""
+def rank_groups(calls: dict) -> dict:
+    """Run ``calls`` (``{name: (world size, fn, args)}``, each run as
+    ``fn(rank, device, *args)``) in one rank group per world size, one
+    program after the other (:func:`programs.run_each`): a group's start-up,
+    its first program's warm-up and its teardown are paid once per world
+    size, not once per program. Returns each program's per-rank results by
+    name, and ``layout/<world size>``: the group's backend and devices."""
     from gfedntm_tpu_torch.parallel import programs
     from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
+    out = {}
+    for world in sorted({w for w, _, _ in calls.values()}):
+        names = [n for n, (w, _, _) in calls.items() if w == world]
+        backend, devices = gpu_layout(world)
+        t0 = time.perf_counter()
+        res = run_ranks(programs.run_each, world, backend, devices, 2400,
+                        args=([calls[n][1:] for n in names],))
+        print(f"rank group of {world} ranks: {backend} on {devices}, {', '.join(names)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out.update({n: [r[i] for r in res] for i, n in enumerate(names)})
+        out[f"layout/{world}"] = (backend, devices)
+    return out
+
+
+def sharded_calls(kw: dict, X, Xv) -> tuple[dict, dict]:
+    """Phase 4's and 5(d)'s rank programs for :func:`rank_groups`: 4(a)'s K5
+    cases at dp=1 x mp=2 and dp=2 x mp=2, 4(b)'s ``fit_sharded`` with 24
+    timed steps, 4(c)'s teacher-forced steps, 4(f)'s bf16 fit and 5(d)'s fit
+    with validation into :data:`SHARDED_SAVE`; and the inputs their checks
+    need."""
+    from gfedntm_tpu_torch.parallel import programs
+
     mp = 2
-    cases, full = op_cases(OP_LAYOUTS[1, mp])
     records, losses = forced_records(kw, X, mp)
     kw16 = {**kw, "num_epochs": 1, "compute_dtype": "bfloat16"}
     shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
-    calls = {
-        "op": (programs.vsharded_op, (1, mp, cases)),
-        "fit": (programs.fit, (1, mp, kw, shared(X), None, 1, 24)),
-        "forced": (programs.forced_steps, (1, mp, kw, shared(X), records)),
-        "fit16": (programs.fit, (1, mp, kw16, shared(X), None, 1, 0)),
-        "validation": (programs.fit, (1, mp, kw, shared(X), None, 1, 0, shared(Xv),
-                                      str(SHARDED_SAVE), 5, 0.0)),
-    }
-    backend, devices = gpu_layout(mp)
-    t0 = time.perf_counter()
-    res = run_ranks(programs.run_each, mp, backend, devices, 1800,
-                    args=(list(calls.values()),))
-    print(f"dp=1 x mp={mp} rank group: {backend} on {devices}, {', '.join(calls)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    out = {name: [r[i] for r in res] for i, name in enumerate(calls)}
-    out.update(op_full=full, records=records, forced_losses=losses, kw16=kw16,
-               backend=backend, devices=devices)
-    return out
+    calls, op_full = {}, {}
+    for (dp, m), specs in OP_LAYOUTS.items():
+        cases, op_full[dp, m] = op_cases(specs)
+        calls[f"op {dp}x{m}"] = (dp * m, programs.vsharded_op, (dp, m, cases))
+    calls.update({
+        "fit": (mp, programs.fit, (1, mp, kw, shared(X), None, 1, 24)),
+        "forced": (mp, programs.forced_steps, (1, mp, kw, shared(X), records)),
+        "fit16": (mp, programs.fit, (1, mp, kw16, shared(X), None, 1, 0)),
+        "validation": (mp, programs.fit, (1, mp, kw, shared(X), None, 1, 0, shared(Xv),
+                                          str(SHARDED_SAVE), 5, 0.0)),
+    })
+    return calls, dict(op_full=op_full, records=records, forced_losses=losses, kw16=kw16)
 
 
 def sharded_fit_phase(card: str, rows: dict, notes: dict):
     """(a) through (d): the op checks, then ``fit_sharded`` at full width
     against an unsharded ``AVITM.fit``, its timing, and the ``vsharded``
-    row of the kernels line; every dp=1 x mp=2 program, phase 5(d)'s too,
-    runs in :func:`mp2_group`. Returns the fit's corpus, its settings and
-    5(d)'s per-rank results."""
+    row of the kernels line. Its rank programs run in :func:`rank_groups`
+    together with those of phases 5(d), 6, 7(a) and 8(c), which follow it in
+    every run that has phase 4. Returns the fit's corpus, its settings and
+    every group program's per-rank results."""
     import numpy as np
     import torch
 
@@ -1291,9 +1328,11 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
     X = synthetic_bow(V, K, N, 0)
     kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
               num_epochs=2, dropout=0.0, seed=0)
-    group = mp2_group(kw, X, synthetic_bow(V, K, 256, 1))
-    backend, devices = group["backend"], group["devices"]
-    worst, op_times, op_backend = sharded_op_phase((group["op_full"], group["op"], backend))
+    calls, group = sharded_calls(kw, X, synthetic_bow(V, K, 256, 1))
+    group.update(rank_groups({**calls, **data_parallel_calls(), **decode_calls(),
+                              **ctm_sharded_calls()}))
+    backend, devices = group[f"layout/{mp}"]
+    worst, op_times = sharded_op_phase(group)
 
     res = group["fit"]
     print(f"sharded fit: {backend}, dp=1 x mp={mp} on {devices}, {N} docs, V={V}; launches "
@@ -1455,7 +1494,8 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
         }
         notes[name] = (
             f"{storage} storage; per rank at B={B} K={K} V={V} mp={mp}, forward + backward, "
-            f"backend {op_backend}; ms per rank {[r['kernel'] for r in per_rank]} plain_ms "
+            f"backend {op_times[storage]['backend']}; ms per rank "
+            f"{[r['kernel'] for r in per_rank]} plain_ms "
             f"{[r['plain'] for r in per_rank]}; bound {bound['bound_by']} "
             f"({bound['peaks']} peaks: {nbytes / 1e6:.1f} MB incl. {coll_bytes / 1e3:.1f} kB of "
             f"collectives -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP as {passes:.3g} "
@@ -1463,7 +1503,7 @@ def sharded_fit_phase(card: str, rows: dict, notes: dict):
             f"{bound['simt_bound_ms']:.4f} ms; max |err| vs the full-V kernels, tol {ATOL:g} + "
             f"{RTOL:g}*max|plain|"
         )
-    return X, kw, group["validation"]
+    return X, kw, group
 
 
 # ---------------------------------------------------------------------------
@@ -1849,33 +1889,53 @@ def step_line(card: str, label: str, ranks: list, backend: str, devices: list, s
             f" MB, gradient sum {ranks[0]['step_bytes']['gradient_sum'] / 1e6:.1f} MB")
 
 
-def data_parallel_phase(card: str, notes: dict) -> dict:
+def data_parallel_setup():
+    """Phase 6's corpus, fused and unfused settings, and steps."""
+    V, K, B, N = 100_000, 50, 256, 2048
+    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+              num_epochs=1, dropout=0.2, seed=0)
+    return synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1), kw, \
+        {**kw, "fused_decoder": False}, 8
+
+
+def data_parallel_calls() -> dict:
+    """Phase 6's rank programs for :func:`rank_groups`: (a) ``fit_sharded``
+    at dp=2 x mp=2 with its validation, (b) ``fit_data_sharded`` at dp=2."""
+    from gfedntm_tpu_torch.parallel import programs
+
+    X, Xv, kw, kwu, steps = data_parallel_setup()
+    return {
+        "dp fit_sharded": (4, programs.fit, (2, 2, kw, shared(X), None, 1, steps, shared(Xv),
+                                             None, 5, 0.0)),
+        "dp fit_data_sharded": (2, programs.fit_data, (2, kwu, shared(X), None, 1, None, None,
+                                                       5, 0.0, steps)),
+    }
+
+
+def data_parallel_phase(card: str, notes: dict, groups: dict | None = None) -> dict:
     """Phase 6: (a) ``fit_sharded`` at dp=2 x mp=2 with validation and (b)
     ``fit_data_sharded`` at dp=2, each against the unsharded fit on the
     card, with per-rank launch counts, steady ms per step and the bytes its
-    data-group collectives move per step. Returns rank 0's result of (a)."""
+    data-group collectives move per step. Their rank programs ran in phase
+    4's groups when ``groups`` holds them, else run here. Returns rank 0's
+    result of (a)."""
     import numpy as np
 
     from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     t_phase = time.perf_counter()
-    V, K, B, N, dp, mp, steps = 100_000, 50, 256, 2048, 2, 2, 8
-    X, Xv = synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1)
-    kw = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
-              num_epochs=1, dropout=0.2, seed=0)
-    kwu = {**kw, "fused_decoder": False}
+    if groups is None:
+        groups = rank_groups(data_parallel_calls())
+    X, Xv, kw, kwu, steps = data_parallel_setup()
+    (N, V), K, B, dp, mp = X.shape, kw["n_components"], kw["batch_size"], 2, 2
 
     # (a) fit_sharded at dp x mp, one epoch and its validation.
-    backend, devices = gpu_layout(dp * mp)
-    t0 = time.perf_counter()
-    res = run_ranks(programs.fit, dp * mp, backend, devices, 900,
-                    args=(dp, mp, kw, shared(X), None, 1, steps, shared(Xv), None, 5, 0.0))
+    backend, devices = groups[f"layout/{dp * mp}"]
+    res = groups["dp fit_sharded"]
     n_val = len(Xv) // B
     print(f"data parallel (a): fit_sharded {backend}, dp={dp} x mp={mp} on {devices}, {N} + "
-          f"{len(Xv)} docs, V={V}, dropout {kw['dropout']}, ranks done in "
-          f"{time.perf_counter() - t0:.1f} s; per rank, launches "
+          f"{len(Xv)} docs, V={V}, dropout {kw['dropout']}; per rank, launches "
           f"{[nonzero(r['launches']) for r in res]}, eval-mode of them "
           f"{[nonzero(r['eval_launches']) for r in res]}, rows-sharded K5 calls "
           f"{[r['rows_calls']['vsharded_rows'] for r in res]}; step losses "
@@ -1936,12 +1996,10 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
     check(max(errs) <= 1e-4, f"validation loss differs by {max(errs):.3e}")
 
     # (b) fit_data_sharded at dp, unfused, one epoch.
-    backend_b, devices_b = gpu_layout(dp)
-    t0 = time.perf_counter()
-    resd = run_ranks(programs.fit_data, dp, backend_b, devices_b, 900,
-                     args=(dp, kwu, shared(X), None, 1, None, None, 5, 0.0, steps))
-    print(f"data parallel (b): fit_data_sharded {backend_b}, dp={dp} on {devices_b}, ranks done "
-          f"in {time.perf_counter() - t0:.1f} s; summary {resd[0]['summary']}", flush=True)
+    backend_b, devices_b = groups[f"layout/{dp}"]
+    resd = groups["dp fit_data_sharded"]
+    print(f"data parallel (b): fit_data_sharded {backend_b}, dp={dp} on {devices_b}; summary "
+          f"{resd[0]['summary']}", flush=True)
     print(step_line(card, f"fit_data_sharded dp={dp}", resd, backend_b, devices_b, steps),
           flush=True)
     from gfedntm_tpu_torch.utils import flops
@@ -2001,45 +2059,46 @@ def data_parallel_phase(card: str, notes: dict) -> dict:
 DECODE_CASES = (("prodLDA", 1, 2), ("LDA", 1, 2), ("LDA", 2, 2))
 
 
-def sharded_decodes_phase(card: str) -> None:
+def decode_setup():
+    """Phase 7(a)'s corpus, settings (but the model type) and steps."""
+    V, K, B, N = 100_000, 50, 256, 2048
+    base = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+                num_epochs=1, dropout=0.0, seed=0, fused_decoder=False)
+    return synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1), base, 8
+
+
+def decode_calls() -> dict:
+    """Phase 7(a)'s rank programs for :func:`rank_groups`, one
+    ``fit_sharded`` per :data:`DECODE_CASES` entry."""
+    from gfedntm_tpu_torch.parallel import programs
+
+    X, Xv, base, steps = decode_setup()
+    return {f"decode {mt} {dp}x{mp}": (dp * mp, programs.fit, (
+        dp, mp, {**base, "model_type": mt}, shared(X), None, 1, steps, shared(Xv), None, 5, 0.0))
+        for mt, dp, mp in DECODE_CASES}
+
+
+def sharded_decodes_phase(card: str, groups: dict | None = None) -> None:
     """Phase 7(a): ``fit_sharded`` of the unfused prodLDA and the LDA decodes
     at mp > 1 (:data:`DECODE_CASES`), each against the unsharded unfused fit
-    of its model type on the card."""
+    of its model type on the card. The rank programs ran in phase 4's
+    groups when ``groups`` holds them, else run here."""
     import numpy as np
 
     from gfedntm_tpu_torch import AVITM, BowDataset
     from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
-    V, K, B, N, steps = 100_000, 50, 256, 2048, 8
-    X, Xv = synthetic_bow(V, K, N, 0), synthetic_bow(V, K, 256, 1)
-    base = dict(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
-                num_epochs=1, dropout=0.0, seed=0, fused_decoder=False)
-    layouts = {}
-    for model_type, dp, mp in DECODE_CASES:
-        layouts.setdefault((dp, mp), []).append(model_type)
+    if groups is None:
+        groups = rank_groups(decode_calls())
+    X, Xv, base, steps = decode_setup()
     results = {}
-    for (dp, mp), model_types in layouts.items():
-        backend, devices = gpu_layout(dp * mp)
-        t0, launched = time.perf_counter(), time.time()
-        runs = [({**base, "model_type": mt}, shared(X), None, 1, steps, shared(Xv), None, 5,
-                 0.0) for mt in model_types]
-        ranks = run_ranks(programs.fit_each, dp * mp, backend, devices, 900,
-                          args=(dp, mp, runs))
-        # Where a rank group's seconds go: from the launch to the last rank
-        # entering its program (the corpus file written, spawn, imports),
-        # then rank 0's fits, then from the last rank leaving its program to
-        # the results in hand (the results sent back, the processes ended).
-        print(f"sharded decodes: {', '.join(model_types)} at dp={dp} x mp={mp}, {backend} on "
-              f"{devices}, ranks done in {time.perf_counter() - t0:.1f} s: start-up "
-              f"{max(r[0]['entered_at'] for r in ranks) - launched:.1f} s, then rank 0's "
-              + "; ".join(f"{mt} " + ", ".join(f"{k} {v:.1f} s" for k, v in
-                                                r["seconds"].items())
-                          for mt, r in zip(model_types, ranks[0]))
-              + f"; teardown {time.time() - max(r[-1]['left_at'] for r in ranks):.1f} s",
-              flush=True)
-        for i, mt in enumerate(model_types):
-            results[mt, dp, mp] = ([r[i] for r in ranks], backend, devices)
+    for mt, dp, mp in DECODE_CASES:
+        backend, devices = groups[f"layout/{dp * mp}"]
+        ranks = groups[f"decode {mt} {dp}x{mp}"]
+        # Where rank 0's seconds went in its program.
+        print(f"sharded decodes: {mt} at dp={dp} x mp={mp}, {backend} on {devices}: rank 0's "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["seconds"].items()), flush=True)
+        results[mt, dp, mp] = (ranks, backend, devices)
 
     for model_type in dict.fromkeys(mt for mt, _, _ in DECODE_CASES):
         t0 = time.perf_counter()
@@ -2251,11 +2310,11 @@ def raw_text_phase(card: str, notes: dict):
     return clients, consensus
 
 
-def decodes_and_text_phase(card: str, notes: dict):
+def decodes_and_text_phase(card: str, notes: dict, groups: dict | None = None):
     """Phase 7: (a) then (b), timed; (b) adds its launches to the K1-K3
     rows' ``notes``. Returns (b)'s clients and consensus."""
     t_phase = time.perf_counter()
-    sharded_decodes_phase(card)
+    sharded_decodes_phase(card, groups)
     raw = raw_text_phase(card, notes)
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return raw
@@ -2423,14 +2482,11 @@ def ctm_federated_phase(card: str, notes: dict, raw) -> list:
     return datasets
 
 
-def ctm_sharded_phase(card: str) -> None:
-    """Phase 8 (c): ``fit_sharded`` of CombinedTM with labels on phase 4's
-    corpus at dp=1 x mp=2 and dp=2 x mp=2 against the unsharded fit."""
+@functools.cache
+def ctm_sharded_setup():
+    """Phase 8(c)'s corpus (phase 4's BoW, seeded normal embeddings, one-hot
+    labels) and settings, made once per script run."""
     import numpy as np
-
-    from gfedntm_tpu_torch import CTM, CTMDataset
-    from gfedntm_tpu_torch.parallel import programs
-    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
 
     V, K, B, N = 100_000, 50, 256, 2048
     X = synthetic_bow(V, K, N, 0)
@@ -2439,22 +2495,43 @@ def ctm_sharded_phase(card: str) -> None:
     kw = dict(input_size=X.shape[1], contextual_size=CTM_CONTEXT, n_components=K,
               hidden_sizes=(100, 100), batch_size=B, num_epochs=1, dropout=0.0, seed=0,
               inference_type="combined", label_size=CTM_LABELS)
+    return X, X_ctx, labels, kw
+
+
+def ctm_sharded_calls() -> dict:
+    """Phase 8(c)'s rank programs for :func:`rank_groups`: ``fit_sharded``
+    of CombinedTM with labels at dp=1 x mp=2 and dp=2 x mp=2."""
+    from gfedntm_tpu_torch.parallel import programs
+
+    X, X_ctx, labels, kw = ctm_sharded_setup()
+    corpus = {"X": shared(X), "X_ctx": shared(X_ctx), "labels": shared(labels)}
+    return {f"ctm {dp}x{mp}": (dp * mp, programs.fit, (dp, mp, kw, corpus, None, 1, 4))
+            for dp, mp in ((1, 2), (2, 2))}
+
+
+def ctm_sharded_phase(card: str, groups: dict | None = None) -> None:
+    """Phase 8 (c): ``fit_sharded`` of CombinedTM with labels on phase 4's
+    corpus at dp=1 x mp=2 and dp=2 x mp=2 against the unsharded fit. The
+    rank programs ran in phase 4's groups when ``groups`` holds them, else
+    run here."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import CTM, CTMDataset
+    from gfedntm_tpu_torch.parallel import programs
+
+    if groups is None:
+        groups = rank_groups(ctm_sharded_calls())
+    X, X_ctx, labels, kw = ctm_sharded_setup()
     ref = CTM(**kw)
     ref_step = programs.step_gradients(CTM(**kw), {"X": X, "X_ctx": X_ctx, "labels": labels})
     ref.fit(CTMDataset(X=X, X_ctx=X_ctx, labels=labels), n_samples=1)
     steps_ref = np.asarray(ref.step_losses)
-    corpus = {"X": shared(X), "X_ctx": shared(X_ctx), "labels": shared(labels)}
     for dp, mp in ((1, 2), (2, 2)):
-        backend, devices = gpu_layout(dp * mp)
-        t0, launched = time.perf_counter(), time.time()
-        res = run_ranks(programs.fit, dp * mp, backend, devices, 900,
-                        args=(dp, mp, kw, corpus, None, 1, 4))
-        secs = time.perf_counter() - t0
-        # Where the rank group's seconds go, as in phase 7(a).
-        print(f"ctm (c) dp={dp} x mp={mp}: start-up "
-              f"{max(r['entered_at'] for r in res) - launched:.1f} s, then rank 0's "
-              + ", ".join(f"{k} {v:.1f} s" for k, v in res[0]["seconds"].items())
-              + f"; teardown {time.time() - max(r['left_at'] for r in res):.1f} s", flush=True)
+        backend, devices = groups[f"layout/{dp * mp}"]
+        res = groups[f"ctm {dp}x{mp}"]
+        # Where rank 0's seconds went in its program, as in phase 7(a).
+        print(f"ctm (c) dp={dp} x mp={mp}: rank 0's "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in res[0]["seconds"].items()), flush=True)
         steps = len(steps_ref)
         for rank, r in enumerate(res):
             got = nonzero(r["launches"])
@@ -2469,7 +2546,7 @@ def ctm_sharded_phase(card: str) -> None:
         step_e = float(np.max(np.abs(np.asarray(res[0]["step_losses"]) - steps_ref)
                               / np.abs(steps_ref)))
         print(f"ctm (c) fit_sharded CombinedTM + labels, {backend} dp={dp} x mp={mp} on "
-              f"{devices}: ranks done in {secs:.1f} s; launches per rank "
+              f"{devices}: launches per rank "
               f"{[nonzero(r['launches']) for r in res]}, rows-sharded K5 calls "
               f"{[r['rows_calls']['vsharded_rows'] for r in res]}; first step: loss "
               f"{loss_e:.3e} relative, gradients within {grad_e:.3e} of each leaf's max|grad| "
@@ -2566,13 +2643,15 @@ def stepper_phase(card: str, ctm_datasets: list, avitm_datasets: list) -> None:
             check(all(np.isfinite(steppers[c].epoch_losses)), f"{label}: non-finite epoch loss")
 
 
-def ctm_phase(card: str, notes: dict, raw=None, avitm_datasets=None) -> None:
+def ctm_phase(card: str, notes: dict, raw=None, avitm_datasets=None,
+              groups: dict | None = None) -> None:
     """Phase 8: (a) and (b) on phase 7(b)'s clients (``raw``, made here when
-    not given), (c), then (d) on (a)'s datasets and phase 3's
-    (``avitm_datasets``, made here when not given); timed."""
+    not given), (c) (its rank programs from ``groups`` when given), then (d)
+    on (a)'s datasets and phase 3's (``avitm_datasets``, made here when not
+    given); timed."""
     t_phase = time.perf_counter()
     ctm_datasets = ctm_federated_phase(card, notes, raw or raw_text_corpora(card))
-    ctm_sharded_phase(card)
+    ctm_sharded_phase(card, groups)
     stepper_phase(card, ctm_datasets, avitm_datasets or main_path_datasets())
     print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
@@ -4961,6 +5040,366 @@ def serving_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
           f"{time.perf_counter() - t_phase:.1f} s with what it ran first)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the command line, one process per node
+# ---------------------------------------------------------------------------
+#: Where phase 15 writes its archive, INI, save dirs and process logs;
+#: ``main`` removes it.
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+#: Each phase 15 process's own limit, in seconds.
+CLI_LIMIT_S = {"simulate": 120.0, "server": 150.0, "client": 150.0, "serve": 60.0}
+#: 15(b)'s server: global steps (1,024 documents a client, B=256, 2 epochs).
+CLI_STEPS = 8
+#: 15(c): Infer requests of CLI_REQUEST_DOCS documents each, and the serve
+#: process's ``--serve_duration`` (seconds after its plane starts). On an H100
+#: host the plane turned ready 6 s to over 8 s after it started when alone,
+#: and 13 s after beside another process's start: the model modules' first
+#: import (with torch.distributed's), the CUDA context, the journal's load and
+#: the warm-up. The 16 requests take under a second.
+CLI_REQUESTS, CLI_REQUEST_DOCS, CLI_SERVE_S = 16, 4, 15.0
+CLI_INI = """\
+[ntms]
+n_components = 50
+hidden_sizes = (100, 100)
+batch_size = 256
+num_epochs = 2
+
+[data]
+max_features = 100000
+"""
+
+
+class CliProcess:
+    """One ``python -m gfedntm_tpu_torch`` process of phase 15, its output
+    in a log file under :data:`CLI_DIR` and its own time limit."""
+
+    def __init__(self, name: str, argv: list, limit_s: float):
+        self.name, self.limit_s = name, limit_s
+        self.log = CLI_DIR / "logs" / f"{name}.log"
+        self.log.parent.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ)
+        root = str(Path(__file__).resolve().parent)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+        self.started = time.perf_counter()
+        with self.log.open("w") as fh:
+            self.proc = subprocess.Popen([sys.executable, "-m", "gfedntm_tpu_torch", *argv],
+                                         cwd=CLI_DIR, env=env, stdout=fh,
+                                         stderr=subprocess.STDOUT)
+
+    def finish(self) -> float:
+        """Wait within the process's own limit (killed past it); fail unless
+        it exits 0. Returns its wall seconds."""
+        left = self.limit_s - (time.perf_counter() - self.started)
+        try:
+            code = self.proc.wait(max(left, 0.1))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            code = f"killed at its {self.limit_s:g} s limit"
+        seconds = time.perf_counter() - self.started
+        if code != 0:
+            tail = self.log.read_text()[-3000:]
+            check(False, f"phase 15: {self.name} exited {code} after {seconds:.1f} s; its "
+                         f"output ends:\n{tail}")
+        return seconds
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports: all bound at once, then released."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def wait_for_port(port: int, proc: CliProcess, what: str) -> float:
+    """Seconds until something listens on ``port`` (the server or the
+    plane up): clients start only then, as an operator starts them."""
+    import socket
+
+    while True:
+        check(proc.proc.poll() is None, f"phase 15: {proc.name} exited before {what}; "
+              f"output:\n{proc.log.read_text()[-3000:]}")
+        check(time.perf_counter() - proc.started < proc.limit_s,
+              f"phase 15: no {what} within {proc.limit_s:g} s")
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1.0):
+                return time.perf_counter() - proc.started
+        except OSError:
+            time.sleep(0.2)
+
+
+def jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def last_snapshot(records: list) -> dict:
+    snaps = [r["metrics"] for r in records if r.get("event") == "metrics_snapshot"]
+    return snaps[-1] if snaps else {}
+
+
+def cli_simulate_phase(card: str, corpus, archive: Path, ini: Path, result, meanwhile):
+    """15(a): ``simulate`` of phase 3's corpus from its archive and an INI,
+    in a process of its own, with ``meanwhile()`` (15(b)) run while it
+    works; the global betas bitwise phase 3's float32 fit's (``result``; run
+    here when ``None``). Returns what ``meanwhile()`` returned."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM, BowDataset, FederatedTrainer
+
+    V, K, B = 100_000, 50, 256
+    idx2token = {i: f"wd{i}" for i in range(V)}
+    datasets = [BowDataset(X=node.bow, idx2token=idx2token) for node in corpus.nodes]
+
+    def template():
+        return AVITM(input_size=V, n_components=K, hidden_sizes=(100, 100), batch_size=B,
+                     num_epochs=2)
+
+    if result is None:  # --cli-only: phase 3's float32 fit, in this process
+        result = FederatedTrainer(template(), n_clients=2).fit(datasets)
+    want = FederatedTrainer(template(), n_clients=2).make_global_model(result)
+    want = want.get_topic_word_distribution()
+
+    save = CLI_DIR / "simulate"
+    proc = CliProcess("simulate", ["--source", str(archive), "--config", str(ini),
+                                   "--save_dir", str(save)], CLI_LIMIT_S["simulate"])
+    try:
+        out = meanwhile()
+        wall = proc.finish()
+    finally:
+        proc.stop()
+    summary = {}
+    for line in proc.log.read_text().splitlines():  # stdout and stderr: the JSON line
+        if line.startswith("{") and '"n_clients"' in line:
+            summary = json.loads(line)
+    check(bool(summary), "phase 15(a): no summary line")
+    records = jsonl(save / "metrics.jsonl")
+    fit_s = [r["seconds"] for r in records
+             if r.get("event") == "phase" and r.get("phase") == "federated_fit"]
+    # The trainer sets its docs_per_s gauge from a steady segment, one whose
+    # length ran before; simulate fits in one segment, so the gauge is unset
+    # and the fit's documents over its phase seconds stand beside it.
+    docs = last_snapshot(records).get("docs_per_s", {}).get("value")
+    fit_docs = 2 * CLI_STEPS * B / fit_s[0] if len(fit_s) == 1 else float("nan")
+    with np.load(save / "global_model.npz") as z:
+        got = z["betas"]
+    diff = float(np.abs(got.astype(np.float64) - want).max()) if got.shape == want.shape \
+        else float("inf")
+    gauge = "unset (one segment)" if docs is None else f"{docs:.1f}"
+    # Which of (b)'s rounds it overlapped: its stream's last record against
+    # the start of each round of (b)'s server.
+    ended = max(r["time"] for r in records)
+    rounds = sorted((r for r in jsonl(CLI_DIR / "fed" / "metrics.jsonl")
+                     if r.get("event") == "span" and r.get("name") == "round"),
+                    key=lambda r: r["round"])
+    overlapped = [r["round"] for r in rounds if r["time"] - r["seconds"] < ended]
+    print(f"cli (a) simulate, {card}: exit 0 in {wall:.1f} s of wall time, beside (b)'s "
+          f"start-up ((b)'s rounds begun before its last record: {overlapped}; (b)'s steady "
+          f"median reads rounds 2-{CLI_STEPS}) (the process's start, the archive's load at "
+          f"V={V}, the fit, the MC thetas of each client's documents); federated_fit phase {fit_s[0] if fit_s else float('nan'):.3f} s, "
+          f"{fit_docs:.1f} docs/s over it (first step included); docs_per_s gauge {gauge}; "
+          f"summary {summary}; global betas vs phase 3's in-process float32 fit: bitwise "
+          f"{bool(np.array_equal(got, want))} (max |diff| {diff:.3e})", flush=True)
+    check(summary["n_clients"] == 2 and summary["vocab_size"] == V
+          and summary["global_steps"] == CLI_STEPS, f"phase 15(a): summary {summary}")
+    check(math.isfinite(summary["final_mean_loss"]) and math.isfinite(summary["tss"])
+          and 0 < summary["tss"] <= K, f"phase 15(a): loss or tss in {summary}")
+    check(len(fit_s) == 1, f"phase 15(a): federated_fit phases {fit_s}")
+    check(got.dtype == want.dtype and np.array_equal(got, want),
+          f"phase 15(a): the CLI's global betas differ from phase 3's fit by {diff:.3e}")
+    return out
+
+
+def cli_federation_phase(card: str, archive: Path, ini: Path) -> tuple:
+    """15(b): a server and two clients, each a process of its own on the
+    card; then the readers over their streams. Returns the save dir and the
+    last round the server journaled."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from gfedntm_tpu_torch import cli
+    from gfedntm_tpu_torch.serving import ModelSource
+
+    fed, prof = CLI_DIR / "fed", CLI_DIR / "prof"
+    port, *client_ports = free_ports(3)
+    common = ["--config", str(ini), "--save_dir", str(fed)]
+    server = CliProcess("server", ["--id", "0", "--min_clients_federation", "2",
+                                   "--max_iters", str(CLI_STEPS), "--listen_port", str(port)]
+                        + common, CLI_LIMIT_S["server"])
+    procs = [server]
+    try:
+        up = wait_for_port(port, server, "server listening")
+        for c in (1, 2):
+            extra = ["--profile_dir", str(prof), "--profile_rounds", "2:3"] if c == 1 else []
+            procs.append(CliProcess(f"client{c}", [
+                "--id", str(c), "--source", str(archive), "--server_address",
+                f"localhost:{port}", "--listen_port", str(client_ports[c - 1])] + common + extra,
+                CLI_LIMIT_S["client"]))
+        walls = [p.finish() for p in procs]
+    finally:
+        for p in procs:
+            p.stop()
+    check((fed / "server_model.npz").is_file(), "phase 15(b): no server_model.npz")
+    with np.load(fed / "client1" / "model.npz") as a, np.load(fed / "client2" / "model.npz") as b:
+        same = a["betas"].shape == b["betas"].shape and bool(np.array_equal(a["betas"],
+                                                                            b["betas"]))
+        V = a["betas"].shape[1]
+    check(same, "phase 15(b): the clients' saved betas differ")
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    kernels = trace_kernels(traces[0]) if len(traces) == 1 else {}
+    streams = [fed / "metrics.jsonl", fed / "client1" / "metrics.jsonl",
+               fed / "client2" / "metrics.jsonl"]
+    server_log = jsonl(streams[0])
+    rounds = sorted((r for r in server_log if r.get("event") == "span"
+                     and r.get("name") == "round"), key=lambda r: r["round"])
+    steady = rounds[1:] or rounds
+    ms = float(np.median([r["seconds"] for r in steady])) * 1e3
+    up_b = float(np.median([r["bytes_pulled"] for r in steady]))
+    down_b = float(np.median([r["bytes_pushed"] for r in steady]))
+    phase9 = STEADY_MS.get("phase 9")
+    print(f"cli (b) wire federation, {card}: server, client 1 and client 2 in processes of "
+          f"their own, each exit 0 (wall {', '.join(f'{w:.1f}' for w in walls)} s; the server "
+          f"listened after {up:.1f} s); global V={V}, {len(rounds)} rounds; median ms per "
+          f"global step over rounds 2-{len(rounds)} {ms:.3f} ({2 * 256 / ms * 1e3:.1f} docs/s; "
+          f"phase 9, every node in one interpreter: "
+          + (f"{phase9:.3f} ms this run)" if phase9 else "not run in this call)")
+          + f"; bytes per step, up {up_b / 1e6:.3f} MB and down {down_b / 1e6:.3f} MB (2 "
+          f"clients); client 1's trace {traces[0].name if traces else None} names "
+          f"{kernels}", flush=True)
+    check(len(rounds) == CLI_STEPS, f"phase 15(b): {len(rounds)} rounds, want {CLI_STEPS}")
+    check(len(traces) == 1 and all(kernels.get(f, 0) > 0 for f in TENSOR_CORE_FAMILIES),
+          f"phase 15(b): client 1's traces {traces} name kernels {kernels}")
+
+    def reader(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        return rc, out.getvalue()
+
+    rc, summary = reader(["summarize", *map(str, streams)])
+    check(rc == 0 and "phase breakdown" in summary and "wire accounting per tier" in summary,
+          f"phase 15(b): summarize rc {rc}:\n{summary[-2000:]}")
+    merged = CLI_DIR / "trace.json"
+    rc, text = reader(["trace", *map(str, streams), "-o", str(merged)])
+    events = json.loads(merged.read_text())["traceEvents"] if merged.is_file() else []
+    names = {e["pid"]: e["args"]["name"] for e in events if e.get("ph") == "M"}
+    spans = {names.get(e["pid"]) for e in events if e.get("ph") == "X"}
+    check(rc == 0 and spans == {"server", "client1", "client2"},
+          f"phase 15(b): trace rc {rc}, spans of {spans}: {text}")
+    rc, report = reader(["report", *map(str, streams)])
+    check(rc == 0 and "model-quality report" in report, f"phase 15(b): report rc {rc}")
+    print(f"cli (b) readers: summarize exit 0 ({len(summary.splitlines())} lines); trace exit "
+          f"0: {text.strip()}; report exit 0 ({report.splitlines()[0]})", flush=True)
+    newest = ModelSource(str(fed)).peek()
+    check(newest is not None, "phase 15(b): nothing published in the server's save dir")
+    return fed, newest[0], rounds[-1]["round"]
+
+
+def cli_serve_phase(card: str, corpus, fed: Path, published: int, last_round: int) -> None:
+    """15(c): ``--role serve`` on (b)'s save dir, in a process of its own:
+    16 four-document ``Infer`` requests through ``make_infer_stub``."""
+    import urllib.request
+
+    import numpy as np
+
+    from gfedntm_tpu_torch.data.vocab import Vocabulary, vectorize
+    from gfedntm_tpu_torch.serving import ModelSource, make_infer_stub
+
+    vocab = ModelSource(str(fed)).load().vocab
+    n = CLI_REQUESTS * CLI_REQUEST_DOCS
+    X = vectorize(corpus.nodes[0].documents[:n], Vocabulary(tuple(vocab)))
+    port, ops = free_ports(2)
+    proc = CliProcess("serve", ["--role", "serve", "--save_dir", str(fed), "--config",
+                                str(CLI_DIR / "cli.cf"), "--listen_port", str(port),
+                                "--ops_port", str(ops), "--serve_poll", "0.2",
+                                "--serve_duration", f"{CLI_SERVE_S:g}", "--verbose"],
+                      CLI_LIMIT_S["serve"])
+    try:
+        up = wait_for_port(ops, proc, "ops endpoint")
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{ops}/ready", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            alive = proc.proc.poll() is None
+            check(alive and time.perf_counter() - proc.started < up + CLI_SERVE_S,
+                  f"phase 15(c): the plane never turned ready (ops endpoint up after {up:.1f} "
+                  f"s; the process {'running' if alive else 'exited'} after "
+                  f"{time.perf_counter() - proc.started:.1f} s); its output ends:\n"
+                  f"{proc.log.read_text()[-4000:]}")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - proc.started
+        infer = make_infer_stub(f"127.0.0.1:{port}")
+        failed, thetas, model_rounds, ms = 0, [], set(), []
+        for i in range(CLI_REQUESTS):
+            t0 = time.perf_counter()
+            try:
+                theta, model_round = infer(X[i * CLI_REQUEST_DOCS:(i + 1) * CLI_REQUEST_DOCS], i)
+            except Exception as err:  # counted, and the phase fails below
+                failed += 1
+                print(f"cli (c): request {i} failed: {err!r}", flush=True)
+                continue
+            ms.append((time.perf_counter() - t0) * 1e3)
+            thetas.append(theta)
+            model_rounds.add(model_round)
+        wall = proc.finish()
+    finally:
+        proc.stop()
+    theta = np.concatenate(thetas) if thetas else np.zeros((0, 1))
+    row_err = float(np.abs(theta.sum(axis=1) - 1.0).max()) if thetas else float("inf")
+    print(f"cli (c) serve, {card}: its ops endpoint up {up:.1f} s and the plane ready "
+          f"{ready_s:.1f} s after its start (--serve_duration {CLI_SERVE_S:g}); {CLI_REQUESTS} "
+          f"requests of {CLI_REQUEST_DOCS} documents at V={len(vocab)}, {failed} failed, "
+          f"median {float(np.median(ms)) if ms else float('nan'):.3f} ms a request; theta "
+          f"{theta.shape}, rows sum to 1 within {row_err:.2e}; model_round {sorted(model_rounds)}"
+          f" (the store's newest {published}, the server's last round span {last_round}); exit 0 "
+          f"after {wall:.1f} s", flush=True)
+    check(failed == 0 and theta.shape == (n, 50), f"phase 15(c): {failed} failed requests, "
+          f"theta {theta.shape}")
+    check(row_err <= 1e-6, f"phase 15(c): theta rows sum to 1 within {row_err:.2e} (limit 1e-6)")
+    check(model_rounds == {published}, f"phase 15(c): model_round {model_rounds}, the store's "
+          f"newest {published}")
+
+
+def cli_phase(card: str, result=None) -> None:
+    """Phase 15: (a) ``simulate`` beside (b)'s start-up (the processes'
+    imports, the joins and the consensus, before the rounds whose median
+    (b) reads), then (c) the serving plane alone, every node a ``python -m
+    gfedntm_tpu_torch`` process on the card; phase 3's float32 fit is
+    ``result`` (run in (a) when ``None``)."""
+    from gfedntm_tpu_torch.data.synthetic import generate_synthetic_corpus, save_reference_npz
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    corpus = generate_synthetic_corpus(vocab_size=100_000, n_topics=50, n_docs=1024, n_nodes=2,
+                                       materialize_docs=True, seed=0)
+    archive, ini = CLI_DIR / "corpus.npz", CLI_DIR / "cli.cf"
+    save_reference_npz(corpus, str(archive))
+    ini.write_text(CLI_INI)
+    print(f"cli: phase 3's corpus as a reference archive ({archive.stat().st_size / 1e6:.1f} "
+          f"MB) in {time.perf_counter() - t0:.1f} s", flush=True)
+    fed, published, last_round = cli_simulate_phase(
+        card, corpus, archive, ini, result, lambda: cli_federation_phase(card, archive, ini))
+    cli_serve_phase(card, corpus, fed, published, last_round)
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -4972,22 +5411,24 @@ def main(argv: list[str]) -> int:
     pacing_only = "--pacing-only" in argv
     hier_only = "--hierarchy-only" in argv
     serve_only = "--serving-only" in argv
+    cli_only = "--cli-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
-                                         "--pacing-only", "--hierarchy-only", "--serving-only")]
+                                         "--pacing-only", "--hierarchy-only", "--serving-only",
+                                         "--cli-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
-            or pacing_only or hier_only or serve_only)
+            or pacing_only or hier_only or serve_only or cli_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
-            + privacy_only + pacing_only + hier_only + serve_only > 1
+            + privacy_only + pacing_only + hier_only + serve_only + cli_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
-              "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only]",
-              file=sys.stderr)
+              "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
+              "--cli-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5015,6 +5456,7 @@ def main(argv: list[str]) -> int:
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
         for line in build_report(lib, _build.build_log):
             print(f"build: {line}", flush=True)
+        print(f"phase 1 took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
         if dp_only:
             data_parallel_phase(card, {"vsharded": ""})
             return 0
@@ -5043,19 +5485,34 @@ def main(argv: list[str]) -> int:
         if serve_only:
             serving_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
-        rows, notes = kernel_phase(card, against)
+        if cli_only:
+            cli_phase(card)
+            return 0
+
+        def timed(n, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            print(f"phase {n} took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+            return out
+
+        rows, notes = timed(2, kernel_phase, card, against)
         if not kernels_only:
-            datasets, result = main_path_phase(rows)
-            X, kw, validation = sharded_fit_phase(card, rows, notes)
-            persistence_phase(card, rows, notes, datasets, result, X, kw, validation)
-            data_parallel_phase(card, notes)
-            raw = decodes_and_text_phase(card, notes)
-            ctm_phase(card, notes, raw, datasets)
+            datasets, result = timed(3, main_path_phase, rows)
+            # Phase 4 runs the rank programs of phases 4 to 8 in one rank
+            # group per world size.
+            X, kw, groups = timed(4, sharded_fit_phase, card, rows, notes)
+            timed(5, persistence_phase, card, rows, notes, datasets, result, X, kw,
+                  groups["validation"])
+            data_parallel_phase(card, notes, groups)
+            raw = decodes_and_text_phase(card, notes, groups)
+            ctm_phase(card, notes, raw, datasets, groups)
+            del groups
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
             hierarchy_phase(card, notes, pacing_phase(card, notes, raw))
             serving_phase(card, notes, raw, phase9)
+            cli_phase(card, result)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5063,6 +5520,7 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(CORPORA, ignore_errors=True)
         shutil.rmtree(SCRATCH, ignore_errors=True)
         shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

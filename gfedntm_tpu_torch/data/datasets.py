@@ -1,7 +1,8 @@
 """Dataset container and batch schedules.
 
 A copy of ``gfedntm_tpu/data/datasets.py`` (``BowDataset``, ``CTMDataset``,
-``EpochSchedule``, ``make_epoch_schedule``, ``make_run_schedule``), kept
+``EpochSchedule``, ``make_epoch_schedule``, ``make_run_schedule``,
+``train_val_split``), kept
 here so the port never imports the JAX package. For the same seed the
 schedules are the same numpy arrays as the original's, which is what lets
 the port and the JAX package train on identical batches.
@@ -132,3 +133,14 @@ def full_batch_indices(n_docs: int, batch_size: int) -> tuple:
     mask = np.zeros(steps * batch_size, dtype=bool)
     mask[:n_docs] = True
     return idx.reshape(steps, batch_size), mask.reshape(steps, batch_size)
+
+
+def train_val_split(
+    n_docs: int, val_fraction: float = 0.25, seed: int = 42
+) -> tuple[np.ndarray, np.ndarray]:
+    """Index split mirroring ``prepare_dataset``'s 75/25 split with seed 42
+    (``pytorchavitm/utils/data_preparation.py:26-33``)."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n_docs)
+    n_val = int(round(n_docs * val_fraction))
+    return np.sort(order[n_val:]), np.sort(order[:n_val])

@@ -1,11 +1,12 @@
 """Synthetic LDA corpus generator (vectorized, seedable).
 
 A copy of ``gfedntm_tpu/data/synthetic.py`` (``SyntheticNode``,
-``SyntheticCorpus``, ``generate_synthetic_corpus``, and
-``load_reference_npz`` with its ``_bow_from_wd_docs``, the reader of a
-reference-format archive that the quality monitor's ``quality_ref``
-takes), kept here so the port never imports the JAX package; for the same
-seed it draws the same corpus.
+``SyntheticCorpus``, ``generate_synthetic_corpus``, ``save_reference_npz``,
+the writer of a reference-format archive that the command line's
+``--source`` takes, and ``load_reference_npz`` with its
+``_bow_from_wd_docs``, its reader, which the quality monitor's
+``quality_ref`` takes too), kept here so the port never imports the JAX
+package; for the same seed it draws the same corpus.
 
 Documents are drawn from a known LDA generative model so ground-truth
 topic-word (``topic_vectors``) and doc-topic (``doc_topics``) distributions
@@ -110,6 +111,23 @@ def generate_synthetic_corpus(
     vocab_tokens = tuple(f"wd{i}" for i in range(vocab_size))
     return SyntheticCorpus(
         topic_vectors=topic_vectors, nodes=nodes, vocab_tokens=vocab_tokens
+    )
+
+
+def save_reference_npz(corpus: SyntheticCorpus, path: str, **meta) -> None:
+    """Write the combined-archive format of ``synthetic_all_nodes.npz``
+    (generate_synthetic.py:95-96) so reference tooling can read it."""
+    np.savez(
+        path,
+        n_nodes=corpus.n_nodes,
+        vocab_size=corpus.topic_vectors.shape[1],
+        n_topics=corpus.topic_vectors.shape[0],
+        topic_vectors=corpus.topic_vectors,
+        doc_topics=np.array([n.doc_topics for n in corpus.nodes]),
+        documents=np.array(
+            [n.documents for n in corpus.nodes], dtype=object
+        ),
+        **meta,
     )
 
 

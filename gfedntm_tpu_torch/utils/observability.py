@@ -29,12 +29,22 @@ uses, so the port's records are the same JSON the JAX package's
   ``collect_data_plane``; :1507, :1931, :2138), ``render_prometheus``
   (:2202) and :class:`OpsServer` (:2284);
 - the round profiler window: ``parse_round_window`` (a copy, :921) and
-  :class:`RoundProfiler` (:942), rewritten over ``torch.profiler``.
+  :class:`RoundProfiler` (:942), rewritten over ``torch.profiler``; and
+  :func:`trace` (:909), the whole-block capture ``simulate`` wraps its
+  fit in, rewritten over ``torch.profiler`` too;
+- what the command line's readers render: ``summarize_metrics`` (:1612)
+  and ``format_report`` (:1766) with ``_agg``, ``_fmt_s`` and
+  ``_fmt_bytes``; ``collect_wire_tiers`` and ``format_wire_tiers``
+  (:1542-1610); ``check_monotone_coherence``, ``format_quality_report``
+  and ``_fmt_opt`` (:2002-2136); ``format_privacy_line`` (:2169); and the
+  trace merge, ``merge_chrome_trace`` (:2628) with
+  ``estimate_clock_offset`` and ``_serve_offset_samples`` (:2589-2626).
 
 The JAX module imports ``jax`` inside a few functions (the profiler window,
 the device-memory gauge), so it is copied by function, not by file;
-``tests/test_torch_ops_plane.py`` pins each copied function's source to
-the original's.
+``tests/test_torch_ops_plane.py`` and ``tests/test_torch_cli.py`` pin each
+copied function's source to the original's. ``DeviceMemoryMonitor`` and
+``timed_jit`` are XLA's and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -542,6 +552,31 @@ def phase_timer(
         elapsed = time.perf_counter() - t0
         if logger is not None:
             logger.log("phase", phase=phase, seconds=elapsed, **fields)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, device=None) -> Iterator[None]:
+    """A ``torch.profiler`` capture of the block, written as one Chrome
+    trace (``trace.<pid>.pt.trace.json``) into ``log_dir``: CPU activity,
+    and CUDA activity when ``device`` is a CUDA device. A no-op when
+    ``log_dir`` is ``None``, so call sites need no branching (the JAX
+    ``trace``, :909, is a ``jax.profiler.trace`` context)."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = str(device or "").startswith("cuda")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace.{os.getpid()}.pt.trace.json")
+    )
 
 
 # ---- hierarchical spans (observability.py:562-664) ---------------------------
@@ -1873,3 +1908,715 @@ class RoundProfiler:
             _PROFILER_SESSION.release()
         if self.metrics is not None:
             self.metrics.log("profiler_stopped", round=round_idx)
+
+
+# ---- run reports (the command line's summarize and report readers) --------
+
+def _agg(groups: dict, key: str, seconds: float) -> None:
+    g = groups.setdefault(key, {"count": 0, "total_s": 0.0, "max_s": 0.0})
+    g["count"] += 1
+    g["total_s"] += seconds
+    g["max_s"] = max(g["max_s"], seconds)
+
+
+def collect_wire_tiers(
+    node_records: "dict[str, list[dict[str, Any]]]"
+) -> dict[str, dict[str, Any]]:
+    """Per-node (per-tier) wire accounting from each stream's LAST
+    ``metrics_snapshot`` (registries are cumulative): bytes moved raw vs
+    compressed per direction, the resulting compression ratios, and the
+    per-recipient-encoding counters (catch-up / self-contained pushes,
+    reference evictions). In a hierarchical topology each relay and the
+    root write their own ``metrics.jsonl``, so feeding them all to
+    ``summarize``/``report`` reproduces the BENCH_SCALE per-tier numbers
+    from JSONL alone (README "Hierarchical federation & wire
+    efficiency")."""
+    out: dict[str, dict[str, Any]] = {}
+    for node, records in sorted(node_records.items()):
+        last: dict[str, dict] = {}
+        for r in records:
+            if r.get("event") == "metrics_snapshot":
+                for name, snap in (r.get("metrics") or {}).items():
+                    last[name] = snap
+
+        def cval(name: str) -> float:
+            snap = last.get(name)
+            if snap is None or snap.get("type") != "counter":
+                return 0.0
+            return float(snap.get("value") or 0.0)
+
+        sent_raw, sent = (
+            cval("uncompressed_bytes_sent"), cval("compressed_bytes_sent")
+        )
+        recv_raw, recv = (
+            cval("uncompressed_bytes_recv"), cval("compressed_bytes_recv")
+        )
+        out[node] = {
+            "sent_bytes": sent,
+            "sent_raw_bytes": sent_raw,
+            "ratio_sent": (sent_raw / sent) if sent else None,
+            "recv_bytes": recv,
+            "recv_raw_bytes": recv_raw,
+            "ratio_recv": (recv_raw / recv) if recv else None,
+            "rpc_bytes_sent": cval("rpc_bytes_sent"),
+            "rpc_bytes_recv": cval("rpc_bytes_recv"),
+            "catchup_pushes": cval("codec_catchup_pushes"),
+            "selfcontained_pushes": cval("codec_selfcontained_pushes"),
+            "refs_evicted": cval("codec_refs_evicted"),
+        }
+    return out
+
+
+def format_wire_tiers(tiers: dict[str, dict[str, Any]]) -> str:
+    """Render :func:`collect_wire_tiers` as the per-tier table the
+    ``summarize``/``report`` CLIs append when fed multiple streams."""
+    lines = ["wire accounting per tier:"]
+    lines.append(
+        f"  {'node':<16}{'sent':>12}{'ratio':>8}{'recv':>12}{'ratio':>8}"
+        f"{'catchup':>9}{'selfcont':>10}{'evicted':>9}"
+    )
+    for node, t in tiers.items():
+        sent = t["sent_bytes"] or t["rpc_bytes_sent"]
+        recv = t["recv_bytes"] or t["rpc_bytes_recv"]
+        rs = f"{t['ratio_sent']:.2f}x" if t["ratio_sent"] else "-"
+        rr = f"{t['ratio_recv']:.2f}x" if t["ratio_recv"] else "-"
+        lines.append(
+            f"  {node:<16}{_fmt_bytes(sent):>12}{rs:>8}"
+            f"{_fmt_bytes(recv):>12}{rr:>8}"
+            f"{t['catchup_pushes']:>9.0f}{t['selfcontained_pushes']:>10.0f}"
+            f"{t['refs_evicted']:>9.0f}"
+        )
+    return "\n".join(lines)
+
+
+def summarize_metrics(records: list[dict[str, Any]]) -> dict[str, Any]:
+    """Aggregate a run's event stream into a report dict (see
+    :func:`format_report` for the rendered form)."""
+    times = [r["time"] for r in records
+             if isinstance(r.get("time"), (int, float))]
+    event_counts: dict[str, int] = {}
+    phases: dict[str, dict] = {}
+    spans: dict[str, dict] = {}
+    rounds = {"count": 0, "total_s": 0.0, "bytes_pulled": 0.0,
+              "bytes_pushed": 0.0}
+    slowest: dict[Any, dict] = {}
+    stragglers: dict[Any, dict] = {}
+    compile_events: list[dict[str, Any]] = []
+    rpc_errors: list[dict[str, Any]] = []
+    per_node_snapshots: dict[str, dict[str, dict]] = {}
+    alerts: dict[str, dict[str, Any]] = {}
+    summary_event: dict[str, Any] | None = None
+
+    for r in records:
+        event = r.get("event", "?")
+        event_counts[event] = event_counts.get(event, 0) + 1
+        if event == "phase":
+            _agg(phases, str(r.get("phase", "?")), float(r.get("seconds", 0)))
+        elif event == "span":
+            name = str(r.get("name", "?"))
+            secs = float(r.get("seconds", 0))
+            _agg(spans, name, secs)
+            if name == "round":
+                rounds["count"] += 1
+                rounds["total_s"] += secs
+                rounds["bytes_pulled"] += float(r.get("bytes_pulled", 0))
+                rounds["bytes_pushed"] += float(r.get("bytes_pushed", 0))
+                cid = r.get("slowest_client")
+                if cid is not None:
+                    s = slowest.setdefault(
+                        cid, {"rounds_slowest": 0, "max_poll_s": 0.0}
+                    )
+                    s["rounds_slowest"] += 1
+                    s["max_poll_s"] = max(
+                        s["max_poll_s"], float(r.get("slowest_s", 0))
+                    )
+        elif event == "straggler_detected":
+            st = stragglers.setdefault(
+                r.get("client"), {"count": 0, "max_z": 0.0}
+            )
+            st["count"] += 1
+            st["max_z"] = max(st["max_z"], float(r.get("z", 0.0)))
+        elif event == "jit_compile":
+            compile_events.append(
+                {"what": r.get("what"), "seconds": r.get("seconds")}
+            )
+        elif event == "rpc" and not r.get("ok", True):
+            rpc_errors.append(r)
+        elif event == "metrics_snapshot":
+            # Registries are cumulative, so — PER NODE — the last snapshot
+            # mentioning a metric carries its totals. Keying by name alone
+            # would let a multi-node stream's nodes clobber each other
+            # (client7's local_step_s overwriting client3's); nodes merge
+            # exactly below instead.
+            node_snaps = per_node_snapshots.setdefault(
+                str(r.get("node") or ""), {}
+            )
+            for name, snap in (r.get("metrics") or {}).items():
+                node_snaps[name] = snap
+        elif event in ("alert_pending", "alert_firing", "alert_resolved"):
+            state = event[len("alert_"):]
+            a = alerts.setdefault(
+                str(r.get("alert")),
+                {"pending": 0, "firing": 0, "resolved": 0,
+                 "last_state": "ok", "metric": r.get("metric")},
+            )
+            a[state] += 1
+            a["last_state"] = state
+            if r.get("metric") is not None:
+                a["metric"] = r.get("metric")
+        elif event == "summary":
+            summary_event = {
+                k: v for k, v in r.items() if k not in ("event", "time")
+            }
+
+    # Fleet totals: counters sum, gauges last-wins, histograms add
+    # bucket-wise — the same primitive the live FleetRegistry merge uses,
+    # so offline summaries and /metrics can never disagree.
+    last_snapshots = merge_node_snapshots(per_node_snapshots)
+
+    step_time = {
+        name: _hist_stats(snap)
+        for name, snap in last_snapshots.items()
+        if snap.get("type") == "histogram" and name.endswith("step_s")
+        and snap.get("count")
+    }
+    rpc = {
+        name.split("/", 1)[1]: _hist_stats(snap)
+        for name, snap in last_snapshots.items()
+        if name.startswith("rpc_s/") and snap.get("count")
+    }
+    # Every other populated histogram (codec encode/decode seconds, bundle
+    # bytes, client poll latency, jit dispatch, ...): no histogram this
+    # stream records may be write-only in the summary.
+    other_hists = {
+        name: _hist_stats(snap)
+        for name, snap in last_snapshots.items()
+        if snap.get("type") == "histogram" and snap.get("count")
+        and not (name.endswith("step_s") or name.startswith("rpc_s/"))
+    }
+    counters = {
+        name: snap["value"] for name, snap in last_snapshots.items()
+        if snap.get("type") == "counter"
+    }
+    gauges = {
+        name: snap["value"] for name, snap in last_snapshots.items()
+        if snap.get("type") == "gauge"
+    }
+
+    return {
+        "events_total": len(records),
+        "wall_seconds": (max(times) - min(times)) if times else 0.0,
+        "event_counts": dict(sorted(event_counts.items())),
+        "phases": phases,
+        "spans": spans,
+        "rounds": rounds,
+        "slowest_clients": slowest,
+        "stragglers": stragglers,
+        "step_time": step_time,
+        "rpc": rpc,
+        "histograms": other_hists,
+        "rpc_errors": len(rpc_errors),
+        "counters": counters,
+        "gauges": gauges,
+        "alerts": alerts,
+        "compile": compile_events,
+        "summary": summary_event,
+        "data_plane": collect_data_plane(records),
+    }
+
+
+def _fmt_s(seconds: float | None) -> str:
+    if seconds is None:
+        return "-"
+    if seconds < 1e-3:
+        return f"{seconds * 1e6:.0f} µs"
+    if seconds < 1.0:
+        return f"{seconds * 1e3:.2f} ms"
+    return f"{seconds:.2f} s"
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n:.0f} B"
+        n /= 1024
+    return f"{n:.1f} GiB"
+
+
+def format_report(s: dict[str, Any]) -> str:
+    """Render a :func:`summarize_metrics` dict as a human-readable report."""
+    lines = [
+        f"run summary: {s['events_total']} events over "
+        f"{s['wall_seconds']:.2f} s wall clock",
+    ]
+
+    wall = s["wall_seconds"] or float("inf")
+    breakdown = dict(s["phases"])
+    for name, g in s["spans"].items():
+        breakdown.setdefault(f"span:{name}", g)
+    if breakdown:
+        lines.append("")
+        lines.append("phase breakdown:")
+        lines.append(f"  {'phase':<24}{'total':>12}{'count':>8}{'%wall':>8}")
+        for name, g in sorted(
+            breakdown.items(), key=lambda kv: -kv[1]["total_s"]
+        ):
+            pct = 100.0 * g["total_s"] / wall if wall else 0.0
+            lines.append(
+                f"  {name:<24}{_fmt_s(g['total_s']):>12}{g['count']:>8}"
+                f"{pct:>7.1f}%"
+            )
+
+    if s["step_time"]:
+        lines.append("")
+        lines.append("step time:")
+        lines.append(
+            f"  {'source':<24}{'count':>8}{'mean':>12}{'p50':>12}"
+            f"{'p95':>12}{'p99':>12}"
+        )
+        for name, st in sorted(s["step_time"].items()):
+            lines.append(
+                f"  {name:<24}{st['count']:>8}{_fmt_s(st['mean_s']):>12}"
+                f"{_fmt_s(st['p50_s']):>12}{_fmt_s(st['p95_s']):>12}"
+                f"{_fmt_s(st['p99_s']):>12}"
+            )
+
+    if s["rpc"]:
+        lines.append("")
+        lines.append("rpc latency:")
+        lines.append(
+            f"  {'method':<32}{'count':>8}{'mean':>12}{'p50':>12}{'p95':>12}"
+        )
+        for name, st in sorted(s["rpc"].items()):
+            lines.append(
+                f"  {name:<32}{st['count']:>8}{_fmt_s(st['mean_s']):>12}"
+                f"{_fmt_s(st['p50_s']):>12}{_fmt_s(st['p95_s']):>12}"
+            )
+        deadline = s["counters"].get("rpc_deadline_expired", 0)
+        errors = s["counters"].get("rpc_errors", 0)
+        lines.append(
+            f"  errors: {errors:.0f} ({deadline:.0f} deadline expiries), "
+            f"rpc error events: {s['rpc_errors']}"
+        )
+
+    if s.get("histograms"):
+        lines.append("")
+        lines.append("other distributions (codec, poll, dispatch, ...):")
+        lines.append(
+            f"  {'name':<32}{'count':>8}{'mean':>12}{'p50':>12}{'p95':>12}"
+        )
+        for name, st in sorted(s["histograms"].items()):
+            fmt = _fmt_bytes if "bytes" in name else _fmt_s
+            lines.append(
+                f"  {name:<32}{st['count']:>8}{fmt(st['mean_s']):>12}"
+                f"{fmt(st['p50_s']):>12}{fmt(st['p95_s']):>12}"
+            )
+
+    rounds = s["rounds"]
+    if rounds["count"]:
+        per = rounds["count"]
+        lines.append("")
+        lines.append(
+            f"federation rounds: {per} "
+            f"(mean {_fmt_s(rounds['total_s'] / per)}/round)"
+        )
+        lines.append(
+            f"  bytes moved: {_fmt_bytes(rounds['bytes_pulled'])} pulled, "
+            f"{_fmt_bytes(rounds['bytes_pushed'])} pushed "
+            f"({_fmt_bytes((rounds['bytes_pulled'] + rounds['bytes_pushed']) / per)}"
+            "/round)"
+        )
+        if s["slowest_clients"]:
+            worst = max(
+                s["slowest_clients"].items(),
+                key=lambda kv: kv[1]["rounds_slowest"],
+            )
+            lines.append(
+                f"  slowest client: {worst[0]} (straggler in "
+                f"{worst[1]['rounds_slowest']}/{per} rounds, max poll "
+                f"{_fmt_s(worst[1]['max_poll_s'])})"
+            )
+        for cid, st in sorted(s.get("stragglers", {}).items(),
+                              key=lambda kv: -kv[1]["count"]):
+            lines.append(
+                f"  straggler detected: client {cid} x{st['count']} "
+                f"(max z {st['max_z']:.1f})"
+            )
+
+    dp = s.get("data_plane") or {}
+    if any(dp.get(k) for k in
+           ("rejections", "clips", "rollbacks", "quarantines")):
+        lines.append("")
+        lines.append("data plane (admission gate / guardian):")
+        for cid in sorted(
+            set(dp.get("rejections", {})) | set(dp.get("clips", {}))
+        ):
+            by = dp.get("rejections", {}).get(cid, {})
+            reasons = ", ".join(
+                f"{r}:{n}" for r, n in sorted(by.items())
+            ) or "-"
+            lines.append(
+                f"  client {cid}: {sum(by.values())} rejected ({reasons})"
+                f", {dp.get('clips', {}).get(cid, 0)} clipped"
+            )
+        for rb in dp.get("rollbacks", ()):
+            restored = rb.get("restored_round")
+            lines.append(
+                f"  rollback at round {rb.get('round')} "
+                f"({rb.get('reason')}"
+                + (f" -> restored round {restored}"
+                   if restored is not None else "")
+                + ")"
+            )
+        for cid, n in sorted(dp.get("quarantines", {}).items()):
+            lines.append(f"  quarantined: client {cid} x{n}")
+
+    if s.get("alerts"):
+        lines.append("")
+        lines.append("SLO alerts:")
+        for name, a in sorted(s["alerts"].items()):
+            metric = f" on {a['metric']}" if a.get("metric") else ""
+            lines.append(
+                f"  {name}{metric}: fired x{a['firing']} "
+                f"(pending x{a['pending']}, resolved x{a['resolved']}), "
+                f"last state {a['last_state']}"
+            )
+
+    enc = s["counters"].get("codec_encoded_bytes")
+    dec = s["counters"].get("codec_decoded_bytes")
+    if enc is not None or dec is not None:
+        lines.append("")
+        lines.append(
+            f"codec: {_fmt_bytes(enc or 0)} encoded "
+            f"({s['counters'].get('codec_encode_calls', 0):.0f} bundles), "
+            f"{_fmt_bytes(dec or 0)} decoded "
+            f"({s['counters'].get('codec_decode_calls', 0):.0f} bundles)"
+        )
+
+    if s["compile"]:
+        lines.append("")
+        lines.append("compile capture (first-call trace+compile+run):")
+        for c in s["compile"]:
+            lines.append(f"  {c['what']}: {_fmt_s(c['seconds'])}")
+
+    if s["summary"]:
+        lines.append("")
+        lines.append(f"run result: {json.dumps(s['summary'], default=str)}")
+
+    return "\n".join(lines)
+
+
+def check_monotone_coherence(
+    summary: dict[str, Any], tolerance: float
+) -> list[str]:
+    """CI gate: verify NPMI coherence never drops more than ``tolerance``
+    below its running maximum over the quality trajectory. Returns the
+    violations (empty = pass) — the ``report`` CLI exits non-zero on any,
+    so the scenario harness can gate on model quality, not just on step
+    time."""
+    violations: list[str] = []
+    best: float | None = None
+    best_round: int | None = None
+    for row in summary.get("quality", ()):
+        npmi = row.get("npmi")
+        if npmi is None:
+            continue
+        if best is not None and npmi < best - tolerance:
+            violations.append(
+                f"round {row['round']}: npmi {npmi:.4f} fell "
+                f"{best - npmi:.4f} below the round-{best_round} peak "
+                f"{best:.4f} (tolerance {tolerance:g})"
+            )
+        if best is None or npmi > best:
+            best, best_round = npmi, row["round"]
+    if not summary.get("quality"):
+        violations.append(
+            "no quality_computed events in the stream (was the run "
+            "launched with --quality_every > 0 and --quality_ref?)"
+        )
+    elif best is None:
+        # Quality rounds exist but NPMI was never computed (no reference
+        # corpus): a gate that checked nothing must not report green.
+        violations.append(
+            "quality rounds carry no NPMI values — coherence was never "
+            "measured (was the run launched with --quality_ref?)"
+        )
+    return violations
+
+
+def _fmt_opt(value: Any, spec: str = "{:.3f}") -> str:
+    return "-" if value is None else spec.format(value)
+
+
+def format_quality_report(s: dict[str, Any]) -> str:
+    """Render a :func:`summarize_model_quality` dict as a human-readable
+    round-by-round model-health report."""
+    lines: list[str] = []
+    quality = s.get("quality") or []
+    lines.append(
+        f"model-quality report: {len(quality)} quality rounds"
+    )
+
+    if quality:
+        lines.append("")
+        lines.append(
+            f"  {'round':>6}{'npmi':>9}{'diversity':>11}{'irbo':>8}"
+            f"{'drift':>8}{'max':>8}{'churn':>7}"
+        )
+        for row in quality:
+            lines.append(
+                f"  {row['round']:>6}"
+                f"{_fmt_opt(row.get('npmi')):>9}"
+                f"{_fmt_opt(row.get('diversity')):>11}"
+                f"{_fmt_opt(row.get('irbo')):>8}"
+                f"{_fmt_opt(row.get('mean_drift')):>8}"
+                f"{_fmt_opt(row.get('max_drift')):>8}"
+                f"{_fmt_opt(row.get('churn'), '{:d}'):>7}"
+            )
+
+    contributions = s.get("contributions") or {}
+    dp = s.get("data_plane") or {}
+    if contributions or dp.get("rejections"):
+        lines.append("")
+        lines.append("per-client contributions (EWMA):")
+        lines.append(
+            f"  {'client':<8}{'cos->agg':>10}{'share':>8}{'rejected':>10}"
+            f"{'clipped':>9}{'quarantined':>13}"
+        )
+        clients = sorted(
+            set(contributions) | set(dp.get("rejections", {}))
+            | set(dp.get("clips", {})) | set(dp.get("quarantines", {})),
+            key=str,
+        )
+        for cid in clients:
+            c = contributions.get(cid, {})
+            rejected = sum(dp.get("rejections", {}).get(cid, {}).values())
+            lines.append(
+                f"  {cid:<8}{_fmt_opt(c.get('cos_ewma')):>10}"
+                f"{_fmt_opt(c.get('share_ewma')):>8}"
+                f"{rejected:>10}{dp.get('clips', {}).get(cid, 0):>9}"
+                f"{dp.get('quarantines', {}).get(cid, 0):>13}"
+            )
+
+    pairwise = s.get("pairwise") or {}
+    if pairwise.get("cos_mean") is not None:
+        lines.append("")
+        lines.append(
+            f"cohort dispersion: pairwise cosine mean "
+            f"{pairwise['cos_mean']:.3f}, min "
+            f"{_fmt_opt(pairwise.get('cos_min'))} "
+            "(low mean = heterogeneous / non-IID update directions)"
+        )
+
+    for rb in dp.get("rollbacks", ()):
+        restored = rb.get("restored_round")
+        lines.append(
+            f"rollback at round {rb.get('round')} ({rb.get('reason')}"
+            + (f" -> restored round {restored}"
+               if restored is not None else "")
+            + ")"
+        )
+
+    if s.get("alerts"):
+        lines.append("")
+        lines.append("SLO alerts:")
+        for name, a in sorted(s["alerts"].items()):
+            metric = f" on {a['metric']}" if a.get("metric") else ""
+            lines.append(
+                f"  {name}{metric}: fired x{a['firing']} "
+                f"(pending x{a['pending']}, resolved x{a['resolved']}), "
+                f"last state {a['last_state']}"
+            )
+
+    if s.get("topics"):
+        lines.append("")
+        lines.append("final topics (top words):")
+        for i, words in enumerate(s["topics"]):
+            lines.append(f"  topic {i}: {' '.join(words[:10])}")
+
+    privacy = s.get("privacy")
+    if privacy:
+        lines.append("")
+        lines.append(format_privacy_line(privacy))
+
+    return "\n".join(lines)
+
+
+def format_privacy_line(p: "dict[str, Any]") -> str:
+    """One-line rendering of a :func:`summarize_privacy` dict."""
+    budget = (
+        f"budget {p['budget']:g}"
+        + (f", EXCEEDED x{p['exceeded_events']}"
+           if p.get("exceeded_events") else "")
+        if p.get("budget") else "budget untracked"
+    )
+    return (
+        f"privacy: dp={p['mode']} eps {p['eps']:.4g} at delta "
+        f"{p['delta']:g} after {p['steps']} noised round(s) "
+        f"(sigma {p['sigma']:g}, {budget})"
+    )
+
+
+
+# ---- cross-node trace merge (the command line's trace reader) --------------
+
+def _serve_offset_samples(
+    records: list[dict[str, Any]], remote: str
+) -> list[float]:
+    """``recv - send`` deltas of ``serve`` spans received FROM ``remote``:
+    each sample is (receiver clock − sender clock) + network latency, so
+    the minimum over many samples approaches the clock offset plus the
+    latency floor."""
+    out = []
+    for r in records:
+        if (
+            r.get("event") == "span" and r.get("name") == "serve"
+            and r.get("remote_node") == remote
+            and isinstance(r.get("rpc_send_time"), (int, float))
+            and isinstance(r.get("rpc_recv_time"), (int, float))
+        ):
+            out.append(float(r["rpc_recv_time"]) - float(r["rpc_send_time"]))
+    return out
+
+
+def estimate_clock_offset(
+    node_records: list[dict[str, Any]],
+    ref_records: list[dict[str, Any]],
+    node: str, ref: str,
+) -> float:
+    """Seconds by which ``node``'s wall clock leads the reference's,
+    NTP-style from the paired RPC send/recv stamps: with both directions
+    available the latency floors cancel (``(min fwd − min rev) / 2``); a
+    single direction degrades to the one-way bound."""
+    fwd = _serve_offset_samples(node_records, ref)   # offset + latency
+    rev = _serve_offset_samples(ref_records, node)   # -offset + latency
+    if fwd and rev:
+        return (min(fwd) - min(rev)) / 2.0
+    if fwd:
+        return min(fwd)
+    if rev:
+        return -min(rev)
+    return 0.0
+
+
+def merge_chrome_trace(
+    node_records: dict[str, list[dict[str, Any]]],
+    reference: str | None = None,
+) -> dict[str, Any]:
+    """Merge per-node telemetry streams into one Chrome trace-event JSON
+    (load in Perfetto / chrome://tracing).
+
+    One pid per node (the reference — the node owning the ``round`` spans —
+    first), one tid per emitting thread, every ``span`` event an ``X``
+    slice whose wall-clock start is shifted onto the reference clock by
+    :func:`estimate_clock_offset`. ``serve`` spans carrying a
+    ``remote_parent_id`` additionally get flow arrows from the sender's
+    span, so a round renders as one connected tree across all processes.
+    """
+    if not node_records:
+        raise ValueError("no node records to merge")
+    if reference is None or reference not in node_records:
+        if reference is not None:
+            raise ValueError(
+                f"reference node {reference!r} not among "
+                f"{sorted(node_records)}"
+            )
+        reference = next(
+            (
+                node for node, recs in sorted(node_records.items())
+                if any(
+                    r.get("event") == "span" and r.get("name") == "round"
+                    for r in recs
+                )
+            ),
+            sorted(node_records)[0],
+        )
+
+    offsets = {
+        node: (
+            0.0 if node == reference else estimate_clock_offset(
+                recs, node_records[reference], node, reference
+            )
+        )
+        for node, recs in node_records.items()
+    }
+
+    # Wall-clock zero: earliest aligned span start across all nodes.
+    starts = [
+        float(r["time"]) - float(r.get("seconds", 0.0)) - offsets[node]
+        for node, recs in node_records.items()
+        for r in recs
+        if r.get("event") == "span" and isinstance(r.get("time"), (int, float))
+    ]
+    t0 = min(starts) if starts else 0.0
+
+    order = [reference] + sorted(n for n in node_records if n != reference)
+    events: list[dict[str, Any]] = []
+    # (node, span_id) -> (pid, tid, start_us) for flow binding
+    span_index: dict[tuple[str, int], tuple[int, int, float]] = {}
+    flows: list[tuple[str, dict[str, Any], float]] = []
+
+    for pid, node in enumerate(order):
+        events.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": node},
+        })
+        tids: dict[Any, int] = {}
+        for r in node_records[node]:
+            if r.get("event") != "span":
+                continue
+            seconds = float(r.get("seconds", 0.0))
+            start_us = (
+                float(r["time"]) - seconds - offsets[node] - t0
+            ) * 1e6
+            tid = tids.setdefault(r.get("thread", 0), len(tids))
+            args = {
+                k: v for k, v in r.items()
+                if k not in ("event", "time", "seconds", "thread", "name")
+                and v is not None
+            }
+            events.append({
+                "name": str(r.get("name", "span")), "cat": "span",
+                "ph": "X", "pid": pid, "tid": tid,
+                "ts": round(start_us, 3),
+                "dur": round(max(seconds, 1e-6) * 1e6, 3),
+                "args": args,
+            })
+            if isinstance(r.get("span_id"), int):
+                span_index[(node, r["span_id"])] = (pid, tid, start_us)
+            if (
+                r.get("name") == "serve"
+                and isinstance(r.get("remote_parent_id"), int)
+                and isinstance(r.get("remote_node"), str)
+            ):
+                flows.append((node, r, start_us))
+
+    flow_id = 0
+    for node, r, child_start_us in flows:
+        parent = span_index.get((r["remote_node"], r["remote_parent_id"]))
+        if parent is None:
+            continue
+        flow_id += 1
+        p_pid, p_tid, p_start_us = parent
+        c_pid, c_tid, _ = span_index[(node, r["span_id"])]
+        events.append({
+            "name": "rpc", "cat": "trace", "ph": "s", "id": flow_id,
+            "pid": p_pid, "tid": p_tid,
+            "ts": round(max(p_start_us, 0.0) + 0.5, 3),
+        })
+        events.append({
+            "name": "rpc", "cat": "trace", "ph": "f", "bp": "e",
+            "id": flow_id, "pid": c_pid, "tid": c_tid,
+            "ts": round(child_start_us, 3),
+        })
+
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "reference": reference,
+            "clock_offsets_s": {n: offsets[n] for n in order},
+            "epoch_origin_unix_s": t0,
+        },
+    }
+

@@ -103,8 +103,33 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.federation.device_agg",
                  "gfedntm_tpu_torch.federation.simfleet",
                  "gfedntm_tpu_torch.federation.relay",
-                 "gfedntm_tpu_torch.train.guardian"):
+                 "gfedntm_tpu_torch.train.guardian",
+                 "gfedntm_tpu_torch.cli", "gfedntm_tpu_torch.config",
+                 "gfedntm_tpu_torch.presets", "gfedntm_tpu_torch.data.local_corpus",
+                 "gfedntm_tpu_torch.__main__"):
         assert name in names, name
+
+
+def test_main_module_runs_where_jax_cannot_be_imported(tmp_path):
+    """``python -m gfedntm_tpu_torch --help`` in a process where ``jax`` and
+    ``gfedntm_tpu`` raise on import: the command line needs neither."""
+    for name in ("jax", "gfedntm_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} must not be imported')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(REPO)])
+    proc = subprocess.run([sys.executable, "-m", "gfedntm_tpu_torch", "--help"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "usage: gfedntm-tpu-torch" in proc.stdout
+    code = ("import sys, gfedntm_tpu_torch.cli, gfedntm_tpu_torch.presets, "
+            "gfedntm_tpu_torch.data.local_corpus, gfedntm_tpu_torch.config\n"
+            "sys.exit(1 if any(m.split('.')[0] in ('jax', 'gfedntm_tpu') for m in sys.modules)"
+            " else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_lazy_package_exports():

@@ -2,10 +2,10 @@
 run, on the CPU: kernel names from mangled symbols, the tensor-core
 instruction check over every instantiation of K1, K2 and K3, ptxas' spill
 report, and the exit codes without a card or with bad arguments; with a
-card faked and every phase stubbed, the order of the phases (phase 14 last,
-on phase 9's store) and of the output lines (the script's own seconds
-before the ``kernels`` line, the ``ok`` line last). The script is imported
-by path."""
+card faked and every phase stubbed, the order of the phases (phase 14 on
+phase 9's store, phase 15 last on phase 3's fit; phases 5 to 8 on phase 4's
+rank groups) and of the output lines (the script's own seconds before the
+``kernels`` line, the ``ok`` line last). The script is imported by path."""
 
 import importlib.util
 from pathlib import Path
@@ -108,7 +108,9 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
                                   ["--data-parallel-only", "--against", "."],
                                   ["--hierarchy-only", "--pacing-only"],
                                   ["--serving-only", "--federation-only"],
-                                  ["--serving-only", "--against", "."]])
+                                  ["--serving-only", "--against", "."],
+                                  ["--cli-only", "--serving-only"],
+                                  ["--cli-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
@@ -116,7 +118,7 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
 
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
                                   ["--data-parallel-only"], ["--hierarchy-only"],
-                                  ["--serving-only"]])
+                                  ["--serving-only"], ["--cli-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -202,7 +204,7 @@ def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
 PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_phase",
           "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
           "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
-          "serving_phase")
+          "serving_phase", "cli_phase")
 
 
 @pytest.fixture()
@@ -227,7 +229,7 @@ def faked(smoke, monkeypatch):
            "bound_by": "bytes", "library_ms": None}
     results = {"kernel_phase": ({"stats": row}, {"stats": ""}),
                "main_path_phase": ("datasets", "result"),
-               "sharded_fit_phase": ("X", "kw", "validation"),
+               "sharded_fit_phase": ("X", "kw", {"validation": "validation"}),
                "decodes_and_text_phase": "raw", "federation_phase": "phase9",
                "pacing_phase": "pacing"}
     for name in PHASES:
@@ -239,16 +241,21 @@ def faked(smoke, monkeypatch):
 
 
 def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys):
-    """Phase 14 runs last, on phase 7(b)'s corpora and phase 9's store;
-    the script's own seconds come before the ``kernels`` line, and the
-    ``ok`` line is the last."""
+    """Phase 14 runs on phase 7(b)'s corpora and phase 9's store, and phase
+    15, the command line, runs last on phase 3's fit; phases 5 to 8 read
+    phase 4's rank groups; the script's own seconds come before the
+    ``kernels`` line, and the ``ok`` line is the last."""
     import json
 
     assert smoke.main([]) == 0
     assert [name for name, _ in faked] == list(PHASES)
-    name, args = faked[-1]
-    assert args[2:] == ("raw", "phase9")
-    assert dict(faked)["persistence_phase"][-3:] == ("X", "kw", "validation")
+    calls = dict(faked)
+    assert calls["serving_phase"][2:] == ("raw", "phase9")
+    assert calls["cli_phase"][1:] == ("result",)
+    assert calls["persistence_phase"][-3:] == ("X", "kw", "validation")
+    groups = {"validation": "validation"}
+    assert calls["data_parallel_phase"][-1] == calls["decodes_and_text_phase"][-1] == groups
+    assert calls["ctm_phase"][2:] == ("raw", "datasets", groups)
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "FAKE H100, 700.00 W"
     assert lines[-3].startswith("chip_smoke took ") and lines[-3].endswith(
@@ -266,5 +273,15 @@ def test_serving_only_runs_phase_14_alone(smoke, faked, capsys):
     assert [name for name, _ in faked] == ["serving_phase"]
     card, notes = faked[0][1]
     assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "kernels" not in out
+
+
+def test_cli_only_runs_phase_15_alone(smoke, faked, capsys):
+    """``--cli-only`` runs phase 15 with nothing before it, so phase 15
+    fits phase 3's model itself; it prints no result lines."""
+    assert smoke.main(["--cli-only"]) == 0
+    assert [name for name, _ in faked] == ["cli_phase"]
+    assert faked[0][1] == ("FAKE H100, 700.00 W",)
     out = capsys.readouterr().out
     assert '"ok"' not in out and "kernels" not in out
