@@ -14,8 +14,9 @@
     python3 chip_smoke.py --hierarchy-only  # phases 1 and 13
     python3 chip_smoke.py --serving-only  # phases 1, 9 and 14
     python3 chip_smoke.py --cli-only      # phases 1 and 15
+    python3 chip_smoke.py --scenarios-only  # phases 1 and 16
 
-Fifteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Sixteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script). In a run of every phase, phase 4
 runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
 7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
@@ -264,12 +265,11 @@ phase prints its seconds.
 13. the relay tier and the round profiler (every check fatal): four port
    clients over localhost gRPC on the card, phase 12's three and a fourth
    from the same generator (``seed=2``; the consensus V printed), K=50,
-   H=(100, 100), B=256, 2 epochs (8 local steps a client; (b) stops at the
-   root's ninth round, (c) at its eighth), under a port root at the JAX
-   defaults
+   H=(100, 100), B=256, under a port root at the JAX defaults
    (``min_clients`` = its direct members), relays 101 (clients 1, 2) and
    102 (clients 3, 4) each terminating two. (a) The four clients flat under
-   a root, then under the root and the two relays, default codec: every
+   a root, then under the root and the two relays, default codec, 1 epoch
+   (4 local steps a client, 4 root rounds): every
    leaf finished with finite losses, each relay one ``relay_preaggregated``
    per root round with ``admitted`` 2 and ``weight`` its members'
    ``nr_samples`` summed, the root's membership {101, 102}, the four leaves'
@@ -283,16 +283,18 @@ phase prints its seconds.
    split into relay fan-out, relay decode and gate, pre-reduction, upstream
    encode, root decode and mean and re-broadcast beside the flat run's ms
    per global step, and the root's bytes per round in both topologies.
-   (b) The delta codec, ``relay_grace_rounds=2`` on the root, a
-   ``save_dir`` per relay: relay 101 aborted after root round 3 and
+   (b) 2 epochs (8 local steps a client), stopped at the root's eighth
+   round; the delta codec, ``relay_grace_rounds=2`` on the root, a
+   ``save_dir`` per relay: relay 101 aborted after root round 2 and
    respawned on its address and ``save_dir`` once the grace has expired:
    ``maybe_autorecover`` at a round >= killed - 2, both members restored
    with one Ack 3 reset each, the root's
    ready with ``recovered=True``, rounds over relay 102 alone
    (``live_shards`` 1), no ``codec_ref_miss``, the run finished, and the
    root's ``RoundProfiler(dir, "1:2")`` trace written without failure; the
-   seconds from the respawn to its first round. (c) Relay 102 aborted after
-   root round 2 for good, its members with ``failover_addrs=[root]``:
+   seconds from the respawn to its first round. (c) 2 epochs, stopped at
+   the root's sixth round: relay 102 aborted after root round 2 for good,
+   its members with ``failover_addrs=[root]``:
    ``client_rehomes`` 1 on each, ``member_rehomed`` for both at the root, the run
    finished with the root's live membership {101, 3, 4}; K1-K3 launched
    once per local step in (b) and (c), every leaf stopped with its results
@@ -341,6 +343,21 @@ phase prints its seconds.
    dir: 16 four-document ``Infer`` requests through ``make_infer_stub``, no
    failure, theta rows summing to 1 within 1e-6, ``model_round`` the store's
    newest round, exit 0.
+16. the scenario matrix's headline composition (every check fatal): the
+   cell ``dir01-crash-cohort`` (Dirichlet alpha = 0.1 over three clients,
+   ``cohort:2``, the delta codec, a server aborted after round 3 and a
+   replacement that autorecovers with zero flags) at the reference's DSS/TSS
+   widths (K=50, H=(100, 100), B=64, a 5,000-word generator, 3,072
+   documents) through the port's ``run_matrix`` on ``cuda:0``, which runs
+   its no-fault twin first, every node in this process: every contract of
+   both cells green, recovery from the journal at a round >= killed - 1, no
+   ``codec_ref_miss``, K1-K3 launched once per local step the cells'
+   clients took (read from their streams), each bench row and the artifact
+   valid under ``scripts/bench_schema.py`` with ``headline_green``, and
+   K1-K3 held to their plain versions on client 1's first 64 documents at
+   the consensus V (the journal's vocabulary, the server's seeded
+   template); V, the route, rounds, seconds, median ms per server round,
+   bytes per round and the final NPMI beside the twin's.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -2763,24 +2780,32 @@ def first_batch_kernels(label: str, setup, client, kw: dict) -> None:
     """K1-K3 on ``client``'s first batch against their plain versions: the
     server's initial state (``setup``, a ``GlobalSetup``), theta from its
     encoder."""
-    import torch
-
     from gfedntm_tpu_torch.federation.client import load_global_setup
     from gfedntm_tpu_torch.federation.server import build_template_model
+
+    net = build_template_model("avitm", len(setup.vocab), kw)
+    load_global_setup(net, setup)
+    idx, mask_np = client.first_batch
+    kernels_against_plain(f"{label}'s first batch", label, net, client.dataset.X[idx], mask_np)
+
+
+def kernels_against_plain(case: str, label: str, net, x_np, mask_np) -> None:
+    """K1-K3 on one batch (``x_np`` rows, ``mask_np``) of ``net``'s shapes
+    against their plain versions: theta from its encoder, the template's
+    beta and running statistics; prints the errors and the route."""
+    import torch
+
     from gfedntm_tpu_torch.ops import _build
     from gfedntm_tpu_torch.ops import fused_decoder as fd
 
-    V, B, K = len(setup.vocab), kw["batch_size"], kw["n_components"]
-    net = build_template_model("avitm", V, kw)
-    load_global_setup(net, setup)
-    idx, mask_np = client.first_batch
-    x = torch.as_tensor(client.dataset.X[idx], device=net.device)
+    V, B, K = net.input_size, len(mask_np), net.n_components
+    x = torch.as_tensor(x_np, device=net.device)
     mask = torch.as_tensor(mask_np, device=net.device, dtype=torch.float32)
     with torch.no_grad():
         theta = net.model.encode_theta(
             x, mask=mask, generator=torch.Generator(device=net.device).manual_seed(0)).theta
     bn = net.model.beta_batchnorm
-    case = f"{label}'s first batch, B={B} K={K} V={V}"
+    case = f"{case}, B={B} K={K} V={V}"
     st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
     mean_, var_, m, s = fd.stats_reference(*st_args)
     lo_args = (theta, net.model.beta.detach(), x, mean_, var_, m, s)
@@ -4145,7 +4170,11 @@ def pacing_phase(card: str, notes: dict, raw=None) -> list:
 
 
 HIER_RELAYS = (101, 102)  # phase 13's relay ids, disjoint from the member ids 1-4
-RELAY_KILL_AFTER = 3  # 13(b) aborts relay 101 once the root has pushed this many rounds
+# 13(a)'s flat and relay runs train one epoch (4 local steps a client, 4
+# root rounds): its checks compare the two runs round by round, and client
+# 1's profiler window [2, 3) closes when round 3 begins.
+HIER_FLAT_EPOCHS = 1
+RELAY_KILL_AFTER = 2  # 13(b) aborts relay 101 once the root has pushed this many rounds
 RELAY_LOSS_AFTER = 2  # 13(c) aborts relay 102 once the root has pushed this many rounds
 # 13(b): relay 101's members' liveness window: above a member's idle gaps
 # between two polls (up to ~12 s: a root round is 4-14 s of host work in
@@ -4160,12 +4189,16 @@ HIER_LIVENESS_S = 18.0
 # still train: re-homing races the end of the run.
 DOOMED_LIVENESS_S = 3.0
 DOOMED_RECONNECT_S = 2.0
-# 13(b) stops at the root's ninth round and 13(c) at its eighth: the members
+# 13(b) stops at the root's eighth round and 13(c) at its sixth: the members
 # of the relay that was out miss the rounds of its outage, and finishing
 # their schedules would add rounds of 6-13 s of host work each (two
-# journaled relays in (b)) to the script.
-HIER_CRASH_ROUNDS = 9
-HIER_LOSS_ROUNDS = 8
+# journaled relays in (b)) to the script. (b) keeps the rounds its checks
+# need after the kill: the grace's two rounds over relay 102 alone, the
+# respawn, and the respawned relay's first rounds (19-30 s after the
+# respawn); (c)'s members re-home within a round of the kill, and the
+# run keeps three more rounds to show them live at the root.
+HIER_CRASH_ROUNDS = 8
+HIER_LOSS_ROUNDS = 6
 # 13(b): the root's probation of relay 101. A dead relay's polls fail at
 # once, with retries at the next round and two after; the respawn waits for
 # the 2-round grace, so at the default of 3 the relay had one round over
@@ -4210,7 +4243,7 @@ class Federation13:
     with its own ``MetricsLogger``."""
 
     def __init__(self, label: str, clients_raw, shards=None, root_kw=None, client_kw=None,
-                 journaled: bool = False):
+                 journaled: bool = False, num_epochs: int = 2):
         import numpy as np
 
         from gfedntm_tpu_torch.federation.server import FederatedServer
@@ -4218,7 +4251,7 @@ class Federation13:
 
         self.label = label
         self.kw = dict(n_components=50, hidden_sizes=(100, 100), batch_size=256,
-                       num_epochs=2, seed=0)
+                       num_epochs=num_epochs, seed=0)
         self.save = SCRATCH / f"hierarchy_{label}"
         shutil.rmtree(self.save, ignore_errors=True)  # a fresh federation
         self.root_log = MetricsLogger(node="root", keep_records=True)
@@ -4372,7 +4405,7 @@ def hierarchy_flat_phase(card: str, notes: dict, clients_raw) -> None:
     from gfedntm_tpu_torch.federation.relay import RelayNode
     from gfedntm_tpu_torch.utils.observability import RoundProfiler
 
-    flat = Federation13("a-flat", clients_raw)
+    flat = Federation13("a-flat", clients_raw, num_epochs=HIER_FLAT_EPOCHS)
     flat_s = flat.run()
     flat.check_leaves(notes)
     prof = RoundProfiler(str(SCRATCH / "profile_a"), "2:3", metrics=None)
@@ -4405,7 +4438,7 @@ def hierarchy_flat_phase(card: str, notes: dict, clients_raw) -> None:
     RelayNode._pre_reduce = timed(pre_reduce, relay_times["pre-reduction"])
     RelayNode._encode_upstream = timed(encode, relay_times["upstream encode"])
     try:
-        hier = Federation13("a", clients_raw, shards=shards)
+        hier = Federation13("a", clients_raw, shards=shards, num_epochs=HIER_FLAT_EPOCHS)
         prof.metrics = hier.logs[0]
         hier.clients[0].profiler = prof
         prof.device = hier.clients[0].device
@@ -4457,7 +4490,7 @@ def hierarchy_flat_phase(card: str, notes: dict, clients_raw) -> None:
         # hold the hierarchy's spread to that of a witness whose only
         # difference from the flat run is the mean's association (the
         # clients in the reverse order, so the sum runs the other way).
-        witness = Federation13("a-witness", clients_raw[::-1])
+        witness = Federation13("a-witness", clients_raw[::-1], num_epochs=HIER_FLAT_EPOCHS)
         witness.run()
         witness.check_leaves(notes)
         check(witness.root.global_iterations == R, "phase 13(a): witness rounds")
@@ -5400,6 +5433,140 @@ def cli_phase(card: str, result=None) -> None:
     print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the scenario matrix's headline composition
+# ---------------------------------------------------------------------------
+SCENARIO_CELL = "dir01-crash-cohort"
+# The reference's DSS/TSS model (``SimulationConfig``, its ``config.json``):
+# 50 topics, H=(100, 100), B=64 over a 5,000-word generator; the matrix's
+# own cells are CPU-sized (V=100, K=4, H=(16,)).
+SCENARIO_WIDTHS = dict(n_topics=50, n_components=50, hidden_sizes=(100, 100), batch_size=64,
+                       vocab_size=5_000, total_docs=3_072)
+
+
+def cell_local_steps(workdir: str) -> int:
+    """The local steps a cell's clients took, from their streams alone: each
+    client's stepper times every step but its first (``stepper_step_s``),
+    and a client that answered a poll took at least one."""
+    from gfedntm_tpu_torch.utils.observability import read_metrics
+
+    steps = 0
+    for path in sorted(Path(workdir).glob("client*/metrics.jsonl")):
+        last = {}
+        for r in read_metrics(str(path)):
+            if r.get("event") == "metrics_snapshot":
+                last = r["metrics"]
+        polls = (last.get("client_polls") or {}).get("value", 0)
+        timed = (last.get("stepper_step_s") or {}).get("count", 0)
+        steps += timed + 1 if polls else 0
+    return int(steps)
+
+
+def scenario_phase(card: str, notes: dict) -> None:
+    """Phase 16: ``dir01-crash-cohort`` at the reference's widths and its
+    no-fault twin through the port's ``run_matrix`` on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.data.vocab import Vocabulary, vectorize
+    from gfedntm_tpu_torch.federation.server import build_template_model
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.scenarios import (
+        build_corpora,
+        cell_bench_row,
+        default_matrix,
+        emit_artifact,
+        run_matrix,
+    )
+    from gfedntm_tpu_torch.scenarios import runner
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger, read_metrics
+
+    t_phase = time.perf_counter()
+    headline = {c.name: c for c in default_matrix()}[SCENARIO_CELL]
+    cell = dataclasses.replace(headline, **SCENARIO_WIDTHS)
+    workdir = SCRATCH / "scenarios"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    harness = MetricsLogger(str(workdir / "metrics.jsonl"), node="scenarios", validate=True)
+    fd.reset_launches()
+    try:
+        results = run_matrix([cell], str(workdir), metrics=harness, device="cuda:0")
+    finally:
+        harness.close()
+    torch.cuda.synchronize()
+    launches = dict(fd.LAUNCHES)
+    names = [r.cell.name for r in results]
+    check(names == [f"{SCENARIO_CELL}-baseline", SCENARIO_CELL],
+          f"phase 16: run_matrix ran {names}")
+    crash = results[1]
+    for res in results:
+        red = {k: v["detail"] for k, v in res.contracts.items() if not v["ok"]}
+        print(f"scenarios, {card}: {res.cell.name}: ok {res.ok}, {res.evidence['rounds']} "
+              f"rounds in {res.seconds:.2f} s; contracts "
+              f"{ {k: v['ok'] for k, v in res.contracts.items()} }"
+              + (f"; red {red}; error {res.evidence.get('error')}" if red else ""), flush=True)
+        check(res.ok, f"phase 16: {res.cell.name}: red contracts {red}")
+        check(res.evidence["counters"]["codec_ref_miss"] == 0,
+              f"phase 16: {res.cell.name}: codec_ref_miss {res.evidence['counters']}")
+    rec = crash.evidence["recovery"] or {}
+    check(rec.get("recovered") and rec.get("source") == "journal"
+          and rec["resumed_round"] >= rec["killed_round"] - 1,
+          f"phase 16: recovery {rec}")
+    steps = {r.cell.name: cell_local_steps(r.workdir) for r in results}
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == sum(steps.values()),
+              f"phase 16: {name} launched {launches[name]} times, the clients took "
+              f"{steps} local steps")
+        notes[name] += f"; phase 16 scenario matrix ({SCENARIO_CELL} and its twin): " \
+                       f"{launches[name]} launches"
+    try:  # each row and the artifact are validated where they are emitted
+        for res in results:
+            cell_bench_row(res)
+        artifact = emit_artifact(results, rev="r00")
+    except ValueError as err:
+        raise SmokeFailure(f"phase 16: {err}") from err
+    check(artifact["acceptance"]["headline_green"]
+          and artifact["acceptance"]["headline_cell"] == SCENARIO_CELL,
+          f"phase 16: acceptance {artifact['acceptance']}")
+    # K1-K3 against their plain versions on a batch of client 1's corpus at
+    # the cell's V: the consensus vocabulary from the server's journal, the
+    # template the server builds from the cell's seed.
+    journal = json.loads((Path(crash.workdir) / "server" / "checkpoints"
+                          / "journal.json").read_text())
+    vocab = Vocabulary(tuple(journal["vocab"]))
+    kw = runner._model_kwargs(cell)
+    net = build_template_model("avitm", len(vocab), kw)
+    corpora, _ref = build_corpora(cell)
+    X = vectorize(corpora[0].documents, vocab)
+    B = cell.batch_size
+    kernels_against_plain("client 1's first documents", "scenarios", net, X[:B],
+                          np.ones(B, dtype=np.float32))
+    V = len(vocab)
+
+    def rounds(server_dir: Path) -> list:
+        return [r for r in read_metrics(str(server_dir / "metrics.jsonl"))
+                if r.get("event") == "span" and r.get("name") == "round"]
+
+    killed, recovered = (rounds(Path(crash.workdir) / d) for d in ("server", "server_recovered"))
+    print(f"scenarios, {card}: V={V} (the {16 if V % 4 == 0 else 4}-byte cp.async ring); "
+          f"local steps {steps}; launches {nonzero(launches)}; recovery {rec}, "
+          f"{recovered[0]['time'] - killed[-1]['time']:.3f} s from the killed server's last "
+          f"round to the replacement's first", flush=True)
+    for res in results:
+        spans = [r for d in sorted(Path(res.workdir).glob("server*")) for r in rounds(d)]
+        ms = float(np.median([r["seconds"] for r in spans])) * 1e3
+        per_round = float(np.median([r.get("bytes_pulled", 0) + r.get("bytes_pushed", 0)
+                                     for r in spans])) / 1e6
+        print(f"scenarios {res.cell.name}, {card}: {res.evidence['rounds']} rounds, "
+              f"{res.seconds:.2f} s; median {ms:.3f} ms per round ({len(spans)} round spans), "
+              f"{per_round:.3f} MB per round pulled and pushed; NPMI final "
+              f"{res.evidence['npmi_final']:.4f} (baseline {res.evidence['baseline_npmi']:.4f}, "
+              f"tolerance {res.cell.npmi_tol:g})", flush=True)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -5412,23 +5579,25 @@ def main(argv: list[str]) -> int:
     hier_only = "--hierarchy-only" in argv
     serve_only = "--serving-only" in argv
     cli_only = "--cli-only" in argv
+    scenarios_only = "--scenarios-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
-                                         "--cli-only")]
+                                         "--cli-only", "--scenarios-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
-            or pacing_only or hier_only or serve_only or cli_only)
+            or pacing_only or hier_only or serve_only or cli_only or scenarios_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
-            + privacy_only + pacing_only + hier_only + serve_only + cli_only > 1
+            + privacy_only + pacing_only + hier_only + serve_only + cli_only
+            + scenarios_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
-              "--cli-only]", file=sys.stderr)
+              "--cli-only | --scenarios-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5488,6 +5657,9 @@ def main(argv: list[str]) -> int:
         if cli_only:
             cli_phase(card)
             return 0
+        if scenarios_only:
+            scenario_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
 
         def timed(n, fn, *args):
             t0 = time.perf_counter()
@@ -5513,6 +5685,7 @@ def main(argv: list[str]) -> int:
             hierarchy_phase(card, notes, pacing_phase(card, notes, raw))
             serving_phase(card, notes, raw, phase9)
             cli_phase(card, result)
+            scenario_phase(card, notes)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

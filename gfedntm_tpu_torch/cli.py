@@ -19,10 +19,11 @@ reference does (``main.py:178-291``):
 Six readers take a run's telemetry instead of producing it, and print what
 the JAX CLI's print on the same streams: ``summarize``, ``report`` (with
 ``--assert-monotone-coherence``), ``trace``, ``slo``, ``privacy`` and
-``incident``. Two inputs stay out, each with exit code 2: the
-``scenarios`` subcommand (its package is not ported; ROADMAP.md queue 1
-item 5) and ``--mesh_devices`` above 1 (one client over several devices;
-queue 1 item 6), which the JAX CLI meets by forcing virtual CPU devices.
+``incident``. ``scenarios`` runs the scenario matrix over the port's nodes
+(:func:`run_scenarios`, with ``--device``). One input stays out, with exit
+code 2: ``--mesh_devices`` above 1 (one client over several devices;
+ROADMAP.md queue 1), which the JAX CLI meets by forcing virtual CPU
+devices.
 
 Data paths mirror ``main.py:138-152``: synthetic ``.npz`` archives (node
 ``id-1`` of a multi-node archive) or real ``.parquet`` filtered by ``--fos``.
@@ -37,6 +38,7 @@ import datetime as _dt
 import json
 import logging
 import os
+import re
 import sys
 from typing import Any
 
@@ -62,8 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
             "quality report — coherence/drift trajectory, per-client "
             "contributions (README 'Model-quality observability'); "
             "'slo', 'privacy' and 'incident' gate on SLO specs, the "
-            "privacy ledger and incident bundles. 'scenarios' is not "
-            "ported yet (ROADMAP.md queue 1 item 5)."
+            "privacy ledger and incident bundles. 'scenarios' runs the "
+            "scenario matrix — real federations under composed non-IID "
+            "data + fault personas with per-cell graceful-degradation "
+            "contracts (README 'Scenario matrix')."
         ),
     )
     p.add_argument("--id", type=int, default=None,
@@ -1136,14 +1140,118 @@ def run_report(argv: list[str]) -> int:
 # ---- scenario matrix (`scenarios` subcommand) -------------------------------
 
 def run_scenarios(argv: list[str]) -> int:
-    """``scenarios``: the JAX CLI's scenario matrix. Its package is not
-    ported yet, so the subcommand exits with code 2 and says where it is
-    queued."""
-    print(
-        "scenarios: the scenario matrix is not ported yet (ROADMAP.md "
-        "queue 1 item 5)", file=sys.stderr,
+    """``scenarios``: run the scenario matrix — real in-process
+    federations under composed data personas (Dirichlet-α non-IID,
+    vocabulary skew, client-size imbalance), fault personas (slow
+    network, partition, flapping, server crash), policy axes (pacing ×
+    aggregator × robust estimator), and workloads (AVITM, CTM) — and
+    assert each cell's graceful-degradation contracts against its
+    no-fault baseline twin (README "Scenario matrix"). Exits non-zero
+    when any contract is red, so CI can gate on composition, not just
+    on each resilience plane in isolation. The JAX subcommand's parser,
+    output lines, revision label and exit codes, plus ``--device`` for
+    every node of every cell (default the GPU; without CUDA the command
+    fails unless ``--device cpu`` asks for the CPU)."""
+    p = argparse.ArgumentParser(
+        prog="gfedntm-tpu scenarios",
+        description="Run the scenario matrix and assert per-cell "
+                    "graceful-degradation contracts.",
     )
-    return 2
+    p.add_argument("--cells", default=None,
+                   help="comma-separated cell names to run (default: the "
+                        "whole matrix); a faulted cell automatically "
+                        "pulls in its no-fault baseline twin")
+    p.add_argument("--list", action="store_true", dest="list_cells",
+                   help="list the matrix cells and exit")
+    p.add_argument("--workdir", default="output/scenarios",
+                   help="per-cell save dirs + the harness metrics.jsonl "
+                        "(default output/scenarios)")
+    p.add_argument("--out", default=None,
+                   help="write the BENCH_SCENARIO artifact JSON here "
+                        "(schema kind 'scenario_bench')")
+    p.add_argument("--fast", action="store_true",
+                   help="shrink every cell (fewer docs/epochs) — the "
+                        "check.sh SCENARIO=1 smoke regime")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device of every node of every cell (default: "
+                        "the GPU; without CUDA the command fails unless "
+                        "--device cpu asks for the CPU)")
+    args = p.parse_args(argv)
+
+    from gfedntm_tpu_torch.scenarios import (
+        cell_bench_row,
+        default_matrix,
+        emit_artifact,
+        run_matrix,
+    )
+
+    cells = default_matrix()
+    if args.list_cells:
+        for c in cells:
+            print(
+                f"{c.name:28s} workload={c.workload:5s} data={c.data:24s} "
+                f"fault={c.fault:12s} pacing={c.pacing:8s} "
+                f"agg={c.aggregator}"
+                + (f"+{c.robust}" if c.robust else "")
+                + (f" codec={c.wire_codec}" if c.wire_codec != "none"
+                   else "")
+            )
+        return 0
+    if args.cells:
+        wanted = [n.strip() for n in args.cells.split(",") if n.strip()]
+        known = {c.name for c in cells}
+        unknown = [n for n in wanted if n not in known]
+        if unknown:
+            raise SystemExit(
+                f"unknown cell name(s) {unknown}; run with --list to see "
+                "the matrix"
+            )
+        cells = [c for c in cells if c.name in wanted]
+    device = _device(args)
+
+    from gfedntm_tpu_torch.utils.observability import MetricsLogger
+
+    os.makedirs(args.workdir, exist_ok=True)
+    metrics = MetricsLogger(
+        os.path.join(args.workdir, "metrics.jsonl"), node="scenarios",
+        validate=True,
+    )
+    try:
+        results = run_matrix(
+            cells, args.workdir, fast=args.fast, metrics=metrics,
+            device=device,
+        )
+    finally:
+        metrics.snapshot_registry()
+        metrics.close()
+
+    for res in results:
+        print(json.dumps(cell_bench_row(res), default=float))
+    ok = all(r.ok for r in results)
+    if args.out:
+        # Artifact revision label, matching the BENCH_* convention
+        # ("r01"): taken from the output filename's rNN suffix.
+        m = re.search(r"_r(\d+)\.json$", os.path.basename(args.out))
+        rev = f"r{m.group(1)}" if m else "r00"
+        artifact = emit_artifact(results, rev=rev)
+        out_dir = os.path.dirname(os.path.abspath(args.out))
+        os.makedirs(out_dir, exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(artifact, fh, indent=1, default=float)
+            fh.write("\n")
+        print(f"wrote {args.out}: {len(results)} cells, "
+              f"all_contracts_green={artifact['acceptance']['all_contracts_green']}")
+    if not ok:
+        for res in results:
+            for name, verdict in res.contracts.items():
+                if not verdict["ok"]:
+                    print(
+                        f"contract FAILED: {res.cell.name}.{name}: "
+                        f"{verdict['detail']}",
+                        file=sys.stderr,
+                    )
+        return 1
+    return 0
 
 
 # ---- cross-node trace merge (`trace` subcommand) ----------------------------

@@ -1,7 +1,9 @@
 """Synthetic LDA corpus generator (vectorized, seedable).
 
 A copy of ``gfedntm_tpu/data/synthetic.py`` (``SyntheticNode``,
-``SyntheticCorpus``, ``generate_synthetic_corpus``, ``save_reference_npz``,
+``SyntheticCorpus``, ``generate_synthetic_corpus``, ``dominant_topics`` and
+``apply_vocabulary_skew``, the scenario matrix's label axis and
+vocabulary-skew persona (``synthetic.py:120-161``), ``save_reference_npz``,
 the writer of a reference-format archive that the command line's
 ``--source`` takes, and ``load_reference_npz`` with its
 ``_bow_from_wd_docs``, its reader, which the quality monitor's
@@ -112,6 +114,50 @@ def generate_synthetic_corpus(
     return SyntheticCorpus(
         topic_vectors=topic_vectors, nodes=nodes, vocab_tokens=vocab_tokens
     )
+
+
+def dominant_topics(node: SyntheticNode) -> np.ndarray:
+    """Per-doc dominant-topic labels from the ground-truth doc-topic
+    proportions — the label axis the Dirichlet-α partitioner
+    (:func:`gfedntm_tpu_torch.data.loaders.heterogeneous_partition`) skews."""
+    return np.argmax(np.asarray(node.doc_topics), axis=1)
+
+
+def apply_vocabulary_skew(
+    documents: list[str],
+    client_id: int,
+    private_frac: float,
+    seed: int = 0,
+) -> list[str]:
+    """Pathological vocabulary skew persona: remap a seeded fraction of
+    this client's vocabulary TYPES into a client-private token namespace
+    (``c<id>x<token>``), so the federation's consensus vocabulary becomes
+    a mostly-disjoint union — the regime that stresses vocab consensus
+    and cross-client topic alignment (README "Scenario matrix").
+
+    The privatize decision is per token type (first occurrence order),
+    deterministic for a fixed ``(seed, client_id)`` and document order;
+    every occurrence of a privatized type is rewritten consistently.
+    """
+    if not 0.0 <= private_frac <= 1.0:
+        raise ValueError(
+            f"private_frac must be in [0, 1], got {private_frac}"
+        )
+    rng = np.random.default_rng([int(seed), int(client_id)])
+    mapping: dict[str, str] = {}
+    out = []
+    for doc in documents:
+        toks = []
+        for tok in doc.split():
+            if tok not in mapping:
+                mapping[tok] = (
+                    f"c{client_id}x{tok}"
+                    if rng.random() < private_frac
+                    else tok
+                )
+            toks.append(mapping[tok])
+        out.append(" ".join(toks))
+    return out
 
 
 def save_reference_npz(corpus: SyntheticCorpus, path: str, **meta) -> None:

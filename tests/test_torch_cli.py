@@ -24,8 +24,8 @@ JAX package's.
   ``server_model.npz`` and leaves the clients' shared state bitwise equal;
   a port client joins a JAX ``python main.py --id 0`` server.
 - Refusals: without CUDA and without ``--device cpu`` every role exits
-  nonzero with a message; ``scenarios`` and ``--mesh_devices`` above 1
-  exit with code 2.
+  nonzero with a message, ``scenarios`` too; ``--mesh_devices`` above 1
+  exits with code 2.
 
 No tolerance is involved: every comparison here is equality.
 """
@@ -338,9 +338,17 @@ def test_a_role_process_exits_nonzero_without_cuda(tmp_path):
     assert "CUDA is not available" in proc.stderr
 
 
-def test_scenarios_is_refused_with_code_2(capsys):
-    assert cli.main(["scenarios", "--fast"]) == 2
-    assert "queue 1 item 5" in capsys.readouterr().err
+def test_scenarios_is_refused_with_code_2(capsys, monkeypatch):
+    """The ported subcommand refuses a flag it does not know with code 2,
+    as argparse does, and a host without CUDA without ``--device cpu``
+    with the message every role prints."""
+    with pytest.raises(SystemExit) as err:
+        cli.main(["scenarios", "--fast", "--no-such-flag"])
+    assert err.value.code == 2
+    assert "--no-such-flag" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        cli.main(["scenarios", "--fast", "--cells", "iid-sync-fedavg"])
 
 
 @pytest.mark.parametrize("argv", [["--id", "1", "--source", "x.npz"], ["--source", "x.npz"]])

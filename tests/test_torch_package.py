@@ -106,7 +106,9 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.train.guardian",
                  "gfedntm_tpu_torch.cli", "gfedntm_tpu_torch.config",
                  "gfedntm_tpu_torch.presets", "gfedntm_tpu_torch.data.local_corpus",
-                 "gfedntm_tpu_torch.__main__"):
+                 "gfedntm_tpu_torch.__main__", "gfedntm_tpu_torch.scenarios",
+                 "gfedntm_tpu_torch.scenarios.personas", "gfedntm_tpu_torch.scenarios.contracts",
+                 "gfedntm_tpu_torch.scenarios.runner"):
         assert name in names, name
 
 

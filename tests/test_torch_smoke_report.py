@@ -3,8 +3,8 @@ run, on the CPU: kernel names from mangled symbols, the tensor-core
 instruction check over every instantiation of K1, K2 and K3, ptxas' spill
 report, and the exit codes without a card or with bad arguments; with a
 card faked and every phase stubbed, the order of the phases (phase 14 on
-phase 9's store, phase 15 last on phase 3's fit; phases 5 to 8 on phase 4's
-rank groups) and of the output lines (the script's own seconds before the
+phase 9's store, phase 15 on phase 3's fit, phase 16 last; phases 5 to 8 on
+phase 4's rank groups) and of the output lines (the script's own seconds before the
 ``kernels`` line, the ``ok`` line last). The script is imported by path."""
 
 import importlib.util
@@ -110,7 +110,9 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
                                   ["--serving-only", "--federation-only"],
                                   ["--serving-only", "--against", "."],
                                   ["--cli-only", "--serving-only"],
-                                  ["--cli-only", "--against", "."]])
+                                  ["--cli-only", "--against", "."],
+                                  ["--scenarios-only", "--cli-only"],
+                                  ["--scenarios-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
@@ -118,7 +120,7 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
 
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
                                   ["--data-parallel-only"], ["--hierarchy-only"],
-                                  ["--serving-only"], ["--cli-only"]])
+                                  ["--serving-only"], ["--cli-only"], ["--scenarios-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -204,7 +206,7 @@ def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
 PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_phase",
           "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
           "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
-          "serving_phase", "cli_phase")
+          "serving_phase", "cli_phase", "scenario_phase")
 
 
 @pytest.fixture()
@@ -241,10 +243,11 @@ def faked(smoke, monkeypatch):
 
 
 def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys):
-    """Phase 14 runs on phase 7(b)'s corpora and phase 9's store, and phase
-    15, the command line, runs last on phase 3's fit; phases 5 to 8 read
-    phase 4's rank groups; the script's own seconds come before the
-    ``kernels`` line, and the ``ok`` line is the last."""
+    """Phase 14 runs on phase 7(b)'s corpora and phase 9's store, phase 15,
+    the command line, on phase 3's fit, and phase 16, the scenario matrix,
+    last with the kernels' notes; phases 5 to 8 read phase 4's rank groups;
+    the script's own seconds come before the ``kernels`` line, and the
+    ``ok`` line is the last."""
     import json
 
     assert smoke.main([]) == 0
@@ -252,6 +255,7 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     calls = dict(faked)
     assert calls["serving_phase"][2:] == ("raw", "phase9")
     assert calls["cli_phase"][1:] == ("result",)
+    assert calls["scenario_phase"] == ("FAKE H100, 700.00 W", {"stats": ""})
     assert calls["persistence_phase"][-3:] == ("X", "kw", "validation")
     groups = {"validation": "validation"}
     assert calls["data_parallel_phase"][-1] == calls["decodes_and_text_phase"][-1] == groups
@@ -285,3 +289,36 @@ def test_cli_only_runs_phase_15_alone(smoke, faked, capsys):
     assert faked[0][1] == ("FAKE H100, 700.00 W",)
     out = capsys.readouterr().out
     assert '"ok"' not in out and "kernels" not in out
+
+
+def test_scenarios_only_runs_phase_16_alone(smoke, faked, capsys):
+    """``--scenarios-only`` runs phase 16 with nothing before it; it prints
+    no result lines."""
+    assert smoke.main(["--scenarios-only"]) == 0
+    assert [name for name, _ in faked] == ["scenario_phase"]
+    card, notes = faked[0][1]
+    assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "kernels" not in out
+
+
+def test_cell_local_steps_reads_the_clients_streams(smoke, tmp_path):
+    """Phase 16 counts a cell's local steps from its clients' last snapshots:
+    ``stepper_step_s`` times every step but a client's first, and a client
+    that answered no poll took none."""
+    import json
+
+    def stream(name, *snapshots):
+        path = tmp_path / name / "metrics.jsonl"
+        path.parent.mkdir()
+        path.write_text("".join(json.dumps({"event": "metrics_snapshot", "time": float(i),
+                                            "metrics": m}) + "\n"
+                                for i, m in enumerate(snapshots)))
+
+    polled = {"client_polls": {"type": "counter", "value": 3.0}}
+    stream("client1", {**polled, "stepper_step_s": {"type": "histogram", "count": 2}},
+           {**polled, "stepper_step_s": {"type": "histogram", "count": 32}})
+    stream("client2", polled)
+    stream("client3", {"client_polls": {"type": "counter", "value": 0.0}})
+    stream("server", {**polled, "stepper_step_s": {"type": "histogram", "count": 99}})
+    assert smoke.cell_local_steps(str(tmp_path)) == 33 + 1 + 0
