@@ -15,14 +15,17 @@
     python3 chip_smoke.py --serving-only  # phases 1, 9 and 14
     python3 chip_smoke.py --cli-only      # phases 1 and 15
     python3 chip_smoke.py --scenarios-only  # phases 1 and 16
+    python3 chip_smoke.py --mesh-only     # phases 1 and 17
+    python3 chip_smoke.py --experiments-only  # phases 1 and 18
 
-Sixteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Eighteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script). In a run of every phase, phase 4
 runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
 7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
 group's start-up, warm-up and teardown are paid twice rather than ten times;
-each phase checks its programs' results where it did before. Every
-phase prints its seconds.
+each phase checks its programs' results where it did before. Phases 17 and
+18 run beside earlier phases (their text says how). Every phase prints its
+seconds.
 
 1. build — compile the fused decoder's CUDA kernels from
    ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
@@ -358,6 +361,49 @@ phase prints its seconds.
    the consensus V (the journal's vocabulary, the server's seeded
    template); V, the route, rounds, seconds, median ms per server round,
    bytes per round and the final NPMI beside the twin's.
+17. one client over several devices, and the trainer over client ranks
+   (every check fatal): (a) two programs of a rank group of 2 of their own
+   (gloo on ``cuda:0`` on a one-card host; in a run of every phase run on a
+   thread of this process from the start of phase 13): the data-parallel
+   ``FederatedStepper`` of one client of phase 3's corpus (1,024 documents, V=100,000, K=50,
+   H=(100, 100), B=256, ``fused_decoder=False``) for 8 local steps, beta
+   within 1e-4 of the one-rank stepper's after every step, or within the
+   spread of a witness (the one-rank stepper through the fused kernels: no
+   larger than 1.5x its max or 4 lr, and no more than 1.5x its entries past
+   1e-4, as phases 4 and 6(b) hold beta after Adam), its batch axis
+   padded to a multiple of 2, its state bitwise equal on both ranks and no
+   kernel launched; and ``FederatedTrainer`` over 2 client ranks at phase
+   3's configuration, bitwise equal to phase 3's one-device fit (else within
+   1e-6, the reason printed), 8 launches of each of K1-K3 per rank, the
+   shared state bitwise equal across ranks, ``federated_mesh_devices`` 2;
+   (b) a server, client 1 with ``--mesh_devices 2`` and client 2 on one
+   device, each a ``python -m gfedntm_tpu_torch`` process, on phase 15's
+   archive and INI (V=66,001), 8 global steps: every process exits 0, the
+   clients' betas bitwise equal after the last aggregate, the mesh client's
+   ranks bitwise equal (its ``mesh_ranks`` record), K1-K3 in client 2's
+   trace and none in the mesh client's (the unfused decode, as the JAX
+   mesh client); the median ms per global step beside phase 15(b)'s. In a
+   run of every phase, (b)'s processes start in phase 15, once its archive
+   is written, and run beside phases 15 and 16, so their seconds are taken
+   beside each other.
+18. the experiment harnesses (every check fatal): one DSS/TSS iteration of
+   ``run_simulation`` at the reference's widths (V=5,000, K=50, H=(100,
+   100), B=64, lr 2e-3, 5 nodes, eta 0.01, 10 frozen topics) on ``cuda:0``,
+   cut to 2,000 training and 200 held-out documents a node (of 10,000 and
+   1,000), 10 epochs (of 100) and one iteration (of 20): every arm's TSS
+   and DSS finite, TSS centralized > non-collaborative > random, DSS
+   centralized < non-collaborative, K1-K3 once per training step of the six
+   fits (each at its corpus's V, its ring printed) and within tolerance of
+   their plain versions on the centralized fit's first batch,
+   ``results.json`` with the keys of the JAX artifact
+   ``results/dss_tss_eta001/results.json`` and ``meta["backend"]`` ``cuda``;
+   then ``TMWrapper.train_model`` and ``evaluate_model`` of an AVITM on the
+   centralized corpus, its NPMI, inverted RBO and topic diversity finite.
+   Each arm's seconds, steps and scores print beside the published means
+   (for reading: the run is cut). In a run of every phase, phase 18 runs in
+   a process of its own (``spawn``; it counts its own launches) from the
+   start of phase 13 and phase 17 waits for it, so its seconds are taken
+   beside phases 13-17.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -5080,16 +5126,18 @@ def serving_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
 #: ``main`` removes it.
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
 #: Each phase 15 process's own limit, in seconds.
-CLI_LIMIT_S = {"simulate": 120.0, "server": 150.0, "client": 150.0, "serve": 60.0}
+CLI_LIMIT_S = {"simulate": 120.0, "server": 150.0, "client": 150.0, "serve": 90.0,
+               "mesh server": 240.0, "mesh client": 240.0}
 #: 15(b)'s server: global steps (1,024 documents a client, B=256, 2 epochs).
 CLI_STEPS = 8
 #: 15(c): Infer requests of CLI_REQUEST_DOCS documents each, and the serve
-#: process's ``--serve_duration`` (seconds after its plane starts). On an H100
-#: host the plane turned ready 6 s to over 8 s after it started when alone,
-#: and 13 s after beside another process's start: the model modules' first
-#: import (with torch.distributed's), the CUDA context, the journal's load and
-#: the warm-up. The 16 requests take under a second.
-CLI_REQUESTS, CLI_REQUEST_DOCS, CLI_SERVE_S = 16, 4, 15.0
+#: process's ``--serve_duration`` (seconds after its plane starts), a backstop:
+#: the phase ends the process with SIGINT once its requests are answered. On
+#: an H100 host the plane turned ready 6 s to over 8 s after it started when
+#: alone, and 13-23 s after beside other processes' starts: the model modules'
+#: first import (with torch.distributed's), the CUDA context, the journal's
+#: load and the warm-up.
+CLI_REQUESTS, CLI_REQUEST_DOCS, CLI_SERVE_S = 16, 4, 40.0
 CLI_INI = """\
 [ntms]
 n_components = 50
@@ -5302,6 +5350,7 @@ def cli_federation_phase(card: str, archive: Path, ini: Path) -> tuple:
     up_b = float(np.median([r["bytes_pulled"] for r in steady]))
     down_b = float(np.median([r["bytes_pushed"] for r in steady]))
     phase9 = STEADY_MS.get("phase 9")
+    STEADY_MS["phase 15"] = ms
     print(f"cli (b) wire federation, {card}: server, client 1 and client 2 in processes of "
           f"their own, each exit 0 (wall {', '.join(f'{w:.1f}' for w in walls)} s; the server "
           f"listened after {up:.1f} s); global V={V}, {len(rounds)} rounds; median ms per "
@@ -5389,6 +5438,11 @@ def cli_serve_phase(card: str, corpus, fed: Path, published: int, last_round: in
             ms.append((time.perf_counter() - t0) * 1e3)
             thetas.append(theta)
             model_rounds.add(model_round)
+        # The requests are answered: interrupt the plane (the serve role
+        # drains and exits 0 on SIGINT) rather than wait out its duration.
+        import signal
+
+        proc.proc.send_signal(signal.SIGINT)
         wall = proc.finish()
     finally:
         proc.stop()
@@ -5408,12 +5462,14 @@ def cli_serve_phase(card: str, corpus, fed: Path, published: int, last_round: in
           f"newest {published}")
 
 
-def cli_phase(card: str, result=None) -> None:
+def cli_phase(card: str, result=None, start_mesh: bool = False):
     """Phase 15: (a) ``simulate`` beside (b)'s start-up (the processes'
     imports, the joins and the consensus, before the rounds whose median
     (b) reads), then (c) the serving plane alone, every node a ``python -m
     gfedntm_tpu_torch`` process on the card; phase 3's float32 fit is
-    ``result`` (run in (a) when ``None``)."""
+    ``result`` (run in (a) when ``None``). With ``start_mesh``, 17(b)'s
+    processes (:class:`MeshFederation`) start once the archive is written
+    and run beside (a)-(c); they are returned, running."""
     from gfedntm_tpu_torch.data.synthetic import generate_synthetic_corpus, save_reference_npz
 
     t_phase = time.perf_counter()
@@ -5427,10 +5483,18 @@ def cli_phase(card: str, result=None) -> None:
     ini.write_text(CLI_INI)
     print(f"cli: phase 3's corpus as a reference archive ({archive.stat().st_size / 1e6:.1f} "
           f"MB) in {time.perf_counter() - t0:.1f} s", flush=True)
-    fed, published, last_round = cli_simulate_phase(
-        card, corpus, archive, ini, result, lambda: cli_federation_phase(card, archive, ini))
-    cli_serve_phase(card, corpus, fed, published, last_round)
-    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    federation = MeshFederation(archive, ini).start() if start_mesh else None
+    try:
+        fed, published, last_round = cli_simulate_phase(
+            card, corpus, archive, ini, result, lambda: cli_federation_phase(card, archive, ini))
+        cli_serve_phase(card, corpus, fed, published, last_round)
+    except BaseException:
+        if federation is not None:
+            federation.stop()
+        raise
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})"
+          + (", 17(b)'s processes beside it" if start_mesh else ""), flush=True)
+    return federation
 
 
 # ---------------------------------------------------------------------------
@@ -5567,6 +5631,510 @@ def scenario_phase(card: str, notes: dict) -> None:
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 17: one client over several devices, and the trainer over client ranks
+# ---------------------------------------------------------------------------
+MESH_RANKS = 2  # 17(a)'s and 17(b)'s ranks (gloo on cuda:0 on a one-card host)
+MESH_STEPS = 8  # 17(a)'s mesh stepper: local steps of one client
+MESH_BETA_TOL = 1e-4  # 17(a): beta, 2 ranks vs 1 (tests/test_multichip.py:277-302), or a witness's spread
+#: 17(a)'s fallback bound of the trainer over ranks against phase 3's fit,
+#: used only when the two are not bitwise equal (the reason is printed).
+MESH_FALLBACK_TOL = 1e-6
+MESH_KW = dict(input_size=100_000, n_components=50, hidden_sizes=(100, 100), batch_size=256,
+               num_epochs=2)
+
+
+def mesh_calls(datasets: list) -> dict:
+    """Phase 17(a)'s rank programs for :func:`rank_groups` (2 ranks): the
+    mesh stepper on client 1's corpus of phase 3, and the trainer over 2
+    client ranks on both of phase 3's corpora at phase 3's settings."""
+    from gfedntm_tpu_torch.parallel import programs
+
+    corpora = [shared(d.X) for d in datasets]
+    return {
+        "mesh stepper": (MESH_RANKS, programs.mesh_steps,
+                         ({**MESH_KW, "fused_decoder": False}, corpora[0], MESH_STEPS)),
+        "mesh trainer": (MESH_RANKS, programs.federated_fit, (MESH_KW, corpora)),
+    }
+
+
+def start_mesh_programs(datasets: list):
+    """17(a)'s rank group (:func:`mesh_calls`) on a thread of this process,
+    which only waits for its ranks; returns the future of its results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(rank_groups, mesh_calls(datasets))
+    pool.shutdown(wait=False)
+    return future
+
+
+def mesh_stepper_check(card: str, res: list, X) -> None:
+    """17(a)'s mesh stepper against the one-rank stepper on the card (the
+    same state, schedule and noise, the unfused decode): beta within 1e-4
+    after every step (the JAX pin), or, where Adam turns the reduction
+    order's rounding of near-zero gradients into larger steps (as phases 4
+    and 6(b) saw), within the spread a second order of the same sums gives:
+    the one-rank stepper through the fused kernels against the unfused one,
+    no larger than 1.5x its max (or 4 lr) and with no more than 1.5x its
+    entries past 1e-4. Also: the batch axis padded to a multiple of the
+    ranks, one state on both ranks, no kernel launched."""
+    import numpy as np
+
+    from gfedntm_tpu_torch import AVITM, BowDataset
+    from gfedntm_tpu_torch.federated.stepper import FederatedStepper
+
+    def stepper(fused):
+        s = FederatedStepper(AVITM(**MESH_KW, fused_decoder=fused))
+        s.pre_fit(BowDataset(X=X))
+        return s
+
+    one, witness = stepper(False), stepper("auto")
+    lr = one.model.lr
+    worst, worst_w, lines = 0.0, 0.0, []
+    for step, beta in enumerate(res[0]["betas"], 1):
+        for s in (one, witness):
+            s.delta_update_fit(s.train_mb_delta())
+        ref = one.model.model.beta.detach().cpu().numpy()
+        d = np.abs(beta - ref)
+        w = np.abs(witness.model.model.beta.detach().cpu().numpy() - ref)
+        worst, worst_w = max(worst, float(d.max())), max(worst_w, float(w.max()))
+        past, past_w = int((d > MESH_BETA_TOL).sum()), int((w > MESH_BETA_TOL).sum())
+        lines.append(f"{step}: {float(d.max()):.3e} ({past} past 1e-4) / witness "
+                     f"{float(w.max()):.3e} ({past_w})")
+        check(float(d.max()) <= MESH_BETA_TOL
+              or (float(d.max()) <= max(4 * lr, 1.5 * float(w.max()))
+                  and past <= 1.5 * past_w),
+              f"phase 17(a): mesh stepper beta after step {step}: max |diff| "
+              f"{float(d.max()):.3e} with {past} entries past {MESH_BETA_TOL:g}, the fused "
+              f"witness {float(w.max()):.3e} with {past_w}")
+    shape = res[0]["schedule_shape"]
+    print(f"mesh (a) stepper, {card}: {MESH_RANKS} ranks, {len(res[0]['betas'])} local steps "
+          f"of one client (1,024 documents, V={MESH_KW['input_size']}, fused_decoder=False); "
+          f"schedule {shape}; beta against the one-rank stepper (max |diff|, entries past "
+          f"{MESH_BETA_TOL:g}) and the fused witness against it, per step: {'; '.join(lines)}; "
+          f"within {MESH_BETA_TOL:g} at every step: {worst <= MESH_BETA_TOL}; statuses "
+          f"{res[0]['statuses'][-1]}; launches {[nonzero(r['launches']) for r in res]}",
+          flush=True)
+    check(len(res[0]["betas"]) == MESH_STEPS, f"phase 17(a): {len(res[0]['betas'])} steps")
+    check(shape[1] % MESH_RANKS == 0, f"phase 17(a): schedule {shape} not padded to a "
+          f"multiple of {MESH_RANKS}")
+    check(all(r["digest"] == res[0]["digest"] for r in res[1:]),
+          "phase 17(a): the mesh stepper's ranks hold different states")
+    check(all(not nonzero(r["launches"]) for r in res),
+          f"phase 17(a): the mesh stepper launched {[r['launches'] for r in res]}")
+
+
+def mesh_trainer_check(card: str, notes: dict, res: list, result) -> None:
+    """17(a)'s trainer over 2 client ranks against phase 3's one-device fit
+    (``result``): bitwise (else within :data:`MESH_FALLBACK_TOL`, the reason
+    printed), 8 launches of K1-K3 on each rank, the shared state bitwise
+    equal across ranks, ``federated_mesh_devices`` 2."""
+    import numpy as np
+
+    want = [{**{k: v.cpu().numpy() for k, v in p.items()},
+             **{k: v.cpu().numpy() for k, v in b.items()}}
+            for p, b in zip(result.client_params, result.client_batch_stats)]
+    got = res[0]["states"]
+    diffs = {}
+    for c, (g, w) in enumerate(zip(got, want)):
+        for key in w:
+            if not np.array_equal(g[key], w[key]):
+                diffs[f"client {c + 1} {key}"] = float(
+                    np.abs(g[key].astype(np.float64) - w[key]).max())
+    bitwise = not diffs and len(got) == len(want)
+    losses_equal = bool(np.array_equal(res[0]["losses"], result.losses))
+    print(f"mesh (a) trainer, {card}: {res[0]['ranks']} client ranks, one client each, phase "
+          f"3's configuration (8 global steps); launches per rank "
+          f"{[nonzero(r['launches']) for r in res]}; federated_mesh_devices "
+          f"{[r['mesh_devices'] for r in res]}; state against phase 3's one-device fit: "
+          + ("bitwise" if bitwise else f"not bitwise, worst {max(diffs.values()):.3e} in "
+             f"{max(diffs, key=diffs.get)} ({len(diffs)} entries differ)")
+          + f"; step losses bitwise {losses_equal}", flush=True)
+    if not bitwise:
+        worst = max(diffs.values(), default=float("inf"))
+        print("mesh (a) trainer: the fallback bound applies: a rank's FedAvg reduces the "
+              "gathered stack with the one-device arithmetic, so the difference comes from "
+              f"the entries above ({sorted(diffs)[:6]})", flush=True)
+        check(worst <= MESH_FALLBACK_TOL, f"phase 17(a): the trainer over ranks differs from "
+              f"phase 3's fit by {worst:.3e} (limit {MESH_FALLBACK_TOL:g})")
+    for rank, r in enumerate(res):
+        for name in ("stats", "loss", "grads"):
+            check(r["launches"][name] == MESH_STEPS, f"phase 17(a): rank {rank}: {name} "
+                  f"launched {r['launches'][name]} times, want {MESH_STEPS}")
+        check(r["mesh_devices"] == float(MESH_RANKS),
+              f"phase 17(a): rank {rank}: federated_mesh_devices {r['mesh_devices']}")
+        check(r["digests"] == res[0]["digests"],
+              f"phase 17(a): rank {rank}'s clients differ from rank 0's")
+    shared_keys = [k for k in want[0] if not k.endswith("num_batches_tracked")]
+    for key in shared_keys:
+        check(np.array_equal(got[0][key], got[1][key]),
+              f"phase 17(a): {key} differs between the clients after the last FedAvg")
+    for name in ("stats", "loss", "grads"):
+        notes[name] += (f"; phase 17(a) trainer over {MESH_RANKS} client ranks: "
+                        f"{res[0]['launches'][name]} launches per rank")
+
+
+class MeshFederation:
+    """17(b): a server, client 1 with ``--mesh_devices 2`` and client 2
+    plain, each a process of its own on the card, on phase 15's archive and
+    INI; both clients profiled over rounds [2, 3). :meth:`start` starts the
+    server, and the clients from a thread once the server listens;
+    :meth:`finish` waits for every process and checks the run."""
+
+    def __init__(self, archive: Path, ini: Path):
+        self.archive, self.ini = archive, ini
+        self.fed = CLI_DIR / "mesh_fed"
+        self.procs: list = []
+        self.started = time.perf_counter()
+
+    def start(self) -> "MeshFederation":
+        import threading
+
+        port, *client_ports = free_ports(3)
+        common = ["--config", str(self.ini), "--save_dir", str(self.fed)]
+        server = CliProcess("mesh server", ["--id", "0", "--min_clients_federation", "2",
+                                            "--max_iters", str(CLI_STEPS), "--listen_port",
+                                            str(port)] + common, CLI_LIMIT_S["mesh server"])
+        self.procs = [server]
+        self.up, self.error = None, None
+
+        def clients():
+            try:
+                self.up = wait_for_port(port, server, "server listening")
+                for c in (1, 2):
+                    extra = (["--mesh_devices", str(MESH_RANKS)] if c == 1 else []) + [
+                        "--profile_dir", str(self.fed / f"prof{c}"), "--profile_rounds", "2:3"]
+                    self.procs.append(CliProcess(f"mesh client{c}", [
+                        "--id", str(c), "--source", str(self.archive), "--server_address",
+                        f"localhost:{port}", "--listen_port", str(client_ports[c - 1])]
+                        + common + extra, CLI_LIMIT_S["mesh client"]))
+            except SmokeFailure as err:
+                self.error = err
+
+        self.launcher = threading.Thread(target=clients, daemon=True)
+        self.launcher.start()
+        return self
+
+    def stop(self) -> None:
+        self.launcher.join(CLI_LIMIT_S["mesh server"])
+        for p in self.procs:
+            p.stop()
+
+    def finish(self, card: str) -> float:
+        """Wait for the processes and check the run; returns the seconds
+        since :meth:`start`."""
+        import numpy as np
+
+        try:
+            self.launcher.join(CLI_LIMIT_S["mesh server"])
+            if self.error is not None:
+                raise self.error
+            check(len(self.procs) == 3, f"phase 17(b): {len(self.procs)} processes started")
+            walls = [p.finish() for p in self.procs]
+        finally:
+            self.stop()
+        seconds = time.perf_counter() - self.started
+        fed = self.fed
+        check((fed / "server_model.npz").is_file(), "phase 17(b): no server_model.npz")
+        with np.load(fed / "client1" / "model.npz") as a, \
+                np.load(fed / "client2" / "model.npz") as b:
+            same = a["betas"].shape == b["betas"].shape and bool(np.array_equal(a["betas"],
+                                                                                b["betas"]))
+            V = a["betas"].shape[1]
+        check(same, "phase 17(b): the clients' betas differ after the last aggregate")
+        mesh_log = jsonl(fed / "client1" / "metrics.jsonl")
+        ranks = [r for r in mesh_log
+                 if r.get("event") == "phase" and r.get("phase") == "mesh_ranks"]
+        check(len(ranks) == 1 and ranks[0]["ranks"] == MESH_RANKS and ranks[0]["equal"] is True,
+              f"phase 17(b): the mesh client's rank check {ranks}")
+        kernels = {}
+        for c in (1, 2):
+            traces = sorted((fed / f"prof{c}").glob("*.pt.trace.json"))
+            check(len(traces) == 1, f"phase 17(b): client {c}'s traces {traces}")
+            kernels[c] = trace_kernels(traces[0])
+        server_log = jsonl(fed / "metrics.jsonl")
+        rounds = sorted((r for r in server_log if r.get("event") == "span"
+                         and r.get("name") == "round"), key=lambda r: r["round"])
+        ms = float(np.median([r["seconds"] for r in (rounds[1:] or rounds)])) * 1e3
+        snaps = [r for r in mesh_log if r.get("event") == "metrics_snapshot"]
+        gauges = snaps[-1]["metrics"] if snaps else {}
+        spans = {}
+        for c in (1, 2):
+            for r in jsonl(fed / f"client{c}" / "metrics.jsonl"):
+                if r.get("event") == "span" and r.get("name") in (
+                        "offer_vocab", "get_setup", "revectorize", "pre_fit", "finalize"):
+                    spans[f"{c}:{r['name']}"] = round(r["seconds"], 2)
+        phase15 = STEADY_MS.get("phase 15")
+        print(f"mesh (b) wire federation, {card}: a server, client 1 over {MESH_RANKS} ranks "
+              f"(--mesh_devices {MESH_RANKS}) and client 2 on one device, each a process of "
+              f"its own, each exit 0 (wall {', '.join(f'{w:.1f}' for w in walls)} s; the "
+              f"server listened after {self.up:.1f} s); global V={V}, {len(rounds)} rounds, "
+              f"the first begun {rounds[0]['time'] - rounds[0]['seconds'] - server_log[0]['time']:.1f} s "
+              f"after the server's first record; median ms per global step over rounds "
+              f"2-{len(rounds)} {ms:.3f} (phase 15(b), two one-device clients: "
+              + (f"{phase15:.3f} ms this run)" if phase15 else "not run in this call)")
+              + f"; client spans (s) {spans}; the mesh client's ranks bitwise equal "
+              f"({ranks[0]['seconds'] * 1e3:.1f} ms to read their digests); its "
+              f"sharded_compile_s {gauges.get('sharded_compile_s', {}).get('value')}, "
+              f"sharded_docs_per_s {gauges.get('sharded_docs_per_s', {}).get('value')}; the "
+              f"clients' betas bitwise equal; kernels in client 1's trace {kernels[1]}, in "
+              f"client 2's {kernels[2]}", flush=True)
+        check(len(rounds) == CLI_STEPS, f"phase 17(b): {len(rounds)} rounds, want {CLI_STEPS}")
+        check(all(kernels[2].get(f, 0) > 0 for f in TENSOR_CORE_FAMILIES),
+              f"phase 17(b): client 2's trace names kernels {kernels[2]}")
+        check(not any(kernels[1].get(f, 0) for f in TENSOR_CORE_FAMILIES),
+              f"phase 17(b): the mesh client's trace names K1-K3 {kernels[1]}")
+        return seconds
+
+
+def cli_archive() -> tuple:
+    """Phase 15's corpus as a reference archive and its INI under
+    :data:`CLI_DIR` (made when absent: a run with phase 15 has them)."""
+    from gfedntm_tpu_torch.data.synthetic import generate_synthetic_corpus, save_reference_npz
+
+    archive, ini = CLI_DIR / "corpus.npz", CLI_DIR / "cli.cf"
+    if not archive.is_file():
+        CLI_DIR.mkdir(parents=True, exist_ok=True)
+        corpus = generate_synthetic_corpus(vocab_size=100_000, n_topics=50, n_docs=1024,
+                                           n_nodes=2, materialize_docs=True, seed=0)
+        save_reference_npz(corpus, str(archive))
+        ini.write_text(CLI_INI)
+    return archive, ini
+
+
+def mesh_phase(card: str, notes: dict, groups: dict | None = None, result=None,
+               datasets=None, federation: MeshFederation | None = None,
+               meanwhile=None) -> None:
+    """Phase 17: (a) the mesh stepper and the trainer over 2 client ranks in
+    a rank group of their own (``groups``, the future of
+    :func:`start_mesh_programs` started before phase 13 in a run of every
+    phase; run here, with phase 3's fit, under ``--mesh-only``); (b) the
+    command line with a mesh
+    client (``federation``, started in phase 15 in a run of every phase,
+    else here), whose processes run while (a)'s checks and ``meanwhile()``
+    (the wait for phase 18's process) run in this process; an error in
+    either fails the phase once the processes have ended."""
+    from gfedntm_tpu_torch import AVITM, FederatedTrainer
+
+    t_phase = time.perf_counter()
+    if federation is None:
+        federation = MeshFederation(*cli_archive()).start()
+    try:
+        if datasets is None:
+            datasets = main_path_datasets()
+        t0 = time.perf_counter()
+        if groups is None:
+            groups = rank_groups(mesh_calls(datasets))
+        else:
+            groups = groups.result()  # started before phase 13
+        print(f"mesh (a): its rank group's results after {time.perf_counter() - t0:.1f} s "
+              f"here", flush=True)
+        if result is None:
+            result = FederatedTrainer(AVITM(**MESH_KW), n_clients=2).fit(datasets)
+        backend, devices = groups[f"layout/{MESH_RANKS}"]
+        print(f"mesh (a): {backend} on {devices}", flush=True)
+        mesh_stepper_check(card, groups["mesh stepper"], datasets[0].X)
+        mesh_trainer_check(card, notes, groups["mesh trainer"], result)
+        if meanwhile is not None:
+            meanwhile()
+    except BaseException:
+        federation.stop()
+        raise
+    b_s = federation.finish(card)
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s here, (b) {b_s:.1f} s since "
+          f"its processes started ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the experiment harnesses
+# ---------------------------------------------------------------------------
+#: The reference's DSS/TSS regime (``SimulationConfig``'s widths: V=5,000,
+#: K=50, H=(100, 100), B=64, lr 2e-3, 5 nodes, eta 0.01, the eta sweep's
+#: frozen_topics_list[1] = 10), cut as :data:`EXPERIMENT_CUTS` says.
+EXPERIMENT_CONFIG = dict(vocab_size=5000, n_topics=50, beta=0.01, n_nodes=5, experiment=1,
+                         eta_list=(0.01,), hidden_sizes=(100, 100), batch_size=64, lr=2e-3,
+                         seed=0)
+#: The cuts of phase 18 (published: 10,000 training and 1,000 held-out
+#: documents a node, 100 epochs, 20 iterations).
+EXPERIMENT_CUTS = dict(n_docs=2000, n_docs_global_inf=200, num_epochs=10, iters=1)
+#: The published envelope (``results/dss_tss_eta001/results.json``, eta 0.01).
+PUBLISHED = Path(__file__).resolve().parent / "results" / "dss_tss_eta001" / "results.json"
+#: Phase 18's artifacts and models; ``main`` removes it.
+EXPERIMENTS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_experiments"
+#: Phase 18's own limit, in seconds, when it runs in a process of its own.
+EXPERIMENTS_LIMIT_S = 600.0
+
+
+def experiments_phase_joined(card: str, notes: dict, experiments: ExperimentsProcess) -> None:
+    """Wait for phase 18's process (:class:`ExperimentsProcess`) and take in
+    its notes."""
+    seconds = experiments.finish(notes)
+    print(f"phase 18's process ended {seconds:.1f} s after its start (beside phases 13-17) "
+          f"({card})", flush=True)
+
+
+def _experiments_child(card: str, results) -> None:
+    """Phase 18 in a process of its own: puts ``("ok", its kernels' notes)``,
+    ``("failed", message)`` or ``("error", traceback)`` on ``results``."""
+    import traceback
+
+    notes = {"stats": "", "loss": "", "grads": ""}
+    try:
+        experiments_phase(card, notes)
+        results.put(("ok", notes))
+    except SmokeFailure as err:
+        results.put(("failed", str(err)))
+    except BaseException:  # reported to the parent, which fails the phase
+        results.put(("error", traceback.format_exc()))
+
+
+class ExperimentsProcess:
+    """Phase 18 in a process of its own (``spawn``), so that it runs beside
+    the phases this process runs meanwhile; its launches are counted there.
+    :meth:`finish` waits for it, merges its notes into ``notes`` and fails
+    the run on its failure."""
+
+    def __init__(self, card: str):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=_experiments_child, args=(card, self.results),
+                                daemon=True)
+        self.started = time.perf_counter()
+        self.proc.start()
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(10.0)
+
+    def finish(self, notes: dict) -> float:
+        """Seconds from the start to the result; raises on a failure."""
+        import queue
+
+        left = EXPERIMENTS_LIMIT_S - (time.perf_counter() - self.started)
+        try:
+            kind, payload = self.results.get(timeout=max(left, 1.0))
+        except queue.Empty:
+            kind, payload = "failed", (f"no result within {EXPERIMENTS_LIMIT_S:g} s (exit code "
+                                       f"{self.proc.exitcode})")
+        finally:
+            self.stop()
+        check(kind == "ok", f"phase 18 (its own process): {payload}")
+        for name, text in payload.items():
+            notes[name] += text
+        return time.perf_counter() - self.started
+
+
+def experiments_phase(card: str, notes: dict) -> None:
+    """Phase 18: one DSS/TSS iteration at the reference's widths, cut
+    (:data:`EXPERIMENT_CUTS`): every arm's scores finite, TSS centralized >
+    non-collaborative > random and DSS centralized < non-collaborative, K1-K3
+    once per training step of every fit and within tolerance of their plain
+    versions on the centralized fit's first batch, ``results.json`` with the
+    JAX artifact's columns and ``meta`` keys; then ``TMWrapper``'s AVITM on
+    the centralized corpus, its NPMI, RBO and diversity finite."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.experiments import SimulationConfig, TMWrapper, run_simulation
+    from gfedntm_tpu_torch.experiments import dss_tss
+    from gfedntm_tpu_torch.models.avitm import AVITM
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    t_phase = time.perf_counter()
+    workdir = EXPERIMENTS_DIR
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = SimulationConfig(**EXPERIMENT_CONFIG, **EXPERIMENT_CUTS)
+    fits = []  # (arm, V, training steps, seconds, model, documents) per fit
+    train = dss_tss._train_avitm
+
+    def timed_train(corpus, c, seed, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(corpus, c, seed, device)
+        torch.cuda.synchronize()
+        arm = "centralized" if not fits else f"node {len(fits) - 1}"
+        fits.append((arm, out[0].input_size, len(out[0].step_losses),
+                     time.perf_counter() - t0, out[0], corpus))
+        return out
+
+    dss_tss._train_avitm = timed_train
+    fd.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = run_simulation(cfg, results_dir=workdir, device="cuda:0")
+        sim_s = time.perf_counter() - t0
+    finally:
+        dss_tss._train_avitm = train
+    torch.cuda.synchronize()
+    launches = dict(fd.LAUNCHES)
+    cols = {k: v[0] for k, v in out["columns"].items()}
+    steps = sum(f[2] for f in fits)
+    for arm, V, n, secs, _, _ in fits:
+        print(f"experiments, {card}: {arm} fit at V={V} (the {16 if V % 4 == 0 else 4}-byte "
+              f"cp.async ring): {n} training steps in {secs:.2f} s", flush=True)
+    published = json.loads(PUBLISHED.read_text())
+    pcols = {k: v[0] for k, v in published["columns"].items()}
+    print(f"experiments, {card}: one iteration in {sim_s:.1f} s, {len(fits)} fits, {steps} "
+          f"training steps; launches {nonzero(launches)}", flush=True)
+    for arm in ("centralized", "non_colab", "baseline"):
+        print(f"experiments {arm}: TSS {cols[f'{arm}_betas_mean']:.4f} (published "
+              f"{pcols[f'{arm}_betas_mean']:.4f}), refmap {cols[f'{arm}_betas_refmap_mean']:.4f}"
+              f" (published {pcols[f'{arm}_betas_refmap_mean']:.4f}), DSS "
+              f"{cols[f'{arm}_thetas_mean']:.2f} (published {pcols[f'{arm}_thetas_mean']:.2f}; "
+              f"the cut infers {EXPERIMENT_CUTS['n_docs_global_inf']} held-out documents a node, "
+              f"not 1,000)", flush=True)
+    check(len(fits) == 1 + cfg.n_nodes, f"phase 18: {len(fits)} fits")
+    check(all(math.isfinite(v) for v in cols.values()), f"phase 18: non-finite scores {cols}")
+    check(cols["centralized_betas_mean"] > cols["non_colab_betas_mean"]
+          > cols["baseline_betas_mean"], f"phase 18: TSS ordering {cols}")
+    check(cols["centralized_thetas_mean"] < cols["non_colab_thetas_mean"],
+          f"phase 18: DSS ordering {cols}")
+    for name in ("stats", "loss", "grads"):
+        check(launches[name] == steps, f"phase 18: {name} launched {launches[name]} times, "
+              f"the fits took {steps} training steps")
+        notes[name] += f"; phase 18 experiments: {launches[name]} launches ({len(fits)} fits)"
+    check(out.keys() == published.keys() and out["columns"].keys() == published["columns"].keys()
+          and out["meta"].keys() == published["meta"].keys()
+          and out["meta"]["regime"].keys() == published["meta"]["regime"].keys(),
+          f"phase 18: the artifact's keys {sorted(out)} / {sorted(out['meta'])}")
+    saved = json.loads((workdir / "results.json").read_text())
+    check(saved["meta"]["backend"] == "cuda" and saved["columns"].keys() == out["columns"].keys(),
+          f"phase 18: results.json meta {saved['meta'].get('backend')}")
+    central: AVITM = fits[0][4]
+    data = central.train_data
+    B = central.batch_size
+    kernels_against_plain("the centralized fit's first batch", "experiments", central,
+                          data.X[:B], np.ones(B, dtype=np.float32))
+
+    # TMWrapper's AVITM on the centralized corpus (the union of the nodes'
+    # training documents).
+    docs = fits[0][5]
+    wrapper = TMWrapper(workdir / "models", device="cuda:0")
+    t0 = time.perf_counter()
+    model, model_dir = wrapper.train_model(
+        "centralized", docs, model_type="avitm", n_topics=cfg.n_topics,
+        model_kwargs=dict(hidden_sizes=cfg.hidden_sizes, batch_size=cfg.batch_size, lr=cfg.lr,
+                          num_epochs=cfg.num_epochs))
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = wrapper.evaluate_model(model, reference_corpus=docs)
+    eval_s = time.perf_counter() - t0
+    print(f"experiments TMWrapper, {card}: AVITM at V={model.input_size}, "
+          f"{len(model.step_losses)} training steps in {train_s:.2f} s ({model_dir.name}: "
+          f"{sorted(p.name for p in model_dir.iterdir())}); evaluate {eval_s:.2f} s: "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
+    check(set(metrics) == {"topic_diversity", "inverted_rbo", "npmi"}
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"phase 18: TMWrapper metrics {metrics}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -5580,24 +6148,29 @@ def main(argv: list[str]) -> int:
     serve_only = "--serving-only" in argv
     cli_only = "--cli-only" in argv
     scenarios_only = "--scenarios-only" in argv
+    mesh_only = "--mesh-only" in argv
+    experiments_only = "--experiments-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
-                                         "--cli-only", "--scenarios-only")]
+                                         "--cli-only", "--scenarios-only", "--mesh-only",
+                                         "--experiments-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
-            or pacing_only or hier_only or serve_only or cli_only or scenarios_only)
+            or pacing_only or hier_only or serve_only or cli_only or scenarios_only
+            or mesh_only or experiments_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
             + privacy_only + pacing_only + hier_only + serve_only + cli_only
-            + scenarios_only > 1
+            + scenarios_only + mesh_only + experiments_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
-              "--cli-only | --scenarios-only]", file=sys.stderr)
+              "--cli-only | --scenarios-only | --mesh-only | --experiments-only]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -5616,6 +6189,8 @@ def main(argv: list[str]) -> int:
         return 2
 
     t_script = time.perf_counter()
+    experiments = None  # phase 18's process, in a run of every phase
+    mesh_programs = None  # 17(a)'s rank group, in a run of every phase
     card = card_line()
     print(card, flush=True)
     resolve_device(None)
@@ -5660,6 +6235,12 @@ def main(argv: list[str]) -> int:
         if scenarios_only:
             scenario_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if mesh_only:
+            mesh_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
+        if experiments_only:
+            experiments_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
 
         def timed(n, fn, *args):
             t0 = time.perf_counter()
@@ -5682,18 +6263,36 @@ def main(argv: list[str]) -> int:
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
-            hierarchy_phase(card, notes, pacing_phase(card, notes, raw))
+            pacing = pacing_phase(card, notes, raw)
+            # Phase 18 runs in a process of its own, and 17(a)'s rank
+            # programs in a rank group of their own, beside phases 13-17.
+            experiments = ExperimentsProcess(card)
+            mesh_programs = start_mesh_programs(datasets)
+            hierarchy_phase(card, notes, pacing)
             serving_phase(card, notes, raw, phase9)
-            cli_phase(card, result)
-            scenario_phase(card, notes)
+            # 17(b)'s processes start in phase 15 and run beside phases 15
+            # and 16.
+            federation = cli_phase(card, result, start_mesh=True)
+            try:
+                scenario_phase(card, notes)
+            except BaseException:
+                federation.stop()
+                raise
+            mesh_phase(card, notes, mesh_programs, result, datasets, federation,
+                       meanwhile=lambda: experiments_phase_joined(card, notes, experiments))
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     finally:
+        if experiments is not None:
+            experiments.stop()
+        if mesh_programs is not None:
+            mesh_programs.exception()  # wait for its ranks to end
         shutil.rmtree(CORPORA, ignore_errors=True)
         shutil.rmtree(SCRATCH, ignore_errors=True)
         shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
         shutil.rmtree(CLI_DIR, ignore_errors=True)
+        shutil.rmtree(EXPERIMENTS_DIR, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

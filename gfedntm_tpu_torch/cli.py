@@ -20,10 +20,12 @@ Six readers take a run's telemetry instead of producing it, and print what
 the JAX CLI's print on the same streams: ``summarize``, ``report`` (with
 ``--assert-monotone-coherence``), ``trace``, ``slo``, ``privacy`` and
 ``incident``. ``scenarios`` runs the scenario matrix over the port's nodes
-(:func:`run_scenarios`, with ``--device``). One input stays out, with exit
-code 2: ``--mesh_devices`` above 1 (one client over several devices;
-ROADMAP.md queue 1), which the JAX CLI meets by forcing virtual CPU
-devices.
+(:func:`run_scenarios`, with ``--device``). ``--mesh_devices N`` above 1
+steps a client's corpus data-parallel over N ranks
+(``Client(mesh_devices=N)``) and runs ``simulate``'s trainer over N client
+ranks (:func:`run_simulate`); where the JAX CLI forces N virtual CPU
+devices, the port starts N processes (gloo on the CPU; on CUDA, NCCL with N
+cards, else gloo with every rank on ``cuda:0``).
 
 Data paths mirror ``main.py:138-152``: synthetic ``.npz`` archives (node
 ``id-1`` of a multi-node archive) or real ``.parquet`` filtered by ``--fos``.
@@ -401,28 +403,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "ones the coherence guard flagged (the gate is ON "
                         "by default; see README \"Serving\")")
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="multi-device local training: 0/1 = the "
-                        "single-device path; above 1 is not ported yet "
-                        "(ROADMAP.md queue 1 item 6) and exits with code 2")
+                   help="multi-device training over N ranks (processes): a "
+                        "client's local corpus data-sharded over them, or "
+                        "simulate's clients placed over them. 0/1 = the "
+                        "single-device path, unchanged. On the CPU the ranks "
+                        "run gloo; on CUDA, NCCL with N cards, else gloo with "
+                        "every rank on the one card")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device", type=str, default=None,
                    help="torch device of this process's node (default: "
                         "the GPU; without CUDA the command fails unless "
                         "--device cpu asks for the CPU)")
     return p
-
-
-def _refuse_mesh_devices(args: argparse.Namespace) -> None:
-    """``--mesh_devices`` above 1 asks for one client over several devices,
-    which the port does not have yet: exit with code 2 rather than train on
-    one device under a multi-device flag."""
-    n = int(getattr(args, "mesh_devices", 0) or 0)
-    if n > 1:
-        print(
-            f"--mesh_devices {n}: one client over several devices is not "
-            "ported yet (ROADMAP.md queue 1 item 6)", file=sys.stderr,
-        )
-        raise SystemExit(2)
 
 
 def _device(args: argparse.Namespace):
@@ -669,7 +661,6 @@ def run_client(args: argparse.Namespace, cfg: GfedConfig) -> int:
             "--role client needs --id >= 1 (client ids start at 1; "
             "0 is the server)"
         )
-    _refuse_mesh_devices(args)
     device = _device(args)
     if args.source is None:
         raise SystemExit(
@@ -864,6 +855,46 @@ def run_serve(args: argparse.Namespace, cfg: GfedConfig) -> int:
     return 0
 
 
+def _fit_over_ranks(ranks: int, device, template, model_kwargs: dict, datasets: list,
+                    trainer_kw: dict, metrics_path: str | None, profile_dir: str | None):
+    """``FederatedTrainer.fit`` of ``datasets`` over ``ranks`` client ranks
+    (``parallel.programs.federated_fit`` in a fresh group: gloo on the CPU,
+    ``gpu_layout`` on CUDA), as a :class:`FederatedResult` on ``device``:
+    the run is the one-device run's, bit for bit."""
+    import torch
+
+    from gfedntm_tpu_torch.federated.trainer import FederatedResult
+    from gfedntm_tpu_torch.parallel import programs
+    from gfedntm_tpu_torch.parallel.launch import gpu_layout, run_ranks
+
+    backend, devices = (gpu_layout(ranks) if device.type == "cuda"
+                        else ("gloo", ["cpu"] * ranks))
+    kw = {k: v for k, v in model_kwargs.items() if k != "device"}
+    if template.family == "ctm":  # the ranks build a CTM from its encoder's name
+        kw["inference_type"] = template.inference_type
+    corpora = [_corpus_arrays(d) for d in datasets]
+    out = run_ranks(programs.federated_fit, ranks, backend, devices, 24 * 3600.0,
+                    args=(kw, corpora, trainer_kw, None, 0, metrics_path, profile_dir))[0]
+    names = {name for name, _ in programs.build_model("cpu", kw).model.named_parameters()}
+    params = [{k: torch.as_tensor(v, device=device) for k, v in st.items() if k in names}
+              for st in out["states"]]
+    buffers = [{k: torch.as_tensor(v, device=device) for k, v in st.items() if k not in names}
+               for st in out["states"]]
+    return FederatedResult(
+        global_params={k: v.clone() for k, v in params[0].items()},
+        client_params=params, client_batch_stats=buffers, losses=out["losses"],
+        steps_per_epoch=out["steps_per_epoch"], n_samples=out["n_samples"],
+        epoch_losses=out["epoch_losses"])
+
+
+def _corpus_arrays(dataset):
+    """A dataset as ``programs.dataset`` rebuilds it in a rank: its BoW
+    matrix, or a CTM's dict of ``X``, ``X_ctx`` and ``labels``."""
+    if getattr(dataset, "X_ctx", None) is None:
+        return dataset.X
+    return {"X": dataset.X, "X_ctx": dataset.X_ctx, "labels": dataset.labels}
+
+
 def run_simulate(args: argparse.Namespace, cfg: GfedConfig) -> int:
     """No ``--id``: the whole federation in this process through
     ``FederatedTrainer`` on ``--device`` — no server process, no RPC
@@ -883,7 +914,6 @@ def run_simulate(args: argparse.Namespace, cfg: GfedConfig) -> int:
         trace,
     )
 
-    _refuse_mesh_devices(args)
     device = _device(args)
     corpora, synthetic = _load_corpora(args)
     if synthetic is not None and args.model_type == "ctm":
@@ -923,20 +953,25 @@ def run_simulate(args: argparse.Namespace, cfg: GfedConfig) -> int:
     template = (
         AVITM(**kwargs) if args.model_type == "avitm" else CTM(**kwargs)
     )
-    trainer = FederatedTrainer(
-        template,
-        n_clients=n_clients,
+    trainer_kw = dict(
         grads_to_share=cfg.federation.grads_to_share,
         max_iters=cfg.federation.max_iters,
         seed=cfg.train.seed,
         local_steps=getattr(args, "local_steps", 1),
-        device=device,
     )
+    trainer = FederatedTrainer(template, n_clients=n_clients, device=device, **trainer_kw)
+    ranks = int(getattr(args, "mesh_devices", 0) or 0)
     with phase_timer(metrics, "federated_fit", n_clients=n_clients):
-        # One process has no round loop to window — --profile_dir wraps
-        # the whole federated fit in one torch.profiler capture.
-        with trace(getattr(args, "profile_dir", None), device):
-            result = trainer.fit(datasets, metrics=metrics)
+        if ranks > 1:
+            # The clients over N ranks, each a process; rank 0 logs the
+            # trainer's records into this run's metrics file.
+            result = _fit_over_ranks(ranks, device, template, kwargs, datasets, trainer_kw,
+                                     metrics.path, getattr(args, "profile_dir", None))
+        else:
+            # One process has no round loop to window — --profile_dir wraps
+            # the whole federated fit in one torch.profiler capture.
+            with trace(getattr(args, "profile_dir", None), device):
+                result = trainer.fit(datasets, metrics=metrics)
 
     global_model = trainer.make_global_model(result)
     global_model.train_data = datasets[0]

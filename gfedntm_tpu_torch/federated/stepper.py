@@ -30,8 +30,26 @@ JAX stepper folds a PRNG key from its model.
 
 The intended-semantics fixes of the JAX package are kept: the sample
 accounting reads the minibatch just processed, and a CTM's label loss is
-part of the tracked loss. The JAX stepper's multi-chip ``mesh`` (a
-data-parallel client) is not ported yet: the constructor raises for one.
+part of the tracked loss.
+
+``mesh`` (a :class:`~gfedntm_tpu_torch.parallel.mesh.DpMpGroups` of dp
+ranks and mp = 1, e.g. :func:`~gfedntm_tpu_torch.parallel.mesh.data_layout`)
+is the JAX stepper's data mesh (``stepper.py:81-96, 115-126, 148-180``):
+every rank of the layout builds the same stepper on the same model and
+calls it in the same order. The client's corpus splits by documents over
+the ranks (:class:`~gfedntm_tpu_torch.parallel.sharded.DocShard`); each
+scheduled batch is padded with masked rows to a multiple of dp
+(``pad_batch_axis``) and gathered, each rank steps its rows with the
+BatchNorm statistics of the whole batch (``MaskedBatchNorm.group``) and
+every draw at the whole batch's shape, and the gradients are summed over
+the data group (``steps.sum_gradients``), so every rank's state stays
+bitwise equal and the step is the one-device step up to the order of
+float sums. Snapshots, ``set_gradients``, accounting and
+:class:`StepStatus` are the one-device stepper's; a layout of one rank is
+that stepper exactly. The fused kernels do not compose with the layout
+(the JAX ``dshard`` step refuses the fused Pallas loss,
+``train/steps.py:357-362``): an explicit ``fused_decoder=True`` raises, and
+``"auto"`` takes the unfused decode.
 
 ``metrics`` (a :class:`~gfedntm_tpu_torch.utils.observability.MetricsLogger`,
 as the federation client passes it) is the JAX stepper's hook
@@ -39,7 +57,11 @@ as the federation client passes it) is the JAX stepper's hook
 histogram of every step but the first (which builds the kernels), and the
 device-memory gauges ``device_bytes_in_use/cuda<i>`` and
 ``device_peak_bytes_in_use/cuda<i>`` from ``torch.cuda`` after each step
-(none on the CPU).
+(none on the CPU); under a layout of more than one rank also the JAX
+gauges ``sharded_devices``, ``sharded_compile_s`` (the first step's
+seconds: kernels and allocator warm up where JAX compiles) and
+``sharded_docs_per_s`` / ``sharded_docs_per_s_per_device`` (each later
+step's real documents over its wall time).
 """
 
 from __future__ import annotations
@@ -53,7 +75,7 @@ import numpy as np
 import torch
 
 from gfedntm_tpu_torch import interop
-from gfedntm_tpu_torch.data.datasets import BowDataset, make_epoch_schedule
+from gfedntm_tpu_torch.data.datasets import BowDataset, EpochSchedule, make_epoch_schedule
 from gfedntm_tpu_torch.eval.metrics import (
     convert_topic_word_to_init_size,
     document_similarity_score,
@@ -61,7 +83,8 @@ from gfedntm_tpu_torch.eval.metrics import (
 )
 from gfedntm_tpu_torch.models.avitm import AVITM
 from gfedntm_tpu_torch.models.params import SHARE_ALL, build_share_mask
-from gfedntm_tpu_torch.train.steps import grad_step, take
+from gfedntm_tpu_torch.parallel.sharded import DocShard
+from gfedntm_tpu_torch.train.steps import grad_step, pad_batch_axis
 from gfedntm_tpu_torch.utils.serialization import save_model_as_npz
 
 THETAS_THRESHOLD = 3e-3  # federated_model.py:172
@@ -87,7 +110,8 @@ class FederatedStepper:
     ``grads_to_share`` takes reference state-dict keys or ``SHARE_ALL``
     (``federated_model.py:98-131``). ``epoch_snapshot_dir`` saves the model
     at every epoch's end (``federated_ctm.py:150-159``). ``metrics`` feeds
-    the step-time histogram and the device-memory gauges."""
+    the step-time histogram and the device-memory gauges. ``mesh`` is a
+    data layout (module docstring)."""
 
     def __init__(
         self,
@@ -97,10 +121,22 @@ class FederatedStepper:
         metrics=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FederatedStepper: the multi-device client (mesh) is not ported yet "
-                "(ROADMAP queue 1)")
+        # A layout of one rank is the one-device path, bit for bit.
+        self.mesh = mesh if mesh is not None and mesh.dp * mesh.mp > 1 else None
+        self._fused = model.fused_decoder
+        if self.mesh is not None:
+            if self.mesh.mp != 1:
+                raise ValueError(f"the stepper's layout is data parallel: mp must be 1, "
+                                 f"got {self.mesh.mp}")
+            if model.fused_request is True:
+                raise ValueError(
+                    "fused_decoder=True does not compose with a data layout of "
+                    f"{self.mesh.dp} ranks (the fused kernels take the whole batch); "
+                    "build the model with fused_decoder='auto' or False")
+            self._fused = False
+            model.model.set_data_group(self.mesh.data_group)
+            if metrics is not None:
+                metrics.registry.gauge("sharded_devices").set(float(self.mesh.dp))
         self.model = model
         self.grads_to_share = tuple(grads_to_share)
         self.epoch_snapshot_dir = epoch_snapshot_dir
@@ -133,12 +169,23 @@ class FederatedStepper:
         """Stage the client's corpus on the model's device and draw the first
         epoch's shuffled batch schedule."""
         self.model.train_data = train_dataset
-        self._data = self.model._device_data(train_dataset)
+        if self.mesh is None:
+            self._data = DocShard(self.model._device_data(train_dataset))
+        else:
+            # Each rank stages only its block of the documents.
+            dev = self.model.device
+            self._data = DocShard.place(self.model._host_data(train_dataset), self.mesh,
+                                        lambda a: torch.as_tensor(a, device=dev))
         self._new_epoch_schedule()
 
     def _new_epoch_schedule(self) -> None:
-        self._schedule = make_epoch_schedule(
+        sched = make_epoch_schedule(
             len(self.model.train_data), self.model.batch_size, self.model._np_rng)
+        if self.mesh is not None:
+            # One padded [S, B_pad] shape, B_pad a multiple of the ranks;
+            # the masked pad rows are exact no-ops.
+            sched = EpochSchedule(*pad_batch_axis(sched.indices, sched.mask, self.mesh.dp))
+        self._schedule = sched
         self._step_in_epoch = 0
 
     @property
@@ -164,13 +211,15 @@ class FederatedStepper:
         i = self._step_in_epoch
         idx = torch.as_tensor(self._schedule.indices[i], device=m.device, dtype=torch.long)
         mask = torch.as_tensor(self._schedule.mask[i], device=m.device, dtype=torch.float32)
-        loss = grad_step(m.model, m.optimizer, take(self._data, idx), mask, m.fused_decoder,
-                         generator=m.generator, beta_weight=m._beta_weight())
+        batch, mask, rows = self._data.batch(idx, mask, m.batch_size)
+        loss = grad_step(m.model, m.optimizer, batch, mask, self._fused,
+                         generator=m.generator, rows=rows, data_group=self._data.data_group,
+                         beta_weight=m._beta_weight())
         self.loss = float(loss)
+        self._last_batch_size = float(self._schedule.mask[i].sum())
         if self.metrics is not None:
             # float(loss) synchronized, so this is the step's wall time.
             self._observe_step(time.perf_counter() - t0)
-        self._last_batch_size = float(self._schedule.mask[i].sum())
         self._pending_step = True
         return self.get_gradients() if snapshot else {}
 
@@ -178,6 +227,12 @@ class FederatedStepper:
         reg = self.metrics.registry
         if self._first_step_done:
             reg.histogram("stepper_step_s").observe(seconds)
+            if self.mesh is not None and seconds > 0:
+                docs_per_s = self._last_batch_size / seconds
+                reg.gauge("sharded_docs_per_s").set(docs_per_s)
+                reg.gauge("sharded_docs_per_s_per_device").set(docs_per_s / self.mesh.dp)
+        elif self.mesh is not None:
+            reg.gauge("sharded_compile_s").set(seconds)
         self._first_step_done = True
         dev = self.model.device
         if dev.type == "cuda":

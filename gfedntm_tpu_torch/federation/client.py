@@ -54,8 +54,11 @@ ends the ladder. A :class:`~gfedntm_tpu_torch.utils.observability.RoundProfiler`
 (``profiler``) is observed at each ``StepRequest`` and closed when the
 client finalizes.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1): a
-multi-device local step (``mesh_devices > 1``).
+``mesh_devices`` N > 1 steps the client's corpus data-parallel over N
+ranks (:class:`~gfedntm_tpu_torch.federation.mesh_client.MeshStepper`: this
+process is rank 0 and starts the N - 1 followers once the GlobalSetup has
+arrived); the wire is unchanged. 0 and 1 are the one-device stepper, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ from gfedntm_tpu_torch.data.vocab import Vocabulary, build_vocabulary, vectorize
 from gfedntm_tpu_torch.device import resolve_device
 from gfedntm_tpu_torch.federated.stepper import FederatedStepper
 from gfedntm_tpu_torch.federation import codec, rpc
+from gfedntm_tpu_torch.federation.mesh_client import MeshRanks, MeshStepper
 from gfedntm_tpu_torch.federation.compression import (
     DownlinkDecoder,
     ReferenceMismatch,
@@ -480,9 +484,6 @@ class Client:
     ):
         if client_id <= 0:
             raise ValueError("client ids start at 1 (0 is the server)")
-        if int(mesh_devices) > 1:
-            raise NotImplementedError(
-                "Client(mesh_devices=...): not ported yet (ROADMAP queue 1)")
         # Local DP: dp="client" sanitizes every outgoing snapshot; "server"
         # is the server's mechanism (parsed here only to validate it);
         # "off" constructs nothing.
@@ -517,6 +518,12 @@ class Client:
         if profiler is not None and profiler.device is None:
             profiler.device = self.device
         self.client_id = client_id
+        # Multi-device local training (--mesh_devices): 0/1 = the one-device
+        # stepper, bit for bit; N > 1 = a MeshStepper over N ranks, whose
+        # followers start with the join and get the model once the
+        # GlobalSetup fixes it.
+        self.mesh_devices = int(mesh_devices)
+        self._mesh_ranks: MeshRanks | None = None
         self.corpus = corpus
         self.server_address = server_address
         self.listen_address = listen_address
@@ -909,6 +916,10 @@ class Client:
 
     def join_federation(self) -> None:
         """Phases 1-2 of the client lifecycle (``client.py:378-507``)."""
+        if self.mesh_devices > 1 and self._mesh_ranks is None:
+            # The followers import and reach their device while the
+            # consensus runs.
+            self._mesh_ranks = MeshRanks(self.device, self.mesh_devices, self.logger)
         self._fed_channel = rpc.make_channel(self.server_address)
         self._federation_stub = rpc.ServiceStub(
             self._fed_channel, "gfedntm.Federation",
@@ -982,10 +993,19 @@ class Client:
             if hyper["family"] == "ctm" and self.save_dir is not None
             else None
         )
-        self.stepper = FederatedStepper(
-            model, grads_to_share=tuple(hyper["grads_to_share"]),
-            epoch_snapshot_dir=snapshot_dir, metrics=self.metrics,
-        )
+        if self.mesh_devices > 1:
+            self.logger.info("client %d data-sharding its local corpus over %d ranks",
+                             self.client_id, self.mesh_devices)
+            self.stepper = MeshStepper(
+                model, self._mesh_ranks, hyper["family"], len(self.global_vocab),
+                hyper["kwargs"], grads_to_share=tuple(hyper["grads_to_share"]),
+                epoch_snapshot_dir=snapshot_dir, metrics=self.metrics, logger=self.logger,
+            )
+        else:
+            self.stepper = FederatedStepper(
+                model, grads_to_share=tuple(hyper["grads_to_share"]),
+                epoch_snapshot_dir=snapshot_dir, metrics=self.metrics,
+            )
         with span(self.metrics, "pre_fit", client=self.client_id):
             self.stepper.pre_fit(self.dataset)
 
@@ -1079,6 +1099,8 @@ class Client:
                 return
             self._finalized = True
         try:
+            if isinstance(self.stepper, MeshStepper):
+                self._check_mesh_ranks()
             with span(self.metrics, "finalize", client=self.client_id):
                 self.results = self.stepper.get_results_model(self.save_dir)
         except Exception:
@@ -1087,13 +1109,30 @@ class Client:
             )
             raise
         finally:
+            if self._mesh_ranks is not None:
+                self._mesh_ranks.close()
             if self.profiler is not None:
                 self.profiler.close()
             if self.metrics is not None:
                 self.metrics.snapshot_registry(client=self.client_id)
             self.stopped.set()
 
+    def _check_mesh_ranks(self) -> None:
+        """Read every rank's state digest and log it as the ``phase``
+        ``mesh_ranks`` (``equal``: every rank holds rank 0's state bit for
+        bit); unequal ranks raise."""
+        t0 = time.perf_counter()
+        digests = self.stepper.rank_digests()
+        equal = all(d == digests[0] for d in digests[1:])
+        if self.metrics is not None:
+            self.metrics.log("phase", phase="mesh_ranks", seconds=time.perf_counter() - t0,
+                             client=self.client_id, ranks=len(digests), equal=equal)
+        if not equal:
+            raise RuntimeError(f"client {self.client_id}: the mesh ranks' states differ")
+
     def shutdown(self, grace: float = 0.5) -> None:
+        if self._mesh_ranks is not None:
+            self._mesh_ranks.close()
         if self._grpc_server is not None:
             self._grpc_server.stop(grace)
         channel = getattr(self, "_fed_channel", None)

@@ -164,6 +164,10 @@ class AVITM:
         # screened once, where it is staged (_device_data).
         self.compute_dtype = compute_dtype
         self._bf16_bow_checked = False
+        # The request as given: a data layout of more than one rank refuses
+        # an explicit True and resolves "auto" to the unfused decode
+        # (federated/stepper.py).
+        self.fused_request = fused_decoder
         self.fused_decoder = fused_decoder in ("auto", True) and model_type.lower() == "prodlda"
 
         self.epoch_losses: list[float] = []
@@ -175,19 +179,25 @@ class AVITM:
         self.nn_epoch: int | None = None
         self.best_components: np.ndarray | None = None
 
-        init_gen = torch.Generator().manual_seed(seed)
-        self.model = DecoderNetwork(
-            input_size=input_size, n_components=n_components,
-            model_type=model_type, hidden_sizes=self.hidden_sizes,
-            activation=activation, dropout=dropout, learn_priors=learn_priors,
-            topic_prior_mean=topic_prior_mean,
-            topic_prior_variance=topic_prior_variance, generator=init_gen,
-            compute_dtype=self._module_dtype(), inference_type=self.inference_type,
-            contextual_size=self._contextual_size(), label_size=self._label_size(),
-        ).to(self.device)
+        self.model = self.network(input_size, torch.Generator().manual_seed(seed))
         self.optimizer = self.build_optimizer(self.model)
         self._np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def network(self, input_size: int, generator: torch.Generator | None = None
+                ) -> DecoderNetwork:
+        """A network of this configuration over ``input_size`` words on the
+        model's device, its weights drawn from ``generator`` (a CPU
+        generator; ``None``: torch's default initialization)."""
+        return DecoderNetwork(
+            input_size=input_size, n_components=self.n_components,
+            model_type=self.model_type, hidden_sizes=self.hidden_sizes,
+            activation=self.activation, dropout=self.dropout, learn_priors=self.learn_priors,
+            topic_prior_mean=self.topic_prior_mean,
+            topic_prior_variance=self.topic_prior_variance, generator=generator,
+            compute_dtype=self._module_dtype(), inference_type=self.inference_type,
+            contextual_size=self._contextual_size(), label_size=self._label_size(),
+        ).to(self.device)
 
     def _module_dtype(self) -> torch.dtype:
         """The network's compute dtype (its parameters stay float32)."""

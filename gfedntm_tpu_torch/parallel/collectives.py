@@ -34,7 +34,11 @@ and NCCL alike.
   dots over the group.
 
 A group of ``None`` is a group of one rank: gathering returns the partial
-alone.
+alone. A group is any process group: one of the default group's
+(``new_group``), or one a node builds on a store of its own
+(``ProcessGroupGloo(store, rank, size)``, a mesh client's), which the
+default group's rank tables do not know: ranks and sizes are the group's
+own.
 
 :func:`check_equal_across` raises unless a host value (a validation loss
 that decides early stopping) is the same on every rank of a group.
@@ -50,8 +54,8 @@ def gather_by_sum(t: torch.Tensor, group) -> torch.Tensor:
     """``[n, *t.shape]``: row i holds group rank i's ``t`` on every rank."""
     if group is None:
         return t.unsqueeze(0)
-    buf = t.new_zeros((dist.get_world_size(group), *t.shape))
-    buf[dist.get_rank(group)] = t
+    buf = t.new_zeros((group.size(), *t.shape))
+    buf[group.rank()] = t
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf
 

@@ -35,7 +35,20 @@ array or a path, :func:`corpus`).
   fit's :func:`trajectory` (teacher forcing: that fit's state, batch and
   noise);
 - :func:`profile_steps` — steady V-sharded training steps, timed and then
-  traced with ``torch.profiler``.
+  traced with ``torch.profiler``;
+- :func:`federated_fit` — ``FederatedTrainer.fit`` over a client layout of
+  the group (1-D, or ``(slice, clients)``), with its launch counts, the
+  gathered clients' state and every rank's digest of it;
+- :func:`mesh_steps` — one client's ``FederatedStepper`` over a data layout
+  of the whole group (or a mesh client's ``MeshStepper`` over ranks of its
+  own), stepped and set with its own snapshot, with β after every step and
+  every rank's digest.
+
+Two programs run in a process of their own (``multiprocessing``'s
+``spawn``, not :func:`run_ranks`, whose ranks are daemonic and cannot start
+a mesh client's followers): :func:`beside_default_group` runs a program
+beside a default group of one rank, and :func:`hold_mesh_client` holds a
+mesh client's followers until its process is killed.
 """
 
 from __future__ import annotations
@@ -63,7 +76,13 @@ from gfedntm_tpu_torch.parallel.collectives import (
     merge_softmax,
     sum_in_rank_order,
 )
-from gfedntm_tpu_torch.parallel.mesh import DpMpGroups, make_dp_mp_groups
+from gfedntm_tpu_torch.parallel.mesh import (
+    DpMpGroups,
+    data_layout,
+    make_client_mesh,
+    make_dp_mp_groups,
+    make_slice_client_mesh,
+)
 from gfedntm_tpu_torch.parallel.sharded import (
     DocShard,
     fit_data_sharded,
@@ -628,3 +647,166 @@ def profile_steps(rank, device, mp: int, avitm_kw: dict, X: np.ndarray,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
         "ms_per_step_by_group": by_group, "top_device_events": top,
     }
+
+
+def federated_fit(rank, device, avitm_kw: dict, corpora: list, trainer_kw: dict | None = None,
+                  fit_kw: dict | None = None, slices: int = 0, metrics_path: str | None = None,
+                  profile_dir: str | None = None) -> dict:
+    """``FederatedTrainer(build_model(device, avitm_kw), mesh=layout).fit``
+    of one client per corpus (:func:`dataset`) over the group: the 1-D
+    client layout of every rank, or with ``slices`` the ``(slice, clients)``
+    layout of ``slices`` rows. ``trainer_kw`` and ``fit_kw`` go to the
+    trainer and to ``fit`` (``checkpoint_dir``, ``checkpoint_every``,
+    ``resume``). World rank 0 logs the trainer's records into
+    ``metrics_path`` (node ``simulate``, as the command line's) and, with
+    ``profile_dir``, traces the fit there. Returns the losses, epoch
+    losses, steps per epoch, sample counts, launch counts, the
+    ``federated_mesh_devices`` gauge, the layout's ranks and padded count,
+    every rank's :func:`state_digest` of every client and world rank 0's
+    states (numpy; ``None`` elsewhere)."""
+    from gfedntm_tpu_torch.federated.trainer import FederatedTrainer
+    from gfedntm_tpu_torch.utils.observability import trace
+
+    world = dist.get_world_size()
+    if slices:
+        layout = make_slice_client_mesh(slices, world // slices)
+    else:
+        layout, _ = make_client_mesh(len(corpora))
+    datasets = [dataset(X, {i: f"wd{i}" for i in range(avitm_kw["input_size"])})
+                for X in corpora]
+    template = build_model(device, avitm_kw)
+    metrics = MetricsLogger(metrics_path if rank == 0 else None, node="simulate")
+    trainer = FederatedTrainer(template, n_clients=len(datasets), mesh=layout, device=device,
+                               **(trainer_kw or {}))
+    fd.reset_launches()
+    if trainer.layout is not None and trainer.layout.rank < 0:
+        return {"rank": -1, "launches": dict(fd.LAUNCHES)}
+    with trace(profile_dir if rank == 0 else None, device):
+        res = trainer.fit(datasets, metrics=metrics, **(fit_kw or {}))
+    _sync(device)
+    metrics.close()
+    states = [{**{k: _np(v) for k, v in p.items()}, **{k: _np(v) for k, v in b.items()}}
+              for p, b in zip(res.client_params, res.client_batch_stats)]
+    return {
+        "rank": rank,
+        "ranks": 1 if trainer.layout is None else trainer.layout.ranks,
+        "c_pad": trainer.c_pad,
+        "losses": res.losses,
+        "epoch_losses": res.epoch_losses,
+        "steps_per_epoch": res.steps_per_epoch,
+        "n_samples": res.n_samples,
+        "launches": dict(fd.LAUNCHES),
+        "mesh_devices": metrics.registry.snapshot()["federated_mesh_devices"]["value"],
+        "digests": [state_digest(st) for st in states],
+        "states": states if rank == 0 else None,
+    }
+
+
+def mesh_steps(rank, device, avitm_kw: dict, X, steps: int,
+               init_state: dict | None = None, set_snapshot: dict | None = None,
+               client_ranks: int = 0) -> dict:
+    """One client's ``FederatedStepper`` over a data layout of every rank of
+    the group (or, with ``client_ranks``, a mesh client's ``MeshStepper``
+    over that many ranks of its own, built in this process beside its
+    default group): ``pre_fit`` on the corpus ``X`` (:func:`dataset`), then
+    ``steps`` exchanged steps, each set with its own snapshot
+    (``delta_update_fit``); with ``set_snapshot``, one more step set with
+    that snapshot instead, and this rank's snapshot read back. Returns the
+    padded schedule's shape, the statuses, sample counts, losses, β after
+    every step (world rank 0's), the snapshot's keys, shapes and dtypes,
+    the launch counts, every rank's digest of the final state (a mesh
+    client's: every one of its ranks', from ``rank_digests``) and the read
+    back snapshot."""
+    from gfedntm_tpu_torch.federated.stepper import FederatedStepper
+
+    world = dist.get_world_size()
+    model = build_model(device, avitm_kw)
+    if init_state is not None:
+        model.model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                                     for k, v in init_state.items()})
+    if client_ranks:
+        from gfedntm_tpu_torch.federation.mesh_client import MeshStepper
+        from gfedntm_tpu_torch.models.params import SHARE_ALL
+
+        kw = {k: v for k, v in avitm_kw.items() if k != "input_size"}
+        stepper = MeshStepper(model, client_ranks, model.family, model.input_size, kw,
+                              grads_to_share=SHARE_ALL)
+    else:
+        stepper = FederatedStepper(model, mesh=data_layout(world, dist.group.WORLD, rank))
+    stepper.pre_fit(dataset(X, {i: f"wd{i}" for i in range(avitm_kw["input_size"])}))
+    fd.reset_launches()
+    statuses, samples, losses, betas, snap_meta = [], [], [], [], None
+    for _ in range(steps):
+        snap = stepper.train_mb_delta()
+        snap_meta = {k: (tuple(v.shape), str(v.dtype)) for k, v in snap.items()}
+        losses.append(stepper.loss)
+        samples.append(stepper._last_batch_size)
+        status = stepper.delta_update_fit(snap)
+        statuses.append((status.current_mb, status.current_epoch, status.epoch_ended,
+                         status.finished))
+        if rank == 0:
+            betas.append(_np(model.model.beta).copy())
+    read_back = None
+    if set_snapshot is not None:
+        stepper.train_mb_delta()
+        stepper.delta_update_fit(set_snapshot)
+        read_back = stepper.get_gradients()
+    _sync(device)
+    state = {k: _np(v) for k, v in model.model.state_dict().items()}
+    digests = None
+    if client_ranks:
+        digests = stepper.rank_digests()
+        stepper.close()
+    return {
+        "schedule_shape": tuple(stepper._schedule.indices.shape),
+        "statuses": statuses, "samples": samples, "losses": losses,
+        "betas": betas, "snapshot": snap_meta, "launches": dict(fd.LAUNCHES),
+        "digest": state_digest(state), "state": state if rank == 0 else None,
+        "client_digests": digests, "read_back": read_back,
+    }
+
+
+def beside_default_group(results, init_method: str, fn, args: tuple) -> None:
+    """Put ``fn(0, cpu, *args)`` on ``results``, run in a process that first
+    initializes a default group of one rank at ``init_method``: a rank of
+    a job whose own collectives must not be disturbed. Start it in a
+    non-daemonic process (a mesh client's ``fn`` starts processes of its
+    own); an error is put as ``("error", traceback)``."""
+    import traceback
+
+    try:
+        dist.init_process_group("gloo", init_method=init_method, world_size=1, rank=0)
+        try:
+            out = fn(0, torch.device("cpu"), *args)
+            probe = torch.ones(1)
+            dist.all_reduce(probe)  # the default group still works
+            results.put(("ok", out, float(probe)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # reported to the caller, which raises it
+        results.put(("error", traceback.format_exc(), None))
+
+
+def hold_mesh_client(pid_file: str, avitm_kw: dict, X, ranks: int, blocked: bool) -> None:
+    """Build a mesh client's ``MeshStepper`` over ``ranks`` ranks on the CPU,
+    take one step, write its followers' pids to ``pid_file`` and wait to be
+    killed; with ``blocked``, the followers are first sent into a step that
+    this rank never joins, so they wait inside its collective."""
+    from gfedntm_tpu_torch.federation.mesh_client import MeshStepper
+    from gfedntm_tpu_torch.models.params import SHARE_ALL
+
+    model = build_model(torch.device("cpu"), avitm_kw)
+    kw = {k: v for k, v in avitm_kw.items() if k != "input_size"}
+    stepper = MeshStepper(model, ranks, model.family, model.input_size, kw,
+                          grads_to_share=SHARE_ALL)
+    stepper.pre_fit(dataset(X))
+    stepper.train_mb_delta()
+    stepper.advance_local()
+    if blocked:
+        stepper.mesh_ranks.send("train")
+    tmp = pid_file + ".tmp"
+    with open(tmp, "w") as fh:
+        fh.write(" ".join(str(p.pid) for p in stepper.mesh_ranks.procs))
+    os.replace(tmp, pid_file)
+    while True:
+        time.sleep(60.0)

@@ -308,25 +308,30 @@ class DocShard:
         parts = buf.split([t.shape[1] for t in local], dim=1)
         return {key: part.contiguous() for key, part in zip(self.local, parts)}
 
-    def steps(self, sched):
-        """``(batch, mask, rows)`` for each step of the epoch schedule
-        ``sched``: the rank's rows of the batch (padded with masked rows to
-        a multiple of dp, ``pad_batch_axis``), their mask, and their
+    def batch(self, indices: torch.Tensor, mask: torch.Tensor, full: int):
+        """``(batch, mask, rows)`` of one step: ``indices`` and ``mask`` are
+        the step's whole batch, padded to a multiple of dp, of which the
+        first ``full`` rows are the schedule's; the rank's rows of the
+        batch, their mask and their
         :class:`~gfedntm_tpu_torch.models.layers.Rows` (``None`` with one
         data rank)."""
+        if self.data_group is None:
+            return take(self.local, indices), mask, None
+        span = self.groups.row_slice(indices.shape[0])
+        batch = self.gather(indices)
+        return ({key: t[span] for key, t in batch.items()}, mask[span],
+                Rows(full, span.start, span.stop))
+
+    def steps(self, sched):
+        """:meth:`batch` of each step of the epoch schedule ``sched``, its
+        batch axis padded with masked rows to a multiple of dp
+        (``pad_batch_axis``)."""
         indices, masks = pad_batch_axis(sched.indices, sched.mask, self.dp)
         device = self.local["x_bow"].device
         indices = torch.as_tensor(indices, device=device, dtype=torch.long)
         masks = torch.as_tensor(masks, device=device, dtype=torch.float32)
-        if self.data_group is None:
-            for i in range(len(indices)):
-                yield take(self.local, indices[i]), masks[i], None
-            return
-        span = self.groups.row_slice(indices.shape[1])
-        rows = Rows(sched.indices.shape[1], span.start, span.stop)
         for i in range(len(indices)):
-            batch = self.gather(indices[i])
-            yield {key: t[span] for key, t in batch.items()}, masks[i, span], rows
+            yield self.batch(indices[i], masks[i], sched.indices.shape[1])
 
 
 def fit_sharded(model, train_dataset: BowDataset, groups: DpMpGroups,

@@ -119,13 +119,15 @@ def _load_sidecar_meta(path: str, what: str, hint: str) -> dict[str, Any] | None
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
-def _to_cpu(tree: Any) -> Any:
+def to_cpu(tree: Any) -> Any:
+    """``tree`` (dicts, lists and tuples of tensors and other leaves) with
+    every tensor detached and on the CPU (a CPU tensor is not copied)."""
     if torch.is_tensor(tree):
         return tree.detach().cpu()
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(to_cpu(v) for v in tree)
     return tree
 
 
@@ -183,7 +185,7 @@ class CheckpointManager:
         path = self._path(step)
         if os.path.exists(path):
             raise FileExistsError(f"checkpoint step {step} already exists: {path}")
-        state = _to_cpu(state)
+        state = to_cpu(state)
         _atomic_write(path, lambda fh: torch.save(state, fh))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.unlink(self._path(old))

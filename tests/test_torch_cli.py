@@ -24,8 +24,8 @@ JAX package's.
   ``server_model.npz`` and leaves the clients' shared state bitwise equal;
   a port client joins a JAX ``python main.py --id 0`` server.
 - Refusals: without CUDA and without ``--device cpu`` every role exits
-  nonzero with a message, ``scenarios`` too; ``--mesh_devices`` above 1
-  exits with code 2.
+  nonzero with a message, ``scenarios`` too. (``--mesh_devices`` above 1
+  runs: ``tests/test_torch_client_mesh.py``.)
 
 No tolerance is involved: every comparison here is equality.
 """
@@ -349,14 +349,6 @@ def test_scenarios_is_refused_with_code_2(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         cli.main(["scenarios", "--fast", "--cells", "iid-sync-fedavg"])
-
-
-@pytest.mark.parametrize("argv", [["--id", "1", "--source", "x.npz"], ["--source", "x.npz"]])
-def test_mesh_devices_is_refused_with_code_2(argv, capsys):
-    with pytest.raises(SystemExit) as err:
-        cli.main(argv + ["--mesh_devices", "2", "--device", "cpu"])
-    assert err.value.code == 2
-    assert "queue 1 item 6" in capsys.readouterr().err
 
 
 def test_a_bad_chaos_spec_is_a_usage_error(tmp_path):

@@ -446,19 +446,13 @@ def test_server_defaults_are_the_jax_servers():
         assert name in port, name
 
 
-@pytest.mark.parametrize("option", [dict(mesh_devices=2)])
-def test_client_refuses_options_not_ported(option):
-    with pytest.raises(NotImplementedError):
-        Client(client_id=1, corpus=RawCorpus(documents=["a b"]),
-               server_address="localhost:1", device="cpu", **option)
-
-
 @pytest.mark.parametrize("option", [dict(dp="client", dp_sigma=0.5), dict(dump_dir="x"),
                                     dict(dp="server", dp_sigma=0.5), dict(profiler="window"),
                                     dict(failover_addrs=("localhost:2",))])
 def test_client_accepts_the_ported_options(tmp_path, option):
-    """The client options the refusal test above refused until their planes
-    were ported are accepted and build their halves of the planes."""
+    """The client options a refusal test refused until their planes were
+    ported are accepted and build their halves of the planes
+    (``mesh_devices``: ``tests/test_torch_client_mesh.py``)."""
     from gfedntm_tpu_torch.utils.observability import MetricsLogger
 
     if "dump_dir" in option:

@@ -108,7 +108,10 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.presets", "gfedntm_tpu_torch.data.local_corpus",
                  "gfedntm_tpu_torch.__main__", "gfedntm_tpu_torch.scenarios",
                  "gfedntm_tpu_torch.scenarios.personas", "gfedntm_tpu_torch.scenarios.contracts",
-                 "gfedntm_tpu_torch.scenarios.runner"):
+                 "gfedntm_tpu_torch.scenarios.runner", "gfedntm_tpu_torch.experiments",
+                 "gfedntm_tpu_torch.experiments.wmd", "gfedntm_tpu_torch.experiments.tm_wrapper",
+                 "gfedntm_tpu_torch.experiments.collab", "gfedntm_tpu_torch.experiments.dss_tss",
+                 "gfedntm_tpu_torch.federation.mesh_client"):
         assert name in names, name
 
 

@@ -3,8 +3,10 @@ run, on the CPU: kernel names from mangled symbols, the tensor-core
 instruction check over every instantiation of K1, K2 and K3, ptxas' spill
 report, and the exit codes without a card or with bad arguments; with a
 card faked and every phase stubbed, the order of the phases (phase 14 on
-phase 9's store, phase 15 on phase 3's fit, phase 16 last; phases 5 to 8 on
-phase 4's rank groups) and of the output lines (the script's own seconds before the
+phase 9's store, phase 15 on phase 3's fit starting 17(b)'s processes,
+phase 16, then phase 17 on its own rank group and phase 3's fit, joining
+phase 18's process, both started before phase 13;
+phases 5 to 8 on phase 4's rank groups) and of the output lines (the script's own seconds before the
 ``kernels`` line, the ``ok`` line last). The script is imported by path."""
 
 import importlib.util
@@ -112,7 +114,10 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
                                   ["--cli-only", "--serving-only"],
                                   ["--cli-only", "--against", "."],
                                   ["--scenarios-only", "--cli-only"],
-                                  ["--scenarios-only", "--against", "."]])
+                                  ["--scenarios-only", "--against", "."],
+                                  ["--mesh-only", "--experiments-only"],
+                                  ["--mesh-only", "--against", "."],
+                                  ["--experiments-only", "--cli-only"]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
@@ -120,7 +125,8 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
 
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
                                   ["--data-parallel-only"], ["--hierarchy-only"],
-                                  ["--serving-only"], ["--cli-only"], ["--scenarios-only"]])
+                                  ["--serving-only"], ["--cli-only"], ["--scenarios-only"],
+                                  ["--mesh-only"], ["--experiments-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -206,7 +212,28 @@ def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
 PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_phase",
           "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
           "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
-          "serving_phase", "cli_phase", "scenario_phase")
+          "serving_phase", "cli_phase", "scenario_phase", "mesh_phase", "experiments_phase")
+#: The order of a run of every phase: phase 18's process and 17(a)'s rank
+#: group start before phase 13, and phase 17 waits for them.
+ORDER = PHASES[:11] + ("experiments_process", "mesh_programs") + PHASES[11:]
+#: Phase 4's rank groups as the fake returns them, and 17(a)'s group.
+GROUPS = {"validation": "validation"}
+MESH_GROUPS = {"mesh stepper": "stepper", "mesh trainer": "trainer",
+               "layout/2": ("gloo", ["cuda:0", "cuda:0"])}
+
+
+class FakeFederation:
+    """17(b)'s processes as phase 15 starts them."""
+
+    def __init__(self, archive, ini):
+        self.paths, self.started = (archive, ini), False
+
+    def start(self):
+        self.started = True
+        return self
+
+    def stop(self):
+        self.started = False
 
 
 @pytest.fixture()
@@ -225,18 +252,51 @@ def faked(smoke, monkeypatch):
     monkeypatch.setattr(_build, "build", lambda: Path("fake.so"))
     monkeypatch.setattr(smoke, "build_report", lambda lib, log: ["ptxas fake"])
     monkeypatch.setattr(smoke, "card_line", lambda: "FAKE H100, 700.00 W")
+    monkeypatch.setattr(smoke, "cli_archive", lambda: ("archive", "ini"))
     calls = []
+
+    class FakeExperiments:
+        """Phase 18's process: started before phase 13, joined in 17."""
+
+        def __init__(self, card):
+            calls.append(("experiments_process", (card,)))
+
+        def finish(self, notes):
+            calls.append(("experiments_phase", (notes,)))
+            notes["stats"] += "; phase 18 (fake)"
+            return 1.0
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(smoke, "ExperimentsProcess", FakeExperiments)
+
+    class FakeFuture:
+        def __init__(self, datasets):
+            calls.append(("mesh_programs", (datasets,)))
+
+        def result(self):
+            return dict(MESH_GROUPS)
+
+        def exception(self):
+            return None
+
+    monkeypatch.setattr(smoke, "start_mesh_programs", FakeFuture)
     row = {"name": "stats", "route": "cuda", "source": "s", "replaces": "r", "launches": 16,
            "max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
            "bound_by": "bytes", "library_ms": None}
     results = {"kernel_phase": ({"stats": row}, {"stats": ""}),
                "main_path_phase": ("datasets", "result"),
-               "sharded_fit_phase": ("X", "kw", {"validation": "validation"}),
+               "sharded_fit_phase": ("X", "kw", dict(GROUPS)),
                "decodes_and_text_phase": "raw", "federation_phase": "phase9",
                "pacing_phase": "pacing"}
     for name in PHASES:
-        def phase(*args, _name=name):
+        def phase(*args, _name=name, meanwhile=None, start_mesh=False):
             calls.append((_name, args))
+            if meanwhile is not None:
+                meanwhile()
+            if start_mesh:
+                return FakeFederation("archive", "ini").start()
             return results.get(_name)
         monkeypatch.setattr(smoke, name, phase)
     return calls
@@ -244,20 +304,33 @@ def faked(smoke, monkeypatch):
 
 def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys):
     """Phase 14 runs on phase 7(b)'s corpora and phase 9's store, phase 15,
-    the command line, on phase 3's fit, and phase 16, the scenario matrix,
-    last with the kernels' notes; phases 5 to 8 read phase 4's rank groups;
-    the script's own seconds come before the ``kernels`` line, and the
-    ``ok`` line is the last."""
+    the command line, on phase 3's fit (starting 17(b)'s processes), and
+    phase 16, the scenario matrix, with the kernels' notes; then phase 17 on
+    17(a)'s rank group, phase 3's fit and corpora and phase 15's processes,
+    joining phase 18's process; both started before phase 13, and phase
+    18's notes reach the kernels; phases 5 to 8 read phase 4's rank groups; the
+    script's own seconds come before the ``kernels`` line, and the ``ok``
+    line is the last."""
     import json
 
     assert smoke.main([]) == 0
-    assert [name for name, _ in faked] == list(PHASES)
+    assert [name for name, _ in faked] == list(ORDER)
     calls = dict(faked)
     assert calls["serving_phase"][2:] == ("raw", "phase9")
-    assert calls["cli_phase"][1:] == ("result",)
-    assert calls["scenario_phase"] == ("FAKE H100, 700.00 W", {"stats": ""})
+    assert calls["cli_phase"][1:] == ("result",)  # and start_mesh=True
+    notes = {"stats": "; phase 18 (fake)"}  # one dict, phase 18's notes merged at the end
+    assert calls["scenario_phase"] == ("FAKE H100, 700.00 W", notes)
     assert calls["persistence_phase"][-3:] == ("X", "kw", "validation")
-    groups = {"validation": "validation"}
+    assert calls["mesh_programs"] == ("datasets",)
+    assert calls["mesh_phase"][0:2] == ("FAKE H100, 700.00 W", notes)
+    assert calls["mesh_phase"][2].result() == MESH_GROUPS
+    assert calls["mesh_phase"][3:5] == ("result", "datasets")
+    federation = calls["mesh_phase"][5]
+    assert isinstance(federation, FakeFederation) and federation.started
+    assert federation.paths == ("archive", "ini")
+    assert calls["experiments_process"] == ("FAKE H100, 700.00 W",)
+    assert calls["experiments_phase"] == (notes,)
+    groups = GROUPS
     assert calls["data_parallel_phase"][-1] == calls["decodes_and_text_phase"][-1] == groups
     assert calls["ctm_phase"][2:] == ("raw", "datasets", groups)
     lines = capsys.readouterr().out.splitlines()
@@ -296,6 +369,20 @@ def test_scenarios_only_runs_phase_16_alone(smoke, faked, capsys):
     no result lines."""
     assert smoke.main(["--scenarios-only"]) == 0
     assert [name for name, _ in faked] == ["scenario_phase"]
+    card, notes = faked[0][1]
+    assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "kernels" not in out
+
+
+@pytest.mark.parametrize("flag, phase", [("--mesh-only", "mesh_phase"),
+                                         ("--experiments-only", "experiments_phase")])
+def test_mesh_and_experiments_only_run_their_phase_alone(smoke, faked, capsys, flag, phase):
+    """``--mesh-only`` runs phase 17 with nothing before it (it runs its own
+    rank group and phase 3's fit, and nothing beside it), and
+    ``--experiments-only`` phase 18; neither prints result lines."""
+    assert smoke.main([flag]) == 0
+    assert [name for name, _ in faked] == [phase]
     card, notes = faked[0][1]
     assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
     out = capsys.readouterr().out

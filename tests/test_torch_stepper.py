@@ -269,5 +269,8 @@ def test_protocol_order_budget_and_snapshots(tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "epoch_0.json", "epoch_0.npz", "epoch_1.json", "epoch_1.npz"]
     assert stepper.best_components is not None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FederatedStepper(AVITM(device="cpu", **kw("avitm")), mesh=object())
+    # A data layout of one rank is accepted, and is the one-device stepper.
+    from gfedntm_tpu_torch.parallel.mesh import data_layout
+
+    one = FederatedStepper(AVITM(device="cpu", **kw("avitm")), mesh=data_layout(1, None, 0))
+    assert one.mesh is None
