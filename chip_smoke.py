@@ -17,15 +17,16 @@
     python3 chip_smoke.py --scenarios-only  # phases 1 and 16
     python3 chip_smoke.py --mesh-only     # phases 1 and 17
     python3 chip_smoke.py --experiments-only  # phases 1 and 18
+    python3 chip_smoke.py --lint-only     # phase 19
 
-Eighteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Nineteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script). In a run of every phase, phase 4
 runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
 7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
 group's start-up, warm-up and teardown are paid twice rather than ten times;
-each phase checks its programs' results where it did before. Phases 17 and
-18 run beside earlier phases (their text says how). Every phase prints its
-seconds.
+each phase checks its programs' results where it did before. Phases 17, 18
+and 19 run beside earlier phases (their text says how). Every phase prints
+its seconds.
 
 1. build — compile the fused decoder's CUDA kernels from
    ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
@@ -404,6 +405,14 @@ seconds.
    a process of its own (``spawn``; it counts its own launches) from the
    start of phase 13 and phase 17 waits for it, so its seconds are taken
    beside phases 13-17.
+19. the port's static-analysis gate: ``python -m gfedntm_tpu_torch.analysis``
+   (graftlint's six rules over the port and this script, against
+   ``gfedntm_tpu_torch/analysis/lint_baseline.json``) exits 0 under the
+   card's torch build (its GL001 imports the port's ``observability``, and
+   so torch). One line: the files scanned, per rule the new, baselined and
+   inline-suppressed findings, the lint's own seconds and this process's
+   serial cost. Its process starts with the script and is joined before the
+   kernels' lines, so its serial cost is the join and the line's breakdown.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -6135,6 +6144,99 @@ def experiments_phase(card: str, notes: dict) -> None:
     print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the port's static-analysis gate
+# ---------------------------------------------------------------------------
+#: Phase 19's own limit, in seconds.
+LINT_LIMIT_S = 300.0
+#: graftlint's summary line (``python -m gfedntm_tpu_torch.analysis``).
+LINT_SUMMARY = re.compile(r"graftlint: (\d+) files, (\d+) rules -> (\d+) new finding\(s\), "
+                          r"(\d+) baselined, (\d+) stale")
+#: A new finding on graftlint's standard error.
+LINT_FINDING = re.compile(r"^\S+:\d+: \[([\w-]+) (GL\d+)\]", re.M)
+
+
+class LintProcess:
+    """Phase 19 in a process of its own: ``python -m gfedntm_tpu_torch.analysis``
+    from this script's directory, started with the script. A thread waits
+    for it and takes its end time; :meth:`finish` joins the thread, prints
+    the phase's line and fails the run on a nonzero exit."""
+
+    def __init__(self):
+        import threading
+
+        root = Path(__file__).resolve().parent
+        self.started = time.perf_counter()
+        self.ended = None
+        self.out = self.err = ""
+        self.proc = subprocess.Popen([sys.executable, "-m", "gfedntm_tpu_torch.analysis"],
+                                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self) -> None:
+        self.out, self.err = self.proc.communicate()
+        self.ended = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.waiter.join(10.0)
+
+    def finish(self, card: str) -> None:
+        t0 = time.perf_counter()
+        self.waiter.join(max(LINT_LIMIT_S - (t0 - self.started), 1.0))
+        join_s = time.perf_counter() - t0
+        if self.ended is None:
+            self.stop()
+            check(False, f"phase 19: graftlint gave no result within {LINT_LIMIT_S:g} s")
+        rc = self.proc.returncode
+        check(rc == 0, f"phase 19: graftlint exit code {rc}: {self.out[-2000:]}"
+                       f"{self.err[-4000:]}")
+        m = LINT_SUMMARY.search(self.out)
+        check(m is not None, f"phase 19: no graftlint summary in {self.out[-2000:]!r}")
+        files, n_rules, new, baselined, stale = map(int, m.groups())
+        breakdown = lint_breakdown(self.err)
+        print(f"phase 19: graftlint over the port: {files} files, {n_rules} rules, {breakdown} "
+              f"(new/baselined/suppressed); {new} new, {baselined} baselined, {stale} stale; "
+              f"the lint took {self.ended - self.started:.1f} s beside phases 1-18; serial "
+              f"cost {time.perf_counter() - t0:.2f} s (the join {join_s:.2f} s) ({card})",
+              flush=True)
+
+
+def lint_breakdown(err: str) -> str:
+    """Per rule, ``new/baselined/suppressed``: the new findings on
+    graftlint's standard error, the port baseline's entries (all matched:
+    the gate fails on unjustified ones and the summary counts stale ones),
+    and the inline suppression comments (``graftlint: disable=``) in the
+    scanned files."""
+    import tokenize
+
+    from gfedntm_tpu_torch.analysis.core import _SUPPRESS_RE, collect_default_files
+    from gfedntm_tpu_torch.analysis.rules import make_default_rules
+    from gfedntm_tpu_torch.analysis.runner import default_baseline_path
+
+    root = str(Path(__file__).resolve().parent)
+    rules = make_default_rules()
+    new = {r.name: 0 for r in rules}
+    for name, _rid in LINT_FINDING.findall(err):
+        new[name] = new.get(name, 0) + 1
+    based = dict.fromkeys(new, 0)
+    for entry in json.loads(Path(default_baseline_path(root)).read_text())["entries"]:
+        based[entry["rule"]] = based.get(entry["rule"], 0) + 1
+    suppressed = dict.fromkeys(new, 0)
+    for path in collect_default_files(root):
+        with open(path, "rb") as fh:
+            comments = [t.string for t in tokenize.tokenize(fh.readline)
+                        if t.type == tokenize.COMMENT]
+        for m in filter(None, map(_SUPPRESS_RE.search, comments)):
+            for name in m.group(1).split(","):
+                suppressed[name.strip()] = suppressed.get(name.strip(), 0) + 1
+    return ", ".join(f"{r.id} {r.name} {new[r.name]}/{based[r.name]}/{suppressed[r.name]}"
+                     for r in rules)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
     dp_only = "--data-parallel-only" in argv
@@ -6150,27 +6252,28 @@ def main(argv: list[str]) -> int:
     scenarios_only = "--scenarios-only" in argv
     mesh_only = "--mesh-only" in argv
     experiments_only = "--experiments-only" in argv
+    lint_only = "--lint-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
                                          "--cli-only", "--scenarios-only", "--mesh-only",
-                                         "--experiments-only")]
+                                         "--experiments-only", "--lint-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
             or pacing_only or hier_only or serve_only or cli_only or scenarios_only
-            or mesh_only or experiments_only)
+            or mesh_only or experiments_only or lint_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
             + privacy_only + pacing_only + hier_only + serve_only + cli_only
-            + scenarios_only + mesh_only + experiments_only > 1
+            + scenarios_only + mesh_only + experiments_only + lint_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
-              "--cli-only | --scenarios-only | --mesh-only | --experiments-only]",
-              file=sys.stderr)
+              "--cli-only | --scenarios-only | --mesh-only | --experiments-only | "
+              "--lint-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6191,10 +6294,15 @@ def main(argv: list[str]) -> int:
     t_script = time.perf_counter()
     experiments = None  # phase 18's process, in a run of every phase
     mesh_programs = None  # 17(a)'s rank group, in a run of every phase
+    # Phase 19's process, from the script's start in a run of every phase.
+    lint = LintProcess() if lint_only or not (only or kernels_only) else None
     card = card_line()
     print(card, flush=True)
     resolve_device(None)
     try:
+        if lint_only:
+            lint.finish(card)
+            return 0
         t0 = time.perf_counter()
         lib = _build.build()
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6280,10 +6388,13 @@ def main(argv: list[str]) -> int:
                 raise
             mesh_phase(card, notes, mesh_programs, result, datasets, federation,
                        meanwhile=lambda: experiments_phase_joined(card, notes, experiments))
+            lint.finish(card)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     finally:
+        if lint is not None:
+            lint.stop()
         if experiments is not None:
             experiments.stop()
         if mesh_programs is not None:

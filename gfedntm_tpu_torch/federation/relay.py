@@ -154,6 +154,11 @@ class RelayNode:
         self.journal_every = int(journal_every)
         self._round_journal: RoundJournal | None = None
         self._journal_disabled = False
+        # abort() takes this lock to wait out a journal write in flight and
+        # then stops all journaling: a killed process writes nothing more,
+        # while a handler thread of an aborted relay runs on.
+        self._journal_lock = threading.Lock()
+        self._aborted = False  # guarded-by: _journal_lock
         self._recovered = False
         self._recovered_at: float | None = None
         self._resume_ready_needed: int | None = None
@@ -296,6 +301,10 @@ class RelayNode:
             # abort must fail like a dead process, not be answered
             # "federation already finished".
             self._grpc_server.stop(0)
+        with self._journal_lock:
+            # A respawn reads the journal next: no half-written one, and no
+            # later write from a handler still running.
+            self._aborted = True
         self.stopped.set()  # parks the watchdog; _finalize was not run
         self._pool.shutdown(wait=False)
         for _addr, channel, _stub in self._member_stubs.values():
@@ -989,31 +998,34 @@ class RelayNode:
             or self._journal_disabled or self._setup_base is None
         ):
             return
-        try:
-            self._journal().record(
-                self._applied_round,
-                self._current_global(),
-                self._membership_state(),
-                vocab=list(self.global_vocab.tokens),
-                extra={
-                    "relay": self.relay_id,
-                    "upstream_session": self.session_token,
-                    "codec_id": (
-                        self._codec.codec_id if self._codec is not None
-                        else "none"
-                    ),
-                    "setup_base_b64": self._journaled_setup_base(),
-                },
-            )
-        except OSError as err:
-            self._note_journal_write_failure(self._applied_round, err)
-        except Exception:
-            self.logger.exception(
-                "relay %d: shard journal write at round %d failed",
-                self.relay_id, self._applied_round,
-            )
-            if self.metrics is not None:
-                self.metrics.registry.counter("journal_errors").inc()
+        with self._journal_lock:
+            if self._aborted:
+                return
+            try:
+                self._journal().record(
+                    self._applied_round,
+                    self._current_global(),
+                    self._membership_state(),
+                    vocab=list(self.global_vocab.tokens),
+                    extra={
+                        "relay": self.relay_id,
+                        "upstream_session": self.session_token,
+                        "codec_id": (
+                            self._codec.codec_id if self._codec is not None
+                            else "none"
+                        ),
+                        "setup_base_b64": self._journaled_setup_base(),
+                    },
+                )
+            except OSError as err:
+                self._note_journal_write_failure(self._applied_round, err)
+            except Exception:
+                self.logger.exception(
+                    "relay %d: shard journal write at round %d failed",
+                    self.relay_id, self._applied_round,
+                )
+                if self.metrics is not None:
+                    self.metrics.registry.counter("journal_errors").inc()
 
     def _journaled_setup_base(self) -> str:
         if self._setup_base_b64 is None:
@@ -1029,15 +1041,18 @@ class RelayNode:
         resurrecting a stale journal."""
         if self.journal_every <= 0 or self.save_dir is None:
             return
-        try:
-            self._journal().mark_finished()
-        except Exception:
-            self.logger.exception(
-                "relay %d: marking the shard journal finished failed",
-                self.relay_id,
-            )
-            if self.metrics is not None:
-                self.metrics.registry.counter("journal_errors").inc()
+        with self._journal_lock:
+            if self._aborted:
+                return
+            try:
+                self._journal().mark_finished()
+            except Exception:
+                self.logger.exception(
+                    "relay %d: marking the shard journal finished failed",
+                    self.relay_id,
+                )
+                if self.metrics is not None:
+                    self.metrics.registry.counter("journal_errors").inc()
 
     def maybe_autorecover(self) -> "int | None":
         """Relay crash recovery (call before :meth:`start`): when

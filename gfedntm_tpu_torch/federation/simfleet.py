@@ -24,6 +24,7 @@ and aggregation plane live on ``device`` (``None`` is the GPU).
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import Any
 
@@ -51,18 +52,25 @@ __all__ = [
 
 class ByteCounter:
     """Wire-byte accounting for the loopback transport: request and reply
-    proto sizes, exactly what gRPC would have moved."""
+    proto sizes, exactly what gRPC would have moved. The server's poll and
+    push pools call :meth:`note` from several threads at once, so the
+    totals are added under a lock: an unlocked ``+=`` loses an update
+    whenever a thread switch falls between its read and its write."""
 
     def __init__(self):
-        self.sent = 0  # server -> client payload bytes
-        self.recv = 0  # client -> server payload bytes
-        self.calls = 0
+        self._lock = threading.Lock()
+        # Server -> client and client -> server payload bytes.
+        self.sent = 0  # guarded-by: _lock
+        self.recv = 0  # guarded-by: _lock
+        self.calls = 0  # guarded-by: _lock
 
     def note(self, request, reply) -> None:
-        self.calls += 1
-        self.sent += request.ByteSize()
-        if reply is not None:
-            self.recv += reply.ByteSize()
+        sent = request.ByteSize()
+        recv = reply.ByteSize() if reply is not None else 0
+        with self._lock:
+            self.calls += 1
+            self.sent += sent
+            self.recv += recv
 
 
 class SharedDecode:

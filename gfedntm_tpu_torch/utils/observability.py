@@ -683,6 +683,135 @@ SEND_TIME_KEY = "x-gfedntm-send-time"
 NODE_KEY = "x-gfedntm-node"
 
 
+# ---- the telemetry contract (:685-805): span names and the required-event
+# groups graftlint's GL001 reverse-lints over the port ----------------------
+
+#: Span names the trace plane is built on: ``round`` (the server's per-round
+#: root, used to pick the merge reference node) and ``serve`` (the servicer-
+#: side child every instrumented RPC dispatch logs, carrying the extracted
+#: trace context + the paired send/recv clock stamps). graftlint's
+#: telemetry-contract rule (GL001) verifies every name still exists as a
+#: span() call site. ``relay_fanout``/``relay_push`` time the relay tier's downstream
+#: fan-out + pre-reduce and its aggregate re-broadcast; ``infer``,
+#: ``serve_batch``, and ``serve_swap`` time the serving path (Infer RPC
+#: dispatch, batcher micro-batch drain, hot-swap install) — without
+#: them hierarchical and serving incidents merged into timelines with
+#: no tier-local spans (README "Incident forensics").
+TRACE_PLANE_SPANS: tuple[str, ...] = (
+    "round", "serve", "relay_fanout", "relay_push", "infer",
+    "serve_batch", "serve_swap",
+)
+
+#: Data-plane defense events (update admission gate, divergence guardian,
+#: checkpoint integrity — README "Robust aggregation & divergence
+#: recovery"). graftlint's telemetry-contract rule verifies each still
+#: has an emission call site: the defense must never be silently
+#: disconnected from telemetry.
+DATA_PLANE_EVENTS: tuple[str, ...] = (
+    "update_rejected",
+    "update_clipped",
+    "divergence_rollback",
+    "client_quarantined",
+    "checkpoint_invalid",
+)
+
+#: Model-quality plane events (topic coherence / drift telemetry — README
+#: "Model-quality observability"). Same reverse-lint contract as the
+#: data-plane events: graftlint's telemetry-contract rule verifies each
+#: keeps an emission call site, so the quality monitor can never be silently disconnected
+#: from the stream the `report` CLI reconstructs trajectories from.
+MODEL_QUALITY_EVENTS: tuple[str, ...] = (
+    "quality_computed",
+    "topic_drift",
+)
+
+#: Wire-efficient scale-out events (bounded reference-cache evictions,
+#: push-paced aggregations, the relay tier — README "Hierarchical
+#: federation & wire efficiency"). Same reverse-lint contract: graftlint
+#: verifies each keeps an emission call site, so the scale plane's
+#: telemetry (which BENCH_SCALE reproducibility depends on) can never be
+#: silently disconnected.
+SCALEOUT_EVENTS: tuple[str, ...] = (
+    "codec_ref_evicted",
+    "push_aggregated",
+    "relay_joined",
+    "relay_preaggregated",
+)
+
+#: Serving-plane events (model load / hot-swap / quality-gated refusal /
+#: request-path errors — README "Serving"). Same reverse-lint contract:
+#: graftlint verifies each keeps an emission call site, so a refactor can
+#: never silently disconnect the swap audit trail BENCH_SERVE
+#: reproducibility (and the zero-dropped-requests claim) depends on.
+SERVING_EVENTS: tuple[str, ...] = (
+    "serve_model_loaded",
+    "serve_model_swapped",
+    "serve_swap_refused",
+    "serve_error",
+    "serve_load_window",
+    "serve_shed",
+)
+
+#: Scenario-matrix events (cell lifecycle + per-cell degradation-
+#: contract verdicts — README "Scenario matrix"). Same reverse-lint
+#: contract: graftlint verifies each keeps an emission call site, so the
+#: scenario engine can never silently stop recording the contract
+#: verdicts BENCH_SCENARIO reproducibility depends on.
+SCENARIO_EVENTS: tuple[str, ...] = (
+    "scenario_cell_started",
+    "scenario_contract",
+    "scenario_cell_finished",
+)
+
+#: Fleet-telemetry / SLO plane events (alert state-machine transitions +
+#: the FleetRegistry cardinality guard — README "Fleet telemetry & SLOs").
+#: Same reverse-lint contract: graftlint verifies each keeps an emission
+#: call site, so the alerting plane (which the `slo` CI gate and the
+#: /alerts endpoint both key on) can never be silently disconnected.
+FLEET_EVENTS: tuple[str, ...] = (
+    "alert_pending",
+    "alert_firing",
+    "alert_resolved",
+    "fleet_overflow",
+)
+
+#: Survivable-hierarchy events (relay crash autorecovery, cross-tier
+#: member re-homing, journal-write degradation — README "Crash recovery
+#: & sessions"). Same reverse-lint contract: graftlint verifies each
+#: keeps an emission call site, so the hierarchy's crash-recovery audit
+#: trail (which the chaos suite and the relay-crash scenario cells
+#: assert against) can never be silently disconnected.
+SURVIVAL_EVENTS: tuple[str, ...] = (
+    "server_recovered",
+    "relay_recovered",
+    "member_rehomed",
+    "journal_write_failed",
+)
+
+#: Privacy-plane events (DP mechanism applications + the accountant's
+#: per-round (eps, delta) ledger — README "Differential privacy &
+#: posterior sampling"). Same reverse-lint contract: graftlint verifies
+#: each keeps an emission call site, so the privacy ledger (which the
+#: `privacy` CI gate replays and the budget_monotone scenario contract
+#: asserts against) can never be silently disconnected.
+PRIVACY_EVENTS: tuple[str, ...] = (
+    "dp_noise_applied",
+    "privacy_budget",
+    "privacy_budget_exceeded",
+)
+
+#: Incident-forensics events (flight-recorder bundles + server-
+#: solicited remote capture — README "Incident forensics"). Same
+#: reverse-lint contract: graftlint verifies each keeps an emission
+#: call site, so the postmortem plane (which the `incident` CLI gate
+#: replays bundles against) can never be silently disconnected.
+INCIDENT_EVENTS: tuple[str, ...] = (
+    "incident_captured",
+    "flightrec_requested",
+    "flightrec_received",
+)
+
+
 def new_trace_id() -> str:
     """A fresh 16-hex-char trace id (one federation training run)."""
     import uuid
@@ -1263,7 +1392,8 @@ def sample_process_metrics(registry: MetricRegistry) -> None:
         # Current RSS (not the rusage high-water mark) when /proc exists.
         with open("/proc/self/statm") as fh:
             rss = int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    # A platform without /proc (macOS) falls back to the rusage peak.
+    # graftlint: disable=exception-hygiene -- platform probe: no /proc
+    # (macOS) falls back to the rusage peak below
     except Exception:
         try:
             import resource
@@ -1274,7 +1404,8 @@ def sample_process_metrics(registry: MetricRegistry) -> None:
             # bytes on macOS, KiB elsewhere.
             scale = 1 if sys.platform == "darwin" else 1024
             rss = int(ru.ru_maxrss) * scale
-        # No resource module (non-POSIX): the gauge is simply absent.
+        # graftlint: disable=exception-hygiene -- no resource module
+        # (non-POSIX): the gauge is simply absent
         except Exception:
             rss = None
     if rss is not None:

@@ -535,6 +535,48 @@ def test_interop_relays_across_the_packages(tmp_path, root_side):
     assert all(e["admitted"] == 2 for e in pre)
 
 
+def test_abort_waits_out_a_journal_write_and_stops_journaling(tmp_path):
+    """``RelayNode.abort`` is a kill: it waits for a journal write in
+    flight to end, and no handler still running after it writes or stamps
+    the journal, so a respawn reads whole halves (an unguarded write after
+    the abort left "round journal halves disagree" under load)."""
+    relay = RelayNode(relay_id=101, upstream_address="127.0.0.1:1", min_members=1,
+                      save_dir=str(tmp_path), device="cpu")
+    writes = []
+
+    class Journal:
+        def record(self, *args, **kwargs):
+            writes.append("record")
+
+        def mark_finished(self):
+            writes.append("finished")
+
+    relay._journal = Journal
+    relay._setup_base = pb.GlobalSetup()
+    relay.global_vocab = Vocabulary(("a", "b"))
+    relay._current_global = dict
+    relay._mark_journal_finished()
+    assert writes == ["finished"]
+
+    in_flight = threading.Event()
+
+    def writer():
+        with relay._journal_lock:
+            in_flight.set()
+            time.sleep(0.3)
+            writes.append("in flight")
+
+    thread = threading.Thread(target=writer)
+    thread.start()
+    assert in_flight.wait(10.0)
+    relay.abort()
+    assert writes[-1] == "in flight"
+    relay._journal_shard()
+    relay._mark_journal_finished()
+    thread.join(10.0)
+    assert not thread.is_alive() and writes == ["finished", "in flight"]
+
+
 def test_relay_killed_and_respawned_from_its_journal(tmp_path):
     """A relay aborted after round 3 and respawned on the same address and
     save_dir: it recovers at a round >= killed - 2, both members come back

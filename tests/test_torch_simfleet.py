@@ -17,6 +17,7 @@
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -148,13 +149,19 @@ def _template():
 
 def _seq_free_counting(monkeypatch):
     """Count bytes with ``seq`` cleared on both the request and the reply:
-    the one field whose value (the seq base) differs by design."""
+    the one field whose value (the seq base) differs by design. The
+    server's push pool calls ``note`` from several threads at once, so the
+    totals are added under a lock, as the port's ``ByteCounter.note`` adds
+    them (an unlocked ``+=`` lost updates under load)."""
+    lock = threading.Lock()
 
     def note(self, request, reply):
-        self.calls += 1
-        self.sent += _without_seq(request).ByteSize()
-        if reply is not None:
-            self.recv += _without_seq(reply).ByteSize()
+        sent = _without_seq(request).ByteSize()
+        recv = _without_seq(reply).ByteSize() if reply is not None else 0
+        with lock:
+            self.calls += 1
+            self.sent += sent
+            self.recv += recv
 
     monkeypatch.setattr(simfleet.ByteCounter, "note", note)
     monkeypatch.setattr(j_simfleet.ByteCounter, "note", note)
@@ -215,6 +222,35 @@ def test_bytes_per_round_flat_from_100_to_1000_clients(tmp_path, pacing):
         assert per_round[n] < 8 * fan * payload, (n, per_round[n], payload)
     assert per_round[1000] <= 1.25 * per_round[100], per_round
     assert per_round[100] <= 1.25 * per_round[1000], per_round
+
+
+def test_byte_counter_keeps_every_note_from_many_threads():
+    """The server's poll and push pools call ``ByteCounter.note`` from
+    several threads at once; with a switch interval of a microsecond, 32
+    threads (more than the cores) must lose no call and no byte."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gfedntm_tpu_torch.federation.protos import federated_pb2 as pb
+
+    request, reply = pb.Aggregate(round=7, stop=True), pb.AggregateReply(client_id=3)
+    counter, threads, notes = simfleet.ByteCounter(), 32, 500
+
+    def work(_):
+        for _ in range(notes):
+            counter.note(request, reply)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(threads) as pool:
+            for future in [pool.submit(work, i) for i in range(threads)]:
+                future.result(timeout=TIMEOUT)
+    finally:
+        sys.setswitchinterval(interval)
+    n = threads * notes
+    assert (counter.calls, counter.sent, counter.recv) == (
+        n, n * request.ByteSize(), n * reply.ByteSize())
 
 
 # ---- the bounded reference caches (tests/test_scaleout.py) --------------------
