@@ -18,15 +18,16 @@
     python3 chip_smoke.py --mesh-only     # phases 1 and 17
     python3 chip_smoke.py --experiments-only  # phases 1 and 18
     python3 chip_smoke.py --lint-only     # phase 19
+    python3 chip_smoke.py --examples-only  # phases 1 and 20
 
-Nineteen phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Twenty phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script). In a run of every phase, phase 4
 runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
 7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
 group's start-up, warm-up and teardown are paid twice rather than ten times;
-each phase checks its programs' results where it did before. Phases 17, 18
-and 19 run beside earlier phases (their text says how). Every phase prints
-its seconds.
+each phase checks its programs' results where it did before. Phases 17 to
+20 run beside earlier phases (their text says how). Every phase prints its
+seconds.
 
 1. build — compile the fused decoder's CUDA kernels from
    ``gfedntm_tpu_torch/ops/csrc/`` with nvcc for sm_90a; print ptxas'
@@ -231,7 +232,8 @@ its seconds.
    ``privacy`` and ``model_quality``, the fleet naming all three nodes,
    only the firing SLO fired, one ``privacy_budget_exceeded``, and two
    incidents each with the server's bundle and both clients' solicited
-   rings; (b) the same federation under ``dp="client"``: one
+   rings; (b) the same federation under ``dp="client"``, one epoch (4
+   global steps): one
    ``dp_noise_applied`` per uplink on each client with consecutive
    indices, a host replay of one captured sanitizer application bitwise
    the tensors on the wire, the server's ledger at q=1 and no server noise;
@@ -245,11 +247,12 @@ its seconds.
 12. cohort, async and push pacing, and the simulated fleet (every check
    fatal): three port clients over localhost gRPC on the card, phase 7(b)'s
    two raw-text clients and a third from the same generator with its own
-   seed (``seed=1``; the consensus V printed), K=50, H=(100, 100), B=256,
-   2 epochs, each federation on a port server at the JAX defaults but for
-   its pacing: (a) ``cohort:2`` under the delta codec with
-   ``pacing_seed=1``: every ``cohort_sampled`` roster the sampler replayed
-   for its (seed, round, eligible), rotating rosters, no quorum skip and no
+   seed (``seed=1``), each client's first 768 documents (the consensus V
+   printed), K=50, H=(100, 100), B=256, 2 epochs, each federation on a
+   port server at the JAX defaults but for its pacing: (a) ``cohort:2``
+   under the delta codec with ``pacing_seed=1``: every ``cohort_sampled``
+   roster the sampler replayed for its (seed, round, eligible), rotating
+   rosters, no quorum skip and no
    ``codec_ref_miss``, every recipient of round r holding the server's
    round-r downlink view bitwise; (b) ``async:2`` with
    ``staleness_alpha=0.5``: every discount ``1/(1+s)^0.5`` for its s;
@@ -287,10 +290,14 @@ its seconds.
    split into relay fan-out, relay decode and gate, pre-reduction, upstream
    encode, root decode and mean and re-broadcast beside the flat run's ms
    per global step, and the root's bytes per round in both topologies.
-   (b) 2 epochs (8 local steps a client), stopped at the root's eighth
+   (b) 2 epochs (8 local steps a client), stopped at the root's sixth
    round; the delta codec, ``relay_grace_rounds=2`` on the root, a
    ``save_dir`` per relay: relay 101 aborted after root round 2 and
-   respawned on its address and ``save_dir`` once the grace has expired:
+   respawned on its address and ``save_dir`` once the grace has expired,
+   the root's next round begun once the respawned relay can answer it (its
+   ready with ``recovered``, both members back, the root's channel to it
+   connected; a timeline of the kill, the respawn, the root's polls of the
+   relay, its channel's states and the members' reconnects is printed):
    ``maybe_autorecover`` at a round >= killed - 2, both members restored
    with one Ack 3 reset each, the root's
    ready with ``recovered=True``, rounds over relay 102 alone
@@ -402,9 +409,9 @@ its seconds.
    centralized corpus, its NPMI, inverted RBO and topic diversity finite.
    Each arm's seconds, steps and scores print beside the published means
    (for reading: the run is cut). In a run of every phase, phase 18 runs in
-   a process of its own (``spawn``; it counts its own launches) from the
-   start of phase 13 and phase 17 waits for it, so its seconds are taken
-   beside phases 13-17.
+   a process of its own (``spawn``; it counts its own launches, and runs
+   phase 20 next) from the start of phase 9 and phase 17 waits for it, so
+   its seconds are taken beside phases 9-17.
 19. the port's static-analysis gate: ``python -m gfedntm_tpu_torch.analysis``
    (graftlint's six rules over the port and this script, against
    ``gfedntm_tpu_torch/analysis/lint_baseline.json``) exits 0 under the
@@ -413,6 +420,22 @@ its seconds.
    inline-suppressed findings, the lint's own seconds and this process's
    serial cost. Its process starts with the script and is joined before the
    kernels' lines, so its serial cost is the join and the line's breakdown.
+20. the five user walkthroughs, ``gfedntm_tpu_torch.examples`` (every check
+   fatal), each through its ``run()`` at the JAX script's sizes on the card:
+   ``bow_dataset_example`` (data preparation, no kernel),
+   ``centralized_training`` (``AVITM.fit`` with validation, V=500 words
+   generated, K=8, H=(64, 64), B=32, 15 epochs; TSS above its random
+   baseline), ``federated_simulation`` (consensus over 3 clients,
+   ``FederatedTrainer.fit`` at K=6, H=(32, 32), B=16, 10 epochs; the shared
+   beta bitwise equal across the clients), ``hierarchical_training``
+   (``TMWrapper``'s father at B=16, its HTM-WS and HTM-DS children at K=3,
+   B=8) and ``realtext_federation`` (the docstring preset over the installed
+   packages at ``scale=0.1``, K=10, ``local_steps=10``, B=64; five clients):
+   per walkthrough its seconds, K1-K3 launched once per training step, every
+   step loss finite, the JAX script's printed lines, and K1-K3 held to their
+   plain versions on the first batch of every model it trains (B = 8, 16,
+   32, 64). In a run of every phase it runs after phase 18 in phase 18's
+   process, beside phases 9-17, and its serial cost is the wait for it.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -3357,6 +3380,10 @@ def server_planes_phase(card: str, notes: dict, raw=None, phase9=None) -> None:
 # Phase 11: the privacy and observation planes
 # ---------------------------------------------------------------------------
 DP_SIGMA = 0.01  # noise multiplier of phase 11 (std = sigma * clip / n on the aggregate)
+# 11(b)'s global steps: one epoch. Its checks (a noise application per
+# uplink with consecutive indices, one replayed bitwise, the ledger at q=1,
+# no server noise) hold at any length; (a) keeps 8, its budget crossed at 5.
+CLIENT_DP_STEPS = 4
 DP_CLIP = 1.0
 DP_DELTA = 1e-5
 OPS_ROUTES = ("/healthz", "/ready", "/metrics", "/status", "/status?full=1", "/status.fleet",
@@ -3437,13 +3464,14 @@ def capturing_client():
 
 
 def dp_federation(card: str, clients_raw, mode: str, label: str, budget: float = 0.0,
-                  planes: bool = False, tick=None, server_cls=None):
+                  planes: bool = False, tick=None, server_cls=None, steps: int = FED_STEPS):
     """One phase-11 federation: a port server (``server_cls``, by default
     ``FederatedServer``) at the JAX defaults with ``dp=mode`` and two port
-    clients on phase 7(b)'s corpora (client DP when ``mode == "client"``), 8
-    global steps; ``planes`` turns on the quality plane with its guard, the
-    ops endpoint with SLOs, and incident dumps on every node. Returns
-    (server, clients, logs, launches, run_s, base directory)."""
+    clients on phase 7(b)'s corpora (client DP when ``mode == "client"``),
+    ``steps`` global steps (4 an epoch); ``planes`` turns on the quality
+    plane with its guard, the ops endpoint with SLOs, and incident dumps on
+    every node. Returns (server, clients, logs, launches, run_s, base
+    directory)."""
     import numpy as np
     import torch
 
@@ -3452,7 +3480,8 @@ def dp_federation(card: str, clients_raw, mode: str, label: str, budget: float =
     from gfedntm_tpu_torch.utils.observability import MetricsLogger
 
     K, B, C = 50, 256, len(clients_raw)
-    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=2, seed=0)
+    kw = dict(n_components=K, hidden_sizes=(100, 100), batch_size=B, num_epochs=steps // 4,
+              seed=0)
     base = SCRATCH / "privacy_ops" / mode
     shutil.rmtree(base, ignore_errors=True)  # a fresh federation: nothing to recover
     base.mkdir(parents=True)
@@ -3490,28 +3519,28 @@ def dp_federation(card: str, clients_raw, mode: str, label: str, budget: float =
         server.stop(grace=0.5, join_timeout=30)
         for cl in clients:
             cl.shutdown(grace=0.5)
-    check(server.global_iterations == FED_STEPS,
-          f"{label}: {server.global_iterations} global steps, want {FED_STEPS}")
+    check(server.global_iterations == steps,
+          f"{label}: {server.global_iterations} global steps, want {steps}")
     check(server._agg_backend_resolved == "device"
           and server.update_gate._engine.device.type == "cuda",
           f"{label}: the aggregation plane is not on the card")
     for name in ("stats", "loss", "grads"):
-        check(launches[name] == C * FED_STEPS,
-              f"{label}: {name} launched {launches[name]} times, want {C * FED_STEPS}")
+        check(launches[name] == C * steps,
+              f"{label}: {name} launched {launches[name]} times, want {C * steps}")
     for cl in clients:
         check(cl.stepper.model.device.type == "cuda", f"client {cl.client_id} not on the card")
         check(all(math.isfinite(loss) for loss in cl.losses), f"{label}: a non-finite loss")
-        check(len(cl.states) == FED_STEPS, f"{label}: client {cl.client_id}: "
+        check(len(cl.states) == steps, f"{label}: client {cl.client_id}: "
               f"{len(cl.states)} aggregates")
-    for step in range(FED_STEPS):
+    for step in range(steps):
         for key, value in clients[0].states[step].items():
             check(torch.equal(value, clients[1].states[step][key]),
                   f"{label}: {key} differs across clients after aggregate {step + 1}")
     check(server_log.registry.counter("divergence_rollbacks").value == 0,
           f"{label}: the guardian rolled the federation back")
     ledger = server_log.events("privacy_budget")
-    want = replayed_eps(FED_STEPS)
-    check([r["steps"] for r in ledger] == list(range(1, FED_STEPS + 1))
+    want = replayed_eps(steps)
+    check([r["steps"] for r in ledger] == list(range(1, steps + 1))
           and all(r["q"] == 1.0 and r["mode"] == mode for r in ledger),
           f"{label}: ledger rows {[(r['steps'], r['q'], r['mode']) for r in ledger]}")
     check([r["eps"] for r in ledger] == want,
@@ -3656,12 +3685,12 @@ def client_dp_phase(card: str, notes: dict, clients_raw) -> None:
 
     label = "privacy and ops (b)"
     server, clients, logs, launches, run_s, _base = dp_federation(
-        card, clients_raw, "client", label)
+        card, clients_raw, "client", label, steps=CLIENT_DP_STEPS)
     for name in ("stats", "loss", "grads"):
         notes[name] += f"; phase 11(b) client-mode DP: {launches[name]} launches"
     for cl, log in zip(clients, logs):
         events = log.events("dp_noise_applied")
-        check([r["index"] for r in events] == list(range(FED_STEPS))
+        check([r["index"] for r in events] == list(range(CLIENT_DP_STEPS))
               and all(r["mode"] == "client" for r in events),
               f"{label}: client {cl.client_id} noise events {[r['index'] for r in events]}")
     check(server._dp_noiser is None and server.aggregator.noiser is None
@@ -3679,7 +3708,7 @@ def client_dp_phase(card: str, notes: dict, clients_raw) -> None:
         and np.asarray(want[k]).tobytes() == wire[k].tobytes() for k in want),
           f"{label}: the replayed sanitizer differs from the wire")
     norms = [r["norm"] for r in logs[0].events("dp_noise_applied")]
-    print(f"{label}, {card}: {FED_STEPS} global steps in {run_s:.2f} s; launches "
+    print(f"{label}, {card}: {CLIENT_DP_STEPS} global steps in {run_s:.2f} s; launches "
           f"{nonzero(launches)}; client update norms before the clip {[round(n, 3) for n in norms]}"
           f"; one application replayed on the host in {replay_ms:.1f} ms, bitwise the wire's "
           f"{len(wire)} tensors; server ledger at q=1 {server.privacy_accountant.steps} steps",
@@ -3737,7 +3766,8 @@ def privacy_ops_phase(card: str, notes: dict, raw=None) -> None:
     client_dp_phase(card, notes, clients_raw)
     device_noise_phase(card, server)
     p9 = STEADY_MS.get("phase 9")
-    print(f"privacy and ops ms per global step (median over steps 2-{FED_STEPS}), {card}: "
+    print(f"privacy and ops ms per global step (median over steps 2-{FED_STEPS} of (a), "
+          f"2-{CLIENT_DP_STEPS} of (b)), {card}: "
           f"(a) {STEADY_MS['privacy and ops (a)']:.3f}, (b) {STEADY_MS['privacy and ops (b)']:.3f}"
           f"; phase 9 " + (f"{p9:.3f}" if p9 is not None else "not run in this call"), flush=True)
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
@@ -3749,12 +3779,19 @@ def privacy_ops_phase(card: str, notes: dict, raw=None) -> None:
 PACING_SEED = 1  # phase 12(a)'s pacing_seed
 PACING_ALPHA = 0.5  # phase 12(b)'s staleness_alpha
 PACING_MIN_AGGS = 8  # each of 12(a)-(c) aggregates at least this often
+# 12(a)-(c) train each client's first 768 documents (3 steps an epoch at
+# B=256; phase 13 takes all 1,024): 2 epochs make 18 local steps, so (a)'s
+# seeded rosters of 2 take 9 rounds and (b)'s drains of 2 (every drain
+# measured on the card, loaded host too) 9 aggregations, against the 8 the
+# checks need; at 1,024 documents each took 12.
+PACING_DOCS = 768
 # Under push pacing ``local_steps`` is the length of a client's own round.
 # At 1, three free-running clients in one interpreter push faster than the
 # server decodes (a drained update costs it more host time than a push
 # costs its client), and the drains grow round by round (2, 8, 10, ... 30
-# updates on the card); 16 local steps a push keep them at about B = 2.
-# 32 epochs give each client 8 pushes, so 12(c) aggregates about 12 times.
+# updates on the card); 16 local steps a push keep them at about B = 2
+# (12 drains of 2 in 12 on a loaded host). 32 epochs give each client 96
+# local steps, 6 pushes, so 12(c) aggregates about 9 times.
 PUSH_LOCAL_STEPS = 16
 PUSH_EPOCHS = 32
 SIM_RUNS = (("cohort", 100, 16, 6), ("cohort", 1_000, 16, 6), ("push", 100, 16, 6),
@@ -4214,11 +4251,14 @@ def pacing_phase(card: str, notes: dict, raw=None) -> list:
     """Phase 12: (a) cohort, (b) async and (c) push pacing with three real
     port clients at phase 9's width, (d) the simulated fleet. Returns the
     three raw-text clients (phase 13's first three)."""
+    from gfedntm_tpu_torch import RawCorpus
+
     t_phase = time.perf_counter()
     clients_raw = pacing_corpora(card, raw)
-    cohort_phase(card, notes, clients_raw)
-    async_phase(card, notes, clients_raw)
-    push_phase(card, notes, clients_raw)
+    cut = [RawCorpus(documents=c.documents[:PACING_DOCS]) for c in clients_raw]
+    cohort_phase(card, notes, cut)
+    async_phase(card, notes, cut)
+    push_phase(card, notes, cut)
     sim_fleet_phase(card)
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return clients_raw
@@ -4244,23 +4284,31 @@ HIER_LIVENESS_S = 18.0
 # still train: re-homing races the end of the run.
 DOOMED_LIVENESS_S = 3.0
 DOOMED_RECONNECT_S = 2.0
-# 13(b) stops at the root's eighth round and 13(c) at its sixth: the members
+# 13(b) stops at the root's sixth round and 13(c) at its sixth: the members
 # of the relay that was out miss the rounds of its outage, and finishing
 # their schedules would add rounds of 6-13 s of host work each (two
 # journaled relays in (b)) to the script. (b) keeps the rounds its checks
-# need after the kill: the grace's two rounds over relay 102 alone, the
-# respawn, and the respawned relay's first rounds (19-30 s after the
-# respawn); (c)'s members re-home within a round of the kill, and the
+# need after the kill: the grace's rounds over relay 102 alone (2-4), then
+# round 5, which the root begins once the respawned relay can answer it
+# (HIER_HOLD_S); (c)'s members re-home within a round of the kill, and the
 # run keeps three more rounds to show them live at the root.
-HIER_CRASH_ROUNDS = 8
+HIER_CRASH_ROUNDS = 6
 HIER_LOSS_ROUNDS = 6
 # 13(b): the root's probation of relay 101. A dead relay's polls fail at
-# once, with retries at the next round and two after; the respawn waits for
-# the 2-round grace, so at the default of 3 the relay had one round over
-# relay 102 alone (~5 s) to come back from its journal before the root
-# dropped it for good, which its autorecovery does not always make. At 4 the
-# next retry falls past HIER_CRASH_ROUNDS.
+# once, with retries at the next round and two after (rounds 2, 3 and 5);
+# the relay's ready once it is back clears the streak.
 HIER_PROBATION = 4
+# 13(b): the longest the root's round after the grace's expiry waits for
+# the respawned relay: its autorecovery (4-13 s on the card), both members
+# back by session token and the root's channel to it connected again. The
+# outage leaves the root's and the members' gRPC channels to the relay's
+# address in their reconnect backoff (1 s growing 1.6x a failure, up to
+# 120 s; the JAX nodes open their channels with the same options), so a
+# poll in the first seconds after the bind fails at once, and the members
+# came back 5-30 s after it (an H100 host running four of these phases at
+# once). Without the wait the relay's first round fell past the root's last
+# one in 3 of 8 such runs.
+HIER_HOLD_S = 150.0
 BETA_TOL = 1e-4  # 13(a): final beta, hierarchy vs flat (tests/test_scaleout.py:790-806)
 
 
@@ -4336,9 +4384,11 @@ class Federation13:
 
         def recorded_ready(request, context):
             self.root_ready.append((int(request.client_id), bool(request.recovered)))
+            self.stamp(f"root: ready of {request.client_id} (recovered={request.recovered})")
             return ready(request, context)
 
         self.root.ReadyForTraining = recorded_ready
+        self.stamp = lambda what: None  # 13(b)'s timeline, where it keeps one
         self.root_address = self.root.start("127.0.0.1:0")
         self.relay_args, self.relays, self.relay_logs = {}, {}, {}
         home = {}
@@ -4369,18 +4419,22 @@ class Federation13:
         log = MetricsLogger(node=f"relay{rid}", keep_records=True)
         relay = RelayNode(metrics=log, **self.relay_args[rid])
         relay.resumed = relay.maybe_autorecover()
+        self.stamp(f"relay {rid}: maybe_autorecover returned {relay.resumed}")
         relay.acks = []
         ready = relay.ReadyForTraining
 
         def recorded_ready(request, context):
             ack = ready(request, context)
             relay.acks.append((int(request.client_id), ack.code))
+            self.stamp(f"relay {rid}: ready of member {request.client_id}, Ack {ack.code}")
             return ack
 
         relay.ReadyForTraining = recorded_ready
         self.relays.setdefault(rid, []).append(relay)
         self.relay_logs.setdefault(rid, []).append(log)
-        return relay.start()
+        address = relay.start()
+        self.stamp(f"relay {rid}: listening on {address}")
+        return address
 
     def run(self, tick=None) -> float:
         import torch
@@ -4615,8 +4669,88 @@ def relay_crash_phase(card: str, notes: dict, clients_raw) -> None:
     prof.metrics = fed.root_log
     rid = HIER_RELAYS[0]
     state = {}
+    timeline = []  # (perf_counter, what): the kill, the respawn, the root's polls of relay rid
+    fed.stamp = lambda what: timeline.append((time.perf_counter(), what))
+    observe = prof.observe
+
+    def observed(round_idx):
+        fed.stamp(f"root: round {round_idx} begins")
+        observe(round_idx)
+
+    prof.observe = observed
+    stub_for = fed.root._stub_for
+    subscribed = set()
+
+    def recorded_stub_for(stubs, rec):
+        stub = stub_for(stubs, rec)
+        if rec.client_id == rid:
+            state["channel"] = channel = stubs[rec.client_id][1]
+        if rec.client_id == rid and "killed" in state:
+            fed.stamp("root: polls relay")
+            if id(channel) not in subscribed:
+                subscribed.add(id(channel))
+                channel.subscribe(lambda c: fed.stamp(f"root's channel to relay {rid}: "
+                                                      f"{c.name}"), try_to_connect=False)
+        return stub
+
+    fed.root._stub_for = recorded_stub_for
+    note_failure = fed.root._note_client_failure
+
+    def recorded_failure(rec, addr, round_idx, exc, what, reason="rpc"):
+        if rec.client_id == rid:
+            code = exc.code().name if hasattr(exc, "code") else type(exc).__name__
+            detail = exc.details() if hasattr(exc, "details") else str(exc)
+            fed.stamp(f"root: {what} of relay at round {round_idx} failed: {code} "
+                      f"{(detail or '')[:120]!r}")
+        return note_failure(rec, addr, round_idx, exc, what, reason)
+
+    fed.root._note_client_failure = recorded_failure
+    active_clients = fed.root.federation.active_clients
+
+    def held_active_clients(round_idx=None):
+        # The root's roster at a round's start: the first round after the
+        # grace's expiry waits until the respawned relay can answer it.
+        if (round_idx is not None and "killed" in state and "back" not in state
+                and reg.gauge("live_shards").value == 1):
+            fed.stamp(f"root: round {round_idx} waits for relay {rid}")
+            state["back"] = relay_back(time.perf_counter() + HIER_HOLD_S)
+            fed.stamp(f"root: round {round_idx} goes on ({state['back']})")
+        return active_clients(round_idx)
+
+    fed.root.federation.active_clients = held_active_clients
+    for cl in fed.clients[:2]:
+        def reconnect_loop(idle, cl=cl, loop=cl._reconnect_loop):
+            fed.stamp(f"member {cl.client_id}: reconnecting after {idle:.1f} s idle")
+            ok = loop(idle)
+            fed.stamp(f"member {cl.client_id}: reconnect {cl._last_reconnect_outcome}")
+            return ok
+
+        cl._reconnect_loop = reconnect_loop
 
     reg = fed.root_log.registry
+
+    def relay_back(deadline: float) -> str:
+        """Wait until the respawned relay has re-sent its ready (with
+        ``recovered``) to the root, both its members are back with their
+        Ack 3, and the root's channel to it is connected; returns what
+        happened."""
+        import grpc
+
+        while time.perf_counter() < deadline:
+            relays = fed.relays[rid]
+            members = {c for c, code in relays[-1].acks if code == 3} if len(relays) > 1 else set()
+            if ((rid, True) in fed.root_ready[state["ready_mark"]:]
+                    and members >= {1, 2}):
+                break
+            time.sleep(0.05)
+        else:
+            return "the respawned relay was not back in time"
+        try:
+            grpc.channel_ready_future(state["channel"]).result(
+                timeout=max(deadline - time.perf_counter(), 0.0))
+        except grpc.FutureTimeoutError:
+            return "the root's channel to the relay did not connect in time"
+        return "the relay is back"
 
     def tick():
         if "killed" in state:
@@ -4638,24 +4772,35 @@ def relay_crash_phase(card: str, notes: dict, clients_raw) -> None:
         check(victim._lock.acquire(timeout=120), "phase 13(b): the aborted relay's "
               "round never ended")
         victim._lock.release()
+        fed.stamp(f"relay {rid} killed after root round {fed.root.global_iterations}")
+        state["kill_t"] = timeline[-1][0]
+        state["ready_mark"] = len(fed.root_ready)
         state["killed"] = victim._applied_round
         state["round"] = fed.root.global_iterations
 
     def respawn():
         state["respawn"] = time.perf_counter()
         state["respawn_round"] = fed.root.global_iterations
+        fed.stamp(f"relay {rid}: respawn begins")
         fed.spawn(rid)
         respawned = fed.relays[rid][1]
         pre_reduce = respawned._pre_reduce
 
         def first_round(accepted):
             state.setdefault("first", time.perf_counter())
+            fed.stamp(f"relay {rid}: pre-reduces a round")
             return pre_reduce(accepted)
 
         respawned._pre_reduce = first_round
 
     run_s = fed.run(tick)
+    t_kill = state.get("kill_t", timeline[0][0] if timeline else 0.0)
+    print(f"hierarchy (b) timeline, s from the kill: "
+          + "; ".join(f"{t - t_kill:.3f} {what}" for t, what in timeline
+                      if t >= t_kill or "round" in what), flush=True)
     check("respawn" in state, "phase 13(b): the relay was never killed and respawned")
+    check(state.get("back") == "the relay is back",
+          f"phase 13(b): the root's round after the grace: {state.get('back', 'never held')}")
     fed.check_leaves(notes, scheduled=False)
     respawned, log2 = fed.relays[rid][1], fed.relay_logs[rid][1]
     resets = [cid for cid, code in respawned.acks if code == 3]
@@ -5972,46 +6117,58 @@ EXPERIMENT_CUTS = dict(n_docs=2000, n_docs_global_inf=200, num_epochs=10, iters=
 PUBLISHED = Path(__file__).resolve().parent / "results" / "dss_tss_eta001" / "results.json"
 #: Phase 18's artifacts and models; ``main`` removes it.
 EXPERIMENTS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_experiments"
-#: Phase 18's own limit, in seconds, when it runs in a process of its own.
-EXPERIMENTS_LIMIT_S = 600.0
+#: The limits of phases 18 and 20 when they run in the process beside
+#: phases 9-17 (:class:`BesideProcess`), in seconds from its start.
+BESIDE_LIMIT_S = {"18": 600.0, "20": 1000.0}
 
 
-def experiments_phase_joined(card: str, notes: dict, experiments: ExperimentsProcess) -> None:
-    """Wait for phase 18's process (:class:`ExperimentsProcess`) and take in
-    its notes."""
-    seconds = experiments.finish(notes)
-    print(f"phase 18's process ended {seconds:.1f} s after its start (beside phases 13-17) "
-          f"({card})", flush=True)
+def beside_phase_joined(card: str, notes: dict, beside: "BesideProcess", phase: str,
+                        what: str) -> None:
+    """Wait for ``phase``'s result from the process beside this one
+    (:class:`BesideProcess`), take in its notes and print its serial cost
+    here: the wait."""
+    t0 = time.perf_counter()
+    seconds = beside.finish(phase, notes)
+    print(f"phase {phase}'s result, from its own process ({what}), read {seconds:.1f} s after "
+          f"that process started; serial cost {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
 
 
-def _experiments_child(card: str, results) -> None:
-    """Phase 18 in a process of its own: puts ``("ok", its kernels' notes)``,
-    ``("failed", message)`` or ``("error", traceback)`` on ``results``."""
+def _beside_child(card: str, phases: tuple, results) -> None:
+    """Phases 18 and 20 in a process of their own, one after the other: puts
+    ``(phase, "ok", its kernels' notes)``, ``(phase, "failed", message)`` or
+    ``(phase, "error", traceback)`` on ``results`` for each, and stops at the
+    first that does not pass."""
     import traceback
 
-    notes = {"stats": "", "loss": "", "grads": ""}
-    try:
-        experiments_phase(card, notes)
-        results.put(("ok", notes))
-    except SmokeFailure as err:
-        results.put(("failed", str(err)))
-    except BaseException:  # reported to the parent, which fails the phase
-        results.put(("error", traceback.format_exc()))
+    for phase in phases:
+        notes = {"stats": "", "loss": "", "grads": ""}
+        try:
+            BESIDE_PHASES[phase](card, notes)
+            results.put((phase, "ok", notes))
+        except SmokeFailure as err:
+            results.put((phase, "failed", str(err)))
+            return
+        except BaseException:  # reported to the parent, which fails the phase
+            results.put((phase, "error", traceback.format_exc()))
+            return
 
 
-class ExperimentsProcess:
-    """Phase 18 in a process of its own (``spawn``), so that it runs beside
-    the phases this process runs meanwhile; its launches are counted there.
-    :meth:`finish` waits for it, merges its notes into ``notes`` and fails
-    the run on its failure."""
+class BesideProcess:
+    """Phases 18 and 20 in a process of their own (``spawn``), one after the
+    other, so that they run beside the phases this process runs meanwhile;
+    their launches are counted there. :meth:`finish` waits for one phase's
+    result, merges its notes into ``notes`` and fails the run on its
+    failure."""
 
-    def __init__(self, card: str):
+    def __init__(self, card: str, phases: tuple = ("18", "20")):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self.results = ctx.Queue()
-        self.proc = ctx.Process(target=_experiments_child, args=(card, self.results),
+        self.proc = ctx.Process(target=_beside_child, args=(card, phases, self.results),
                                 daemon=True)
+        self.got = {}
         self.started = time.perf_counter()
         self.proc.start()
 
@@ -6020,22 +6177,26 @@ class ExperimentsProcess:
             self.proc.kill()
         self.proc.join(10.0)
 
-    def finish(self, notes: dict) -> float:
-        """Seconds from the start to the result; raises on a failure."""
+    def finish(self, phase: str, notes: dict) -> float:
+        """Seconds from the process's start to the reading of ``phase``'s
+        result; raises on a failure (of this phase, or of one before it in
+        the process)."""
         import queue
 
-        left = EXPERIMENTS_LIMIT_S - (time.perf_counter() - self.started)
-        try:
-            kind, payload = self.results.get(timeout=max(left, 1.0))
-        except queue.Empty:
-            kind, payload = "failed", (f"no result within {EXPERIMENTS_LIMIT_S:g} s (exit code "
-                                       f"{self.proc.exitcode})")
-        finally:
-            self.stop()
-        check(kind == "ok", f"phase 18 (its own process): {payload}")
+        while phase not in self.got:
+            left = BESIDE_LIMIT_S[phase] - (time.perf_counter() - self.started)
+            try:
+                name, kind, payload = self.results.get(timeout=max(left, 1.0))
+            except queue.Empty:
+                self.stop()
+                check(False, f"phase {phase} (its own process): no result within "
+                             f"{BESIDE_LIMIT_S[phase]:g} s (exit code {self.proc.exitcode})")
+            self.got[name] = (kind, payload, time.perf_counter() - self.started)
+            check(kind == "ok", f"phase {name} (its own process): {payload}")
+        _kind, payload, seconds = self.got[phase]
         for name, text in payload.items():
             notes[name] += text
-        return time.perf_counter() - self.started
+        return seconds
 
 
 def experiments_phase(card: str, notes: dict) -> None:
@@ -6142,6 +6303,91 @@ def experiments_phase(card: str, notes: dict) -> None:
           f"phase 18: TMWrapper metrics {metrics}")
     shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the five user walkthroughs
+# ---------------------------------------------------------------------------
+#: Phase 20's models (``hierarchical_training``'s root); ``main`` removes it.
+EXAMPLES_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
+
+
+def example_steps(name: str, out: dict) -> int:
+    """The training steps of a walkthrough's run, each client's own counted
+    (one launch of each of K1-K3 a step)."""
+    if name == "bow_dataset_example":
+        return 0
+    return out["client_steps"] if "client_steps" in out else out["steps"]
+
+
+def examples_phase(card: str, notes: dict) -> None:
+    """Phase 20: each walkthrough of ``gfedntm_tpu_torch.examples`` through
+    its ``run()`` at the JAX script's sizes on the card (``device=None``):
+    its seconds, K1-K3 launched once per training step (none in
+    ``bow_dataset_example``), finite losses, its printed values; K1-K3 held
+    to their plain versions on the first batch of every model it trains;
+    TSS above the random baseline, beta bitwise equal across the federated
+    clients, the realtext federation's five clients."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.examples import NAMES
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    for name in NAMES:
+        module = importlib.import_module(f"gfedntm_tpu_torch.examples.{name}")
+        kw = dict(models_root=EXAMPLES_DIR / "htm") if name == "hierarchical_training" else {}
+        torch.cuda.synchronize()
+        fd.reset_launches()
+        t0 = time.perf_counter()
+        out = module.run(**kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fd.LAUNCHES)
+        steps = example_steps(name, out)
+        losses = np.asarray(out.get("losses", []), dtype=float).ravel()
+        print(f"examples {name}, {card}: {seconds:.2f} s on {out['device']}; {steps} training "
+              f"steps, launches {nonzero(launches)}", flush=True)
+        for line in module.lines(out):
+            print(f"examples {name}: {line.strip()}", flush=True)
+        check(out["device"].startswith("cuda"), f"phase 20: {name} ran on {out['device']}")
+        for kernel in ("stats", "loss", "grads"):
+            check(launches[kernel] == steps, f"phase 20: {name}: {kernel} launched "
+                  f"{launches[kernel]} times, {steps} training steps")
+            notes[kernel] += f"; phase 20 {name}: {launches[kernel]} launches"
+        check(losses.size == steps and bool(np.isfinite(losses).all()),
+              f"phase 20: {name}: {len(losses)} step losses for {steps} steps, or not finite")
+        for label, model in out.get("models", {}).items():
+            X = model.train_data.X[:model.batch_size]
+            kernels_against_plain(f"{name}'s {label} model's first batch", f"examples {name}",
+                                  model, X, np.ones(len(X), dtype=np.float32))
+        if name == "centralized_training":
+            check(out["tss"] > out["random_baseline_tss"],
+                  f"phase 20: TSS {out['tss']:.4f} <= its random baseline "
+                  f"{out['random_baseline_tss']:.4f}")
+        elif name == "federated_simulation":
+            check(out["beta_bitwise_equal"], "phase 20: the clients' shared beta differs")
+        elif name == "hierarchical_training":
+            print(f"examples {name}: child corpora "
+                  f"{ {v: c['n_docs'] for v, c in out['children'].items()} } documents, "
+                  f"steps father {out['father_steps']}, children "
+                  f"{ {v: c['steps'] for v, c in out['children'].items()} }", flush=True)
+        elif name == "realtext_federation":
+            print(f"examples {name}: corpus {out['corpus_info']}", flush=True)
+            check(out["n_clients"] == 5 and out["vocab_size"] > 0
+                  and all(math.isfinite(v) for v in out["metrics"].values()),
+                  f"phase 20: the realtext federation's summary {out['n_clients']} clients, "
+                  f"V={out['vocab_size']}, metrics {out['metrics']}")
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
+#: The phases :class:`BesideProcess` runs, by number.
+BESIDE_PHASES = {"18": experiments_phase, "20": examples_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -6253,27 +6499,29 @@ def main(argv: list[str]) -> int:
     mesh_only = "--mesh-only" in argv
     experiments_only = "--experiments-only" in argv
     lint_only = "--lint-only" in argv
+    examples_only = "--examples-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
                                          "--cli-only", "--scenarios-only", "--mesh-only",
-                                         "--experiments-only", "--lint-only")]
+                                         "--experiments-only", "--lint-only",
+                                         "--examples-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
             or pacing_only or hier_only or serve_only or cli_only or scenarios_only
-            or mesh_only or experiments_only or lint_only)
+            or mesh_only or experiments_only or lint_only or examples_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
             + privacy_only + pacing_only + hier_only + serve_only + cli_only
-            + scenarios_only + mesh_only + experiments_only + lint_only > 1
+            + scenarios_only + mesh_only + experiments_only + lint_only + examples_only > 1
             or (only and against)):
         print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
               "--cli-only | --scenarios-only | --mesh-only | --experiments-only | "
-              "--lint-only]", file=sys.stderr)
+              "--lint-only | --examples-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6292,7 +6540,7 @@ def main(argv: list[str]) -> int:
         return 2
 
     t_script = time.perf_counter()
-    experiments = None  # phase 18's process, in a run of every phase
+    beside = None  # phases 18 and 20's process, in a run of every phase
     mesh_programs = None  # 17(a)'s rank group, in a run of every phase
     # Phase 19's process, from the script's start in a run of every phase.
     lint = LintProcess() if lint_only or not (only or kernels_only) else None
@@ -6349,6 +6597,9 @@ def main(argv: list[str]) -> int:
         if experiments_only:
             experiments_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if examples_only:
+            examples_phase(card, {"stats": "", "loss": "", "grads": ""})
+            return 0
 
         def timed(n, fn, *args):
             t0 = time.perf_counter()
@@ -6368,13 +6619,16 @@ def main(argv: list[str]) -> int:
             raw = decodes_and_text_phase(card, notes, groups)
             ctm_phase(card, notes, raw, datasets, groups)
             del groups
+            # Phases 18 and 20 run one after the other in a process of their
+            # own beside phases 9-17 (they end within phases 9-13, whose one
+            # busy process leaves the host's other cores idle).
+            beside = BesideProcess(card)
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
             privacy_ops_phase(card, notes, raw)
             pacing = pacing_phase(card, notes, raw)
-            # Phase 18 runs in a process of its own, and 17(a)'s rank
-            # programs in a rank group of their own, beside phases 13-17.
-            experiments = ExperimentsProcess(card)
+            # 17(a)'s rank programs run in a rank group of their own beside
+            # phases 13-17.
             mesh_programs = start_mesh_programs(datasets)
             hierarchy_phase(card, notes, pacing)
             serving_phase(card, notes, raw, phase9)
@@ -6387,7 +6641,9 @@ def main(argv: list[str]) -> int:
                 federation.stop()
                 raise
             mesh_phase(card, notes, mesh_programs, result, datasets, federation,
-                       meanwhile=lambda: experiments_phase_joined(card, notes, experiments))
+                       meanwhile=lambda: beside_phase_joined(card, notes, beside, "18",
+                                                             "beside phases 9-17"))
+            beside_phase_joined(card, notes, beside, "20", "beside phases 9-17, after phase 18")
             lint.finish(card)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
@@ -6395,8 +6651,8 @@ def main(argv: list[str]) -> int:
     finally:
         if lint is not None:
             lint.stop()
-        if experiments is not None:
-            experiments.stop()
+        if beside is not None:
+            beside.stop()
         if mesh_programs is not None:
             mesh_programs.exception()  # wait for its ranks to end
         shutil.rmtree(CORPORA, ignore_errors=True)
@@ -6404,6 +6660,7 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(SHARDED_SAVE, ignore_errors=True)
         shutil.rmtree(CLI_DIR, ignore_errors=True)
         shutil.rmtree(EXPERIMENTS_DIR, ignore_errors=True)
+        shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

@@ -342,10 +342,8 @@ class ServerAggregator:
     ones return a flat npz-able array dict and accept it back via
     :meth:`load_state_dict` on ``--resume``.
 
-    ``noiser`` (default None — bitwise no-op) is the hook of the server-side
-    FedLD DP mechanism (``gfedntm_tpu/privacy/mechanisms.py``
-    ``ServerNoiser``, not ported yet: the port's server accepts only
-    ``dp="off"`` and never sets it),
+    ``noiser`` (default None — bitwise no-op) is the server-side FedLD
+    DP mechanism (:class:`gfedntm_tpu_torch.privacy.mechanisms.ServerNoiser`),
     applied to the mean stage's output *after* the robust estimate: the
     estimator first discards the byzantine tail, then calibrated
     Gaussian noise lands on the clean estimate — composing robustness

@@ -674,6 +674,11 @@ def span(logger: MetricsLogger | None, name: str, parent: Any = None,
     return Span(logger, name, parent, fields)
 
 
+def current_span() -> Span | None:
+    """The thread's innermost open span, if any (contextvar-scoped)."""
+    return _CURRENT_SPAN.get()
+
+
 # ---- trace-context propagation in gRPC metadata (:667-671, :800-861) --------
 
 TRACE_ID_KEY = "x-gfedntm-trace-id"

@@ -185,6 +185,43 @@ def test_observability_copies_match_jax():
             jobs.validate_record(bad)
 
 
+def current_span_walk(mod) -> list:
+    """``mod.current_span()``'s name (or None) outside any span, inside two
+    nested spans, after the inner one exits, after both, and on a second
+    thread while the first is inside a span, before and inside its own."""
+    import threading
+
+    logger = mod.MetricsLogger(keep_records=True)
+    name = lambda: getattr(mod.current_span(), "name", None)  # noqa: E731
+    seen = [name()]
+    with mod.span(logger, "round"):
+        seen.append(name())
+        with mod.span(logger, "poll"):
+            seen.append(name())
+            other = []
+
+            def thread():
+                other.append(name())
+                with mod.span(logger, "serve"):
+                    other.append(name())
+                other.append(name())
+
+            t = threading.Thread(target=thread)
+            t.start()
+            t.join()
+            seen.append(name())
+        seen.append(name())
+    seen.append(name())
+    assert mod.span(None, "nothing") is not None and name() is None
+    return seen + other
+
+
+def test_current_span_is_the_jax_ones():
+    want = current_span_walk(jobs)
+    assert want == [None, "round", "poll", "poll", "round", None, None, "serve", None]
+    assert current_span_walk(tobs) == want
+
+
 def test_phase_timer_and_events():
     logger = tobs.MetricsLogger()
     with tobs.phase_timer(logger, "stage_data", steps=3):

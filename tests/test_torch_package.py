@@ -111,7 +111,12 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.scenarios.runner", "gfedntm_tpu_torch.experiments",
                  "gfedntm_tpu_torch.experiments.wmd", "gfedntm_tpu_torch.experiments.tm_wrapper",
                  "gfedntm_tpu_torch.experiments.collab", "gfedntm_tpu_torch.experiments.dss_tss",
-                 "gfedntm_tpu_torch.federation.mesh_client"):
+                 "gfedntm_tpu_torch.federation.mesh_client", "gfedntm_tpu_torch.examples",
+                 "gfedntm_tpu_torch.examples.bow_dataset_example",
+                 "gfedntm_tpu_torch.examples.centralized_training",
+                 "gfedntm_tpu_torch.examples.federated_simulation",
+                 "gfedntm_tpu_torch.examples.hierarchical_training",
+                 "gfedntm_tpu_torch.examples.realtext_federation"):
         assert name in names, name
 
 

@@ -4,10 +4,12 @@ instruction check over every instantiation of K1, K2 and K3, ptxas' spill
 report, and the exit codes without a card or with bad arguments; with a
 card faked and every phase stubbed, the order of the phases (phase 14 on
 phase 9's store, phase 15 on phase 3's fit starting 17(b)'s processes,
-phase 16, then phase 17 on its own rank group and phase 3's fit, joining
-phase 18's process, both started before phase 13;
-phases 5 to 8 on phase 4's rank groups) and of the output lines (the script's own seconds before the
-``kernels`` line, the ``ok`` line last). The script is imported by path."""
+phase 16, then phase 17 on its own rank group (started before phase 13)
+and phase 3's fit, joining phase 18 in the process that runs phases 18
+and 20 (started before phase 9), then phase 20; ``--examples-only`` and
+phase 20's lines; phases 5 to 8 on phase 4's rank groups) and of the
+output lines (the script's own seconds before the ``kernels`` line, the
+``ok`` line last). The script is imported by path."""
 
 import importlib.util
 from pathlib import Path
@@ -117,7 +119,9 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
                                   ["--scenarios-only", "--against", "."],
                                   ["--mesh-only", "--experiments-only"],
                                   ["--mesh-only", "--against", "."],
-                                  ["--experiments-only", "--cli-only"]])
+                                  ["--experiments-only", "--cli-only"],
+                                  ["--examples-only", "--experiments-only"],
+                                  ["--examples-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
@@ -126,7 +130,8 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
 @pytest.mark.parametrize("argv", [[], ["--kernels-only"], ["--kernels-only", "--against", "."],
                                   ["--data-parallel-only"], ["--hierarchy-only"],
                                   ["--serving-only"], ["--cli-only"], ["--scenarios-only"],
-                                  ["--mesh-only"], ["--experiments-only"]])
+                                  ["--mesh-only"], ["--experiments-only"],
+                                  ["--examples-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -212,10 +217,13 @@ def test_beta_spread_counts_entries_beyond_the_tolerance(smoke):
 PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_phase",
           "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
           "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
-          "serving_phase", "cli_phase", "scenario_phase", "mesh_phase", "experiments_phase")
-#: The order of a run of every phase: phase 18's process and 17(a)'s rank
-#: group start before phase 13, and phase 17 waits for them.
-ORDER = PHASES[:11] + ("experiments_process", "mesh_programs") + PHASES[11:]
+          "serving_phase", "cli_phase", "scenario_phase", "mesh_phase", "experiments_phase",
+          "examples_phase")
+#: The order of a run of every phase: the process of phases 18 and 20
+#: starts before phase 9 and 17(a)'s rank group before phase 13, phase 17
+#: waits for them and for phase 18, and phase 20 is joined after phase 17.
+ORDER = (PHASES[:7] + ("experiments_process",) + PHASES[7:11] + ("mesh_programs",)
+         + PHASES[11:])
 #: Phase 4's rank groups as the fake returns them, and 17(a)'s group.
 GROUPS = {"validation": "validation"}
 MESH_GROUPS = {"mesh stepper": "stepper", "mesh trainer": "trainer",
@@ -255,21 +263,22 @@ def faked(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "cli_archive", lambda: ("archive", "ini"))
     calls = []
 
-    class FakeExperiments:
-        """Phase 18's process: started before phase 13, joined in 17."""
+    class FakeBeside:
+        """The process of phases 18 and 20: started before phase 9, phase
+        18 joined in 17, phase 20 after it."""
 
         def __init__(self, card):
             calls.append(("experiments_process", (card,)))
 
-        def finish(self, notes):
-            calls.append(("experiments_phase", (notes,)))
-            notes["stats"] += "; phase 18 (fake)"
+        def finish(self, phase, notes):
+            calls.append(({"18": "experiments_phase", "20": "examples_phase"}[phase], (notes,)))
+            notes["stats"] += f"; phase {phase} (fake)"
             return 1.0
 
         def stop(self):
             pass
 
-    monkeypatch.setattr(smoke, "ExperimentsProcess", FakeExperiments)
+    monkeypatch.setattr(smoke, "BesideProcess", FakeBeside)
 
     class FakeFuture:
         def __init__(self, datasets):
@@ -307,8 +316,9 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     the command line, on phase 3's fit (starting 17(b)'s processes), and
     phase 16, the scenario matrix, with the kernels' notes; then phase 17 on
     17(a)'s rank group, phase 3's fit and corpora and phase 15's processes,
-    joining phase 18's process; both started before phase 13, and phase
-    18's notes reach the kernels; phases 5 to 8 read phase 4's rank groups; the
+    joining phase 18 of the process of phases 18 and 20 (started before
+    phase 9; the rank group before phase 13); then phase 20 joined; the notes of phases 18 and 20
+    reach the kernels; phases 5 to 8 read phase 4's rank groups; the
     script's own seconds come before the ``kernels`` line, and the ``ok``
     line is the last."""
     import json
@@ -318,7 +328,8 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     calls = dict(faked)
     assert calls["serving_phase"][2:] == ("raw", "phase9")
     assert calls["cli_phase"][1:] == ("result",)  # and start_mesh=True
-    notes = {"stats": "; phase 18 (fake)"}  # one dict, phase 18's notes merged at the end
+    # One dict, the notes of phases 18 and 20 merged at the end.
+    notes = {"stats": "; phase 18 (fake); phase 20 (fake)"}
     assert calls["scenario_phase"] == ("FAKE H100, 700.00 W", notes)
     assert calls["persistence_phase"][-3:] == ("X", "kw", "validation")
     assert calls["mesh_programs"] == ("datasets",)
@@ -329,7 +340,7 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     assert isinstance(federation, FakeFederation) and federation.started
     assert federation.paths == ("archive", "ini")
     assert calls["experiments_process"] == ("FAKE H100, 700.00 W",)
-    assert calls["experiments_phase"] == (notes,)
+    assert calls["experiments_phase"] == calls["examples_phase"] == (notes,)
     groups = GROUPS
     assert calls["data_parallel_phase"][-1] == calls["decodes_and_text_phase"][-1] == groups
     assert calls["ctm_phase"][2:] == ("raw", "datasets", groups)
@@ -376,11 +387,13 @@ def test_scenarios_only_runs_phase_16_alone(smoke, faked, capsys):
 
 
 @pytest.mark.parametrize("flag, phase", [("--mesh-only", "mesh_phase"),
-                                         ("--experiments-only", "experiments_phase")])
+                                         ("--experiments-only", "experiments_phase"),
+                                         ("--examples-only", "examples_phase")])
 def test_mesh_and_experiments_only_run_their_phase_alone(smoke, faked, capsys, flag, phase):
     """``--mesh-only`` runs phase 17 with nothing before it (it runs its own
-    rank group and phase 3's fit, and nothing beside it), and
-    ``--experiments-only`` phase 18; neither prints result lines."""
+    rank group and phase 3's fit, and nothing beside it),
+    ``--experiments-only`` phase 18 and ``--examples-only`` phase 20 (each
+    after phase 1's build); none prints result lines."""
     assert smoke.main([flag]) == 0
     assert [name for name, _ in faked] == [phase]
     card, notes = faked[0][1]
@@ -409,3 +422,102 @@ def test_cell_local_steps_reads_the_clients_streams(smoke, tmp_path):
     stream("client3", {"client_polls": {"type": "counter", "value": 0.0}})
     stream("server", {**polled, "stepper_step_s": {"type": "histogram", "count": 99}})
     assert smoke.cell_local_steps(str(tmp_path)) == 33 + 1 + 0
+
+
+#: Phase 20's line per walkthrough.
+EXAMPLE_LINE = (r"^examples (\w+), FAKE H100, 700\.00 W: (\d+\.\d\d) s on cuda:0; (\d+) training "
+                r"steps, launches (\{.*\})$")
+
+
+def test_phase_20_runs_every_walkthrough_and_its_lines_parse(smoke, monkeypatch, tmp_path,
+                                                             capsys):
+    """Phase 20 on the CPU, each walkthrough's ``run()`` at a tiny size
+    standing in for the card's (its result named ``cuda:0``, no model to
+    hold against the kernels, and K1-K3 counted once per training step as
+    the card's wrappers count them): one line per walkthrough with its
+    seconds, device, training steps and launches, then the JAX script's
+    lines, and the phase's seconds; the notes name every walkthrough."""
+    import ast
+    import re
+    import sysconfig
+
+    import torch
+
+    from gfedntm_tpu_torch.data.local_corpus import DEFAULT_CLIENT_GROUPS
+    from gfedntm_tpu_torch.examples import NAMES, bow_dataset_example
+    from gfedntm_tpu_torch.examples import centralized_training, federated_simulation
+    from gfedntm_tpu_torch.examples import hierarchical_training, realtext_federation
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    rng = np.random.default_rng(0)
+    for pkgs in DEFAULT_CLIENT_GROUPS.values():
+        words = ["".join(rng.choice(list("bcdfghjklmnpqrstvwxz"), 7)) for _ in range(40)]
+        (tmp_path / "site" / pkgs[0]).mkdir(parents=True)
+        for i in range(20):
+            (tmp_path / "site" / pkgs[0] / f"m{i}.py").write_text(
+                f'"""{" ".join(rng.choice(words, 60))}"""\n')
+    paths = sysconfig.get_paths
+    monkeypatch.setattr(sysconfig, "get_paths",
+                        lambda *a, **k: {**paths(*a, **k), "purelib": str(tmp_path / "site")})
+    tiny = {bow_dataset_example: {},
+            centralized_training: dict(n_docs=80, num_epochs=1),
+            federated_simulation: dict(n_docs=30, num_epochs=1),
+            hierarchical_training: dict(n_docs=100),
+            realtext_federation: dict(scale=0.01, n_components=4)}
+    for module, kw in tiny.items():
+        def run(module=module, original=module.run, kw=kw, **given):
+            out = original(**{**kw, **given}, device="cpu")
+            steps = smoke.example_steps(module.__name__.rsplit(".", 1)[1], out)
+            for name in ("stats", "loss", "grads"):
+                fd.LAUNCHES[name] += steps
+            return {**out, "device": "cuda:0", "models": {}}
+        monkeypatch.setattr(module, "run", run)
+    monkeypatch.setattr(smoke, "EXAMPLES_DIR", tmp_path / "examples")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    notes = {"stats": "", "loss": "", "grads": ""}
+    smoke.examples_phase("FAKE H100, 700.00 W", notes)
+    lines = capsys.readouterr().out.splitlines()
+    heads = [m for m in map(re.compile(EXAMPLE_LINE).match, lines) if m]
+    assert [m.group(1) for m in heads] == list(NAMES)
+    for m in heads:
+        steps, launches = int(m.group(3)), ast.literal_eval(m.group(4))
+        assert launches == ({} if not steps else dict.fromkeys(("stats", "loss", "grads"),
+                                                               steps))
+        assert (m.group(1) == "bow_dataset_example") == (steps == 0)
+        assert f"; phase 20 {m.group(1)}: {steps} launches" in notes["grads"]
+    assert any(line.startswith("examples centralized_training: TSS: ") for line in lines)
+    assert any(line.startswith("examples realtext_federation: clients: 5 vocab: ")
+               for line in lines)
+    assert re.match(r"^phase 20 took \d+\.\d s \(FAKE H100, 700\.00 W\)$", lines[-1])
+    assert not (tmp_path / "examples").exists()
+
+
+def test_beside_process_reports_each_phase_and_stops_at_a_failure(smoke, monkeypatch):
+    """The process of phases 18 and 20 puts one result a phase, in order,
+    and runs nothing after a failure; :meth:`BesideProcess.finish` merges a
+    phase's notes and fails the run on its failure or one before it."""
+    import queue
+
+    def passes(card, notes):
+        notes["stats"] += f"; {card}"
+
+    def fails(card, notes):
+        smoke.check(False, "it failed")
+
+    results = queue.Queue()
+    monkeypatch.setattr(smoke, "BESIDE_PHASES", {"18": passes, "20": passes})
+    smoke._beside_child("card", ("18", "20"), results)
+    got = [results.get_nowait() for _ in range(2)]
+    assert [g[:2] for g in got] == [("18", "ok"), ("20", "ok")] and results.empty()
+    monkeypatch.setattr(smoke, "BESIDE_PHASES", {"18": fails, "20": passes})
+    smoke._beside_child("card", ("18", "20"), results)
+    assert results.get_nowait() == ("18", "failed", "it failed") and results.empty()
+
+    beside = smoke.BesideProcess.__new__(smoke.BesideProcess)
+    beside.results, beside.got, beside.started = queue.Queue(), {}, 0.0
+    beside.results.put(("18", "ok", {"stats": "; eighteen"}))
+    beside.results.put(("20", "failed", "it failed"))
+    notes = {"stats": ""}
+    assert beside.finish("18", notes) > 0 and notes == {"stats": "; eighteen"}
+    with pytest.raises(smoke.SmokeFailure, match="phase 20 .*it failed"):
+        beside.finish("20", notes)
