@@ -34,7 +34,8 @@ seconds.
    registers and spills per kernel (a spill in a tensor-core kernel fails)
    and, from ``cuobjdump -sass``, the tensor-core instructions (HMMA/HGMMA)
    in each ``stats_kernel``, ``loss_kernel`` and ``grads_kernel``
-   instantiation, FP32 and bf16 storage, none of which may have 0;
+   instantiation, FP32 and bf16 storage, none of which may have 0, and a
+   bf16 ``grads_kernel`` fewer than the FP32 one at its width;
 2. kernels — run K1 (stats), K2 (loss) and K3 (grads) at the slice's shapes
    (B=256, K=50, V=100,000), at B=320 (16-column tiles), at V=99,999 (the
    4-byte cp.async ring at full width), at V=66,001 (phase 7(b)'s shape,
@@ -52,7 +53,13 @@ seconds.
    slice's shape, V=99,999 at a padded pitch, eval, all rows masked, both
    tile widths, K2's tensor-core route past FP32's, the CUDA-core route at
    B=512 and B=1100) against their plain versions on the bf16-rounded beta
-   and x, and their times beside the FP32 kernels' and the cast and pad's;
+   and x, bf16 K3 bitwise equal to the FP32 K3 on those values wherever both
+   take the same route, and their times beside the FP32 kernels' and the
+   cast and pad's, with bf16 K3's registers and tensor-core instructions
+   beside the FP32 kernel's. ``--against DIR`` requires DIR's bf16 K1, K2
+   and K3 outputs to be bitwise equal to this build's too, wherever both
+   take the same route, and every (B, K) that DIR's bf16 K3 takes to be
+   taken here (FP32 K3's routes unchanged);
 3. main path — federated ProdLDA through the user entry points
    (``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
    ``get_topics``) at V=100,000, K=50, H=(100, 100), B=256, 2 clients,
@@ -627,7 +634,8 @@ TENSOR_CORE_FAMILIES = ("stats_kernel", "loss_kernel", "grads_kernel")
 def check_tensor_core_counts(counts: dict) -> None:
     """Every instantiation of each tensor-core kernel family has at least one
     HMMA/HGMMA instruction, and each family has an FP32 and a bf16-storage
-    instantiation."""
+    instantiation; a bf16 ``grads_kernel`` has fewer than the FP32 one at its
+    width (two TF32 products where a beta operand is bf16, not three)."""
     for family in TENSOR_CORE_FAMILIES:
         for storage, want in (("FP32", False), ("bf16", True)):
             check(any(name.startswith(family + "<") and name.startswith(family + "<bf16") == want
@@ -635,12 +643,18 @@ def check_tensor_core_counts(counts: dict) -> None:
                   f"cuobjdump found no {storage} {family} instantiation among {sorted(counts)}")
     for name, n in counts.items():
         check(n > 0, f"{name}: no HMMA/HGMMA instruction in its SASS")
+    for vt in (32, 16):
+        bf16, fp32 = counts.get(f"grads_kernel<bf16, {vt}, 16B>"), counts.get(
+            f"grads_kernel<{vt}, 16B>")
+        check(bf16 is None or fp32 is None or bf16 < fp32,
+              f"grads_kernel<bf16, {vt}, 16B>: {bf16} HMMA/HGMMA instructions, not fewer than "
+              f"the FP32 grads_kernel<{vt}, 16B>'s {fp32}")
 
 
-def ptxas_report(build_log: str) -> tuple[list[str], dict]:
-    """ptxas' register and spill lines per kernel, and the spilled bytes
-    (stores + loads) per kernel."""
-    lines, spills, current = [], {}, None
+def ptxas_report(build_log: str) -> tuple[list[str], dict, dict]:
+    """ptxas' register and spill lines per kernel, the spilled bytes (stores
+    + loads) per kernel, and the registers per kernel."""
+    lines, spills, registers, current = [], {}, {}, None
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
@@ -650,17 +664,42 @@ def ptxas_report(build_log: str) -> tuple[list[str], dict]:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spill:
                 spills[current] = spills.get(current, 0) + int(spill[1]) + int(spill[2])
-    return lines, spills
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                registers[current] = int(used[1])
+    return lines, spills, registers
 
 
-def build_report(lib: Path, build_log: str) -> list[str]:
+def sass_of(lib: Path) -> dict:
+    """Each kernel's instructions in ``cuobjdump -sass`` of the library
+    ``lib``, without addresses and encodings. Fails when there is no
+    cuobjdump to look."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    check(Path(tool).exists(), f"cuobjdump not found ({tool}): cannot read the kernels' SASS")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=False)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()}")
+    out, current = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            current = out.setdefault(_kernel_name(line.split("Function :")[1].strip()), [])
+        elif current is not None:
+            ins = " ".join(re.sub(r"/\*[^*]*\*/", "", line).split())
+            if ins.endswith(";"):
+                current.append(ins)
+    return out
+
+
+def build_report(lib: Path, build_log: str) -> tuple[list[str], dict]:
     """Prints ptxas' registers and spills per kernel (when this process built
     the library; a tensor-core kernel that spills then fails), and returns
     the line of tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
     -sass`` finds in each instantiation of K1, K2 and K3
-    (:func:`check_tensor_core_counts`). Fails when there is no cuobjdump to
-    look."""
-    lines, spills = ptxas_report(build_log)
+    (:func:`check_tensor_core_counts`), with each instantiation's registers
+    and tensor-core instructions: ``{"grads_kernel<bf16, 32, 16B>":
+    {"registers": n, "hmma": m}, ...}``."""
+    lines, spills, registers = ptxas_report(build_log)
     if not build_log:
         lines.append("ptxas: library up to date, not rebuilt in this process")
     for line in lines:  # before any check, so that a failing build shows them all
@@ -668,25 +707,26 @@ def build_report(lib: Path, build_log: str) -> list[str]:
     for name, nbytes in spills.items():
         check(nbytes == 0 or not name.startswith(TENSOR_CORE_FAMILIES),
               f"{name}: ptxas reports {nbytes} bytes of spill stores and loads")
-    tool = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
-    check(Path(tool).exists(), f"cuobjdump not found ({tool}): cannot count tensor-core "
-          "instructions")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=False)
-    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()}")
-    counts, current = {}, None
-    for line in sass.stdout.splitlines():
-        if "Function :" in line:
-            name = _kernel_name(line.split("Function :")[1].strip())
-            current = name if name.startswith(TENSOR_CORE_FAMILIES) else None
-            if current:
-                counts[current] = 0
-        elif current and re.search(r"\bH(G)?MMA\b", line):
-            counts[current] += 1
+    counts = {name: sum(1 for ins in body if re.search(r"\bH(G)?MMA\b", ins))
+              for name, body in sass_of(lib).items() if name.startswith(TENSOR_CORE_FAMILIES)}
     check_tensor_core_counts(counts)
+    resources = {name: {"hmma": n} | ({"registers": registers[name]} if name in registers
+                                      else {})
+                 for name, n in counts.items()}
     return ["tensor-core instructions (HMMA/HGMMA in cuobjdump -sass): " + ", ".join(
-        f"{name} {n}" for name, n in sorted(counts.items()))]
+        f"{name} {n}" for name, n in sorted(counts.items()))], resources
+
+
+def resources_line(resources: dict, family: str) -> str:
+    """Each width's bf16 instantiation of ``family`` beside the FP32 one
+    (16-byte ring): registers and HMMA/HGMMA instructions ("?" where the
+    build did not say)."""
+    def one(name):
+        got = resources.get(name, {})
+        return f"{name} {got.get('registers', '?')} registers, {got.get('hmma', '?')} HMMA"
+
+    return "; ".join(f"{one(f'{family}<bf16, {vt}, 16B>')} (FP32 {one(f'{family}<{vt}, 16B>')})"
+                     for vt in (32, 16))
 
 
 # ---------------------------------------------------------------------------
@@ -769,6 +809,62 @@ ROUTE_NAMES = {32: "tensor cores, 32-column tiles", 16: "tensor cores, 16-column
                0: "CUDA cores", -1: "refused"}
 
 
+def against_bf16_line(against: Path, cases: int, launches: dict) -> str:
+    """``--against``'s line for the bf16 instantiations: the cases run and
+    the launches of each kernel compared."""
+    return (f"kernels ok: bf16 K1, K2 and K3 bitwise equal to the build of {against} in "
+            f"{cases} cases (launches: K1 {launches['stats']}, K2 {launches['loss']}, K3 "
+            f"{launches['grads']})")
+
+
+def check_same_bits(case: str, what: str, labels: str, got, want) -> None:
+    """Fails unless each output in ``got`` is bitwise equal to its
+    counterpart in ``want``, naming (``labels``, comma-separated) those
+    that differ."""
+    import torch
+
+    differ = [label for label, a, b in zip(labels.split(","), got, want) if not torch.equal(a, b)]
+    check(not differ, f"{case}: {what} differs bitwise in {', '.join(differ)}")
+
+
+#: The (B, K) at which ``--against`` compares the two builds' K3 routes.
+ROUTE_GRID = [(b, k) for b in (1, 2, 3, 5, 7, *range(8, 1105, 8)) for k in range(1, 257)]
+
+
+def compare_routes(lib, other, against: Path) -> str:
+    """bf16 K3's route at every (B, K) of :data:`ROUTE_GRID` in this build
+    against ``other`` (the build of ``against``): none that ``other`` takes
+    is refused or put on narrower tiles here, and FP32 K3's routes are the
+    same; returns the line that says how many moved onto 32-column tiles
+    or are newly taken."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    moved = newly = 0
+    for b, k in ROUTE_GRID:
+        check(fd._route(lib, "grads", b, k) == fd._route(other, "grads", b, k),
+              f"FP32 K3's route at B={b} K={k} differs from the build of {against}")
+        mine, theirs = (fd._route(x, "grads", b, k, "bfloat16") for x in (lib, other))
+        check(mine >= theirs, f"bf16 K3 takes B={b} K={k} on {ROUTE_NAMES[mine]}, the build "
+              f"of {against} on {ROUTE_NAMES[theirs]}")
+        moved += theirs == 16 and mine == 32
+        newly += theirs < 0 <= mine
+    return (f"kernels ok: bf16 K3 routes at {len(ROUTE_GRID)} (B, K) beside the build of "
+            f"{against}: none lost, {moved} onto 32-column tiles, {newly} newly taken; FP32 K3 "
+            f"routes unchanged")
+
+
+def same_sass_line(lib, other, against: Path) -> str:
+    """``--against``'s line for the kernels without bf16 storage: in how many
+    of them this build (``lib``) compiles to the same SASS as the build of
+    ``against`` (``other``), naming those that differ."""
+    mine, theirs = (sass_of(Path(x._name)) for x in (lib, other))
+    names = sorted(name for name in mine if "bf16" not in name)
+    differ = [name for name in names if mine[name] != theirs.get(name)]
+    return (f"kernels: SASS the same as the build of {against}'s in {len(names) - len(differ)} "
+            f"of {len(names)} kernels without bf16 storage" +
+            (f"; differs in {', '.join(differ)}" if differ else ""))
+
+
 def against_library(root: Path):
     """The fused decoder built from the checkout at ``root`` (another commit,
     to compare two builds on one card), loaded beside this one."""
@@ -809,7 +905,8 @@ def accuracy_line(st_args, lo_args, gr_args) -> str:
     return "; ".join(parts)
 
 
-def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
+def kernel_phase(card: str, against: Path | None = None,
+                 resources: dict | None = None) -> tuple[dict, dict]:
     import torch
 
     from gfedntm_tpu_torch.ops import _build
@@ -817,6 +914,8 @@ def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
 
     lib = _build.load()
     other = against_library(against) if against else None
+    if other is not None:
+        print(same_sass_line(lib, other, against), flush=True)
     cases = [
         (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
         (320, 50, 100_000, "partial", True), (256, 50, 99_999, "partial", True),
@@ -934,15 +1033,18 @@ def kernel_phase(card: str, against: Path | None = None) -> tuple[dict, dict]:
         print(f"accuracy at B={b} K={k} V={v} train, max |err| against the plain version in "
               f"float64 (kernel / float32 plain): {accuracy_line(st_args, lo_args, gr_args)}",
               flush=True)
-    bf16_kernel_phase(card, lib, rows, notes)
+    bf16_kernel_phase(card, lib, rows, notes, other, against, resources or {})
     return rows, notes
 
 
 # (B, K, V, mask kind, training): the main path's shape, its padded pitch
 # (V=99,999), the CTM flow's shape (V=66,001: 7 pad columns), eval, all rows
 # masked, 16-column tiles (B=320), K2's tensor-core route past where FP32
-# leaves it (B=360: half-size x stages), and the CUDA-core route (B=512, past
-# the FP32 route boundary; B=1100).
+# leaves it (B=360: half-size x stages), the CUDA-core route (B=512, past
+# the FP32 route boundary; B=1100), and two shapes where bf16 K3's layout
+# nearly fills shared memory on a route FP32 K3 does not take there: 32-column
+# tiles where FP32 K3 takes 16 (B=224, K=72: 225,168 of 232,448 bytes), and
+# 16-column tiles where it refuses (B=256, K=80: 232,336 bytes).
 BF16_CASES = [
     (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
     (256, 50, 99_999, "partial", True), (256, 50, 99_999, "none", False),
@@ -950,7 +1052,8 @@ BF16_CASES = [
     (320, 50, 100_000, "partial", True), (360, 50, 20_001, "partial", True),
     (360, 50, 20_001, "partial", False), (512, 50, 20_000, "partial", True),
     (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
-    (1100, 8, 3001, "partial", True),
+    (1100, 8, 3001, "partial", True), (224, 72, 20_001, "partial", True),
+    (256, 80, 20_001, "partial", True),
 ]
 REPLACES = {
     "stats": "gfedntm_tpu/ops/fused_decoder.py:189",
@@ -959,21 +1062,28 @@ REPLACES = {
 }
 
 
-def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
+def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
+                      against: Path | None = None, resources: dict | None = None) -> None:
     """The bf16-storage instantiations of K1, K2 and K3 against their plain
     versions (the FP32 plain versions on the bf16-rounded beta and x) in
     :data:`BF16_CASES`; whether they equal the FP32 kernels on the same
-    rounded values bit for bit where both take the same route; their times
-    at the main path's shape beside the FP32 kernels' (``rows``) from this
-    call; and the wrapper's cast-and-pad of beta and x."""
+    rounded values bit for bit where both take the same route (K3 must);
+    with ``other``, the build of ``against``, their outputs bitwise equal
+    to its bf16 kernels' in every case and bf16 K3's routes beside its
+    (:func:`compare_routes`); their times at the main path's shape beside
+    the FP32 kernels' (``rows``) from this call, K3's registers and
+    tensor-core instructions beside the FP32 kernel's (``resources``); and
+    the wrapper's cast-and-pad of beta and x."""
     import torch
 
     from gfedntm_tpu_torch.ops import fused_decoder as fd
 
     bf = "bfloat16"
+    labels = {"stats": "mean,var,m,s", "loss": "loss,rd", "grads": "g_theta,g_beta"}
     worst = {"stats": 0.0, "loss": 0.0, "grads": 0.0}
     seen = {"stats": set(), "loss": set()}
     same_bits, same_route = 0, 0
+    theirs_bits = {"stats": 0, "loss": 0, "grads": 0}
     for i, (b, k, v, mask_kind, training) in enumerate(BF16_CASES):
         t = make_inputs(b, k, v, seed=200 + i, mask_kind=mask_kind)
         case = f"bf16 B={b} K={k} V={v} mask={mask_kind} {'train' if training else 'eval'}"
@@ -995,11 +1105,13 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
         for name in seen:
             seen[name].add(routes[name])
         gr_rest = (mean, var, m, s, ref_loss[1], t["g"], t["mask"], training)
+        k3_err = ""
         if routes["grads"] >= 0:
             got["grads"] = fd.grads(t["theta"], beta_s, x_s, *gr_rest, storage_dtype=bf)
-            worst["grads"] = max(worst["grads"], compare(
-                "g_theta,g_beta", got["grads"], fd.grads_reference(*lo_plain[:3], *gr_rest),
-                case))
+            err = compare("g_theta,g_beta", got["grads"],
+                          fd.grads_reference(*lo_plain[:3], *gr_rest), case)
+            worst["grads"] = max(worst["grads"], err)
+            k3_err = f"; K3 max |err| {err:.3e}"
         # The FP32 kernels on the same rounded values, uncounted.
         fp32 = {
             "stats": lambda: fd._launch_stats(lib, *st_plain, 1e-5),
@@ -1012,13 +1124,35 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
                 torch.cuda.synchronize()
                 same_route += 1
                 same_bits += all(torch.equal(a, c) for a, c in zip(out, theirs))
+                if name == "grads":
+                    check_same_bits(case, "bf16 K3 against the FP32 K3 on the bf16-rounded "
+                                    "inputs", labels[name], out, theirs)
+        if other is not None:  # the same bf16 launches through the build of `against`
+            theirs = {
+                "stats": lambda: fd._launch_stats(other, *st, 1e-5, bf),
+                "loss": lambda: fd._launch_loss(other, t["theta"], beta_s, x_s, mean, var, m, s,
+                                                1e-5, 1e-10, bf),
+                "grads": lambda: fd._launch_grads(other, t["theta"], beta_s, x_s, *gr_rest,
+                                                  1e-5, 1e-10, bf),
+            }
+            for name, out in got.items():
+                # A (B, K) that bf16 K3's smaller layout moved onto wider
+                # tiles sums g_theta over other blocks (compare_routes).
+                if fd._route(other, name, b, k, bf) == routes[name]:
+                    check_same_bits(case, f"bf16 {name} against the build of {against}",
+                                    labels[name], out, theirs[name]())
+                    theirs_bits[name] += 1
         print(f"kernels ok: {case}; routes: " + ", ".join(
-            f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()), flush=True)
+            f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()) + k3_err, flush=True)
     for name, routes in seen.items():
         check({32, 16, 0} <= routes, f"bf16 {name}: the smoke cases took only the routes "
               f"{sorted(routes)}")
     print(f"kernels: bf16 outputs bitwise equal to the FP32 kernels' on the bf16-rounded "
-          f"inputs in {same_bits} of {same_route} launches on the same route", flush=True)
+          f"inputs in {same_bits} of {same_route} launches on the same route (K3's each a "
+          f"hard check)", flush=True)
+    if other is not None:
+        print(against_bf16_line(against, len(BF16_CASES), theirs_bits), flush=True)
+        print(compare_routes(lib, other, against), flush=True)
 
     # Times at the main path's shape, training, with beta and x stored as the
     # main path stores them; plain, kernel, kernel, plain.
@@ -1059,6 +1193,8 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict) -> None:
             f"{nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP as "
             f"{TF32_PRODUCTS[bf][name]:.3g} TF32 products -> {bound['ops_ms']:.4f} ms)"
         )
+        if name == "grads":
+            notes[name + "_bf16"] += f"; {resources_line(resources or {}, 'grads_kernel')}"
     # The wrapper's cast and pad, once per step: beta [K, V] and x [B, V]
     # from float32 to bf16 at the padded pitch.
     cast_ms = [time_ms(lambda: (fd.store(t["beta"], bf), fd.store(t["x"], bf)))
@@ -6554,7 +6690,8 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         lib = _build.build()
         print(f"build: {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
-        for line in build_report(lib, _build.build_log):
+        report, resources = build_report(lib, _build.build_log)
+        for line in report:
             print(f"build: {line}", flush=True)
         print(f"phase 1 took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
         if dp_only:
@@ -6607,7 +6744,7 @@ def main(argv: list[str]) -> int:
             print(f"phase {n} took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
             return out
 
-        rows, notes = timed(2, kernel_phase, card, against)
+        rows, notes = timed(2, kernel_phase, card, against, resources)
         if not kernels_only:
             datasets, result = timed(3, main_path_phase, rows)
             # Phase 4 runs the rank programs of phases 4 to 8 in one rank

@@ -15,7 +15,7 @@ from __future__ import annotations
 import sys
 
 from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.examples import launch_line, parser
+from gfedntm_tpu_torch.examples import parser, report
 
 
 def run(vocab_size: int = 300, n_topics: int = 5, n_docs: int = 100,
@@ -57,12 +57,7 @@ def lines(out: dict) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = parser(__doc__).parse_args(argv)
-    out = run(device=args.device)
-    for line in lines(out):
-        print(line)
-    print(launch_line(out["device"]))
-    return 0
+    return report(run, lines, parser(__doc__).parse_args(argv).device)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from __future__ import annotations
 import sys
 
 from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.examples import launch_line, parser
+from gfedntm_tpu_torch.examples import parser, report
 
 NOTE = (
     "\nNOTE: scale=0.1 is a smoke demo (300 docs/client, 10 epochs) — "
@@ -70,12 +70,7 @@ def lines(out: dict) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = parser(__doc__).parse_args(argv)
-    out = run(device=args.device)
-    for line in lines(out):
-        print(line)
-    print(launch_line(out["device"]))
-    return 0
+    return report(run, lines, parser(__doc__).parse_args(argv).device)
 
 
 if __name__ == "__main__":

@@ -75,35 +75,46 @@
 // 3 x 2.56 GFLOP, which take 46 us as 3xTF32 on the tensor cores (115 us as
 // FP32 FMAs): its bound is those operations. After the tile product it
 // computes n, p and gn on the accumulator fragments; gz is staged once in
-// shared memory, in place of the tile's x; then half the warps accumulate
-// g_theta += gz beta_tile^T in shared memory across the block's tiles while
-// the other half write g_beta = theta^T gz straight to its columns. Occupancy
-// is one block per SM (228.6 KB of shared memory at B=256, K=50, at most 128
-// registers a thread); four warps per scheduler and independent mma chains
-// hide the mma latency. Every TF32 operand is split with five integer and
-// FP32 instructions before its mma, so each mma costs several instructions
-// besides itself. The [grid, B, K] g_theta partials are folded in block
-// order by a thread per element.
+// shared memory as float32 (with FP32 storage in place of the tile's x);
+// then half the warps accumulate g_theta += gz beta_tile^T in shared memory
+// across the block's tiles while the other half write g_beta = theta^T gz
+// straight to its columns. Occupancy is one block per SM (228.6 KB of
+// shared memory at B=256, K=50 with FP32 storage, 219.7 KB with bf16; at
+// most 128 registers a thread); four warps per scheduler and independent
+// mma chains hide the mma latency. Every FP32 operand is split into its TF32
+// halves with five integer and FP32 instructions before its mma, so each mma
+// costs several instructions besides itself, and its operands come from
+// shared memory: the kernel is bound by those instructions and operand
+// loads, not by the tensor cores' rate. The [grid, B, K] g_theta partials are folded in
+// block order by a thread per element.
 //
 // bf16 storage (compute_dtype="bfloat16"; the TPU kernels' bf16-storage
 // instantiation, _pad_core :459-481 and the upcasts at :219, :296, :643):
 // beta and x arrive as bf16 at a row pitch ld, a multiple of 8 values (the
 // wrapper's float32 -> bf16 cast writes them so). Every kernel takes the
 // storage type as a template parameter; theta, mean, var and all the math
-// stay float32, and the ring copies bf16 rows into shared memory 16 bytes
-// (8 values) a copy at every V. A bf16 value is exact in TF32 (8
-// significant bits of TF32's 11, the same exponent): its TF32 hi half is the
-// value itself and its lo half is zero. K1 and K2 read their bf16 beta tile
-// as it is and take two TF32 products per k-step (a_lo*b + a_hi*b) where
-// FP32 takes three; the product left out is exactly zero, so z is the 3xTF32
-// one bit for bit; K2 upcasts x where it reads it. K3 sits at the register
-// cap with the FP32 layout, and its bf16 variants spilled, so it keeps that
-// layout: its bf16 x and beta tiles land in the first half of FP32-sized
-// stages, the block upcasts them in place, and the rest is the FP32 kernel on
-// the rounded values. At B=256, K=50, V=100,000 K2 moves ~61 MB (bound
-// 0.0186 ms, bytes) and K1 ~11 MB for two TF32 products (0.0103 ms,
-// operations); K3's work on bf16 operands needs seven TF32 products (0.036
-// ms, operations), and it runs nine.
+// stay float32, and the ring copies bf16 rows into bf16 stages of shared
+// memory 16 bytes (8 values) a copy at every V. A bf16 value is exact in
+// TF32 (8 significant bits of TF32's 11, the same exponent): its TF32 hi
+// half is the value itself and its lo half is zero. So every product with a
+// bf16 operand takes two TF32 products per k-step (a_lo*b + a_hi*b) where
+// FP32 takes three, reading the bf16 value where the FP32 kernel splits its
+// operand; the product left out is exactly zero and the others keep their
+// order, so the outputs are the FP32 kernels' on the bf16-rounded values bit
+// for bit. K1 and K2 take two for z; K2 reads x as bf16 pairs. K3 takes two
+// for z = theta beta and two for g_theta += gz beta^T, reads x in pass 1 as
+// bf16 pairs, and keeps three for g_beta = theta^T gz, whose operands are
+// float32: seven TF32 products of the FP32 kernel's nine, with no split of
+// beta and no upcast pass; its z loop stays rolled (unrolled by the
+// compiler, the 16-wide variant spilled at the 128-register cap). Its gn and
+// gz go to a float32 [B, Px] tile of their own, not over x, so no float32
+// row overwrites bf16 rows that other warps have yet to read, and its layout
+// is never larger than the FP32 one: every (B, K) the FP32 layout takes, the
+// bf16 one takes, some on a wider tile. So K3 on bf16 storage is bound as the
+// FP32 kernel is, with fewer of the instructions and operand loads that bind
+// it. At B=256, K=50, V=100,000 K2 moves ~61 MB (bound 0.0186 ms, bytes),
+// K1 ~11 MB for two TF32 products (0.0103 ms, operations) and K3 ~82 MB for
+// seven (0.0362 ms, operations).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -468,7 +479,6 @@ constexpr int kTcThreads = 512;  // 16 warps: four per scheduler hide the mma la
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kHalf = kTcWarps / 2;
 constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
-constexpr int kUpcastPer = 4;  // bf16 K3: pairs each thread upcasts per barrier
 
 // Per tile width and storage: the x and beta tiles' row pitches in stored
 // elements (x: 8 or 24 mod 32 floats, or 20 or 12 mod 32 words of bf16 pairs,
@@ -626,6 +636,16 @@ __device__ __forceinline__ BetaBf16 beta_frag(const bf16* bs, int pitch, int grp
   return BetaBf16{bs, pitch, grp, tig};
 }
 
+// K3's B fragment of beta_tile^T (topic kk, columns c and c + 4 of the tile)
+// from p = the element (kk, c) of a bf16 tile: read as it is, its lo half
+// zero (mma_ab<true>).
+__device__ __forceinline__ void beta_t_frag(const bf16* p, uint32_t (&bh)[2],
+                                            uint32_t (&bl)[2]) {
+  bh[0] = bf16_tf32(p[0]);
+  bh[1] = bf16_tf32(p[4]);
+  bl[0] = bl[1] = 0u;
+}
+
 // D += a*b as 3xTF32, or, when b is exact in TF32 (its lo half zero), as
 // a_lo*b + a_hi*b: the product left out adds exactly zero, so the sum is
 // mma_3xtf32's bit for bit.
@@ -645,13 +665,14 @@ __device__ __forceinline__ void mma_ab(float (&d)[4], const uint32_t (&ah)[4],
 // accumulator fragment of columns nt*8 .. nt*8+7 (rows grp and grp + 8,
 // columns 2*tig and 2*tig + 1). K1, K2 and K3 all sum k0 = 0, 8, .. < Kp in
 // this order, each k-step as mma_3xtf32 (two of its products for a bf16
-// beta), so they take the same z.
-template <int kNt, typename AFrag, typename BFrag>
+// beta), so they take the same z. kRolled keeps the k loop rolled, where
+// the compiler would unroll it past the register cap (bf16 K3).
+template <int kNt, bool kRolled = false, typename AFrag, typename BFrag>
 __device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const AFrag& a_frag,
                                              const BFrag& b_frag) {
 #pragma unroll
   for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int k0 = 0; k0 < Kp; k0 += 8) {
+  auto k_step = [&](int k0) {
     uint32_t ah[4], al[4];
     a_frag(k0, ah, al);
 #pragma unroll
@@ -660,6 +681,12 @@ __device__ __forceinline__ void tile_product(float (&acc)[kNt][4], int Kp, const
       b_frag(k0, nt, bh, bl);
       mma_ab<BFrag::kExact>(acc[nt], ah, al, bh, bl);
     }
+  };
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int k0 = 0; k0 < Kp; k0 += 8) k_step(k0);
+  } else {
+    for (int k0 = 0; k0 < Kp; k0 += 8) k_step(k0);
   }
 }
 
@@ -753,37 +780,6 @@ __device__ void load_tile(TS* b_dst, TS* x_dst, float* mv_dst, const TS* __restr
         } else {
           cp_async4(dst, src);
         }
-      }
-    }
-  }
-}
-
-// The first `rows` rows of a bf16 tile (VT values each, at a pitch of P
-// elements) upcast in place into float32 at the same pitch, by the block;
-// columns from ncols on become 0 (the ring did not write them, and their
-// bytes may be any bf16, NaN included). A float32 row r covers bf16 rows 2r
-// and 2r + 1 (P >= VT), so rows go in descending groups of kPer pairs per
-// thread, each group's reads before a barrier and its writes after it: every
-// bf16 row a write covers was read in a higher group, or in the same group
-// for the lowest one. The caller syncs before the float32 tile is read.
-template <int VT, int P, int kPer>
-__device__ void upcast_in_place(float* tile, int rows, int ncols) {
-  constexpr int kPairs = VT / 2, kGroup = kPer * kTcThreads / kPairs;
-  const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(tile);
-  for (int r0 = (rows - 1) / kGroup * kGroup; r0 >= 0; r0 -= kGroup) {
-    float2 v[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = threadIdx.x + j * kTcThreads, r = r0 + i / kPairs, c = i % kPairs * 2;
-      v[j] = r < rows ? __bfloat1622float2(src[(r * P + c) / 2]) : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = threadIdx.x + j * kTcThreads, r = r0 + i / kPairs, c = i % kPairs * 2;
-      if (r < rows) {
-        *reinterpret_cast<float2*>(tile + r * P + c) =
-            make_float2(c < ncols ? v[j].x : 0.f, c + 1 < ncols ? v[j].y : 0.f);
       }
     }
   }
@@ -1261,21 +1257,24 @@ loss_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
 // K3: backward — g_beta for the block's columns, g_theta partials.
 // ---------------------------------------------------------------------------
 
-// K3's shared memory at tile width vt, as offsets in floats, for either
-// storage: theta [B, Pth] (Pth = Kp + 4, 4 mod 8, so theta's A fragments
-// load without conflicts), the g_theta accumulator [B, Kp], two ring stages
-// of x/gz [B, Px], beta [Kp, Pb] (rows K..Kp-1 stay zero) and the tile's
-// mean and var [2, vt]; five row vectors (m, 1/s, rd, g, mask); two
-// [kTcWarps, vt] column reductions, the two BN column sums and the count.
-// Rows past B are never stored: fragments read them as 0. bf16 x and beta
-// arrive in the first half of their FP32 stages, at the FP32 pitches, and
-// are upcast in place.
+// K3's shared memory at tile width vt and storage bf, as offsets in floats:
+// theta [B, Pth] (Pth = Kp + 4, 4 mod 8, so theta's A fragments load
+// without conflicts), the g_theta accumulator [B, Kp], two ring stages of
+// x [B, Px] and beta [Kp, Pb] (rows K..Kp-1 stay zero), stored, and the
+// tile's mean and var [2, vt]; gn and then gz, float32 [B, Px]: over the
+// stage's x for FP32 storage, in a tile of their own for bf16 (a float32 row
+// written over bf16 rows would overwrite rows that other warps have not yet
+// read); five row vectors (m, 1/s, rd, g, mask); two [kTcWarps, vt] column
+// reductions, the two BN column sums and the count. Rows past B are never
+// stored: fragments read them as 0. The bf16 layout is never the larger:
+// its x stages and gz tile take the FP32 x stages' bytes, its beta stages
+// half the FP32 ones'.
 struct GradsLayout {
   int Kp, Pth, Pg;
-  size_t th, gth, x, x_stage, b, b_stage, mv, rows, cols, floats;
+  size_t th, gth, x, x_stage, b, b_stage, gz, mv, rows, cols, floats;
 };
 
-__host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
+__host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K, bool bf) {
   GradsLayout L;
   L.Kp = round_up(K, 8);
   L.Pth = L.Kp + 4;
@@ -1283,10 +1282,11 @@ __host__ __device__ inline GradsLayout grads_layout(int vt, int B, int K) {
   L.th = 0;
   L.gth = L.th + up4((size_t)B * L.Pth);
   L.x = L.gth + up4((size_t)B * L.Pg);
-  L.x_stage = up4((size_t)B * tile_px(vt));
-  L.b = L.x + 2 * L.x_stage;
-  L.b_stage = (size_t)L.Kp * tile_pb(vt, false);
-  L.mv = L.b + 2 * L.b_stage;
+  L.x_stage = stored_floats((size_t)B * tile_px(vt), bf);
+  L.b = L.x + kStages * L.x_stage;
+  L.b_stage = (size_t)L.Kp * tile_pb(vt, bf) / (bf ? 2 : 1);  // Kp % 8 == 0: 16-byte rows
+  L.gz = L.b + kStages * L.b_stage;
+  L.mv = L.gz + (bf ? up4((size_t)B * tile_px(vt)) : 0);
   L.rows = L.mv + 4 * (size_t)vt;
   L.cols = L.rows + up4(5 * (size_t)B);
   L.floats = L.cols + (size_t)(2 * kTcWarps + 2) * vt + 4;
@@ -1302,17 +1302,20 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
              const float* __restrict__ g, const float* __restrict__ mask,
              float* __restrict__ gth_part, float* __restrict__ g_beta, int B, int K, int V,
              int ld, int training, float eps, float floor_, int tiles_per_block) {
-  using T = Tile<float, VT>;  // FP32 pitches: a bf16 tile is upcast in place
+  using T = Tile<TS, VT>;
   constexpr int kNt = VT / 8;  // 8-column mma tiles per tile
+  // Pitches of the stored x and beta tiles, in stored elements; gn and gz
+  // take x's pitch in floats.
   constexpr int Px = T::kPx, Pb = T::kPb;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   float* const sm = reinterpret_cast<float*>(tc_smem);
-  const GradsLayout L = grads_layout(VT, B, K);
+  const GradsLayout L = grads_layout(VT, B, K, T::kBf16);
   const int Kp = L.Kp, Pth = L.Pth, Pg = L.Pg;
   float* th_s = sm + L.th;
   float* gth_s = sm + L.gth;
-  float* x_ring = sm + L.x;
-  float* b_ring = sm + L.b;
+  float* x_ring = sm + L.x;  // kStages stages of L.x_stage floats, stored as TS
+  float* b_ring = sm + L.b;  // and of L.b_stage
+  float* gz_tile = sm + L.gz;  // bf16 storage only
   float* mv_ring = sm + L.mv;  // [stage][mean, var][VT]
   float* sm_s = sm + L.rows;
   float* isl_s = sm_s + B;  // 1 / s
@@ -1355,10 +1358,9 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(first + tiles_per_block, n_tiles);
   auto load = [&](int st, int v0) {
-    load_tile<TS, VT, kVec16, Pb, Px>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
-                                      reinterpret_cast<TS*>(x_ring + st * L.x_stage),
-                                      mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
-                                      v0, 2);
+    load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
+                              reinterpret_cast<TS*>(x_ring + st * L.x_stage),
+                              mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld, v0, 2);
   };
   if (first < last) {
     load(0, first * VT);
@@ -1370,16 +1372,13 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
     if (tile + 1 < last) load(st ^ 1, v0 + VT);
     wait_tile();
     __syncthreads();
-    float* xs = x_ring + st * L.x_stage;  // x, then gn, then gz
-    const float* bs = b_ring + st * L.b_stage;
+    float* const x_stage = x_ring + st * L.x_stage;
+    const TS* xs = reinterpret_cast<const TS*>(x_stage);
+    const TS* bs = reinterpret_cast<const TS*>(b_ring + st * L.b_stage);
+    // gn, then gz, in float32: over this stage's x (FP32 storage: each lane
+    // reads its x pair before it writes gn there) or in their own tile (bf16).
+    float* const gs = T::kBf16 ? gz_tile : x_stage;
     const float* mvs = mv_ring + st * 2 * VT;
-    if constexpr (kIsBf16<TS>) {
-      // From here on this is the FP32 kernel, at its register count, on the
-      // bf16-rounded values.
-      upcast_in_place<VT, Px, kUpcastPer>(xs, B, V - v0);
-      upcast_in_place<VT, Pb, kUpcastPer>(b_ring + st * L.b_stage, K, V - v0);
-      __syncthreads();
-    }
 
     // This lane's columns: mean and inv_std (past V: 0 and 1).
     float mu[kNt][2], istd[kNt][2];
@@ -1395,7 +1394,7 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
     }
 
     // Pass 1: z from the tile product; n and gn on the accumulator
-    // fragments; gn replaces x in shared memory, n stays here.
+    // fragments; gn goes to shared memory, n stays here.
     float nv[T::kMaxMt][kNt][4];
     float s1[kNt][2], s2[kNt][2];
 #pragma unroll
@@ -1407,8 +1406,16 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
         const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
         const bool ok_lo = r_lo < B, ok_hi = r_hi < B;
         float acc[kNt][4];
-        tile_product(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, ok_lo, ok_hi},
-                     BetaFrag{bs, Pb, grp, tig});
+        // Each storage spelled out: the FP32 branch as the FP32 kernel had it,
+        // which ptxas compiles to fewer registers than the same operations
+        // written once for both (122 for grads_kernel<32, 4B>, not 123).
+        if constexpr (T::kBf16) {
+          tile_product<kNt, true>(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, ok_lo, ok_hi},
+                                  beta_frag(bs, Pb, grp, tig));
+        } else {
+          tile_product(acc, Kp, ThetaFrag{th_s, Pth, r_lo, r_hi, tig, ok_lo, ok_hi},
+                       BetaFrag{bs, Pb, grp, tig});
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = h ? r_hi : r_lo;
@@ -1419,8 +1426,7 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
 #pragma unroll
           for (int nt = 0; nt < kNt; ++nt) {
             const int c = nt * 8 + 2 * tig;
-            const float2 xv = rok ? *reinterpret_cast<const float2*>(xs + r * Px + c)
-                                  : make_float2(0.f, 0.f);
+            const float2 xv = rok ? pair_f32(xs + r * Px + c) : make_float2(0.f, 0.f);
             float gn2[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
@@ -1436,7 +1442,7 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
                 s2[nt][e] += gn * n * mkv;
               }
             }
-            if (rok) *reinterpret_cast<float2*>(xs + r * Px + c) = make_float2(gn2[0], gn2[1]);
+            if (rok) *reinterpret_cast<float2*>(gs + r * Px + c) = make_float2(gn2[0], gn2[1]);
           }
         }
       }
@@ -1488,7 +1494,7 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
 #pragma unroll
             for (int nt = 0; nt < kNt; ++nt) {
               const int c = nt * 8 + 2 * tig;
-              const float2 v = *reinterpret_cast<const float2*>(xs + r * Px + c);
+              const float2 v = *reinterpret_cast<const float2*>(gs + r * Px + c);
               float gz[2] = {v.x, v.y};
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
@@ -1498,7 +1504,7 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
                             ? istd[nt][e] * (gz[e] - mkv * a - nv[q][nt][2 * h + e] * mkv * b)
                             : 0.f;
               }
-              *reinterpret_cast<float2*>(xs + r * Px + c) = make_float2(gz[0], gz[1]);
+              *reinterpret_cast<float2*>(gs + r * Px + c) = make_float2(gz[0], gz[1]);
             }
           }
         }
@@ -1518,10 +1524,10 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
 #pragma unroll
         for (int ks = 0; ks < kNt; ++ks) {
           const int c = ks * 8 + tig;
-          split_tf32(ok_lo ? xs[r_lo * Px + c] : 0.f, gh[ks][0], gl[ks][0]);
-          split_tf32(ok_hi ? xs[r_hi * Px + c] : 0.f, gh[ks][1], gl[ks][1]);
-          split_tf32(ok_lo ? xs[r_lo * Px + c + 4] : 0.f, gh[ks][2], gl[ks][2]);
-          split_tf32(ok_hi ? xs[r_hi * Px + c + 4] : 0.f, gh[ks][3], gl[ks][3]);
+          split_tf32(ok_lo ? gs[r_lo * Px + c] : 0.f, gh[ks][0], gl[ks][0]);
+          split_tf32(ok_hi ? gs[r_hi * Px + c] : 0.f, gh[ks][1], gl[ks][1]);
+          split_tf32(ok_lo ? gs[r_lo * Px + c + 4] : 0.f, gh[ks][2], gl[ks][2]);
+          split_tf32(ok_hi ? gs[r_hi * Px + c + 4] : 0.f, gh[ks][3], gl[ks][3]);
         }
         for (int n0 = 0; n0 < Kp; n0 += 8 * kChunk) {
           float acc[kChunk][4];
@@ -1545,9 +1551,14 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
               if (n0 + j * 8 < Kp) {
                 const int kk = n0 + j * 8 + grp;
                 uint32_t bh[2], bl[2];
-                split_tf32(bs[kk * Pb + ks * 8 + tig], bh[0], bl[0]);
-                split_tf32(bs[kk * Pb + ks * 8 + tig + 4], bh[1], bl[1]);
-                mma_3xtf32(acc[j], gh[ks], gl[ks], bh, bl);
+                if constexpr (T::kBf16) {  // as in pass 1
+                  beta_t_frag(bs + kk * Pb + ks * 8 + tig, bh, bl);
+                  mma_ab<T::kBf16>(acc[j], gh[ks], gl[ks], bh, bl);
+                } else {
+                  split_tf32(bs[kk * Pb + ks * 8 + tig], bh[0], bl[0]);
+                  split_tf32(bs[kk * Pb + ks * 8 + tig + 4], bh[1], bl[1]);
+                  mma_3xtf32(acc[j], gh[ks], gl[ks], bh, bl);
+                }
               }
             }
           }
@@ -1591,8 +1602,8 @@ grads_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               uint32_t bh[2], bl[2];
-              split_tf32(oa ? xs[ra * Px + n0 + j * 8 + grp] : 0.f, bh[0], bl[0]);
-              split_tf32(ob ? xs[rb * Px + n0 + j * 8 + grp] : 0.f, bh[1], bl[1]);
+              split_tf32(oa ? gs[ra * Px + n0 + j * 8 + grp] : 0.f, bh[0], bl[0]);
+              split_tf32(ob ? gs[rb * Px + n0 + j * 8 + grp] : 0.f, bh[1], bl[1]);
               mma_3xtf32(acc[u][j], ah, al, bh, bl);
             }
           }
@@ -1667,7 +1678,7 @@ cudaError_t smem_limit(size_t* limit) {
 int tc_vt(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
   const int widths[2] = {32, 16};
   for (int vt : widths) {
-    *smem = (kind == kGrads ? grads_layout(vt, B, K).floats
+    *smem = (kind == kGrads ? grads_layout(vt, B, K, bf).floats
                             : fwd_layout(kind, vt, B, K, bf).floats) *
             sizeof(float);
     if (*smem <= limit && B <= tile_rows(vt)) return vt;

@@ -110,6 +110,16 @@ def test_bf16_kernel_work_and_bounds_are_pinned(smoke, name):
     assert bound["bound_by"] == by
 
 
+def test_tf32_products_per_kernel_are_pinned(smoke):
+    """The products the bounds charge: 3xTF32 for FP32 storage; with bf16
+    beta, two for K1's and K2's z and, for K3, two for z = theta beta and
+    two for g_theta = gz beta^T beside three for g_beta = theta^T gz."""
+    assert smoke.TF32_PRODUCTS["float32"] == {"stats": 3, "loss": 3, "grads": 3}
+    bf16 = smoke.TF32_PRODUCTS["bfloat16"]
+    assert (bf16["stats"], bf16["loss"]) == (2, 2)
+    assert bf16["grads"] == pytest.approx(7 / 3) and bf16["grads"] == (2 + 2 + 3) / 3
+
+
 def test_bf16_storage_halves_the_stored_operands_bytes(smoke):
     f32, bf16 = (smoke.kernel_work(17, 9, 3001, s) for s in ("float32", "bfloat16"))
     kv, bv = 9 * 3001, 17 * 3001

@@ -27,7 +27,8 @@ from the ``gfedntm_tpu`` functions that script calls (the scripts under
   synthetic ``site-packages`` tree that both packages read.
 - Every module's ``main(["--device", "cpu"])`` exits 0 in a subprocess
   where ``jax`` and ``gfedntm_tpu`` raise on import; ``run()`` with
-  ``device=None`` raises without CUDA.
+  ``device=None`` raises without CUDA; a ``main`` in a process that
+  launched kernels before reports its own run's launches.
 """
 
 import os
@@ -445,4 +446,38 @@ def test_launch_line_reads_the_kernel_counters(monkeypatch):
     monkeypatch.setitem(fd.LAUNCHES, "stats", 7)
     monkeypatch.setitem(fd.LAUNCHES, "loss", 7)
     monkeypatch.setitem(fd.LAUNCHES, "grads", 6)
-    assert launch_line("cuda:0") == "device: cuda:0; K1-K3 launches: stats 7, loss 7, grads 6"
+    zero = dict(stats=0, loss=0, grads=0)
+    assert launch_line("cuda:0", zero) == (
+        "device: cuda:0; K1-K3 launches: stats 7, loss 7, grads 6")
+
+
+@pytest.mark.parametrize("name,kw,launched", [
+    ("bow_dataset_example", {}, False),
+    ("centralized_training", dict(n_docs=80, num_epochs=1), False),
+    ("centralized_training", dict(n_docs=80, num_epochs=1), True),
+])
+def test_main_reports_the_launches_of_its_own_run(monkeypatch, capsys, name, kw, launched):
+    """With K1-K3 counted before (an earlier run in the process), ``main``'s
+    last line holds the launches of its own run: 0 on the CPU, or one of
+    each kernel per training step where the run counts them as the card's
+    wrappers do."""
+    import importlib
+
+    module = importlib.import_module(f"gfedntm_tpu_torch.examples.{name}")
+    for kernel in ("stats", "loss", "grads"):
+        monkeypatch.setitem(fd.LAUNCHES, kernel, 10)
+    steps = []
+
+    def run(original=module.run, **given):
+        out = original(**{**kw, **given})
+        steps.append(out["steps"] if launched else 0)
+        for kernel in ("stats", "loss", "grads"):
+            monkeypatch.setitem(fd.LAUNCHES, kernel, fd.LAUNCHES[kernel] + steps[-1])
+        return out
+
+    monkeypatch.setattr(module, "run", run)
+    assert module.main(["--device", "cpu"]) == 0
+    n = steps[0]
+    assert n > 0 if launched else n == 0
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        f"device: cpu; K1-K3 launches: stats {n}, loss {n}, grads {n}")

@@ -1,7 +1,10 @@
 """How ``chip_smoke.py`` reads what the build made, and how it refuses to
 run, on the CPU: kernel names from mangled symbols, the tensor-core
 instruction check over every instantiation of K1, K2 and K3, ptxas' spill
-report, and the exit codes without a card or with bad arguments; with a
+report, each kernel's SASS, the registers and mma counts beside each other,
+the ``--against`` lines of the kernels' SASS and of the bf16 kernels, the bitwise check's failure, bf16 K3's routes
+beside another build's, and the exit codes without a card or with bad
+arguments; with a
 card faked and every phase stubbed, the order of the phases (phase 14 on
 phase 9's store, phase 15 on phase 3's fit starting 17(b)'s processes,
 phase 16, then phase 17 on its own rank group (started before phase 13)
@@ -12,7 +15,9 @@ output lines (the script's own seconds before the ``kernels`` line, the
 ``ok`` line last). The script is imported by path."""
 
 import importlib.util
+import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -68,10 +73,12 @@ def test_tensor_core_counts_pass_when_every_instantiation_has_mma(smoke):
 
 
 @pytest.mark.parametrize("broken", ["zero", "no_stats", "no_loss", "no_grads", "zero_bf16",
-                                    "no_bf16_grads", "no_fp32_stats"])
+                                    "no_bf16_grads", "no_fp32_stats", "bf16_grads_not_fewer"])
 def test_tensor_core_counts_fail_on_a_zero_or_a_missing_family(smoke, broken):
     counts = dict(FULL)
-    if broken == "zero":
+    if broken == "bf16_grads_not_fewer":  # a bf16 K3 with three products a k-step
+        counts["grads_kernel<bf16, 16, 16B>"] = counts["grads_kernel<16, 16B>"]
+    elif broken == "zero":
         counts["loss_kernel<16, 4B>"] = 0
     elif broken == "zero_bf16":
         counts["stats_kernel<bf16, 32, 16B>"] = 0
@@ -100,10 +107,186 @@ def test_ptxas_report_sums_spills_per_kernel(smoke):
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers",
     ])
-    lines, spills = smoke.ptxas_report(log)
+    lines, spills, registers = smoke.ptxas_report(log)
     assert spills == {"stats_kernel<32, 16B>": 20, "simt_stats_kernel": 0}
+    assert registers == {"stats_kernel<32, 16B>": 128, "simt_stats_kernel": 40}
     assert lines[0].startswith("ptxas stats_kernel<32, 16B>: ")
     assert lines[-1] == "ptxas simt_stats_kernel: Used 40 registers"
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_112grads_kernelIfLi16ELb1EEEvPKfPKT_S5_S2_PfS6_iiiiifffi
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                          /* 0x000fe40000000800 */
+        /*0010*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;   /* 0x0000000c0804723c */
+        /*0020*/              @P0  EXIT ;                                 /* 0x000000000000094d */
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_120merge_softmax_kernelEPKfS1_iiPfS2_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+"""
+
+
+def test_sass_of_reads_each_kernels_instructions(smoke, monkeypatch, tmp_path):
+    """``cuobjdump -sass``'s listing per kernel name, without addresses,
+    encodings or headers."""
+    tool = tmp_path / "cuobjdump"
+    tool.write_text('#!/bin/sh\ncat "$2"\n')
+    tool.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{smoke.os.environ['PATH']}")
+    lib = tmp_path / "lib.so"
+    lib.write_text(SASS)
+    assert smoke.sass_of(lib) == {
+        "grads_kernel<16, 16B>": ["LDC R1, c[0x0][0x28] ;",
+                                  "HMMA.1688.F32.TF32 R4, R8, R12, R4 ;", "@P0 EXIT ;"],
+        "merge_softmax_kernel": ["MOV R1, c[0x0][0x28] ;"],
+    }
+
+
+def test_build_report_pairs_registers_and_mma_counts(smoke, monkeypatch):
+    """ptxas' registers and cuobjdump's tensor-core count per instantiation,
+    returned beside the printed line, and bf16 K3's line beside the FP32
+    kernel's at each width."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112grads_kernelIfLi16ELb1EEEvPKfPKT_S5_S2_S2_S2_S2_S2_S2_S2_PfS6_"
+        "iiiiifffi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 124 registers, used 1 barriers, 480 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112grads_kernelI13__nv_bfloat16Li16ELb1EEEvPKfPKT_S7_S2_S2_S2_S2_"
+        "S2_S2_S2_PfS8_iiiiifffi' for 'sm_90a'",
+        "ptxas info    : Used 110 registers, used 1 barriers, 480 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_117simt_stats_kernelEPKfS1_S1_S1_S1_PfS2_S2_S2_iiiifi' for 'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    counts = dict(FULL, **{"grads_kernel<16, 16B>": 84, "grads_kernel<bf16, 16, 16B>": 60,
+                           "grads_kernel<bf16, 32, 16B>": 64})
+    sass = {name: ["HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"] * n + ["EXIT ;"]
+            for name, n in counts.items()}
+    monkeypatch.setattr(smoke, "sass_of", lambda lib: dict(sass, simt_stats_kernel=["EXIT ;"]))
+    report, got = smoke.build_report(Path("lib.so"), log)
+    assert report == ["tensor-core instructions (HMMA/HGMMA in cuobjdump -sass): " + ", ".join(
+        f"{name} {n}" for name, n in sorted(counts.items()))]
+    assert got["grads_kernel<16, 16B>"] == {"registers": 124, "hmma": 84}
+    assert got["grads_kernel<bf16, 16, 16B>"] == {"registers": 110, "hmma": 60}
+    assert got["grads_kernel<bf16, 32, 16B>"] == {"hmma": 64}
+    assert "simt_stats_kernel" not in got
+    assert smoke.resources_line(got, "grads_kernel") == (
+        "grads_kernel<bf16, 32, 16B> ? registers, 64 HMMA (FP32 grads_kernel<32, 16B> ? "
+        "registers, 96 HMMA); grads_kernel<bf16, 16, 16B> 110 registers, 60 HMMA (FP32 "
+        "grads_kernel<16, 16B> 124 registers, 84 HMMA)")
+    assert smoke.resources_line({}, "grads_kernel").startswith(
+        "grads_kernel<bf16, 32, 16B> ? registers, ? HMMA")
+
+
+def test_same_sass_line_counts_kernels_and_names_those_that_differ(smoke, monkeypatch):
+    """``--against``'s SASS line over the kernels without bf16 storage; bf16
+    instantiations are left out."""
+    mine = {"stats_kernel<32, 16B>": ["A ;"], "grads_kernel<32, 4B>": ["B ;"],
+            "merge_softmax_kernel": ["C ;"], "grads_kernel<bf16, 32, 16B>": ["D ;"]}
+    builds = {"mine.so": mine, "same.so": dict(mine, **{"grads_kernel<bf16, 32, 16B>": []}),
+              "other.so": dict(mine, **{"grads_kernel<32, 4B>": ["B ;", "B ;"]})}
+    monkeypatch.setattr(smoke, "sass_of", lambda lib: builds[str(lib)])
+    lib = SimpleNamespace(_name="mine.so")
+    assert smoke.same_sass_line(lib, SimpleNamespace(_name="same.so"), Path("/p")) == (
+        "kernels: SASS the same as the build of /p's in 3 of 3 kernels without bf16 storage")
+    assert smoke.same_sass_line(lib, SimpleNamespace(_name="other.so"), Path("/p")) == (
+        "kernels: SASS the same as the build of /p's in 2 of 3 kernels without bf16 storage; "
+        "differs in grads_kernel<32, 4B>")
+
+
+#: ``--against``'s line for the bf16 instantiations, and the failure of a
+#: bitwise comparison (``check_same_bits``).
+AGAINST_BF16_LINE = re.compile(r"^kernels ok: bf16 K1, K2 and K3 bitwise equal to the build of "
+                               r"(\S+) in (\d+) cases \(launches: K1 (\d+), K2 (\d+), K3 "
+                               r"(\d+)\)$")
+SAME_BITS_FAILURE = re.compile(r"^(.+): (.+) differs bitwise in (\w+(?:, \w+)*)$")
+#: ``--against``'s line for the routes bf16 K3 takes.
+AGAINST_ROUTES_LINE = re.compile(r"^kernels ok: bf16 K3 routes at (\d+) \(B, K\) beside the build "
+                                 r"of (\S+): none lost, (\d+) onto 32-column tiles, (\d+) newly "
+                                 r"taken; FP32 K3 routes unchanged$")
+
+
+def test_against_bf16_line_parses_and_a_mangled_one_does_not(smoke):
+    line = smoke.against_bf16_line(Path("/x/build/parent"), 13,
+                                   {"stats": 13, "loss": 13, "grads": 9})
+    found = AGAINST_BF16_LINE.match(line)
+    assert found and found.groups() == ("/x/build/parent", "13", "13", "13", "9")
+    for mangled in (line.replace("K3 9", "K3 nine"), line.replace("bitwise ", ""),
+                    line + " extra", line.replace(" cases", "")):
+        assert not AGAINST_BF16_LINE.match(mangled)
+
+
+def test_same_bits_passes_equal_outputs_and_names_those_that_differ(smoke):
+    """The hard bitwise check: equal outputs pass; one value a unit in the
+    last place off fails with a message that names that output alone."""
+    import torch
+
+    got = (torch.linspace(-1.0, 1.0, 7), torch.arange(6.0).reshape(2, 3))
+    smoke.check_same_bits("bf16 B=8", "bf16 K3", "g_theta,g_beta", got,
+                          tuple(t.clone() for t in got))
+    off = got[1].clone()
+    off[1, 2] = torch.nextafter(off[1, 2], torch.tensor(10.0))
+    with pytest.raises(smoke.SmokeFailure) as err:
+        smoke.check_same_bits("bf16 B=8 K=4", "bf16 K3 against the FP32 K3", "g_theta,g_beta",
+                              got, (got[0], off))
+    found = SAME_BITS_FAILURE.match(str(err.value))
+    assert found and found.groups() == ("bf16 B=8 K=4", "bf16 K3 against the FP32 K3", "g_beta")
+    assert not SAME_BITS_FAILURE.match("bf16 B=8 K=4: bf16 K3 differs in g_beta")
+
+
+class FakeRoutes:
+    """A build's ``fd_route`` by a rule: ``rule(kind, b, k)`` with the bf16
+    bit in ``kind``."""
+
+    def __init__(self, rule):
+        self.rule = rule
+
+    def fd_route(self, kind, b, k, route):
+        route._obj.value = self.rule(kind, b, k)
+        return 0
+
+
+def _fp32_k3_route(b, k):
+    return 32 if b <= 256 and k <= 56 else 16 if b <= 1024 and k <= 40 else -1
+
+
+def test_compare_routes_counts_moves_and_fails_on_a_lost_route(smoke, monkeypatch):
+    """bf16 K3's routes beside another build's: shapes moved onto 32-column
+    tiles and newly taken are counted in the line; a shape the other build
+    takes and this one refuses or puts on narrower tiles, or a changed FP32
+    route, fails."""
+    monkeypatch.setattr(smoke, "ROUTE_GRID", [(b, k) for b in (8, 256, 320, 1100)
+                                              for k in (8, 50, 60, 64, 72)])
+    parent = FakeRoutes(lambda kind, b, k: _fp32_k3_route(b, k))
+
+    def change(kind, b, k):
+        if kind & 4 and b <= 256 and k <= 64:
+            return 32  # the smaller bf16 layout fits wider
+        return _fp32_k3_route(b, k)
+
+    line = smoke.compare_routes(FakeRoutes(change), parent, Path("/p"))
+    found = AGAINST_ROUTES_LINE.match(line)
+    # (8, 60), (8, 64), (256, 60), (256, 64): 16-wide or refused at the parent.
+    assert found and found.groups() == ("20", "/p", "0", "4")
+    moved = FakeRoutes(lambda kind, b, k: 32 if kind & 4 and b == 320 and k == 8
+                       else _fp32_k3_route(b, k))
+    assert AGAINST_ROUTES_LINE.match(smoke.compare_routes(moved, parent, Path("/p"))
+                                           ).group(3) == "1"
+    for lost_to in (-1, 16):  # refused, or on narrower tiles
+        lost = FakeRoutes(lambda kind, b, k: lost_to if kind & 4 and (b, k) == (8, 8)
+                          else _fp32_k3_route(b, k))
+        with pytest.raises(smoke.SmokeFailure, match="bf16 K3 takes B=8 K=8 on "
+                           f"{smoke.ROUTE_NAMES[lost_to]}, the build of /p on tensor cores, 32"):
+            smoke.compare_routes(lost, parent, Path("/p"))
+    fp32 = FakeRoutes(lambda kind, b, k: 16 if not kind & 4 and (b, k) == (8, 8)
+                      else _fp32_k3_route(b, k))
+    with pytest.raises(smoke.SmokeFailure, match="FP32 K3's route at B=8 K=8"):
+        smoke.compare_routes(fp32, parent, Path("/p"))
 
 
 @pytest.mark.parametrize("argv", [["--bogus"], ["--against"], ["--against", "a", "b"],
@@ -258,7 +441,7 @@ def faked(smoke, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(device, "resolve_device", lambda d=None: torch.device("cpu"))
     monkeypatch.setattr(_build, "build", lambda: Path("fake.so"))
-    monkeypatch.setattr(smoke, "build_report", lambda lib, log: ["ptxas fake"])
+    monkeypatch.setattr(smoke, "build_report", lambda lib, log: (["ptxas fake"], {}))
     monkeypatch.setattr(smoke, "card_line", lambda: "FAKE H100, 700.00 W")
     monkeypatch.setattr(smoke, "cli_archive", lambda: ("archive", "ini"))
     calls = []
@@ -469,9 +652,14 @@ def test_phase_20_runs_every_walkthrough_and_its_lines_parse(smoke, monkeypatch,
             out = original(**{**kw, **given}, device="cpu")
             steps = smoke.example_steps(module.__name__.rsplit(".", 1)[1], out)
             for name in ("stats", "loss", "grads"):
-                fd.LAUNCHES[name] += steps
+                monkeypatch.setitem(fd.LAUNCHES, name, fd.LAUNCHES[name] + steps)
             return {**out, "device": "cuda:0", "models": {}}
         monkeypatch.setattr(module, "run", run)
+    # The phase resets every counter: each comes back to its value before
+    # the test, so no later test in the process sees the fake launches.
+    for counts in (fd.LAUNCHES, fd.EVAL_LAUNCHES, fd.ROWS_CALLS):
+        for key in list(counts):
+            monkeypatch.setitem(counts, key, counts[key])
     monkeypatch.setattr(smoke, "EXAMPLES_DIR", tmp_path / "examples")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     notes = {"stats": "", "loss": "", "grads": ""}
