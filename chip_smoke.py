@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1 and 2: iterate on the kernels
     python3 chip_smoke.py --kernels-only --against DIR  # and K1-K3 bitwise vs DIR's build
+    python3 chip_smoke.py --kernels-only --timeline  # and bf16 K1's and K2's tile timeline
     python3 chip_smoke.py --data-parallel-only  # phases 1 and 6
     python3 chip_smoke.py --phase-7-only  # phases 1 and 7
     python3 chip_smoke.py --ctm-only      # phases 1 and 8
@@ -52,14 +53,22 @@ seconds.
    case. Then the bf16-storage instantiations (:data:`BF16_CASES`: the
    slice's shape, V=99,999 at a padded pitch, eval, all rows masked, both
    tile widths, K2's tensor-core route past FP32's, the CUDA-core route at
-   B=512 and B=1100) against their plain versions on the bf16-rounded beta
-   and x, bf16 K3 bitwise equal to the FP32 K3 on those values wherever both
-   take the same route, and their times beside the FP32 kernels' and the
-   cast and pad's, with bf16 K3's registers and tensor-core instructions
-   beside the FP32 kernel's. ``--against DIR`` requires DIR's bf16 K1, K2
-   and K3 outputs to be bitwise equal to this build's too, wherever both
-   take the same route, and every (B, K) that DIR's bf16 K3 takes to be
-   taken here (FP32 K3's routes unchanged);
+   B=512 and B=1100, the boundaries of bf16 K1's and K2's 64-column tiles)
+   against their plain versions on the bf16-rounded beta and x, bf16 K3
+   bitwise equal to the FP32 K3 on those values wherever both take the same
+   route and bf16 K1's mean on 64-column tiles bitwise the 32-column FP32
+   K1's, and their times beside the FP32 kernels' and the cast and pad's,
+   with each bf16 kernel's registers and tensor-core instructions beside the
+   FP32 kernel's; K1's and K2's rows add their device time per launch from
+   the profiler beside the event time and the host's us a call, and bf16 K2
+   and K1 also run on phase 3's own first 256 documents (x's density
+   printed). ``--against DIR`` requires DIR's bf16 K1, K2 and K3 outputs to
+   be bitwise equal to this build's too wherever both take the same route,
+   and within tolerance of them where a wider route sums in another order,
+   every (B, K) that DIR's bf16 K1, K2 and K3 take to be taken here on a
+   route at least as wide (FP32 routes unchanged), and times both builds'
+   bf16 K1 and K2 in turns. ``--timeline`` (with ``--kernels-only``) then
+   prints bf16 K1's and K2's tile timeline (:func:`timeline_phase`);
 3. main path — federated ProdLDA through the user entry points
    (``AVITM`` -> ``FederatedTrainer.fit`` -> ``make_global_model`` ->
    ``get_topics``) at V=100,000, K=50, H=(100, 100), B=256, 2 clients,
@@ -609,6 +618,60 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_and_host(fns: dict, reps: int = 20, warmup: int = 3) -> dict:
+    """For each function in ``fns`` (label -> fn): its device ms a call,
+    from ``torch.profiler``'s kernel events over ``reps`` calls (every
+    kernel it launches: K1 and its merge, K2 and its fold; None when the
+    profiler saw none), its host us a call (the calls enqueued back to back,
+    before the synchronize) and the kernels it launches a call. One profiler
+    run for all of them: each function's calls run in a range of their own
+    that ends in a synchronize, and a kernel counts for the range in which
+    it started. When the host takes longer a call than the device,
+    :func:`time_ms` reads the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    host = {}
+    for label, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host[label] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    tag = "chip_smoke.device:"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns.values()):
+            with record_function(f"{tag}{i}"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    windows = {int(e.name[len(tag):]): e.time_range for e in events
+               if e.name.startswith(tag) and e.device_type == DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith(tag)]
+    out = {}
+    for i, label in enumerate(fns):
+        w = windows.get(i)
+        mine = [e for e in kernels if w is not None and w.start <= e.time_range.start <= w.end]
+        device = sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3
+        out[label] = (device or None, host[label], len(mine) / reps)
+    return out
+
+
+def device_note(measured: tuple, what: str) -> str:
+    """The note of one :func:`device_and_host` result beside a row's event
+    times."""
+    device, host_us, kernels = measured
+    shown = "not measured (no device time in the profiler)" if device is None else f"{device:.4f}"
+    return (f"; device ms {shown} a launch ({kernels:.0f} kernels a call: {what}), host "
+            f"{host_us:.1f} us a call")
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: what the build made
 # ---------------------------------------------------------------------------
@@ -719,14 +782,17 @@ def build_report(lib: Path, build_log: str) -> tuple[list[str], dict]:
 
 def resources_line(resources: dict, family: str) -> str:
     """Each width's bf16 instantiation of ``family`` beside the FP32 one
-    (16-byte ring): registers and HMMA/HGMMA instructions ("?" where the
-    build did not say)."""
+    (16-byte ring), after the 64-column one where the build has it:
+    registers and HMMA/HGMMA instructions ("?" where the build did not
+    say)."""
     def one(name):
         got = resources.get(name, {})
         return f"{name} {got.get('registers', '?')} registers, {got.get('hmma', '?')} HMMA"
 
-    return "; ".join(f"{one(f'{family}<bf16, {vt}, 16B>')} (FP32 {one(f'{family}<{vt}, 16B>')})"
-                     for vt in (32, 16))
+    wide = f"{family}<bf16, 64, 16B>"  # bf16 K1's and K2's 64-column tiles: no FP32 twin
+    return "; ".join(([one(wide)] if wide in resources else []) + [
+        f"{one(f'{family}<bf16, {vt}, 16B>')} (FP32 {one(f'{family}<{vt}, 16B>')})"
+        for vt in (32, 16)])
 
 
 # ---------------------------------------------------------------------------
@@ -805,7 +871,8 @@ def vsharded_passes(storage="float32") -> float:
     return (2 * p["stats"] + 2 * p["loss"] + 6 * p["grads"]) / 10
 
 
-ROUTE_NAMES = {32: "tensor cores, 32-column tiles", 16: "tensor cores, 16-column tiles",
+ROUTE_NAMES = {64: "tensor cores, 64-column tiles", 32: "tensor cores, 32-column tiles",
+               16: "tensor cores, 16-column tiles",
                0: "CUDA cores", -1: "refused"}
 
 
@@ -827,30 +894,90 @@ def check_same_bits(case: str, what: str, labels: str, got, want) -> None:
     check(not differ, f"{case}: {what} differs bitwise in {', '.join(differ)}")
 
 
-#: The (B, K) at which ``--against`` compares the two builds' K3 routes.
+#: The (B, K) at which ``--against`` compares the two builds' routes.
 ROUTE_GRID = [(b, k) for b in (1, 2, 3, 5, 7, *range(8, 1105, 8)) for k in range(1, 257)]
+KERNEL_LABELS = {"stats": "K1", "loss": "K2", "grads": "K3"}
 
 
-def compare_routes(lib, other, against: Path) -> str:
-    """bf16 K3's route at every (B, K) of :data:`ROUTE_GRID` in this build
-    against ``other`` (the build of ``against``): none that ``other`` takes
-    is refused or put on narrower tiles here, and FP32 K3's routes are the
-    same; returns the line that says how many moved onto 32-column tiles
-    or are newly taken."""
+def compare_routes(lib, other, against: Path, kind: str = "grads") -> str:
+    """The bf16 route of ``kind`` (K3 by default) at every (B, K) of
+    :data:`ROUTE_GRID` in this build against ``other`` (the build of
+    ``against``): none that ``other`` takes is refused or put on a narrower
+    route here (64 before 32 before 16 before the CUDA cores), and the FP32
+    routes are the same; returns the line that says how many moved onto
+    wider tiles or are newly taken."""
     from gfedntm_tpu_torch.ops import fused_decoder as fd
 
-    moved = newly = 0
+    label = KERNEL_LABELS[kind]
+    wider = {64: 0, 32: 0, 16: 0}
+    newly = 0
     for b, k in ROUTE_GRID:
-        check(fd._route(lib, "grads", b, k) == fd._route(other, "grads", b, k),
-              f"FP32 K3's route at B={b} K={k} differs from the build of {against}")
-        mine, theirs = (fd._route(x, "grads", b, k, "bfloat16") for x in (lib, other))
-        check(mine >= theirs, f"bf16 K3 takes B={b} K={k} on {ROUTE_NAMES[mine]}, the build "
-              f"of {against} on {ROUTE_NAMES[theirs]}")
-        moved += theirs == 16 and mine == 32
+        check(fd._route(lib, kind, b, k) == fd._route(other, kind, b, k),
+              f"FP32 {label}'s route at B={b} K={k} differs from the build of {against}")
+        mine, theirs = (fd._route(x, kind, b, k, "bfloat16") for x in (lib, other))
+        check(mine >= theirs, f"bf16 {label} takes B={b} K={k} on {ROUTE_NAMES[mine]}, the "
+              f"build of {against} on {ROUTE_NAMES[theirs]}")
+        if mine > theirs >= 0:
+            wider[mine] += 1
         newly += theirs < 0 <= mine
-    return (f"kernels ok: bf16 K3 routes at {len(ROUTE_GRID)} (B, K) beside the build of "
-            f"{against}: none lost, {moved} onto 32-column tiles, {newly} newly taken; FP32 K3 "
-            f"routes unchanged")
+    moves = f"{wider[32]} onto 32-column tiles"
+    if wider[64] or wider[16]:
+        moves = (f"{wider[64]} onto 64-column tiles, {moves}, {wider[16]} onto 16-column "
+                 f"tiles")
+    return (f"kernels ok: bf16 {label} routes at {len(ROUTE_GRID)} (B, K) beside the build of "
+            f"{against}: none lost, {moves}, {newly} newly taken; FP32 {label} routes unchanged")
+
+
+def against_errors(case: str, labels: str, got, theirs) -> dict:
+    """Max |this build - the other build| per output where the two take
+    different routes (another order of sums): fails above ATOL + RTOL *
+    max|other| or where the softmax-max sentinels differ; returns
+    ``{label: (err, tol)}``."""
+    import torch
+
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
+    out = {}
+    for label, a, b in zip(labels.split(","), got, theirs):
+        sentinel = b.abs() >= 1e29
+        check(torch.equal(a[sentinel], b[sentinel]), f"{case}: {label} sentinel rows differ "
+              "from the other build's")
+        a, b = a[~sentinel], b[~sentinel]
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        tol = ATOL + RTOL * (float(b.abs().max()) if b.numel() else 0.0)
+        check(err <= tol, f"{case}: {label} max |this build - the other| {err:.3e} > tol "
+              f"{tol:.3e}")
+        out[label] = (err, tol)
+    return out
+
+
+def against_times_line(against: Path, times: dict) -> str:
+    """``--against``'s line of device ms a launch (the kernel and its merge
+    or fold, from the profiler) of the other build and this one, taken in
+    turns (other, this, this, other), per run in ``times``."""
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    return (f"kernels: bf16 device ms a launch, the build of {against} / this build in turns "
+            f"(other, this, this, other): " + "; ".join(
+                f"{label} {'/'.join(ms(t) for t in four)}" for label, four in times.items()))
+
+
+def against_errors_line(against: Path, errors: dict) -> str:
+    """``--against``'s line for the bf16 K1 and K2 cases whose routes differ
+    between the builds: per kernel the cases, and per output the largest
+    |this build - the other| beside its tolerance."""
+    parts = []
+    for name, cases in errors.items():
+        worst = {}
+        for per_case in cases:
+            for label, (err, tol) in per_case.items():
+                if label not in worst or err > worst[label][0]:
+                    worst[label] = (err, tol)
+        parts.append(f"{KERNEL_LABELS[name]} in {len(cases)} cases: " + ", ".join(
+            f"{label} {err:.3e} (tol {tol:.3e})" for label, (err, tol) in worst.items()))
+    return (f"kernels ok: bf16 K1 and K2 on another route than the build of {against}, within "
+            f"tolerance of it: " + "; ".join(parts))
 
 
 def same_sass_line(lib, other, against: Path) -> str:
@@ -1030,6 +1157,8 @@ def kernel_phase(card: str, against: Path | None = None,
                 f"{nflops / 1e9:.2f} GFLOP as 3xTF32 -> {bound['ops_ms']:.4f} ms); FP32 SIMT "
                 f"bound {bound['simt_bound_ms']:.4f} ms"
             )
+        for name, measured in device_and_host({n: fns[n][0] for n in FOLDS}).items():
+            notes[name] += device_note(measured, FOLDS[name])
         print(f"accuracy at B={b} K={k} V={v} train, max |err| against the plain version in "
               f"float64 (kernel / float32 plain): {accuracy_line(st_args, lo_args, gr_args)}",
               flush=True)
@@ -1044,7 +1173,13 @@ def kernel_phase(card: str, against: Path | None = None,
 # the FP32 route boundary; B=1100), and two shapes where bf16 K3's layout
 # nearly fills shared memory on a route FP32 K3 does not take there: 32-column
 # tiles where FP32 K3 takes 16 (B=224, K=72: 225,168 of 232,448 bytes), and
-# 16-column tiles where it refuses (B=256, K=80: 232,336 bytes).
+# 16-column tiles where it refuses (B=256, K=80: 232,336 bytes); then the
+# boundaries of bf16 K1's and K2's 64-column tiles: at B=256 K2's widest K
+# (80: 232,448 bytes) and the next (88, K2 on 16-column tiles) and K1's
+# widest (144, K2 on the CUDA cores), K not a multiple of 8 with rows past B
+# in the last warp (B=200, K=57, training and eval), one row past them
+# (B=257, on 16-column tiles), and a K past them at few rows (B=64, K=160, on
+# 32-column tiles).
 BF16_CASES = [
     (256, 50, 100_000, "partial", True), (256, 50, 100_000, "partial", False),
     (256, 50, 99_999, "partial", True), (256, 50, 99_999, "none", False),
@@ -1053,8 +1188,13 @@ BF16_CASES = [
     (360, 50, 20_001, "partial", False), (512, 50, 20_000, "partial", True),
     (64, 50, 3001, "all", True), (64, 50, 3001, "all", False),
     (1100, 8, 3001, "partial", True), (224, 72, 20_001, "partial", True),
-    (256, 80, 20_001, "partial", True),
+    (256, 80, 20_001, "partial", True), (256, 88, 20_001, "partial", True),
+    (256, 144, 3001, "partial", True), (200, 57, 20_001, "partial", True),
+    (200, 57, 20_001, "partial", False), (257, 50, 20_001, "partial", True),
+    (64, 160, 3001, "partial", True),
 ]
+#: What K1's and K2's wrappers launch a call (:func:`device_note`).
+FOLDS = {"stats": "K1 and its merge", "loss": "K2 and its fold"}
 REPLACES = {
     "stats": "gfedntm_tpu/ops/fused_decoder.py:189",
     "loss": "gfedntm_tpu/ops/fused_decoder.py:266",
@@ -1082,8 +1222,9 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
     labels = {"stats": "mean,var,m,s", "loss": "loss,rd", "grads": "g_theta,g_beta"}
     worst = {"stats": 0.0, "loss": 0.0, "grads": 0.0}
     seen = {"stats": set(), "loss": set()}
-    same_bits, same_route = 0, 0
+    same_bits, same_route, same_mean = 0, 0, 0
     theirs_bits = {"stats": 0, "loss": 0, "grads": 0}
+    theirs_errors = {"stats": [], "loss": []}
     for i, (b, k, v, mask_kind, training) in enumerate(BF16_CASES):
         t = make_inputs(b, k, v, seed=200 + i, mask_kind=mask_kind)
         case = f"bf16 B={b} K={k} V={v} mask={mask_kind} {'train' if training else 'eval'}"
@@ -1127,6 +1268,12 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
                 if name == "grads":
                     check_same_bits(case, "bf16 K3 against the FP32 K3 on the bf16-rounded "
                                     "inputs", labels[name], out, theirs)
+            elif name == "stats" and training and (routes[name], routes32[name]) == (64, 32):
+                # The wide K1 keeps z and the column sums' order: its mean is
+                # the 32-column FP32 K1's bit for bit.
+                check_same_bits(case, "bf16 K1 (64-column tiles) against the FP32 K1 on the "
+                                "bf16-rounded inputs", "mean", out[:1], fp32[name]()[:1])
+                same_mean += 1
         if other is not None:  # the same bf16 launches through the build of `against`
             theirs = {
                 "stats": lambda: fd._launch_stats(other, *st, 1e-5, bf),
@@ -1136,23 +1283,32 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
                                                   1e-5, 1e-10, bf),
             }
             for name, out in got.items():
-                # A (B, K) that bf16 K3's smaller layout moved onto wider
-                # tiles sums g_theta over other blocks (compare_routes).
+                # A (B, K) that a smaller layout moved onto wider tiles sums
+                # over other blocks, or lanes, in another order
+                # (compare_routes): held to the tolerance instead.
                 if fd._route(other, name, b, k, bf) == routes[name]:
                     check_same_bits(case, f"bf16 {name} against the build of {against}",
                                     labels[name], out, theirs[name]())
                     theirs_bits[name] += 1
+                else:
+                    theirs_errors[name].append(against_errors(
+                        f"{case} {name} against the build of {against}", labels[name], out,
+                        theirs[name]()))
         print(f"kernels ok: {case}; routes: " + ", ".join(
             f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()) + k3_err, flush=True)
     for name, routes in seen.items():
-        check({32, 16, 0} <= routes, f"bf16 {name}: the smoke cases took only the routes "
+        check({64, 32, 16, 0} <= routes, f"bf16 {name}: the smoke cases took only the routes "
               f"{sorted(routes)}")
     print(f"kernels: bf16 outputs bitwise equal to the FP32 kernels' on the bf16-rounded "
           f"inputs in {same_bits} of {same_route} launches on the same route (K3's each a "
-          f"hard check)", flush=True)
+          f"hard check); bf16 K1's mean on 64-column tiles bitwise the 32-column FP32 K1's in "
+          f"{same_mean} training cases (a hard check)", flush=True)
     if other is not None:
         print(against_bf16_line(against, len(BF16_CASES), theirs_bits), flush=True)
-        print(compare_routes(lib, other, against), flush=True)
+        if any(theirs_errors.values()):
+            print(against_errors_line(against, theirs_errors), flush=True)
+        for kind in ("stats", "loss", "grads"):
+            print(compare_routes(lib, other, against, kind), flush=True)
 
     # Times at the main path's shape, training, with beta and x stored as the
     # main path stores them; plain, kernel, kernel, plain.
@@ -1193,8 +1349,51 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
             f"{nbytes / 1e6:.1f} MB -> {bound['bytes_ms']:.4f} ms, {nflops / 1e9:.2f} GFLOP as "
             f"{TF32_PRODUCTS[bf][name]:.3g} TF32 products -> {bound['ops_ms']:.4f} ms)"
         )
-        if name == "grads":
-            notes[name + "_bf16"] += f"; {resources_line(resources or {}, 'grads_kernel')}"
+        notes[name + "_bf16"] += f"; {resources_line(resources or {}, name + '_kernel')}"
+    # K1 and K2 on the main path's own x: phase 3's first client's first b
+    # documents (K1 reads no x; its inputs are those above).
+    x_real, density = main_path_batch(b)
+    x_rs = fd.store(x_real, bf)
+    lo_real = (t["theta"], beta_s, x_rs, mean, var, m, s)
+    compare("loss,rd", fd.loss(*lo_real, storage_dtype=bf),
+            fd.loss_reference(t["theta"], beta_s.float(), x_rs.float(), mean, var, m, s),
+            "bf16 K2 on the main path's batch")
+    real = {"stats": fns["stats"][0], "loss": lambda: fd.loss(*lo_real, storage_dtype=bf)}
+    measured = device_and_host({**{n: fns[n][0] for n in FOLDS},
+                                **{f"{n} real": fn for n, fn in real.items()}})
+    for name, fn in real.items():
+        ms = [time_ms(fn) for _ in range(2)]
+        notes[name + "_bf16"] += device_note(measured[name], FOLDS[name]) + (
+            f"; on the main path's batch (x {density:.4f} nonzero) ms {ms[0]:.4f}/{ms[1]:.4f}"
+            + device_note(measured[f"{name} real"], FOLDS[name]))
+    if other is not None:  # K2 on sparse x: the other build's bits on its route
+        case = f"bf16 B={b} K={k} V={v} main-path x"
+        mine = fd.loss(*lo_real, storage_dtype=bf)
+        theirs = fd._launch_loss(other, *lo_real, 1e-5, 1e-10, bf)
+        if fd._route(other, "loss", b, k, bf) == fd._route(lib, "loss", b, k, bf):
+            check_same_bits(case, f"bf16 loss against the build of {against}", labels["loss"],
+                            mine, theirs)
+            said = "bitwise equal to"
+        else:
+            errs = against_errors(f"{case} against the build of {against}", labels["loss"],
+                                  mine, theirs)
+            said = "within tolerance of (" + ", ".join(
+                f"{label} {err:.3e}, tol {tol:.3e}" for label, (err, tol) in errs.items()) + ")"
+        print(f"kernels ok: bf16 K2 on the main path's batch (x {density:.4f} nonzero) {said} "
+              f"the build of {against}", flush=True)
+        # Device times of both builds' bf16 K1 and K2 (uncounted launches),
+        # in turns: the other build, this one, this one, the other.
+        runs = {
+            "K1": lambda x: fd._launch_stats(x, *st, 1e-5, bf),
+            "K2": lambda x: fd._launch_loss(x, *lo, 1e-5, 1e-10, bf),
+            "K2 on the main path's batch": lambda x: fd._launch_loss(x, *lo_real, 1e-5, 1e-10,
+                                                                     bf),
+        }
+        turns = {(label, i): (lambda run=run, x=x: run(x)) for label, run in runs.items()
+                 for i, x in enumerate((other, lib, lib, other))}
+        measured = device_and_host(turns)
+        times = {label: [measured[(label, i)][0] for i in range(4)] for label in runs}
+        print(against_times_line(against, times), flush=True)
     # The wrapper's cast and pad, once per step: beta [K, V] and x [B, V]
     # from float32 to bf16 at the padded pitch.
     cast_ms = [time_ms(lambda: (fd.store(t["beta"], bf), fd.store(t["x"], bf)))
@@ -1203,9 +1402,53 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
           f"ms {cast_ms[0]:.4f}/{cast_ms[1]:.4f}", flush=True)
 
 
+def timeline_phase(card: str) -> None:
+    """``--timeline`` (after phase 2 of ``--kernels-only``): the tile
+    timeline of bf16 K1 and K2 at B=256, K=50, V=100,000, training, on
+    :func:`make_inputs`' x and on the main path's batch (K2), from the
+    ``FD_TIMELINE`` build (:mod:`gfedntm_tpu_torch.ops.timeline`): per
+    kernel, the median cycles a tile and each phase's share, and the
+    timeline build's own launch time beside its blocks' median cycles."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.ops import timeline as tl
+
+    t0 = time.perf_counter()
+    lib = tl.load()
+    print(f"timeline: the {tl.DEFINE} build in {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    bf = "bfloat16"
+    b, k, v = 256, 50, 100_000
+    t = make_inputs(b, k, v, seed=0, mask_kind="partial")
+    beta_s, x_s = fd.store(t["beta"], bf), fd.store(t["x"], bf)
+    st = (t["theta"], beta_s, t["mask"], t["run_mean"], t["run_var"], True)
+    mean, var, m, s = fd.stats_reference(t["theta"], beta_s.float(), *st[2:])
+    x_real, density = main_path_batch(b)
+    x_rs = fd.store(x_real, bf)
+    shape = f"B={b} K={k} V={v} train"
+    runs = (
+        (f"stats_bf16 {shape}", "stats", lambda: fd._launch_stats(lib, *st, 1e-5, bf)),
+        (f"loss_bf16 {shape}", "loss", lambda: fd._launch_loss(
+            lib, t["theta"], beta_s, x_s, mean, var, m, s, 1e-5, 1e-10, bf)),
+        (f"loss_bf16 {shape} main-path x {density:.4f} nonzero", "loss",
+         lambda: fd._launch_loss(lib, t["theta"], beta_s, x_rs, mean, var, m, s, 1e-5, 1e-10,
+                                 bf)),
+    )
+    # The device's time of each (the kernel and its merge or fold): the
+    # host's part of a launch can exceed it.
+    measured = device_and_host({label: launch for label, _, launch in runs})
+    for label, kernel, launch in runs:
+        rep = tl.tile_report(tl.record(lib, launch), kernel)
+        print(tl.report_line(label, rep), flush=True)
+        ms = measured[label][0] or time_ms(launch)
+        print(f"timeline {label}: the timeline build's launch {ms:.4f} ms; its blocks' median "
+              f"{rep['block_median']:.0f} cycles over it: {rep['block_median'] / ms / 1e6:.3f} "
+              f"GHz ({card})", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
+@functools.cache
 def main_path_datasets() -> list:
     """Phase 3's two client datasets: ``generate_synthetic_corpus``
     (V=100,000, K=50, 1,024 documents per client, seed 0) as BoW."""
@@ -1221,6 +1464,16 @@ def main_path_datasets() -> list:
     print(f"main path: synthetic corpus {C} x {datasets[0].X.shape} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return datasets
+
+
+def main_path_batch(b: int = 256):
+    """The first ``b`` documents of phase 3's first client on the card, as
+    float32 [b, V] counts, and the share of them that is nonzero."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(main_path_datasets()[0].X[:b])).cuda()
+    return x, float((x != 0).float().mean())
 
 
 def main_path_phase(rows: dict) -> tuple[list, object]:
@@ -6621,6 +6874,7 @@ def lint_breakdown(err: str) -> str:
 
 def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv
+    timeline = "--timeline" in argv
     dp_only = "--data-parallel-only" in argv
     p7_only = "--phase-7-only" in argv
     ctm_only = "--ctm-only" in argv
@@ -6636,7 +6890,7 @@ def main(argv: list[str]) -> int:
     experiments_only = "--experiments-only" in argv
     lint_only = "--lint-only" in argv
     examples_only = "--examples-only" in argv
-    rest = [a for a in argv if a not in ("--kernels-only", "--data-parallel-only",
+    rest = [a for a in argv if a not in ("--kernels-only", "--timeline", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
@@ -6652,8 +6906,9 @@ def main(argv: list[str]) -> int:
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
             + privacy_only + pacing_only + hier_only + serve_only + cli_only
             + scenarios_only + mesh_only + experiments_only + lint_only + examples_only > 1
-            or (only and against)):
-        print("usage: chip_smoke.py [--kernels-only [--against DIR] | --data-parallel-only | "
+            or (only and against) or (timeline and not kernels_only)):
+        print("usage: chip_smoke.py [--kernels-only [--timeline] [--against DIR] | "
+              "--data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
               "--cli-only | --scenarios-only | --mesh-only | --experiments-only | "
@@ -6745,6 +7000,8 @@ def main(argv: list[str]) -> int:
             return out
 
         rows, notes = timed(2, kernel_phase, card, against, resources)
+        if timeline:
+            timed("2 (timeline)", timeline_phase, card)
         if not kernels_only:
             datasets, result = timed(3, main_path_phase, rows)
             # Phase 4 runs the rank programs of phases 4 to 8 in one rank

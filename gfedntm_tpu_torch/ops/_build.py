@@ -49,11 +49,13 @@ def nvcc() -> str:
     )
 
 
-def build(source: Path | None = None, library: Path | None = None) -> Path:
+def build(source: Path | None = None, library: Path | None = None,
+          defines: tuple[str, ...] = ()) -> Path:
     """Compile ``source`` (default :data:`SOURCE`) into ``library`` (default
     :data:`LIBRARY`) if that is missing or older than the source. Another
     checkout's source, to compare two builds on one card, goes to a library
-    of its own."""
+    of its own, and so does a build with extra preprocessor ``defines``
+    (``-D`` each; the tile timeline's ``FD_TIMELINE``)."""
     global build_log
     source, library = source or SOURCE, library or LIBRARY
     if library.exists() and library.stat().st_mtime >= source.stat().st_mtime:
@@ -63,7 +65,7 @@ def build(source: Path | None = None, library: Path | None = None) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, str(source)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:

@@ -114,7 +114,11 @@
 // FP32 kernel is, with fewer of the instructions and operand loads that bind
 // it. At B=256, K=50, V=100,000 K2 moves ~61 MB (bound 0.0186 ms, bytes),
 // K1 ~11 MB for two TF32 products (0.0103 ms, operations) and K3 ~82 MB for
-// seven (0.0362 ms, operations).
+// seven (0.0362 ms, operations). Up to 256 rows, bf16 K1 and K2 take tiles
+// of 64 columns with theta's float32 values in each lane's own slots, the
+// beta fragments in 16-byte loads, a deeper ring, one cross-warp step for K1's
+// statistics and K2's terms only where x is nonzero ("bf16 K1 and K2 on wide
+// tiles" below); their z is the 32-column kernels' bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -480,6 +484,28 @@ constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kHalf = kTcWarps / 2;
 constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
 
+// The tile timeline: a build of this source with -DFD_TIMELINE (a library of
+// its own, ops/timeline.py; never the production one) records clock64() at
+// each phase boundary of K1 and K2, per block, tile and warp (lane 0), into
+// fd_tl [kTlBlocks, kTlTiles + 1, kTcWarps, kTlStamps]; its row kTlTiles
+// holds the block's prologue and end. fd_timeline_* clear and read it.
+// Without the define the stamps are empty statements.
+constexpr int kTlBlocks = 132, kTlTiles = 64, kTlStamps = 8;
+#ifdef FD_TIMELINE
+__device__ long long fd_tl[kTlBlocks * (kTlTiles + 1) * kTcWarps * kTlStamps];
+__device__ __forceinline__ void fd_stamp(int row, int slot) {
+  if ((threadIdx.x & 31) == 0 && blockIdx.x < kTlBlocks && row <= kTlTiles) {
+    const int w = threadIdx.x >> 5;
+    fd_tl[((blockIdx.x * (kTlTiles + 1) + row) * kTcWarps + w) * kTlStamps + slot] = clock64();
+  }
+}
+#define FD_TILE(it, slot) fd_stamp((it) < kTlTiles ? (it) : kTlTiles + 1, (slot))
+#define FD_BLOCK(slot) fd_stamp(kTlTiles, (slot))
+#else
+#define FD_TILE(it, slot) ((void)0)
+#define FD_BLOCK(slot) ((void)0)
+#endif
+
 // Per tile width and storage: the x and beta tiles' row pitches in stored
 // elements (x: 8 or 24 mod 32 floats, or 20 or 12 mod 32 words of bf16 pairs,
 // so fragments of x, gn and gz load without bank conflicts; beta's bf16 rows
@@ -492,19 +518,28 @@ constexpr int kChunk = 4;  // K3's g_theta n-tiles in flight per warp
 // block (hi in place, lo beside it) in the 32-wide layout; the 16-wide one,
 // for batches past 256 rows, leaves that to each warp, as K3 does, so that it
 // fits wherever K3's layout fits. A bf16 tile needs no split.
-__host__ __device__ constexpr int tile_px(int vt) { return vt == 32 ? 40 : 24; }
+//
+// The wide tile (kWideVt = 64 columns) is bf16 K1's and K2's alone (see
+// "bf16 K1 and K2 on wide tiles"): x at 72 values (144 bytes, 16 mod 128,
+// so a lane's two 16-byte loads of a row and its neighbour's land in other
+// banks) and beta at 80 (160 bytes, 32 mod 128, likewise for the four rows
+// of a k-step).
+constexpr int kWideVt = 64;
+__host__ __device__ constexpr int tile_px(int vt) {
+  return vt == kWideVt ? 72 : vt == 32 ? 40 : 24;
+}
 __host__ __device__ constexpr int tile_pb(int vt, bool bf) {
-  return vt == 32 ? 40 : (bf ? 24 : 16);
+  return vt == kWideVt ? 80 : vt == 32 ? 40 : (bf ? 24 : 16);
 }
 __host__ __device__ constexpr bool tile_split_b(int vt, bool bf) { return vt == 32 && !bf; }
 __host__ __device__ constexpr int tile_rows(int vt) {
-  return (vt == 32 ? 1 : 4) * 16 * kTcWarps;
+  return (vt == 16 ? 4 : 1) * 16 * kTcWarps;
 }
 
 template <typename TS, int VT> struct Tile {
   static constexpr bool kBf16 = kIsBf16<TS>;
   static constexpr int kPx = tile_px(VT), kPb = tile_pb(VT, kBf16);
-  static constexpr int kMaxMt = VT == 32 ? 1 : 4;
+  static constexpr int kMaxMt = VT == 16 ? 4 : 1;
   static constexpr bool kSplitB = tile_split_b(VT, kBf16);
 };
 
@@ -709,8 +744,9 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 }
 
 // The ring: tile it of a block goes to stage it % kStages while the next
-// tile loads into the other stage.
+// tile loads into the other stage. The wide tiles' ring has kWideStages.
 constexpr int kStages = 2;
+constexpr int kWideStages = 3;
 
 // Start loading columns v0..v0+VT (those below V) of beta's K rows, the first
 // nx rows of x (both at row pitch ld), and (n_mv = 2) mean and var into one
@@ -797,26 +833,34 @@ __device__ __forceinline__ void wait_tile() {
 // stages of x [B, Px] (K2 only) and beta [Kp, Pb] (rows K..Kp-1 stay zero),
 // stored, and mean/var [2, vt]; the lo half of the current beta tile [Kp, Pb]
 // (split_b); K1's column reductions [kTcWarps, vt], mean and inv_std [vt] and
-// the row count.
+// the row count. The wide tiles keep theta as float32 in each lane's own
+// slots [kTcWarps, Kp / 8, 32 lanes, 4] (at th_hi; no th_lo) and have
+// kWideStages stages, and K1's reductions there are two [kTcWarps, vt]
+// (each warp's column sums and centred sums of squares) beside the warps'
+// row counts and their inverses [kTcWarps] each.
 struct FwdLayout {
   int Kp, Pth;
   size_t th_hi, th_lo, x, x_stage, b, b_stage, b_lo, mv, cols, floats;
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int kind, int vt, int B, int K, bool bf) {
+  const bool wide = vt == kWideVt;
+  const int S = wide ? kWideStages : kStages;
   FwdLayout L;
   L.Kp = round_up(K, 8);
   L.Pth = L.Kp + 4;
   L.th_hi = 0;
-  L.th_lo = L.th_hi + up4((size_t)B * L.Pth);
-  L.x = L.th_lo + up4((size_t)B * L.Pth);
+  L.th_lo = L.th_hi + (wide ? (size_t)kTcWarps * L.Kp * 16 : up4((size_t)B * L.Pth));
+  L.x = L.th_lo + (wide ? 0 : up4((size_t)B * L.Pth));
   L.x_stage = kind == kLoss ? stored_floats((size_t)B * tile_px(vt), bf) : 0;
-  L.b = L.x + kStages * L.x_stage;
+  L.b = L.x + S * L.x_stage;
   L.b_stage = stored_floats((size_t)L.Kp * tile_pb(vt, bf), bf);
-  L.b_lo = L.b + kStages * L.b_stage;
+  L.b_lo = L.b + S * L.b_stage;
   L.mv = L.b_lo + (tile_split_b(vt, bf) ? L.b_stage : 0);
-  L.cols = L.mv + kStages * 2 * (size_t)vt;
-  L.floats = L.cols + (kind == kStats ? (size_t)(kTcWarps + 2) * vt + 4 : 0);
+  L.cols = L.mv + S * 2 * (size_t)vt;
+  L.floats = L.cols + (kind != kStats ? 0
+                       : wide     ? (size_t)(2 * kTcWarps + 2) * vt + 2 * kTcWarps + 4
+                                  : (size_t)(kTcWarps + 2) * vt + 4);
   return L;
 }
 
@@ -868,6 +912,577 @@ __device__ void zero_smem(float* p, size_t n) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 K1 and K2 on wide tiles: 64 columns, theta in per-lane slots.
+// ---------------------------------------------------------------------------
+// Where a warp holds one 16-row tile (B <= 256) and the layout fits, bf16
+// K1 and K2 take 64-column tiles. On the card the 32-column kernels spent a
+// tile's time in the product's shared-memory loads (per k-step 8 of theta's
+// halves and 8 two-byte beta values for 8 mma), in six __syncthreads and two
+// serial cross-warp reductions, and, for K2, in three MUFU operations per
+// (row, column).
+//  - theta: each lane keeps its A fragments' float32 values in slots of its
+//    own in shared memory, a k-step's four one 16-byte load (no barrier: a
+//    lane reads only what it wrote), and splits each into its TF32 halves at
+//    its k-step, as load_theta_halves splits it, so the halves are the same.
+//    (Held in registers beside the 64-column accumulators they spilled at
+//    the 128-register cap.)
+//  - beta: the n-tiles' columns are permuted: column n of n-tile nt is tile
+//    column 8 n + nt, so the B fragments of a lane's eight n-tiles at a
+//    k-step are eight consecutive bf16 values of each of its two beta rows,
+//    two 16-byte loads. acc[nt][2h + e] is then z of row grp + 8h and tile
+//    column 16 tig + 8 e + nt: a lane's columns are the 16 from 16 tig on.
+//    Each element of z is the same chain of mma as in the 32-column kernels
+//    (k-steps in order, a_lo b then a_hi b, on the same values), so z is
+//    theirs bit for bit.
+//  - the ring has kWideStages stages; a tile's one __syncthreads, after its
+//    copies have landed, also frees the stage that the next copy refills.
+//  - K1's column statistics take one cross-warp step: each warp reduces its
+//    rows' column sums and centred sums of squares about its own mean in
+//    registers and shuffles, and 64 threads merge the warps' (count, sum,
+//    M2) in warp order (Chan et al.; the row mask is 0 or 1). The mean is
+//    the 32-column kernels' bit for bit (the same sums in the same order);
+//    the variance differs in its last bits. Three __syncthreads per 64
+//    columns.
+//  - K2 takes a (row, column) term only where some lane of the warp has
+//    x != 0 there: a term with x = 0 adds +0 or -0, which leaves the sums as
+//    they are (they start at +0, and a sum that is not -0 stays so).
+// A row's four lanes now sum other columns than in the 32-column kernels,
+// so K1's s and K2's loss and rd differ from theirs in their last bits.
+__device__ __forceinline__ void cp_async_wait_wide() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kWideStages - 2) : "memory");
+}
+
+// This lane's slots of theta: for each k-step ks < Kp / 8 its A-fragment
+// values (rows r_lo and r_lo + 8, columns 8 ks + tig and 8 ks + tig + 4),
+// 0 past B and K, at th_lane[32 ks]. Slots [warp][ks][lane].
+__device__ __forceinline__ float4* theta_slots(float* th, int Kp, int warp, int lane) {
+  return reinterpret_cast<float4*>(th) + (size_t)warp * (Kp / 8) * 32 + lane;
+}
+
+__device__ __forceinline__ void store_theta_slots(float4* th_lane, const float* __restrict__ theta,
+                                                  int B, int K, int Kp, int r_lo, int tig) {
+  for (int ks = 0; ks < Kp / 8; ++ks) {
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r_lo + 8 * (i & 1), k = ks * 8 + tig + 4 * (i >> 1);
+      a[i] = r < B && k < K ? theta[(size_t)r * K + k] : 0.f;
+    }
+    th_lane[32 * ks] = make_float4(a[0], a[1], a[2], a[3]);
+  }
+}
+
+// z = theta beta_tile for the warp's 16 rows and a wide tile's 64 columns,
+// the n-tiles' columns permuted as above; k-steps below Kp.
+__device__ __forceinline__ void wide_product(float (&acc)[kWideVt / 8][4], const float4* th_lane,
+                                             int Kp, const bf16* bs, int grp, int tig) {
+  constexpr int kNt = kWideVt / 8, Pb = tile_pb(kWideVt, true);
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int ks = 0; ks < Kp / 8; ++ks) {
+    const float4 a = th_lane[32 * ks];
+    uint32_t ah[4], al[4];
+    split_tf32(a.x, ah[0], al[0]);
+    split_tf32(a.y, ah[1], al[1]);
+    split_tf32(a.z, ah[2], al[2]);
+    split_tf32(a.w, ah[3], al[3]);
+    const uint4 r0 = *reinterpret_cast<const uint4*>(bs + (ks * 8 + tig) * Pb + grp * 8);
+    const uint4 r1 = *reinterpret_cast<const uint4*>(bs + (ks * 8 + tig + 4) * Pb + grp * 8);
+    const uint32_t w[2][4] = {{r0.x, r0.y, r0.z, r0.w}, {r1.x, r1.y, r1.z, r1.w}};
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      // The bf16 value nt of each row's eight: its TF32 bits, exact.
+      uint32_t bh[2], bl[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bh[j] = nt & 1 ? w[j][nt / 2] & 0xffff0000u : w[j][nt / 2] << 16;
+      mma_ab<true>(acc[nt], ah, al, bh, bl);
+    }
+  }
+}
+
+// The sums of a lane's 16 values over the 8 lanes that share its tig
+// (xor 4, 8, 16), transposed: 14 shuffles where a butterfly takes 48. Each
+// level sends the half of its values that the partner keeps and adds the
+// half it receives, so every sum is the butterfly's, bit for bit (the same
+// pairs in the same tree, each add commutative). Lane grp ends with values
+// 2 p and 2 p + 1, p = (grp & 1) * 4 + (grp & 2) + (grp >> 2 & 1).
+__device__ __forceinline__ void sum16_over_rows(const float (&v)[16], float (&out)[2], int grp) {
+  const bool b0 = grp & 1, b1 = grp & 2, b2 = grp & 4;
+  float a[8], c[4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = (b0 ? v[j + 8] : v[j]) + __shfl_xor_sync(kFullMask, b0 ? v[j] : v[j + 8], 4);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[j] = (b1 ? a[j + 4] : a[j]) + __shfl_xor_sync(kFullMask, b1 ? a[j] : a[j + 4], 8);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    out[j] = (b2 ? c[j + 2] : c[j]) + __shfl_xor_sync(kFullMask, b2 ? c[j] : c[j + 2], 16);
+  }
+}
+
+// sum16_over_rows' inverse for one value a pair: every lane of the eight
+// gets all 16 from the lanes that own them.
+__device__ __forceinline__ void spread16_over_rows(const float (&in)[2], float (&v)[16], int grp) {
+  const bool b0 = grp & 1, b1 = grp & 2, b2 = grp & 4;
+  float a[8], c[4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float other = __shfl_xor_sync(kFullMask, in[j], 16);
+    c[j] = b2 ? other : in[j];
+    c[j + 2] = b2 ? in[j] : other;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float other = __shfl_xor_sync(kFullMask, c[j], 8);
+    a[j] = b1 ? other : c[j];
+    a[j + 4] = b1 ? c[j] : other;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float other = __shfl_xor_sync(kFullMask, a[j], 4);
+    v[j] = b0 ? other : a[j];
+    v[j + 8] = b0 ? a[j] : other;
+  }
+}
+
+// Eight consecutive floats of shared memory (16-byte aligned) in two loads.
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// Rows K..Kp-1 of every stage of a wide ring's beta stay zero: theta's
+// columns there are zero, and 0 times a stale value could be NaN.
+__device__ __forceinline__ void zero_beta_pad(float* b_ring, size_t b_stage, int K, int Kp) {
+  constexpr int Pb = tile_pb(kWideVt, true);
+  for (int st = 0; st < kWideStages; ++st) {
+    zero_smem(b_ring + st * b_stage + (size_t)K * Pb / 2, (size_t)(Kp - K) * Pb / 2);
+  }
+}
+
+// K1 on wide tiles (stats_kernel<bf16, kWideVt, true>).
+__device__ __forceinline__ void stats_wide(const float* __restrict__ theta,
+                                           const bf16* __restrict__ beta,
+                                           const float* __restrict__ mask,
+                                           const float* __restrict__ run_mean,
+                                           const float* __restrict__ run_var,
+                                           float* __restrict__ mean_out,
+                                           float* __restrict__ var_out,
+                                           float* __restrict__ m_part, float* __restrict__ s_part,
+                                           int B, int K, int V, int ld, int training, float eps,
+                                           int tiles_per_block) {
+  constexpr int VT = kWideVt, kNt = VT / 8, S = kWideStages;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
+  const FwdLayout L = fwd_layout(kStats, VT, B, K, true);
+  const int Kp = L.Kp;
+  float* b_ring = sm + L.b;  // S stages of L.b_stage floats, stored as bf16
+  float* mv_ring = sm + L.mv;
+  float* sum_s = sm + L.cols;            // [kTcWarps][VT]: each warp's column sums
+  float* m2_s = sum_s + kTcWarps * VT;   // [kTcWarps][VT]: and centred sums of squares
+  float* mean_s = m2_s + kTcWarps * VT;  // [VT]
+  float* istd_s = mean_s + VT;           // [VT]
+  float* nw_s = istd_s + VT;             // [kTcWarps]: each warp's row count
+  float* inw_s = nw_s + kTcWarps;        // [kTcWarps]: and its inverse (0 for none)
+  float* cnt_s = inw_s + kTcWarps;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int r_lo = warp * 16 + grp;
+  const bool live = warp * 16 < B;  // warp-uniform: the warp holds rows
+  const int n_mv = training ? 0 : 2;
+
+  FD_BLOCK(0);
+  zero_beta_pad(b_ring, L.b_stage, K, Kp);
+  float4* const th_lane = theta_slots(sm + L.th_hi, Kp, warp, lane);
+  store_theta_slots(th_lane, theta, B, K, Kp, r_lo, tig);
+  float mk[2], m_run[2], s_run[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_lo + 8 * h;
+    mk[h] = r < B ? mask[r] : 0.f;
+    m_run[h] = kNegInf;
+    s_run[h] = 0.f;
+  }
+  const float nw = warp_sum(tig == 0 ? mk[0] + mk[1] : 0.f);
+  const float inw = nw > 0.f ? 1.f / nw : 0.f;
+  if (lane == 0) {
+    nw_s[warp] = nw;
+    inw_s[warp] = inw;
+  }
+  if (warp == 0) {
+    float c = 0.f;
+    for (int r = lane; r < B; r += 32) c += mask[r];
+    c = warp_sum(c);
+    if (lane == 0) cnt_s[0] = fmaxf(c, 1.f);
+  }
+  __syncthreads();
+  const float cnt = cnt_s[0];
+  FD_BLOCK(1);
+
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(first + tiles_per_block, n_tiles);
+  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+  auto load = [&](int it) {
+    if (first + it < last) {
+      const int st = it % S;
+      load_tile<bf16, VT, true>(reinterpret_cast<bf16*>(b_ring + st * L.b_stage), nullptr,
+                                mv_ring + st * 2 * VT, beta, nullptr, run_mean, run_var, 0, K,
+                                V, ld, (first + it) * VT, n_mv);
+    }
+    cp_async_commit();  // possibly empty: one group per tile
+  };
+  for (int it = 0; it < S - 1; ++it) load(it);
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const int st = it % S;
+    const int v0 = tile * VT;
+    const bool full = v0 + VT <= V;
+    FD_TILE(it, 0);
+    cp_async_wait_wide();
+    __syncthreads();  // tile it has landed; every warp is past tile it - 1
+    FD_TILE(it, 1);
+    load(it + S - 1);  // into tile it - 1's stage
+    const bf16* bs = reinterpret_cast<const bf16*>(b_ring + st * L.b_stage);
+    const float* mvs = mv_ring + st * 2 * VT;
+    float acc[kNt][4];
+    if (live) {
+      wide_product(acc, th_lane, Kp, bs, grp, tig);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    }
+    FD_TILE(it, 2);
+
+    if (training) {
+      // Per column, over the warp's rows: the masked sum (the 32-column
+      // kernels' sums), the warp's mean and the masked sum of squares about
+      // it. Value i = 2 nt + e; the lane ends with the sums of its pair p.
+      float v[16], sums[2], m2[2];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        v[i] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) v[i] += acc[i / 2][2 * h + i % 2] * mk[h];
+      }
+      sum16_over_rows(v, sums, grp);
+      {
+        const float own[2] = {sums[0] * inw, sums[1] * inw};
+        spread16_over_rows(own, v, grp);  // v: the warp's mean of each value's column
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float q = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float d = (acc[i / 2][2 * h + i % 2] - v[i]) * mk[h];
+          q += d * d;
+        }
+        v[i] = q;
+      }
+      sum16_over_rows(v, m2, grp);
+      {
+        const int p = (grp & 1) * 4 + (grp & 2) + (grp >> 2 & 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 16 * tig + 8 * e + p;
+          sum_s[warp * VT + c] = sums[e];
+          m2_s[warp * VT + c] = m2[e];
+        }
+      }
+      __syncthreads();
+      FD_TILE(it, 3);
+      // The warps' partials merged in warp order: the mean as the 32-column
+      // kernels sum it, then M2 = sum_w M2_w + n_w (mean_w - mean)^2, with
+      // mean_w as the warp took it.
+      if (tid < VT) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < kTcWarps; ++w) t += sum_s[w * VT + tid];
+        const float mean = t / cnt;
+        float q = 0.f;
+#pragma unroll
+        for (int w = 0; w < kTcWarps; ++w) {
+          const float d = sum_s[w * VT + tid] * inw_s[w] - mean;
+          q += m2_s[w * VT + tid] + nw_s[w] * d * d;
+        }
+        const float var = q / cnt;  // biased
+        mean_s[tid] = mean;
+        istd_s[tid] = rsqrtf(var + eps);
+        if (v0 + tid < V) {
+          mean_out[v0 + tid] = mean;
+          var_out[v0 + tid] = var;
+        }
+      }
+      __syncthreads();
+      FD_TILE(it, 4);
+    } else {
+      if (tid < VT && v0 + tid < V) {
+        mean_out[v0 + tid] = mvs[tid];
+        var_out[v0 + tid] = mvs[VT + tid];
+      }
+      FD_TILE(it, 3);
+      FD_TILE(it, 4);
+    }
+
+    // The online softmax over this tile's valid columns, per row and lane;
+    // a whole tile's columns are all valid, and a masked row keeps its
+    // (-1e30, 0) as the per-value test would leave it.
+    if (live && full) {
+      float m_tile[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // The lane's eight columns 16 tig + 8 e .. + 7: mean and inv_std.
+        float mu[8], istd[8];
+        load8(mu, (training ? mean_s : mvs) + 16 * tig + 8 * e);
+        load8(istd, (training ? istd_s : mvs + VT) + 16 * tig + 8 * e);
+        if (!training) {
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) istd[nt] = rsqrtf(istd[nt] + eps);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float n = (acc[nt][2 * h + e] - mu[nt]) * istd[nt];
+            acc[nt][2 * h + e] = n;
+            m_tile[h] = fmaxf(m_tile[h], n);
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_run[h], m_tile[h]);
+        float e_sum[2] = {0.f, 0.f};  // two chains: even and odd n-tiles
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) e_sum[nt & 1] += expf(acc[nt][2 * h + e] - m_new);
+        }
+        if (mk[h] > 0.f) {
+          s_run[h] = s_run[h] * expf(fminf(m_run[h] - m_new, 0.f)) + (e_sum[0] + e_sum[1]);
+          m_run[h] = m_new;
+        }
+      }
+    } else if (live) {
+      float m_tile[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 16 * tig + 8 * e + nt;
+          const bool col_ok = full || v0 + c < V;
+          float mu = 0.f, istd = 1.f;
+          if (training) {
+            mu = mean_s[c];
+            istd = istd_s[c];
+          } else if (col_ok) {
+            mu = mvs[c];
+            istd = rsqrtf(mvs[VT + c] + eps);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool valid = col_ok && mk[h] > 0.f;
+            const float n = valid ? (acc[nt][2 * h + e] - mu) * istd : kNegInf;
+            acc[nt][2 * h + e] = n;
+            m_tile[h] = fmaxf(m_tile[h], n);
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_run[h], m_tile[h]);
+        // Guard fully-masked rows: exp(-1e30 - -1e30) would be 1.
+        const float safe = fmaxf(m_new, 0.5f * kNegInf);
+        float e_sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool valid = (full || v0 + 16 * tig + 8 * e + nt < V) && mk[h] > 0.f;
+            if (valid) e_sum += expf(acc[nt][2 * h + e] - safe);
+          }
+        }
+        s_run[h] = s_run[h] * expf(fminf(m_run[h] - safe, 0.f)) + e_sum;
+        m_run[h] = m_new;
+      }
+    }
+    FD_TILE(it, 5);
+    FD_TILE(it, 6);
+  }
+  FD_BLOCK(2);
+  // The four lanes of each row merge their (m, s) by a butterfly, then write
+  // the block's partial.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float m_o = __shfl_xor_sync(kFullMask, m_run[h], o);
+      const float s_o = __shfl_xor_sync(kFullMask, s_run[h], o);
+      const float m_new = fmaxf(m_run[h], m_o);
+      const float safe = fmaxf(m_new, 0.5f * kNegInf);
+      s_run[h] = s_run[h] * expf(fminf(m_run[h] - safe, 0.f)) +
+                 s_o * expf(fminf(m_o - safe, 0.f));
+      m_run[h] = m_new;
+    }
+    const int r = r_lo + 8 * h;
+    if (tig == 0 && r < B) {
+      m_part[(size_t)blockIdx.x * B + r] = m_run[h];
+      s_part[(size_t)blockIdx.x * B + r] = s_run[h];
+    }
+  }
+  FD_BLOCK(3);
+}
+
+// K2 on wide tiles (loss_kernel<bf16, kWideVt, true>).
+__device__ __forceinline__ void loss_wide(const float* __restrict__ theta,
+                                          const bf16* __restrict__ beta,
+                                          const bf16* __restrict__ x,
+                                          const float* __restrict__ mean,
+                                          const float* __restrict__ var,
+                                          const float* __restrict__ m,
+                                          const float* __restrict__ s,
+                                          float* __restrict__ loss_part,
+                                          float* __restrict__ rd_part, int B, int K, int V, int ld,
+                                          float eps, float floor_, int tiles_per_block) {
+  constexpr int VT = kWideVt, kNt = VT / 8, S = kWideStages, Px = tile_px(VT);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
+  const FwdLayout L = fwd_layout(kLoss, VT, B, K, true);
+  const int Kp = L.Kp;
+  float* x_ring = sm + L.x;  // S stages of L.x_stage floats, stored as bf16
+  float* b_ring = sm + L.b;  // and of L.b_stage
+  float* mv_ring = sm + L.mv;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int r_lo = warp * 16 + grp;
+  const bool live = warp * 16 < B;  // warp-uniform: the warp holds rows
+
+  FD_BLOCK(0);
+  zero_beta_pad(b_ring, L.b_stage, K, Kp);
+  float4* const th_lane = theta_slots(sm + L.th_hi, Kp, warp, lane);
+  store_theta_slots(th_lane, theta, B, K, Kp, r_lo, tig);
+  // This lane's rows: the softmax max and 1 / denominator (fully-masked rows
+  // have the (-1e30, 0) sentinel: forced finite, and their loss left out),
+  // and the row's loss and row-dot, accumulated across the block's tiles.
+  float sm_r[2], isl_r[2], loss_r[2], rd_r[2];
+  bool ok_r[2], in_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_lo + 8 * h;
+    const bool ok = r < B && s[r] > 1e-20f;
+    in_r[h] = r < B;
+    sm_r[h] = ok ? m[r] : 0.f;
+    isl_r[h] = 1.f / (ok ? s[r] : 1.f);
+    ok_r[h] = ok;
+    loss_r[h] = 0.f;
+    rd_r[h] = 0.f;
+  }
+  __syncthreads();
+  FD_BLOCK(1);
+
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(first + tiles_per_block, n_tiles);
+  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+  auto load = [&](int it) {
+    if (first + it < last) {
+      const int st = it % S;
+      load_tile<bf16, VT, true>(reinterpret_cast<bf16*>(b_ring + st * L.b_stage),
+                                reinterpret_cast<bf16*>(x_ring + st * L.x_stage),
+                                mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
+                                (first + it) * VT, 2);
+    }
+    cp_async_commit();  // possibly empty: one group per tile
+  };
+  for (int it = 0; it < S - 1; ++it) load(it);
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const int st = it % S;
+    const int v0 = tile * VT;
+    const bool full = v0 + VT <= V;
+    FD_TILE(it, 0);
+    cp_async_wait_wide();
+    __syncthreads();  // tile it has landed; every warp is past tile it - 1
+    FD_TILE(it, 1);
+    load(it + S - 1);  // into tile it - 1's stage
+    const bf16* xs = reinterpret_cast<const bf16*>(x_ring + st * L.x_stage);
+    const bf16* bs = reinterpret_cast<const bf16*>(b_ring + st * L.b_stage);
+    const float* mvs = mv_ring + st * 2 * VT;
+    float acc[kNt][4];
+    if (live) wide_product(acc, th_lane, Kp, bs, grp, tig);
+    FD_TILE(it, 2);
+    if (live) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // x of the lane's two rows at columns 16 tig + 8 e .. + 7, zero past
+        // B and V; a row's eight values are taken, or left out, together:
+        // where every lane's eight are 0 (warp-uniform) their terms are +-0,
+        // and a term with x = 0 that is taken adds +-0 as well (every value
+        // it multiplies is finite, past V too).
+        uint4 xw[2];
+        bool any[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          xw[h] = in_r[h] ? *reinterpret_cast<const uint4*>(xs + (r_lo + 8 * h) * Px + 16 * tig +
+                                                            8 * e)
+                          : make_uint4(0u, 0u, 0u, 0u);
+          if (!full) {
+            uint32_t* w = &xw[h].x;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              if (v0 + 16 * tig + 8 * e + j >= V) w[j / 2] &= j & 1 ? 0x0000ffffu : 0xffff0000u;
+            }
+          }
+          any[h] = __any_sync(kFullMask, (xw[h].x | xw[h].y | xw[h].z | xw[h].w) != 0u);
+        }
+        if (any[0] || any[1]) {
+          float mu[8], istd[8];
+          load8(mu, mvs + 16 * tig + 8 * e);
+          load8(istd, mvs + VT + 16 * tig + 8 * e);
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) istd[nt] = rsqrtf(istd[nt] + eps);
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (any[h]) {
+                const uint32_t w = (&xw[h].x)[nt / 2];
+                const float xe = __uint_as_float(nt & 1 ? w & 0xffff0000u : w << 16);
+                const float n = (acc[nt][2 * h + e] - mu[nt]) * istd[nt];
+                const float p = expf(fminf(n - sm_r[h], 0.f)) * isl_r[h];
+                if (ok_r[h]) loss_r[h] += xe * __logf(p + floor_);
+                rd_r[h] += xe * __fdividef(p, p + floor_);
+              }
+            }
+          }
+        }
+      }
+    }
+    FD_TILE(it, 3);
+    FD_TILE(it, 4);
+  }
+  FD_BLOCK(2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lv = loss_r[h], rv = rd_r[h];
+    lv += __shfl_xor_sync(kFullMask, lv, 1);
+    rv += __shfl_xor_sync(kFullMask, rv, 1);
+    lv += __shfl_xor_sync(kFullMask, lv, 2);
+    rv += __shfl_xor_sync(kFullMask, rv, 2);
+    const int r = r_lo + 8 * h;
+    if (tig == 0 && r < B) {
+      loss_part[(size_t)blockIdx.x * B + r] = -lv;
+      rd_part[(size_t)blockIdx.x * B + r] = rv;
+    }
+  }
+  FD_BLOCK(3);
+}
+
+// ---------------------------------------------------------------------------
 // K1: batch-norm statistics + per-row online-softmax partials.
 // ---------------------------------------------------------------------------
 template <typename TS, int VT, bool kVec16>
@@ -878,231 +1493,248 @@ stats_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
              float* __restrict__ var_out, float* __restrict__ m_part,
              float* __restrict__ s_part, int B, int K, int V, int ld, int training, float eps,
              int tiles_per_block) {
-  using T = Tile<TS, VT>;
-  constexpr int kNt = VT / 8, kMt = T::kMaxMt;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  float* const sm = reinterpret_cast<float*>(tc_smem);
-  const FwdLayout L = fwd_layout(kStats, VT, B, K, T::kBf16);
-  const int Kp = L.Kp, Pth = L.Pth;
-  uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
-  uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
-  uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
-  float* b_ring = sm + L.b;  // kStages stages of L.b_stage floats, stored as TS
-  float* mv_ring = sm + L.mv;
-  float* red_s = sm + L.cols;  // [kTcWarps][VT]
-  float* mean_s = red_s + kTcWarps * VT;
-  float* istd_s = mean_s + VT;
-  float* cnt_s = istd_s + VT;
+  if constexpr (VT == kWideVt) {
+    stats_wide(theta, beta, mask, run_mean, run_var, mean_out, var_out, m_part, s_part, B, K, V,
+               ld, training, eps, tiles_per_block);
+  } else {
+    using T = Tile<TS, VT>;
+    constexpr int kNt = VT / 8, kMt = T::kMaxMt;
+    extern __shared__ __align__(128) unsigned char tc_smem[];
+    float* const sm = reinterpret_cast<float*>(tc_smem);
+    const FwdLayout L = fwd_layout(kStats, VT, B, K, T::kBf16);
+    const int Kp = L.Kp, Pth = L.Pth;
+    uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
+    uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
+    uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
+    float* b_ring = sm + L.b;  // kStages stages of L.b_stage floats, stored as TS
+    float* mv_ring = sm + L.mv;
+    float* red_s = sm + L.cols;  // [kTcWarps][VT]
+    float* mean_s = red_s + kTcWarps * VT;
+    float* istd_s = mean_s + VT;
+    float* cnt_s = istd_s + VT;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
-  const int n_tiles = (V + VT - 1) / VT;
-  const int mt_count = (B + 15) / 16;
-  const int n_mv = training ? 0 : 2;
-  constexpr int S = kStages;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int grp = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
+    const int n_tiles = (V + VT - 1) / VT;
+    const int mt_count = (B + 15) / 16;
+    const int n_mv = training ? 0 : 2;
+    constexpr int S = kStages;
 
-  load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
-  zero_smem(b_ring, S * L.b_stage);
-  zero_smem(mv_ring, S * 2 * VT);
-  // This lane's rows (grp and grp + 8 of each of its 16-row tiles): the
-  // mask and the running softmax max and denominator.
-  float mk[kMt][2], m_run[kMt][2], s_run[kMt][2];
-#pragma unroll
-  for (int q = 0; q < kMt; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
-      mk[q][h] = r < B ? mask[r] : 0.f;
-      m_run[q][h] = kNegInf;
-      s_run[q][h] = 0.f;
-    }
-  }
-  if (warp == 0) {
-    float c = 0.f;
-    for (int r = lane; r < B; r += 32) c += mask[r];
-    c = warp_sum(c);
-    if (lane == 0) cnt_s[0] = fmaxf(c, 1.f);
-  }
-  __syncthreads();
-  const float cnt = cnt_s[0];
-
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(first + tiles_per_block, n_tiles);
-  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
-  auto load = [&](int it) {
-    if (first + it < last) {
-      const int st = it % S;
-      load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage), nullptr,
-                                mv_ring + st * 2 * VT, beta, nullptr, run_mean, run_var, 0, K, V,
-                                ld, (first + it) * VT, n_mv);
-    }
-  };
-  for (int it = 0; it < S - 1; ++it) {
-    load(it);
-    cp_async_commit();
-  }
-  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
-    const int st = it % S;
-    const int v0 = tile * VT;
-    load(it + S - 1);
-    wait_tile();
-    __syncthreads();
-    TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
-    const float* mvs = mv_ring + st * 2 * VT;
-    if constexpr (T::kSplitB) {
-      split_beta_tile<VT>(bs, b_lo, Kp);
-      __syncthreads();
-    }
-
-    float acc[kMt][kNt][4];
+    FD_BLOCK(0);
+    load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
+    zero_smem(b_ring, S * L.b_stage);
+    zero_smem(mv_ring, S * 2 * VT);
+    // This lane's rows (grp and grp + 8 of each of its 16-row tiles): the
+    // mask and the running softmax max and denominator.
+    float mk[kMt][2], m_run[kMt][2], s_run[kMt][2];
 #pragma unroll
     for (int q = 0; q < kMt; ++q) {
-      const int mt = warp + q * kTcWarps;
-      if (mt < mt_count) {
-        fwd_tile_product<TS, VT>(acc[q], th_hi, th_lo, Pth, Kp, bs, b_lo, mt * 16 + grp, B,
-                                 grp, tig);
-      } else {
 #pragma unroll
-        for (int nt = 0; nt < kNt; ++nt) {
-          acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+        mk[q][h] = r < B ? mask[r] : 0.f;
+        m_run[q][h] = kNegInf;
+        s_run[q][h] = 0.f;
       }
     }
+    if (warp == 0) {
+      float c = 0.f;
+      for (int r = lane; r < B; r += 32) c += mask[r];
+      c = warp_sum(c);
+      if (lane == 0) cnt_s[0] = fmaxf(c, 1.f);
+    }
+    __syncthreads();
+    const float cnt = cnt_s[0];
+    FD_BLOCK(1);
 
-    // This lane's columns (nt * 8 + 2 * tig + e): mean and inv_std.
-    float mu[kNt][2] = {}, istd[kNt][2] = {};
-    if (training) {
-      // Masked column sums over the warp's rows (butterfly over the 8 row
-      // groups), then over the warps in order: first the mean, then the
-      // centred sum of squares (biased variance).
+    const int first = blockIdx.x * tiles_per_block;
+    const int last = min(first + tiles_per_block, n_tiles);
+    // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+    auto load = [&](int it) {
+      if (first + it < last) {
+        const int st = it % S;
+        load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage), nullptr,
+                                  mv_ring + st * 2 * VT, beta, nullptr, run_mean, run_var, 0, K, V,
+                                  ld, (first + it) * VT, n_mv);
+      }
+    };
+    for (int it = 0; it < S - 1; ++it) {
+      load(it);
+      cp_async_commit();
+    }
+    for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+      const int st = it % S;
+      const int v0 = tile * VT;
+      FD_TILE(it, 0);
+      load(it + S - 1);
+      wait_tile();
+      __syncthreads();
+      FD_TILE(it, 1);
+      TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
+      const float* mvs = mv_ring + st * 2 * VT;
+      if constexpr (T::kSplitB) {
+        split_beta_tile<VT>(bs, b_lo, Kp);
+        __syncthreads();
+      }
+
+      float acc[kMt][kNt][4];
 #pragma unroll
-      for (int pass = 0; pass < 2; ++pass) {
+      for (int q = 0; q < kMt; ++q) {
+        const int mt = warp + q * kTcWarps;
+        if (mt < mt_count) {
+          fwd_tile_product<TS, VT>(acc[q], th_hi, th_lo, Pth, Kp, bs, b_lo, mt * 16 + grp, B,
+                                   grp, tig);
+        } else {
 #pragma unroll
-        for (int nt = 0; nt < kNt; ++nt) {
+          for (int nt = 0; nt < kNt; ++nt) {
+            acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.f;
+          }
+        }
+      }
+      FD_TILE(it, 2);
+
+      // This lane's columns (nt * 8 + 2 * tig + e): mean and inv_std.
+      float mu[kNt][2] = {}, istd[kNt][2] = {};
+      if (training) {
+        // Masked column sums over the warp's rows (butterfly over the 8 row
+        // groups), then over the warps in order: first the mean, then the
+        // centred sum of squares (biased variance).
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v = 0.f;
+        for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-            for (int q = 0; q < kMt; ++q) {
+          for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const float zv = acc[q][nt][2 * h + e];
-                const float d = pass ? (zv - mu[nt][e]) * mk[q][h] : zv * mk[q][h];
-                v += pass ? d * d : d;
+            for (int e = 0; e < 2; ++e) {
+              float v = 0.f;
+#pragma unroll
+              for (int q = 0; q < kMt; ++q) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float zv = acc[q][nt][2 * h + e];
+                  const float d = pass ? (zv - mu[nt][e]) * mk[q][h] : zv * mk[q][h];
+                  v += pass ? d * d : d;
+                }
+              }
+#pragma unroll
+              for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFullMask, v, o);
+              if (grp == 0) red_s[warp * VT + nt * 8 + 2 * tig + e] = v;
+            }
+          }
+          __syncthreads();
+          if (tid < VT) {
+            float t = 0.f;
+            for (int w = 0; w < kTcWarps; ++w) t += red_s[w * VT + tid];
+            if (pass == 0) {
+              mean_s[tid] = t / cnt;
+            } else {
+              const float var = t / cnt;
+              istd_s[tid] = rsqrtf(var + eps);
+              if (v0 + tid < V) {
+                mean_out[v0 + tid] = mean_s[tid];
+                var_out[v0 + tid] = var;
               }
             }
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFullMask, v, o);
-            if (grp == 0) red_s[warp * VT + nt * 8 + 2 * tig + e] = v;
           }
-        }
-        __syncthreads();
-        if (tid < VT) {
-          float t = 0.f;
-          for (int w = 0; w < kTcWarps; ++w) t += red_s[w * VT + tid];
-          if (pass == 0) {
-            mean_s[tid] = t / cnt;
-          } else {
-            const float var = t / cnt;
-            istd_s[tid] = rsqrtf(var + eps);
-            if (v0 + tid < V) {
-              mean_out[v0 + tid] = mean_s[tid];
-              var_out[v0 + tid] = var;
+          __syncthreads();
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = nt * 8 + 2 * tig + e;
+              if (pass == 0) {
+                mu[nt][e] = mean_s[c];
+              } else {
+                istd[nt][e] = istd_s[c];
+              }
             }
           }
+          FD_TILE(it, 3 + pass);
         }
-        __syncthreads();
+      } else {
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = nt * 8 + 2 * tig + e;
-            if (pass == 0) {
-              mu[nt][e] = mean_s[c];
-            } else {
-              istd[nt][e] = istd_s[c];
+            const bool ok = v0 + c < V;
+            mu[nt][e] = ok ? mvs[c] : 0.f;
+            istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
+          }
+        }
+        if (tid < VT && v0 + tid < V) {
+          mean_out[v0 + tid] = mvs[tid];
+          var_out[v0 + tid] = mvs[VT + tid];
+        }
+        FD_TILE(it, 3);
+        FD_TILE(it, 4);
+      }
+
+      // The online softmax over this tile's valid columns, per row and lane:
+      // each of the four lanes holding a row keeps its own running (m, s).
+#pragma unroll
+      for (int q = 0; q < kMt; ++q) {
+        if (warp + q * kTcWarps < mt_count) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool row_ok = mk[q][h] > 0.f;
+            float n[kNt][2];
+            bool valid[kNt][2];
+            float m_tile = kNegInf;
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                valid[nt][e] = row_ok && v0 + nt * 8 + 2 * tig + e < V;
+                n[nt][e] = valid[nt][e] ? (acc[q][nt][2 * h + e] - mu[nt][e]) * istd[nt][e]
+                                        : kNegInf;
+                m_tile = fmaxf(m_tile, n[nt][e]);
+              }
             }
+            const float m_new = fmaxf(m_run[q][h], m_tile);
+            // Guard fully-masked rows: exp(-1e30 - -1e30) would be 1.
+            const float safe = fmaxf(m_new, 0.5f * kNegInf);
+            float e_sum = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (valid[nt][e]) e_sum += expf(n[nt][e] - safe);
+              }
+            }
+            s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) + e_sum;
+            m_run[q][h] = m_new;
           }
         }
       }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = nt * 8 + 2 * tig + e;
-          const bool ok = v0 + c < V;
-          mu[nt][e] = ok ? mvs[c] : 0.f;
-          istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
-        }
-      }
-      if (tid < VT && v0 + tid < V) {
-        mean_out[v0 + tid] = mvs[tid];
-        var_out[v0 + tid] = mvs[VT + tid];
-      }
+      FD_TILE(it, 5);
+      __syncthreads();  // the stage is free for the load of tile + S
+      FD_TILE(it, 6);
     }
-
-    // The online softmax over this tile's valid columns, per row and lane:
-    // each of the four lanes holding a row keeps its own running (m, s).
+    FD_BLOCK(2);
+    // The four lanes of each row merge their (m, s) by a butterfly, then write
+    // the block's partial.
 #pragma unroll
     for (int q = 0; q < kMt; ++q) {
-      if (warp + q * kTcWarps < mt_count) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const bool row_ok = mk[q][h] > 0.f;
-          float n[kNt][2];
-          bool valid[kNt][2];
-          float m_tile = kNegInf;
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-          for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              valid[nt][e] = row_ok && v0 + nt * 8 + 2 * tig + e < V;
-              n[nt][e] = valid[nt][e] ? (acc[q][nt][2 * h + e] - mu[nt][e]) * istd[nt][e]
-                                      : kNegInf;
-              m_tile = fmaxf(m_tile, n[nt][e]);
-            }
-          }
-          const float m_new = fmaxf(m_run[q][h], m_tile);
-          // Guard fully-masked rows: exp(-1e30 - -1e30) would be 1.
+        for (int o = 1; o < 4; o <<= 1) {
+          const float m_o = __shfl_xor_sync(kFullMask, m_run[q][h], o);
+          const float s_o = __shfl_xor_sync(kFullMask, s_run[q][h], o);
+          const float m_new = fmaxf(m_run[q][h], m_o);
           const float safe = fmaxf(m_new, 0.5f * kNegInf);
-          float e_sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (valid[nt][e]) e_sum += expf(n[nt][e] - safe);
-            }
-          }
-          s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) + e_sum;
+          s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) +
+                        s_o * expf(fminf(m_o - safe, 0.f));
           m_run[q][h] = m_new;
+        }
+        const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+        if (tig == 0 && r < B) {
+          m_part[(size_t)blockIdx.x * B + r] = m_run[q][h];
+          s_part[(size_t)blockIdx.x * B + r] = s_run[q][h];
         }
       }
     }
-    __syncthreads();  // the stage is free for the load of tile + S
-  }
-  // The four lanes of each row merge their (m, s) by a butterfly, then write
-  // the block's partial.
-#pragma unroll
-  for (int q = 0; q < kMt; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const float m_o = __shfl_xor_sync(kFullMask, m_run[q][h], o);
-        const float s_o = __shfl_xor_sync(kFullMask, s_run[q][h], o);
-        const float m_new = fmaxf(m_run[q][h], m_o);
-        const float safe = fmaxf(m_new, 0.5f * kNegInf);
-        s_run[q][h] = s_run[q][h] * expf(fminf(m_run[q][h] - safe, 0.f)) +
-                      s_o * expf(fminf(m_o - safe, 0.f));
-        m_run[q][h] = m_new;
-      }
-      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
-      if (tig == 0 && r < B) {
-        m_part[(size_t)blockIdx.x * B + r] = m_run[q][h];
-        s_part[(size_t)blockIdx.x * B + r] = s_run[q][h];
-      }
-    }
+    FD_BLOCK(3);
   }
 }
 
@@ -1117,139 +1749,153 @@ loss_kernel(const float* __restrict__ theta, const TS* __restrict__ beta,
             const float* __restrict__ s, float* __restrict__ loss_part,
             float* __restrict__ rd_part, int B, int K, int V, int ld, float eps, float floor_,
             int tiles_per_block) {
-  using T = Tile<TS, VT>;
-  constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  float* const sm = reinterpret_cast<float*>(tc_smem);
-  const FwdLayout L = fwd_layout(kLoss, VT, B, K, T::kBf16);
-  const int Kp = L.Kp, Pth = L.Pth;
-  uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
-  uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
-  uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
-  float* x_ring = sm + L.x;  // kStages stages of L.x_stage floats, stored as TS
-  float* b_ring = sm + L.b;  // and of L.b_stage
-  float* mv_ring = sm + L.mv;
+  if constexpr (VT == kWideVt) {
+    loss_wide(theta, beta, x, mean, var, m, s, loss_part, rd_part, B, K, V, ld, eps, floor_,
+              tiles_per_block);
+  } else {
+    using T = Tile<TS, VT>;
+    constexpr int kNt = VT / 8, kMt = T::kMaxMt, Px = T::kPx;
+    extern __shared__ __align__(128) unsigned char tc_smem[];
+    float* const sm = reinterpret_cast<float*>(tc_smem);
+    const FwdLayout L = fwd_layout(kLoss, VT, B, K, T::kBf16);
+    const int Kp = L.Kp, Pth = L.Pth;
+    uint32_t* th_hi = reinterpret_cast<uint32_t*>(sm + L.th_hi);
+    uint32_t* th_lo = reinterpret_cast<uint32_t*>(sm + L.th_lo);
+    uint32_t* b_lo = reinterpret_cast<uint32_t*>(sm + L.b_lo);
+    float* x_ring = sm + L.x;  // kStages stages of L.x_stage floats, stored as TS
+    float* b_ring = sm + L.b;  // and of L.b_stage
+    float* mv_ring = sm + L.mv;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int n_tiles = (V + VT - 1) / VT;
-  const int mt_count = (B + 15) / 16;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int grp = lane >> 2, tig = lane & 3;
+    const int n_tiles = (V + VT - 1) / VT;
+    const int mt_count = (B + 15) / 16;
 
-  constexpr int S = kStages;
+    constexpr int S = kStages;
 
-  load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
-  zero_smem(x_ring, S * L.x_stage);
-  zero_smem(b_ring, S * L.b_stage);
-  zero_smem(mv_ring, S * 2 * VT);
-  // This lane's rows: the softmax max and 1 / denominator (fully-masked rows
-  // have the (-1e30, 0) sentinel: forced finite, and their loss left out),
-  // and the row's loss and row-dot, accumulated across the block's tiles.
-  float sm_r[kMt][2], isl_r[kMt][2], loss_r[kMt][2], rd_r[kMt][2];
-  bool ok_r[kMt][2];
-#pragma unroll
-  for (int q = 0; q < kMt; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
-      const bool ok = r < B && s[r] > 1e-20f;
-      sm_r[q][h] = ok ? m[r] : 0.f;
-      isl_r[q][h] = 1.f / (ok ? s[r] : 1.f);
-      ok_r[q][h] = ok;
-      loss_r[q][h] = 0.f;
-      rd_r[q][h] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(first + tiles_per_block, n_tiles);
-  // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
-  auto load = [&](int it) {
-    if (first + it < last) {
-      const int st = it % S;
-      load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
-                                reinterpret_cast<TS*>(x_ring + st * L.x_stage),
-                                mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
-                                (first + it) * VT, 2);
-    }
-  };
-  for (int it = 0; it < S - 1; ++it) {
-    load(it);
-    cp_async_commit();
-  }
-  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
-    const int st = it % S;
-    const int v0 = tile * VT;
-    load(it + S - 1);
-    wait_tile();
-    __syncthreads();
-    const TS* xs = reinterpret_cast<const TS*>(x_ring + st * L.x_stage);
-    TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
-    const float* mvs = mv_ring + st * 2 * VT;
-    if constexpr (T::kSplitB) {
-      split_beta_tile<VT>(bs, b_lo, Kp);
-      __syncthreads();
-    }
-
-    float mu[kNt][2], istd[kNt][2];
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = nt * 8 + 2 * tig + e;
-        const bool ok = v0 + c < V;
-        mu[nt][e] = ok ? mvs[c] : 0.f;
-        istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
-      }
-    }
-
+    FD_BLOCK(0);
+    load_theta_halves(th_hi, th_lo, theta, B, K, Kp, Pth);
+    zero_smem(x_ring, S * L.x_stage);
+    zero_smem(b_ring, S * L.b_stage);
+    zero_smem(mv_ring, S * 2 * VT);
+    // This lane's rows: the softmax max and 1 / denominator (fully-masked rows
+    // have the (-1e30, 0) sentinel: forced finite, and their loss left out),
+    // and the row's loss and row-dot, accumulated across the block's tiles.
+    float sm_r[kMt][2], isl_r[kMt][2], loss_r[kMt][2], rd_r[kMt][2];
+    bool ok_r[kMt][2];
 #pragma unroll
     for (int q = 0; q < kMt; ++q) {
-      const int mt = warp + q * kTcWarps;
-      if (mt < mt_count) {
-        const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
-        float acc[kNt][4];
-        fwd_tile_product<TS, VT>(acc, th_hi, th_lo, Pth, Kp, bs, b_lo, r_lo, B, grp, tig);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = h ? r_hi : r_lo;
-          if (r < B) {
+      for (int h = 0; h < 2; ++h) {
+        const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+        const bool ok = r < B && s[r] > 1e-20f;
+        sm_r[q][h] = ok ? m[r] : 0.f;
+        isl_r[q][h] = 1.f / (ok ? s[r] : 1.f);
+        ok_r[q][h] = ok;
+        loss_r[q][h] = 0.f;
+        rd_r[q][h] = 0.f;
+      }
+    }
+    __syncthreads();
+    FD_BLOCK(1);
+
+    const int first = blockIdx.x * tiles_per_block;
+    const int last = min(first + tiles_per_block, n_tiles);
+    // Tile it of the block goes to stage it % S; S - 1 tiles load ahead.
+    auto load = [&](int it) {
+      if (first + it < last) {
+        const int st = it % S;
+        load_tile<TS, VT, kVec16>(reinterpret_cast<TS*>(b_ring + st * L.b_stage),
+                                  reinterpret_cast<TS*>(x_ring + st * L.x_stage),
+                                  mv_ring + st * 2 * VT, beta, x, mean, var, B, K, V, ld,
+                                  (first + it) * VT, 2);
+      }
+    };
+    for (int it = 0; it < S - 1; ++it) {
+      load(it);
+      cp_async_commit();
+    }
+    for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+      const int st = it % S;
+      const int v0 = tile * VT;
+      FD_TILE(it, 0);
+      load(it + S - 1);
+      wait_tile();
+      __syncthreads();
+      FD_TILE(it, 1);
+      const TS* xs = reinterpret_cast<const TS*>(x_ring + st * L.x_stage);
+      TS* bs = reinterpret_cast<TS*>(b_ring + st * L.b_stage);
+      const float* mvs = mv_ring + st * 2 * VT;
+      if constexpr (T::kSplitB) {
+        split_beta_tile<VT>(bs, b_lo, Kp);
+        __syncthreads();
+      }
+
+      float mu[kNt][2], istd[kNt][2];
 #pragma unroll
-            for (int nt = 0; nt < kNt; ++nt) {
-              const int c = nt * 8 + 2 * tig;
-              const float2 xv = pair_f32(xs + r * Px + c);
+      for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                if (v0 + c + e < V) {
-                  const float xe = e ? xv.y : xv.x;
-                  const float n = (acc[nt][2 * h + e] - mu[nt][e]) * istd[nt][e];
-                  const float p = expf(fminf(n - sm_r[q][h], 0.f)) * isl_r[q][h];
-                  if (ok_r[q][h]) loss_r[q][h] += xe * __logf(p + floor_);
-                  rd_r[q][h] += xe * __fdividef(p, p + floor_);
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * 8 + 2 * tig + e;
+          const bool ok = v0 + c < V;
+          mu[nt][e] = ok ? mvs[c] : 0.f;
+          istd[nt][e] = ok ? rsqrtf(mvs[VT + c] + eps) : 1.f;
+        }
+      }
+
+#pragma unroll
+      for (int q = 0; q < kMt; ++q) {
+        const int mt = warp + q * kTcWarps;
+        if (mt < mt_count) {
+          const int r_lo = mt * 16 + grp, r_hi = r_lo + 8;
+          float acc[kNt][4];
+          fwd_tile_product<TS, VT>(acc, th_hi, th_lo, Pth, Kp, bs, b_lo, r_lo, B, grp, tig);
+          FD_TILE(it, 2);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = h ? r_hi : r_lo;
+            if (r < B) {
+#pragma unroll
+              for (int nt = 0; nt < kNt; ++nt) {
+                const int c = nt * 8 + 2 * tig;
+                const float2 xv = pair_f32(xs + r * Px + c);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  if (v0 + c + e < V) {
+                    const float xe = e ? xv.y : xv.x;
+                    const float n = (acc[nt][2 * h + e] - mu[nt][e]) * istd[nt][e];
+                    const float p = expf(fminf(n - sm_r[q][h], 0.f)) * isl_r[q][h];
+                    if (ok_r[q][h]) loss_r[q][h] += xe * __logf(p + floor_);
+                    rd_r[q][h] += xe * __fdividef(p, p + floor_);
+                  }
                 }
               }
             }
           }
         }
       }
+      FD_TILE(it, 3);
+      __syncthreads();  // the stage is free for the load of tile + S
+      FD_TILE(it, 4);
     }
-    __syncthreads();  // the stage is free for the load of tile + S
-  }
+    FD_BLOCK(2);
 #pragma unroll
-  for (int q = 0; q < kMt; ++q) {
+    for (int q = 0; q < kMt; ++q) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float lv = loss_r[q][h], rv = rd_r[q][h];
-      lv += __shfl_xor_sync(kFullMask, lv, 1);
-      rv += __shfl_xor_sync(kFullMask, rv, 1);
-      lv += __shfl_xor_sync(kFullMask, lv, 2);
-      rv += __shfl_xor_sync(kFullMask, rv, 2);
-      const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
-      if (tig == 0 && r < B) {
-        loss_part[(size_t)blockIdx.x * B + r] = -lv;
-        rd_part[(size_t)blockIdx.x * B + r] = rv;
+      for (int h = 0; h < 2; ++h) {
+        float lv = loss_r[q][h], rv = rd_r[q][h];
+        lv += __shfl_xor_sync(kFullMask, lv, 1);
+        rv += __shfl_xor_sync(kFullMask, rv, 1);
+        lv += __shfl_xor_sync(kFullMask, lv, 2);
+        rv += __shfl_xor_sync(kFullMask, rv, 2);
+        const int r = (warp + q * kTcWarps) * 16 + grp + 8 * h;
+        if (tig == 0 && r < B) {
+          loss_part[(size_t)blockIdx.x * B + r] = -lv;
+          rd_part[(size_t)blockIdx.x * B + r] = rv;
+        }
       }
     }
+    FD_BLOCK(3);
   }
 }
 
@@ -1672,12 +2318,14 @@ cudaError_t smem_limit(size_t* limit) {
 }
 
 // The tensor-core tile width of a kernel at (B, K) and storage bf under a
-// per-block shared-memory limit: 32 when that layout fits and B fits the
-// warps' registers, else 16; 0 when neither fits. *smem is the chosen
-// layout's bytes (the 16-wide one's when neither fits).
+// per-block shared-memory limit: for bf16 K1 and K2, 64 (the wide tiles)
+// when that layout fits and B <= 256; then 32 when that layout fits and B
+// fits the warps' registers, else 16; 0 when none fits. *smem is the chosen
+// layout's bytes (the 16-wide one's when none fits).
 int tc_vt(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
-  const int widths[2] = {32, 16};
+  const int widths[3] = {kWideVt, 32, 16};
   for (int vt : widths) {
+    if (vt == kWideVt && (!bf || kind == kGrads)) continue;
     *smem = (kind == kGrads ? grads_layout(vt, B, K, bf).floats
                             : fwd_layout(kind, vt, B, K, bf).floats) *
             sizeof(float);
@@ -1686,8 +2334,8 @@ int tc_vt(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
   return 0;
 }
 
-// A kernel's route at (B, K) and storage bf: the tensor-core tile width (32
-// or 16), 0 for the CUDA-core K1/K2, -1 when nothing fits; with its shared
+// A kernel's route at (B, K) and storage bf: the tensor-core tile width (64,
+// 32 or 16), 0 for the CUDA-core K1/K2, -1 when nothing fits; with its shared
 // memory. The CUDA-core kernels upcast their strip into FP32 shared memory,
 // so their footprint does not depend on the storage.
 int route_of(int kind, bool bf, int B, int K, size_t limit, size_t* smem) {
@@ -1709,6 +2357,14 @@ cudaError_t plan_route(int kind, int B, int K, int V, int* grid, int* tpb, size_
   *route = route_of(kind, kIsBf16<TS>, B, K, limit, smem);
   *grid = 0;
   switch (*route) {
+    case kWideVt:
+      if constexpr (kIsBf16<TS>) {
+        if (kind == kStats) {
+          return plan(stats_kernel<TS, kWideVt, true>, kTcThreads, *smem, V, kWideVt, grid, tpb);
+        }
+        return plan(loss_kernel<TS, kWideVt, true>, kTcThreads, *smem, V, kWideVt, grid, tpb);
+      }
+      return cudaErrorInvalidValue;
     case 32:
       if (kind == kStats) return plan(stats_kernel<TS, 32, true>, kTcThreads, *smem, V, 32, grid, tpb);
       if (kind == kLoss) return plan(loss_kernel<TS, 32, true>, kTcThreads, *smem, V, 32, grid, tpb);
@@ -1774,8 +2430,9 @@ cudaError_t run_stats(const float* th, const TS* be, const float* mk, const floa
   if (route == 0) {
     err = go(simt_stats_kernel<TS>, kThreads);
   } else if constexpr (kIsBf16<TS>) {
-    err = route == 32 ? go(stats_kernel<TS, 32, true>, kTcThreads)
-                      : go(stats_kernel<TS, 16, true>, kTcThreads);
+    err = route == kWideVt ? go(stats_kernel<TS, kWideVt, true>, kTcThreads)
+          : route == 32    ? go(stats_kernel<TS, 32, true>, kTcThreads)
+                           : go(stats_kernel<TS, 16, true>, kTcThreads);
   } else if (vec16_ok(V, be, rm, rv, be)) {
     err = route == 32 ? go(stats_kernel<TS, 32, true>, kTcThreads)
                       : go(stats_kernel<TS, 16, true>, kTcThreads);
@@ -1806,8 +2463,9 @@ cudaError_t run_loss(const float* th, const TS* be, const TS* xx, const float* m
   if (route == 0) {
     err = go(simt_loss_kernel<TS>, kThreads);
   } else if constexpr (kIsBf16<TS>) {
-    err = route == 32 ? go(loss_kernel<TS, 32, true>, kTcThreads)
-                      : go(loss_kernel<TS, 16, true>, kTcThreads);
+    err = route == kWideVt ? go(loss_kernel<TS, kWideVt, true>, kTcThreads)
+          : route == 32    ? go(loss_kernel<TS, 32, true>, kTcThreads)
+                           : go(loss_kernel<TS, 16, true>, kTcThreads);
   } else if (vec16_ok(V, be, xx, mu, va)) {
     err = route == 32 ? go(loss_kernel<TS, 32, true>, kTcThreads)
                       : go(loss_kernel<TS, 16, true>, kTcThreads);
@@ -1869,9 +2527,9 @@ int fd_plan(int kind, int B, int K, int V, int* grid, long long* smem_bytes,
   return (int)err;
 }
 
-// A kernel's route at (B, K), by shape alone (kind as in fd_plan): 32 or 16
-// for the tensor-core tile width, 0 for the CUDA-core K1 or K2, -1 when
-// nothing fits.
+// A kernel's route at (B, K), by shape alone (kind as in fd_plan): 64, 32
+// or 16 for the tensor-core tile width (64: bf16 K1 and K2 alone), 0 for the
+// CUDA-core K1 or K2, -1 when nothing fits.
 int fd_route(int kind, int B, int K, int* route) {
   size_t limit = 0, smem = 0;
   cudaError_t err = smem_limit(&limit);
@@ -1946,5 +2604,26 @@ int fd_grads_bf16(const void* theta, const void* beta, const void* x, const void
       (const float*)mask, (float*)gth_part, (float*)g_theta, (float*)g_beta, B, K, V, ld,
       training, eps, floor_, grid, (cudaStream_t)stream);
 }
+
+#ifdef FD_TIMELINE
+// The timeline build's buffer: its shape [blocks, tiles + 1, warps, stamps],
+// cleared on a stream, and copied to the host (after a synchronize).
+int fd_timeline_shape(int* shape) {
+  shape[0] = kTlBlocks;
+  shape[1] = kTlTiles + 1;
+  shape[2] = kTcWarps;
+  shape[3] = kTlStamps;
+  return (int)cudaSuccess;
+}
+
+int fd_timeline_clear(void* stream) {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, fd_tl);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemsetAsync(p, 0, sizeof(fd_tl), (cudaStream_t)stream);
+}
+
+int fd_timeline_read(void* host) { return (int)cudaMemcpyFromSymbol(host, fd_tl, sizeof(fd_tl)); }
+#endif
 
 }  // extern "C"

@@ -299,9 +299,10 @@ def _on_cuda(t):
 
 
 def _route(lib, kind, b, k, storage_dtype="float32"):
-    """A kernel's route at (B, K) and storage, chosen by shape alone: 32 or
-    16 (the tensor-core tile width), 0 (the CUDA-core K1 or K2, for batches
-    past the tensor-core layouts), -1 (nothing fits)."""
+    """A kernel's route at (B, K) and storage, chosen by shape alone: 64, 32
+    or 16 (the tensor-core tile width; 64 for bf16 K1 and K2 at B <= 256 and
+    K <= 64), 0 (the CUDA-core K1 or K2, for batches past the tensor-core
+    layouts), -1 (nothing fits)."""
     route = ctypes.c_int(0)
     _raise_on(lib.fd_route(_kind(kind, storage_dtype), b, k, ctypes.byref(route)),
               f"{kind} route")

@@ -372,8 +372,9 @@ def test_bf16_kernels_match_plain_versions(cuda, lib, b, k, v_mod):
 @pytest.mark.parametrize("kind", ["stats", "loss", "grads"])
 @pytest.mark.parametrize("k", [8, 50])
 def test_bf16_route_boundaries(cuda, lib, kind, k):
-    """Both sides of every bf16 route boundary of each kernel (32 -> 16
-    columns, then 16 -> CUDA cores, or refused for K3), chosen by shape."""
+    """Both sides of every bf16 route boundary of each kernel (64 -> 16
+    columns for K1 and K2, 32 -> 16 for K3, then 16 -> CUDA cores, or
+    refused for K3), chosen by shape."""
     seen = []
     prev = fd._route(lib, kind, 1, k, BF)
     for b in range(2, 1200):
@@ -381,7 +382,8 @@ def test_bf16_route_boundaries(cuda, lib, kind, k):
         if r != prev:
             seen.append((b, prev, r))
             prev = r
-    assert seen and seen[0][1:] == (32, 16), seen
+    first = (32, 16) if kind == "grads" else (64, 16)
+    assert seen and seen[0][1:] == first, seen
     for b, before, after in seen:
         for bb, route in ((b - 1, before), (b, after)):
             if route < 0:
@@ -391,6 +393,41 @@ def test_bf16_route_boundaries(cuda, lib, kind, k):
             t = inputs(bb, k, 3001, cuda, seed=bb)
             for training in (True, False):
                 check_bf16(t, training, lib, (kind,))
+
+
+@pytest.mark.parametrize("b,k,routes", [
+    (256, 50, (64, 64)), (256, 80, (64, 64)), (256, 88, (64, 16)), (256, 144, (64, 0)),
+    (200, 57, (64, 64)), (1, 3, (64, 64)), (257, 50, (16, 16)), (64, 160, (32, 32)),
+])
+def test_bf16_wide_tiles_at_their_boundaries(cuda, lib, b, k, routes):
+    """bf16 K1 and K2 on 64-column tiles (B <= 256 where the layout fits:
+    K2 to K=80 at B=256, K1 to K=144) and just past them, against the plain
+    versions in training and eval, V % 64 != 0; K1's mean on 64-column tiles
+    bitwise the FP32 K1's on the rounded beta where that takes 32 columns
+    (z and the column sums' order kept)."""
+    assert (fd._route(lib, "stats", b, k, BF), fd._route(lib, "loss", b, k, BF)) == routes
+    t = inputs(b, k, 3001 if k > 100 else 20_001, cuda, seed=b + k)
+    for training in (True, False):
+        got = check_bf16(t, training, lib, ("stats", "loss"))
+        if training and routes[0] == 64 and fd._route(lib, "stats", b, k) == 32:
+            beta_r = t["beta"].to(torch.bfloat16).float()
+            fp32 = fd.stats(t["theta"], beta_r, t["mask"], t["run_mean"], t["run_var"], True)
+            assert torch.equal(got["stats"][0], fp32[0])
+
+
+def test_bf16_wide_loss_on_sparse_documents(cuda, lib):
+    """K2 on 64-column tiles over a batch of 0.2%-dense counts (the main
+    path's documents), with rows and whole eight-column groups of zeros,
+    against the plain version; and the same counts at 0, 1 and 8 nonzero
+    columns a row."""
+    gen = torch.Generator().manual_seed(5)
+    for density in (0.002, 0.0):
+        t = inputs(256, 50, 20_001, cuda, seed=11)
+        keep = (torch.rand(256, 20_001, generator=gen) < density).to(cuda)
+        t["x"] = t["x"] * keep
+        t["x"][3, 17] = 2.0  # one count alone in its row
+        t["x"][4, 64:72] = 1.0  # a whole eight-column group
+        check_bf16(t, True, lib, ("stats", "loss"))
 
 
 def test_bf16_loss_tensor_cores_hold_batches_past_fp32(cuda, lib):

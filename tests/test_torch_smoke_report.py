@@ -709,3 +709,205 @@ def test_beside_process_reports_each_phase_and_stops_at_a_failure(smoke, monkeyp
     assert beside.finish("18", notes) > 0 and notes == {"stats": "; eighteen"}
     with pytest.raises(smoke.SmokeFailure, match="phase 20 .*it failed"):
         beside.finish("20", notes)
+
+
+# ---------------------------------------------------------------------------
+# bf16 K1 and K2 on 64-column tiles: their routes beside another build's,
+# their outputs within tolerance of it, device times, the tile timeline
+# ---------------------------------------------------------------------------
+#: ``--against``'s route line of bf16 K1 and K2, with the wide tiles.
+WIDE_ROUTES_LINE = re.compile(
+    r"^kernels ok: bf16 (K1|K2) routes at (\d+) \(B, K\) beside the build of (\S+): none lost, "
+    r"(\d+) onto 64-column tiles, (\d+) onto 32-column tiles, (\d+) onto 16-column tiles, "
+    r"(\d+) newly taken; FP32 \1 routes unchanged$")
+
+
+def _fwd_route(kind, b, k):
+    """A parent's K1/K2 route by a rule: 32 columns to 256 rows and K 56,
+    16 to 1,024 rows and K 40, else the CUDA cores (the bf16 bit ignored)."""
+    return 32 if b <= 256 and k <= 56 else 16 if b <= 1024 and k <= 40 else 0
+
+
+@pytest.mark.parametrize("kind,label", [("stats", "K1"), ("loss", "K2")])
+def test_compare_routes_of_k1_and_k2_count_the_wide_tiles(smoke, monkeypatch, kind, label):
+    """bf16 K1's and K2's routes beside the parent's: shapes moved onto
+    64-column tiles (from 32, 16 or the CUDA cores) are counted apart;
+    a 64-column shape the parent took on 32 and now on 16 fails."""
+    monkeypatch.setattr(smoke, "ROUTE_GRID", [(b, k) for b in (8, 256, 320, 1100)
+                                              for k in (8, 50, 60, 72, 90)])
+    parent = FakeRoutes(lambda kind_bits, b, k: _fwd_route(kind_bits, b, k))
+
+    def change(kind_bits, b, k):
+        if kind_bits & 4 and b <= 256 and k <= 72:
+            return 64
+        return _fwd_route(kind_bits, b, k)
+
+    line = smoke.compare_routes(FakeRoutes(change), parent, Path("/p"), kind)
+    found = WIDE_ROUTES_LINE.match(line)
+    # b in (8, 256): k in (8, 50) from 32, k in (60, 72) from the CUDA cores.
+    assert found and found.groups() == (label, "20", "/p", "8", "0", "0", "0")
+    lost = FakeRoutes(lambda kind_bits, b, k: 16 if kind_bits & 4 and (b, k) == (8, 8)
+                      else change(kind_bits, b, k))
+    with pytest.raises(smoke.SmokeFailure, match=f"bf16 {label} takes B=8 K=8 on tensor cores, "
+                       "16-column tiles, the build of /p on tensor cores, 32"):
+        smoke.compare_routes(lost, parent, Path("/p"), kind)
+    assert smoke.ROUTE_NAMES[64] == "tensor cores, 64-column tiles"
+
+
+AGAINST_ERRORS_LINE = re.compile(
+    r"^kernels ok: bf16 K1 and K2 on another route than the build of (\S+), within tolerance of "
+    r"it: K1 in (\d+) cases: mean (\S+) \(tol (\S+)\), var (\S+) \(tol (\S+)\), m (\S+) \(tol "
+    r"(\S+)\), s (\S+) \(tol (\S+)\); K2 in (\d+) cases: loss (\S+) \(tol (\S+)\), rd (\S+) "
+    r"\(tol (\S+)\)$")
+
+
+def test_against_errors_hold_other_routes_to_the_tolerance(smoke):
+    """Outputs of another route: within 1e-5 + 1e-4 max|other| they pass and
+    their largest error per output is printed beside the tolerance; past it,
+    or with a softmax-max sentinel moved, they fail."""
+    import torch
+
+    theirs = (torch.tensor([1.0, -2.0, 4.0]), torch.tensor([-1e30, 3.0]))
+    near = (theirs[0] + torch.tensor([0.0, 2e-4, -1e-4]), theirs[1] + torch.tensor([0.0, 3e-4]))
+    got = smoke.against_errors("bf16 B=8", "m,s", near, theirs)
+    assert got["m"][0] == pytest.approx(2e-4, rel=1e-3)
+    assert got["m"][1] == pytest.approx(1e-5 + 1e-4 * 4.0)
+    assert got["s"][1] == pytest.approx(1e-5 + 1e-4 * 3.0)
+    with pytest.raises(smoke.SmokeFailure, match="m max |this build - the other|"):
+        smoke.against_errors("bf16 B=8", "m,s", (theirs[0] + 1e-3, theirs[1]), theirs)
+    with pytest.raises(smoke.SmokeFailure, match="s sentinel rows differ"):
+        smoke.against_errors("bf16 B=8", "m,s", (theirs[0], torch.tensor([0.0, 3.0])), theirs)
+    errors = {"stats": [{"mean": (1e-7, 4e-5), "var": (2e-8, 1e-5), "m": (3e-6, 9e-4),
+                         "s": (7e-3, 3.8)},
+                        {"mean": (2e-7, 4e-5), "var": (1e-8, 1e-5), "m": (1e-6, 9e-4),
+                         "s": (8e-3, 3.9)}],
+              "loss": [{"loss": (0.25, 195.0), "rd": (0.03, 15.0)}]}
+    line = smoke.against_errors_line(Path("/x/parent"), errors)
+    found = AGAINST_ERRORS_LINE.match(line)
+    assert found
+    values = found.groups()
+    assert values[:2] == ("/x/parent", "2") and values[10] == "1"
+    assert [float(v) for v in values[2:10]] == [2e-7, 4e-5, 2e-8, 1e-5, 3e-6, 9e-4, 8e-3, 3.9]
+    assert [float(v) for v in values[11:]] == [0.25, 195.0, 0.03, 15.0]
+
+
+def test_resources_line_puts_the_wide_instantiation_first(smoke):
+    got = {"stats_kernel<bf16, 64, 16B>": {"registers": 112, "hmma": 16},
+           "stats_kernel<bf16, 32, 16B>": {"registers": 88, "hmma": 24},
+           "stats_kernel<32, 16B>": {"registers": 89, "hmma": 12}}
+    assert smoke.resources_line(got, "stats_kernel").startswith(
+        "stats_kernel<bf16, 64, 16B> 112 registers, 16 HMMA; stats_kernel<bf16, 32, 16B> 88 "
+        "registers, 24 HMMA (FP32 stats_kernel<32, 16B> 89 registers, 12 HMMA); ")
+
+
+#: A K1 or K2 row's device-time note (``device_note``).
+DEVICE_NOTE = re.compile(r"; device ms (\d+\.\d{4}|not measured \(no device time in the "
+                         r"profiler\)) a launch \((\d+) kernels a call: (K1 and its merge|K2 and "
+                         r"its fold)\), host (\d+\.\d) us a call")
+
+
+def test_device_note_prints_the_profilers_time_beside_the_host(smoke):
+    note = smoke.device_note((0.05126, 88.04, 2.0), smoke.FOLDS["stats"])
+    found = DEVICE_NOTE.fullmatch(note)
+    assert found and found.groups() == ("0.0513", "2", "K1 and its merge", "88.0")
+    found = DEVICE_NOTE.fullmatch(smoke.device_note((None, 12.0, 0.0), smoke.FOLDS["loss"]))
+    assert found and found.group(1).startswith("not measured") and found.group(3) == (
+        "K2 and its fold")
+
+
+@pytest.mark.parametrize("argv", [["--timeline"], ["--timeline", "--against", "."],
+                                  ["--serving-only", "--timeline"],
+                                  ["--data-parallel-only", "--timeline"]])
+def test_timeline_without_kernels_only_exits_2(smoke, argv, capsys):
+    assert smoke.main(argv) == 2
+    assert "usage" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--kernels-only", "--timeline"],
+                                  ["--kernels-only", "--timeline", "--against", "."]])
+def test_timeline_without_a_card_exits_2_and_prints_no_result(smoke, argv, capsys):
+    assert smoke.main(argv) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_timeline_runs_after_phase_2_only_when_asked(smoke, faked, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(smoke, "timeline_phase", lambda card: calls.append(card))
+    assert smoke.main(["--kernels-only"]) == 0
+    assert calls == [] and [name for name, _ in faked] == ["kernel_phase"]
+    assert smoke.main(["--kernels-only", "--timeline"]) == 0
+    assert calls == ["FAKE H100, 700.00 W"]
+    assert [name for name, _ in faked] == ["kernel_phase", "kernel_phase"]
+    out = capsys.readouterr().out
+    assert re.search(r"^phase 2 \(timeline\) took \d+\.\d s \(FAKE H100, 700\.00 W\)$", out, re.M)
+
+
+TIMELINE_LAUNCH_LINE = re.compile(
+    r"^timeline (.+): the timeline build's launch (\d+\.\d{4}) ms; its blocks' median (\d+) "
+    r"cycles over it: (\d+\.\d{3}) GHz \((.+)\)$")
+
+
+def test_timeline_phase_prints_lines_that_parse(smoke, monkeypatch, capsys):
+    """``--timeline``'s lines, with the card's parts faked on the CPU: per
+    run a report line that ``timeline.parse_report_line`` reads and the
+    timeline build's own launch beside its blocks' cycles."""
+    import torch
+
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+    from gfedntm_tpu_torch.ops import timeline as tl
+
+    b, k, v = 16, 4, 40
+    stamps = np.zeros((2, 3, 16, 8), dtype=np.int64)
+    stamps[:, :2, :, :7] = 1_000 + np.cumsum([0, 50, 400, 100, 100, 300, 10])
+    stamps[:, 2, :, :4] = [10, 100, 2_000, 2_050]
+    launched = []
+
+    def fake_inputs(*args, **kwargs):
+        gen = torch.Generator().manual_seed(0)
+        return dict(theta=torch.softmax(torch.randn(b, k, generator=gen), 1),
+                    beta=torch.randn(k, v, generator=gen),
+                    x=torch.randint(0, 4, (b, v), generator=gen).float(),
+                    run_mean=torch.zeros(v), run_var=torch.ones(v), mask=torch.ones(b))
+
+    monkeypatch.setattr(tl, "load", lambda: "timeline lib")
+    monkeypatch.setattr(tl, "record", lambda lib, launch: (launch(), stamps)[1])
+    monkeypatch.setattr(fd, "_launch_stats", lambda lib, *a: launched.append(("stats", lib)))
+    monkeypatch.setattr(fd, "_launch_loss", lambda lib, *a: launched.append(("loss", lib)))
+    monkeypatch.setattr(smoke, "make_inputs", fake_inputs)
+    monkeypatch.setattr(smoke, "main_path_batch", lambda n: (torch.zeros(b, v), 0.0019))
+    monkeypatch.setattr(smoke, "time_ms", lambda fn: 0.05)
+    monkeypatch.setattr(smoke, "device_and_host",
+                        lambda fns: {label: (None, 10.0, 0.0) for label in fns})
+    smoke.timeline_phase("FAKE H100, 700.00 W")
+    lines = capsys.readouterr().out.splitlines()
+    reports = [tl.parse_report_line(line) for line in lines if tl.parse_report_line(line)]
+    assert [(r["label"], r["kernel"]) for r in reports] == [
+        ("stats_bf16 B=256 K=50 V=100000 train", "stats"),
+        ("loss_bf16 B=256 K=50 V=100000 train", "loss"),
+        ("loss_bf16 B=256 K=50 V=100000 train main-path x 0.0019 nonzero", "loss")]
+    assert reports[0]["median_cycles"] == 960 and reports[1]["median_cycles"] == 650
+    launches = [TIMELINE_LAUNCH_LINE.match(line) for line in lines]
+    launches = [m.groups() for m in launches if m]
+    assert [g[0] for g in launches] == [r["label"] for r in reports]
+    assert all(g[1:] == ("0.0500", "2040", "0.041", "FAKE H100, 700.00 W") for g in launches)
+    assert {lib for _, lib in launched} == {"timeline lib"}
+
+
+AGAINST_TIMES_LINE = re.compile(
+    r"^kernels: bf16 device ms a launch, the build of (\S+) / this build in turns \(other, "
+    r"this, this, other\): (.+)$")
+_TIMES = re.compile(r"(K1|K2|K2 on the main path's batch) ((?:\d+\.\d{4}|not measured)"
+                    r"(?:/(?:\d+\.\d{4}|not measured)){3})")
+
+
+def test_against_times_line_reads_back(smoke):
+    times = {"K1": [0.11512, 0.07171, 0.07149, 0.1149],
+             "K2": [0.1176, 0.0947, None, 0.11755],
+             "K2 on the main path's batch": [0.1181, 0.0851, 0.08498, 0.118]}
+    line = smoke.against_times_line(Path("/x/parent"), times)
+    found = AGAINST_TIMES_LINE.match(line)
+    assert found and found.group(1) == "/x/parent"
+    got = {label: four.split("/") for label, four in _TIMES.findall(found.group(2))}
+    assert got == {"K1": ["0.1151", "0.0717", "0.0715", "0.1149"],
+                   "K2": ["0.1176", "0.0947", "not measured", "0.1176"],
+                   "K2 on the main path's batch": ["0.1181", "0.0851", "0.0850", "0.1180"]}
