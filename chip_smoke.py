@@ -20,14 +20,15 @@
     python3 chip_smoke.py --experiments-only  # phases 1 and 18
     python3 chip_smoke.py --lint-only     # phase 19
     python3 chip_smoke.py --examples-only  # phases 1 and 20
+    python3 chip_smoke.py --experiment-scripts-only  # phases 1 and 21
 
-Twenty phases, each fatal on failure (exit code 1; 2 when there is no CUDA
+Twenty-one phases, each fatal on failure (exit code 1; 2 when there is no CUDA
 device or no port next to this script). In a run of every phase, phase 4
 runs the rank programs of phases 4 to 8 (4(a)-(c), (f), 5(d), 6(a)-(b),
 7(a) and 8(c)) in one rank group per world size, two ranks and four, so a
 group's start-up, warm-up and teardown are paid twice rather than ten times;
 each phase checks its programs' results where it did before. Phases 17 to
-20 run beside earlier phases (their text says how). Every phase prints its
+21 run beside earlier phases (their text says how). Every phase prints its
 seconds.
 
 1. build — compile the fused decoder's CUDA kernels from
@@ -452,6 +453,26 @@ seconds.
    plain versions on the first batch of every model it trains (B = 8, 16,
    32, 64). In a run of every phase it runs after phase 18 in phase 18's
    process, beside phases 9-17, and its serial cost is the wait for it.
+21. the experiment scripts, ``gfedntm_tpu_torch.experiments_scripts``
+   (every check fatal): (a) ``time_to_quality.run`` at its full width (V=5,000,
+   K=50, H=(100, 100), B=64, 5 nodes x 2,000 documents) cut to
+   :data:`TTQ_SMOKE_EPOCHS` epochs: its five arms (torch centralized and
+   federated, plain PyTorch; the port federated and its two local-steps
+   arms), each arm's ms per global step, final TSS, NPMI and diversity, the
+   ladder, the headline amortized and cold, the cold process; K1-K3
+   launched once per client step of the port arms' fits (their warm fits
+   included) and never by the torch arms, every arm's TSS above the random
+   baseline, the port arm's 80% target reached, the artifact with the keys
+   of ``results/time_to_quality/metrics.json`` plus the port's fields, and
+   K1-K3 within tolerance of their plain versions on the first batch (B=64,
+   V=5,000); (b) ``run_full_v100k.run_case`` at V=100,000 (5 clients x 640
+   documents, B=64, H=(50, 50)), float32 and bf16 storage, cut to
+   :data:`V100K_SMOKE_EPOCHS` epochs: per case its ms per step, docs/s, HBM
+   share, TSS and route, K1-K3 (or their bf16 instantiations) launched once
+   per client step of both fits, finite losses, and K1-K3 and their bf16
+   instantiations within tolerance on the first batch at V=100,000. In a
+   run of every phase it runs after phase 20 in phase 18's process, beside
+   phases 9-17, and its serial cost is the wait for it.
 
 Output: the card's name and power limit first; one line per kernel (launch
 count, max error and its tolerance, kernel, plain and bound ms); a
@@ -475,16 +496,6 @@ import sys
 import time
 from pathlib import Path
 
-# Published peaks by card (NVIDIA data sheets; dense, no sparsity: half the
-# sheets' sparse tensor-core figures): memory bytes/s, FP32 FLOP/s on the
-# CUDA cores, and TF32 FLOP/s on the tensor cores. Keys are matched against
-# the nvidia-smi name; the SXM part is the default.
-_PEAKS = (
-    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
-    ("H100 PCIe", 2.0e12, 51e12, 378e12),
-    ("H200", 4.8e12, 67e12, 495e12),
-    ("H100", 3.35e12, 67e12, 495e12),
-)
 # An FP32-accurate product on the tensor cores is three TF32 products
 # (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi).
 TF32_PASSES = 3
@@ -527,19 +538,18 @@ def check_same_state(res: list, label: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=False,
-    )
-    return (out.stdout.strip().splitlines() or [f"nvidia-smi failed: {out.stderr.strip()}"])[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from gfedntm_tpu_torch.device import card_line as line
+
+    return line()
 
 
 def peaks(name: str) -> tuple[float, float, float, str]:
-    """(bytes/s, FP32 FLOP/s, TF32 FLOP/s, matched key) of the card."""
-    for key, bw, simt, tf32 in _PEAKS:
-        if key in name:
-            return bw, simt, tf32, key
-    return (*_PEAKS[-1][1:], "H100 (assumed)")
+    """(bytes/s, FP32 FLOP/s, TF32 FLOP/s, matched key) of the card, from
+    the published peaks of ``gfedntm_tpu_torch.utils.flops.CARD_PEAKS``."""
+    from gfedntm_tpu_torch.utils.flops import card_peaks
+
+    return card_peaks(name)
 
 
 def kernel_bound(nbytes: float, nflops: float, card: str,
@@ -871,11 +881,6 @@ def vsharded_passes(storage="float32") -> float:
     return (2 * p["stats"] + 2 * p["loss"] + 6 * p["grads"]) / 10
 
 
-ROUTE_NAMES = {64: "tensor cores, 64-column tiles", 32: "tensor cores, 32-column tiles",
-               16: "tensor cores, 16-column tiles",
-               0: "CUDA cores", -1: "refused"}
-
-
 def against_bf16_line(against: Path, cases: int, launches: dict) -> str:
     """``--against``'s line for the bf16 instantiations: the cases run and
     the launches of each kernel compared."""
@@ -915,8 +920,8 @@ def compare_routes(lib, other, against: Path, kind: str = "grads") -> str:
         check(fd._route(lib, kind, b, k) == fd._route(other, kind, b, k),
               f"FP32 {label}'s route at B={b} K={k} differs from the build of {against}")
         mine, theirs = (fd._route(x, kind, b, k, "bfloat16") for x in (lib, other))
-        check(mine >= theirs, f"bf16 {label} takes B={b} K={k} on {ROUTE_NAMES[mine]}, the "
-              f"build of {against} on {ROUTE_NAMES[theirs]}")
+        check(mine >= theirs, f"bf16 {label} takes B={b} K={k} on {fd.ROUTE_NAMES[mine]}, the "
+              f"build of {against} on {fd.ROUTE_NAMES[theirs]}")
         if mine > theirs >= 0:
             wider[mine] += 1
         newly += theirs < 0 <= mine
@@ -1090,7 +1095,7 @@ def kernel_phase(card: str, against: Path | None = None,
                       f"{case}: K3 differs from the build of {against}")
                 bitwise += 1
         print(f"kernels ok: {case}; routes: " + ", ".join(
-            f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()), flush=True)
+            f"{name} {fd.ROUTE_NAMES[r]}" for name, r in routes.items()), flush=True)
     for name, routes in seen.items():
         check({32, 16, 0} <= routes, f"{name}: the smoke cases took only the routes "
               f"{sorted(routes)}")
@@ -1295,7 +1300,7 @@ def bf16_kernel_phase(card: str, lib, rows: dict, notes: dict, other=None,
                         f"{case} {name} against the build of {against}", labels[name], out,
                         theirs[name]()))
         print(f"kernels ok: {case}; routes: " + ", ".join(
-            f"{name} {ROUTE_NAMES[r]}" for name, r in routes.items()) + k3_err, flush=True)
+            f"{name} {fd.ROUTE_NAMES[r]}" for name, r in routes.items()) + k3_err, flush=True)
     for name, routes in seen.items():
         check({64, 32, 16, 0} <= routes, f"bf16 {name}: the smoke cases took only the routes "
               f"{sorted(routes)}")
@@ -2751,7 +2756,7 @@ def raw_text_phase(card: str, notes: dict):
     errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean, var, m, s), case),
             compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
             compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
-    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
+    route = fd.ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
     print(f"raw text: K1, K2, K3 on {case} ({route}) within "
           f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions (tol {ATOL:g} + "
           f"{RTOL:g}*max|plain| per output)", flush=True)
@@ -2889,7 +2894,7 @@ def ctm_federated_phase(card: str, notes: dict, raw) -> list:
                 compare("g_theta,g_beta", fd.grads(theta, beta_s, x_s, *gr_rest,
                                                    storage_dtype=dtype),
                         fd.grads_reference(theta, beta_r, x_r, *gr_rest), case)]
-        route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K, dtype)]
+        route = fd.ROUTE_NAMES[fd._route(_build.load(), "grads", B, K, dtype)]
         print(f"ctm: K1, K2, K3 on {case} ({route}) within "
               f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions (tol {ATOL:g} + "
               f"{RTOL:g}*max|plain| per output)", flush=True)
@@ -3256,10 +3261,14 @@ def first_batch_kernels(label: str, setup, client, kw: dict) -> None:
     kernels_against_plain(f"{label}'s first batch", label, net, client.dataset.X[idx], mask_np)
 
 
-def kernels_against_plain(case: str, label: str, net, x_np, mask_np) -> None:
+def kernels_against_plain(case: str, label: str, net, x_np, mask_np,
+                          storage_dtype: str = "float32") -> None:
     """K1-K3 on one batch (``x_np`` rows, ``mask_np``) of ``net``'s shapes
     against their plain versions: theta from its encoder, the template's
-    beta and running statistics; prints the errors and the route."""
+    beta and running statistics; prints the errors and the routes. With
+    ``storage_dtype="bfloat16"`` the bf16 instantiations take beta and x in
+    bf16 storage (``fused_decoder.store``), and the plain versions the same
+    rounded values in float32."""
     import torch
 
     from gfedntm_tpu_torch.ops import _build
@@ -3272,17 +3281,24 @@ def kernels_against_plain(case: str, label: str, net, x_np, mask_np) -> None:
         theta = net.model.encode_theta(
             x, mask=mask, generator=torch.Generator(device=net.device).manual_seed(0)).theta
     bn = net.model.beta_batchnorm
-    case = f"{case}, B={B} K={K} V={V}"
-    st_args = (theta, net.model.beta.detach(), mask, bn.running_mean, bn.running_var, True)
-    mean_, var_, m, s = fd.stats_reference(*st_args)
-    lo_args = (theta, net.model.beta.detach(), x, mean_, var_, m, s)
-    ref_loss = fd.loss_reference(*lo_args)
-    gr_args = lo_args + (ref_loss[1], mask / B, mask, True)
-    errs = [compare("mean,var,m,s", fd.stats(*st_args), (mean_, var_, m, s), case),
-            compare("loss,rd", fd.loss(*lo_args), ref_loss, case),
-            compare("g_theta,g_beta", fd.grads(*gr_args), fd.grads_reference(*gr_args), case)]
-    route = ROUTE_NAMES[fd._route(_build.load(), "grads", B, K)]
-    print(f"{label}: K1, K2, K3 on {case} ({route}) within "
+    beta_s, x_s = fd.store(net.model.beta.detach(), storage_dtype), fd.store(x, storage_dtype)
+    beta_r, x_r = beta_s.float(), x_s.float()  # the values the kernels read
+    case = f"{case}, B={B} K={K} V={V}" + ("" if storage_dtype == "float32" else " bf16")
+    st_args = (theta, beta_s, mask, bn.running_mean, bn.running_var, True)
+    mean_, var_, m, s = fd.stats_reference(theta, beta_r, *st_args[2:])
+    lo_args = (theta, beta_s, x_s, mean_, var_, m, s)
+    lo_plain = (theta, beta_r, x_r, mean_, var_, m, s)
+    ref_loss = fd.loss_reference(*lo_plain)
+    gr_rest = (ref_loss[1], mask / B, mask, True)
+    sd = {"storage_dtype": storage_dtype}
+    errs = [compare("mean,var,m,s", fd.stats(*st_args, **sd), (mean_, var_, m, s), case),
+            compare("loss,rd", fd.loss(*lo_args, **sd), ref_loss, case),
+            compare("g_theta,g_beta", fd.grads(*lo_args, *gr_rest, **sd),
+                    fd.grads_reference(*lo_plain, *gr_rest), case)]
+    lib = _build.load()
+    routes = {fd.ROUTE_NAMES[fd._route(lib, name, B, K, storage_dtype)]
+              for name in ("stats", "loss", "grads")}
+    print(f"{label}: K1, K2, K3 on {case} ({'; '.join(sorted(routes))}) within "
           f"{', '.join(f'{e:.3e}' for e in errs)} of their plain versions", flush=True)
 
 
@@ -6508,7 +6524,7 @@ PUBLISHED = Path(__file__).resolve().parent / "results" / "dss_tss_eta001" / "re
 EXPERIMENTS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_experiments"
 #: The limits of phases 18 and 20 when they run in the process beside
 #: phases 9-17 (:class:`BesideProcess`), in seconds from its start.
-BESIDE_LIMIT_S = {"18": 600.0, "20": 1000.0}
+BESIDE_LIMIT_S = {"18": 600.0, "20": 1000.0, "21": 1050.0}
 
 
 def beside_phase_joined(card: str, notes: dict, beside: "BesideProcess", phase: str,
@@ -6524,14 +6540,14 @@ def beside_phase_joined(card: str, notes: dict, beside: "BesideProcess", phase: 
 
 
 def _beside_child(card: str, phases: tuple, results) -> None:
-    """Phases 18 and 20 in a process of their own, one after the other: puts
+    """Phases 18, 20 and 21 in a process of their own, one after the other: puts
     ``(phase, "ok", its kernels' notes)``, ``(phase, "failed", message)`` or
     ``(phase, "error", traceback)`` on ``results`` for each, and stops at the
     first that does not pass."""
     import traceback
 
     for phase in phases:
-        notes = {"stats": "", "loss": "", "grads": ""}
+        notes = dict.fromkeys(BESIDE_NOTES, "")
         try:
             BESIDE_PHASES[phase](card, notes)
             results.put((phase, "ok", notes))
@@ -6544,13 +6560,13 @@ def _beside_child(card: str, phases: tuple, results) -> None:
 
 
 class BesideProcess:
-    """Phases 18 and 20 in a process of their own (``spawn``), one after the
-    other, so that they run beside the phases this process runs meanwhile;
+    """Phases 18, 20 and 21 in a process of their own (``spawn``), one after
+    the other, so that they run beside the phases this process runs meanwhile;
     their launches are counted there. :meth:`finish` waits for one phase's
     result, merges its notes into ``notes`` and fails the run on its
     failure."""
 
-    def __init__(self, card: str, phases: tuple = ("18", "20")):
+    def __init__(self, card: str, phases: tuple = ("18", "20", "21")):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
@@ -6775,8 +6791,165 @@ def examples_phase(card: str, notes: dict) -> None:
     print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the experiment scripts
+# ---------------------------------------------------------------------------
+#: Phase 21's artifacts; ``main`` removes it.
+SCRIPTS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_experiment_scripts"
+#: Phase 21's cut depths (published: 100 epochs of ``time_to_quality``, 20
+#: of ``run_full_v100k``).
+TTQ_SMOKE_EPOCHS = 3
+V100K_SMOKE_EPOCHS = 2
+#: The committed JAX artifact whose keys phase 21's ``time_to_quality``
+#: artifact carries.
+TTQ_COMMITTED = Path(__file__).resolve().parent / "results" / "time_to_quality" / "metrics.json"
+#: ``time_to_quality``'s fields beyond the JAX artifact's.
+TTQ_PORT_KEYS = {"device", "torch_impl", "ms_per_global_step", "global_steps", "client_steps",
+                 "k1_k3_launches", "warm_fit"}
+TTQ_PORT_ARMS = ("gfedntm_tpu_federated", "gfedntm_tpu_local_steps_E_1epoch",
+                 "gfedntm_tpu_local_steps_E_5epoch")
+
+
+def experiment_scripts_phase(card: str, notes: dict) -> None:
+    """Phase 21: ``time_to_quality`` at its full width, cut in depth, and
+    ``run_full_v100k``'s V=100,000 case in float32 and bf16, cut in depth,
+    on the card (``cuda:0``): their lines, the launch, quality, ladder and
+    artifact checks, and K1-K3 within tolerance of their plain versions on
+    the first batch at V=5,000 and at V=100,000, there in float32 and bf16
+    storage."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.experiments_scripts import run_full_v100k, time_to_quality
+    from gfedntm_tpu_torch.models.avitm import AVITM
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    kernels = ("stats", "loss", "grads")
+
+    # (a) time to quality.
+    torch.cuda.synchronize()
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    out = time_to_quality.run(out_path=str(SCRIPTS_DIR / "time_to_quality.json"),
+                              epochs=TTQ_SMOKE_EPOCHS, device="cuda:0")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fd.LAUNCHES)
+    quality = out["final_topic_quality"]
+    finals = {"torch_centralized": out["torch_curve"][-1]["tss"],
+              "torch_federated": out["torch_federated_curve"][-1]["tss"],
+              "gfedntm_tpu_federated": out["gfedntm_curve"][-1]["tss"],
+              **{f"gfedntm_tpu_local_steps_{k}": c[-1]["tss"]
+                 for k, c in out["gfedntm_local_steps_curves"].items()}}
+    print(f"experiment scripts time_to_quality, {card}: {TTQ_SMOKE_EPOCHS} epochs in "
+          f"{seconds:.1f} s on {out['backend']} ({out['device']['name']}, "
+          f"{out['device']['power_limit']}); random TSS {out['baseline_tss_random']:.4f}, "
+          f"plateau {out['joint_plateau_tss']:.4f}", flush=True)
+    for arm, ms in out["ms_per_global_step"].items():
+        print(f"experiment scripts time_to_quality, {card}: {arm}: {ms:.4f} ms a global step, "
+              f"{out['global_steps'][arm]} steps, final TSS {finals[arm]:.4f}, NPMI "
+              f"{quality[arm]['npmi']:.4f}, diversity {quality[arm]['topic_diversity_top10']:.4f}"
+              f", launches {nonzero(out['k1_k3_launches'][arm])}", flush=True)
+    for pct, row in out["targets"].items():
+        print(f"experiment scripts time_to_quality: ladder {pct}: {row}", flush=True)
+    cold = out["cold_start"]
+    print(f"experiment scripts time_to_quality: headline at 95% "
+          f"{out['headline_speedup_at_95pct']} (cold {cold['headline_speedup_at_95pct_cold']}; "
+          f"target >= 4.0); warm fit {out['gfedntm_compile_and_stage_s']} s; shipped-stack floor "
+          f"{out['reference_shipped_stack_floor_s_at_95pct']} s; cold process "
+          f"{cold['cold_process_warm_cache']}", flush=True)
+    check(out["backend"] == "cuda", f"phase 21: time_to_quality ran on {out['backend']}")
+    committed = json.loads(TTQ_COMMITTED.read_text())
+    check(set(out) == set(committed) | TTQ_PORT_KEYS
+          and all(set(out[k]) == set(committed[k]) for k in
+                  ("regime", "cold_start", "targets", "final_topic_quality", "local_steps_fix"))
+          and all(set(out["targets"][p]) == set(committed["targets"][p]) for p in out["targets"]),
+          f"phase 21: the artifact's keys {sorted(set(out) ^ set(committed))}")
+    check("error" not in cold["cold_process_warm_cache"],
+          f"phase 21: the cold process {cold['cold_process_warm_cache']}")
+    want = {name: 0 for name in kernels}
+    for arm in TTQ_PORT_ARMS:
+        steps = out["client_steps"][arm]
+        warm = out["warm_fit"][arm]
+        for name in kernels:
+            want[name] += steps + warm["client_steps"]
+        check(all(out["k1_k3_launches"][arm][k] == (steps if k in kernels else 0)
+                  for k in out["k1_k3_launches"][arm])
+              and all(warm["launches"][k] == (warm["client_steps"] if k in kernels else 0)
+                      for k in warm["launches"]),
+              f"phase 21: {arm}: launches {out['k1_k3_launches'][arm]} (warm "
+              f"{warm['launches']}) for {steps} client steps (warm {warm['client_steps']})")
+    for arm in ("torch_centralized", "torch_federated"):
+        check(not any(out["k1_k3_launches"][arm].values()),
+              f"phase 21: the plain PyTorch arm {arm} launched {out['k1_k3_launches'][arm]}")
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"phase 21: time_to_quality launched {nonzero(launches)}, its port arms took {want} "
+          "client steps")
+    for name in kernels:
+        notes[name] += (f"; phase 21 time_to_quality: {launches[name]} launches (3 port arms, "
+                        "warm fits included)")
+    check(all(tss > out["baseline_tss_random"] for tss in finals.values()),
+          f"phase 21: a final TSS {finals} not above the random {out['baseline_tss_random']}")
+    check(out["targets"]["80pct"]["gfedntm_tpu_s"] is not None,
+          f"phase 21: the port arm missed the 80% target {out['targets']['80pct']}")
+    corpus = time_to_quality.make_corpus()
+    net = AVITM(input_size=time_to_quality.VOCAB, n_components=time_to_quality.K,
+                hidden_sizes=time_to_quality.HIDDEN, batch_size=time_to_quality.BATCH,
+                device="cuda:0")
+    B = time_to_quality.BATCH
+    kernels_against_plain("time_to_quality's first batch", "experiment scripts", net,
+                          corpus.nodes[0].bow[:B], np.ones(B, dtype=np.float32))
+    del corpus, net
+
+    # (b) the V=100,000 case, float32 and bf16 storage.
+    V, docs = run_full_v100k.CASES[-1]
+    t0 = time.perf_counter()
+    corpus = run_full_v100k.make_corpus(V, docs)
+    print(f"experiment scripts run_full_v100k: corpus 5 x {docs} x {V} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        counters = run_full_v100k.storage_kernels(dtype)
+        torch.cuda.synchronize()
+        fd.reset_launches()
+        case = run_full_v100k.run_case(V, docs, dtype, epochs=V100K_SMOKE_EPOCHS, corpus=corpus,
+                                       device="cuda:0")
+        torch.cuda.synchronize()
+        launches = dict(fd.LAUNCHES)
+        key = f"V{V}_{dtype}"
+        print(f"experiment scripts run_full_v100k {key}, {card}: {case['step_ms']:.3f} ms a "
+              f"global step, {case['docs_per_s']:.1f} docs/s, HBM "
+              f"{case['in_fit_hbm_util_analytic']} of {peaks(card)[0] / 1e12:g} TB/s "
+              f"(analytic), TSS "
+              f"{case['tss_vs_ground_truth']} (random {case['tss_random_floor']}), "
+              f"{case['global_steps']} steps after a warm fit of "
+              f"{case['compile_and_first_fit_s']} s, route {case['kernel_route']}, launches "
+              f"{nonzero(launches)}", flush=True)
+        steps = case["client_steps"]
+        check(case["launches"] == dict.fromkeys(counters, steps)
+              and case["warm_launches"] == dict.fromkeys(counters, steps)
+              and all(launches[k] == (2 * steps if k in counters else 0) for k in launches),
+              f"phase 21: {key}: launches {nonzero(launches)} for twice {steps} client steps")
+        check(math.isfinite(case["final_mean_loss"]) and math.isfinite(case["tss_vs_ground_truth"])
+              and case["fused_decoder_engaged"], f"phase 21: {key}: {case}")
+        for name in counters:
+            notes[name] += f"; phase 21 run_full_v100k {key}: {launches[name]} launches"
+    net = AVITM(input_size=V, n_components=run_full_v100k.K, hidden_sizes=(50, 50),
+                batch_size=run_full_v100k.BATCH, device="cuda:0")
+    B = run_full_v100k.BATCH
+    for dtype in ("float32", "bfloat16"):
+        kernels_against_plain("run_full_v100k's first batch", "experiment scripts", net,
+                              corpus.nodes[0].bow[:B], np.ones(B, dtype=np.float32), dtype)
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
 #: The phases :class:`BesideProcess` runs, by number.
-BESIDE_PHASES = {"18": experiments_phase, "20": examples_phase}
+BESIDE_PHASES = {"18": experiments_phase, "20": examples_phase,
+                 "21": experiment_scripts_phase}
+#: The kernels' notes a phase of :class:`BesideProcess` adds to.
+BESIDE_NOTES = ("stats", "loss", "grads", "stats_bf16", "loss_bf16", "grads_bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -6890,29 +7063,31 @@ def main(argv: list[str]) -> int:
     experiments_only = "--experiments-only" in argv
     lint_only = "--lint-only" in argv
     examples_only = "--examples-only" in argv
+    scripts_only = "--experiment-scripts-only" in argv
     rest = [a for a in argv if a not in ("--kernels-only", "--timeline", "--data-parallel-only",
                                          "--phase-7-only", "--ctm-only", "--federation-only",
                                          "--server-planes-only", "--privacy-ops-only",
                                          "--pacing-only", "--hierarchy-only", "--serving-only",
                                          "--cli-only", "--scenarios-only", "--mesh-only",
                                          "--experiments-only", "--lint-only",
-                                         "--examples-only")]
+                                         "--examples-only", "--experiment-scripts-only")]
     usage_ok = not rest or (rest[0] == "--against" and len(rest) == 2)
     against = Path(rest[1]).resolve() if rest and usage_ok else None
     only = (dp_only or p7_only or ctm_only or fed_only or planes_only or privacy_only
             or pacing_only or hier_only or serve_only or cli_only or scenarios_only
-            or mesh_only or experiments_only or lint_only or examples_only)
+            or mesh_only or experiments_only or lint_only or examples_only or scripts_only)
     if (not usage_ok
             or kernels_only + dp_only + p7_only + ctm_only + fed_only + planes_only
             + privacy_only + pacing_only + hier_only + serve_only + cli_only
-            + scenarios_only + mesh_only + experiments_only + lint_only + examples_only > 1
+            + scenarios_only + mesh_only + experiments_only + lint_only + examples_only
+            + scripts_only > 1
             or (only and against) or (timeline and not kernels_only)):
         print("usage: chip_smoke.py [--kernels-only [--timeline] [--against DIR] | "
               "--data-parallel-only | "
               "--phase-7-only | --ctm-only | --federation-only | --server-planes-only | "
               "--privacy-ops-only | --pacing-only | --hierarchy-only | --serving-only | "
               "--cli-only | --scenarios-only | --mesh-only | --experiments-only | "
-              "--lint-only | --examples-only]", file=sys.stderr)
+              "--lint-only | --examples-only | --experiment-scripts-only]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6931,7 +7106,7 @@ def main(argv: list[str]) -> int:
         return 2
 
     t_script = time.perf_counter()
-    beside = None  # phases 18 and 20's process, in a run of every phase
+    beside = None  # phases 18, 20 and 21's process, in a run of every phase
     mesh_programs = None  # 17(a)'s rank group, in a run of every phase
     # Phase 19's process, from the script's start in a run of every phase.
     lint = LintProcess() if lint_only or not (only or kernels_only) else None
@@ -6992,6 +7167,9 @@ def main(argv: list[str]) -> int:
         if examples_only:
             examples_phase(card, {"stats": "", "loss": "", "grads": ""})
             return 0
+        if scripts_only:
+            experiment_scripts_phase(card, dict.fromkeys(BESIDE_NOTES, ""))
+            return 0
 
         def timed(n, fn, *args):
             t0 = time.perf_counter()
@@ -7013,9 +7191,9 @@ def main(argv: list[str]) -> int:
             raw = decodes_and_text_phase(card, notes, groups)
             ctm_phase(card, notes, raw, datasets, groups)
             del groups
-            # Phases 18 and 20 run one after the other in a process of their
-            # own beside phases 9-17 (they end within phases 9-13, whose one
-            # busy process leaves the host's other cores idle).
+            # Phases 18, 20 and 21 run one after the other in a process of
+            # their own beside phases 9-17 (they end within phases 9-14,
+            # whose one busy process leaves the host's other cores idle).
             beside = BesideProcess(card)
             phase9 = federation_phase(card, notes, raw)
             server_planes_phase(card, notes, raw, phase9)
@@ -7038,6 +7216,7 @@ def main(argv: list[str]) -> int:
                        meanwhile=lambda: beside_phase_joined(card, notes, beside, "18",
                                                              "beside phases 9-17"))
             beside_phase_joined(card, notes, beside, "20", "beside phases 9-17, after phase 18")
+            beside_phase_joined(card, notes, beside, "21", "beside phases 9-17, after phase 20")
             lint.finish(card)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
@@ -7055,6 +7234,7 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
         shutil.rmtree(EXPERIMENTS_DIR, ignore_errors=True)
         shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+        shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
     for name, row in rows.items():
         print(f"kernel {name}: launches {row['launches']} max_abs_err {row['max_abs_err']:.3e} "
               f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

@@ -12,6 +12,9 @@ matmuls (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
 from __future__ import annotations
 
+import argparse
+import subprocess
+
 import torch
 
 
@@ -38,3 +41,26 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
+
+
+def device_parser(doc: str) -> argparse.ArgumentParser:
+    """An entry point's argument parser, described by the first line of
+    ``doc``, with ``--device cpu|cuda`` (default: the GPU)."""
+    p = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
+    p.add_argument("--device", default=None, choices=("cpu", "cuda"),
+                   help="where the models train (default: the GPU)")
+    return p
+
+
+def card_line(index: int | None = None) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (of card
+    ``index``; the first card's when ``None``), or why nvidia-smi gave none."""
+    cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    if index is not None:
+        cmd.insert(1, f"--id={index}")
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=False)
+    except (OSError, subprocess.TimeoutExpired) as err:
+        return f"nvidia-smi failed: {err}"
+    return (out.stdout.strip().splitlines() or [f"nvidia-smi failed: {out.stderr.strip()}"])[0]

@@ -16,38 +16,18 @@ is the GPU, raising without CUDA.
 
 from __future__ import annotations
 
-import argparse
-
 NAMES = ("bow_dataset_example", "centralized_training", "federated_simulation",
          "hierarchical_training", "realtext_federation")
 
 
-def parser(doc: str) -> argparse.ArgumentParser:
-    """The argument parser every walkthrough starts from: ``--device``."""
-    p = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
-    p.add_argument("--device", default=None, choices=("cpu", "cuda"),
-                   help="where the models train (default: the GPU)")
-    return p
-
-
-#: The fused decoder's kernels a walkthrough's line reports (K1-K3).
-KERNELS = ("stats", "loss", "grads")
-
-
-def launch_counts() -> dict:
-    """A snapshot of the fused decoder's K1-K3 launch counters."""
-    from gfedntm_tpu_torch.ops import fused_decoder as fd
-
-    return {name: fd.LAUNCHES[name] for name in KERNELS}
-
-
 def launch_line(device, since: dict) -> str:
     """The device and the fused decoder's kernel launches since the snapshot
-    ``since`` (:func:`launch_counts`), so that a process which launched
-    kernels before reports the run's alone (CUDA launches only: a CPU run
-    takes the plain versions)."""
-    now = launch_counts()
-    n = {name: now[name] - since[name] for name in KERNELS}
+    ``since`` (``fused_decoder.launch_counts`` of its ``KERNELS``), so that
+    a process which launched kernels before reports the run's alone (CUDA
+    launches only: a CPU run takes the plain versions)."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    n = fd.launches_since(since)
     return (f"device: {device}; K1-K3 launches: stats {n['stats']}, loss {n['loss']}, "
             f"grads {n['grads']}")
 
@@ -56,7 +36,9 @@ def report(run, lines, device) -> int:
     """A walkthrough's ``main`` after its arguments: ``run(device=device)``,
     its printed ``lines``, then :func:`launch_line` for that run's own
     launches."""
-    before = launch_counts()
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    before = fd.launch_counts(fd.KERNELS)
     out = run(device=device)
     for line in lines(out):
         print(line)

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import sys
 
-from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.examples import parser, report
+from gfedntm_tpu_torch.device import device_parser, resolve_device
+from gfedntm_tpu_torch.examples import report
 
 
 def run(vocab_size: int = 300, n_topics: int = 5, n_docs: int = 100,
@@ -57,7 +57,7 @@ def lines(out: dict) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    return report(run, lines, parser(__doc__).parse_args(argv).device)
+    return report(run, lines, device_parser(__doc__).parse_args(argv).device)
 
 
 if __name__ == "__main__":

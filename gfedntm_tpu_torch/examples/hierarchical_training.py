@@ -18,8 +18,8 @@ import sys
 import tempfile
 from pathlib import Path
 
-from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.examples import parser, report
+from gfedntm_tpu_torch.device import device_parser, resolve_device
+from gfedntm_tpu_torch.examples import report
 
 VERSIONS = ("HTM-WS", "HTM-DS")
 
@@ -95,7 +95,7 @@ def lines(out: dict) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    return report(run, lines, parser(__doc__).parse_args(argv).device)
+    return report(run, lines, device_parser(__doc__).parse_args(argv).device)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import sys
 
-from gfedntm_tpu_torch.device import resolve_device
-from gfedntm_tpu_torch.examples import parser, report
+from gfedntm_tpu_torch.device import device_parser, resolve_device
+from gfedntm_tpu_torch.examples import report
 
 NOTE = (
     "\nNOTE: scale=0.1 is a smoke demo (300 docs/client, 10 epochs) — "
@@ -70,7 +70,7 @@ def lines(out: dict) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    return report(run, lines, parser(__doc__).parse_args(argv).device)
+    return report(run, lines, device_parser(__doc__).parse_args(argv).device)
 
 
 if __name__ == "__main__":

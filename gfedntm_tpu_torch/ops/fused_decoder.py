@@ -70,6 +70,8 @@ from gfedntm_tpu_torch.utils import flops
 #: bf16-storage instantiations.
 LAUNCHES = {"stats": 0, "loss": 0, "grads": 0, "vsharded": 0,
             "stats_bf16": 0, "loss_bf16": 0, "grads_bf16": 0, "vsharded_bf16": 0}
+#: K1-K3's counters of :data:`LAUNCHES` (their float32 instantiations).
+KERNELS = ("stats", "loss", "grads")
 #: The eval-mode share of those launches: ``stats`` counts K1 launches with
 #: ``training=False`` (its running-statistics branch), ``vsharded`` K5
 #: forwards with ``training=False``, each of which launches K1 in eval mode
@@ -106,6 +108,17 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, EVAL_LAUNCHES, ROWS_CALLS):
         for key in counts:
             counts[key] = 0
+
+
+def launch_counts(names) -> dict:
+    """A snapshot of the :data:`LAUNCHES` counters ``names``."""
+    return {name: LAUNCHES[name] for name in names}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches of the counters in ``before`` (a :func:`launch_counts`
+    snapshot) since it was taken."""
+    return {name: LAUNCHES[name] - n for name, n in before.items()}
 
 
 def _counter(name, storage_dtype):
@@ -296,6 +309,11 @@ def _on_cuda(t):
     if t.device.type == "cpu":
         return False
     raise ValueError(f"fused decoder: unsupported device {t.device}")
+
+
+#: The kernels' routes, by the value :func:`_route` gives.
+ROUTE_NAMES = {64: "tensor cores, 64-column tiles", 32: "tensor cores, 32-column tiles",
+               16: "tensor cores, 16-column tiles", 0: "CUDA cores", -1: "refused"}
 
 
 def _route(lib, kind, b, k, storage_dtype="float32"):

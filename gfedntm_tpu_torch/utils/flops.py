@@ -20,8 +20,8 @@ JAX number for the same step is larger (about 1.18x at V=2,000, K=20,
 H=(64, 64), B=64).
 
 The peak side is the card's published dense BF16 tensor-core rate
-(:data:`NOMINAL_PEAK_FLOPS`, keyed on the card's name as ``chip_smoke.py``'s
-``_PEAKS`` is), since the JAX module divides by its chip's bf16 peak too;
+(:data:`NOMINAL_PEAK_FLOPS`, keyed on the card's name as :data:`CARD_PEAKS`
+is), since the JAX module divides by its chip's bf16 peak too;
 on any other card and on the CPU, a live float32 ``torch.matmul`` probe.
 """
 
@@ -42,6 +42,27 @@ NOMINAL_PEAK_FLOPS: dict[str, float] = {
     "H200": 989.4e12,
     "H100": 989.4e12,
 }
+
+#: Published peaks by card (NVIDIA data sheets; dense, no sparsity: half the
+#: sheets' sparse tensor-core figures): memory bytes/s, FP32 FLOP/s on the
+#: CUDA cores, and TF32 FLOP/s on the tensor cores. Keys are matched against
+#: the nvidia-smi name in this order; the SXM part is the default.
+CARD_PEAKS = (
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100", 3.35e12, 67e12, 495e12),
+)
+
+
+def card_peaks(name: str) -> tuple[float, float, float, str]:
+    """(bytes/s, FP32 FLOP/s, TF32 FLOP/s, matched key) of the card named
+    ``name`` in :data:`CARD_PEAKS`; the H100 SXM's for any other name."""
+    for key, bw, simt, tf32 in CARD_PEAKS:
+        if key in name:
+            return bw, simt, tf32, key
+    return (*CARD_PEAKS[-1][1:], "H100 (assumed)")
+
 
 _peak_cache: dict[str, float] = {}
 _active = threading.local()

@@ -17,7 +17,9 @@ from gfedntm_tpu_torch.ops import fused_decoder as fd
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "gfedntm_tpu_torch"
-FORBIDDEN = {"jax", "flax", "optax", "orbax", "gfedntm_tpu"}
+#: The repository's JAX experiment scripts (``experiments_scripts/``) count
+#: as the JAX package: the port has its own twins of them.
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "gfedntm_tpu", "experiments_scripts"}
 #: Packages the port may import only inside the function that needs them:
 #: the card's machine has neither scikit-learn nor NLTK's data.
 LAZY = {"sklearn", "nltk", "pandas"}
@@ -116,7 +118,16 @@ def test_port_modules_include_the_packages():
                  "gfedntm_tpu_torch.examples.centralized_training",
                  "gfedntm_tpu_torch.examples.federated_simulation",
                  "gfedntm_tpu_torch.examples.hierarchical_training",
-                 "gfedntm_tpu_torch.examples.realtext_federation"):
+                 "gfedntm_tpu_torch.examples.realtext_federation",
+                 "gfedntm_tpu_torch.experiments_scripts",
+                 "gfedntm_tpu_torch.experiments_scripts.torch_baseline",
+                 "gfedntm_tpu_torch.experiments_scripts.time_to_quality",
+                 "gfedntm_tpu_torch.experiments_scripts.aggregate_banked_envelope",
+                 "gfedntm_tpu_torch.experiments_scripts.run_dss_tss_envelope",
+                 "gfedntm_tpu_torch.experiments_scripts.run_full_v100k",
+                 "gfedntm_tpu_torch.experiments_scripts.run_presets_24",
+                 "gfedntm_tpu_torch.experiments_scripts.run_realtext_federated",
+                 "gfedntm_tpu_torch.experiments_scripts.analyze_trace"):
         assert name in names, name
 
 

@@ -9,8 +9,8 @@ card faked and every phase stubbed, the order of the phases (phase 14 on
 phase 9's store, phase 15 on phase 3's fit starting 17(b)'s processes,
 phase 16, then phase 17 on its own rank group (started before phase 13)
 and phase 3's fit, joining phase 18 in the process that runs phases 18
-and 20 (started before phase 9), then phase 20; ``--examples-only`` and
-phase 20's lines; phases 5 to 8 on phase 4's rank groups) and of the
+and 20 (started before phase 9), then phase 20 and phase 21; ``--examples-only``,
+``--experiment-scripts-only`` and the lines of phases 20 and 21; phases 5 to 8 on phase 4's rank groups) and of the
 output lines (the script's own seconds before the ``kernels`` line, the
 ``ok`` line last). The script is imported by path."""
 
@@ -260,6 +260,8 @@ def test_compare_routes_counts_moves_and_fails_on_a_lost_route(smoke, monkeypatc
     tiles and newly taken are counted in the line; a shape the other build
     takes and this one refuses or puts on narrower tiles, or a changed FP32
     route, fails."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
     monkeypatch.setattr(smoke, "ROUTE_GRID", [(b, k) for b in (8, 256, 320, 1100)
                                               for k in (8, 50, 60, 64, 72)])
     parent = FakeRoutes(lambda kind, b, k: _fp32_k3_route(b, k))
@@ -281,7 +283,7 @@ def test_compare_routes_counts_moves_and_fails_on_a_lost_route(smoke, monkeypatc
         lost = FakeRoutes(lambda kind, b, k: lost_to if kind & 4 and (b, k) == (8, 8)
                           else _fp32_k3_route(b, k))
         with pytest.raises(smoke.SmokeFailure, match="bf16 K3 takes B=8 K=8 on "
-                           f"{smoke.ROUTE_NAMES[lost_to]}, the build of /p on tensor cores, 32"):
+                           f"{fd.ROUTE_NAMES[lost_to]}, the build of /p on tensor cores, 32"):
             smoke.compare_routes(lost, parent, Path("/p"))
     fp32 = FakeRoutes(lambda kind, b, k: 16 if not kind & 4 and (b, k) == (8, 8)
                       else _fp32_k3_route(b, k))
@@ -304,7 +306,9 @@ def test_compare_routes_counts_moves_and_fails_on_a_lost_route(smoke, monkeypatc
                                   ["--mesh-only", "--against", "."],
                                   ["--experiments-only", "--cli-only"],
                                   ["--examples-only", "--experiments-only"],
-                                  ["--examples-only", "--against", "."]])
+                                  ["--examples-only", "--against", "."],
+                                  ["--experiment-scripts-only", "--examples-only"],
+                                  ["--experiment-scripts-only", "--against", "."]])
 def test_bad_arguments_exit_2(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert "usage" in capsys.readouterr().err
@@ -314,7 +318,7 @@ def test_bad_arguments_exit_2(smoke, argv, capsys):
                                   ["--data-parallel-only"], ["--hierarchy-only"],
                                   ["--serving-only"], ["--cli-only"], ["--scenarios-only"],
                                   ["--mesh-only"], ["--experiments-only"],
-                                  ["--examples-only"]])
+                                  ["--examples-only"], ["--experiment-scripts-only"]])
 def test_no_card_exits_2_and_prints_no_result(smoke, argv, capsys):
     assert smoke.main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -401,10 +405,11 @@ PHASES = ("kernel_phase", "main_path_phase", "sharded_fit_phase", "persistence_p
           "data_parallel_phase", "decodes_and_text_phase", "ctm_phase", "federation_phase",
           "server_planes_phase", "privacy_ops_phase", "pacing_phase", "hierarchy_phase",
           "serving_phase", "cli_phase", "scenario_phase", "mesh_phase", "experiments_phase",
-          "examples_phase")
-#: The order of a run of every phase: the process of phases 18 and 20
+          "examples_phase", "experiment_scripts_phase")
+#: The order of a run of every phase: the process of phases 18, 20 and 21
 #: starts before phase 9 and 17(a)'s rank group before phase 13, phase 17
-#: waits for them and for phase 18, and phase 20 is joined after phase 17.
+#: waits for them and for phase 18, and phases 20 and 21 are joined after
+#: phase 17.
 ORDER = (PHASES[:7] + ("experiments_process",) + PHASES[7:11] + ("mesh_programs",)
          + PHASES[11:])
 #: Phase 4's rank groups as the fake returns them, and 17(a)'s group.
@@ -447,14 +452,15 @@ def faked(smoke, monkeypatch):
     calls = []
 
     class FakeBeside:
-        """The process of phases 18 and 20: started before phase 9, phase
-        18 joined in 17, phase 20 after it."""
+        """The process of phases 18, 20 and 21: started before phase 9,
+        phase 18 joined in 17, phases 20 and 21 after it."""
 
         def __init__(self, card):
             calls.append(("experiments_process", (card,)))
 
         def finish(self, phase, notes):
-            calls.append(({"18": "experiments_phase", "20": "examples_phase"}[phase], (notes,)))
+            calls.append(({"18": "experiments_phase", "20": "examples_phase",
+                           "21": "experiment_scripts_phase"}[phase], (notes,)))
             notes["stats"] += f"; phase {phase} (fake)"
             return 1.0
 
@@ -499,9 +505,9 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     the command line, on phase 3's fit (starting 17(b)'s processes), and
     phase 16, the scenario matrix, with the kernels' notes; then phase 17 on
     17(a)'s rank group, phase 3's fit and corpora and phase 15's processes,
-    joining phase 18 of the process of phases 18 and 20 (started before
-    phase 9; the rank group before phase 13); then phase 20 joined; the notes of phases 18 and 20
-    reach the kernels; phases 5 to 8 read phase 4's rank groups; the
+    joining phase 18 of the process of phases 18, 20 and 21 (started before
+    phase 9; the rank group before phase 13); then phases 20 and 21 joined;
+    the notes of phases 18, 20 and 21 reach the kernels; phases 5 to 8 read phase 4's rank groups; the
     script's own seconds come before the ``kernels`` line, and the ``ok``
     line is the last."""
     import json
@@ -511,8 +517,8 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     calls = dict(faked)
     assert calls["serving_phase"][2:] == ("raw", "phase9")
     assert calls["cli_phase"][1:] == ("result",)  # and start_mesh=True
-    # One dict, the notes of phases 18 and 20 merged at the end.
-    notes = {"stats": "; phase 18 (fake); phase 20 (fake)"}
+    # One dict, the notes of phases 18, 20 and 21 merged at the end.
+    notes = {"stats": "; phase 18 (fake); phase 20 (fake); phase 21 (fake)"}
     assert calls["scenario_phase"] == ("FAKE H100, 700.00 W", notes)
     assert calls["persistence_phase"][-3:] == ("X", "kw", "validation")
     assert calls["mesh_programs"] == ("datasets",)
@@ -523,7 +529,8 @@ def test_the_whole_script_serves_last_and_prints_its_total(smoke, faked, capsys)
     assert isinstance(federation, FakeFederation) and federation.started
     assert federation.paths == ("archive", "ini")
     assert calls["experiments_process"] == ("FAKE H100, 700.00 W",)
-    assert calls["experiments_phase"] == calls["examples_phase"] == (notes,)
+    assert calls["experiments_phase"] == calls["examples_phase"] == \
+        calls["experiment_scripts_phase"] == (notes,)
     groups = GROUPS
     assert calls["data_parallel_phase"][-1] == calls["decodes_and_text_phase"][-1] == groups
     assert calls["ctm_phase"][2:] == ("raw", "datasets", groups)
@@ -581,6 +588,18 @@ def test_mesh_and_experiments_only_run_their_phase_alone(smoke, faked, capsys, f
     assert [name for name, _ in faked] == [phase]
     card, notes = faked[0][1]
     assert card == "FAKE H100, 700.00 W" and set(notes) == {"stats", "loss", "grads"}
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "kernels" not in out
+
+
+def test_experiment_scripts_only_runs_phase_21_alone(smoke, faked, capsys):
+    """``--experiment-scripts-only`` runs phase 21 after phase 1's build,
+    with the notes of K1-K3 and their bf16 instantiations; it prints no
+    result lines."""
+    assert smoke.main(["--experiment-scripts-only"]) == 0
+    assert [name for name, _ in faked] == ["experiment_scripts_phase"]
+    card, notes = faked[0][1]
+    assert card == "FAKE H100, 700.00 W" and set(notes) == set(smoke.BESIDE_NOTES)
     out = capsys.readouterr().out
     assert '"ok"' not in out and "kernels" not in out
 
@@ -733,6 +752,8 @@ def test_compare_routes_of_k1_and_k2_count_the_wide_tiles(smoke, monkeypatch, ki
     """bf16 K1's and K2's routes beside the parent's: shapes moved onto
     64-column tiles (from 32, 16 or the CUDA cores) are counted apart;
     a 64-column shape the parent took on 32 and now on 16 fails."""
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
     monkeypatch.setattr(smoke, "ROUTE_GRID", [(b, k) for b in (8, 256, 320, 1100)
                                               for k in (8, 50, 60, 72, 90)])
     parent = FakeRoutes(lambda kind_bits, b, k: _fwd_route(kind_bits, b, k))
@@ -751,7 +772,7 @@ def test_compare_routes_of_k1_and_k2_count_the_wide_tiles(smoke, monkeypatch, ki
     with pytest.raises(smoke.SmokeFailure, match=f"bf16 {label} takes B=8 K=8 on tensor cores, "
                        "16-column tiles, the build of /p on tensor cores, 32"):
         smoke.compare_routes(lost, parent, Path("/p"), kind)
-    assert smoke.ROUTE_NAMES[64] == "tensor cores, 64-column tiles"
+    assert fd.ROUTE_NAMES[64] == "tensor cores, 64-column tiles"
 
 
 AGAINST_ERRORS_LINE = re.compile(
@@ -911,3 +932,150 @@ def test_against_times_line_reads_back(smoke):
     assert got == {"K1": ["0.1151", "0.0717", "0.0715", "0.1149"],
                    "K2": ["0.1176", "0.0947", "not measured", "0.1176"],
                    "K2 on the main path's batch": ["0.1181", "0.0851", "0.0850", "0.1180"]}
+
+
+#: Phase 21's line per time-to-quality arm and per run_full_v100k case.
+TTQ_ARM_LINE = (r"^experiment scripts time_to_quality, FAKE H100, 700\.00 W: (\w+): "
+                r"(\d+\.\d{4}) ms a global step, (\d+) steps, final TSS (\d+\.\d{4}), "
+                r"NPMI (-?\d+\.\d{4}), diversity (\d+\.\d{4}), launches (\{.*\})$")
+V100K_LINE = (r"^experiment scripts run_full_v100k V(\d+)_(float32|bfloat16), FAKE H100, "
+              r"700\.00 W: (\d+\.\d{3}) ms a global step, (\d+\.\d) docs/s, HBM (\S+) of "
+              r"3\.35 TB/s \(analytic\), TSS (\S+) \(random (\S+)\), (\d+) steps after a warm "
+              r"fit of (\S+) s, route (\{.*\}), launches (\{.*\})$")
+
+
+def test_phase_21_runs_both_scripts_and_its_lines_parse(smoke, monkeypatch, tmp_path, capsys):
+    """Phase 21 on the CPU, each script at a tiny size standing in for the
+    card's (its result named ``cuda``, K1-K3 counted once per client step
+    of the port arms' fits as the card's wrappers count them, the kernels'
+    comparison recorded): one line per time-to-quality arm and per
+    V=100,000 case, the ladder and headline lines, the phase's seconds, and
+    notes for every counter the phase launched."""
+    import ast
+
+    import torch
+
+    from gfedntm_tpu_torch.experiments_scripts import run_full_v100k, time_to_quality
+    from gfedntm_tpu_torch.models import avitm
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    tiny = dict(vocab=300, k=5, docs_per_node=100, n_nodes=2, frozen=2)
+    kernels = ("stats", "loss", "grads")
+
+    def count(counters, n):
+        for name in counters:
+            monkeypatch.setitem(fd.LAUNCHES, name, fd.LAUNCHES[name] + n)
+
+    def ttq_run(original=time_to_quality.run, **kw):
+        out = original(**{**kw, **tiny, "device": "cpu", "coldproc": False})
+        for arm, warm in out["warm_fit"].items():
+            steps = out["client_steps"][arm]
+            out["k1_k3_launches"][arm].update(dict.fromkeys(kernels, steps))
+            warm["launches"].update(dict.fromkeys(kernels, warm["client_steps"]))
+            count(kernels, steps + warm["client_steps"])
+        out["cold_start"]["cold_process_warm_cache"] = {"backend": "cuda"}
+        return {**out, "backend": "cuda"}
+
+    def run_case(V, docs, dtype, original=run_full_v100k.run_case, **kw):
+        case = original(V, docs, dtype, **{**kw, "device": "cpu"})
+        counters = run_full_v100k.storage_kernels(dtype)
+        case["launches"] = case["warm_launches"] = dict.fromkeys(counters, case["client_steps"])
+        count(counters, 2 * case["client_steps"])
+        return case
+
+    corpus = time_to_quality.make_corpus
+    monkeypatch.setattr(time_to_quality, "run", ttq_run)
+    monkeypatch.setattr(time_to_quality, "make_corpus",
+                        lambda *a: corpus(*a) if a else corpus(**tiny))
+    monkeypatch.setattr(run_full_v100k, "run_case", run_case)
+    monkeypatch.setattr(run_full_v100k, "CASES", ((300, 64),))
+    monkeypatch.setattr(avitm, "resolve_device", lambda device=None: torch.device("cpu"))
+    compared = []
+    monkeypatch.setattr(smoke, "kernels_against_plain",
+                        lambda case, label, net, x, mask, storage_dtype="float32":
+                        compared.append((case, net, x.shape, storage_dtype)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for counts in (fd.LAUNCHES, fd.EVAL_LAUNCHES, fd.ROWS_CALLS):
+        for key in list(counts):
+            monkeypatch.setitem(counts, key, counts[key])
+    monkeypatch.setattr(smoke, "SCRIPTS_DIR", tmp_path / "scripts")
+    notes = dict.fromkeys(smoke.BESIDE_NOTES, "")
+    smoke.experiment_scripts_phase("FAKE H100, 700.00 W", notes)
+    lines = capsys.readouterr().out.splitlines()
+    arms = [m for m in map(re.compile(TTQ_ARM_LINE).match, lines) if m]
+    assert [m.group(1) for m in arms] == ["torch_centralized", "torch_federated",
+                                          "gfedntm_tpu_federated",
+                                          "gfedntm_tpu_local_steps_E_1epoch",
+                                          "gfedntm_tpu_local_steps_E_5epoch"]
+    for m in arms:
+        launches = ast.literal_eval(m.group(7))
+        assert (launches == {}) == m.group(1).startswith("torch_")
+    assert sum(line.startswith("experiment scripts time_to_quality: ladder ") for line in lines) == 4
+    assert any(line.startswith("experiment scripts time_to_quality: headline at 95% ")
+               for line in lines)
+    cases = [m for m in map(re.compile(V100K_LINE).match, lines) if m]
+    assert [(m.group(1), m.group(2)) for m in cases] == [("300", "float32"), ("300", "bfloat16")]
+    assert ast.literal_eval(cases[1].group(11)) == dict.fromkeys(
+        ("stats_bf16", "loss_bf16", "grads_bf16"), 2 * 5 * int(cases[1].group(8)))
+    assert [(c[0], c[3]) for c in compared] == [
+        ("time_to_quality's first batch", "float32"),
+        ("run_full_v100k's first batch", "float32"),
+        ("run_full_v100k's first batch", "bfloat16")]
+    assert [c[2] for c in compared] == [(64, 300)] * 3
+    assert compared[1][1].input_size == 300 and compared[0][1].n_components == 50
+    for name in smoke.BESIDE_NOTES:
+        assert "; phase 21 " in notes[name], name
+    assert re.match(r"^phase 21 took \d+\.\d s \(FAKE H100, 700\.00 W\)$", lines[-1])
+    assert not (tmp_path / "scripts").exists()
+
+
+@pytest.mark.parametrize("storage_dtype", ["float32", "bfloat16"])
+def test_kernels_against_plain_takes_the_storage(smoke, monkeypatch, capsys, storage_dtype):
+    """K1-K3 against their plain versions on one batch of a net (on the CPU
+    the wrappers take their plain versions, so both sides agree exactly):
+    the wrappers get beta and x as the storage keeps them, each kernel's
+    route is asked for that storage, and the line names the case, its
+    storage, the routes and three errors."""
+    import numpy as np
+    import torch
+
+    from gfedntm_tpu_torch.models.avitm import AVITM
+    from gfedntm_tpu_torch.ops import _build
+    from gfedntm_tpu_torch.ops import fused_decoder as fd
+
+    asked, given = [], []
+
+    def route(lib, kind, b, k, storage="float32"):
+        asked.append((kind, b, k, storage))
+        return 64 if storage == "bfloat16" and kind != "grads" else 32
+
+    def spy(name):
+        wrapper = getattr(fd, name)
+
+        def call(theta, beta, *rest, **kw):
+            given.append((beta.dtype, None if name == "stats" else rest[0].dtype,
+                          kw["storage_dtype"]))
+            return wrapper(theta, beta, *rest, **kw)
+        return call
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "load", lambda: "lib")
+    monkeypatch.setattr(fd, "_route", route)
+    for name in ("stats", "loss", "grads"):
+        monkeypatch.setattr(fd, name, spy(name))
+    net = AVITM(input_size=40, n_components=5, hidden_sizes=(8, 8), batch_size=8,
+                device="cpu")
+    x = np.random.default_rng(0).poisson(1.0, (8, 40)).astype(np.float32)
+    smoke.kernels_against_plain("a batch", "test", net, x, np.ones(8, np.float32),
+                                storage_dtype)
+    line = capsys.readouterr().out.strip()
+    bf16 = storage_dtype == "bfloat16"
+    want = torch.bfloat16 if bf16 else torch.float32
+    assert given == [(want, None, storage_dtype), (want, want, storage_dtype),
+                     (want, want, storage_dtype)]
+    assert sorted(asked) == [(k, 8, 5, storage_dtype) for k in ("grads", "loss", "stats")]
+    routes = ("tensor cores, 32-column tiles; tensor cores, 64-column tiles" if bf16
+              else "tensor cores, 32-column tiles")
+    assert line == (f"test: K1, K2, K3 on a batch, B=8 K=5 V=40{' bf16' if bf16 else ''} "
+                    f"({routes}) within 0.000e+00, 0.000e+00, 0.000e+00 of their plain "
+                    "versions")
